@@ -1,0 +1,104 @@
+"""Serving defaults and the device policy of the PyTorch port.
+
+The four serving knobs mirror the JAX package's ``config.py`` (same
+names, same ``METRAN_TPU_SERVE_*`` environment overrides), so one
+deployment's settings drive either package.
+
+Device policy: entry points run on the CUDA card unless the caller asks
+for another device.  :func:`default_device` never picks the CPU
+quietly — without a card it raises, and callers that want the CPU
+(the tests) pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import os
+from logging import getLogger
+
+import numpy as np
+import torch
+
+logger = getLogger(__name__)
+
+SERVE_FLUSH_DEADLINE_S = 0.005  # micro-batch coalescing window
+SERVE_MAX_BATCH = 256  # a batch this full dispatches immediately
+SERVE_BUCKET_MULTIPLE = 8  # shape-bucket rounding for (n_series, n_state)
+SERVE_ENGINE = "joint"  # assimilation kernel (the only engine ported yet)
+
+
+def _env(name, cast, default):
+    """One env-var override: ``cast(value)`` when set and parsable,
+    ``default`` otherwise (unparsable values warn and fall back)."""
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return cast(raw)
+    except ValueError:
+        logger.warning("ignoring unparsable %s=%r", name, raw)
+        return default
+
+
+def serve_defaults() -> dict:
+    """Serving-layer knobs, each overridable via ``METRAN_TPU_SERVE_*``."""
+    return {
+        "flush_deadline_s": _env(
+            "METRAN_TPU_SERVE_FLUSH_DEADLINE_S", float,
+            SERVE_FLUSH_DEADLINE_S,
+        ),
+        "max_batch": _env(
+            "METRAN_TPU_SERVE_MAX_BATCH", int, SERVE_MAX_BATCH
+        ),
+        "bucket_multiple": _env(
+            "METRAN_TPU_SERVE_BUCKET_MULTIPLE", int, SERVE_BUCKET_MULTIPLE
+        ),
+        "engine": _env("METRAN_TPU_SERVE_ENGINE", str, SERVE_ENGINE),
+    }
+
+
+def default_device() -> torch.device:
+    """The device entry points use when the caller names none: the
+    CUDA card, or a ``RuntimeError`` when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device required; pass device='cpu' explicitly"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device=None, like=None) -> torch.device:
+    """``device`` when given; else the device of the tensor ``like``;
+    else :func:`default_device`."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(like, torch.Tensor):
+        return like.device
+    return default_device()
+
+
+def float_dtype(*values, dtype=None) -> torch.dtype:
+    """The working precision: ``dtype`` (a torch dtype) when given,
+    float32 when every floating input is float32, float64 otherwise (the
+    JAX package's result-type rule with x64 enabled)."""
+    if dtype is not None:
+        return dtype
+    kinds = []
+    for v in values:
+        dt = getattr(v, "dtype", None)
+        if dt is None:
+            continue
+        name = str(dt).replace("torch.", "")
+        if name in ("float32", "float64"):
+            kinds.append(name)
+    if kinds and all(k == "float32" for k in kinds):
+        return torch.float32
+    return torch.float64
+
+
+def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """``x`` (tensor, numpy array or scalar) as a tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype or x.dtype)
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = np.array(x)  # torch cannot wrap a read-only buffer
+    return torch.as_tensor(x, dtype=dtype, device=device)

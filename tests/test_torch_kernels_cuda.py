@@ -1,0 +1,73 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``: without a card every test skips (the CPU suite
+holds the plain versions against JAX instead).  Run on a card with::
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
+
+(``--noconftest``: the suite's ``conftest.py`` imports JAX, which a GPU
+host need not have; this file uses none of its fixtures.)
+
+Bars: f64 normwise relative error 1e-9, f32 1e-3 (the kernels and the
+plain versions order their sums differently).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from metran_tpu_torch import kernels
+from metran_tpu_torch.ops import dfm_statespace
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    scale = want[fin].abs().max().clamp_min(1e-300)
+    return float((got[fin] - want[fin]).abs().max() / scale)
+
+
+def _inputs(card, dtype, b=8, k=6, n=5, kf=2):
+    rng = np.random.default_rng(0)
+    ss = dfm_statespace(rng.uniform(5, 40, (b, n)), rng.uniform(10, 60, (b, kf)),
+                        rng.uniform(0.3, 0.8, (b, n, kf)), 1.0, device=card,
+                        dtype=dtype)
+    s = n + kf
+    y = torch.as_tensor(rng.normal(size=(b, k, n)), dtype=dtype, device=card)
+    mask = torch.as_tensor(rng.uniform(size=(b, k, n)) > 0.3, device=card)
+    mask[:, 1] = False
+    mean = torch.zeros(b, s, dtype=dtype, device=card)
+    cov = torch.eye(s, dtype=dtype, device=card).expand(b, s, s).contiguous()
+    return (*ss, mean, cov, y, mask)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_joint_filter_kernel_matches_plain(card, dtype, bar):
+    args = _inputs(card, dtype)
+    got = kernels.joint_filter_append(*args)
+    want = kernels.joint_filter_append_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_forecast_kernel_matches_plain(card, dtype, bar):
+    phi, q, z, r, mean, cov, _, _ = _inputs(card, dtype)
+    hz = torch.arange(1, 31, device=card).to(dtype)
+    got = kernels.forecast_moments(phi, q, z, r, mean, cov, hz)
+    want = kernels.forecast_moments_plain(phi, q, z, r, mean, cov, hz)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= bar

@@ -1,15 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a``
-(Hopper) into an object file — one ``nvcc`` process per source, all
-started together — and the objects link into one shared library with a
-plain C interface, loaded with :mod:`ctypes`.  No PyTorch headers are
-involved, so a build takes seconds.
+(Hopper) into a shared library of its own with a plain C interface,
+loaded with :mod:`ctypes` — one ``nvcc`` process per source, all started
+together.  No PyTorch headers are involved, so a build takes seconds.
 
-The library is named by a hash of the sources and flags and lives in
+A library is named by a hash of its source and the flags and lives in
 ``kernels/build/`` (git-ignored); a build happens once per checkout at
-first use.  A ``lock`` file serializes concurrent builders; a stale one
-left by a killed build is removed by the caller (``chip_smoke.py``).
+first use.
 
 There is no fallback: without ``nvcc`` or when a source does not
 compile, :func:`load_library` raises.
@@ -29,14 +27,15 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD_DIR = HERE / "build"
-ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + [
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
-_lib = None
-#: what the last build printed: ``{"seconds": float, "ptxas": {src: str}}``
+_libs: dict = {}
+#: what the last build printed:
+#: ``{"seconds": float, "ptxas": {src: str}, "paths": {stem: str}}``
 build_info: dict = {}
 
 # ----------------------------------------------------------------------
@@ -80,78 +79,54 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
+    """Where ``src``'s shared library lives: named by a hash of the
+    source, the headers and the flags."""
     h = hashlib.sha256()
-    for src in sources() + sorted(CSRC.glob("*.cuh")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libmetran_kernels-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def _acquire_file_lock(path: Path, timeout: float = 600.0) -> int:
-    t_end = time.monotonic() + timeout
-    while True:
-        try:
-            return os.open(str(path), os.O_CREAT | os.O_EXCL | os.O_WRONLY)
-        except FileExistsError:
-            if time.monotonic() > t_end:
-                raise RuntimeError(
-                    f"timed out waiting for the kernel build lock {path}; "
-                    "delete it if no build is running"
-                )
-            time.sleep(0.1)
+def build() -> dict:
+    """Compile every source that has no library yet, one ``nvcc`` per
+    source, all started together; returns ``{stem: library path}``.
 
-
-def build() -> Path:
-    """Compile every source (in parallel) and link the shared library;
-    returns its path.  A library already built from the same sources
-    and flags is reused."""
-    out = library_path()
-    if out.exists():
-        return out
+    Each ``nvcc`` writes a temporary file of its own that is renamed
+    into place, so concurrent builders never see a partial library.
+    """
+    libs = {src.stem: library_path(src) for src in sources()}
+    todo = {src: libs[src.stem] for src in sources()
+            if not libs[src.stem].exists()}
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    lock = BUILD_DIR / "lock"
-    fd = _acquire_file_lock(lock)
-    try:
-        if out.exists():  # another process built it while we waited
-            return out
-        t0 = time.perf_counter()
-        procs = []
-        for src in sources():
-            obj = BUILD_DIR / f"{src.stem}-{out.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            )))
-        ptxas = {}
-        failed = []
-        for src, obj, proc in procs:
-            text, _ = proc.communicate()
-            ptxas[src.name] = text
-            if proc.returncode != 0:
-                failed.append(f"{src.name} (exit {proc.returncode}):\n{text}")
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        tmp = out.with_suffix(".tmp.so")
-        link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-             *[str(obj) for _, obj, _ in procs]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        tmp.replace(out)
-        build_info.clear()
-        build_info.update(
-            seconds=time.perf_counter() - t0, ptxas=ptxas, path=str(out)
-        )
-        return out
-    finally:
-        os.close(fd)
-        lock.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, str(src), "-o", str(tmp)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    ptxas, failed = {}, []
+    for src, out, tmp, proc in procs:
+        text, _ = proc.communicate()
+        ptxas[src.name] = text
+        if proc.returncode == 0:
+            tmp.replace(out)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{src.name} (exit {proc.returncode}):\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    build_info.clear()
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas,
+                      paths={stem: str(p) for stem, p in libs.items()})
+    return libs
 
 
 _PTR = ctypes.c_void_p
@@ -160,28 +135,29 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     # phi, q, z, r, mean0, cov0, y, mask, mean, cov, sigma, detf,
     # B, k, N, S, stream
-    "metran_joint_filter": [_PTR] * 12 + [_INT] * 4 + [_PTR],
+    "joint_filter": ("metran_joint_filter", [_PTR] * 12 + [_INT] * 4 + [_PTR]),
     # phi, q, z, r, mean, cov, horizons, means, variances, B, H, N, S,
     # stream
-    "metran_forecast_moments": [_PTR] * 9 + [_INT] * 4 + [_PTR],
+    "forecast": ("metran_forecast_moments", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
 }
 
 
-def load_library():
-    """The loaded kernel library (built at first use)."""
-    global _lib
+def load_library(stem: str):
+    """The loaded library of ``csrc/<stem>.cu`` (every source is built
+    at the first call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for base, argtypes in _SIGNATURES.items():
+        if not _libs:
+            for name, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                base, argtypes = _SIGNATURES[name]
                 for suffix in ("f32", "f64"):
                     fn = getattr(lib, f"{base}_{suffix}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-            lib.metran_error_string.argtypes = [ctypes.c_int]
-            lib.metran_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+                lib.metran_error_string.argtypes = [ctypes.c_int]
+                lib.metran_error_string.restype = ctypes.c_char_p
+                _libs[name] = lib
+        return _libs[stem]
 
 
 def check(lib, err: int, what: str) -> None:

@@ -124,4 +124,8 @@ int metran_forecast_moments_f64(const void* phi, const void* q, const void* z,
                                  vars_out, B, H, N, S, stream);
 }
 
+const char* metran_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
 }  // extern "C"

@@ -78,7 +78,7 @@ def forecast_moments_kernel(phi, q, z, r, mean, cov, horizons
     args = [t.contiguous() for t in (phi, q, z, r, mean, cov, horizons)]
     means = torch.empty((b, h, n), dtype=phi.dtype, device=phi.device)
     variances = torch.empty_like(means)
-    lib = build.load_library()
+    lib = build.load_library("forecast")
     fn = (lib.metran_forecast_moments_f64 if phi.dtype == torch.float64
           else lib.metran_forecast_moments_f32)
     with torch.cuda.device(phi.device):

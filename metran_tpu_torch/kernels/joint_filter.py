@@ -98,7 +98,7 @@ def joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask
     cov_out = torch.empty_like(args[5])
     sigma = torch.empty((b, k), dtype=phi.dtype, device=phi.device)
     detf = torch.empty((b, k), dtype=phi.dtype, device=phi.device)
-    lib = build.load_library()
+    lib = build.load_library("joint_filter")
     fn = (lib.metran_joint_filter_f64 if phi.dtype == torch.float64
           else lib.metran_joint_filter_f32)
     with torch.cuda.device(phi.device):

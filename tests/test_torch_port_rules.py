@@ -174,9 +174,10 @@ def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_name_follows_the_sources():
-    path = build.library_path()
-    assert path.parent == build.BUILD_DIR
-    assert path.name.startswith("libmetran_kernels-")
+    for src in build.sources():
+        path = build.library_path(src)
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"lib{src.stem}-")
     assert {p.name for p in build.sources()} == {"joint_filter.cu",
                                                  "forecast.cu"}
 

@@ -13,14 +13,23 @@ non-zero):
    csrc`` (time, ``-Xptxas -v`` registers/shared memory per kernel);
 3. kernels — each kernel against its plain PyTorch version on the card,
    f64 and f32 (bars: normwise relative error 1e-9 and 1e-3), then at
-   the main path's shapes in f32, where kernel and plain version are
-   also timed (CUDA events) beside the kernel's bound;
+   the main paths' shapes in f32, where kernel and plain version are
+   also timed (CUDA events) beside the kernel's bound (the plain lanes
+   filter and adjoint, a Python loop over 5,000 steps and 20 slots, run
+   once there);
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
    then threaded synchronous calls; the launch counters must show the
    path went through both kernels, and 8 models are recomputed in f64 on
-   the CPU with the plain versions.
+   the CPU with the plain versions;
+5. fit path — the same flagship fleet (its own seed) packed with
+   ``pack_fleet`` and fitted by ``fit_fleet(layout="lanes")`` under the
+   JAX bench's fit settings (autocorrelation init, ``remat_seg=100``,
+   ``tol=0.05``, ``stall_tol=1e-3``, 4 line-search trials,
+   ``maxiter=60``, ``chunk=8``); the launch counters must show K3 and K4,
+   every lane must end finite and no worse than it started, and 8 lanes
+   are recomputed in f64 on the CPU with the plain versions.
 
 The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
@@ -47,6 +56,11 @@ BUCKET = (24, 32)  # the registry's bucket of a (20, 21) model
 FORECAST_STEPS = 14
 UPDATE_ROUNDS = 10
 SEED = 0
+# the JAX bench's fit settings (bench.py:48-65, :395-416)
+FIT = dict(layout="lanes", remat_seg=100, tol=0.05, stall_tol=1e-3,
+           max_linesearch_steps=4, maxiter=60, chunk=8)
+LS_TRIALS = 4  # the grid line search's trial points per iteration
+DEVICE = "cuda"  # the card the lanes and fit phases run on
 
 # H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
 PEAK_BYTES_S = 3.35e12
@@ -255,6 +269,71 @@ def k2_cost(z, q, h, itemsize):
              + float((nz_row * (nz_row + 1)).sum())  # z_a' P_h z_a
              + 2 * b * n)  # clip, + r
     return nbytes, per_model + h * per_h
+
+
+def _lanes_shape(z, lane_map, count, seg):
+    """``(L, n, N, K, T, n_seg, observed slots over all lanes)`` of a
+    lanes launch; ``count`` (T, D) is the observed slots per data step."""
+    big_n, n, lanes = z.shape
+    t_steps = count.shape[0]
+    obs = float(count.double().sum(0)[lane_map.long()].sum())
+    return lanes, n, big_n, n - big_n, t_steps, -(-t_steps // seg), obs
+
+
+def _filter_ops(n, k, lanes, t_steps, obs):
+    """The least operations of the forward filter: per lane and step the
+    diagonal predict on P's upper half (``phi_a phi_b`` once per lane);
+    per observed slot, with Z = [I | L], ``v`` and ``f`` from the K+1
+    nonzeros of z_i, ``d = P[:, i] + P[:, N:] L_i``, ``k = d/f``,
+    ``m += k v``, ``P -= k d'`` on the upper half, sigma and log f."""
+    half = n * (n + 1) / 2
+    predict = lanes * (half + t_steps * (n + half + n))
+    per_obs = ((2 * k + 2) + n * (2 * k + 1) + (2 * k + 3) + n + 2 * n
+               + n * (n + 1) + 5)
+    return predict + obs * per_obs
+
+
+def k3_cost(z, lane_map, count, data_shape, seg, keep_bounds, itemsize):
+    """Bytes the K3 call must move (each input once: the lane constants,
+    the D data lanes' y and mask, the lane map; each output once) and the
+    least operations this run's data needs (:func:`_filter_ops`: only
+    observed slots, Z's structure, symmetric halves)."""
+    lanes, n, big_n, k, t_steps, n_seg, obs = _lanes_shape(
+        z, lane_map, count, seg)
+    d_lanes = data_shape[0]
+    nbytes = (lanes * (2 * n + big_n * n + big_n) * itemsize  # phi q z r
+              + d_lanes * t_steps * big_n * (itemsize + 1) + 4 * lanes
+              + lanes * (2 * t_steps + n + n * n) * itemsize)  # sigma detf m P
+    if keep_bounds:
+        nbytes += lanes * n_seg * (n + n * n) * itemsize
+    return nbytes, _filter_ops(n, k, lanes, t_steps, obs)
+
+
+def k4_cost(z, lane_map, count, data_shape, seg, itemsize):
+    """Bytes the K4 call must move (the lane constants, data, lane map,
+    boundaries and both cotangents read once; phibar and qbar written
+    once) and the least operations: the forward replay
+    (:func:`_filter_ops`, the boundaries are all it gets) and per
+    observed slot the reverse update kept on W = S + S' (symmetric:
+    ``W d`` on the upper half, the rank-2 update on z_i's K+1 nonzeros),
+    per step the predict adjoint on the upper half."""
+    lanes, n, big_n, k, t_steps, n_seg, obs = _lanes_shape(
+        z, lane_map, count, seg)
+    d_lanes = data_shape[0]
+    nbytes = (lanes * (2 * n + big_n * n + big_n) * itemsize
+              + d_lanes * t_steps * big_n * (itemsize + 1) + 4 * lanes
+              + lanes * n_seg * (n + n * n) * itemsize  # boundaries
+              + 2 * t_steps * lanes * itemsize  # sb, db
+              + 2 * n * lanes * itemsize)  # phibar, qbar
+    half = n * (n + 1) / 2
+    per_obs = (2 * n  # u.d
+               + 2 * n * n + 2 * n  # W d, d'W d
+               + 18  # vbar, fbar
+               + 4 * n + 2 * (k + 1)  # dvec, u update
+               + 4 * n * (k + 1))  # W += dvec z' + z dvec'
+    per_step = 2 * n + 3 * half + n + half + 2 * n  # phibar, qbar, rescale
+    rev = obs * per_obs + lanes * t_steps * per_step
+    return nbytes, _filter_ops(n, k, lanes, t_steps, obs) + rev
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -650,6 +729,338 @@ def phase_main_path():
     return counts
 
 
+def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None):
+    """A lanes launch's inputs from the flagship recipe: ``(phi, q, z, r,
+    y, mask, lane_map, count)`` for ``trials`` lanes per data lane (the
+    line search's layout), ``n_pad`` padded series slots (masked, zero
+    loadings), a fully masked real series and a fully masked step;
+    ``unit_root`` = "all" puts every state of lane 0 at alpha = 3e4,
+    "factor" its common factor."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops.lanes import lanes_statespace, prepare_data
+
+    y, mask, lds, a_s, a_c = make_workload(rng, b, t=t)
+    n_obs = N_SERIES + n_pad
+    yp = np.zeros((b, t, n_obs))
+    mp = np.zeros((b, t, n_obs), bool)
+    yp[:, :, :N_SERIES] = y
+    mp[:, :, :N_SERIES] = mask
+    mp[:, :, 5] = False  # a fully masked real series
+    if t > 3:
+        mp[:, 3] = False  # a fully masked step
+    ld = np.zeros((n_obs, N_FACTORS, b))
+    ld[:N_SERIES] = np.transpose(lds, (1, 2, 0))
+    alpha = np.ones((n_obs + N_FACTORS, b)) * 10.0
+    alpha[:N_SERIES] = a_s.T
+    alpha[n_obs:] = a_c.T
+    lanes = trials * b
+    alpha = np.tile(alpha, (1, trials)) * rng.uniform(0.5, 2.0, (1, lanes))
+    if unit_root == "all":
+        alpha[:, 0] = 3e4
+    elif unit_root == "factor":
+        alpha[n_obs:, 0] = 3e4
+    new = dict(dtype=dtype, device=dev)
+    phi, q, z, r = lanes_statespace(
+        torch.as_tensor(alpha, **new),
+        torch.as_tensor(np.tile(ld, (1, 1, trials)), **new),
+        torch.ones(lanes, **new))
+    data = prepare_data(torch.as_tensor(yp, **new), torch.as_tensor(mp, device=dev))
+    lane_map = torch.arange(b, dtype=torch.int32, device=dev).repeat(trials)
+    return phi, q, z, r, data.y, data.mask, lane_map, data.count
+
+
+def deviance_cotangents(count, lane_map, warmup=1):
+    """The cotangents ``(sb, db)`` that the deviance's sum sends back to
+    K3's (sigma, detf): 1 where the warmup rule keeps the step."""
+    import torch
+
+    c = count[:, lane_map.long()]
+    has_obs = c > 0
+    keep = has_obs & (torch.cumsum(has_obs, dim=0) - 1 >= warmup)
+    return keep.float(), keep.float()
+
+
+def phase_lanes_kernels():
+    """K3 (lanes filter) and K4 (lanes adjoint) against their plain
+    versions on the card: small cases in f64 and f32, then the fit
+    path's launches at full size in f32, timed."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import (
+        lanes_adjoint,
+        lanes_adjoint_plain,
+        lanes_filter,
+        lanes_filter_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    checks = []
+
+    def compare(kernel, case, dtype, got, want, bar):
+        errs = [rel_err(g, w) for g, w in zip(got, want) if w is not None]
+        checks.append({
+            "kernel": kernel, "case": case,
+            "dtype": str(dtype).replace("torch.", ""), "rel_err": errs,
+            "bar": bar, "ok": within(errs, bar),
+            "max_abs_err": max(abs_err(g, w) for g, w in zip(got, want)
+                               if w is not None),
+        })
+        emit({"phase": "kernel_check", **checks[-1]})
+
+    seg = 100
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        cases = [
+            ("padded series (24 slots, 20 real), a masked series and step, "
+             "T=250 seg=100", dict(n_pad=4)),
+            # f32: every state at the cap leaves these random panels an
+            # innovation variance ~1e-5 of P, where f32 itself disagrees
+            # with f64 by ~1e-2; the cap-pinned factor is the fit's regime
+            ("near-unit-root lane (alpha=3e4)",
+             dict(unit_root="all" if dtype == torch.float64 else "factor")),
+            ("lane map, K=4 trials over 16 data lanes", dict(trials=4)),
+        ]
+        for label, kw in cases:
+            rng = np.random.default_rng(SEED + 20)
+            *args, count = lanes_case(rng, 16, 250, dtype, dev, **kw)
+            got = lanes_filter(*args, seg=seg, keep_bounds=True)
+            want = lanes_filter_plain(*args, seg=seg, keep_bounds=True)
+            torch.cuda.synchronize()
+            compare("lanes_filter", label, dtype, got, want, bar)
+            cot = deviance_cotangents(count, args[-1])
+            adj = (*args, seg, want.bounds_mean, want.bounds_cov,
+                   *(c.to(dtype) for c in cot))
+            got = lanes_adjoint(*adj)
+            want = lanes_adjoint_plain(*adj)
+            torch.cuda.synchronize()
+            compare("lanes_adjoint", label, dtype, got, want, bar)
+
+    # the fit path's launches, f32, full size: K3 over K*B trial lanes
+    # (no boundaries), K3 over B lanes with boundaries (the value and
+    # gradient's forward), K4 over B lanes
+    dtype = torch.float32
+    times = {}
+    rng = np.random.default_rng(SEED + 21)
+    *trial_args, count = lanes_case(rng, FLEET, T_STEPS, dtype, dev,
+                                    trials=LS_TRIALS)
+    lane_map = trial_args[-1]
+    vg_args = [a[..., :FLEET] for a in trial_args[:4]] + [
+        trial_args[4], trial_args[5], lane_map[:FLEET]]
+    data_shape = tuple(trial_args[4].shape)
+    z = trial_args[2]
+    ms, got_trial = cuda_ms(lambda: lanes_filter(*trial_args, seg=seg),
+                            reps=5, warm=1)
+    ms_vg, got_vg = cuda_ms(
+        lambda: lanes_filter(*vg_args, seg=seg, keep_bounds=True),
+        reps=5, warm=1)
+    plain_ms, want = cuda_ms(
+        lambda: lanes_filter_plain(*trial_args, seg=seg, keep_bounds=True),
+        reps=1, warm=0)
+    compare("lanes_filter", f"main path: K*B={LS_TRIALS * FLEET} lanes "
+            f"T={T_STEPS} N={N_SERIES} f32 (line-search trials)", dtype,
+            got_trial[:4], want[:4], 1e-3)
+    want_vg = [w[..., :FLEET] for w in want]
+    compare("lanes_filter", f"main path: B={FLEET} lanes with boundaries "
+            "(value and gradient)", dtype, got_vg, want_vg, 1e-3)
+    nb, ops = k3_cost(z, lane_map, count, data_shape, seg, False, 4)
+    bms, bby = bound_ms(nb, ops, "float32")
+    nb_vg, ops_vg = k3_cost(z[..., :FLEET], lane_map[:FLEET], count,
+                            data_shape, seg, True, 4)
+    bms_vg, bby_vg = bound_ms(nb_vg, ops_vg, "float32")
+    times["lanes_filter"] = {
+        "shape": f"K*B={LS_TRIALS * FLEET} T={T_STEPS} N={N_SERIES} "
+                 f"n={N_SERIES + N_FACTORS} f32 (line-search trials; plain "
+                 "once, with boundaries)",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+        "vg_launch": {"shape": f"B={FLEET} with boundaries, seg={seg}",
+                      "ms": ms_vg, "bound_ms": bms_vg, "bound_by": bby_vg},
+    }
+    cot = deviance_cotangents(count, lane_map[:FLEET])
+    adj = (*vg_args, seg, got_vg.bounds_mean, got_vg.bounds_cov, *cot)
+    ms4, got4 = cuda_ms(lambda: lanes_adjoint(*adj), reps=3, warm=1)
+    plain4, want4 = cuda_ms(lambda: lanes_adjoint_plain(*adj), reps=1,
+                            warm=0)
+    compare("lanes_adjoint", f"main path: B={FLEET} T={T_STEPS} "
+            f"N={N_SERIES} seg={seg} f32 (gradient)", dtype, got4, want4,
+            1e-3)
+    nb4, ops4 = k4_cost(z[..., :FLEET], lane_map[:FLEET], count, data_shape,
+                        seg, 4)
+    bms4, bby4 = bound_ms(nb4, ops4, "float32")
+    times["lanes_adjoint"] = {
+        "shape": f"B={FLEET} T={T_STEPS} N={N_SERIES} seg={seg} f32 "
+                 "(plain once)",
+        "ms": ms4, "plain_ms": plain4, "bound_ms": bms4, "bound_by": bby4,
+    }
+    emit({"phase": "lanes_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks], "times": times})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+    return checks, times
+
+
+class _KernelTimer:
+    """CUDA events around every K3/K4 launch of a window, and host-clock
+    times of each optimizer dispatch (its working-set width): the fit's
+    device-busy share and its tail dispatches."""
+
+    def __init__(self):
+        self.events = []
+        self.dispatches = []
+
+    def __enter__(self):
+        import torch
+
+        from metran_tpu_torch.kernels import lanes as kl
+        from metran_tpu_torch.parallel import lanes_lbfgs
+
+        self._saved = (kl.lanes_filter_kernel, kl.lanes_adjoint_kernel,
+                       lanes_lbfgs.make_chunk_runner)
+
+        def timed(fn):
+            def wrapper(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                self.events.append((start, end))
+                return out
+            return wrapper
+
+        make_runner = self._saved[2]
+
+        def make_timed_runner(*args, **kw):
+            run = make_runner(*args, **kw)
+            chunk = args[5]
+
+            def run_chunk(state, *data):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = run(state, *data)
+                torch.cuda.synchronize()
+                self.dispatches.append({
+                    "lanes": int(state.theta.shape[-1]), "iterations": chunk,
+                    "ms": (time.perf_counter() - t) * 1e3})
+                return out
+            return run_chunk
+
+        kl.lanes_filter_kernel = timed(self._saved[0])
+        kl.lanes_adjoint_kernel = timed(self._saved[1])
+        lanes_lbfgs.make_chunk_runner = make_timed_runner
+        return self
+
+    def __exit__(self, *exc):
+        from metran_tpu_torch.kernels import lanes as kl
+        from metran_tpu_torch.parallel import lanes_lbfgs
+
+        (kl.lanes_filter_kernel, kl.lanes_adjoint_kernel,
+         lanes_lbfgs.make_chunk_runner) = self._saved
+
+    def kernel_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def phase_fit_path():
+    """The port's fleet fit at full width on the card."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.data import Panel
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.parallel import (
+        autocorr_init_params,
+        fit_fleet,
+        fleet_deviance,
+        pack_fleet,
+    )
+    from metran_tpu_torch.parallel.fleet import (
+        ALPHA_MAX,
+        _alpha_to_theta,
+        _theta_to_alpha,
+    )
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 30)
+    y, mask, lds, _, _ = make_workload(rng, FLEET, t=T_STEPS)
+    y32 = y.astype(np.float32)
+    names = [f"s{j}" for j in range(N_SERIES)]
+
+    def panels(idx, values):
+        return [Panel(values[i], mask[i], None, names, np.ones(N_SERIES),
+                      np.zeros(N_SERIES), 1.0) for i in idx]
+
+    t0 = time.perf_counter()
+    fleet = pack_fleet(panels(range(FLEET), y32), list(lds),
+                       dtype=torch.float32, device=dev)
+    p0 = autocorr_init_params(fleet)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # the optimizer's own start: p0 through the theta parametrization
+    cap = float(np.log(ALPHA_MAX))
+    p_start = _theta_to_alpha(_alpha_to_theta(p0, cap), cap)
+    dev_start = fleet_deviance(p_start, fleet, layout="lanes",
+                               remat_seg=FIT["remat_seg"])
+
+    reset_launches()
+    with _KernelTimer() as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = fit_fleet(fleet, p0=p0, **FIT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        kernel_ms = timer.kernel_ms()
+    for kern in ("lanes_filter", "lanes_adjoint"):
+        require(counts[kern] > 0, f"fit path never launched {kern}")
+    iters = fit.iterations.cpu().numpy()
+    dev_fit = fit.deviance.cpu().numpy()
+    params = fit.params.cpu().numpy()
+    require(np.isfinite(dev_fit).all() and np.isfinite(params).all(),
+            "a lane ended non-finite")
+    worse = np.flatnonzero(dev_fit > dev_start.cpu().numpy())
+    require(worse.size == 0, f"lanes ended worse than they started: {worse}")
+    require(int(iters.max()) <= FIT["maxiter"], f"iterations {iters.max()}")
+
+    # 8 lanes recomputed in f64 on the CPU with the plain versions at the
+    # card's fitted parameters (the same f32-rounded observations)
+    idx = list(range(0, FLEET, FLEET // 8))
+    cpu_fleet = pack_fleet(panels(idx, y32.astype(np.float64)),
+                           [lds[i] for i in idx], dtype=torch.float64,
+                           device="cpu")
+    t1 = time.perf_counter()
+    dev_cpu = fleet_deviance(params[idx].astype(np.float64), cpu_fleet,
+                             layout="lanes",
+                             remat_seg=FIT["remat_seg"]).numpy()
+    cpu_s = time.perf_counter() - t1
+    rel = np.abs(dev_fit[idx] - dev_cpu) / np.abs(dev_cpu)
+    require(within(rel.tolist(), 1e-4), f"card f32 vs CPU f64: {rel}")
+
+    tails = [d for d in timer.dispatches if d["lanes"] < FLEET]
+    emit({
+        "phase": "fit_path", "fleet": FLEET, "t_steps": T_STEPS,
+        "settings": FIT, "setup_s": setup_s, "fit_wall_s": wall,
+        "fits_per_s": FLEET / wall,
+        "iterations": {"mean": float(iters.mean()), "max": int(iters.max())},
+        "converged_frac": float(fit.converged.float().mean()),
+        "stalled_frac": float(fit.stalled.float().mean()),
+        "kernel_ms": kernel_ms, "kernel_busy_share": kernel_ms / 1e3 / wall,
+        "dispatches": len(timer.dispatches),
+        "dispatch_ms": [round(d["ms"], 1) for d in timer.dispatches],
+        "tail_dispatches": tails,
+        "launches": counts,
+        "deviance_mean": float(dev_fit.mean()),
+        "improvement_mean": float((dev_start.cpu().numpy() - dev_fit).mean()),
+        "cpu_f64_rel_err": float(rel.max()), "cpu_recompute_s": cpu_s,
+    })
+    return counts
+
+
 KERNELS = {
     "joint_filter_append": {
         "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
@@ -658,6 +1069,14 @@ KERNELS = {
     "forecast_moments": {
         "source": "metran_tpu_torch/kernels/csrc/forecast.cu",
         "replaces": "metran_tpu/ops/forecast.py:75",
+    },
+    "lanes_filter": {
+        "source": "metran_tpu_torch/kernels/csrc/lanes_filter.cu",
+        "replaces": "metran_tpu/ops/lanes.py:104",
+    },
+    "lanes_adjoint": {
+        "source": "metran_tpu_torch/kernels/csrc/lanes_adjoint.cu",
+        "replaces": "metran_tpu/ops/lanes.py:232",
     },
 }
 
@@ -683,7 +1102,12 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     checks, times = phase_kernels()
+    lanes_checks, lanes_times = phase_lanes_kernels()
+    checks += lanes_checks
+    times.update(lanes_times)
     counts = phase_main_path()
+    counts.update({k: v for k, v in phase_fit_path().items()
+                   if k.startswith("lanes_")})
 
     summary = []
     for name, meta in KERNELS.items():
@@ -699,6 +1123,8 @@ def main() -> int:
         }
         if name == "joint_filter_append":
             entry["history_pass"] = times["joint_filter_append_history"]
+        if name == "lanes_filter":
+            entry["vg_launch"] = t["vg_launch"]
         summary.append(entry)
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -1,8 +1,10 @@
-"""Serving defaults and the device policy of the PyTorch port.
+"""Serving defaults, the gradient engine and the device policy of the
+PyTorch port.
 
-The four serving knobs mirror the JAX package's ``config.py`` (same
-names, same ``METRAN_TPU_SERVE_*`` environment overrides), so one
-deployment's settings drive either package.
+The four serving knobs and the gradient-engine knob mirror the JAX
+package's ``config.py`` (same names, same ``METRAN_TPU_SERVE_*`` and
+``METRAN_TPU_GRAD_ENGINE`` environment overrides), so one deployment's
+settings drive either package.
 
 Device policy: entry points run on the CUDA card unless the caller asks
 for another device.  :func:`default_device` never picks the CPU
@@ -54,6 +56,36 @@ def serve_defaults() -> dict:
         ),
         "engine": _env("METRAN_TPU_SERVE_ENGINE", str, SERVE_ENGINE),
     }
+
+
+# how fits differentiate the deviance (``METRAN_TPU_GRAD_ENGINE``):
+# - "adjoint": the closed-form Kalman-score VJP (kernel K4 for the lane
+#   layout, also behind the batch-layout sequential ``ops.deviance``);
+# - "autodiff": torch autograd through the plain filter (CPU tensors
+#   only in the port; the only mode with gradients w.r.t. loadings and
+#   observations);
+# - "auto" (default): the adjoint wherever it is defined.
+GRAD_ENGINE = "auto"
+GRAD_ENGINES = ("auto", "adjoint", "autodiff")
+
+
+def grad_engine(value=None) -> str:
+    """Validated gradient-engine mode (``METRAN_TPU_GRAD_ENGINE``).
+
+    ``value`` overrides the environment when given.  Unknown values
+    raise: a misspelt engine must not fall back to another gradient
+    path (the two differ in cost, memory and differentiable inputs).
+    """
+    if value is None:
+        value = os.environ.get("METRAN_TPU_GRAD_ENGINE") or GRAD_ENGINE
+    v = str(value).strip().lower()
+    if v not in GRAD_ENGINES:
+        raise ValueError(
+            f"unknown gradient engine {value!r} (from "
+            "METRAN_TPU_GRAD_ENGINE or an explicit grad_engine "
+            f"argument); expected one of {GRAD_ENGINES}"
+        )
+    return v
 
 
 def default_device() -> torch.device:

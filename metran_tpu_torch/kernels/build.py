@@ -42,7 +42,8 @@ build_info: dict = {}
 # launch counters: each wrapper adds one where it launches its kernel
 # ----------------------------------------------------------------------
 _count_lock = threading.Lock()
-LAUNCHES = {"joint_filter_append": 0, "forecast_moments": 0}
+LAUNCHES = {"joint_filter_append": 0, "forecast_moments": 0,
+            "lanes_filter": 0, "lanes_adjoint": 0}
 
 
 def count_launch(name: str) -> None:
@@ -139,6 +140,13 @@ _SIGNATURES = {
     # phi, q, z, r, mean, cov, horizons, means, variances, B, H, N, S,
     # stream
     "forecast": ("metran_forecast_moments", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
+    # phi, q, z, r, y, mask, lane_map, sigma, detf, mean, cov,
+    # bounds_mean, bounds_cov, L, T, N, n, seg, stream
+    "lanes_filter": ("metran_lanes_filter", [_PTR] * 13 + [_INT] * 5 + [_PTR]),
+    # phi, q, z, r, y, mask, lane_map, bounds_mean, bounds_cov, sb, db,
+    # scratch, phibar, qbar, L, T, N, n, seg, stream
+    "lanes_adjoint": ("metran_lanes_adjoint",
+                      [_PTR] * 14 + [_INT] * 5 + [_PTR]),
 }
 
 

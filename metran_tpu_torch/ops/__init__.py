@@ -1,11 +1,26 @@
-"""State-space build, the joint Kalman engine and closed-form forecasts."""
+"""State-space build, the joint and sequential Kalman engines, the
+lane-layout fleet deviance and closed-form forecasts."""
 
+from .adjoint import ADJOINT_ENGINES, resolve_grad_engine
 from .forecast import (
     forecast_horizons,
     forecast_observation_moments,
     forecast_state_moments,
 )
-from .kalman import FilterResult, filter_append, kalman_filter, project
+from .kalman import (
+    FilterResult,
+    deviance,
+    deviance_terms,
+    filter_append,
+    kalman_filter,
+    log_likelihood,
+    project,
+)
+from .lanes import (
+    lanes_deviance_terms,
+    lanes_dfm_deviance,
+    lanes_statespace,
+)
 from .statespace import (
     StateSpace,
     ar1_decay,
@@ -14,15 +29,23 @@ from .statespace import (
 )
 
 __all__ = [
+    "ADJOINT_ENGINES",
     "FilterResult",
     "StateSpace",
     "ar1_decay",
+    "deviance",
+    "deviance_terms",
     "dfm_statespace",
     "filter_append",
     "forecast_horizons",
     "forecast_observation_moments",
     "forecast_state_moments",
     "kalman_filter",
+    "lanes_deviance_terms",
+    "lanes_dfm_deviance",
+    "lanes_statespace",
+    "log_likelihood",
     "project",
+    "resolve_grad_engine",
     "scale_observation_matrix",
 ]

@@ -1,0 +1,576 @@
+"""Fleet-scale fitting: many independent Metran DFMs on one card.
+
+Port of the lane-layout half of ``metran_tpu/parallel/fleet.py``: a
+fleet of DFMs padded to common shapes (:class:`Fleet`, :func:`pack_fleet`)
+fitted by the batched L-BFGS of :mod:`.lanes_lbfgs` over the lanes
+deviance (:mod:`metran_tpu_torch.ops.lanes`: kernel K3 for values, K4 for
+gradients).  The optimizer advances in chunks of ``chunk`` iterations;
+between chunks the host reads the frozen flags to stop early and, once
+most lanes are done, compacts the live lanes into a smaller working set.
+
+Padding semantics (as the JAX package's): padded timesteps and series
+slots are masked everywhere, padded factors have zero loadings, so none
+of them touches the likelihood.
+
+Not ported yet: ``layout="batch"`` (the batch-leading fleet fit, ROADMAP
+A7), ``mesh``/``use_shard_map`` (ROADMAP A7), ``checkpoint`` (ROADMAP A5,
+``io.save_fleet_state``) and ``lane_min_batch`` (a TPU tile pad); each
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from logging import getLogger
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import as_tensor, resolve_device
+from ..data import Panel
+from ..ops.adjoint import resolve_grad_engine
+from ..ops.lanes import lanes_deviance, prepare_data
+from . import lanes_lbfgs
+
+logger = getLogger(__name__)
+
+ALPHA_PMIN = 1e-5  # reference lower bound for alpha (metran/metran.py:446-462)
+ALPHA_INIT = 10.0  # reference initial value
+
+
+class Fleet(NamedTuple):
+    """A batch of independent DFMs padded to common static shapes.
+
+    Attributes
+    ----------
+    y : (B, T, N) standardized observations (0 where masked).
+    mask : (B, T, N) bool, True where observed.
+    loadings : (B, N, K) factor loadings (0 rows/cols for padded slots).
+    dt : (B,) grid step in days per model.
+    n_series : (B,) true series count per model (before padding).
+    t_steps : (B,) true timestep count per model, or ``None``.
+    n_factors : (B,) true common-factor count per model, or ``None``.
+    """
+
+    y: torch.Tensor
+    mask: torch.Tensor
+    loadings: torch.Tensor
+    dt: torch.Tensor
+    n_series: torch.Tensor
+    t_steps: Optional[torch.Tensor] = None
+    n_factors: Optional[torch.Tensor] = None
+
+    @property
+    def batch(self) -> int:
+        return self.y.shape[0]
+
+    @property
+    def n_params(self) -> int:
+        return self.loadings.shape[1] + self.loadings.shape[2]
+
+
+class FleetFit(NamedTuple):
+    """Result of a fleet fit.
+
+    Attributes
+    ----------
+    params : (B, N+K) optimal ``[alpha_sdf..., alpha_cdf...]`` per model.
+    deviance : (B,) -2 log L at the optimum.
+    iterations : (B,) L-BFGS iterations used.
+    converged : (B,) bool — the gradient-norm test fired or the lane
+        froze at the objective's resolution floor (``stalled``).
+    stalled : (B,) bool — the subset of ``converged`` that stopped via
+        the resolution-floor stall stop.
+    nfev : (B,) objective evaluations per lane.
+    """
+
+    params: torch.Tensor
+    deviance: torch.Tensor
+    iterations: torch.Tensor
+    converged: torch.Tensor
+    stalled: Optional[torch.Tensor] = None
+    nfev: Optional[torch.Tensor] = None
+
+
+def pack_fleet(
+    panels: Sequence[Panel],
+    loadings: Sequence[np.ndarray],
+    pad_batch_to: Optional[int] = None,
+    dtype=None,
+    device=None,
+) -> Fleet:
+    """Pad heterogeneous models into one :class:`Fleet` with static
+    shapes, on ``device`` (default: the CUDA card).
+
+    ``pad_batch_to`` pads the fleet axis with all-masked dummy models;
+    ``dtype`` (a torch dtype, default float64) is the working precision.
+    """
+    if len(panels) != len(loadings):
+        raise ValueError("panels and loadings must have the same length")
+    device = resolve_device(device)
+    dtype = dtype or torch.float64
+    b = len(panels)
+    bp = max(pad_batch_to or b, b)
+    t = max(p.n_timesteps for p in panels)
+    n = max(p.n_series for p in panels)
+    k = max(np.atleast_2d(ld).shape[1] for ld in loadings)
+
+    y = np.zeros((bp, t, n))
+    mask = np.zeros((bp, t, n), bool)
+    lds = np.zeros((bp, n, k))
+    dt = np.ones(bp)
+    n_series = np.full(bp, n, np.int32)
+    n_factors = np.full(bp, k, np.int32)
+    t_steps = np.full(bp, t, np.int32)
+    for i, (panel, ld) in enumerate(zip(panels, loadings)):
+        ti, ni = panel.n_timesteps, panel.n_series
+        ld = np.atleast_2d(np.asarray(ld, np.float64))
+        y[i, :ti, :ni] = panel.values
+        mask[i, :ti, :ni] = panel.mask
+        lds[i, :ni, : ld.shape[1]] = ld
+        dt[i] = panel.dt
+        n_series[i] = ni
+        n_factors[i] = ld.shape[1]
+        t_steps[i] = ti
+    floats = [torch.as_tensor(a, dtype=dtype, device=device)
+              for a in (y, lds, dt)]
+    ints = [torch.as_tensor(a, device=device)
+            for a in (n_series, t_steps, n_factors)]
+    return Fleet(floats[0], torch.as_tensor(mask, device=device), *floats[1:],
+                 *ints)
+
+
+def _on_device(fleet: Fleet, device=None) -> Fleet:
+    """``fleet`` with tensor fields on ``device`` (default: the device
+    of ``fleet.y`` when it is a tensor, else the CUDA card)."""
+    device = resolve_device(device, fleet.y)
+    return Fleet(*(None if a is None else as_tensor(a, device)
+                   for a in fleet))
+
+
+def _lanes_args(params, fleet: Fleet, device=None):
+    """``(params (P, B), data, loadings (N, K, B), dt (B,))`` for the
+    lanes deviance.  The observations keep the fleet's (B, T, N) layout,
+    which is the kernels' own, so nothing of size T is transposed; this
+    runs once per fit."""
+    fleet = _on_device(fleet, device)
+    dtype = fleet.y.dtype
+    data = prepare_data(fleet.y, fleet.mask)
+    return (as_tensor(params, fleet.y.device, dtype).T, data,
+            fleet.loadings.to(dtype).permute(1, 2, 0), fleet.dt.to(dtype))
+
+
+def _lanes_score(grad) -> str:
+    """Map a gradient-engine request onto the lanes ``score`` (its
+    closed-form (phi, q) adjoint IS the adjoint engine of the lane
+    layout; ``auto`` resolves to it)."""
+    return ("autodiff" if resolve_grad_engine(grad, "sequential")
+            == "autodiff" else "adjoint")
+
+
+def _not_ported(what: str, where: str):
+    return NotImplementedError(
+        f"{what} is not ported yet ({where}); the port fits "
+        "layout='lanes' on one card")
+
+
+def _check_layout(layout: str) -> None:
+    if layout == "batch":
+        raise _not_ported("layout='batch'",
+                          "ROADMAP A7, the batch-leading fleet fit")
+    if layout != "lanes":
+        raise ValueError(f"unknown layout {layout!r}")
+
+
+def fleet_deviance(params, fleet: Fleet, warmup: int = 1,
+                   engine: str = "joint", layout: str = "batch",
+                   remat_seg: Optional[int] = None, grad=None,
+                   device=None) -> torch.Tensor:
+    """(B,) deviance of every fleet member at ``params`` (B, N+K).
+
+    ``layout="lanes"`` evaluates the lanes deviance (sequential-
+    processing semantics; ``engine`` is ignored there).  ``grad`` picks
+    the gradient engine when the value is differentiated.
+    """
+    _check_layout(layout)
+    alpha_t, data, loadings_l, dt_l = _lanes_args(params, fleet, device)
+    return lanes_deviance(alpha_t, loadings_l, dt_l, data, None, warmup,
+                          remat_seg, _lanes_score(grad))
+
+
+def fleet_value_and_grad(params, fleet: Fleet, warmup: int = 1,
+                         engine: str = "joint", layout: str = "batch",
+                         remat_seg: Optional[int] = None, grad=None,
+                         device=None):
+    """Per-model ``(deviance (B,), gradient (B, N+K))``: one forward and
+    one backward pass of the lanes deviance (deviances are separable
+    across the fleet, so the gradient of their sum is every model's)."""
+    _check_layout(layout)
+    alpha_t, data, loadings_l, dt_l = _lanes_args(params, fleet, device)
+    with torch.enable_grad():
+        alpha_t = alpha_t.detach().requires_grad_(True)
+        val = lanes_deviance(alpha_t, loadings_l, dt_l, data, None, warmup,
+                             remat_seg, _lanes_score(grad))
+        (grad_t,) = torch.autograd.grad(val.sum(), alpha_t)
+    return val.detach(), grad_t.T
+
+
+def default_init_params(fleet: Fleet) -> torch.Tensor:
+    """Reference initial parameter values (alpha = 10) for every model."""
+    return torch.full((fleet.batch, fleet.n_params), ALPHA_INIT,
+                      dtype=fleet.y.dtype, device=fleet.y.device)
+
+
+ALPHA_INIT_MIN = 1.0  # clamp range for the data-driven init: keeps the
+ALPHA_INIT_MAX = 200.0  # start point well inside the interior regime
+
+
+def autocorr_init_params(fleet: Fleet) -> torch.Tensor:
+    """Data-driven initial parameters from lag-1 autocorrelations.
+
+    An AR(1) state with decay ``phi = exp(-dt/alpha)`` has lag-1
+    autocorrelation ``phi``; per model:
+
+    - specific states: ``phi_i^hat = r1`` of series ``i`` over its
+      consecutive-observed pairs;
+    - common factors: ``r1`` of the loading-weighted factor proxy
+      ``f_kt = sum_i L_ik y_it / sum_i L_ik^2``, de-attenuated for the
+      specific noise it carries.
+
+    Estimates are clamped to ``alpha in (ALPHA_INIT_MIN,
+    ALPHA_INIT_MAX)``; non-estimable slots (padded series, zero
+    loadings, fewer than 8 consecutive pairs) get ``ALPHA_INIT``.
+    """
+    return _autocorr_init(fleet.y, fleet.mask, fleet.loadings, fleet.dt)
+
+
+def _autocorr_init(y, mask, loadings, dt):
+    dtype = y.dtype
+
+    def lag1(x, valid):
+        """Per-(B, column) lag-1 autocorrelation over consecutive valid
+        pairs; returns (r1, n_pairs).  x is (B, T, C), valid bool."""
+        x = torch.where(valid, x, 0.0)
+        pair = valid[:, 1:] & valid[:, :-1]  # (B, T-1, C)
+        num = torch.sum(torch.where(pair, x[:, 1:] * x[:, :-1], 0.0), dim=1)
+        den = torch.sqrt(
+            torch.sum(torch.where(pair, x[:, 1:] ** 2, 0.0), dim=1)
+            * torch.sum(torch.where(pair, x[:, :-1] ** 2, 0.0), dim=1)
+        )
+        n_pairs = pair.sum(dim=1)
+        return (torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
+                            0.0), n_pairs)
+
+    r1_s, pairs_s = lag1(y, mask)  # (B, N)
+    maskf = mask.to(dtype)
+    norm = torch.einsum("btn,bnk->btk", maskf, loadings**2)  # (B, T, K)
+    proxy = torch.einsum("btn,bnk->btk", torch.where(mask, y, 0.0), loadings)
+    proxy = torch.where(norm > 0, proxy / torch.where(norm > 0, norm, 1.0),
+                        0.0)
+    r1_c, pairs_c = lag1(proxy, norm > 0)  # (B, K)
+    comm = torch.sum(loadings**2, dim=2)  # (B, N)
+    noise_w = loadings**2 * torch.clamp(1.0 - comm, 0.0, 1.0)[:, :, None]
+    v_num = torch.einsum("btn,bnk->btk", maskf, noise_w)
+    v_t = torch.where(norm > 0,
+                      v_num / torch.where(norm > 0, norm, 1.0) ** 2, 0.0)
+    v = v_t.sum(dim=1) / torch.clamp((norm > 0).sum(dim=1), min=1)
+    w = torch.sum(noise_w, dim=1)  # (B, K)
+    phi_w = torch.where(
+        w > 0,
+        torch.einsum("bn,bnk->bk", r1_s, noise_w) / torch.where(w > 0, w, 1.0),
+        0.0,
+    )
+    # observation rate over REAL series only; a float64 ratio of counts,
+    # as the JAX package computes it
+    active = torch.any(mask, dim=1)  # (B, N)
+    n_active = torch.clamp(active.sum(dim=1), min=1)  # (B,)
+    obs_rate = (mask.sum(dim=(1, 2)).to(torch.float64)
+                / (mask.shape[1] * n_active).to(torch.float64))[:, None]
+    r1_c = r1_c * (1.0 + v) - v * obs_rate * phi_w
+
+    # r1_c is float64 here (the count ratio promotes it), as in the JAX
+    # package; the result is cast back to the fleet dtype at the end
+    r1 = torch.cat([r1_s.to(r1_c.dtype), r1_c], dim=1)
+    pairs = torch.cat([pairs_s, pairs_c], dim=1)
+    dtc = dt[:, None].to(dtype)
+    phi_lo = torch.exp(-dtc / ALPHA_INIT_MIN).to(r1.dtype)
+    phi_hi = torch.exp(-dtc / ALPHA_INIT_MAX).to(r1.dtype)
+    alpha = -dtc / torch.log(torch.clamp(r1, phi_lo, phi_hi))
+    k = loadings.shape[2]
+    estimable = pairs >= 8
+    estimable[:, -k:] &= torch.any(loadings != 0, dim=1)
+    return torch.where(estimable, alpha, ALPHA_INIT).to(dtype)
+
+
+ALPHA_MAX = 3e4  # soft upper cap on alpha during fleet optimization
+
+
+def _soft_cap(theta, cap):
+    """Smooth monotone map R -> (-inf, cap): near-identity far below
+    the cap (``cap - softplus(cap - theta)``; softplus as
+    ``logaddexp(x, 0)``, which has no identity cut-over)."""
+    x = cap - theta
+    return cap - torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _theta_to_alpha(theta, cap):
+    return ALPHA_PMIN + torch.exp(_soft_cap(theta, cap))
+
+
+def _alpha_to_theta(p, cap):
+    """Exact inverse of :func:`_theta_to_alpha` (clamped just below cap)."""
+    t = torch.log(torch.clamp(p - ALPHA_PMIN, min=1e-12))
+    t = torch.clamp(t, max=cap - 1e-6)
+    # invert t = cap - softplus(cap - theta):  theta = cap - log(expm1(cap-t))
+    return cap - torch.log(torch.expm1(cap - t))
+
+
+def _make_lanes_runner(warmup, tol, chunk, maxiter, ls_steps, history,
+                       theta_cap, remat_seg, stall_tol=None, stall_rtol=0.0,
+                       score="adjoint"):
+    """``(init, run_chunk)`` of the lane-layout batched L-BFGS.
+
+    Both take ``(theta or state, data, loadings, dt, lane_map)``: the
+    objective is the lanes deviance of the lanes ``lane_map`` selects in
+    ``data``; K trial points are one call over K*B lanes, and the
+    gradient is one backward against a ones-vector.
+    """
+
+    def deviance(theta, data, loadings, dt, lane_map):
+        alpha = _theta_to_alpha(theta, theta_cap)
+        return lanes_deviance(alpha, loadings, dt, data, lane_map, warmup,
+                              remat_seg, score)
+
+    def obj_fn(cand, data, loadings, dt, lane_map):
+        # trial-major lanes: lane k*B + b is trial k of lane b
+        n_trials, p, b = cand.shape
+        with torch.no_grad():
+            val = deviance(cand.permute(1, 0, 2).reshape(p, n_trials * b),
+                           data, loadings.repeat(1, 1, n_trials),
+                           dt.repeat(n_trials), lane_map.repeat(n_trials))
+        return val.reshape(n_trials, b)
+
+    def vg_fn(theta, data, loadings, dt, lane_map):
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            val = deviance(th, data, loadings, dt, lane_map)
+            (grad,) = torch.autograd.grad(val.sum(), th)
+        return val.detach(), grad
+
+    def init(theta, *data):
+        return lanes_lbfgs.init_state(vg_fn, theta, history, *data)
+
+    run_chunk = lanes_lbfgs.make_chunk_runner(
+        vg_fn, obj_fn, ls_steps, maxiter, tol, chunk, stall_tol, stall_rtol)
+    return init, run_chunk
+
+
+def _gather_lanes(tree, idx):
+    """Take lanes ``idx`` along the LAST axis of every leaf."""
+    return type(tree)(*(a.index_select(-1, idx) for a in tree))
+
+
+def _scatter_lanes(full, part, idx):
+    """Write lanes ``part`` back into ``full`` at ``idx`` (last axis)."""
+    out = []
+    for f, p in zip(full, part):
+        f = f.clone()
+        f[..., idx] = p
+        out.append(f)
+    return type(full)(*out)
+
+
+COMPACT_MIN = 128  # the JAX package's floor (one TPU lane tile), kept
+#                    for parity: compaction never changes results
+
+
+def _fit_fleet_lanes(fleet, p0, warmup, maxiter, tol, chunk,
+                     max_linesearch_steps, alpha_max, stall_tol, remat_seg,
+                     history=8, max_chunks=None, compact_min=COMPACT_MIN,
+                     stall_rtol=0.0, score="adjoint"):
+    """The lane-layout fleet fit loop (see ``fit_fleet(layout="lanes")``)."""
+    theta_cap = float(np.log(alpha_max))
+    ls_steps = lanes_lbfgs.default_ls_steps(min(max_linesearch_steps, 6))
+    init, run_chunk = _make_lanes_runner(
+        warmup, tol, chunk, maxiter, ls_steps, history, theta_cap,
+        remat_seg, stall_tol, stall_rtol, score)
+    # two-phase schedule: after the first full chunk, advance in short
+    # tail dispatches so the run ends within ~tail iterations of the last
+    # lane's convergence; with the per-iteration stall stop, chunking
+    # cannot change results.  Under a dispatch budget (max_chunks) every
+    # dispatch advances a full chunk.
+    tail = chunk if max_chunks is not None else min(2, chunk)
+    run_tail = run_chunk if tail == chunk else _make_lanes_runner(
+        warmup, tol, tail, maxiter, ls_steps, history, theta_cap,
+        remat_seg, stall_tol, stall_rtol, score)[1]
+    device = fleet.y.device
+    theta0 = _alpha_to_theta(as_tensor(p0, device, fleet.y.dtype), theta_cap)
+    theta_t, data, loadings_l, dt_l = _lanes_args(theta0, fleet)
+    lane_map = torch.arange(fleet.batch, dtype=torch.int32, device=device)
+    lane_args = (loadings_l, dt_l, lane_map)
+    state = init(theta_t, data, *lane_args)
+
+    iters_left = maxiter
+    dispatches = 0
+    sel = sel_dev = None  # original lane indices of the compacted set
+    work_state, work_args = state, lane_args
+
+    def full_state():
+        """The working set scattered over the last full snapshot (lanes
+        dropped at earlier compactions kept their final values)."""
+        if sel is None:
+            return work_state
+        return _scatter_lanes(state, work_state, sel_dev)
+
+    while iters_left > 0:
+        if max_chunks is not None and dispatches >= max_chunks:
+            break
+        if dispatches == 0 and iters_left >= chunk:
+            work_state = run_chunk(work_state, data, *work_args)
+            iters_left -= chunk
+        else:
+            work_state = run_tail(work_state, data, *work_args)
+            iters_left -= tail
+        dispatches += 1
+        frozen_host = work_state.frozen.cpu().numpy()
+        if frozen_host.all():
+            break
+        # tail compaction: once most of the working set is frozen, gather
+        # the live lanes into a power-of-two sub-batch (>= compact_min) so
+        # tail dispatches stop paying for finished lanes; lanes never
+        # interact, so results equal the uncompacted schedule.  The data
+        # is not copied: the working lanes read it through lane_map.
+        live = np.flatnonzero(~frozen_host)
+        bw = frozen_host.size
+        target = max(compact_min,
+                     1 << int(np.ceil(np.log2(max(live.size, 1)))))
+        if target < bw:
+            state = full_state()
+            frozen_idx = np.flatnonzero(frozen_host)
+            local = np.concatenate([live, frozen_idx[: target - live.size]])
+            sel_prev = np.arange(bw) if sel is None else sel
+            sel = sel_prev[local]
+            sel_dev = torch.as_tensor(sel, device=device)
+            work_state = _gather_lanes(state, sel_dev)
+            work_args = (loadings_l.index_select(-1, sel_dev),
+                         dt_l.index_select(0, sel_dev),
+                         lane_map.index_select(0, sel_dev))
+    state = full_state()
+    params = _theta_to_alpha(state.theta, theta_cap).T  # (B, N+K)
+    grad_ok = torch.linalg.vector_norm(state.grad, dim=0) < tol
+    # the device-side stall counter is part of the carry, so "frozen at
+    # the resolution floor" is recorded exactly
+    stalled = (state.stall >= lanes_lbfgs.STALL_ITERS) & ~grad_ok
+    return FleetFit(params, state.value, state.count, grad_ok | stalled,
+                    stalled, state.nfev)
+
+
+def default_gtol(dtype) -> float:
+    """Default gradient-norm tolerance resolvable in ``dtype``:
+    ``sqrt(machine eps)``, 1.5e-8 in float64 and 3.5e-4 in float32."""
+    return float(np.sqrt(torch.finfo(dtype).eps))
+
+
+def fit_fleet(
+    fleet: Fleet,
+    p0=None,
+    warmup: int = 1,
+    engine: str = "joint",
+    maxiter: int = 100,
+    tol: Optional[float] = None,
+    mesh=None,
+    use_shard_map: bool = False,
+    chunk: Optional[int] = None,
+    max_linesearch_steps: int = 16,
+    alpha_max: float = ALPHA_MAX,
+    stall_tol: Optional[float] = None,
+    stall_rtol: float = 0.0,
+    checkpoint: Optional[str] = None,
+    layout: str = "batch",
+    remat_seg: Optional[int] = None,
+    max_chunks: Optional[int] = None,
+    compact_min: int = COMPACT_MIN,
+    lane_min_batch: Optional[int] = None,
+    grad_engine: Optional[str] = None,
+) -> FleetFit:
+    """Fit every model in the fleet by batched L-BFGS on its device.
+
+    The JAX package's signature; ``layout="lanes"`` is the ported path
+    (the other options raise ``NotImplementedError`` naming their
+    ROADMAP item).  The fleet's tensors decide the device: a fleet
+    packed for the card fits there (kernels K3/K4), a CPU fleet runs the
+    plain versions.
+
+    Parameters
+    ----------
+    fleet : packed fleet (see :func:`pack_fleet`).
+    p0 : (B, N+K) initial parameters (default: reference init, alpha=10).
+    engine : "sequential" or "joint": both select the lanes
+        sequential-processing deviance.
+    tol : gradient-norm convergence tolerance (default ``sqrt(eps)`` of
+        the fleet dtype).
+    chunk : L-BFGS iterations per dispatch (default: maxiter).
+    max_linesearch_steps : trial points of the grid line search (at
+        most 6 are used).
+    alpha_max : soft upper cap on alpha during optimization.
+    stall_tol, stall_rtol : freeze a lane whose objective improves by
+        at most ``stall_tol + stall_rtol * |value|`` for consecutive
+        iterations, counting it converged (``FleetFit.stalled``).
+        ``stall_tol=None``: off in float64, ``0.0`` in float32.
+    remat_seg : segment length of the adjoint's boundaries (memory
+        O(T/seg) boundaries plus one segment's residuals per lane).
+    max_chunks : bound the number of chunk dispatches of this call.
+    compact_min : smallest power-of-two working set tail compaction may
+        shrink to; results are identical for any value.
+    grad_engine : ``"auto"``/``"adjoint"``/``"autodiff"`` (default
+        ``METRAN_TPU_GRAD_ENGINE``); ``"autodiff"`` runs on CPU fleets
+        only.
+    """
+    _check_layout(layout)
+    fleet = _on_device(fleet)
+    if mesh is not None or use_shard_map:
+        raise _not_ported("mesh/use_shard_map",
+                          "ROADMAP A7, parallel/mesh.py")
+    if checkpoint is not None:
+        raise _not_ported("checkpoint",
+                          "ROADMAP A5, io.save_fleet_state/load_fleet_state")
+    if lane_min_batch is not None:
+        raise _not_ported("lane_min_batch",
+                          "a TPU lane-tile pad; ROADMAP A7 with the mesh")
+    if engine not in ("sequential", "joint"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if p0 is None:
+        p0 = default_init_params(fleet)
+    dtype = fleet.y.dtype
+    is_f32 = dtype == torch.float32
+    if tol is None:
+        tol = default_gtol(dtype)
+    if stall_tol is None and is_f32:
+        # float32 runs terminate at the objective resolution floor: freeze
+        # lanes that make zero resolvable progress (counted converged)
+        stall_tol = 0.0
+    if not np.isfinite(alpha_max) or alpha_max <= ALPHA_PMIN:
+        raise ValueError(
+            f"alpha_max must be finite and > {ALPHA_PMIN}, got {alpha_max}")
+    if chunk is None or chunk >= maxiter:
+        chunk = maxiter
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    grad = resolve_grad_engine(grad_engine, "sequential", dtype=dtype)
+    return _fit_fleet_lanes(
+        fleet, p0, warmup, maxiter, tol, chunk, max_linesearch_steps,
+        alpha_max, stall_tol, remat_seg, max_chunks=max_chunks,
+        compact_min=compact_min, stall_rtol=stall_rtol, score=grad)
+
+
+__all__ = [
+    "ALPHA_MAX",
+    "Fleet",
+    "FleetFit",
+    "autocorr_init_params",
+    "default_init_params",
+    "fit_fleet",
+    "fleet_deviance",
+    "fleet_value_and_grad",
+    "pack_fleet",
+]

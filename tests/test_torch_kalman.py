@@ -205,10 +205,14 @@ def test_unported_engines_and_store_raise(engine):
     rng = np.random.default_rng(29)
     ss, y, mask = random_ssm(rng, 3, 1, t=5)
     pss = _port_ss(ss)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pk.kalman_filter(pss, y, mask, engine=engine, device="cpu")
+    if engine != "sequential":  # kalman_filter has it (kernel K3)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            pk.kalman_filter(pss, y, mask, engine=engine, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
         pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1], mask[:1],
                          engine=engine, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
         pk.kalman_filter(pss, y, mask, store=True, device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        pk.kalman_filter(pss, y, mask, engine="sequential", store=True,
+                         device="cpu")

@@ -71,3 +71,48 @@ def test_forecast_kernel_matches_plain(card, dtype, bar):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert _rel(g, w) <= bar
+
+
+def _lanes_inputs(card, dtype, b=6, t=70, n_obs=5, kf=1, trials=3):
+    """A small lane fleet: ``trials`` trial lanes per data lane, a fully
+    masked series, a fully masked step, a near-unit-root lane (every
+    state at alpha = 3e4 in f64; in f32 the common factor only: with
+    every state there, the innovation variances of these random panels
+    fall to ~1e-5 of P and f32 itself disagrees with f64 by ~1e-2)."""
+    from metran_tpu_torch.ops.lanes import lanes_statespace
+
+    rng = np.random.default_rng(1)
+    lanes = trials * b
+    alpha = rng.uniform(2.0, 50.0, (n_obs + kf, lanes))
+    alpha[-1 if dtype == torch.float32 else slice(None), 0] = 3e4
+    ld = np.tile(rng.uniform(0.4, 0.8, (n_obs, kf, b)), (1, 1, trials))
+    phi, q, z, r = lanes_statespace(
+        *(torch.as_tensor(a, dtype=dtype, device=card)
+          for a in (alpha, ld, np.ones(lanes))))
+    y = torch.as_tensor(rng.normal(size=(b, t, n_obs)), dtype=dtype,
+                        device=card)
+    mask = torch.as_tensor(rng.uniform(size=(b, t, n_obs)) > 0.3, device=card)
+    mask[:, :, -1] = False
+    mask[:, 3] = False
+    lane_map = torch.arange(b, dtype=torch.int32, device=card).repeat(trials)
+    return phi, q, z, r, y, mask, lane_map
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_lanes_filter_and_adjoint_kernels_match_plain(card, dtype, bar):
+    args = _lanes_inputs(card, dtype)
+    got = kernels.lanes_filter(*args, seg=32, keep_bounds=True)
+    want = kernels.lanes_filter_plain(*args, seg=32, keep_bounds=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= bar
+    g = torch.Generator(device="cpu").manual_seed(2)
+    sb = torch.randn(want.sigma.shape, generator=g).to(card, dtype)
+    db = torch.randn(want.sigma.shape, generator=g).to(card, dtype)
+    adj = (*args, 32, want.bounds_mean, want.bounds_cov, sb, db)
+    got = kernels.lanes_adjoint(*adj)
+    want = kernels.lanes_adjoint_plain(*adj)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        assert _rel(g_, w) <= bar

@@ -5,7 +5,9 @@
 - entry points default to the CUDA card and raise without one instead
   of running on the CPU quietly;
 - the CUDA kernel launchers take CUDA tensors only, and the dispatching
-  wrappers never count a launch for the plain CPU path.
+  wrappers never count a launch for the plain CPU path;
+- the score that needs a plain version (``score="autodiff"``) refuses
+  CUDA tensors, so no plain version runs on the card's path.
 """
 
 import os
@@ -20,8 +22,21 @@ import torch
 
 from metran_tpu_torch import kernels
 from metran_tpu_torch.kernels import build
-from metran_tpu_torch.ops import filter_append, kalman_filter
+from metran_tpu_torch.ops import (
+    deviance,
+    filter_append,
+    kalman_filter,
+    lanes_dfm_deviance,
+)
+from metran_tpu_torch.ops.lanes import LanesData, lanes_terms
 from metran_tpu_torch.ops.statespace import StateSpace, dfm_statespace
+from metran_tpu_torch.parallel import (
+    Fleet,
+    fit_fleet,
+    fleet_deviance,
+    fleet_value_and_grad,
+    pack_fleet,
+)
 from metran_tpu_torch.serve import MetranService, ModelRegistry
 
 REPO = Path(__file__).resolve().parents[1]
@@ -100,6 +115,23 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         filter_append(ss_np, np.zeros(4), np.eye(4), y, mask)
     with pytest.raises(RuntimeError, match="CUDA device required"):
         kalman_filter(ss_np, y, mask)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        deviance(ss_np, y, mask)
+    # the fit slice: numpy inputs go to the card by default
+    ld = np.asarray(lds)[:, :, None]  # (N, K, B=1)
+    alpha = np.full((4, 1), 10.0)
+    y_l, m_l = y.T[:, :, None][:, :3], mask[:, :3, None]
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        lanes_dfm_deviance(alpha, ld, np.ones(1), y_l, m_l)
+    fleet = Fleet(y[None], mask[None], np.asarray(lds)[None], np.ones(1),
+                  np.array([3]))
+    for fn in (fleet_deviance, fleet_value_and_grad):
+        with pytest.raises(RuntimeError, match="CUDA device required"):
+            fn(np.full((1, 4), 10.0), fleet, layout="lanes")
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        fit_fleet(fleet, layout="lanes", maxiter=1)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        pack_fleet([], [])
     # asked for explicitly, the CPU runs (the plain versions)
     out = filter_append(ss_np, np.zeros(4), np.eye(4), y, mask,
                         device="cpu")
@@ -124,6 +156,18 @@ def _k1_args(device="cpu", dtype=torch.float64, b=2, k=3, n=4, s=5):
     ]
 
 
+def _k3_args(dtype=torch.float64, lanes=3, t=7, n_obs=2, n=3):
+    g = torch.Generator().manual_seed(1)
+    return [
+        torch.rand(n, lanes, generator=g, dtype=dtype) * 0.9,
+        torch.rand(n, lanes, generator=g, dtype=dtype) * 0.1,
+        torch.randn(n_obs, n, lanes, generator=g, dtype=dtype),
+        torch.zeros(n_obs, lanes, dtype=dtype),
+        torch.randn(lanes, t, n_obs, generator=g, dtype=dtype),
+        torch.rand(lanes, t, n_obs, generator=g) > 0.3,
+    ]
+
+
 def test_kernel_launchers_raise_on_cpu_tensors():
     args = _k1_args()
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -132,6 +176,25 @@ def test_kernel_launchers_raise_on_cpu_tensors():
     fc = args[:6] + [hz]
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.forecast_moments_kernel(*fc)
+    k3 = _k3_args()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.lanes_filter_kernel(*k3, seg=4, keep_bounds=True)
+    res = kernels.lanes_filter(*k3, seg=4, keep_bounds=True)
+    cot = torch.ones_like(res.sigma)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.lanes_adjoint_kernel(*k3, None, 4, res.bounds_mean,
+                                     res.bounds_cov, cot, cot)
+
+
+def test_autodiff_score_refuses_the_card(monkeypatch):
+    """``score="autodiff"`` differentiates the plain filter; on a CUDA
+    tensor it raises instead of running a plain version on the card."""
+    phi, q, z, r, y, mask = _k3_args()
+    data = LanesData(y, mask, mask.sum(2).T)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda")))
+    with pytest.raises(RuntimeError, match="CPU tensors only"):
+        lanes_terms(phi, q, z, r, data, None, 4, score="autodiff")
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "mask", "int"])
@@ -158,8 +221,13 @@ def test_plain_path_counts_no_launch_and_counters_reset():
     args = _k1_args()
     kernels.joint_filter_append(*args)
     kernels.forecast_moments(*args[:6], torch.arange(1, 3).double())
+    k3 = _k3_args()
+    res = kernels.lanes_filter(*k3, seg=4, keep_bounds=True)
+    kernels.lanes_adjoint(*k3, None, 4, res.bounds_mean, res.bounds_cov,
+                          torch.ones_like(res.sigma), res.detf)
     assert kernels.launches() == {"joint_filter_append": 0,
-                                  "forecast_moments": 0}
+                                  "forecast_moments": 0,
+                                  "lanes_filter": 0, "lanes_adjoint": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -178,8 +246,10 @@ def test_library_name_follows_the_sources():
         path = build.library_path(src)
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith(f"lib{src.stem}-")
-    assert {p.name for p in build.sources()} == {"joint_filter.cu",
-                                                 "forecast.cu"}
+    assert {p.name for p in build.sources()} == {
+        "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
+        "lanes_adjoint.cu"}
+    assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 
 def test_chip_smoke_refuses_without_a_card_and_outside_a_checkout(tmp_path):

@@ -12,11 +12,12 @@ non-zero):
 2. build — ``nvcc`` builds the kernels from ``metran_tpu_torch/kernels/
    csrc`` (time, ``-Xptxas -v`` registers/shared memory per kernel);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   f64 and f32 (bars: normwise relative error 1e-9 and 1e-3), then at
-   the main paths' shapes in f32, where kernel and plain version are
-   also timed (CUDA events) beside the kernel's bound (the plain lanes
-   filter and adjoint, a Python loop over 5,000 steps and 20 slots, run
-   once there);
+   f64 and f32 (bars: normwise relative error 1e-9 and 1e-3,
+   NaN-strict), then at the main paths' shapes in f32, where the kernels
+   are also timed (CUDA events) beside their bounds: K1/K2 (serving),
+   K3/K4 (fit), K5/K6/K7 (products); the lanes kernels are held against
+   their plain versions (a Python loop over steps and slots) at full
+   width over the first ``T_CMP`` = 1,000 steps and timed at the full T;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -29,7 +30,18 @@ non-zero):
    ``tol=0.05``, ``stall_tol=1e-3``, 4 line-search trials,
    ``maxiter=60``, ``chunk=8``); the launch counters must show K3 and K4,
    every lane must end finite and no worse than it started, and 8 lanes
-   are recomputed in f64 on the CPU with the plain versions.
+   are recomputed in f64 on the CPU with the plain versions;
+6. products path — the post-fit products of the fitted fleet under the
+   JAX bench's product settings (``fleet_simulate`` smoothed and
+   filtered, ``fleet_decompose``, ``fleet_innovations(warmup=50)`` and
+   ``fleet_whiteness``, ``fleet_forecast(steps=14)``,
+   ``fleet_sample(n_draws=4)``), one dispatch each, timed; the launch
+   counters must show K3, K5, K6, K7 and K2; outputs must be finite
+   (innovations NaN exactly where masked or before the warmup),
+   variances non-negative and draws through every observed entry; 4
+   models (2 for the sample, with the card's normals) are recomputed in
+   f64 on the CPU with the plain versions, in worker processes while the
+   card runs.
 
 The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
@@ -59,7 +71,12 @@ SEED = 0
 # the JAX bench's fit settings (bench.py:48-65, :395-416)
 FIT = dict(layout="lanes", remat_seg=100, tol=0.05, stall_tol=1e-3,
            max_linesearch_steps=4, maxiter=60, chunk=8)
+# the JAX bench's product settings (bench.py:565-578)
+PRODUCTS = dict(seg=100, warmup=50, n_draws=4, steps=FORECAST_STEPS)
+CPU_MODELS = 4  # fitted models the products phase recomputes on the CPU
 LS_TRIALS = 4  # the grid line search's trial points per iteration
+T_CMP = 1_000  # steps of the full-width kernel-vs-plain comparisons of
+#                the lanes kernels (their plain versions loop over steps)
 DEVICE = "cuda"  # the card the lanes and fit phases run on
 
 # H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
@@ -334,6 +351,101 @@ def k4_cost(z, lane_map, count, data_shape, seg, itemsize):
     per_step = 2 * n + 3 * half + n + half + 2 * n  # phibar, qbar, rescale
     rev = obs * per_obs + lanes * t_steps * per_step
     return nbytes, _filter_ops(n, k, lanes, t_steps, obs) + rev
+
+
+def _proj_ops(big_n, k):
+    """The least operations of one step's projections from Z = [I | L]:
+    per series ``z_i.m`` on its K+1 nonzeros and ``z_i'C z_i`` on the
+    (K+1)x(K+1) block (symmetric), and the clip."""
+    return big_n * (2 * (k + 1) + (k + 1) * (k + 2) + 1)
+
+
+def _lanes_bytes(lanes, n, big_n, d_steps, itemsize):
+    """Bytes of a lanes launch's constants, its data (``d_steps`` data
+    lane steps of y and mask) and its lane map."""
+    return (lanes * (2 * n + big_n * n + big_n) * itemsize
+            + d_steps * big_n * (itemsize + 1) + 4 * lanes)
+
+
+def k5_cost(z, lane_map, count, data_shape, seg, want_cov, itemsize):
+    """Bytes the K5 call must move (the lane constants, data, lane map and
+    K3's boundaries read once; m_s, Z m_s and the variances written once)
+    and the least operations: the replay (:func:`_filter_ops`, the
+    boundaries are all it gets) and per observed slot ``k = d/f``,
+    ``k.r`` and the r update on z_i's K+1 nonzeros; with the covariance
+    ``N k`` on N's upper half, ``k'N k`` and the rank-2 update on the
+    rows and columns of z_i's nonzeros.  Per step ``m_s = m_p + P_p r``
+    (P_p symmetric), ``Z m_s``, and with the covariance the projections
+    of P_p, ``w_i = P_p z_i``, ``w_i'N w_i`` (upper half), the clip and
+    the transition of r and N (upper half)."""
+    lanes, n, big_n, k, t_steps, n_seg, obs = _lanes_shape(
+        z, lane_map, count, seg)
+    nbytes = (_lanes_bytes(lanes, n, big_n, data_shape[0] * t_steps,
+                           itemsize)
+              + lanes * n_seg * (n + n * n) * itemsize
+              + lanes * t_steps * (n + 2 * big_n) * itemsize)
+    half = n * (n + 1) / 2
+    per_obs = n + 2 * n + 2 * (k + 1) + 2
+    per_step = n * (n + 1) + big_n * 2 * (k + 1) + n
+    if want_cov:
+        per_obs += 2 * half + 2 * n + 2 + 4 * n * (k + 1)
+        per_step += (_proj_ops(big_n, k) + big_n * (2 * n * (k + 1)
+                                                    + 2 * half + n + 2)
+                     + half)
+    ops = (_filter_ops(n, k, lanes, t_steps, obs) + obs * per_obs
+           + lanes * t_steps * per_step)
+    return nbytes, ops
+
+
+def k6_cost(z, lane_map, count, data_shape, mode, t_last, itemsize):
+    """Bytes the K6 call must move (the lane constants, lane map, the data
+    steps each lane runs and ``t_last`` read once; the mode's outputs
+    written once) and the least operations: the forward filter
+    (:func:`_filter_ops`) over the steps each lane runs (for ``latch``
+    only those before its ``t_last``) and per step the mode's
+    projections (:func:`_proj_ops`; the innovations also ``y - Z m_p``
+    and ``+ r``)."""
+    lanes, n, big_n, k, t_steps, _, obs = _lanes_shape(z, lane_map, count, 1)
+    if mode == "latch":
+        import torch
+
+        tl = t_last.long()
+        stop = torch.where((tl >= 1) & (tl <= t_steps), tl, 0)
+        csum = torch.cat([torch.zeros_like(count[:1]),
+                          count.cumsum(0)]).double()  # (T+1, D)
+        obs = float(csum[stop, lane_map.long()].sum())
+        steps = float(stop.sum())
+        nbytes = (_lanes_bytes(lanes, n, big_n, steps, itemsize) + 4 * lanes
+                  + lanes * (n + n * n) * itemsize)
+        half = n * (n + 1) / 2
+        ops = (_filter_ops(n, k, lanes, 0, obs)
+               + steps * (n + half + n))  # the predicts actually run
+        return nbytes, ops
+    outs = (n + 2 * big_n) if mode == "project" else 2 * big_n
+    nbytes = (_lanes_bytes(lanes, n, big_n, data_shape[0] * t_steps,
+                           itemsize)
+              + lanes * t_steps * outs * itemsize)
+    per_step = _proj_ops(big_n, k) + (2 * big_n if mode == "innovations"
+                                      else 0)
+    return nbytes, (_filter_ops(n, k, lanes, t_steps, obs)
+                    + lanes * t_steps * per_step)
+
+
+def k7_cost(z, r, t_steps, itemsize):
+    """Bytes the K7 call must move (the lane constants and the normals
+    read once, the path and its pseudo-observations written once) and the
+    least operations: ``sqrt(max(q, 0))`` once per lane, per step ``phi
+    x + s w`` and ``Z x`` on each row's K+1 nonzeros, and the noise term
+    only for the slots with ``r > 0``."""
+    big_n, n, lanes = z.shape
+    k = n - big_n
+    nbytes = (lanes * (2 * n + big_n * n + big_n) * itemsize
+              + lanes * (n + t_steps * (n + big_n)) * itemsize
+              + lanes * t_steps * (n + big_n) * itemsize)
+    noisy = float((r > 0).sum())
+    ops = (2 * n * lanes + lanes * t_steps * (3 * n + big_n * (2 * k + 1))
+           + noisy * (2 + 2 * t_steps))
+    return nbytes, ops
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -729,13 +841,15 @@ def phase_main_path():
     return counts
 
 
-def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None):
+def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None,
+               gaps=False):
     """A lanes launch's inputs from the flagship recipe: ``(phi, q, z, r,
     y, mask, lane_map, count)`` for ``trials`` lanes per data lane (the
     line search's layout), ``n_pad`` padded series slots (masked, zero
     loadings), a fully masked real series and a fully masked step;
     ``unit_root`` = "all" puts every state of lane 0 at alpha = 3e4,
-    "factor" its common factor."""
+    "factor" its common factor; ``gaps`` also masks the first step and a
+    stretch of 20 steps in every other data lane."""
     import numpy as np
     import torch
 
@@ -750,6 +864,9 @@ def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None):
     mp[:, :, 5] = False  # a fully masked real series
     if t > 3:
         mp[:, 3] = False  # a fully masked step
+    if gaps:
+        mp[:, 0] = False
+        mp[1::2, 40:60] = False
     ld = np.zeros((n_obs, N_FACTORS, b))
     ld[:N_SERIES] = np.transpose(lds, (1, 2, 0))
     alpha = np.ones((n_obs + N_FACTORS, b)) * 10.0
@@ -769,6 +886,28 @@ def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None):
     data = prepare_data(torch.as_tensor(yp, **new), torch.as_tensor(mp, device=dev))
     lane_map = torch.arange(b, dtype=torch.int32, device=dev).repeat(trials)
     return phi, q, z, r, data.y, data.mask, lane_map, data.count
+
+
+def check_entry(kernel, case, dtype, got, want, bar):
+    """One kernel-vs-plain comparison: normwise relative errors of each
+    output (NaN-strict), emitted as a ``kernel_check`` line."""
+    errs = [rel_err(g, w) for g, w in zip(got, want) if w is not None]
+    entry = {
+        "kernel": kernel, "case": case,
+        "dtype": str(dtype).replace("torch.", ""), "rel_err": errs,
+        "bar": bar, "ok": within(errs, bar),
+        "max_abs_err": max(abs_err(g, w) for g, w in zip(got, want)
+                           if w is not None),
+    }
+    emit({"phase": "kernel_check", **entry})
+    return entry
+
+
+def short_args(args, t=None):
+    """A lanes launch's ``(phi, q, z, r, y, mask, lane_map)`` over the
+    first ``t`` (default ``T_CMP``) steps of its data."""
+    t = T_CMP if t is None else t
+    return [*args[:4], args[4][:, :t], args[5][:, :t], *args[6:]]
 
 
 def deviance_cotangents(count, lane_map, warmup=1):
@@ -799,16 +938,8 @@ def phase_lanes_kernels():
     dev = torch.device(DEVICE)
     checks = []
 
-    def compare(kernel, case, dtype, got, want, bar):
-        errs = [rel_err(g, w) for g, w in zip(got, want) if w is not None]
-        checks.append({
-            "kernel": kernel, "case": case,
-            "dtype": str(dtype).replace("torch.", ""), "rel_err": errs,
-            "bar": bar, "ok": within(errs, bar),
-            "max_abs_err": max(abs_err(g, w) for g, w in zip(got, want)
-                               if w is not None),
-        })
-        emit({"phase": "kernel_check", **checks[-1]})
+    def compare(*args):
+        checks.append(check_entry(*args))
 
     seg = 100
     for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
@@ -837,9 +968,12 @@ def phase_lanes_kernels():
             torch.cuda.synchronize()
             compare("lanes_adjoint", label, dtype, got, want, bar)
 
-    # the fit path's launches, f32, full size: K3 over K*B trial lanes
+    # the fit path's launches, f32, full width: K3 over K*B trial lanes
     # (no boundaries), K3 over B lanes with boundaries (the value and
-    # gradient's forward), K4 over B lanes
+    # gradient's forward), K4 over B lanes; held against the plain
+    # versions over the first T_CMP steps (the plain versions, a Python
+    # loop over steps and slots, take ~5 s per 1,000 steps), timed at the
+    # full T
     dtype = torch.float32
     times = {}
     rng = np.random.default_rng(SEED + 21)
@@ -850,20 +984,32 @@ def phase_lanes_kernels():
         trial_args[4], trial_args[5], lane_map[:FLEET]]
     data_shape = tuple(trial_args[4].shape)
     z = trial_args[2]
-    ms, got_trial = cuda_ms(lambda: lanes_filter(*trial_args, seg=seg),
-                            reps=5, warm=1)
-    ms_vg, got_vg = cuda_ms(
-        lambda: lanes_filter(*vg_args, seg=seg, keep_bounds=True),
-        reps=5, warm=1)
+    trial_cmp = short_args(trial_args)
+    vg_cmp = short_args(vg_args)
+    got_trial = lanes_filter(*trial_cmp, seg=seg)
+    got_vg = lanes_filter(*vg_cmp, seg=seg, keep_bounds=True)
     plain_ms, want = cuda_ms(
-        lambda: lanes_filter_plain(*trial_args, seg=seg, keep_bounds=True),
+        lambda: lanes_filter_plain(*trial_cmp, seg=seg, keep_bounds=True),
         reps=1, warm=0)
     compare("lanes_filter", f"main path: K*B={LS_TRIALS * FLEET} lanes "
-            f"T={T_STEPS} N={N_SERIES} f32 (line-search trials)", dtype,
+            f"T={T_CMP} N={N_SERIES} f32 (line-search trials)", dtype,
             got_trial[:4], want[:4], 1e-3)
     want_vg = [w[..., :FLEET] for w in want]
     compare("lanes_filter", f"main path: B={FLEET} lanes with boundaries "
-            "(value and gradient)", dtype, got_vg, want_vg, 1e-3)
+            f"T={T_CMP} (value and gradient)", dtype, got_vg, want_vg, 1e-3)
+    cot = deviance_cotangents(count[:T_CMP], lane_map[:FLEET])
+    adj = (*vg_cmp, seg, got_vg.bounds_mean, got_vg.bounds_cov, *cot)
+    got4 = lanes_adjoint(*adj)
+    plain4, want4 = cuda_ms(lambda: lanes_adjoint_plain(*adj), reps=1,
+                            warm=0)
+    compare("lanes_adjoint", f"main path: B={FLEET} T={T_CMP} "
+            f"N={N_SERIES} seg={seg} f32 (gradient)", dtype, got4, want4,
+            1e-3)
+    ms, _ = cuda_ms(lambda: lanes_filter(*trial_args, seg=seg), reps=5,
+                    warm=1)
+    ms_vg, full_vg = cuda_ms(
+        lambda: lanes_filter(*vg_args, seg=seg, keep_bounds=True),
+        reps=5, warm=1)
     nb, ops = k3_cost(z, lane_map, count, data_shape, seg, False, 4)
     bms, bby = bound_ms(nb, ops, "float32")
     nb_vg, ops_vg = k3_cost(z[..., :FLEET], lane_map[:FLEET], count,
@@ -871,27 +1017,25 @@ def phase_lanes_kernels():
     bms_vg, bby_vg = bound_ms(nb_vg, ops_vg, "float32")
     times["lanes_filter"] = {
         "shape": f"K*B={LS_TRIALS * FLEET} T={T_STEPS} N={N_SERIES} "
-                 f"n={N_SERIES + N_FACTORS} f32 (line-search trials; plain "
-                 "once, with boundaries)",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                 f"n={N_SERIES + N_FACTORS} f32 (line-search trials)",
+        "ms": ms, "plain_ms": plain_ms,
+        "plain_shape": f"K*B={LS_TRIALS * FLEET} T={T_CMP}, with "
+                       "boundaries, once",
+        "bound_ms": bms, "bound_by": bby,
         "vg_launch": {"shape": f"B={FLEET} with boundaries, seg={seg}",
                       "ms": ms_vg, "bound_ms": bms_vg, "bound_by": bby_vg},
     }
     cot = deviance_cotangents(count, lane_map[:FLEET])
-    adj = (*vg_args, seg, got_vg.bounds_mean, got_vg.bounds_cov, *cot)
-    ms4, got4 = cuda_ms(lambda: lanes_adjoint(*adj), reps=3, warm=1)
-    plain4, want4 = cuda_ms(lambda: lanes_adjoint_plain(*adj), reps=1,
-                            warm=0)
-    compare("lanes_adjoint", f"main path: B={FLEET} T={T_STEPS} "
-            f"N={N_SERIES} seg={seg} f32 (gradient)", dtype, got4, want4,
-            1e-3)
+    adj = (*vg_args, seg, full_vg.bounds_mean, full_vg.bounds_cov, *cot)
+    ms4, _ = cuda_ms(lambda: lanes_adjoint(*adj), reps=3, warm=1)
     nb4, ops4 = k4_cost(z[..., :FLEET], lane_map[:FLEET], count, data_shape,
                         seg, 4)
     bms4, bby4 = bound_ms(nb4, ops4, "float32")
     times["lanes_adjoint"] = {
-        "shape": f"B={FLEET} T={T_STEPS} N={N_SERIES} seg={seg} f32 "
-                 "(plain once)",
-        "ms": ms4, "plain_ms": plain4, "bound_ms": bms4, "bound_by": bby4,
+        "shape": f"B={FLEET} T={T_STEPS} N={N_SERIES} seg={seg} f32",
+        "ms": ms4, "plain_ms": plain4,
+        "plain_shape": f"B={FLEET} T={T_CMP}, once",
+        "bound_ms": bms4, "bound_by": bby4,
     }
     emit({"phase": "lanes_kernels", "checks": [
         {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
@@ -901,23 +1045,221 @@ def phase_lanes_kernels():
     return checks, times
 
 
+def sample_inputs(phi, q, z, r, draws, t, gen):
+    """K7's inputs for ``draws`` lanes per model: the lane constants
+    tiled (lane ``d * B + model``) and standard normals from ``gen``."""
+    import torch
+
+    def rep(a):
+        return a.repeat(*([1] * (a.dim() - 1)), draws)
+
+    phi_l, q_l, z_l, r_l = rep(phi), rep(q), rep(z), rep(r)
+    n, lanes = phi_l.shape
+    new = dict(generator=gen, dtype=phi.dtype, device=phi.device)
+    return (phi_l, q_l, z_l, r_l, torch.randn((lanes, n), **new),
+            torch.randn((lanes, t, n), **new),
+            torch.randn((lanes, t, z.shape[0]), **new))
+
+
+def phase_products_kernels():
+    """K5 (the smoother's backward pass), K6 (the forward filter with
+    per-step outputs) and K7 (the path draw) against their plain versions
+    on the card: small cases in f64 and f32, then the products path's
+    launches at full width in f32 (held against the plain versions over
+    the first T_CMP steps, timed at the full T)."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import (
+        lanes_filter,
+        lanes_forward,
+        lanes_forward_plain,
+        lanes_sample,
+        lanes_sample_plain,
+        lanes_smooth_bwd,
+        lanes_smooth_bwd_plain,
+    )
+    from metran_tpu_torch.ops.lanes_products import _innovations_lanes
+
+    dev = torch.device(DEVICE)
+    checks = []
+
+    def compare(*args):
+        checks.append(check_entry(*args))
+
+    seg, t_small = PRODUCTS["seg"], 250
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        cases = [
+            ("padded series (24 slots, 20 real), a masked series, the "
+             "first step, step 3 and a 20-step stretch masked, T=250 "
+             "seg=100", dict(n_pad=4)),
+            # f32: the cap-pinned factor, as in the K3/K4 checks
+            ("near-unit-root lane (alpha=3e4), the same gaps",
+             dict(unit_root="all" if dtype == torch.float64 else "factor")),
+        ]
+        for label, kw in cases:
+            rng = np.random.default_rng(SEED + 40)
+            *args, _ = lanes_case(rng, 16, t_small, dtype, dev, gaps=True,
+                                  **kw)
+            lanes = args[0].shape[1]
+            fwd = lanes_filter(*args, seg=seg, keep_bounds=True)
+            for want_cov in (True, False):
+                sm = (*args, seg, fwd.bounds_mean, fwd.bounds_cov, want_cov)
+                got = lanes_smooth_bwd(*sm)
+                want = lanes_smooth_bwd_plain(*sm)
+                torch.cuda.synchronize()
+                compare("lanes_smooth_bwd", f"{label}, "
+                        f"{'with' if want_cov else 'without'} covariance",
+                        dtype, got, want, bar)
+            for mode in ("project", "innovations"):
+                got = lanes_forward(*args[:6], mode, args[6])
+                want = lanes_forward_plain(*args[:6], mode, args[6])
+                torch.cuda.synchronize()
+                compare("lanes_forward", f"{label}, {mode}", dtype, got,
+                        want, bar)
+            t_last = torch.as_tensor(
+                np.r_[0, t_small, rng.integers(1, t_small, lanes - 2)],
+                dtype=torch.int32, device=dev)
+            got = lanes_forward(*args[:6], "latch", args[6], t_last)
+            want = lanes_forward_plain(*args[:6], "latch", args[6], t_last)
+            torch.cuda.synchronize()
+            compare("lanes_forward", f"{label}, latch at t_last in [0, T] "
+                    "(0 and T among them)", dtype, got, want, bar)
+            # standardized and masked with warmup > 0: the kernel path on
+            # the card against the plain path on CPU copies
+            got = _innovations_lanes(*args[:6], True, 50)
+            want = _innovations_lanes(*(a.cpu() for a in args[:6]), True, 50)
+            compare("lanes_forward", f"{label}, standardized innovations, "
+                    "warmup=50 (plain on the CPU)", dtype, got,
+                    [w.to(dev) for w in want], bar)
+        rng = np.random.default_rng(SEED + 41)
+        *args, _ = lanes_case(rng, 16, t_small, dtype, dev)
+        phi, q, z, r = args[:4]
+        r = r.clone()
+        r[:, ::2] = 0.1  # the measurement-noise term in every other lane
+        k7 = sample_inputs(phi, q, z, r, 4, t_small,
+                           torch.Generator(dev).manual_seed(SEED + 42))
+        got = lanes_sample(*k7)
+        want = lanes_sample_plain(*k7)
+        torch.cuda.synchronize()
+        compare("lanes_sample", "4 draws x 16 models, T=250, r > 0 in every "
+                "other model", dtype, got, want, bar)
+
+    # the products path's launches at full width, f32
+    dtype = torch.float32
+    times = {}
+    rng = np.random.default_rng(SEED + 43)
+    *args, count = lanes_case(rng, FLEET, T_STEPS, dtype, dev)
+    lane_map, z = args[6], args[2]
+    data_shape = tuple(args[4].shape)
+    cmp_args = short_args(args)
+
+    def main_shape(kernel, key, label, fn, plain, cmp, full, cost,
+                   plain_t=T_CMP):
+        got = fn(*cmp)
+        plain_ms, want = cuda_ms(lambda: plain(*cmp), reps=1, warm=0)
+        compare(kernel, f"main path: {label}, T={plain_t} f32", dtype, got,
+                want, 1e-3)
+        ms, _ = cuda_ms(lambda: fn(*full), reps=3, warm=1)
+        bms, bby = bound_ms(*cost, "float32")
+        times[key] = {"shape": f"{label}, T={T_STEPS} f32", "ms": ms,
+                      "plain_ms": plain_ms,
+                      "plain_shape": f"{label}, T={plain_t}, once",
+                      "bound_ms": bms, "bound_by": bby}
+
+    fwd_cmp = lanes_filter(*cmp_args, seg=seg, keep_bounds=True)
+    fwd_full = lanes_filter(*args, seg=seg, keep_bounds=True)
+    for want_cov, key in ((True, "lanes_smooth_bwd"),
+                          (False, "lanes_smooth_bwd_mean")):
+        main_shape(
+            "lanes_smooth_bwd", key,
+            f"B={FLEET} lanes seg={seg} "
+            f"{'with' if want_cov else 'without'} covariance",
+            lanes_smooth_bwd, lanes_smooth_bwd_plain,
+            (*cmp_args, seg, fwd_cmp.bounds_mean, fwd_cmp.bounds_cov,
+             want_cov),
+            (*args, seg, fwd_full.bounds_mean, fwd_full.bounds_cov, want_cov),
+            k5_cost(z, lane_map, count, data_shape, seg, want_cov, 4))
+    for mode in ("project", "innovations", "latch"):
+        tl_cmp = tl_full = None
+        if mode == "latch":  # every model's data ends at T
+            tl_cmp, tl_full = (torch.full((FLEET,), t, dtype=torch.int32,
+                                          device=dev)
+                               for t in (T_CMP, T_STEPS))
+        main_shape(
+            "lanes_forward",
+            "lanes_forward" if mode == "project" else f"lanes_forward_{mode}",
+            f"B={FLEET} lanes, {mode}", lanes_forward, lanes_forward_plain,
+            (*cmp_args[:6], mode, lane_map, tl_cmp),
+            (*args[:6], mode, lane_map, tl_full),
+            k6_cost(z, lane_map, count, data_shape, mode, tl_full, 4))
+    # the path draw over D*B lanes, and the mean-only smoothing of its
+    # pseudo-observations (the simulation smoother's second pass)
+    draws = PRODUCTS["n_draws"]
+    k7 = sample_inputs(*args[:4], draws, T_STEPS,
+                       torch.Generator(dev).manual_seed(SEED + 44))
+    main_shape("lanes_sample", "lanes_sample",
+               f"{draws}x{FLEET}={draws * FLEET} lanes", lanes_sample,
+               lanes_sample_plain, k7, k7,
+               k7_cost(k7[2], k7[3], T_STEPS, 4), plain_t=T_STEPS)
+    xs, y_star = lanes_sample(*k7)
+    del xs
+    star = (*k7[:4], y_star, args[5].repeat(draws, 1, 1))
+    star_count = star[5].sum(2).T
+    star_map = torch.arange(draws * FLEET, dtype=torch.int32, device=dev)
+    star_cmp = short_args([*star, star_map])
+    fwd_cmp = lanes_filter(*star_cmp, seg=seg, keep_bounds=True)
+    fwd_full = lanes_filter(*star, seg=seg, keep_bounds=True)
+    main_shape(
+        "lanes_smooth_bwd", "lanes_smooth_bwd_sample",
+        f"{draws}x{FLEET}={draws * FLEET} lanes seg={seg} without "
+        "covariance (pseudo-observations)", lanes_smooth_bwd,
+        lanes_smooth_bwd_plain,
+        (*star_cmp, seg, fwd_cmp.bounds_mean, fwd_cmp.bounds_cov, False),
+        (*star, None, seg, fwd_full.bounds_mean, fwd_full.bounds_cov, False),
+        k5_cost(star[2], star_map, star_count, tuple(star[4].shape), seg,
+                False, 4))
+    emit({"phase": "products_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks], "times": times})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+    return checks, times
+
+
+#: the kernel launchers a run times with CUDA events: (module, name)
+TIMED_KERNELS = (
+    ("metran_tpu_torch.kernels.lanes", "lanes_filter_kernel"),
+    ("metran_tpu_torch.kernels.lanes", "lanes_adjoint_kernel"),
+    ("metran_tpu_torch.kernels.lanes_products", "lanes_smooth_bwd_kernel"),
+    ("metran_tpu_torch.kernels.lanes_products", "lanes_forward_kernel"),
+    ("metran_tpu_torch.kernels.lanes_products", "lanes_sample_kernel"),
+    ("metran_tpu_torch.kernels.forecast", "forecast_moments_kernel"),
+)
+
+
 class _KernelTimer:
-    """CUDA events around every K3/K4 launch of a window, and host-clock
-    times of each optimizer dispatch (its working-set width): the fit's
-    device-busy share and its tail dispatches."""
+    """CUDA events around every launch of the lanes kernels and K2 in a
+    window (the device-busy share of the fit and of each product) and,
+    for the fit, host-clock times of each optimizer dispatch (its
+    working-set width)."""
 
     def __init__(self):
         self.events = []
         self.dispatches = []
 
     def __enter__(self):
+        import importlib
+
         import torch
 
-        from metran_tpu_torch.kernels import lanes as kl
         from metran_tpu_torch.parallel import lanes_lbfgs
 
-        self._saved = (kl.lanes_filter_kernel, kl.lanes_adjoint_kernel,
-                       lanes_lbfgs.make_chunk_runner)
+        self._saved = [(importlib.import_module(mod), name)
+                       for mod, name in TIMED_KERNELS]
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in self._saved]
+        self._runner = lanes_lbfgs.make_chunk_runner
 
         def timed(fn):
             def wrapper(*args, **kw):
@@ -930,10 +1272,8 @@ class _KernelTimer:
                 return out
             return wrapper
 
-        make_runner = self._saved[2]
-
         def make_timed_runner(*args, **kw):
-            run = make_runner(*args, **kw)
+            run = self._runner(*args, **kw)
             chunk = args[5]
 
             def run_chunk(state, *data):
@@ -947,23 +1287,24 @@ class _KernelTimer:
                 return out
             return run_chunk
 
-        kl.lanes_filter_kernel = timed(self._saved[0])
-        kl.lanes_adjoint_kernel = timed(self._saved[1])
+        for mod, name, fn in self._saved:
+            setattr(mod, name, timed(fn))
         lanes_lbfgs.make_chunk_runner = make_timed_runner
         return self
 
     def __exit__(self, *exc):
-        from metran_tpu_torch.kernels import lanes as kl
         from metran_tpu_torch.parallel import lanes_lbfgs
 
-        (kl.lanes_filter_kernel, kl.lanes_adjoint_kernel,
-         lanes_lbfgs.make_chunk_runner) = self._saved
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        lanes_lbfgs.make_chunk_runner = self._runner
 
-    def kernel_ms(self):
+    def kernel_ms(self, since=0):
+        """Milliseconds of the launches timed since event ``since``."""
         import torch
 
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events)
+        return sum(s.elapsed_time(e) for s, e in self.events[since:])
 
 
 def phase_fit_path():
@@ -1058,6 +1399,194 @@ def phase_fit_path():
         "improvement_mean": float((dev_start.cpu().numpy() - dev_fit).mean()),
         "cpu_f64_rel_err": float(rel.max()), "cpu_recompute_s": cpu_s,
     })
+    return {"counts": counts, "fleet": fleet, "params": fit.params,
+            "y32": y32, "mask": mask, "lds": lds}
+
+
+PRODUCT_NAMES = ("simulate", "simulate_filtered", "decompose",
+                 "innovations", "forecast", "sample")
+
+
+def cpu_product(name, host, params, normals):
+    """One product of the models in ``host`` (``y``, ``mask``, ``lds``)
+    at ``params``, recomputed in f64 on the CPU with the plain versions;
+    ``normals`` are the card's ``(x0, w, e)`` of the sample's models
+    (model-major).  Runs in a worker process; returns numpy arrays."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    torch.set_num_threads(1)
+    from metran_tpu_torch.data import Panel
+    from metran_tpu_torch.ops.lanes import lanes_statespace
+    from metran_tpu_torch.ops.lanes_products import (
+        _lanes_sample_given,
+        draw_major,
+    )
+    from metran_tpu_torch.parallel import fleet as pf
+
+    names = [f"s{j}" for j in range(N_SERIES)]
+    panels = [Panel(y, m, None, names, np.ones(N_SERIES),
+                    np.zeros(N_SERIES), 1.0)
+              for y, m in zip(host["y"], host["mask"])]
+    fleet = pf.pack_fleet(panels, list(host["lds"]), dtype=torch.float64,
+                          device="cpu")
+    seg = PRODUCTS["seg"]
+    if name == "simulate":
+        out = pf.fleet_simulate(params, fleet, seg=seg)
+    elif name == "simulate_filtered":
+        out = pf.fleet_simulate(params, fleet, smooth=False)
+    elif name == "decompose":
+        out = pf.fleet_decompose(params, fleet, seg=seg)
+    elif name == "innovations":
+        out = pf.fleet_innovations(params, fleet,
+                                   warmup=PRODUCTS["warmup"])
+    elif name == "forecast":
+        out = pf.fleet_forecast(params, fleet, PRODUCTS["steps"])
+    else:  # the sample, through the card's normals
+        k = normals[0].shape[0]
+        phi, q, z, r = lanes_statespace(
+            torch.as_tensor(params[:k]).T,
+            fleet.loadings[:k].permute(1, 2, 0), fleet.dt[:k])
+        x0, w, e = (draw_major(torch.as_tensor(a)) for a in normals)
+        draws = _lanes_sample_given(
+            phi, q, z, r, fleet.y[:k].permute(1, 2, 0),
+            fleet.mask[:k].permute(1, 2, 0), x0.T, w.permute(1, 2, 0),
+            e.permute(1, 2, 0), seg=seg, device="cpu")
+        out = (draws.permute(3, 0, 1, 2),)  # (B, D, T, N)
+    return [o.numpy() for o in out]
+
+
+def phase_products_path(fit):
+    """The port's post-fit products of the fitted flagship fleet on the
+    card, under the JAX bench's product settings, in one dispatch each;
+    CPU_MODELS models recomputed in f64 on the CPU meanwhile (worker
+    processes, one per product)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.diagnostics import fleet_whiteness
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.parallel import (
+        fleet_decompose,
+        fleet_forecast,
+        fleet_innovations,
+        fleet_sample,
+        fleet_simulate,
+    )
+    from metran_tpu_torch.parallel.fleet import fleet_sample_normals
+
+    fleet, params = fit["fleet"], fit["params"]
+    seg, warmup = PRODUCTS["seg"], PRODUCTS["warmup"]
+    n_draws, steps = PRODUCTS["n_draws"], PRODUCTS["steps"]
+    idx = list(range(0, FLEET, FLEET // CPU_MODELS))
+    idx_sample = idx[:2]
+    # the CPU recompute: the card's fitted parameters, the same
+    # f32-rounded observations, the card's normals for the sample
+    normals = [a[idx_sample].double().cpu().numpy()
+               for a in fleet_sample_normals(fleet, n_draws, SEED)]
+    host = {"y": fit["y32"][idx].astype(np.float64),
+            "mask": fit["mask"][idx], "lds": fit["lds"][idx]}
+    p_cpu = params[idx].double().cpu().numpy()
+    runs = {
+        "simulate": lambda: fleet_simulate(params, fleet, seg=seg),
+        "simulate_filtered": lambda: fleet_simulate(params, fleet,
+                                                    smooth=False),
+        "decompose": lambda: fleet_decompose(params, fleet, seg=seg),
+        "innovations": lambda: fleet_innovations(params, fleet,
+                                                 warmup=warmup),
+        "forecast": lambda: fleet_forecast(params, fleet, steps),
+        "sample": lambda: (fleet_sample(params, fleet, n_draws=n_draws,
+                                        seed=SEED, seg=seg),),
+    }
+    t_cpu = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=len(PRODUCT_NAMES),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {name: pool.submit(cpu_product, name, host, p_cpu,
+                                     normals if name == "sample" else None)
+                   for name in PRODUCT_NAMES}
+        out, stats = {}, {}
+        reset_launches()
+        with _KernelTimer() as timer:
+            for name in PRODUCT_NAMES:
+                before = launches()
+                torch.cuda.synchronize()
+                k0 = len(timer.events)
+                t0 = time.perf_counter()
+                out[name] = runs[name]()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                k_ms = timer.kernel_ms(k0)
+                after = launches()
+                stats[name] = {
+                    "wall_ms": wall * 1e3, "kernel_ms": k_ms,
+                    "models_per_s": FLEET / wall,
+                    "device_busy": k_ms / (wall * 1e3),
+                    "launches": {k: after[k] - before[k] for k in after
+                                 if after[k] > before[k]},
+                }
+        counts = launches()
+        t0 = time.perf_counter()
+        white = fleet_whiteness(out["innovations"][0])
+        whiteness_s = time.perf_counter() - t0
+        cpu = {name: f.result() for name, f in futures.items()}
+    cpu_s = time.perf_counter() - t_cpu
+    for kern in ("lanes_filter", "lanes_smooth_bwd", "lanes_forward",
+                 "lanes_sample", "forecast_moments"):
+        require(counts[kern] > 0, f"products path never launched {kern}")
+
+    # what comes out: finite where the JAX products are, variances >= 0,
+    # innovations NaN exactly where masked or before warmup, draws
+    # through every observed entry (r = 0)
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    y, mask = fleet.y, fleet.mask
+    for name in ("simulate", "simulate_filtered", "forecast"):
+        means, variances = out[name]
+        require(finite(means, variances), f"{name}: non-finite output")
+        require(bool((variances >= 0).all()), f"{name}: negative variance")
+    require(finite(*out["decompose"]), "decompose: non-finite output")
+    v, f = out["innovations"]
+    steps_t = torch.arange(y.shape[1], device=y.device)[None, :, None]
+    keep = mask & (steps_t >= warmup)
+    for a in (v, f):
+        require(torch.equal(torch.isfinite(a), keep)
+                and bool(torch.isnan(a[~keep]).all()),
+                "innovations: NaN not exactly at masked/warmup positions")
+    require(bool((f[keep] >= 0).all()), "innovations: negative variance")
+    (draws,) = out["sample"]
+    require(finite(draws), "sample: non-finite draw")
+    obs = mask[:, None].expand_as(draws)
+    through = float((draws - y[:, None])[obs].abs().max())
+    y_scale = float(y[mask].abs().max())
+    require(through <= 1e-3 * y_scale,
+            f"sample: draws miss observed entries by {through}")
+
+    # the card's f32 products against the CPU f64 plain products
+    errs = {}
+    for name in PRODUCT_NAMES:
+        sel = idx_sample if name == "sample" else idx
+        errs[name] = [rel_err(o[sel].cpu(), torch.as_tensor(w))
+                      for o, w in zip(out[name], cpu[name])]
+    require(all(within(e, 1e-3) for e in errs.values()),
+            f"card f32 vs CPU f64: {errs}")
+    emit({
+        "phase": "products_path", "fleet": FLEET, "t_steps": T_STEPS,
+        "settings": PRODUCTS, "products": stats, "launches": counts,
+        "whiteness": {"host_s": whiteness_s,
+                      "white_frac_at_5pct": float(np.nanmean(
+                          white.pvalue >= 0.05)),
+                      "tested": int(np.isfinite(white.pvalue).sum())},
+        "sample_through_observed_max_abs": through,
+        "cpu_models": idx, "cpu_sample_models": idx_sample,
+        "cpu_f64_rel_err": errs, "cpu_recompute_wall_s": cpu_s,
+    })
     return counts
 
 
@@ -1077,6 +1606,18 @@ KERNELS = {
     "lanes_adjoint": {
         "source": "metran_tpu_torch/kernels/csrc/lanes_adjoint.cu",
         "replaces": "metran_tpu/ops/lanes.py:232",
+    },
+    "lanes_smooth_bwd": {
+        "source": "metran_tpu_torch/kernels/csrc/lanes_smooth.cu",
+        "replaces": "metran_tpu/ops/lanes_products.py:126",
+    },
+    "lanes_forward": {
+        "source": "metran_tpu_torch/kernels/csrc/lanes_forward.cu",
+        "replaces": "metran_tpu/ops/lanes_products.py:224",
+    },
+    "lanes_sample": {
+        "source": "metran_tpu_torch/kernels/csrc/lanes_sample.cu",
+        "replaces": "metran_tpu/ops/lanes_products.py:372",
     },
 }
 
@@ -1102,29 +1643,39 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     checks, times = phase_kernels()
-    lanes_checks, lanes_times = phase_lanes_kernels()
-    checks += lanes_checks
-    times.update(lanes_times)
-    counts = phase_main_path()
-    counts.update({k: v for k, v in phase_fit_path().items()
-                   if k.startswith("lanes_")})
+    for phase in (phase_lanes_kernels, phase_products_kernels):
+        more_checks, more_times = phase()
+        checks += more_checks
+        times.update(more_times)
+    paths = {"serve": phase_main_path()}
+    fit = phase_fit_path()
+    paths["fit"] = fit["counts"]
+    paths["products"] = phase_products_path(fit)
 
     summary = []
     for name, meta in KERNELS.items():
         t = times[name]
         f32 = [c["max_abs_err"] for c in checks
                if c["kernel"] == name and c["dtype"] == "float32"]
+        by_path = {path: c[name] for path, c in paths.items() if c[name]}
         entry = {
             "name": name, "route": "cuda", **meta,
-            "launches": counts[name], "max_abs_err": max(f32),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(f32),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": t["shape"],
         }
+        if "plain_shape" in t:
+            entry["plain_shape"] = t["plain_shape"]
         if name == "joint_filter_append":
             entry["history_pass"] = times["joint_filter_append_history"]
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
+        others = {k: v for k, v in times.items()
+                  if k.startswith(name + "_") and k != name}
+        if name != "joint_filter_append" and others:
+            entry["other_launches"] = others
         summary.append(entry)
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -4,11 +4,15 @@
 - :mod:`.forecast` — K2, the closed-form forecast moments;
 - :mod:`.lanes` — K3, the lane-layout sequential filter, and K4, its
   closed-form adjoint;
+- :mod:`.lanes_products` — K5, the lane-layout smoother's backward
+  pass, K6, the forward filter with per-step outputs, and K7, the
+  simulation smoother's path draw;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
 Each wrapper (``joint_filter_append``, ``forecast_moments``,
-``lanes_filter``, ``lanes_adjoint``) launches its kernel (``*_kernel``,
+``lanes_filter``, ``lanes_adjoint``, ``lanes_smooth_bwd``,
+``lanes_forward``, ``lanes_sample``) launches its kernel (``*_kernel``,
 which takes CUDA tensors only and raises if it cannot build or launch)
 on CUDA tensors and runs the plain version (``*_plain``) on CPU
 tensors; there is no fallback between them.  Nothing is built or
@@ -36,6 +40,17 @@ from .lanes import (
     lanes_filter_kernel,
     lanes_filter_plain,
 )
+from .lanes_products import (
+    lanes_forward,
+    lanes_forward_kernel,
+    lanes_forward_plain,
+    lanes_sample,
+    lanes_sample_kernel,
+    lanes_sample_plain,
+    lanes_smooth_bwd,
+    lanes_smooth_bwd_kernel,
+    lanes_smooth_bwd_plain,
+)
 
 __all__ = [
     "LanesFilterResult",
@@ -52,6 +67,15 @@ __all__ = [
     "lanes_filter",
     "lanes_filter_kernel",
     "lanes_filter_plain",
+    "lanes_forward",
+    "lanes_forward_kernel",
+    "lanes_forward_plain",
+    "lanes_sample",
+    "lanes_sample_kernel",
+    "lanes_sample_plain",
+    "lanes_smooth_bwd",
+    "lanes_smooth_bwd_kernel",
+    "lanes_smooth_bwd_plain",
     "launches",
     "reset_launches",
 ]

@@ -43,7 +43,8 @@ build_info: dict = {}
 # ----------------------------------------------------------------------
 _count_lock = threading.Lock()
 LAUNCHES = {"joint_filter_append": 0, "forecast_moments": 0,
-            "lanes_filter": 0, "lanes_adjoint": 0}
+            "lanes_filter": 0, "lanes_adjoint": 0, "lanes_smooth_bwd": 0,
+            "lanes_forward": 0, "lanes_sample": 0}
 
 
 def count_launch(name: str) -> None:
@@ -147,6 +148,16 @@ _SIGNATURES = {
     # scratch, phibar, qbar, L, T, N, n, seg, stream
     "lanes_adjoint": ("metran_lanes_adjoint",
                       [_PTR] * 14 + [_INT] * 5 + [_PTR]),
+    # phi, q, z, r, y, mask, lane_map, bounds_mean, bounds_cov, scratch,
+    # mean_s, proj_mean, proj_var, L, T, N, n, seg, want_cov, stream
+    "lanes_smooth": ("metran_lanes_smooth",
+                     [_PTR] * 13 + [_INT] * 6 + [_PTR]),
+    # phi, q, z, r, y, mask, lane_map, t_last, out0, out1, out2, L, T, N,
+    # n, mode, stream
+    "lanes_forward": ("metran_lanes_forward",
+                      [_PTR] * 11 + [_INT] * 5 + [_PTR]),
+    # phi, q, z, r, x0, w, e, xs, ystar, L, T, N, n, stream
+    "lanes_sample": ("metran_lanes_sample", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
 }
 
 

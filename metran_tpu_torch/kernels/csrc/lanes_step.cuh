@@ -1,8 +1,9 @@
 // One step of the lane-layout sequential filter, for one warp per lane.
 //
-// Shared by K3 (lanes_filter.cu) and K4's segment replay
-// (lanes_adjoint.cu), so the replayed forward is the forward that was
-// run, instruction for instruction.
+// Shared by K3 (lanes_filter.cu), the segment replays of K4
+// (lanes_adjoint.cu) and K5 (lanes_smooth.cu), and K6 (lanes_forward.cu),
+// so a replayed forward is the forward that was run, instruction for
+// instruction.
 //
 // A lane's state lives in its warp's slice of shared memory: P (n x n,
 // row-major), Z (N x n, row i = series i), the mean m and the gain k.
@@ -89,17 +90,15 @@ __device__ __forceinline__ void series_update(T* P, T* m, T* kv, const T* zi,
   f_out = f;
 }
 
-// predict plus the masked updates of one step; adds the step's v^2/f and
-// log f to sig and det.  `res` (or nullptr) is the step's residual block
-// [mean0 (n) | cov0 (n*n) | d (N*n) | f (N) | v (N)]: d, f, v of the
-// observed slots are written (mean0/cov0 are the caller's).
+// the masked updates of one step on the predicted (m, P); the step's
+// v^2/f and log f go to sig and det.  `res` (or nullptr) is the step's
+// residual block [mean0 (n) | cov0 (n*n) | d (N*n) | f (N) | v (N)]: d,
+// f, v of the observed slots are written (mean0/cov0 are the caller's).
 template <typename T>
-__device__ __forceinline__ void filter_step(T* P, T* m, T* kv, const T* Zs,
-                                            const T* ph, const T* qd,
+__device__ __forceinline__ void update_step(T* P, T* m, T* kv, const T* Zs,
                                             const T* rs, const T* ys,
                                             const uint8_t* ms, int N, int n,
                                             int lane, T& sig, T& det, T* res) {
-  predict(P, m, ph, qd, n, lane);
   sig = 0;
   det = 0;
   for (int i = 0; i < N; ++i) {
@@ -115,6 +114,34 @@ __device__ __forceinline__ void filter_step(T* P, T* m, T* kv, const T* Zs,
     det = det + log(f);
   }
   __syncwarp();
+}
+
+// predict plus the masked updates of one step (see update_step)
+template <typename T>
+__device__ __forceinline__ void filter_step(T* P, T* m, T* kv, const T* Zs,
+                                            const T* ph, const T* qd,
+                                            const T* rs, const T* ys,
+                                            const uint8_t* ms, int N, int n,
+                                            int lane, T& sig, T& det, T* res) {
+  predict(P, m, ph, qd, n, lane);
+  update_step(P, m, kv, Zs, rs, ys, ms, N, n, lane, sig, det, res);
+}
+
+// z_i.m and z_i'P z_i of series i (own rows, summed over the warp):
+// the projections diag(Z m) and diag(Z P Z') one slot at a time
+template <typename T>
+__device__ __forceinline__ void project_slot(const T* P, const T* m,
+                                             const T* zi, int n, int lane,
+                                             T& zm, T& zpz) {
+  T pm = 0, pv = 0;
+  for (int a = lane; a < n; a += 32) {
+    T acc = 0;
+    for (int b = 0; b < n; ++b) acc += P[a * n + b] * zi[b];
+    pm += zi[a] * m[a];
+    pv += zi[a] * acc;
+  }
+  zm = warp_sum(pm);
+  zpz = warp_sum(pv);
 }
 
 // a lane's constants into its shared slice: phi, q (n), Z (N x n), r (N)

@@ -68,21 +68,28 @@ class LanesFilterResult(NamedTuple):
 # ----------------------------------------------------------------------
 # shapes and shared memory
 # ----------------------------------------------------------------------
+#: per kernel: (n x n matrices, n-vectors) in one lane's warp slice,
+#: beside Z (N x n), two N-vectors and the step's mask bytes (mirrors
+#: ``lanes::warp_elems`` calls in the sources)
+_WARP_SLICE = {"filter": (1, 4), "adjoint": (2, 9), "smooth": (2, 7),
+               "forward": (1, 4), "sample": (0, 3)}
+
+
 def _warp_elems(kind: str, n_obs: int, n_state: int, itemsize: int) -> int:
-    """Shared-memory values one lane's warp takes (mirrors the sources:
-    K3 holds P, Z and 4 state vectors; K4 also S and 5 more vectors),
+    """Shared-memory values one lane's warp takes (``_WARP_SLICE``),
     rounded up so every warp's slice stays 16-byte aligned."""
     n, big_n = n_state, n_obs
-    mats = n * n if kind == "filter" else 2 * n * n
-    vecs = 4 * n if kind == "filter" else 9 * n
-    elems = mats + big_n * n + vecs + 2 * big_n + -(-big_n // itemsize)
+    mats, vecs = _WARP_SLICE[kind]
+    elems = (mats * n * n + big_n * n + vecs * n + 2 * big_n
+             + -(-big_n // itemsize))
     return -(-elems // 4) * 4
 
 
 def smem_bytes(kind: str, n_obs: int, n_state: int,
                dtype: torch.dtype) -> int:
-    """Dynamic shared memory one block of K3 (``kind="filter"``) or K4
-    (``kind="adjoint"``) needs."""
+    """Dynamic shared memory one block of a lanes kernel needs: K3
+    (``kind="filter"``), K4 (``"adjoint"``), K5 (``"smooth"``), K6
+    (``"forward"``) or K7 (``"sample"``)."""
     item = torch.finfo(dtype).bits // 8
     return WARPS_PER_BLOCK * _warp_elems(kind, n_obs, n_state, item) * item
 
@@ -256,13 +263,16 @@ def _plain_setup(phi, q, z, r, y, mask, lane_map, seg):
         list(obs.unbind(0)), flags)
 
 
-def _filter_step(c: _Plain, phi, mean, cov, t: int, keep_res=False):
-    """Step ``t``: the diagonal predict (``_predict_step``) and the masked
-    sequential updates (``_adj_series_update``).  Returns ``(mean, cov, sigma_t, detf_t,
-    residuals)``, the residuals ``[(slot, flag, d, f_safe, v), ...]`` of
-    the observed slots when ``keep_res``."""
-    m = phi * mean
-    p = c.phi_a * cov * c.phi_b + c.qdiag
+def _predict(c: _Plain, phi, mean, cov):
+    """The diagonal predict (``_predict_step``)."""
+    return phi * mean, c.phi_a * cov * c.phi_b + c.qdiag
+
+
+def _update(c: _Plain, m, p, t: int, keep_res=False):
+    """The masked sequential updates of step ``t`` on the predicted
+    ``(m, p)`` (``_adj_series_update``).  Returns ``(mean, cov, sigma_t,
+    detf_t, residuals)``, the residuals ``[(slot, flag, d, f_safe, v),
+    ...]`` of the observed slots when ``keep_res``."""
     obs_t, y_t = c.obs[t], c.y_rows[t]
     vs, fs, rows, res = [], [], [], []
     for i, flag in enumerate(c.flags[t]):
@@ -294,8 +304,14 @@ def _filter_step(c: _Plain, phi, mean, cov, t: int, keep_res=False):
         sig = torch.where(obs_t[rows], v * v / f, 0.0).sum(0)
         det = torch.log(f).sum(0)  # masked lanes have f_safe = 1
     else:
-        sig = det = torch.zeros_like(mean[0])
+        sig = det = torch.zeros_like(m[0])
     return m, p, sig, det, res
+
+
+def _filter_step(c: _Plain, phi, mean, cov, t: int, keep_res=False):
+    """Step ``t``: :func:`_predict`, then :func:`_update`."""
+    m, p = _predict(c, phi, mean, cov)
+    return _update(c, m, p, t, keep_res)
 
 
 def lanes_filter_plain(phi, q, z, r, y, mask, lane_map=None, seg=None,

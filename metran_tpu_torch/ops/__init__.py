@@ -1,5 +1,6 @@
 """State-space build, the joint and sequential Kalman engines, the
-lane-layout fleet deviance and closed-form forecasts."""
+lane-layout fleet deviance, the lane-layout post-fit products and
+closed-form forecasts."""
 
 from .adjoint import ADJOINT_ENGINES, resolve_grad_engine
 from .forecast import (
@@ -20,6 +21,13 @@ from .lanes import (
     lanes_deviance_terms,
     lanes_dfm_deviance,
     lanes_statespace,
+)
+from .lanes_products import (
+    lanes_filter_project,
+    lanes_forecast,
+    lanes_innovations,
+    lanes_sample,
+    lanes_smooth,
 )
 from .statespace import (
     StateSpace,
@@ -43,6 +51,11 @@ __all__ = [
     "kalman_filter",
     "lanes_deviance_terms",
     "lanes_dfm_deviance",
+    "lanes_filter_project",
+    "lanes_forecast",
+    "lanes_innovations",
+    "lanes_sample",
+    "lanes_smooth",
     "lanes_statespace",
     "log_likelihood",
     "project",

@@ -1,5 +1,7 @@
-"""Fleet fitting: packed fleets, the lane-layout batched L-BFGS and
-``fit_fleet(layout="lanes")``, plus the padding rule."""
+"""Fleet fitting and products: packed fleets, the lane-layout batched
+L-BFGS and ``fit_fleet(layout="lanes")``, the lane-layout post-fit
+products (``fleet_simulate``, ``fleet_decompose``, ``fleet_forecast``,
+``fleet_innovations``, ``fleet_sample``), plus the padding rule."""
 
 from .fleet import (
     Fleet,
@@ -7,7 +9,12 @@ from .fleet import (
     autocorr_init_params,
     default_init_params,
     fit_fleet,
+    fleet_decompose,
     fleet_deviance,
+    fleet_forecast,
+    fleet_innovations,
+    fleet_sample,
+    fleet_simulate,
     fleet_value_and_grad,
     pack_fleet,
 )
@@ -19,7 +26,12 @@ __all__ = [
     "autocorr_init_params",
     "default_init_params",
     "fit_fleet",
+    "fleet_decompose",
     "fleet_deviance",
+    "fleet_forecast",
+    "fleet_innovations",
+    "fleet_sample",
+    "fleet_simulate",
     "fleet_value_and_grad",
     "pack_fleet",
     "pad_to_multiple",

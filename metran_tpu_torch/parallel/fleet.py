@@ -1,4 +1,5 @@
-"""Fleet-scale fitting: many independent Metran DFMs on one card.
+"""Fleet-scale fitting and post-fit products: many independent Metran
+DFMs on one card.
 
 Port of the lane-layout half of ``metran_tpu/parallel/fleet.py``: a
 fleet of DFMs padded to common shapes (:class:`Fleet`, :func:`pack_fleet`)
@@ -7,6 +8,13 @@ deviance (:mod:`metran_tpu_torch.ops.lanes`: kernel K3 for values, K4 for
 gradients).  The optimizer advances in chunks of ``chunk`` iterations;
 between chunks the host reads the frozen flags to stop early and, once
 most lanes are done, compacts the live lanes into a smaller working set.
+
+The products of a fitted fleet (:func:`fleet_simulate`,
+:func:`fleet_decompose`, :func:`fleet_forecast`,
+:func:`fleet_innovations`, :func:`fleet_sample`) run in lane layout
+(:mod:`metran_tpu_torch.ops.lanes_products`: kernels K3, K5, K6, K7 and
+K2) on the fleet's own (B, T, N) data, in ``batch_chunk``-model
+dispatches.
 
 Padding semantics (as the JAX package's): padded timesteps and series
 slots are masked everywhere, padded factors have zero loadings, so none
@@ -29,7 +37,16 @@ import torch
 from ..config import as_tensor, resolve_device
 from ..data import Panel
 from ..ops.adjoint import resolve_grad_engine
-from ..ops.lanes import lanes_deviance, prepare_data
+from ..kernels import lanes_products as kp
+from ..ops.lanes import lanes_deviance, lanes_statespace, prepare_data
+from ..ops.lanes_products import (
+    _forecast_lanes,
+    _innovations_lanes,
+    _sample_lanes,
+    _smooth_lanes,
+    draw_major,
+    sample_normals,
+)
 from . import lanes_lbfgs
 
 logger = getLogger(__name__)
@@ -563,6 +580,204 @@ def fit_fleet(
         compact_min=compact_min, stall_rtol=stall_rtol, score=grad)
 
 
+# ----------------------------------------------------------------------
+# post-fit products (layout="lanes")
+# ----------------------------------------------------------------------
+def _check_products_layout(layout: str, engine: str = "joint") -> None:
+    if layout not in ("lanes", "batch"):
+        raise ValueError(
+            f"unknown layout {layout!r}; expected 'lanes' or 'batch'")
+    if layout == "batch":
+        raise NotImplementedError(
+            "layout='batch' for the fleet products is not ported yet "
+            "(ROADMAP A6/A7: the batch-leading rts_smoother, kernel B5, "
+            "and the batch fleet layout); use layout='lanes'")
+    if engine != "joint":
+        # loud, not silent: the lanes products always use sequential-
+        # processing semantics (same numbers, different layout), so an
+        # explicitly requested engine would otherwise be a no-op
+        logger.warning(
+            "engine=%r is ignored with layout='lanes' (lane products "
+            "use sequential-processing semantics; the batch layout that "
+            "honors the engine is not ported yet)", engine,
+        )
+
+
+def _lanes_ss_chunk(p, loadings, dt):
+    """Lane-layout state space of a batch-leading chunk: ``p`` (B, N+K),
+    ``loadings`` (B, N, K), ``dt`` (B,)."""
+    return lanes_statespace(p.T, loadings.permute(1, 2, 0), dt)
+
+
+def _run_chunked(run, params, fleet: Fleet, batch_chunk, extras=(),
+                 device=None):
+    """Host-driven loop of fixed-shape dispatches over the fleet axis;
+    outputs are concatenated on the device and trimmed to the true
+    batch.  A short tail chunk is padded with edge-replicated models (a
+    real model: zero dt/params would put NaNs through the padded lanes).
+    ``extras`` are (B, ...) tensors passed to ``run`` after the fleet's
+    ``(params, y, mask, loadings, dt)``."""
+    fleet = _on_device(fleet, device)
+    dtype = fleet.y.dtype
+    params = as_tensor(params, fleet.y.device, dtype)
+    arrays = (params, fleet.y, fleet.mask.to(torch.bool),
+              fleet.loadings.to(dtype), fleet.dt.to(dtype), *extras)
+    b = fleet.batch
+    chunk = b if batch_chunk is None else min(max(int(batch_chunk), 1), b)
+
+    def sliced(a, i):
+        part = a[i:i + chunk]
+        pad = chunk - part.shape[0]
+        if pad:
+            part = torch.cat([part, part[-1:].expand(pad, *part.shape[1:])])
+        return part.contiguous()
+
+    outs = [run(*(sliced(a, i) for a in arrays)) for i in range(0, b, chunk)]
+    return tuple(torch.cat([o[j] for o in outs])[:b]
+                 for j in range(len(outs[0])))
+
+
+def fleet_simulate(params, fleet: Fleet, engine: str = "joint",
+                   smooth: bool = True, batch_chunk: Optional[int] = None,
+                   layout: str = "lanes", seg: int = 100, device=None):
+    """Observation-space projections for every fleet member: ``(means,
+    variances)`` of shape (B, T, N), per-timestep ``Z x_t`` and
+    ``diag(Z P_t Z')`` of the smoothed (``smooth``) or filtered states,
+    in standardized units (reference ``simulate``,
+    ``metran/kalmanfilter.py:569-603``).
+
+    The smoother is the Durbin-Koopman univariate backward recursion (K3
+    with ``seg``-step segment boundaries, then K5), the filtered path K6.
+    ``engine`` is ignored (sequential-processing semantics, like the
+    fit).  The fleet runs in ``batch_chunk``-model dispatches (default:
+    one); padded series slots and models give inert zero-mean
+    projections.
+    """
+    _check_products_layout(layout, engine)
+
+    def run(p, y, mask, loadings, dt):
+        phi, q, z, r = _lanes_ss_chunk(p, loadings, dt)
+        if smooth:
+            _, pm, pv = _smooth_lanes(phi, q, z, r, y, mask, seg, True)
+        else:
+            _, pm, pv = kp.lanes_forward(phi, q, z, r, y, mask, "project")
+        return pm, pv
+
+    return _run_chunked(run, params, fleet, batch_chunk, device=device)
+
+
+def fleet_decompose(params, fleet: Fleet, engine: str = "joint",
+                    smooth: bool = True, batch_chunk: Optional[int] = None,
+                    layout: str = "lanes", seg: int = 100, device=None):
+    """Per-member decomposition into the specific part ``Z[:, :N]
+    x[:N]`` (B, T, N) and the per-factor parts (B, K, T, N) of the
+    smoothed (or filtered) states (reference ``decompose``,
+    ``metran/kalmanfilter.py:605-644``).  Chunking and ``layout`` as in
+    :func:`fleet_simulate`; the smoother runs mean-only (K5 without the
+    N recursion)."""
+    _check_products_layout(layout, engine)
+
+    def run(p, y, mask, loadings, dt):
+        phi, q, z, r = _lanes_ss_chunk(p, loadings, dt)
+        if smooth:
+            ms, _, _ = _smooth_lanes(phi, q, z, r, y, mask, seg, False)
+        else:
+            ms, _, _ = kp.lanes_forward(phi, q, z, r, y, mask, "project")
+        n = y.shape[2]
+        # z = [I | loadings]: the specific block of the projection is the
+        # first n smoothed states themselves
+        cdf = (loadings.permute(0, 2, 1)[:, :, None, :]
+               * ms[:, :, n:].permute(0, 2, 1)[:, :, :, None])
+        return ms[:, :, :n], cdf
+
+    return _run_chunked(run, params, fleet, batch_chunk, device=device)
+
+
+def fleet_forecast(params, fleet: Fleet, steps: int, engine: str = "joint",
+                   batch_chunk: Optional[int] = None, layout: str = "lanes",
+                   device=None):
+    """Out-of-sample forecasts ``(means, variances)`` of shape
+    (B, steps, N) for every fleet member, each from ITS OWN data end
+    (``fleet.t_steps``): K6 latches the filtered moments there, K2 gives
+    the closed-form h-step moments.  Chunking and ``layout`` as in
+    :func:`fleet_simulate`."""
+    _check_products_layout(layout, engine)
+    fleet = _on_device(fleet, device)
+    t_last = (torch.full((fleet.batch,), fleet.y.shape[1], dtype=torch.int32,
+                         device=fleet.y.device)
+              if fleet.t_steps is None else fleet.t_steps.to(torch.int32))
+
+    def run(p, y, mask, loadings, dt, tl):
+        phi, q, z, r = _lanes_ss_chunk(p, loadings, dt)
+        return _forecast_lanes(phi, q, z, r, y, mask, tl, int(steps))
+
+    return _run_chunked(run, params, fleet, batch_chunk, extras=(t_last,))
+
+
+def fleet_innovations(params, fleet: Fleet, standardized: bool = True,
+                      engine: str = "joint",
+                      batch_chunk: Optional[int] = None,
+                      layout: str = "lanes", warmup: int = 0, device=None):
+    """One-step-ahead joint innovations ``(v, f)`` of shape (B, T, N)
+    for every fleet member (K6), NaN at masked/padded positions and
+    before ``warmup`` (pass e.g. 50 before
+    :func:`metran_tpu_torch.diagnostics.fleet_whiteness`).  Chunking
+    and ``layout`` as in :func:`fleet_simulate`."""
+    _check_products_layout(layout, engine)
+
+    def run(p, y, mask, loadings, dt):
+        phi, q, z, r = _lanes_ss_chunk(p, loadings, dt)
+        return _innovations_lanes(phi, q, z, r, y, mask, bool(standardized),
+                                  int(warmup))
+
+    return _run_chunked(run, params, fleet, batch_chunk, device=device)
+
+
+def fleet_sample_normals(fleet: Fleet, n_draws: int, seed: int,
+                         device=None):
+    """The standard normals ``fleet_sample(n_draws, seed)`` draws: ``x0``
+    (B, D, n), ``w`` (B, D, T, n), ``e`` (B, D, T, N), every model's from
+    one ``torch.Generator`` seeded ``seed`` on the fleet's device, in one
+    model-major order over the whole fleet, before any chunking."""
+    fleet = _on_device(fleet, device)
+    dev = fleet.y.device
+    b, t_steps, n_obs = fleet.y.shape
+    gen = torch.Generator(dev).manual_seed(int(seed))
+    return sample_normals(int(n_draws), b, t_steps, fleet.n_params, n_obs,
+                          gen, fleet.y.dtype, dev)
+
+
+def fleet_sample(params, fleet: Fleet, n_draws: int = 16, seed: int = 0,
+                 engine: str = "joint", batch_chunk: Optional[int] = None,
+                 draw_chunk: int = 8, project: bool = True,
+                 layout: str = "lanes", seg: int = 100, device=None):
+    """Joint posterior path draws for every fleet member: (B, n_draws,
+    T, N) observation-space draws when ``project`` (each passing exactly
+    through its member's observed entries, r = 0) or (B, n_draws, T,
+    n_state) state draws.  Durbin-Koopman simulation smoother with one
+    lane per (member, draw): a mean-only smoothing of the data, the path
+    draw K7, a mean-only smoothing of its pseudo-observations.
+
+    The normals come from :func:`fleet_sample_normals`, so each member's
+    draws depend on ``seed`` and its index, not on ``batch_chunk``;
+    draw-for-draw equality with the JAX package's RNG is not a contract,
+    the distribution is.  ``draw_chunk`` is unused (all draws ride the
+    lanes).  Padded members/slots give prior draws."""
+    _check_products_layout(layout, engine)
+    fleet = _on_device(fleet, device)
+    normals = fleet_sample_normals(fleet, n_draws, seed)
+
+    def run(p, y, mask, loadings, dt, x0, w, e):
+        phi, q, z, r = _lanes_ss_chunk(p, loadings, dt)
+        draws = _sample_lanes(phi, q, z, r, y, mask, draw_major(x0),
+                              draw_major(w), draw_major(e), seg,
+                              bool(project))  # (D, B, T, .)
+        return (draws.transpose(0, 1),)
+
+    (draws,) = _run_chunked(run, params, fleet, batch_chunk, extras=normals)
+    return draws
+
+
 __all__ = [
     "ALPHA_MAX",
     "Fleet",
@@ -570,7 +785,13 @@ __all__ = [
     "autocorr_init_params",
     "default_init_params",
     "fit_fleet",
+    "fleet_decompose",
     "fleet_deviance",
+    "fleet_forecast",
+    "fleet_innovations",
+    "fleet_sample",
+    "fleet_sample_normals",
+    "fleet_simulate",
     "fleet_value_and_grad",
     "pack_fleet",
 ]

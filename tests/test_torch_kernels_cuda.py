@@ -116,3 +116,49 @@ def test_lanes_filter_and_adjoint_kernels_match_plain(card, dtype, bar):
     torch.cuda.synchronize()
     for g_, w in zip(got, want):
         assert _rel(g_, w) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_lanes_smooth_kernel_matches_plain(card, dtype, bar):
+    args = _lanes_inputs(card, dtype)
+    fwd = kernels.lanes_filter(*args, seg=32, keep_bounds=True)
+    for want_cov in (True, False):
+        sm = (*args, 32, fwd.bounds_mean, fwd.bounds_cov, want_cov)
+        got = kernels.lanes_smooth_bwd(*sm)
+        want = kernels.lanes_smooth_bwd_plain(*sm)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert _rel(g, w) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_lanes_forward_kernel_matches_plain(card, dtype, bar):
+    args = _lanes_inputs(card, dtype)
+    lanes = args[0].shape[1]
+    t_last = torch.arange(lanes, dtype=torch.int32, device=card) * 5
+    for mode in ("project", "innovations", "latch"):
+        got = kernels.lanes_forward(*args[:6], mode, args[6], t_last)
+        want = kernels.lanes_forward_plain(*args[:6], mode, args[6], t_last)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert _rel(g, w) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_lanes_sample_kernel_matches_plain(card, dtype, bar):
+    phi, q, z, r = _lanes_inputs(card, dtype)[:4]
+    r = r.clone()
+    r[:, ::2] = 0.1
+    lanes, n, t = phi.shape[1], phi.shape[0], 70
+    g = torch.Generator(device=card).manual_seed(3)
+    normals = [torch.randn(shape, generator=g, device=card, dtype=dtype)
+               for shape in ((lanes, n), (lanes, t, n),
+                             (lanes, t, z.shape[0]))]
+    got = kernels.lanes_sample(phi, q, z, r, *normals)
+    want = kernels.lanes_sample_plain(phi, q, z, r, *normals)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        assert _rel(g_, w) <= bar

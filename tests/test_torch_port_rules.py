@@ -5,7 +5,8 @@
 - entry points default to the CUDA card and raise without one instead
   of running on the CPU quietly;
 - the CUDA kernel launchers take CUDA tensors only, and the dispatching
-  wrappers never count a launch for the plain CPU path;
+  wrappers never count a launch for the plain CPU path (the products'
+  K5/K6/K7 included);
 - the score that needs a plain version (``score="autodiff"``) refuses
   CUDA tensors, so no plain version runs on the card's path.
 """
@@ -28,12 +29,18 @@ from metran_tpu_torch.ops import (
     kalman_filter,
     lanes_dfm_deviance,
 )
+from metran_tpu_torch.ops import lanes_products as products
 from metran_tpu_torch.ops.lanes import LanesData, lanes_terms
 from metran_tpu_torch.ops.statespace import StateSpace, dfm_statespace
 from metran_tpu_torch.parallel import (
     Fleet,
     fit_fleet,
+    fleet_decompose,
     fleet_deviance,
+    fleet_forecast,
+    fleet_innovations,
+    fleet_sample,
+    fleet_simulate,
     fleet_value_and_grad,
     pack_fleet,
 )
@@ -132,6 +139,21 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         fit_fleet(fleet, layout="lanes", maxiter=1)
     with pytest.raises(RuntimeError, match="CUDA device required"):
         pack_fleet([], [])
+    # the products slice: numpy fleets and lane inputs go to the card too
+    params = np.full((1, 4), 10.0)
+    for fn in (fleet_simulate, fleet_decompose, fleet_innovations,
+               fleet_sample, lambda p, f: fleet_forecast(p, f, 3)):
+        with pytest.raises(RuntimeError, match="CUDA device required"):
+            fn(params, fleet)
+    lane_inputs = (np.full((4, 1), 0.9), np.full((4, 1), 0.1),
+                   np.concatenate([np.eye(3), np.asarray(lds)], 1)[:, :, None],
+                   np.zeros((3, 1)), y_l, m_l)
+    for fn in (products.lanes_smooth, products.lanes_filter_project,
+               products.lanes_innovations, products.lanes_sample,
+               lambda *a: products.lanes_forecast(*a, np.ones(1, np.int32),
+                                                  2)):
+        with pytest.raises(RuntimeError, match="CUDA device required"):
+            fn(*lane_inputs)
     # asked for explicitly, the CPU runs (the plain versions)
     out = filter_append(ss_np, np.zeros(4), np.eye(4), y, mask,
                         device="cpu")
@@ -168,6 +190,14 @@ def _k3_args(dtype=torch.float64, lanes=3, t=7, n_obs=2, n=3):
     ]
 
 
+def _k7_args(dtype=torch.float64, lanes=3, t=7, n_obs=2, n=3):
+    phi, q, z, r = _k3_args(dtype, lanes, t, n_obs, n)[:4]
+    g = torch.Generator().manual_seed(2)
+    return [phi, q, z, r, torch.randn(lanes, n, generator=g, dtype=dtype),
+            torch.randn(lanes, t, n, generator=g, dtype=dtype),
+            torch.randn(lanes, t, n_obs, generator=g, dtype=dtype)]
+
+
 def test_kernel_launchers_raise_on_cpu_tensors():
     args = _k1_args()
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -184,6 +214,15 @@ def test_kernel_launchers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.lanes_adjoint_kernel(*k3, None, 4, res.bounds_mean,
                                      res.bounds_cov, cot, cot)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.lanes_smooth_bwd_kernel(*k3, None, 4, res.bounds_mean,
+                                        res.bounds_cov, True)
+    for mode in ("project", "innovations", "latch"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.lanes_forward_kernel(
+                *k3, mode, None, torch.full((3,), 7, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.lanes_sample_kernel(*_k7_args())
 
 
 def test_autodiff_score_refuses_the_card(monkeypatch):
@@ -225,9 +264,17 @@ def test_plain_path_counts_no_launch_and_counters_reset():
     res = kernels.lanes_filter(*k3, seg=4, keep_bounds=True)
     kernels.lanes_adjoint(*k3, None, 4, res.bounds_mean, res.bounds_cov,
                           torch.ones_like(res.sigma), res.detf)
+    kernels.lanes_smooth_bwd(*k3, None, 4, res.bounds_mean, res.bounds_cov,
+                             True)
+    for mode in ("project", "innovations", "latch"):
+        kernels.lanes_forward(*k3, mode, None,
+                              torch.full((3,), 5, dtype=torch.int32))
+    kernels.lanes_sample(*_k7_args())
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "forecast_moments": 0,
-                                  "lanes_filter": 0, "lanes_adjoint": 0}
+                                  "lanes_filter": 0, "lanes_adjoint": 0,
+                                  "lanes_smooth_bwd": 0, "lanes_forward": 0,
+                                  "lanes_sample": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -248,7 +295,8 @@ def test_library_name_follows_the_sources():
         assert path.name.startswith(f"lib{src.stem}-")
     assert {p.name for p in build.sources()} == {
         "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
-        "lanes_adjoint.cu"}
+        "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
+        "lanes_sample.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 

@@ -15,9 +15,13 @@ non-zero):
    f64 and f32 (bars: normwise relative error 1e-9 and 1e-3,
    NaN-strict), then at the main paths' shapes in f32, where the kernels
    are also timed (CUDA events) beside their bounds: K1/K2 (serving),
-   K3/K4 (fit), K5/K6/K7 (products); the lanes kernels are held against
-   their plain versions (a Python loop over steps and slots) at full
-   width over the first ``T_CMP`` = 1,000 steps and timed at the full T;
+   K3/K4 (fit), K5/K6/K7 (products), K6's ``store`` mode and K8 (the
+   single model's stored filter and RTS smoother: one lane, 16 lanes of
+   path draws, and a step whose predicted covariance is made indefinite,
+   which K8 must degrade to its filtered moments); the lanes kernels are
+   held against their plain versions (a Python loop over steps and
+   slots) at full width over the first ``T_CMP`` = 1,000 steps and timed
+   at the full T;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -30,7 +34,10 @@ non-zero):
    ``tol=0.05``, ``stall_tol=1e-3``, 4 line-search trials,
    ``maxiter=60``, ``chunk=8``); the launch counters must show K3 and K4,
    every lane must end finite and no worse than it started, and 8 lanes
-   are recomputed in f64 on the CPU with the plain versions;
+   are recomputed in f64 on the CPU with the plain versions; then
+   ``fleet_stderr(method="lanes-fd")`` of the 512 fitted models (B * 2P
+   = 21,504 lanes over one data copy through the lane map), 4 of them
+   recomputed in f64 in a worker process (checked after phase 7);
 6. products path — the post-fit products of the fitted fleet under the
    JAX bench's product settings (``fleet_simulate`` smoothed and
    filtered, ``fleet_decompose``, ``fleet_innovations(warmup=50)`` and
@@ -41,7 +48,19 @@ non-zero):
    variances non-negative and draws through every observed entry; 4
    models (2 for the sample, with the card's normals) are recomputed in
    f64 on the CPU with the plain versions, in worker processes while the
-   card runs.
+   card runs;
+7. Metran path — the single-model API, ``Metran(series)`` on the card:
+   the example (5 series, 6,255 days) in f64 (``METRAN_TPU_X64=1``)
+   solved by the card's default ``LanesSolve`` and held to the golden
+   fit (``obj_func`` rel 1e-5, ``optimal`` rtol 1e-3, finite stderr),
+   the golden rows and the masked 1997-08-28 value; the example in f32
+   (the deviance within rtol 1e-3 of the golden); one flagship model
+   (20 series, 5,000 days, 30% missing) in f32; each with its products
+   (states, simulations, decomposition, innovations and whiteness, a
+   14-step forecast, 16 path draws, the serving state) timed, and those
+   of the two f32 models held to CPU f64 recomputes at the card's fitted
+   tables (worker processes, ≤ 1e-3; the deviance ≤ 1e-4); the launch
+   counters must show K3, K4, K6, K7, K8 and K2.
 
 The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
@@ -52,11 +71,13 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -404,7 +425,7 @@ def k6_cost(z, lane_map, count, data_shape, mode, t_last, itemsize):
     (:func:`_filter_ops`) over the steps each lane runs (for ``latch``
     only those before its ``t_last``) and per step the mode's
     projections (:func:`_proj_ops`; the innovations also ``y - Z m_p``
-    and ``+ r``)."""
+    and ``+ r``; ``store`` copies, no operations)."""
     lanes, n, big_n, k, t_steps, _, obs = _lanes_shape(z, lane_map, count, 1)
     if mode == "latch":
         import torch
@@ -421,12 +442,14 @@ def k6_cost(z, lane_map, count, data_shape, mode, t_last, itemsize):
         ops = (_filter_ops(n, k, lanes, 0, obs)
                + steps * (n + half + n))  # the predicts actually run
         return nbytes, ops
-    outs = (n + 2 * big_n) if mode == "project" else 2 * big_n
+    outs = {"project": n + 2 * big_n, "innovations": 2 * big_n,
+            "store": 2 * n + 2 * n * n + 2}[mode]
     nbytes = (_lanes_bytes(lanes, n, big_n, data_shape[0] * t_steps,
                            itemsize)
               + lanes * t_steps * outs * itemsize)
-    per_step = _proj_ops(big_n, k) + (2 * big_n if mode == "innovations"
-                                      else 0)
+    per_step = {"project": _proj_ops(big_n, k),
+                "innovations": _proj_ops(big_n, k) + 2 * big_n,
+                "store": 0}[mode]
     return nbytes, (_filter_ops(n, k, lanes, t_steps, obs)
                     + lanes * t_steps * per_step)
 
@@ -445,6 +468,27 @@ def k7_cost(z, r, t_steps, itemsize):
     noisy = float((r > 0).sum())
     ops = (2 * n * lanes + lanes * t_steps * (3 * n + big_n * (2 * k + 1))
            + noisy * (2 + 2 * t_steps))
+    return nbytes, ops
+
+
+def k8_cost(cov_p, want_cov, itemsize):
+    """Bytes the K8 call must move (phi, and the stored m_f, P_f, m_p,
+    P_p read once; m_s and, with ``want_cov``, C_s written once) and the
+    least operations this run's data needs: per step below T - 1 the
+    Cholesky of P_p (n^3/3); where it succeeds (counted on these inputs
+    with ``torch.linalg.cholesky_ex``), G = P_f diag(phi) P_p^-1 by two
+    triangular solves per row (2 n^3), G (m_s' - m_p) (2 n^2),
+    C_s' - P_p (n^2), G D (2 n^3), (G D) G' on its upper half (n^3) and
+    + P_f (n^2)."""
+    import torch
+
+    lanes, t_steps, n = cov_p.shape[:3]
+    steps = lanes * max(t_steps - 1, 0)
+    ok = float((torch.linalg.cholesky_ex(cov_p[:, 1:])[1] == 0).sum())
+    nbytes = (lanes * n + 2 * lanes * t_steps * (n + n * n)
+              + lanes * t_steps * (n + (n * n if want_cov else 0))
+              ) * itemsize
+    ops = steps * n**3 / 3 + ok * (5 * n**3 + 5 * n * n)
     return nbytes, ops
 
 
@@ -1227,6 +1271,104 @@ def phase_products_kernels():
     return checks, times
 
 
+def phase_single_kernels():
+    """K6 in its ``store`` mode and K8 (the RTS smoother) against their
+    plain versions on the card, f64 and f32, over T_CMP steps at the
+    flagship widths (n=21): one lane, 16 lanes (a draw chunk, K8 with and
+    without the covariance) and one lane whose predicted covariance is
+    made indefinite at one step (K8 must degrade that step to its
+    filtered moments); then both timed at the full T in f32, one lane
+    (the single model's filter and smoother) and 16 lanes (a chunk of
+    path draws, K8 mean-only)."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import lanes_forward, lanes_forward_plain
+    from metran_tpu_torch.kernels.smoother import (
+        rts_smooth,
+        rts_smooth_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    checks = []
+
+    def compare(*args):
+        checks.append(check_entry(*args))
+
+    bad = T_CMP // 2  # the step whose P_p is made indefinite
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        for label, lanes, degrade in (
+                ("one lane", 1, False), ("16 lanes (a draw chunk)", 16, False),
+                (f"one lane, P_p indefinite at step {bad}", 1, True)):
+            rng = np.random.default_rng(SEED + 50)
+            *args, _ = lanes_case(rng, lanes, T_CMP, dtype, dev)
+            got = lanes_forward(*args[:6], "store", args[6])
+            want = lanes_forward_plain(*args[:6], "store", args[6])
+            torch.cuda.synchronize()
+            compare("lanes_forward", f"{label}, store, n=21 T={T_CMP}",
+                    dtype, got, want, bar)
+            mean_p, cov_p, mean_f, cov_f = want[:4]
+            if degrade:
+                cov_p = cov_p.clone()
+                cov_p[:, bad] -= 10.0 * torch.eye(cov_p.shape[-1],
+                                                  dtype=dtype, device=dev)
+            sm = (args[0].T.contiguous(), mean_f, cov_f, mean_p, cov_p)
+            for want_cov in (True, False) if lanes > 1 else (True,):
+                got = rts_smooth(*sm, want_cov=want_cov)
+                ref = rts_smooth_plain(*sm, want_cov=want_cov)
+                torch.cuda.synchronize()
+                compare("rts_smooth", f"{label}, n=21 T={T_CMP}, "
+                        f"{'with' if want_cov else 'without'} covariance",
+                        dtype, got, ref, bar)
+            if degrade:
+                require(torch.equal(got[0][:, bad - 1], mean_f[:, bad - 1])
+                        and torch.equal(got[1][:, bad - 1],
+                                        cov_f[:, bad - 1]),
+                        "K8 did not degrade the step to its filtered "
+                        "moments")
+
+    dtype = torch.float32
+    times = {}
+    rng = np.random.default_rng(SEED + 51)
+    for lanes, key, want_cov in ((1, "", True), (16, "_draw_chunk", False)):
+        *args, count = lanes_case(rng, lanes, T_STEPS, dtype, dev)
+        cmp = short_args(args)
+        phi_l = args[0].T.contiguous()
+        plain6, st_cmp = cuda_ms(
+            lambda: lanes_forward_plain(*cmp[:6], "store", cmp[6]), reps=1,
+            warm=0)
+        ms6, st = cuda_ms(lambda: lanes_forward(*args[:6], "store", args[6]),
+                          reps=5, warm=1)
+        bms6, bby6 = bound_ms(*k6_cost(args[2], args[6], count,
+                                       tuple(args[4].shape), "store", None,
+                                       4), "float32")
+        label = f"{lanes} lane{'s' if lanes > 1 else ''}, n=21 T={T_STEPS} f32"
+        times[f"lanes_forward_store{key}"] = {
+            "shape": f"{label}, store", "ms": ms6, "plain_ms": plain6,
+            "plain_shape": f"{lanes} lanes, T={T_CMP}, once",
+            "bound_ms": bms6, "bound_by": bby6}
+        plain8, _ = cuda_ms(
+            lambda: rts_smooth_plain(phi_l, st_cmp[2], st_cmp[3], st_cmp[0],
+                                     st_cmp[1], want_cov=want_cov),
+            reps=1, warm=0)
+        ms8, _ = cuda_ms(
+            lambda: rts_smooth(phi_l, st[2], st[3], st[0], st[1],
+                               want_cov=want_cov), reps=5, warm=1)
+        bms8, bby8 = bound_ms(*k8_cost(st[1], want_cov, 4), "float32")
+        times[f"rts_smooth{key}"] = {
+            "shape": f"{label}, {'with' if want_cov else 'without'} "
+                     "covariance", "ms": ms8, "plain_ms": plain8,
+            "plain_shape": f"{lanes} lanes, T={T_CMP}, once",
+            "bound_ms": bms8, "bound_by": bby8}
+    emit({"phase": "single_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks], "times": times})
+    bad_checks = [c for c in checks if not c["ok"]]
+    require(not bad_checks,
+            f"kernel disagrees with its plain version: {bad_checks}")
+    return checks, times
+
+
 #: the kernel launchers a run times with CUDA events: (module, name)
 TIMED_KERNELS = (
     ("metran_tpu_torch.kernels.lanes", "lanes_filter_kernel"),
@@ -1235,12 +1377,13 @@ TIMED_KERNELS = (
     ("metran_tpu_torch.kernels.lanes_products", "lanes_forward_kernel"),
     ("metran_tpu_torch.kernels.lanes_products", "lanes_sample_kernel"),
     ("metran_tpu_torch.kernels.forecast", "forecast_moments_kernel"),
+    ("metran_tpu_torch.kernels.smoother", "rts_smooth_kernel"),
 )
 
 
 class _KernelTimer:
-    """CUDA events around every launch of the lanes kernels and K2 in a
-    window (the device-busy share of the fit and of each product) and,
+    """CUDA events around every launch of the lanes kernels, K2 and K8 in
+    a window (the device-busy share of a fit and of each product) and,
     for the fit, host-clock times of each optimizer dispatch (its
     working-set width)."""
 
@@ -1307,8 +1450,37 @@ class _KernelTimer:
         return sum(s.elapsed_time(e) for s, e in self.events[since:])
 
 
-def phase_fit_path():
-    """The port's fleet fit at full width on the card."""
+def cpu_stderr(host, params):
+    """The lanes-fd standard errors of the models in ``host`` (``y``,
+    ``mask``, ``lds``) at ``params``, recomputed in f64 on the CPU with
+    the plain versions.  Runs in a worker process; returns numpy
+    ``(stderr, pcov)``."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    torch.set_num_threads(1)
+    from metran_tpu_torch.data import Panel
+    from metran_tpu_torch.parallel import fleet as pf
+
+    names = [f"s{j}" for j in range(N_SERIES)]
+    panels = [Panel(y, m, None, names, np.ones(N_SERIES),
+                    np.zeros(N_SERIES), 1.0)
+              for y, m in zip(host["y"], host["mask"])]
+    fleet = pf.pack_fleet(panels, list(host["lds"]), dtype=torch.float64,
+                          device="cpu")
+    stderr, pcov = pf.fleet_stderr(params, fleet, method="lanes-fd",
+                                   remat_seg=FIT["remat_seg"])
+    return stderr.numpy(), pcov.numpy()
+
+
+def phase_fit_path(pool):
+    """The port's fleet fit at full width on the card, then the lanes-fd
+    standard errors of the fitted fleet (B * 2P lanes over one copy of
+    the data); CPU_MODELS models' standard errors are recomputed in f64
+    in a worker process of ``pool`` (checked by :func:`check_stderr`
+    once phases 6 and 7 have run)."""
     import numpy as np
     import torch
 
@@ -1318,6 +1490,7 @@ def phase_fit_path():
         autocorr_init_params,
         fit_fleet,
         fleet_deviance,
+        fleet_stderr,
         pack_fleet,
     )
     from metran_tpu_torch.parallel.fleet import (
@@ -1382,6 +1555,39 @@ def phase_fit_path():
     rel = np.abs(dev_fit[idx] - dev_cpu) / np.abs(dev_cpu)
     require(within(rel.tolist(), 1e-4), f"card f32 vs CPU f64: {rel}")
 
+    # the standard errors: 2P central-difference lanes per model reading
+    # the model's one copy of the data through the lane map; the CPU
+    # recompute runs as two jobs of half the models each (the plain
+    # adjoint's Python loop costs the same for any number of lanes)
+    idx_se = list(range(0, FLEET, FLEET // CPU_MODELS))
+    se_futures = [
+        pool.submit(cpu_stderr, {"y": y32[part].astype(np.float64),
+                                 "mask": mask[part], "lds": lds[part]},
+                    params[part].astype(np.float64))
+        for part in (idx_se[::2], idx_se[1::2])]
+    fit_counts = counts
+    with _KernelTimer() as se_timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stderr, _ = fleet_stderr(fit.params, fleet, method="lanes-fd",
+                                 remat_seg=FIT["remat_seg"])
+        torch.cuda.synchronize()
+        se_wall = time.perf_counter() - t0
+        se_kernel_ms = se_timer.kernel_ms()
+    counts = launches()
+    se = stderr.cpu().numpy()
+    require(se.shape == params.shape, f"stderr shape {se.shape}")
+    se_stats = {
+        "lanes": FLEET * 2 * params.shape[1], "data_lanes": FLEET,
+        "wall_s": se_wall, "kernel_ms": se_kernel_ms,
+        "kernel_busy_share": se_kernel_ms / 1e3 / se_wall,
+        "launches": {k: counts[k] - fit_counts[k] for k in counts
+                     if counts[k] > fit_counts[k]},
+        "nan_stderr": int(np.isnan(se).sum()),
+        "models_with_nan": int(np.isnan(se).any(axis=1).sum()),
+        "nan_at_interior_alpha": int(np.isnan(se[params < 1e3]).sum()),
+    }
+
     tails = [d for d in timer.dispatches if d["lanes"] < FLEET]
     emit({
         "phase": "fit_path", "fleet": FLEET, "t_steps": T_STEPS,
@@ -1398,9 +1604,44 @@ def phase_fit_path():
         "deviance_mean": float(dev_fit.mean()),
         "improvement_mean": float((dev_start.cpu().numpy() - dev_fit).mean()),
         "cpu_f64_rel_err": float(rel.max()), "cpu_recompute_s": cpu_s,
+        "stderr": se_stats,
     })
     return {"counts": counts, "fleet": fleet, "params": fit.params,
-            "y32": y32, "mask": mask, "lds": lds}
+            "y32": y32, "mask": mask, "lds": lds,
+            "stderr": (se_futures, se[idx_se[::2] + idx_se[1::2]],
+                       params[idx_se[::2] + idx_se[1::2]],
+                       idx_se[::2] + idx_se[1::2])}
+
+
+def check_stderr(fit):
+    """The card's f32 lanes-fd standard errors of CPU_MODELS fitted
+    models against the CPU f64 recompute: at the parameters inside the
+    box (alpha < 1e3; at the soft cap the curvature is ~0 and its sign
+    is noise) NaN where the recompute is NaN and within 5e-2 relative
+    elsewhere (the JAX package's own f32 lanes-fd bar,
+    ``tests/test_parallel.py::test_fleet_stderr_lanes_fd_f32``: f32
+    gradient noise through a cbrt(eps_f32) = 4.9e-3 step)."""
+    import numpy as np
+
+    futures, se_card, params, idx = fit["stderr"]
+    t0 = time.perf_counter()
+    se_cpu = np.concatenate([f.result()[0] for f in futures])
+    wait_s = time.perf_counter() - t0
+    interior = params < 1e3
+    card, cpu = se_card[interior], se_cpu[interior]
+    both = np.isfinite(card) & np.isfinite(cpu)
+    rel = np.abs(card[both] - cpu[both]) / np.abs(cpu[both])
+    nan_match = bool(np.array_equal(np.isnan(card), np.isnan(cpu)))
+    emit({"phase": "fit_stderr_check", "models": idx,
+          "interior_params": int(interior.sum()),
+          "nan_pattern_matches": nan_match,
+          "rel_err_max": float(rel.max()) if rel.size else 0.0,
+          "rel_err_median": float(np.median(rel)) if rel.size else 0.0,
+          "nan_card": int(np.isnan(se_card).sum()),
+          "nan_cpu": int(np.isnan(se_cpu).sum()), "waited_s": wait_s})
+    require(nan_match, "card vs CPU stderr: NaN pattern differs inside "
+            "the box")
+    require(within(rel.tolist(), 5e-2), f"card f32 vs CPU f64 stderr: {rel}")
 
 
 PRODUCT_NAMES = ("simulate", "simulate_filtered", "decompose",
@@ -1463,9 +1704,6 @@ def phase_products_path(fit):
     card, under the JAX bench's product settings, in one dispatch each;
     CPU_MODELS models recomputed in f64 on the CPU meanwhile (worker
     processes, one per product)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import numpy as np
     import torch
 
@@ -1590,6 +1828,312 @@ def phase_products_path(fit):
     return counts
 
 
+# the single-model path (phase 7)
+EXAMPLE = "B21B0214"  # the reference's example model (examples/data)
+GOLDEN = REPO / "tests" / "golden" / "metran_example.json"
+#: the golden rows' bars (tests/test_metran.py)
+GOLDEN_ROWS = {"state_means": ("state_means_rows", 2e-4),
+               "state_variances": ("state_variances_rows", 2e-4),
+               "simulated_means": ("simulated_means_rows", 2e-3),
+               "simulated_variances": ("simulated_variances_rows", 2e-3),
+               "decompose": ("decomposition_rows", 2e-3)}
+METRAN_DRAWS = 16  # sample_simulation's draws (two chunks of 8 lanes)
+CPU_DRAWS = 2  # draws recomputed on the CPU through the card's normals
+#: the products compared with the CPU f64 recompute (frames of numbers)
+METRAN_COMPARED = ("state_means", "state_variances", "simulated_means",
+                   "simulated_variances", "decompose", "innovations",
+                   "forecast")
+
+
+def example_series():
+    """The reference's example (5 series), as the verify recipe reads
+    it."""
+    import pandas as pd
+
+    return [pd.read_csv(REPO / "examples" / "data" / f"{EXAMPLE}00{i + 1}_res.csv",
+                        header=0, index_col=0, names=[f"{EXAMPLE}00{i + 1}"],
+                        parse_dates=True, date_format="%Y-%m-%d")
+            for i in range(5)]
+
+
+def flagship_series(seed):
+    """One model of the flagship configuration (20 series, 1 factor,
+    5,000 daily steps, 30% missing) as pandas series, NaN where
+    missing."""
+    import numpy as np
+    import pandas as pd
+
+    y, mask, _, _, _ = make_workload(np.random.default_rng(seed), 1,
+                                     t=T_STEPS)
+    idx = pd.date_range("2000-01-01", periods=T_STEPS, freq="D")
+    vals = np.where(mask[0], y[0], np.nan)
+    return [pd.Series(vals[:, j], index=idx, name=f"s{j:02d}")
+            for j in range(N_SERIES)]
+
+
+def metran_products(mt, name, timer=None, keys=None):
+    """The ``Metran`` products of ``mt`` for series ``name`` (those in
+    ``keys``, default all): ``{product: value}`` and, with ``timer``,
+    ``{product: {wall_ms, kernel_ms}}``.  ``filter+smoother`` runs K6
+    ``store`` and K8 once; the accessors after it read that cache (the
+    forecast adds K2, the sample K7 and K6 + K8 per chunk of draws)."""
+    import torch
+
+    runs = (
+        ("filter+smoother", lambda: mt._run_kalman("smoother")),
+        ("state_means", mt.get_state_means),
+        ("state_variances", mt.get_state_variances),
+        ("simulated_means", mt.get_simulated_means),
+        ("simulated_variances", mt.get_simulated_variances),
+        ("decompose", lambda: mt.decompose_simulation(name)),
+        ("innovations", lambda: mt.get_innovations(warmup=50)),
+        ("whiteness", mt.test_whiteness),
+        ("forecast", lambda: mt.forecast(name, steps=FORECAST_STEPS)),
+        ("sample", lambda: mt.sample_simulation(name, n_draws=METRAN_DRAWS,
+                                                seed=SEED)),
+        ("posterior_state", mt.to_posterior_state),
+    )
+    cuda = mt.device.type == "cuda"
+    out, stats = {}, {}
+    for key, fn in runs:
+        if keys is not None and key not in keys and key != "filter+smoother":
+            continue
+        k0 = len(timer.events) if timer else 0
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[key] = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if timer:
+            stats[key] = {"wall_ms": wall * 1e3,
+                          "kernel_ms": timer.kernel_ms(k0)}
+    return out, stats
+
+
+def cpu_metran(kind, optimal, name, normals):
+    """The products of the example (``kind="example"``) or the flagship
+    single model (``"flagship"``) at the card's fitted table
+    ``optimal``, recomputed in f64 on the CPU with the plain versions,
+    with the deviance there and the first CPU_DRAWS path draws through
+    the card's normals ``(x0, w, e)``.  Runs in a worker process;
+    returns numpy arrays."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    torch.set_num_threads(1)
+    from metran_tpu_torch import Metran
+    from metran_tpu_torch.ops.kalman import _sample_states_given
+
+    series = (example_series() if kind == "example"
+              else flagship_series(SEED + 70))
+    mt = Metran(series, name=kind, device="cpu")
+    mt.get_factors(mt.oseries)
+    mt.set_init_parameters()
+    mt.parameters["optimal"] = optimal
+    out, _ = metran_products(mt, name, keys=METRAN_COMPARED)
+    res = {key: np.asarray(out[key].values, float)
+           for key in METRAN_COMPARED}
+    kf = mt.kf
+    draws = _sample_states_given(kf.ss, kf.y, kf.mask, *normals,
+                                 sm_data=kf.run_smoother().mean_s)
+    col = list(mt.oseries.columns).index(name)
+    z = mt.get_scaled_observation_matrix()[col]
+    res["sample"] = (draws.numpy() @ z + mt.oseries_mean[col]).T
+    # the deviance from the stored filter's terms (Metran.get_mle's value)
+    res["deviance"] = kf.get_mle(mt.settings["warmup"])
+    return res
+
+
+def phase_metran_path(pool):
+    """The single-model ``Metran`` API on the card: (a) the example in
+    f64 (``METRAN_TPU_X64=1``), solved by the card's default LanesSolve
+    and held to the golden fit and rows; (b) the example in f32, held to
+    the golden deviance; (c) one flagship model in f32; the products of
+    (b) and (c) held to CPU f64 recomputes at the card's fitted tables,
+    made in worker processes of ``pool`` while the card works.  The
+    launch counters are reset before and read after the three; K3, K4,
+    K6, K7, K8 and K2 must each have run."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch import LanesSolve, Metran
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.ops.kalman import _draw_normals
+
+    golden = json.loads(GOLDEN.read_text())
+    dev = torch.device(DEVICE)
+    series = example_series()
+    name_ex, name_f = f"{EXAMPLE}005", "s03"
+
+    def card_normals(mt):
+        """The standard normals the card's sample_simulation draws (the
+        same generator seed, the same order), first CPU_DRAWS draws as
+        f64 numpy."""
+        gen = torch.Generator(dev).manual_seed(SEED)
+        normals = _draw_normals(METRAN_DRAWS, len(mt.oseries), mt.nstate,
+                                mt.nseries, gen, mt.dtype, dev)
+        return [a[:CPU_DRAWS].double().cpu().numpy() for a in normals]
+
+    def solve(mt):
+        torch.cuda.synchronize()
+        k0, d0 = len(timer.events), len(timer.dispatches)
+        t0 = time.perf_counter()
+        mt.solve(report=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k_ms = timer.kernel_ms(k0)
+        ffit = mt.fit.fleet_fit
+        return {"solver": mt.settings["solver"], "fit_wall_s": wall,
+                "kernel_ms": k_ms, "device_busy": k_ms / 1e3 / wall,
+                "iterations": int(ffit.iterations[0]),
+                "nfev": int(mt.fit.nfev),
+                "converged": bool(ffit.converged[0]),
+                "obj_func": mt.fit.obj_func,
+                "dispatches": len(timer.dispatches) - d0}
+
+    def checks_common(mt, out, name):
+        """What comes out: finite, variances >= 0, innovations NaN exactly
+        where unobserved or before the warmup, the draws through the
+        observed values (r = 0), a finite serving state; returns the
+        draws' largest miss relative to the data's scale."""
+        for key in ("state_means", "state_variances", "simulated_means",
+                    "simulated_variances", "decompose", "forecast"):
+            require(np.isfinite(out[key].values).all(),
+                    f"{key}: non-finite")
+        for key in ("state_variances", "simulated_variances"):
+            require((out[key].values >= 0).all(), f"{key}: negative")
+        obs = mt.get_observations()
+        keep = obs.notna().values.copy()
+        keep[:50] = False
+        require(np.array_equal(np.isfinite(out["innovations"].values), keep),
+                "innovations: NaN not exactly at masked/warmup positions")
+        require(out["whiteness"]["Q"].notna().all(), "whiteness: no Q")
+        draws = out["sample"].values
+        seen = obs[name].notna().values
+        require(np.isfinite(draws).all(), "sample: non-finite draw")
+        through = float(np.abs(draws[seen] - obs[name].values[seen, None])
+                        .max())
+        st = out["posterior_state"]
+        require(np.isfinite(st.mean).all() and np.isfinite(st.cov).all(),
+                "posterior state: non-finite")
+        return through / float(np.abs(obs[name].values[seen]).max())
+
+    reset_launches()
+    with _KernelTimer() as timer:
+        # (a) the example in f64: the golden fit and rows
+        os.environ["METRAN_TPU_X64"] = "1"
+        try:
+            mt64 = Metran(series, name=EXAMPLE)
+        finally:
+            del os.environ["METRAN_TPU_X64"]
+        require(mt64.dtype == torch.float64 and mt64.device.type == "cuda",
+                (mt64.dtype, mt64.device))
+        fit64 = solve(mt64)
+        require(isinstance(mt64.fit, LanesSolve), type(mt64.fit))
+        obj_rel = abs(mt64.fit.obj_func - golden["obj_func"]) / golden[
+            "obj_func"]
+        opt = mt64.parameters["optimal"].values.astype(float)
+        opt_rel = float(np.max(np.abs(opt - golden["optimal"])
+                               / np.abs(golden["optimal"])))
+        stderr = mt64.parameters["stderr"].values.astype(float)
+        require(obj_rel <= 1e-5, f"f64 obj_func {mt64.fit.obj_func}")
+        require(opt_rel <= 1e-3, f"f64 optimal {opt}")
+        require(np.isfinite(stderr).all(), f"f64 stderr {stderr}")
+        out64, stats64 = metran_products(mt64, name_ex, timer)
+        rows = golden["state_means_rows_idx"]
+        golden_err = {}
+        # the golden decomposition is the first series'
+        frames = {**out64,
+                  "decompose": mt64.decompose_simulation(f"{EXAMPLE}001")}
+        for key, (gkey, bar) in GOLDEN_ROWS.items():
+            err = float(np.abs(frames[key].iloc[rows].values
+                               - np.asarray(golden[gkey])).max())
+            golden_err[key] = err
+            require(err <= bar, f"f64 {key} rows off golden by {err}")
+        mask = (0 * mt64.get_observations()).astype(bool)
+        mask.loc["1997-8-28", name_ex] = True
+        mt64.mask_observations(mask)
+        masked = float(mt64.get_simulation(name_ex, alpha=None).loc[
+            "1997-08-28"])
+        mt64.unmask_observations()
+        golden_err["masked_sim_1997"] = abs(
+            masked - golden["masked_sim_1997"][0])
+        require(golden_err["masked_sim_1997"] <= 2e-3,
+                f"masked 1997-08-28 value {masked}")
+        through64 = checks_common(mt64, out64, name_ex)
+
+        # (b) the example in f32 (the card's precision)
+        mt32 = Metran(series, name=EXAMPLE)
+        require(mt32.dtype == torch.float32, mt32.dtype)
+        fit32 = solve(mt32)
+        obj32_rel = abs(mt32.fit.obj_func - golden["obj_func"]) / golden[
+            "obj_func"]
+        require(obj32_rel <= 1e-3, f"f32 obj_func {mt32.fit.obj_func}")
+        cpu_jobs = {"example_f32": (mt32, pool.submit(
+            cpu_metran, "example", mt32.parameters["optimal"], name_ex,
+            card_normals(mt32)))}
+        out32, stats32 = metran_products(mt32, name_ex, timer)
+        through32 = checks_common(mt32, out32, name_ex)
+
+        # (c) one flagship model in f32
+        mtf = Metran(flagship_series(SEED + 70), name="flagship")
+        fitf = solve(mtf)
+        cpu_jobs["flagship_f32"] = (mtf, pool.submit(
+            cpu_metran, "flagship", mtf.parameters["optimal"], name_f,
+            card_normals(mtf)))
+        outf, statsf = metran_products(mtf, name_f, timer)
+        throughf = checks_common(mtf, outf, name_f)
+        counts = launches()
+    for kern in ("lanes_filter", "lanes_adjoint", "lanes_forward",
+                 "rts_smooth", "lanes_sample", "forecast_moments"):
+        require(counts[kern] > 0, f"Metran path never launched {kern}")
+
+    # the card's f32 products against the CPU f64 recomputes
+    t0 = time.perf_counter()
+    cpu_err = {}
+    for label, (mt, out) in (("example_f32", (mt32, out32)),
+                             ("flagship_f32", (mtf, outf))):
+        cpu = cpu_jobs[label][1].result()
+        errs = {key: rel_err(torch.as_tensor(np.array(out[key].values,
+                                                      float)),
+                             torch.as_tensor(cpu[key]))
+                for key in METRAN_COMPARED}
+        errs["sample"] = rel_err(
+            torch.as_tensor(np.array(out["sample"].values[:, :CPU_DRAWS])),
+            torch.as_tensor(cpu["sample"]))
+        errs["deviance"] = abs(mt.fit.obj_func - cpu["deviance"]) / abs(
+            cpu["deviance"])
+        cpu_err[label] = errs
+    cpu_wait = time.perf_counter() - t0
+    require(all(within(list(e.values()), 1e-3) for e in cpu_err.values()),
+            f"card f32 vs CPU f64: {cpu_err}")
+    for label in cpu_err:
+        require(cpu_err[label]["deviance"] <= 1e-4,
+                f"{label}: card f32 deviance vs CPU f64 {cpu_err[label]}")
+    emit({
+        "phase": "metran_path", "launches": counts,
+        "example_f64": {
+            "fit": fit64, "obj_rel_err": obj_rel, "optimal_rel_err": opt_rel,
+            "stderr": stderr.tolist(), "golden_abs_err": golden_err,
+            "products": stats64, "sample_through_observed_rel": through64},
+        "example_f32": {"fit": fit32, "obj_rel_err_vs_f64_golden": obj32_rel,
+                        "products": stats32,
+                        "sample_through_observed_rel": through32},
+        "flagship_f32": {"fit": fitf, "n_series": N_SERIES,
+                         "t_steps": T_STEPS, "products": statsf,
+                         "sample_through_observed_rel": throughf},
+        "cpu_f64_rel_err": cpu_err, "cpu_wait_s": cpu_wait,
+    })
+    return counts
+
+
 KERNELS = {
     "joint_filter_append": {
         "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
@@ -1597,7 +2141,7 @@ KERNELS = {
     },
     "forecast_moments": {
         "source": "metran_tpu_torch/kernels/csrc/forecast.cu",
-        "replaces": "metran_tpu/ops/forecast.py:75",
+        "replaces": "metran_tpu/ops/forecast.py:76",
     },
     "lanes_filter": {
         "source": "metran_tpu_torch/kernels/csrc/lanes_filter.cu",
@@ -1618,6 +2162,10 @@ KERNELS = {
     "lanes_sample": {
         "source": "metran_tpu_torch/kernels/csrc/lanes_sample.cu",
         "replaces": "metran_tpu/ops/lanes_products.py:372",
+    },
+    "rts_smooth": {
+        "source": "metran_tpu_torch/kernels/csrc/rts_smoother.cu",
+        "replaces": "metran_tpu/ops/kalman.py:1771",
     },
 }
 
@@ -1643,14 +2191,22 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     checks, times = phase_kernels()
-    for phase in (phase_lanes_kernels, phase_products_kernels):
+    for phase in (phase_lanes_kernels, phase_products_kernels,
+                  phase_single_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
     paths = {"serve": phase_main_path()}
-    fit = phase_fit_path()
-    paths["fit"] = fit["counts"]
-    paths["products"] = phase_products_path(fit)
+    # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
+    # fleet stderr's run through phases 6 and 7, checked last)
+    with ProcessPoolExecutor(
+            max_workers=4,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        fit = phase_fit_path(pool)
+        paths["fit"] = fit["counts"]
+        paths["products"] = phase_products_path(fit)
+        paths["metran"] = phase_metran_path(pool)
+        check_stderr(fit)
 
     summary = []
     for name, meta in KERNELS.items():

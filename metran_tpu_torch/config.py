@@ -98,6 +98,17 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def default_dtype(device) -> torch.dtype:
+    """The working precision of the single-model API on ``device`` (the
+    JAX package's rule): float64 on the CPU (reference parity), float32
+    on the card unless ``METRAN_TPU_X64`` is set (``1``/``true``/
+    ``yes``), the JAX package's own switch to float64."""
+    if torch.device(device).type == "cpu":
+        return torch.float64
+    x64 = os.environ.get("METRAN_TPU_X64", "").lower() in ("1", "true", "yes")
+    return torch.float64 if x64 else torch.float32
+
+
 def resolve_device(device=None, like=None) -> torch.device:
     """``device`` when given; else the device of the tensor ``like``;
     else :func:`default_device`."""

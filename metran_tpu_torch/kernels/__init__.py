@@ -5,14 +5,16 @@
 - :mod:`.lanes` — K3, the lane-layout sequential filter, and K4, its
   closed-form adjoint;
 - :mod:`.lanes_products` — K5, the lane-layout smoother's backward
-  pass, K6, the forward filter with per-step outputs, and K7, the
-  simulation smoother's path draw;
+  pass, K6, the forward filter with per-step outputs (or, in its
+  ``store`` mode, the stored moments), and K7, the simulation
+  smoother's path draw;
+- :mod:`.smoother` — K8, the RTS smoother over stored moments;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
 Each wrapper (``joint_filter_append``, ``forecast_moments``,
 ``lanes_filter``, ``lanes_adjoint``, ``lanes_smooth_bwd``,
-``lanes_forward``, ``lanes_sample``) launches its kernel (``*_kernel``,
+``lanes_forward``, ``lanes_sample``, ``rts_smooth``) launches its kernel (``*_kernel``,
 which takes CUDA tensors only and raises if it cannot build or launch)
 on CUDA tensors and runs the plain version (``*_plain``) on CPU
 tensors; there is no fallback between them.  Nothing is built or
@@ -51,6 +53,7 @@ from .lanes_products import (
     lanes_smooth_bwd_kernel,
     lanes_smooth_bwd_plain,
 )
+from .smoother import rts_smooth, rts_smooth_kernel, rts_smooth_plain
 
 __all__ = [
     "LanesFilterResult",
@@ -78,4 +81,7 @@ __all__ = [
     "lanes_smooth_bwd_plain",
     "launches",
     "reset_launches",
+    "rts_smooth",
+    "rts_smooth_kernel",
+    "rts_smooth_plain",
 ]

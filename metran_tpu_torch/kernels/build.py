@@ -44,7 +44,7 @@ build_info: dict = {}
 _count_lock = threading.Lock()
 LAUNCHES = {"joint_filter_append": 0, "forecast_moments": 0,
             "lanes_filter": 0, "lanes_adjoint": 0, "lanes_smooth_bwd": 0,
-            "lanes_forward": 0, "lanes_sample": 0}
+            "lanes_forward": 0, "lanes_sample": 0, "rts_smooth": 0}
 
 
 def count_launch(name: str) -> None:
@@ -152,12 +152,14 @@ _SIGNATURES = {
     # mean_s, proj_mean, proj_var, L, T, N, n, seg, want_cov, stream
     "lanes_smooth": ("metran_lanes_smooth",
                      [_PTR] * 13 + [_INT] * 6 + [_PTR]),
-    # phi, q, z, r, y, mask, lane_map, t_last, out0, out1, out2, L, T, N,
+    # phi, q, z, r, y, mask, lane_map, t_last, out0, ..., out5, L, T, N,
     # n, mode, stream
     "lanes_forward": ("metran_lanes_forward",
-                      [_PTR] * 11 + [_INT] * 5 + [_PTR]),
+                      [_PTR] * 14 + [_INT] * 5 + [_PTR]),
     # phi, q, z, r, x0, w, e, xs, ystar, L, T, N, n, stream
     "lanes_sample": ("metran_lanes_sample", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
+    # phi, mean_f, cov_f, mean_p, cov_p, mean_s, cov_s, L, T, n, stream
+    "rts_smoother": ("metran_rts_smoother", [_PTR] * 7 + [_INT] * 3 + [_PTR]),
 }
 
 

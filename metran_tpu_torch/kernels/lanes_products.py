@@ -11,11 +11,14 @@ projection ``Z m_s`` and, with ``want_cov``, the projected variances
 N recursion skipped).
 
 :func:`lanes_forward` (K6) is K3's forward filter with per-step outputs
-in one of three modes: ``"project"`` (the filtered mean, ``Z m_f`` and
+in one of four modes: ``"project"`` (the filtered mean, ``Z m_f`` and
 ``max(diag(Z P_f Z'), 0)``), ``"innovations"`` (the joint ``v = y - Z
 m_p`` and ``f = max(diag(Z P_p Z'), 0) + r`` from the predicted
-moments) or ``"latch"`` (each lane's filtered ``(m, P)`` after step
-``t_last - 1``; a ``t_last`` outside ``[1, T]`` keeps ``N(0, I)``).
+moments), ``"latch"`` (each lane's filtered ``(m, P)`` after step
+``t_last - 1``; a ``t_last`` outside ``[1, T]`` keeps ``N(0, I)``) or
+``"store"`` (the stored sequential filter: per step the predicted and
+the filtered moments and the step's ``sigma``/``detf``, what the RTS
+smoother K8 reads).
 
 :func:`lanes_sample` (K7) is the simulation smoother's path draw: from
 standard normals ``x0``, ``w``, ``e``, the AR path ``x_t = phi o x_{t-1}
@@ -29,14 +32,17 @@ CPU tensors it runs the plain PyTorch version beside it (``*_plain``).
 
 Layouts: the lane constants as in :mod:`.lanes` (``phi``, ``q`` (n, L),
 ``z`` (N, n, L), ``r`` (N, L)), the data (D, T, N) with a ``lane_map``;
-outputs are lane-major, (L, T, n) and (L, T, N), and the latch (L, n)
-and (L, n, n); K7's normals and outputs are (L, n), (L, T, n) and
-(L, T, N).
+outputs are lane-major, (L, T, n) and (L, T, N), the latch (L, n)
+and (L, n, n), the store ``(mean_p, cov_p, mean_f, cov_f, sigma,
+detf)`` (L, T, n), (L, T, n, n), (L, T, n), (L, T, n, n), (L, T),
+(L, T); K7's normals and outputs are (L, n), (L, T, n) and (L, T, N).
 
 Replaces ``metran_tpu/ops/lanes_products.py``: ``lanes_smooth`` (B3:
 ``_series_bwd``, ``_smooth_emit``), and of B4 ``lanes_filter_project``,
 ``lanes_innovations``, the latch of ``lanes_forecast`` and the path
-draw of ``lanes_sample``.
+draw of ``lanes_sample``; and ``metran_tpu/ops/kalman.py::kalman_filter(
+engine="sequential", store=True)`` (``_sequential_update``), the forward
+half of B5.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from .lanes import (
 )
 
 #: K6's output modes and their codes in the kernel
-FORWARD_MODES = {"project": 0, "innovations": 1, "latch": 2}
+FORWARD_MODES = {"project": 0, "innovations": 1, "latch": 2, "store": 3}
 
 
 def _new(phi):
@@ -223,7 +229,8 @@ def lanes_forward(phi, q, z, r, y, mask, mode: str, lane_map=None,
                   t_last=None) -> Tuple[torch.Tensor, ...]:
     """The forward filter's outputs in ``mode``: ``(mean_f, proj_mean,
     proj_var)`` for ``"project"``, ``(v, f)`` for ``"innovations"``,
-    ``(mean, cov)`` for ``"latch"`` (see the module doc)."""
+    ``(mean, cov)`` for ``"latch"``, ``(mean_p, cov_p, mean_f, cov_f,
+    sigma, detf)`` for ``"store"`` (see the module doc)."""
     _check_forward(phi, q, z, r, y, mask, lane_map, mode, t_last)
     if phi.device.type == "cpu":
         return lanes_forward_plain(phi, q, z, r, y, mask, mode, lane_map,
@@ -247,10 +254,15 @@ def lanes_forward_kernel(phi, q, z, r, y, mask, mode: str, lane_map=None,
     elif mode == "innovations":
         outs = (torch.empty((lanes, t_steps, big_n), **new),
                 torch.empty((lanes, t_steps, big_n), **new))
-    else:
+    elif mode == "latch":
         outs = (torch.empty((lanes, n), **new),
                 torch.empty((lanes, n, n), **new))
-    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    else:
+        moments = ((lanes, t_steps, n), (lanes, t_steps, n, n))
+        outs = tuple(torch.empty(shape, **new)
+                     for shape in (*moments, *moments, (lanes, t_steps),
+                                   (lanes, t_steps)))
+    ptrs = [o.data_ptr() for o in outs] + [None] * (6 - len(outs))
     tl = None if t_last is None else t_last.contiguous()
     lib = build.load_library("lanes_forward")
     fn = (lib.metran_lanes_forward_f64 if phi.dtype == torch.float64
@@ -267,7 +279,8 @@ def lanes_forward_kernel(phi, q, z, r, y, mask, mode: str, lane_map=None,
 def lanes_forward_plain(phi, q, z, r, y, mask, mode: str, lane_map=None,
                         t_last=None):
     """The same forward filter in PyTorch ops (``lanes_filter_project``,
-    ``lanes_innovations`` and ``lanes_forecast``'s latch)."""
+    ``lanes_innovations``, ``lanes_forecast``'s latch and the stored
+    ``_sequential_update`` filter)."""
     lanes, _, t_steps, big_n, n, _, _, lane_map = _check_forward(
         phi, q, z, r, y, mask, lane_map, mode, t_last)
     new = _new(phi)
@@ -275,19 +288,25 @@ def lanes_forward_plain(phi, q, z, r, y, mask, mode: str, lane_map=None,
         c = _plain_setup(phi, q, z, r, y, mask, lane_map, max(t_steps, 1))
         m = torch.zeros((n, lanes), **new)
         p = c.eye.expand(n, n, lanes)
-        outs = ([], [], [])
+        outs = ([], [], [], [], [], [])
         if mode == "latch":
             stop = torch.where((t_last >= 1) & (t_last <= t_steps), t_last, 0)
             latch_m, latch_p = m, p
         for t in range(t_steps):
             m_p, p_p = _predict(c, phi, m, p)
+            if mode == "store":
+                outs[0].append(m_p)
+                outs[1].append(p_p)
             if mode == "innovations":
                 pv = torch.clamp(torch.einsum("iaL,abL,ibL->iL", z, p_p, z),
                                  min=0.0)
                 y_t = torch.stack(c.y_rows[t])
                 outs[0].append(y_t - torch.einsum("iaL,aL->iL", z, m_p))
                 outs[1].append(pv + r)
-            m, p, _, _, _ = _update(c, m_p, p_p, t)
+            m, p, sig, det, _ = _update(c, m_p, p_p, t)
+            if mode == "store":
+                for out, value in zip(outs[2:], (m, p, sig, det)):
+                    out.append(value)
             if mode == "project":
                 outs[0].append(m)
                 outs[1].append(torch.einsum("iaL,aL->iL", z, m))
@@ -300,9 +319,28 @@ def lanes_forward_plain(phi, q, z, r, y, mask, mode: str, lane_map=None,
         if mode == "latch":
             return (latch_m.T.contiguous(),
                     latch_p.permute(2, 0, 1).contiguous())
+        if mode == "store":
+            return _stored(outs, t_steps, lanes, n, phi)
         sizes = {"project": (n, big_n, big_n), "innovations": (big_n, big_n)}
         return tuple(_lane_major(o, t_steps, (size, lanes), phi)
                      for o, size in zip(outs, sizes[mode]))
+
+
+def _stored(outs, t_steps, lanes, n, like):
+    """The store mode's per-step lists, each step's value with the lane
+    axis last, as lane-major ``(mean_p, cov_p, mean_f, cov_f, sigma,
+    detf)``."""
+    if not t_steps:
+        new = dict(dtype=like.dtype, device=like.device)
+        moments = ((lanes, 0, n), (lanes, 0, n, n))
+        return tuple(torch.zeros(shape, **new) for shape in
+                     (*moments, *moments, (lanes, 0), (lanes, 0)))
+    means = [torch.stack(o).permute(2, 0, 1).contiguous()
+             for o in (outs[0], outs[2])]
+    covs = [torch.stack(o).permute(3, 0, 1, 2).contiguous()
+            for o in (outs[1], outs[3])]
+    terms = [torch.stack(o).T.contiguous() for o in (outs[4], outs[5])]
+    return means[0], covs[0], means[1], covs[1], terms[0], terms[1]
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,21 @@
+"""Model-level API: the Metran orchestrator, factor analysis, solvers."""
+
+from .factoranalysis import FactorAnalysis
+from .metran import Metran
+from .solver import (
+    BaseSolver,
+    JaxSolve,
+    LanesSolve,
+    LmfitSolve,
+    ScipySolve,
+)
+
+__all__ = [
+    "BaseSolver",
+    "FactorAnalysis",
+    "JaxSolve",
+    "LanesSolve",
+    "LmfitSolve",
+    "Metran",
+    "ScipySolve",
+]

@@ -1,6 +1,6 @@
-"""State-space build, the joint and sequential Kalman engines, the
-lane-layout fleet deviance, the lane-layout post-fit products and
-closed-form forecasts."""
+"""State-space build, the joint and sequential Kalman engines, the RTS
+smoother and the single-model products, the lane-layout fleet deviance,
+the lane-layout post-fit products and closed-form forecasts."""
 
 from .adjoint import ADJOINT_ENGINES, resolve_grad_engine
 from .forecast import (
@@ -10,12 +10,17 @@ from .forecast import (
 )
 from .kalman import (
     FilterResult,
+    SmootherResult,
+    decompose_states,
     deviance,
     deviance_terms,
     filter_append,
+    innovations,
     kalman_filter,
     log_likelihood,
     project,
+    rts_smoother,
+    sample_states,
 )
 from .lanes import (
     lanes_deviance_terms,
@@ -39,8 +44,10 @@ from .statespace import (
 __all__ = [
     "ADJOINT_ENGINES",
     "FilterResult",
+    "SmootherResult",
     "StateSpace",
     "ar1_decay",
+    "decompose_states",
     "deviance",
     "deviance_terms",
     "dfm_statespace",
@@ -48,6 +55,7 @@ __all__ = [
     "forecast_horizons",
     "forecast_observation_moments",
     "forecast_state_moments",
+    "innovations",
     "kalman_filter",
     "lanes_deviance_terms",
     "lanes_dfm_deviance",
@@ -60,5 +68,7 @@ __all__ = [
     "log_likelihood",
     "project",
     "resolve_grad_engine",
+    "rts_smoother",
+    "sample_states",
     "scale_observation_matrix",
 ]

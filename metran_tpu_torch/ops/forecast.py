@@ -69,6 +69,16 @@ def forecast_observation_moments(ss: StateSpace, mean_last, cov_last,
     return means, variances
 
 
+def _forecast_from_filtered(ss: StateSpace, mean_f_last, cov_f_last,
+                            steps: int, device=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Observation forecasts 1..``steps`` ahead from the filtered moments
+    at the last step (K2)."""
+    horizons = torch.arange(1, int(steps) + 1)
+    return forecast_observation_moments(ss, mean_f_last, cov_f_last,
+                                        horizons, device=device)
+
+
 def forecast_horizons(ss: StateSpace, mean_last, fac_last, horizons,
                       sqrt: bool = False, device=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

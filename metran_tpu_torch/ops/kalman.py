@@ -1,4 +1,5 @@
-"""Kalman filtering for the Metran DFM: the joint and sequential engines.
+"""Kalman filtering and smoothing for the Metran DFM: the joint and
+sequential engines, the RTS smoother and the single-model products.
 
 Port of the joint and sequential halves of ``metran_tpu/ops/kalman.py``.
 The JAX package runs each recursion as a ``lax.scan`` per model and
@@ -11,6 +12,16 @@ the lane-layout sequential filter with one lane per model) for
 ``engine="sequential"``.  Each runs its hand-written kernel on CUDA
 tensors and its plain PyTorch version on CPU tensors.
 
+``kalman_filter(engine="sequential", store=True)`` keeps every step's
+predicted and filtered moments: kernel K6 in its ``store`` mode
+(:func:`metran_tpu_torch.kernels.lanes_products.lanes_forward`, one lane
+per model).  :func:`rts_smoother` is kernel K8
+(:func:`metran_tpu_torch.kernels.smoother.rts_smooth`) over them.  The
+products of one model (:func:`innovations`, :func:`decompose_states`,
+:func:`project`) are plain tensor code on those moments;
+:func:`sample_states` draws its prior paths on K7 and smooths each chunk
+of draws with K6 ``store`` + K8, one launch each.
+
 ``deviance``/``log_likelihood`` are the sequential engine's MLE
 objective; under differentiation with the closed-form adjoint their
 backward is kernel K4.
@@ -19,23 +30,25 @@ backward is kernel K4.
 engine's per-step building blocks, batched, for callers that step one
 row at a time; the first two are the plain version's own steps.
 
-The other engines and ``store=True`` raise with the ROADMAP item that
-will port them.
+The other engines, and ``store=True`` with the joint engine, raise with
+the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import as_tensor, float_dtype, resolve_device
+from ..kernels import lanes_products as kp
 from ..kernels.joint_filter import (
     joint_filter_append,
     joint_update_plain,
     predict_plain,
 )
 from ..kernels.lanes import lanes_filter
+from ..kernels.smoother import rts_smooth
 from .adjoint import DEFAULT_SEG, resolve_grad_engine
 from .lanes import lanes_terms, prepare_data
 from .statespace import StateSpace
@@ -52,6 +65,11 @@ _NOT_PORTED = {
 }
 
 
+class NotPortedError(NotImplementedError, ValueError):
+    """A JAX-package option the port does not have yet; the message
+    names the ROADMAP item that brings it."""
+
+
 def _require(engine: str, ported=("joint",)) -> None:
     """Raise unless ``engine`` is one of ``ported`` (what the calling
     function has in the port)."""
@@ -59,7 +77,7 @@ def _require(engine: str, ported=("joint",)) -> None:
         return
     if engine not in _NOT_PORTED:
         raise ValueError(f"unknown engine {engine!r}")
-    raise ValueError(
+    raise NotPortedError(
         f"engine {engine!r} is not ported yet here "
         f"({_NOT_PORTED[engine]}); this function has engine "
         + " or ".join(repr(e) for e in ported)
@@ -67,7 +85,9 @@ def _require(engine: str, ported=("joint",)) -> None:
 
 
 class FilterResult(NamedTuple):
-    """``store=False`` filter result: final carry plus per-step terms."""
+    """Filter result.  With ``store=True`` every field is per step:
+    (T, n) / (T, n, n) / (T,), or (B, T, ...) for a batch; with
+    ``store=False`` the moments hold the final carry."""
 
     mean_p: torch.Tensor
     cov_p: torch.Tensor
@@ -129,21 +149,30 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "joint",
     ``y``/``mask``: (T, N) for one model or (B, T, N) for a batch whose
     ``ss`` leaves lead with B.  ``engine="joint"`` runs K1,
     ``engine="sequential"`` (which needs a diagonal ``q``) runs K3 with
-    one lane per model.  Returns the ``store=False`` contract of the JAX
-    function: ``mean``/``cov`` hold the final carry, ``sigma``/``detf``
-    the per-step terms ((T,) or (B, T)).
+    one lane per model.  With ``store=False``, ``mean``/``cov`` hold the
+    final carry and ``sigma``/``detf`` the per-step terms ((T,) or
+    (B, T)).  ``store=True`` (sequential engine: K6 in its ``store``
+    mode) returns every step's predicted and filtered moments, the JAX
+    function's default contract.
     """
     _require(engine, ("joint", "sequential"))
-    if store:
-        raise ValueError(
-            "store=True (per-step moments) is not ported yet: ROADMAP A6 "
-            "(post-fit products); the port filters with store=False"
+    if store and engine != "sequential":
+        raise NotPortedError(
+            "store=True with the joint engine is not ported yet: ROADMAP "
+            "A7 (batch-layout products); use engine='sequential'"
         )
     ss_b, device, dtype, single = _prepare(ss, device)
     y = as_tensor(y, device, dtype)
     mask = as_tensor(mask, device, torch.bool)
     if single:
         y, mask = y[None], mask[None]
+    if store:
+        phi, q, z, r = _lanes_ss(ss_b)
+        out = kp.lanes_forward(phi, q, z, r, y.contiguous(),
+                               mask.contiguous(), "store")
+        if single:
+            out = tuple(o[0] for o in out)
+        return FilterResult(*out)
     if engine == "sequential":
         phi, q, z, r = _lanes_ss(ss_b)
         res = lanes_filter(phi, q, z, r, y, mask)
@@ -281,3 +310,170 @@ def log_likelihood(ss: StateSpace, y, mask, warmup: int = 1,
     path is non-finite)."""
     return -0.5 * deviance(ss, y, mask, warmup=warmup, engine=engine,
                            grad=grad, device=device)
+
+
+# ----------------------------------------------------------------------
+# the RTS smoother and the single-model products
+# ----------------------------------------------------------------------
+class SmootherResult(NamedTuple):
+    mean_s: torch.Tensor  # (T, n), or (B, T, n)
+    cov_s: torch.Tensor  # (T, n, n), or (B, T, n, n)
+
+
+def rts_smoother(ss: StateSpace, filtered: FilterResult,
+                 engine: str = "sequential") -> SmootherResult:
+    """RTS smoother over a ``store=True`` filter result: one K8 launch
+    with one lane per model (``ss`` leaves and ``filtered`` lead with B
+    for a batch).
+
+    The JAX function's covariance-form reverse scan: a Cholesky of each
+    predicted covariance, ``G = P_f Phi' P_p^-1``, a step whose
+    Cholesky fails degraded to its filtered moments.  ``engine`` names
+    the filter engine that produced ``filtered``; the square-root and
+    associative-scan smoothers raise (ROADMAP A7).
+    """
+    _require(engine, ("sequential", "joint"))
+    phi = as_tensor(ss.phi, filtered.mean_f.device, filtered.mean_f.dtype)
+    single = filtered.mean_f.dim() == 2
+    args = [filtered.mean_f, filtered.cov_f, filtered.mean_p,
+            filtered.cov_p]
+    if single:
+        phi, args = phi[None], [a[None] for a in args]
+    mean_s, cov_s = rts_smooth(phi, *args)
+    if single:
+        return SmootherResult(mean_s[0], cov_s[0])
+    return SmootherResult(mean_s, cov_s)
+
+
+def _smoothed_means(ss: StateSpace, y, mask, engine: str = "sequential",
+                    device=None):
+    """Smoothed state means: the stored filter (K6) and K8."""
+    filt = kalman_filter(ss, y, mask, engine=engine, store=True,
+                         device=device)
+    return rts_smoother(ss, filt, engine=engine).mean_s
+
+
+def innovations(ss: StateSpace, y, mask, filt: Optional[FilterResult] = None,
+                standardized: bool = True, engine: str = "sequential",
+                warmup: int = 0, device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-step-ahead prediction residuals ``v = y - Z m_p`` and their
+    variances ``f = diag(Z P_p Z') + r`` from the predicted moments of
+    a ``store=True`` filter (``filt``, or one run here), the joint
+    (vector) definition; standardized by ``sqrt(max(f, tiny))`` when
+    asked, NaN where unobserved or before ``warmup``.  One model: (T, N)
+    each; a batch: (B, T, N).  The port's default engine is the
+    sequential one, whose stored filter is ported (the predicted
+    moments are the same)."""
+    if filt is None:
+        filt = kalman_filter(ss, y, mask, engine=engine, store=True,
+                             device=device)
+    dev, dtype = filt.mean_p.device, filt.mean_p.dtype
+    z = as_tensor(ss.z, dev, dtype)
+    r = as_tensor(ss.r, dev, dtype)
+    y = as_tensor(y, dev, dtype)
+    mask = as_tensor(mask, dev, torch.bool)
+    pred_means = filt.mean_p @ z.transpose(-1, -2)
+    pred_vars = torch.clamp(torch.einsum("...ij,...tjk,...ik->...ti", z,
+                                         filt.cov_p, z), min=0.0)
+    f = pred_vars + r[..., None, :]
+    v = y - pred_means
+    if standardized:
+        v = v / torch.sqrt(torch.clamp(f, min=torch.finfo(dtype).tiny))
+    steps = torch.arange(y.shape[-2], device=dev)[:, None]
+    keep = mask & (steps >= int(warmup))
+    return torch.where(keep, v, torch.nan), torch.where(keep, f, torch.nan)
+
+
+def decompose_states(z, means, n_series: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split projected means into the specific part ``(T, n_series)``
+    and each common factor's part ``(n_factors, T, n_series)``
+    (reference ``SPKalmanFilter.decompose``)."""
+    sdf = means[:, :n_series] @ z[:, :n_series].T
+    cdf = torch.einsum("ik,tk->kti", z[:, n_series:], means[:, n_series:])
+    return sdf, cdf
+
+
+def _draw_normals(n_draws: int, t_steps: int, n_state: int, n_obs: int,
+                  generator: torch.Generator, dtype, device):
+    """The standard normals of ``n_draws`` path draws, draw-major:
+    ``x0`` (D, n), ``w`` (D, T, n), ``e`` (D, T, N), in that order."""
+    new = dict(generator=generator, dtype=dtype, device=device)
+    return (torch.randn((n_draws, n_state), **new),
+            torch.randn((n_draws, t_steps, n_state), **new),
+            torch.randn((n_draws, t_steps, n_obs), **new))
+
+
+def sample_states(ss: StateSpace, y, mask, generator=None, n_draws: int = 1,
+                  engine: str = "sequential", sm_data=None,
+                  draw_chunk: int = 8, device=None) -> torch.Tensor:
+    """Joint posterior draws of one model's state paths, (n_draws, T, n):
+    the Durbin-Koopman mean-correction simulation smoother
+    ``m_s(y) + x* - m_s(y*)`` (see :func:`_sample_states_given`).
+
+    ``generator`` is a ``torch.Generator`` on the model's device or an
+    int seed (default 0); draw-for-draw equality with the JAX package's
+    PRNG keys is not a contract, the distribution is.  ``sm_data``
+    optionally supplies the smoothed means of the data.  Non-diagonal
+    ``q`` raises: the process noise is drawn elementwise."""
+    ss_b, device, dtype, single = _prepare(ss, device)
+    if not single:
+        raise ValueError("sample_states takes one model (unbatched ss)")
+    _check_diagonal_q(ss_b.q)
+    if generator is None or isinstance(generator, int):
+        generator = torch.Generator(device).manual_seed(int(generator or 0))
+    y = as_tensor(y, device, dtype)
+    normals = _draw_normals(int(n_draws), y.shape[0], ss_b.phi.shape[-1],
+                            ss_b.z.shape[-2], generator, dtype, device)
+    return _sample_states_given(ss, y, mask, *normals, sm_data=sm_data,
+                                engine=engine, draw_chunk=draw_chunk,
+                                device=device)
+
+
+def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
+                         engine: str = "sequential", draw_chunk: int = 8,
+                         device=None) -> torch.Tensor:
+    """:func:`sample_states` from given standard normals ``x0`` (D, n),
+    ``w`` (D, T, n) and ``e`` (D, T, N) (the JAX function's per-draw
+    normals, before the ``sqrt(q)``/``sqrt(r)`` scaling).
+
+    Per chunk of ``draw_chunk`` draws, one lane per draw: K7 draws the
+    prior paths ``x_t = phi o x_{t-1} + sqrt(q) o w_t`` from ``x_0 =
+    x0`` and their pseudo-observations ``y* = Z x + sqrt(r) o e``; K6
+    ``store`` filters ``y*`` on the data's missing pattern and K8
+    smooths it (means only)."""
+    _require(engine, ("sequential",))
+    ss_b, device, dtype, single = _prepare(ss, device)
+    if not single:
+        raise ValueError("sample_states takes one model (unbatched ss)")
+    y = as_tensor(y, device, dtype)
+    mask = as_tensor(mask, device, torch.bool)
+    x0, w, e = (as_tensor(a, device, dtype) for a in (x0, w, e))
+    if sm_data is None:
+        sm_data = _smoothed_means(ss_b, y[None], mask[None], engine)[0]
+    sm_data = as_tensor(sm_data, device, dtype)
+    phi, q, z, r = _lanes_ss(ss_b)  # (n, 1), (n, 1), (N, n, 1), (N, 1)
+    n_draws = x0.shape[0]
+    chunk = max(1, min(int(draw_chunk), n_draws))
+    out = []
+    for i in range(0, n_draws, chunk):
+        c = min(chunk, n_draws - i)
+
+        def lanes(a):
+            return a.expand(*a.shape[:-1], c).contiguous()
+
+        phi_l, q_l, z_l, r_l = lanes(phi), lanes(q), lanes(z), lanes(r)
+        xs, y_star = kp.lanes_sample(phi_l, q_l, z_l, r_l,
+                                     x0[i:i + c].contiguous(),
+                                     w[i:i + c].contiguous(),
+                                     e[i:i + c].contiguous())
+        mask_l = mask[None].expand(c, *mask.shape).contiguous()
+        stored = kp.lanes_forward(phi_l, q_l, z_l, r_l, y_star, mask_l,
+                                  "store")
+        sm_star, _ = rts_smooth(phi_l.T.contiguous(), stored[2], stored[3],
+                                stored[0], stored[1], want_cov=False)
+        out.append(sm_data + xs - sm_star)
+    if not out:
+        return sm_data.new_zeros((0, *sm_data.shape))
+    return torch.cat(out)

@@ -1,7 +1,8 @@
 """Fleet fitting and products: packed fleets, the lane-layout batched
 L-BFGS and ``fit_fleet(layout="lanes")``, the lane-layout post-fit
 products (``fleet_simulate``, ``fleet_decompose``, ``fleet_forecast``,
-``fleet_innovations``, ``fleet_sample``), plus the padding rule."""
+``fleet_innovations``, ``fleet_sample``), standard errors
+(``fleet_stderr(method="lanes-fd")``), plus the padding rule."""
 
 from .fleet import (
     Fleet,
@@ -15,6 +16,7 @@ from .fleet import (
     fleet_innovations,
     fleet_sample,
     fleet_simulate,
+    fleet_stderr,
     fleet_value_and_grad,
     pack_fleet,
 )
@@ -32,6 +34,7 @@ __all__ = [
     "fleet_innovations",
     "fleet_sample",
     "fleet_simulate",
+    "fleet_stderr",
     "fleet_value_and_grad",
     "pack_fleet",
     "pad_to_multiple",

@@ -9,6 +9,10 @@ gradients).  The optimizer advances in chunks of ``chunk`` iterations;
 between chunks the host reads the frozen flags to stop early and, once
 most lanes are done, compacts the live lanes into a smaller working set.
 
+Standard errors (:func:`fleet_stderr`, ``method="lanes-fd"``) are central
+differences of the exact K3/K4 gradient with every model's 2P
+perturbation points riding the lane axis over one copy of its data.
+
 The products of a fitted fleet (:func:`fleet_simulate`,
 :func:`fleet_decompose`, :func:`fleet_forecast`,
 :func:`fleet_innovations`, :func:`fleet_sample`) run in lane layout
@@ -778,6 +782,88 @@ def fleet_sample(params, fleet: Fleet, n_draws: int = 16, seed: int = 0,
     return draws
 
 
+# ----------------------------------------------------------------------
+# standard errors (method="lanes-fd")
+# ----------------------------------------------------------------------
+def _pcov_stderr(hess):
+    """``(stderr, pcov)`` from a (B, P, P) Hessian stack: ``pinv`` with
+    the JAX package's cutoff (singular values at most ``10 P eps`` of
+    the largest are dropped) and NaN stderr wherever the pcov diagonal
+    is not positive."""
+    rtol = 10.0 * hess.shape[-1] * torch.finfo(hess.dtype).eps
+    pcov = torch.linalg.pinv(hess, rtol=rtol)
+    diag = torch.diagonal(pcov, dim1=-2, dim2=-1)
+    stderr = torch.where(diag > 0, torch.sqrt(torch.where(diag > 0, diag,
+                                                          1.0)), torch.nan)
+    return stderr, pcov
+
+
+def _lanes_fd_hessian(p, y, mask, loadings, dt, warmup, remat_seg):
+    """(B, P, P) central-difference Hessians of the lanes deviance at
+    ``p`` (B, P), from the exact gradient (K3 forward, K4 backward) at
+    the 2P points ``p +- h_j e_j`` of every model, model-major: lane
+    ``b * 2P + k``, all reading data lane ``b`` through the lane map
+    (one copy of the (B, T, N) data)."""
+    b, n_p = p.shape
+    dtype = p.dtype
+    # per-parameter step cbrt(eps) * max(|p|, 1): the optimum for a
+    # central difference of a gradient whose own error is rounding
+    h = torch.finfo(dtype).eps ** (1.0 / 3.0) * torch.clamp(p.abs(), min=1.0)
+    eye = torch.eye(n_p, dtype=dtype, device=p.device)
+    pert = torch.cat([p[:, None, :] + h[:, :, None] * eye[None],
+                      p[:, None, :] - h[:, :, None] * eye[None]], dim=1)
+    reps = 2 * n_p
+    data = prepare_data(y, mask)
+    lane_map = torch.arange(b, dtype=torch.int32,
+                            device=p.device).repeat_interleave(reps)
+    loadings_l = loadings.permute(1, 2, 0).repeat_interleave(reps, dim=-1)
+    dt_l = dt.repeat_interleave(reps)
+    with torch.enable_grad():
+        alpha = pert.reshape(b * reps, n_p).T.contiguous().requires_grad_(
+            True)
+        val = lanes_deviance(alpha, loadings_l, dt_l, data, lane_map,
+                             warmup, remat_seg, "adjoint")
+        (g,) = torch.autograd.grad(val.sum(), alpha)  # (P, B*2P)
+    g = g.reshape(n_p, b, reps)
+    gp, gm = g[..., :n_p], g[..., n_p:]  # (P_i, B, P_j)
+    hess = (gp - gm).permute(1, 0, 2) / (2.0 * h[:, None, :])
+    return 0.5 * (hess + hess.transpose(1, 2))
+
+
+def fleet_stderr(params, fleet: Fleet, warmup: int = 1,
+                 engine: str = "joint", remat_seg: Optional[int] = None,
+                 batch_chunk: Optional[int] = None, method: str = "exact",
+                 device=None):
+    """Per-model parameter standard errors at ``params`` (B, N+K):
+    ``(stderr (B, P), pcov (B, P, P))`` with ``pcov = pinv(Hessian of the
+    deviance)`` (the reference's convention) and NaN stderr for
+    non-positive curvature directions (parameters at the soft cap,
+    padded slots).
+
+    ``method="lanes-fd"`` is the ported one: central differences
+    ``H[:, j] = (g(p + h_j e_j) - g(p - h_j e_j)) / (2 h_j)`` of the
+    exact lanes gradient, symmetrized, with all 2P points of every
+    model in one K3 + K4 pass over ``B * 2P`` lanes that read one copy
+    of the data through the lane map.  ``method="exact"`` (the
+    batch-layout forward-over-reverse Hessian) raises: ROADMAP A7
+    (kernel B7).  ``engine`` is ignored (sequential-processing
+    semantics, as the fit); ``batch_chunk`` models per dispatch
+    (default: all).
+    """
+    if method == "exact":
+        raise NotImplementedError(
+            "fleet_stderr(method='exact') is not ported yet (ROADMAP A7, "
+            "the batch-layout adjoint B7); use method='lanes-fd'")
+    if method != "lanes-fd":
+        raise ValueError(f"unknown method {method!r}")
+
+    def run(p, y, mask, loadings, dt):
+        return _pcov_stderr(_lanes_fd_hessian(p, y, mask, loadings, dt,
+                                              warmup, remat_seg))
+
+    return _run_chunked(run, params, fleet, batch_chunk, device=device)
+
+
 __all__ = [
     "ALPHA_MAX",
     "Fleet",
@@ -792,6 +878,7 @@ __all__ = [
     "fleet_sample",
     "fleet_sample_normals",
     "fleet_simulate",
+    "fleet_stderr",
     "fleet_value_and_grad",
     "pack_fleet",
 ]

@@ -12,7 +12,11 @@ from .engine import (
 )
 from .registry import ModelRegistry
 from .service import Forecast, MetranService
-from .state import STATE_FORMAT_VERSION, PosteriorState
+from .state import (
+    STATE_FORMAT_VERSION,
+    PosteriorState,
+    posterior_state_from_metran,
+)
 
 __all__ = [
     "BucketBatch",
@@ -27,6 +31,7 @@ __all__ = [
     "make_update_fn",
     "pad_state_arrays",
     "posterior_fault",
+    "posterior_state_from_metran",
     "stack_bucket",
     "state_slot_index",
 ]

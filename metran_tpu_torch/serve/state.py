@@ -1,6 +1,7 @@
 """Versioned posterior serving state: the warm handle on a fitted model.
 
-Port of ``metran_tpu/serve/state.py`` (``PosteriorState`` only).  A
+Port of ``metran_tpu/serve/state.py`` (``PosteriorState`` and
+``posterior_state_from_metran``).  A
 fitted DFM's serving answer needs the filtered posterior
 ``N(mean, cov)`` at the last assimilated timestep plus the static model
 parameters and scaler constants — not the observation history.
@@ -207,3 +208,41 @@ class PosteriorState(NamedTuple):
                 f"posterior state {path} is unreadable or corrupt: "
                 f"{type(exc).__name__}: {exc}"
             ) from exc
+
+
+def posterior_state_from_metran(mt, model_id: Optional[str] = None,
+                                p=None) -> PosteriorState:
+    """Extract the serving state from a (fitted) port :class:`Metran`.
+
+    Runs one stored filter pass (K6) over the model's current (possibly
+    masked) observations at parameters ``p`` (default: the fitted
+    optimum, falling back to the initial table like every other
+    accessor) and freezes the filtered posterior at the last timestep,
+    as float64 host arrays.  Factor loadings must exist (call
+    ``solve()`` or ``get_factors()`` first).
+    """
+    if mt.factors is None:
+        raise ValueError(
+            "model has no factor loadings; call solve() or "
+            "get_factors() before extracting a posterior state"
+        )
+    if len(mt.parameters) != mt.nseries + mt.nfactors:
+        # get_factors() without solve(): the __init__-time table predates
+        # the factor structure (same consistency guard solve() applies)
+        mt.set_init_parameters()
+    mt._run_kalman("filter", p=p)
+    filt = mt.kf.run_filter()
+    params = mt._param_array(p if p is not None else mt.get_parameters())
+    return PosteriorState(
+        model_id=str(model_id if model_id is not None else mt.name),
+        version=0,
+        t_seen=int(mt.kf.y.shape[0]),
+        mean=filt.mean_f[-1].double().cpu().numpy(),
+        cov=filt.cov_f[-1].double().cpu().numpy(),
+        params=np.asarray(params, float),
+        loadings=np.asarray(mt.factors, float),
+        dt=float(mt._dt),
+        scaler_mean=np.asarray(mt.oseries_mean, float),
+        scaler_std=np.asarray(mt.oseries_std, float),
+        names=tuple(mt.snames),
+    )

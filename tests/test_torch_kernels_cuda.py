@@ -162,3 +162,36 @@ def test_lanes_sample_kernel_matches_plain(card, dtype, bar):
     torch.cuda.synchronize()
     for g_, w in zip(got, want):
         assert _rel(g_, w) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_stored_filter_and_rts_smoother_kernels_match_plain(card, dtype,
+                                                           bar):
+    """K6 in its store mode, then K8 over the stored moments, against the
+    plain versions; one lane with an indefinite predicted covariance at
+    one step exercises K8's degrade rule."""
+    from metran_tpu_torch.kernels import smoother as ksm
+
+    args = _lanes_inputs(card, dtype)
+    got = kernels.lanes_forward(*args[:6], "store", args[6])
+    want = kernels.lanes_forward_plain(*args[:6], "store", args[6])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= bar
+    mean_p, cov_p, mean_f, cov_f = (w.clone() for w in want[:4])
+    cov_p[1, 30] -= 10.0 * torch.eye(cov_p.shape[-1], dtype=dtype,
+                                     device=card)
+    phi = args[0].T.contiguous()
+    for want_cov in (True, False):
+        sm = (phi, mean_f, cov_f, mean_p, cov_p)
+        got = ksm.rts_smooth(*sm, want_cov=want_cov)
+        ref = ksm.rts_smooth_plain(*sm, want_cov=want_cov)
+        torch.cuda.synchronize()
+        assert _rel(got[0], ref[0]) <= bar
+        if want_cov:
+            assert _rel(got[1], ref[1]) <= bar
+        else:
+            assert got[1] is None
+        # the degraded step is the filtered one
+        assert torch.equal(got[0][1, 29], mean_f[1, 29])

@@ -6,7 +6,7 @@
   of running on the CPU quietly;
 - the CUDA kernel launchers take CUDA tensors only, and the dispatching
   wrappers never count a launch for the plain CPU path (the products'
-  K5/K6/K7 included);
+  K5/K6/K7, K6's store mode and the RTS smoother K8 included);
 - the score that needs a plain version (``score="autodiff"``) refuses
   CUDA tensors, so no plain version runs on the card's path.
 """
@@ -21,8 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+import metran_tpu_torch
 from metran_tpu_torch import kernels
 from metran_tpu_torch.kernels import build
+from metran_tpu_torch.kernels import smoother as ksm
 from metran_tpu_torch.ops import (
     deviance,
     filter_append,
@@ -30,6 +32,7 @@ from metran_tpu_torch.ops import (
     lanes_dfm_deviance,
 )
 from metran_tpu_torch.ops import lanes_products as products
+from metran_tpu_torch.ops.kalman import sample_states
 from metran_tpu_torch.ops.lanes import LanesData, lanes_terms
 from metran_tpu_torch.ops.statespace import StateSpace, dfm_statespace
 from metran_tpu_torch.parallel import (
@@ -41,6 +44,7 @@ from metran_tpu_torch.parallel import (
     fleet_innovations,
     fleet_sample,
     fleet_simulate,
+    fleet_stderr,
     fleet_value_and_grad,
     pack_fleet,
 )
@@ -78,6 +82,12 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "metran_tpu" or m.startswith("metran_tpu."))
+# the single-model API's modules (pandas-based, imported on demand)
+assert {"metran_tpu_torch.models.metran", "metran_tpu_torch.models.solver",
+        "metran_tpu_torch.models.kalman_runner", "metran_tpu_torch.ops.fa",
+        "metran_tpu_torch.kernels.smoother", "metran_tpu_torch.utils",
+        } <= set(names), names
+metran_tpu_torch.Metran, metran_tpu_torch.LanesSolve
 print(len(names), bad)
 """
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -85,7 +95,7 @@ print(len(names), bad)
                          env=_env())
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15, out.stdout  # every submodule was imported
+    assert int(n) >= 37, out.stdout  # every submodule was imported
     assert bad == "[]", bad
 
 
@@ -154,6 +164,22 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
                                                   2)):
         with pytest.raises(RuntimeError, match="CUDA device required"):
             fn(*lane_inputs)
+    # the single-model slice: the stored filter, the path draws, the
+    # lanes-fd stderr and Metran itself
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        kalman_filter(ss_np, y, mask, engine="sequential", store=True)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        sample_states(ss_np, y, mask, 0)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        fleet_stderr(params, fleet, method="lanes-fd")
+    import pandas as pd
+
+    idx = pd.date_range("2000-01-01", periods=30, freq="D")
+    frame = pd.DataFrame(np.random.default_rng(2).normal(size=(30, 3)),
+                         index=idx, columns=["a", "b", "c"])
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        metran_tpu_torch.Metran(frame)
+    assert metran_tpu_torch.Metran(frame, device="cpu").device.type == "cpu"
     # asked for explicitly, the CPU runs (the plain versions)
     out = filter_append(ss_np, np.zeros(4), np.eye(4), y, mask,
                         device="cpu")
@@ -223,6 +249,13 @@ def test_kernel_launchers_raise_on_cpu_tensors():
                 *k3, mode, None, torch.full((3,), 7, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.lanes_sample_kernel(*_k7_args())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.lanes_forward_kernel(*k3, "store")
+    stored = kernels.lanes_forward(*k3, "store")
+    phi_l = k3[0].T.contiguous()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ksm.rts_smooth_kernel(phi_l, stored[2], stored[3], stored[0],
+                              stored[1])
 
 
 def test_autodiff_score_refuses_the_card(monkeypatch):
@@ -270,11 +303,14 @@ def test_plain_path_counts_no_launch_and_counters_reset():
         kernels.lanes_forward(*k3, mode, None,
                               torch.full((3,), 5, dtype=torch.int32))
     kernels.lanes_sample(*_k7_args())
+    stored = kernels.lanes_forward(*k3, "store")
+    ksm.rts_smooth(k3[0].T.contiguous(), stored[2], stored[3], stored[0],
+                   stored[1])
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "forecast_moments": 0,
                                   "lanes_filter": 0, "lanes_adjoint": 0,
                                   "lanes_smooth_bwd": 0, "lanes_forward": 0,
-                                  "lanes_sample": 0}
+                                  "lanes_sample": 0, "rts_smooth": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -296,7 +332,7 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in build.sources()} == {
         "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
         "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
-        "lanes_sample.cu"}
+        "lanes_sample.cu", "rts_smoother.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 

@@ -18,16 +18,29 @@ non-zero):
    K3/K4 (fit), K5/K6/K7 (products), K6's ``store`` mode and K8 (the
    single model's stored filter and RTS smoother: one lane, 16 lanes of
    path draws, and a step whose predicted covariance is made indefinite,
-   which K8 must degrade to its filtered moments); the lanes kernels are
-   held against their plain versions (a Python loop over steps and
-   slots) at full width over the first ``T_CMP`` = 1,000 steps and timed
-   at the full T;
+   which K8 must degrade to its filtered moments), K9 and K10 (the
+   square-root engine's filter — store, carry only, from a given carry —
+   and factored smoother, with and without the covariance: one lane, 16
+   lanes, the serving bucket of 512 slots at k = 1, with masked steps, a
+   fully masked series and an observed slot with r < 0, which must book
+   detf = +inf and pass the state through); the lanes and square-root
+   kernels are held against their plain versions (a Python loop over
+   steps) at full width over the first ``T_CMP`` = 1,000 steps and timed
+   at the full T; then the square-root engine's f32 contract
+   (``tests/test_precision.py``'s recipe, copied): K9's f32 deviance
+   within 2e-6 of the CPU f64 one in all four alpha regimes,
+   near-unit-root included, finite f32 factors and a final posterior
+   that passes ``posterior_fault(psd_tol=0)``, K3's f32 error beside it;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
    then threaded synchronous calls; the launch counters must show the
    path went through both kernels, and 8 models are recomputed in f64 on
-   the CPU with the plain versions;
+   the CPU with the plain versions; then the same on the square-root
+   engine (history pass ``sqrt_kalman_filter``, K9; states carrying
+   factors; ``ModelRegistry(engine="sqrt")`` updating through K9 from
+   the stacked factors; 4 models recomputed), and both engines' dispatch
+   medians side by side;
 5. fit path — the same flagship fleet (its own seed) packed with
    ``pack_fleet`` and fitted by ``fit_fleet(layout="lanes")`` under the
    JAX bench's fit settings (autocorrelation init, ``remat_seg=100``,
@@ -50,17 +63,21 @@ non-zero):
    f64 on the CPU with the plain versions, in worker processes while the
    card runs;
 7. Metran path — the single-model API, ``Metran(series)`` on the card:
-   the example (5 series, 6,255 days) in f64 (``METRAN_TPU_X64=1``)
-   solved by the card's default ``LanesSolve`` and held to the golden
-   fit (``obj_func`` rel 1e-5, ``optimal`` rtol 1e-3, finite stderr),
-   the golden rows and the masked 1997-08-28 value; the example in f32
-   (the deviance within rtol 1e-3 of the golden); one flagship model
-   (20 series, 5,000 days, 30% missing) in f32; each with its products
-   (states, simulations, decomposition, innovations and whiteness, a
-   14-step forecast, 16 path draws, the serving state) timed, and those
-   of the two f32 models held to CPU f64 recomputes at the card's fitted
-   tables (worker processes, ≤ 1e-3; the deviance ≤ 1e-4); the launch
-   counters must show K3, K4, K6, K7, K8 and K2.
+   the example (5 series, 6,255 days) in f64 (``METRAN_TPU_X64=1``) on
+   ``engine="sequential"`` solved by the card's default ``LanesSolve``
+   and held to the golden fit (``obj_func`` rel 1e-5, ``optimal`` rtol
+   1e-3, finite stderr), the golden rows and the masked 1997-08-28
+   value; the same example and table on the card's default engine,
+   ``"sqrt"``, held to the golden rows and to the sequential products
+   within 1e-9; the example in f32 (the deviance within rtol 1e-3 of
+   the golden) and one flagship model (20 series, 5,000 days, 30%
+   missing) in f32, both on the default ``"sqrt"``; each with its
+   products (states, simulations, decomposition, innovations and
+   whiteness, a 14-step forecast, 16 path draws, the serving state)
+   timed, and those of the two f32 models held to CPU f64 recomputes at
+   the card's fitted tables (worker processes, ≤ 1e-3; the deviance
+   ≤ 1e-4); the launch counters must show K3, K4, K6, K7, K8, K9, K10
+   and K2.
 
 The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
@@ -492,6 +509,85 @@ def k8_cost(cov_p, want_cov, itemsize):
     return nbytes, ops
 
 
+def _house_ops(below, trailing):
+    """Operations of one Householder stage: the norm of ``below``
+    entries under the diagonal, the reflector, and its application
+    (a dot product and an update over ``below + 1`` rows) to
+    ``trailing`` columns."""
+    return 2 * below + 4 + trailing * 4 * (below + 1)
+
+
+def _sqrt_step_ops(n, k, o):
+    """The least operations of one square-root filter step with ``o``
+    observed slots, Z = [I | L] with K = ``k`` factors: the predict
+    (``phi o m``, ``phi o S`` on the lower triangle, and the QR of
+    ``[(phi o S)' ; diag(sqrt q)]`` whose column j has only rows j and
+    n..n+j to reflect); with observations, ``v`` and ``Z_o S_p`` on the
+    K+1 nonzeros of each row (S_p lower), the QR of the compact
+    pre-array (observed column i: rows i and the n state rows; state
+    column j: the n - 1 - j rows under it), ``w`` by forward
+    substitution, ``m_f``, sigma and the o logarithms of detf."""
+    predict = n + n * (n + 1) / 2 + sum(
+        _house_ops(j + 1, n - 1 - j) for j in range(n))
+    if o == 0:
+        return predict
+    width = o + n
+    update = (o * 2 * (k + 1) + o * 2 * (k + 1) * n
+              + sum(_house_ops(n, width - 1 - c) for c in range(o))
+              + sum(_house_ops(n - 1 - j, n - 1 - j) for j in range(n))
+              + o * o + 2 * o * n + 2 * o + o)
+    return predict + update
+
+
+def k9_cost(z, mask, lane_map, store, given, itemsize):
+    """Bytes the K9 call must move (the lane constants, the data lanes'
+    y and mask, the lane map and a given carry read once; the store's
+    per-step moments, or the per-step terms and the final carry, written
+    once) and the least operations this run's data needs
+    (:func:`_sqrt_step_ops` at each lane step's own observed count)."""
+    import collections
+
+    big_n, n, lanes = z.shape
+    d_lanes, t_steps = mask.shape[:2]
+    nbytes = ((lanes * (2 * n + big_n * n + big_n)) * itemsize
+              + d_lanes * t_steps * big_n * (itemsize + 1) + 4 * lanes)
+    if given:
+        nbytes += lanes * (n + n * n) * itemsize
+    if store:
+        nbytes += lanes * t_steps * (2 * n + 2 * n * n + 2) * itemsize
+    else:
+        nbytes += (lanes * 2 * t_steps + lanes * (n + n * n)) * itemsize
+    obs = mask.sum(-1)[lane_map.long()].flatten().tolist()
+    ops = sum(c * _sqrt_step_ops(n, n - big_n, o)
+              for o, c in collections.Counter(obs).items())
+    return nbytes, ops
+
+
+def k10_cost(chol_p, want_cov, itemsize):
+    """Bytes the K10 call must move (phi, q and the stored m_f, S_f, m_p,
+    S_p read once; m_s and, with ``want_cov``, S_s written once) and the
+    least operations this run's data needs: per step below T - 1 where
+    ``S_p`` is usable (counted on these inputs), ``P_f = S_f S_f'`` on
+    its upper half (S_f lower), G by two triangular solves per row,
+    ``m_s``; with the covariance ``(I - G Phi) S_f`` and ``G S_s'`` (both
+    factors lower), ``G Q^1/2`` and the QR of the dense 3n x n stack."""
+    import torch
+
+    lanes, t_steps, n = chol_p.shape[:3]
+    nxt = chol_p[:, 1:]
+    diag = torch.diagonal(nxt, 0, -2, -1)
+    ok = float(((diag > 0).all(-1)
+                & torch.isfinite(nxt).all(-1).all(-1)).sum())
+    nbytes = (2 * lanes * n + 2 * lanes * t_steps * (n + n * n)
+              + lanes * t_steps * (n + (n * n if want_cov else 0))
+              ) * itemsize
+    per = n**3 / 3 + n * (2 * n * n + n) + 2 * n * n + n
+    if want_cov:
+        per += (n * n + n**3 + n * n + n * n + n**3
+                + sum(_house_ops(3 * n - 1 - j, n - 1 - j)
+                      for j in range(n)))
+    return nbytes, ok * per
+
 def bound_ms(nbytes, flops, dtype_name):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
@@ -694,17 +790,23 @@ def phase_kernels():
     return checks, times
 
 
-def phase_main_path():
-    """The port's serving path at full width on the card."""
+def phase_main_path(engine="joint"):
+    """The port's serving path at full width on the card, on the joint
+    engine (the history pass and the updates through K1) or the
+    square-root engine (both through K9, the states carrying factors);
+    returns the launch counts and the dispatch medians."""
     import numpy as np
     import torch
 
     from metran_tpu_torch.kernels import launches, reset_launches
     from metran_tpu_torch.ops import (
+        chol_outer,
         dfm_statespace,
         filter_append,
         forecast_observation_moments,
         kalman_filter,
+        sqrt_filter_append,
+        sqrt_kalman_filter,
     )
     from metran_tpu_torch.serve import (
         MetranService,
@@ -712,24 +814,33 @@ def phase_main_path():
         PosteriorState,
     )
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     t_hist = T_STEPS
     rng = np.random.default_rng(SEED)
     y, mask, lds, a_s, a_c = make_workload(rng, FLEET)
     f32 = np.float32
     reset_launches()
 
-    # 1. history pass: the fleet's posteriors, one K1 launch
+    sqrt = engine == "sqrt"
+    # 1. history pass: the fleet's posteriors, one K1 (or K9) launch
     ss = dfm_statespace(a_s.astype(f32), a_c.astype(f32), lds.astype(f32),
                         1.0, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = kalman_filter(ss, y.astype(f32), mask, engine="joint", store=False)
-    means, covs = res.mean_f.cpu().numpy(), res.cov_f.cpu().numpy()
+    if sqrt:
+        res = sqrt_kalman_filter(ss, y.astype(f32), mask, store=False)
+        chols = res.chol_f.cpu().numpy()
+        means = res.mean_f.cpu().numpy()
+        covs = chol_outer(res.chol_f).cpu().numpy()
+    else:
+        res = kalman_filter(ss, y.astype(f32), mask, engine="joint",
+                            store=False)
+        means, covs = res.mean_f.cpu().numpy(), res.cov_f.cpu().numpy()
+        chols = [None] * FLEET
     t_history = time.perf_counter() - t0
     n_hist_degraded = int(torch.isinf(res.detf).sum())
 
-    reg = ModelRegistry(root=None)
+    reg = ModelRegistry(root=None, engine=engine)
     names = tuple(f"s{j}" for j in range(N_SERIES))
     for i in range(FLEET):
         reg.put(PosteriorState(
@@ -738,7 +849,7 @@ def phase_main_path():
             params=np.concatenate([a_s[i], a_c[i]]).astype(f32),
             loadings=lds[i].astype(f32), dt=1.0,
             scaler_mean=np.zeros(N_SERIES, f32),
-            scaler_std=np.ones(N_SERIES, f32), names=names,
+            scaler_std=np.ones(N_SERIES, f32), names=names, chol=chols[i],
         ), persist=False)
     ids = [f"m{i}" for i in range(FLEET)]
 
@@ -773,6 +884,10 @@ def phase_main_path():
         require(st.t_seen == t_hist + UPDATE_ROUNDS, (m, st.t_seen))
         require(np.all(np.isfinite(st.mean)) and np.all(np.isfinite(st.cov)),
                 (m, "non-finite posterior"))
+        if sqrt:
+            require(st.chol is not None and np.all(np.isfinite(st.chol))
+                    and np.array_equal(st.cov, st.chol @ st.chol.T),
+                    (m, "the committed state lost its factor"))
         f = fc_after[i]
         require(f.version == UPDATE_ROUNDS, (m, f.version))
     for f in first_fc + fc_after:
@@ -831,26 +946,41 @@ def phase_main_path():
         require(stats_batch.get(kind, 0) == 0, (kind, stats_batch))
         require(stats_sync.get(kind, 0) == 0, (kind, stats_sync))
     require(not reg.integrity_stats, reg.integrity_stats)
-    for kern in ("joint_filter_append", "forecast_moments"):
+    for kern in ("sqrt_filter" if sqrt else "joint_filter_append",
+                 "forecast_moments"):
         require(counts[kern] > 0, f"main path never launched {kern}")
 
-    # 8 models the sync calls left alone, recomputed in f64 on the CPU
-    # with the plain versions
+    # models the sync calls left alone (8; 4 on the square-root engine),
+    # recomputed in f64 on the CPU with the plain versions
     errs = {"mean": [], "cov": [], "fc_means": [], "fc_vars": []}
     n_sync = len(sync_ids)
-    for i in range(n_sync, FLEET, (FLEET - n_sync) // 8):
+    n_cpu = 4 if sqrt else 8
+    for i in range(n_sync, FLEET, (FLEET - n_sync) // n_cpu):
         ss_c = dfm_statespace(a_s[i].astype(f32).astype(float),
                               a_c[i].astype(f32).astype(float),
                               lds[i].astype(f32).astype(float), 1.0,
                               device="cpu")
-        r_c = kalman_filter(ss_c, y[i].astype(f32).astype(float), mask[i],
-                            device="cpu")
-        m_c, c_c = r_c.mean_f, r_c.cov_f
+        y_c = y[i].astype(f32).astype(float)
+        if sqrt:
+            r_c = sqrt_kalman_filter(ss_c, y_c, mask[i], store=False,
+                                     device="cpu")
+            m_c, s_c = r_c.mean_f, r_c.chol_f
+        else:
+            r_c = kalman_filter(ss_c, y_c, mask[i], device="cpu")
+            m_c, c_c = r_c.mean_f, r_c.cov_f
         for rows in upd_rows:
             row = rows[i]
             msk = np.isfinite(row)
-            m_c, c_c, _, _ = filter_append(
-                ss_c, m_c, c_c, np.where(msk, row, 0.0), msk, device="cpu")
+            if sqrt:
+                m_c, s_c, _, _ = sqrt_filter_append(
+                    ss_c, m_c, s_c, np.where(msk, row, 0.0), msk,
+                    device="cpu")
+            else:
+                m_c, c_c, _, _ = filter_append(
+                    ss_c, m_c, c_c, np.where(msk, row, 0.0), msk,
+                    device="cpu")
+        if sqrt:
+            c_c = chol_outer(s_c)
         fm, fv = forecast_observation_moments(
             ss_c, m_c, c_c, np.arange(1, FORECAST_STEPS + 1), device="cpu")
         st = reg.get(ids[i])
@@ -866,8 +996,13 @@ def phase_main_path():
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs), p)) if xs else None
 
+    medians = {"update_dispatch_ms": pct(upd_times, 50) * 1e3,
+               "forecast_dispatch_ms": pct(fc_times, 50) * 1e3,
+               "sync_update_p50_ms": pct(call_ms["update"], 50),
+               "sync_forecast_p50_ms": pct(call_ms["forecast"], 50)}
     emit({
-        "phase": "main_path", "fleet": FLEET, "t_history": t_hist,
+        "phase": "main_path" if not sqrt else "main_path_sqrt",
+        "engine": engine, "fleet": FLEET, "t_history": t_hist,
         "history_pass_s": t_history,
         "history_degraded_steps": n_hist_degraded,
         "update_dispatch_ms": {"median": pct(upd_times, 50) * 1e3,
@@ -881,8 +1016,9 @@ def phase_main_path():
         "sync_forecast_ms": {"p50": pct(call_ms["forecast"], 50),
                              "p99": pct(call_ms["forecast"], 99)},
         "launches": counts, "cpu_f64_rel_err": worst,
+        "cpu_f64_models": len(errs["mean"]),
     })
-    return counts
+    return counts, medians
 
 
 def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None,
@@ -1369,6 +1505,326 @@ def phase_single_kernels():
     return checks, times
 
 
+def _sqrt_cmp(out, store):
+    """K9's outputs as compared: a filtered factor through the covariance
+    it stands for (rank-deficient under r = 0, so its columns past a
+    zero pivot are any orthonormal completion), the rest entrywise."""
+    from metran_tpu_torch.ops import chol_outer
+
+    if store:
+        mean_p, chol_p, mean_f, chol_f, sigma, detf = out
+        return (mean_p, chol_p, mean_f, chol_outer(chol_f), sigma, detf)
+    mean, chol, sigma, detf = out
+    return (mean, chol_outer(chol), sigma, detf)
+
+
+def sqrt_bucket_case(rng, batch, dtype, dev):
+    """The serving bucket's K9 inputs at k = 1: the flagship fleet padded
+    into (24, 32) in the lanes layout, a given carry per slot (a random
+    mean and a factor that is not triangular, as a migrated state's is)
+    and slot 7 observing slot 0 with r < 0."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops.kalman import _lanes_ss
+    from metran_tpu_torch.ops.statespace import StateSpace
+
+    phi, q, z, r, y, mask = padded_inputs(rng, batch, 1, dtype, dev)
+    lanes = _lanes_ss(StateSpace(phi, q, z, r), "sqrt")
+    s = phi.shape[1]
+    a = rng.normal(size=(batch, s, s)) / np.sqrt(s)
+    cov = a @ np.swapaxes(a, 1, 2) + 0.05 * np.eye(s)
+    w, v = np.linalg.eigh(cov)
+    chol0 = torch.as_tensor(v * np.sqrt(w)[:, None, :], dtype=dtype,
+                            device=dev)
+    mean0 = torch.as_tensor(rng.normal(size=(batch, s)), dtype=dtype,
+                            device=dev)
+    r_l = lanes[3].clone()
+    r_l[0, 7] = -1.0
+    mask = mask.clone()
+    mask[7, 0, 0] = True
+    return (*lanes[:3], r_l, y.contiguous(), mask.contiguous(), None,
+            mean0, chol0)
+
+
+def phase_sqrt_kernels():
+    """K9 (the square-root filter) and K10 (the factored smoother) against
+    their plain versions on the card, f64 and f32, NaN-strict: at the
+    flagship widths (n = 21) over T_CMP steps, one lane and 16 lanes (a
+    draw chunk), each with a fully masked series, a fully masked step,
+    a masked first step and 20-step gaps, and one lane observing a slot
+    with r < 0 (detf = +inf, the state passed through, in both); K9 in
+    its store and carry-only instantiations and from a given carry, K10
+    with and without the covariance; and the serving bucket (512 slots,
+    (24, 32), k = 1) from given, non-triangular carries.  Then both timed
+    at the full T in f32 beside their bounds."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels.sqrt_filter import (
+        sqrt_filter,
+        sqrt_filter_plain,
+    )
+    from metran_tpu_torch.kernels.sqrt_smoother import (
+        sqrt_smooth,
+        sqrt_smooth_plain,
+    )
+    from metran_tpu_torch.ops import chol_outer
+
+    dev = torch.device(DEVICE)
+    checks = []
+
+    def compare(kernel, case, dtype, got, want, bar):
+        checks.append(check_entry(kernel, case, dtype, got, want, bar))
+
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        for label, lanes in (("one lane", 1), ("16 lanes (a draw chunk)",
+                                                16)):
+            rng = np.random.default_rng(SEED + 80)
+            *args, _ = lanes_case(rng, lanes, T_CMP, dtype, dev, gaps=True)
+            bad = lanes - 1  # in a chunk, the lane observing r < 0
+            if lanes > 1:
+                args[3] = args[3].clone()
+                args[3][0, bad] = -1.0
+            case = f"{label}, n=21 T={T_CMP}"
+            want = sqrt_filter_plain(*args, store=True)
+            got = sqrt_filter(*args, store=True)
+            torch.cuda.synchronize()
+            compare("sqrt_filter", f"{case}, store", dtype,
+                    _sqrt_cmp(got, True), _sqrt_cmp(want, True), bar)
+            if lanes > 1:
+                # every step that observes the r < 0 slot fails `ok`:
+                # detf = +inf, sigma = 0, the state passed through
+                hit = args[5][int(args[6][bad]), :, 0]
+                require(bool(hit.any())
+                        and torch.equal(torch.isinf(got[5][bad]), hit)
+                        and bool((got[4][bad][hit] == 0).all())
+                        and torch.equal(got[2][bad][hit], got[0][bad][hit]),
+                        "K9: the r < 0 lane was not passed through with "
+                        "detf = +inf")
+            got = sqrt_filter(*args)
+            ref = sqrt_filter_plain(*args)
+            torch.cuda.synchronize()
+            compare("sqrt_filter", f"{case}, carry from (0, I)", dtype,
+                    _sqrt_cmp(got, False), _sqrt_cmp(ref, False), bar)
+            half = T_CMP // 2
+            m0 = want[2][:, half].contiguous()
+            c0 = want[3][:, half].contiguous()
+            short = [*args[:4], args[4][:, half + 1:].contiguous(),
+                     args[5][:, half + 1:].contiguous(), args[6]]
+            got = sqrt_filter(*short, mean0=m0, chol0=c0)
+            ref = sqrt_filter_plain(*short, mean0=m0, chol0=c0)
+            torch.cuda.synchronize()
+            compare("sqrt_filter", f"{case}, carry from step {half}",
+                    dtype, _sqrt_cmp(got, False), _sqrt_cmp(ref, False),
+                    bar)
+            sm = (args[0].T.contiguous(), args[1].T.contiguous(), want[2],
+                  want[3], want[0], want[1])
+            for want_cov in (True, False):
+                got = sqrt_smooth(*sm, want_cov=want_cov)
+                ref = sqrt_smooth_plain(*sm, want_cov=want_cov)
+                torch.cuda.synchronize()
+                pair = ((got[0], chol_outer(got[1])),
+                        (ref[0], chol_outer(ref[1]))
+                        ) if want_cov else ((got[0],), (ref[0],))
+                compare("sqrt_smooth", f"{case}, "
+                        f"{'with' if want_cov else 'without'} covariance",
+                        dtype, *pair, bar)
+        rng = np.random.default_rng(SEED + 81)
+        case = sqrt_bucket_case(rng, FLEET, dtype, dev)
+        got = sqrt_filter(*case[:7], mean0=case[7], chol0=case[8])
+        cpu = [None if a is None else a.cpu() for a in case]
+        ref = sqrt_filter_plain(*cpu[:7], mean0=cpu[7], chol0=cpu[8])
+        torch.cuda.synchronize()
+        compare("sqrt_filter", f"serving bucket {BUCKET}, {FLEET} slots, "
+                "k=1, given carry (plain on the CPU)", dtype,
+                [a.cpu() for a in _sqrt_cmp(got, False)],
+                _sqrt_cmp(ref, False), bar)
+        require(bool(torch.isinf(got[3][7, 0])), "K9: slot 7 (r < 0) "
+                "did not book detf = +inf")
+
+    dtype = torch.float32
+    times = {}
+    rng = np.random.default_rng(SEED + 82)
+    for lanes, key in ((1, ""), (16, "_draw_chunk")):
+        *args, _ = lanes_case(rng, lanes, T_STEPS, dtype, dev)
+        cmp = short_args(args)
+        label = (f"{lanes} lane{'s' if lanes > 1 else ''}, n=21 "
+                 f"T={T_STEPS} f32")
+        plain_shape = f"{lanes} lane{'s' if lanes > 1 else ''}, T={T_CMP}, once"
+        plain9, st_cmp = cuda_ms(
+            lambda: sqrt_filter_plain(*cmp, store=True), reps=1, warm=0)
+        ms9, st = cuda_ms(lambda: sqrt_filter(*args, store=True), reps=3,
+                          warm=1)
+        bms, bby = bound_ms(*k9_cost(args[2], args[5], args[6], True, False,
+                                     4), "float32")
+        times[f"sqrt_filter{key}"] = {
+            "shape": f"{label}, store", "ms": ms9, "plain_ms": plain9,
+            "plain_shape": plain_shape, "bound_ms": bms, "bound_by": bby}
+        want_cov = lanes == 1
+        sm = (args[0].T.contiguous(), args[1].T.contiguous())
+        plain10, _ = cuda_ms(
+            lambda: sqrt_smooth_plain(*sm, st_cmp[2], st_cmp[3], st_cmp[0],
+                                      st_cmp[1], want_cov=want_cov),
+            reps=1, warm=0)
+        ms10, _ = cuda_ms(
+            lambda: sqrt_smooth(*sm, st[2], st[3], st[0], st[1],
+                                want_cov=want_cov), reps=3, warm=1)
+        bms, bby = bound_ms(*k10_cost(st[1], want_cov, 4), "float32")
+        times[f"sqrt_smooth{key}"] = {
+            "shape": f"{label}, {'with' if want_cov else 'without'} "
+                     "covariance", "ms": ms10, "plain_ms": plain10,
+            "plain_shape": plain_shape, "bound_ms": bms, "bound_by": bby}
+        if lanes == 1:  # the deviance's carry-only pass
+            plain9c, _ = cuda_ms(lambda: sqrt_filter_plain(*cmp), reps=1,
+                                 warm=0)
+            ms9c, _ = cuda_ms(lambda: sqrt_filter(*args), reps=3, warm=1)
+            bms, bby = bound_ms(*k9_cost(args[2], args[5], args[6], False,
+                                         False, 4), "float32")
+            times["sqrt_filter_carry"] = {
+                "shape": f"{label}, carry only", "ms": ms9c,
+                "plain_ms": plain9c, "plain_shape": plain_shape,
+                "bound_ms": bms, "bound_by": bby}
+    # the serving history pass (512 lanes, carry only) and update (k=1)
+    *args, _ = lanes_case(rng, FLEET, T_STEPS, dtype, dev)
+    t_pl = 50
+    cmp = short_args(args, t_pl)
+    plain_h, _ = cuda_ms(lambda: sqrt_filter_plain(*cmp), reps=1, warm=0)
+    ms_h, _ = cuda_ms(lambda: sqrt_filter(*args), reps=3, warm=1)
+    bms, bby = bound_ms(*k9_cost(args[2], args[5], args[6], False, False,
+                                 4), "float32")
+    times["sqrt_filter_history"] = {
+        "shape": f"{FLEET} lanes, n=21 T={T_STEPS} f32, carry only",
+        "ms": ms_h, "plain_ms": plain_h,
+        "plain_shape": f"{FLEET} lanes, T={t_pl}, once",
+        "bound_ms": bms, "bound_by": bby}
+    case = sqrt_bucket_case(rng, FLEET, dtype, dev)
+    plain_u, _ = cuda_ms(lambda: sqrt_filter_plain(
+        *case[:7], mean0=case[7], chol0=case[8]), reps=1, warm=0)
+    ms_u, _ = cuda_ms(lambda: sqrt_filter(*case[:7], mean0=case[7],
+                                          chol0=case[8]), reps=20, warm=2)
+    lane_map = torch.arange(FLEET, dtype=torch.int32, device=dev)
+    bms, bby = bound_ms(*k9_cost(case[2], case[5], lane_map, False, True,
+                                 4), "float32")
+    times["sqrt_filter_update"] = {
+        "shape": f"serving bucket {BUCKET}, {FLEET} slots, k=1, f32, "
+                 "given carry", "ms": ms_u, "plain_ms": plain_u,
+        "plain_shape": f"{FLEET} slots, k=1, once",
+        "bound_ms": bms, "bound_by": bby}
+    emit({"phase": "sqrt_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks], "times": times})
+    bad_checks = [c for c in checks if not c["ok"]]
+    require(not bad_checks,
+            f"kernel disagrees with its plain version: {bad_checks}")
+    return checks, times
+
+
+# the f32 precision recipe of tests/test_precision.py (make_flagship,
+# ALPHAS, DEV_RTOL), copied: that test imports JAX
+PREC_N, PREC_K, PREC_T = 20, 1, 5000
+DEV_RTOL = 2e-6
+PREC_ALPHAS = {
+    "init": [10.0] * (PREC_N + PREC_K),
+    "fast": [0.1] * (PREC_N + PREC_K),
+    "near_unit_root": [3e4] * (PREC_N + PREC_K),
+    "mixed": None,  # np.linspace(0.1, 100, N) and 1e4, built below
+}
+
+
+def make_precision_panel():
+    """tests/test_precision.py::make_flagship: 20 series, 1 factor,
+    5,000 steps, 30% missing, seed 0."""
+    import numpy as np
+
+    n, k, t = PREC_N, PREC_K, PREC_T
+    rng = np.random.default_rng(0)
+    loadings = rng.uniform(0.4, 0.8, (n, k))
+    mask = rng.uniform(size=(t, n)) > 0.3
+    mask[0] = False
+    phi_c = np.exp(-1.0 / 30.0)
+    phi_s = np.exp(-1.0 / rng.uniform(5, 40, n))
+    common = np.zeros((t, k))
+    specific = np.zeros((t, n))
+    e_c = rng.normal(size=(t, k)) * np.sqrt(1 - phi_c**2)
+    e_s = rng.normal(size=(t, n)) * np.sqrt(1 - phi_s**2)
+    for i in range(1, t):
+        common[i] = phi_c * common[i - 1] + e_c[i]
+        specific[i] = phi_s * specific[i - 1] + e_s[i]
+    comm = np.sum(loadings**2, axis=1)
+    y = np.where(mask, specific * np.sqrt(1 - comm) + common @ loadings.T,
+                 0.0)
+    return y, mask, loadings
+
+
+def phase_sqrt_precision():
+    """The square-root engine's f32 contract on the card
+    (tests/test_precision.py, the uncapped bar in every regime): in the
+    four alpha regimes of the flagship precision panel, K9's f32
+    deviance within DEV_RTOL = 2e-6 of the CPU f64 plain version's; the
+    f32 factors of K9 ``store`` and K10 finite, and the final posterior
+    passing ``posterior_fault(psd_tol=0, chol=...)``.  K3's f32
+    (covariance-form) error in the same regimes is printed beside it,
+    without a bar."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import (
+        chol_outer,
+        deviance,
+        dfm_statespace,
+        sqrt_kalman_filter,
+        sqrt_rts_smoother,
+    )
+    from metran_tpu_torch.serve.engine import posterior_fault
+
+    y, mask, loadings = make_precision_panel()
+    n = PREC_N
+    alphas = dict(PREC_ALPHAS)
+    alphas["mixed"] = list(np.linspace(0.1, 100.0, n)) + [1e4]
+    names = list(alphas)
+    a = np.array([alphas[k] for k in names])
+    b = len(names)
+    ld = np.broadcast_to(loadings, (b, n, PREC_K))
+    yb = np.broadcast_to(y, (b,) + y.shape)
+    mb = np.broadcast_to(mask, yb.shape)
+    t0 = time.perf_counter()
+    ss64 = dfm_statespace(a[:, :n], a[:, n:], ld, 1.0, device="cpu")
+    ref = deviance(ss64, yb, mb, engine="sqrt", device="cpu").numpy()
+    cpu_s = time.perf_counter() - t0
+    dev = torch.device(DEVICE)
+    ss32 = dfm_statespace(a[:, :n].astype(np.float32),
+                          a[:, n:].astype(np.float32),
+                          ld.astype(np.float32), 1.0, device=dev)
+    y32 = yb.astype(np.float32)
+    sqrt32 = deviance(ss32, y32, mb, engine="sqrt").double().cpu().numpy()
+    seq32 = deviance(ss32, y32, mb, engine="sequential").double().cpu(
+    ).numpy()
+    filt = sqrt_kalman_filter(ss32, y32, mb, store=True)
+    sm = sqrt_rts_smoother(ss32, filt)
+    torch.cuda.synchronize()
+    out = {}
+    for i, name in enumerate(names):
+        finite = all(bool(torch.isfinite(f[i]).all()) for f in
+                     (filt.chol_p, filt.chol_f, sm.chol_s))
+        chol = filt.chol_f[i, -1].double().cpu().numpy()
+        fault = posterior_fault(filt.mean_f[i, -1].double().cpu().numpy(),
+                                chol_outer(filt.chol_f[i, -1]).double()
+                                .cpu().numpy(), psd_tol=0.0, chol=chol)
+        out[name] = {
+            "deviance_f64_cpu": float(ref[i]),
+            "sqrt_f32_rel_err": float(abs(sqrt32[i] - ref[i])
+                                      / abs(ref[i])),
+            "k3_f32_rel_err": float(abs(seq32[i] - ref[i]) / abs(ref[i])),
+            "factors_finite": finite, "posterior_fault": fault}
+    emit({"phase": "sqrt_precision", "t_steps": PREC_T, "bar": DEV_RTOL,
+          "regimes": out, "cpu_f64_s": cpu_s})
+    for name, o in out.items():
+        require(o["sqrt_f32_rel_err"] <= DEV_RTOL,
+                f"{name}: K9 f32 deviance vs CPU f64 {o}")
+        require(o["factors_finite"], f"{name}: non-finite f32 factor")
+        require(o["posterior_fault"] is None, f"{name}: {o}")
+
 #: the kernel launchers a run times with CUDA events: (module, name)
 TIMED_KERNELS = (
     ("metran_tpu_torch.kernels.lanes", "lanes_filter_kernel"),
@@ -1378,11 +1834,14 @@ TIMED_KERNELS = (
     ("metran_tpu_torch.kernels.lanes_products", "lanes_sample_kernel"),
     ("metran_tpu_torch.kernels.forecast", "forecast_moments_kernel"),
     ("metran_tpu_torch.kernels.smoother", "rts_smooth_kernel"),
+    ("metran_tpu_torch.kernels.sqrt_filter", "sqrt_filter_kernel"),
+    ("metran_tpu_torch.kernels.sqrt_smoother", "sqrt_smooth_kernel"),
 )
 
 
 class _KernelTimer:
-    """CUDA events around every launch of the lanes kernels, K2 and K8 in
+    """CUDA events around every launch of the lanes kernels, K2, K8, K9
+    and K10 in
     a window (the device-busy share of a fit and of each product) and,
     for the fit, host-clock times of each optimizer dispatch (its
     working-set width)."""
@@ -1874,9 +2333,11 @@ def flagship_series(seed):
 def metran_products(mt, name, timer=None, keys=None):
     """The ``Metran`` products of ``mt`` for series ``name`` (those in
     ``keys``, default all): ``{product: value}`` and, with ``timer``,
-    ``{product: {wall_ms, kernel_ms}}``.  ``filter+smoother`` runs K6
-    ``store`` and K8 once; the accessors after it read that cache (the
-    forecast adds K2, the sample K7 and K6 + K8 per chunk of draws)."""
+    ``{product: {wall_ms, kernel_ms}}``.  ``filter+smoother`` runs the
+    stored filter and its smoother once (K9 ``store`` and K10 on
+    ``engine="sqrt"``, K6 ``store`` and K8 on ``"sequential"``); the
+    accessors after it read that cache (the forecast adds K2, the sample
+    K7 and the filter + mean-only smoother per chunk of draws)."""
     import torch
 
     runs = (
@@ -1912,13 +2373,13 @@ def metran_products(mt, name, timer=None, keys=None):
     return out, stats
 
 
-def cpu_metran(kind, optimal, name, normals):
+def cpu_metran(kind, optimal, name, normals, engine):
     """The products of the example (``kind="example"``) or the flagship
     single model (``"flagship"``) at the card's fitted table
-    ``optimal``, recomputed in f64 on the CPU with the plain versions,
-    with the deviance there and the first CPU_DRAWS path draws through
-    the card's normals ``(x0, w, e)``.  Runs in a worker process;
-    returns numpy arrays."""
+    ``optimal``, recomputed in f64 on the CPU with the plain versions of
+    the card model's ``engine``, with the deviance there and the first
+    CPU_DRAWS path draws through the card's normals ``(x0, w, e)``.
+    Runs in a worker process; returns numpy arrays."""
     import numpy as np
 
     sys.path.insert(0, str(REPO))
@@ -1930,7 +2391,7 @@ def cpu_metran(kind, optimal, name, normals):
 
     series = (example_series() if kind == "example"
               else flagship_series(SEED + 70))
-    mt = Metran(series, name=kind, device="cpu")
+    mt = Metran(series, name=kind, device="cpu", engine=engine)
     mt.get_factors(mt.oseries)
     mt.set_init_parameters()
     mt.parameters["optimal"] = optimal
@@ -1939,7 +2400,8 @@ def cpu_metran(kind, optimal, name, normals):
            for key in METRAN_COMPARED}
     kf = mt.kf
     draws = _sample_states_given(kf.ss, kf.y, kf.mask, *normals,
-                                 sm_data=kf.run_smoother().mean_s)
+                                 sm_data=kf.run_smoother().mean_s,
+                                 engine=engine)
     col = list(mt.oseries.columns).index(name)
     z = mt.get_scaled_observation_matrix()[col]
     res["sample"] = (draws.numpy() @ z + mt.oseries_mean[col]).T
@@ -1950,13 +2412,16 @@ def cpu_metran(kind, optimal, name, normals):
 
 def phase_metran_path(pool):
     """The single-model ``Metran`` API on the card: (a) the example in
-    f64 (``METRAN_TPU_X64=1``), solved by the card's default LanesSolve
-    and held to the golden fit and rows; (b) the example in f32, held to
-    the golden deviance; (c) one flagship model in f32; the products of
-    (b) and (c) held to CPU f64 recomputes at the card's fitted tables,
-    made in worker processes of ``pool`` while the card works.  The
-    launch counters are reset before and read after the three; K3, K4,
-    K6, K7, K8 and K2 must each have run."""
+    f64 (``METRAN_TPU_X64=1``) on ``engine="sequential"``, solved by the
+    card's default LanesSolve and held to the golden fit and rows; (a')
+    the example in f64 on the card's default engine, ``"sqrt"``, at (a)'s
+    fitted table, held to the golden rows and to (a)'s products within
+    1e-9; (b) the example in f32 (default engine, ``"sqrt"``), held to
+    the golden deviance; (c) one flagship model in f32 (``"sqrt"``); the
+    products of (b) and (c) held to CPU f64 recomputes at the card's
+    fitted tables, made in worker processes of ``pool`` while the card
+    works.  The launch counters are reset before and read after the
+    four; K3, K4, K6, K7, K8, K9, K10 and K2 must each have run."""
     import json
     import os
 
@@ -1965,6 +2430,7 @@ def phase_metran_path(pool):
 
     from metran_tpu_torch import LanesSolve, Metran
     from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.serve.engine import posterior_fault
     from metran_tpu_torch.ops.kalman import _draw_normals
 
     golden = json.loads(GOLDEN.read_text())
@@ -2023,6 +2489,10 @@ def phase_metran_path(pool):
         st = out["posterior_state"]
         require(np.isfinite(st.mean).all() and np.isfinite(st.cov).all(),
                 "posterior state: non-finite")
+        if mt._engine == "sqrt":
+            require(st.chol is not None and posterior_fault(
+                st.mean, st.cov, psd_tol=0.0, chol=st.chol) is None,
+                "posterior state: no usable factor")
         return through / float(np.abs(obs[name].values[seen]).max())
 
     reset_launches()
@@ -2030,11 +2500,13 @@ def phase_metran_path(pool):
         # (a) the example in f64: the golden fit and rows
         os.environ["METRAN_TPU_X64"] = "1"
         try:
-            mt64 = Metran(series, name=EXAMPLE)
+            mt64 = Metran(series, name=EXAMPLE, engine="sequential")
+            mt64s = Metran(series, name=EXAMPLE)
         finally:
             del os.environ["METRAN_TPU_X64"]
         require(mt64.dtype == torch.float64 and mt64.device.type == "cuda",
                 (mt64.dtype, mt64.device))
+        require(mt64s._engine == "sqrt", f"card default {mt64s._engine}")
         fit64 = solve(mt64)
         require(isinstance(mt64.fit, LanesSolve), type(mt64.fit))
         obj_rel = abs(mt64.fit.obj_func - golden["obj_func"]) / golden[
@@ -2069,30 +2541,59 @@ def phase_metran_path(pool):
                 f"masked 1997-08-28 value {masked}")
         through64 = checks_common(mt64, out64, name_ex)
 
-        # (b) the example in f32 (the card's precision)
+        # (a') the same example and table on the card's default engine,
+        # the square-root one: the golden rows, and (a)'s products
+        mt64s.get_factors(mt64s.oseries)
+        mt64s.set_init_parameters()
+        require(np.array_equal(mt64s.factors, mt64.factors),
+                "f64 sqrt model: other factors")
+        mt64s.parameters["optimal"] = mt64.parameters["optimal"]
+        out64s, stats64s = metran_products(mt64s, name_ex, timer)
+        frames_s = {**out64s,
+                    "decompose": mt64s.decompose_simulation(f"{EXAMPLE}001")}
+        golden_err_s = {}
+        for key, (gkey, bar) in GOLDEN_ROWS.items():
+            err = float(np.abs(frames_s[key].iloc[rows].values
+                               - np.asarray(golden[gkey])).max())
+            golden_err_s[key] = err
+            require(err <= bar, f"f64 sqrt {key} rows off golden by {err}")
+        through64s = checks_common(mt64s, out64s, name_ex)
+        sqrt_vs_seq = {
+            key: rel_err(torch.as_tensor(np.array(out64s[key].values,
+                                                  float)),
+                         torch.as_tensor(np.array(out64[key].values,
+                                                  float)))
+            for key in (*METRAN_COMPARED, "sample")}
+        require(within(list(sqrt_vs_seq.values()), 1e-9),
+                f"f64 sqrt vs sequential products: {sqrt_vs_seq}")
+
+        # (b) the example in f32 (the card's precision and engine)
         mt32 = Metran(series, name=EXAMPLE)
         require(mt32.dtype == torch.float32, mt32.dtype)
+        require(mt32._engine == "sqrt", f"card default {mt32._engine}")
         fit32 = solve(mt32)
         obj32_rel = abs(mt32.fit.obj_func - golden["obj_func"]) / golden[
             "obj_func"]
         require(obj32_rel <= 1e-3, f"f32 obj_func {mt32.fit.obj_func}")
         cpu_jobs = {"example_f32": (mt32, pool.submit(
             cpu_metran, "example", mt32.parameters["optimal"], name_ex,
-            card_normals(mt32)))}
+            card_normals(mt32), mt32._engine))}
         out32, stats32 = metran_products(mt32, name_ex, timer)
         through32 = checks_common(mt32, out32, name_ex)
 
         # (c) one flagship model in f32
         mtf = Metran(flagship_series(SEED + 70), name="flagship")
+        require(mtf._engine == "sqrt", f"card default {mtf._engine}")
         fitf = solve(mtf)
         cpu_jobs["flagship_f32"] = (mtf, pool.submit(
             cpu_metran, "flagship", mtf.parameters["optimal"], name_f,
-            card_normals(mtf)))
+            card_normals(mtf), mtf._engine))
         outf, statsf = metran_products(mtf, name_f, timer)
         throughf = checks_common(mtf, outf, name_f)
         counts = launches()
     for kern in ("lanes_filter", "lanes_adjoint", "lanes_forward",
-                 "rts_smooth", "lanes_sample", "forecast_moments"):
+                 "rts_smooth", "lanes_sample", "forecast_moments",
+                 "sqrt_filter", "sqrt_smooth"):
         require(counts[kern] > 0, f"Metran path never launched {kern}")
 
     # the card's f32 products against the CPU f64 recomputes
@@ -2120,13 +2621,20 @@ def phase_metran_path(pool):
     emit({
         "phase": "metran_path", "launches": counts,
         "example_f64": {
+            "engine": mt64._engine,
             "fit": fit64, "obj_rel_err": obj_rel, "optimal_rel_err": opt_rel,
             "stderr": stderr.tolist(), "golden_abs_err": golden_err,
             "products": stats64, "sample_through_observed_rel": through64},
-        "example_f32": {"fit": fit32, "obj_rel_err_vs_f64_golden": obj32_rel,
+        "example_f64_sqrt": {
+            "engine": mt64s._engine, "golden_abs_err": golden_err_s,
+            "products": stats64s, "rel_err_vs_sequential": sqrt_vs_seq,
+            "sample_through_observed_rel": through64s},
+        "example_f32": {"engine": mt32._engine,
+                        "fit": fit32, "obj_rel_err_vs_f64_golden": obj32_rel,
                         "products": stats32,
                         "sample_through_observed_rel": through32},
-        "flagship_f32": {"fit": fitf, "n_series": N_SERIES,
+        "flagship_f32": {"engine": mtf._engine, "fit": fitf,
+                         "n_series": N_SERIES,
                          "t_steps": T_STEPS, "products": statsf,
                          "sample_through_observed_rel": throughf},
         "cpu_f64_rel_err": cpu_err, "cpu_wait_s": cpu_wait,
@@ -2167,6 +2675,14 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/rts_smoother.cu",
         "replaces": "metran_tpu/ops/kalman.py:1771",
     },
+    "sqrt_filter": {
+        "source": "metran_tpu_torch/kernels/csrc/sqrt_filter.cu",
+        "replaces": "metran_tpu/ops/kalman.py:578",
+    },
+    "sqrt_smooth": {
+        "source": "metran_tpu_torch/kernels/csrc/sqrt_smoother.cu",
+        "replaces": "metran_tpu/ops/kalman.py:1829",
+    },
 }
 
 
@@ -2192,11 +2708,15 @@ def main() -> int:
     phase_build()
     checks, times = phase_kernels()
     for phase in (phase_lanes_kernels, phase_products_kernels,
-                  phase_single_kernels):
+                  phase_single_kernels, phase_sqrt_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
-    paths = {"serve": phase_main_path()}
+    phase_sqrt_precision()
+    paths, medians = {}, {}
+    for engine, path in (("joint", "serve"), ("sqrt", "serve_sqrt")):
+        paths[path], medians[engine] = phase_main_path(engine)
+    emit({"phase": "serve_engines", "dispatch_medians": medians})
     # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
     # fleet stderr's run through phases 6 and 7, checked last)
     with ProcessPoolExecutor(

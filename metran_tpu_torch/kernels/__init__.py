@@ -9,12 +9,17 @@
   ``store`` mode, the stored moments), and K7, the simulation
   smoother's path draw;
 - :mod:`.smoother` — K8, the RTS smoother over stored moments;
+- :mod:`.sqrt_filter` — K9, the square-root (QR array) filter, with or
+  without its per-step store, from ``(0, I)`` or a given carry;
+- :mod:`.sqrt_smoother` — K10, the factored RTS smoother over K9's
+  stored factors;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
 Each wrapper (``joint_filter_append``, ``forecast_moments``,
 ``lanes_filter``, ``lanes_adjoint``, ``lanes_smooth_bwd``,
-``lanes_forward``, ``lanes_sample``, ``rts_smooth``) launches its kernel (``*_kernel``,
+``lanes_forward``, ``lanes_sample``, ``rts_smooth``, ``sqrt_filter``,
+``sqrt_smooth``) launches its kernel (``*_kernel``,
 which takes CUDA tensors only and raises if it cannot build or launch)
 on CUDA tensors and runs the plain version (``*_plain``) on CPU
 tensors; there is no fallback between them.  Nothing is built or
@@ -54,6 +59,12 @@ from .lanes_products import (
     lanes_smooth_bwd_plain,
 )
 from .smoother import rts_smooth, rts_smooth_kernel, rts_smooth_plain
+from .sqrt_filter import sqrt_filter, sqrt_filter_kernel, sqrt_filter_plain
+from .sqrt_smoother import (
+    sqrt_smooth,
+    sqrt_smooth_kernel,
+    sqrt_smooth_plain,
+)
 
 __all__ = [
     "LanesFilterResult",
@@ -84,4 +95,10 @@ __all__ = [
     "rts_smooth",
     "rts_smooth_kernel",
     "rts_smooth_plain",
+    "sqrt_filter",
+    "sqrt_filter_kernel",
+    "sqrt_filter_plain",
+    "sqrt_smooth",
+    "sqrt_smooth_kernel",
+    "sqrt_smooth_plain",
 ]

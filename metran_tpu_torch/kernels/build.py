@@ -44,7 +44,8 @@ build_info: dict = {}
 _count_lock = threading.Lock()
 LAUNCHES = {"joint_filter_append": 0, "forecast_moments": 0,
             "lanes_filter": 0, "lanes_adjoint": 0, "lanes_smooth_bwd": 0,
-            "lanes_forward": 0, "lanes_sample": 0, "rts_smooth": 0}
+            "lanes_forward": 0, "lanes_sample": 0, "rts_smooth": 0,
+            "sqrt_filter": 0, "sqrt_smooth": 0}
 
 
 def count_launch(name: str) -> None:
@@ -160,6 +161,13 @@ _SIGNATURES = {
     "lanes_sample": ("metran_lanes_sample", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
     # phi, mean_f, cov_f, mean_p, cov_p, mean_s, cov_s, L, T, n, stream
     "rts_smoother": ("metran_rts_smoother", [_PTR] * 7 + [_INT] * 3 + [_PTR]),
+    # phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, ..., out5, L,
+    # T, N, n, store, stream
+    "sqrt_filter": ("metran_sqrt_filter", [_PTR] * 15 + [_INT] * 5 + [_PTR]),
+    # phi, q, mean_f, chol_f, mean_p, chol_p, mean_s, chol_s, L, T, n,
+    # stream
+    "sqrt_smoother": ("metran_sqrt_smoother",
+                      [_PTR] * 8 + [_INT] * 3 + [_PTR]),
 }
 
 

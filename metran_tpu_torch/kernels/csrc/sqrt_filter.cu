@@ -1,0 +1,359 @@
+// K9: the square-root (QR array) Kalman filter, one block per lane.
+//
+// Replaces the JAX package's device program B6 in metran_tpu/ops/kalman.py
+// (_sqrt_kalman_filter, _make_sqrt_core_step, _sqrt_qr_update, _tria: the
+// engine="sqrt" filter) and the ported half of B9b (sqrt_filter_append, the
+// factored serving update).  Per lane and step, carrying the mean m and a
+// factor S of the state covariance (P = S S'):
+//   predict   m_p = phi o m,  S_p = tria([phi o S | diag(sqrt q)])
+//             (QR of the 2n x n transpose; S need not be triangular);
+//   update    QR of the pre-array over the step's observed slots only,
+//               [[ diag(sqrt r_o)      0   ]
+//                [ (Z_o S_p)'        S_p'  ]],
+//             whose triangular result holds F^1/2 (upper), Kbar' and S_f';
+//             w = F^-1/2' \ v, m_f = m_p + Kbar w, sigma = w.w,
+//             detf = 2 sum log diag F^1/2.
+// Every factor is sign-normalised to a non-negative diagonal (the unique
+// Cholesky factor where it has full rank), so it is held entrywise against
+// the plain version.  No Cholesky of a matrix the kernel formed is taken:
+// orthogonal transformations only (csrc/sqrt_qr.cuh).
+//
+// A masked slot's row of the JAX pre-array is e_i and its column is zero
+// below the diagonal, so no reflector touches it and its F^1/2 diagonal is
+// exactly 1 (log 1 = 0, w_i = 0): the kernel triangularises the m_o + n
+// columns of the observed slots and skips the rest, exactly.  A step with
+// no observed slot is predict-only (S_f = S_p).  `ok` is the JAX rule:
+// every diagonal of F^1/2 > 0 and every entry of the triangular result
+// finite (an observed slot with r < 0 gives sqrt(r) = NaN and fails it);
+// when it fails the step passes through: m_f = m_p, S_f = S_p, sigma = 0,
+// detf = +inf.
+//
+// Two instantiations (a template parameter, not a run-time branch):
+//   kStore  per step (m_p, S_p, m_f, S_f, sigma, detf): (L, T, n),
+//           (L, T, n, n) twice, then (L, T) twice — what the factored
+//           smoother K10 reads;
+//   carry   per step sigma, detf (L, T) and the final (m, S) (L, n),
+//           (L, n, n), from (0, I) or from a given (mean0, chol0) per lane
+//           — the deviance, the serving history pass and
+//           sqrt_filter_append.
+// The deviance is summed by the caller (deviance_terms), not here: a
+// serial float32 sum over thousands of steps would cost about as much as
+// the engine's whole f32 precision bar.
+//
+// Inputs: the lane constants with the lane axis last, phi, q (n, L),
+// z (N, n, L), r (N, L); the data (D, T, N) read through lane_map (L,).
+//
+// What bounds it on an H100: latency.  A step is a chain of
+// n + (m_o + n) Householder stages, one block barrier each, plus a few
+// barriers for the products; a stage's work is one column norm and one
+// dot product and update per trailing column (a few dozen multiply-adds
+// per thread).  The design keeps one lane's constants, carry and both
+// work arrays in shared memory, one block per lane with the time loop
+// inside the kernel, so one pass is one launch and device memory is
+// touched only to read each step's data and write its outputs once.
+
+#include "sqrt_qr.cuh"
+
+namespace {
+
+constexpr int kThreads = 64;
+
+template <typename T>
+struct Smem {
+  T *zs, *rr, *ph, *qs, *m, *S, *mp, *Sp, *pa, *ua, *dg, *vv, *ww;
+  int* obs;
+};
+
+// the layout of one block's dynamic shared memory (with s null, only
+// its size): returns the bytes it takes
+template <typename T>
+__host__ __device__ size_t carve(unsigned char* base, int N, int n,
+                                 Smem<T>* s) {
+  const int ldp = sqrtqr::odd_ld(2 * n);
+  const int ldu = sqrtqr::odd_ld(N + n);
+  const size_t counts[13] = {
+      (size_t)N * n, (size_t)N, (size_t)n, (size_t)n, (size_t)n,
+      (size_t)n * n, (size_t)n, (size_t)n * n, (size_t)ldp * n,
+      (size_t)ldu * (N + n), (size_t)(N + n), (size_t)N, (size_t)N};
+  size_t offs[13];
+  size_t used = 0;
+  for (int k = 0; k < 13; ++k) {
+    offs[k] = used;
+    used += counts[k];
+  }
+  if (s != nullptr) {
+    T* p = reinterpret_cast<T*>(base);
+    T** slots[13] = {&s->zs, &s->rr, &s->ph, &s->qs, &s->m,  &s->S, &s->mp,
+                     &s->Sp, &s->pa, &s->ua, &s->dg, &s->vv, &s->ww};
+    for (int k = 0; k < 13; ++k) *slots[k] = p + offs[k];
+    s->obs = reinterpret_cast<int*>(p + used);
+  }
+  return used * sizeof(T) + (size_t)N * sizeof(int);
+}
+
+template <typename T, bool kStore>
+__global__ void __launch_bounds__(kThreads)
+sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
+                   const T* __restrict__ z, const T* __restrict__ r,
+                   const T* __restrict__ y, const uint8_t* __restrict__ mask,
+                   const int* __restrict__ lane_map,
+                   const T* __restrict__ mean0, const T* __restrict__ chol0,
+                   T* __restrict__ o_mean_p, T* __restrict__ o_chol_p,
+                   T* __restrict__ o_mean_f, T* __restrict__ o_chol_f,
+                   T* __restrict__ o_sigma, T* __restrict__ o_detf, int L,
+                   int t_steps, int N, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T> s;
+  carve<T>(smem_raw, N, n, &s);
+  __shared__ int mo, bad;
+  __shared__ T step_sigma, step_detf;
+  const int l = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nn = n * n;
+  const int ldp = sqrtqr::odd_ld(2 * n);
+  const T inf = T(INFINITY);
+
+  for (int idx = tid; idx < N * n; idx += kThreads)
+    s.zs[idx] = z[(size_t)idx * L + l];  // z[i, a, l], idx = i * n + a
+  for (int i = tid; i < N; i += kThreads) s.rr[i] = r[(size_t)i * L + l];
+  for (int a = tid; a < n; a += kThreads) {
+    s.ph[a] = phi[(size_t)a * L + l];
+    const T qa = q[(size_t)a * L + l];
+    s.qs[a] = sqrt(qa > T(0) ? qa : T(0));
+    s.m[a] = mean0 ? mean0[(size_t)l * n + a] : T(0);
+  }
+  for (int idx = tid; idx < nn; idx += kThreads)
+    s.S[idx] = chol0 ? chol0[(size_t)l * nn + idx]
+                     : (idx / n == idx % n ? T(1) : T(0));
+  __syncthreads();
+
+  const int dl = lane_map[l];
+  const T* yl = y + (size_t)dl * t_steps * N;
+  const uint8_t* ml = mask + (size_t)dl * t_steps * N;
+
+  for (int t = 0; t < t_steps; ++t) {
+    // ---- predict: m_p, and the pre-array [(phi o S)' ; diag sqrt q]
+    for (int a = tid; a < n; a += kThreads) s.mp[a] = s.ph[a] * s.m[a];
+    for (int idx = tid; idx < 2 * n * n; idx += kThreads) {
+      const int c = idx / (2 * n), row = idx % (2 * n);
+      s.pa[c * ldp + row] = row < n ? s.ph[c] * s.S[c * n + row]
+                                    : (row - n == c ? s.qs[c] : T(0));
+    }
+    if (tid < 32) {  // compact the observed slots, in order (warp 0)
+      int base = 0;
+      for (int i0 = 0; i0 < N; i0 += 32) {
+        const int i = i0 + tid;
+        const bool on = i < N && ml[(size_t)t * N + i] != 0;
+        const unsigned bal = __ballot_sync(0xffffffffu, on);
+        if (on) s.obs[base + __popc(bal & ((1u << tid) - 1u))] = i;
+        base += __popc(bal);
+      }
+      if (tid == 0) {
+        mo = base;
+        bad = 0;
+      }
+    }
+    __syncthreads();
+    // column j of the pre-array is nonzero in rows [j, n + j] only
+    sqrtqr::house_qr<T, kThreads>(s.pa, ldp, 2 * n, n, 0, n + 1, s.dg);
+    for (int idx = tid; idx < nn; idx += kThreads) {
+      const int a = idx / n, b = idx % n;  // S_p[a, b] = sign_b R[b, a]
+      T v = T(0);
+      if (a == b)
+        v = s.dg[b] * sqrtqr::row_sign(s.dg[b]);
+      else if (a > b)
+        v = s.pa[a * ldp + b] * sqrtqr::row_sign(s.dg[b]);
+      s.Sp[idx] = v;
+    }
+    __syncthreads();
+    const int o = mo;
+
+    if (o == 0) {
+      // predict-only: S_f = S_p exactly; ok iff S_p is finite
+      for (int idx = tid; idx < nn; idx += kThreads)
+        if (!isfinite(s.Sp[idx])) bad = 1;
+      __syncthreads();
+      if (tid == 0) {
+        step_sigma = T(0);
+        step_detf = bad ? inf : T(0);
+      }
+      for (int a = tid; a < n; a += kThreads) s.m[a] = s.mp[a];
+      for (int idx = tid; idx < nn; idx += kThreads) s.S[idx] = s.Sp[idx];
+    } else {
+      const int R = o + n;
+      const int ldu = sqrtqr::odd_ld(R);
+      // innovations of the observed slots
+      for (int k = tid; k < o; k += kThreads) {
+        const int i = s.obs[k];
+        T acc = yl[(size_t)t * N + i];
+        for (int a = 0; a < n; ++a) acc -= s.zs[i * n + a] * s.mp[a];
+        s.vv[k] = acc;
+      }
+      // the compact pre-array, column-major
+      for (int idx = tid; idx < R * R; idx += kThreads) {
+        const int c = idx / R, row = idx % R;
+        T v;
+        if (c < o) {
+          const int i = s.obs[c];
+          if (row < o) {
+            v = row == c ? sqrt(s.rr[i]) : T(0);
+          } else {  // (Z_o S_p)'[a, c] = sum_b z[i, b] S_p[b, a], b >= a
+            const int a = row - o;
+            v = T(0);
+            for (int b = a; b < n; ++b) v += s.zs[i * n + b] * s.Sp[b * n + a];
+          }
+        } else {
+          v = row < o ? T(0) : s.Sp[(c - o) * n + (row - o)];
+        }
+        s.ua[c * ldu + row] = v;
+      }
+      __syncthreads();
+      sqrtqr::house_qr<T, kThreads>(s.ua, ldu, R, R, o, R, s.dg);
+      // ok: F^1/2 diagonal nonzero (positive once normalised), every
+      // entry of R finite; the log terms of detf, one per thread
+      for (int c = tid; c < R; c += kThreads) {
+        const T d = s.dg[c];
+        bool good = isfinite(d) && (c >= o || d != T(0));
+        for (int i = 0; i < c; ++i) good = good && isfinite(s.ua[c * ldu + i]);
+        if (!good) bad = 1;
+        if (c < o) s.ww[c] = T(2) * log(fabs(d));
+      }
+      __syncthreads();
+      if (tid == 0) {
+        T det = 0;
+        for (int k = 0; k < o; ++k) det += s.ww[k];
+        // w = F^-1/2' \ v by forward substitution on the unnormalised R
+        // (a row's sign cancels in sigma and in Kbar w)
+        T sig = 0;
+        for (int k = 0; k < o; ++k) {
+          T acc = s.vv[k];
+          for (int i = 0; i < k; ++i) acc -= s.ua[k * ldu + i] * s.ww[i];
+          const T wk = acc / s.dg[k];
+          s.ww[k] = wk;
+          sig += wk * wk;
+        }
+        step_sigma = bad ? T(0) : sig;
+        step_detf = bad ? inf : det;
+      }
+      __syncthreads();
+      if (bad) {
+        for (int a = tid; a < n; a += kThreads) s.m[a] = s.mp[a];
+        for (int idx = tid; idx < nn; idx += kThreads) s.S[idx] = s.Sp[idx];
+      } else {
+        for (int a = tid; a < n; a += kThreads) {
+          T acc = s.mp[a];
+          for (int k = 0; k < o; ++k) acc += s.ua[(o + a) * ldu + k] * s.ww[k];
+          s.m[a] = acc;
+        }
+        for (int idx = tid; idx < nn; idx += kThreads) {
+          const int a = idx / n, b = idx % n;  // S_f[a, b] = sign R[o+b, o+a]
+          const T d = s.dg[o + b];
+          T v = T(0);
+          if (a == b)
+            v = d * sqrtqr::row_sign(d);
+          else if (a > b)
+            v = s.ua[(o + a) * ldu + o + b] * sqrtqr::row_sign(d);
+          s.S[idx] = v;
+        }
+      }
+    }
+    __syncthreads();
+    // ---- outputs of the step
+    const size_t st = (size_t)l * t_steps + t;
+    if (tid == 0) {
+      o_sigma[st] = step_sigma;
+      o_detf[st] = step_detf;
+    }
+    if (kStore) {
+      for (int a = tid; a < n; a += kThreads) {
+        o_mean_p[st * n + a] = s.mp[a];
+        o_mean_f[st * n + a] = s.m[a];
+      }
+      for (int idx = tid; idx < nn; idx += kThreads) {
+        o_chol_p[st * nn + idx] = s.Sp[idx];
+        o_chol_f[st * nn + idx] = s.S[idx];
+      }
+    }
+    __syncthreads();
+  }
+  if (!kStore) {
+    for (int a = tid; a < n; a += kThreads) o_mean_f[(size_t)l * n + a] = s.m[a];
+    for (int idx = tid; idx < nn; idx += kThreads)
+      o_chol_f[(size_t)l * nn + idx] = s.S[idx];
+  }
+}
+
+template <typename T, bool kStore>
+int launch(const void* phi, const void* q, const void* z, const void* r,
+           const void* y, const void* mask, const void* lane_map,
+           const void* mean0, const void* chol0, void* out0, void* out1,
+           void* out2, void* out3, void* out4, void* out5, int L, int t_steps,
+           int N, int n, void* stream) {
+  const size_t smem = carve<T>(nullptr, N, n, nullptr);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sqrt_filter_kernel<T, kStore>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (L == 0) return 0;
+  sqrt_filter_kernel<T, kStore><<<L, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)phi, (const T*)q, (const T*)z, (const T*)r, (const T*)y,
+      (const uint8_t*)mask, (const int*)lane_map, (const T*)mean0,
+      (const T*)chol0, (T*)out0, (T*)out1, (T*)out2, (T*)out3, (T*)out4,
+      (T*)out5, L, t_steps, N, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sqrt_filter(const void* phi, const void* q, const void* z,
+                       const void* r, const void* y, const void* mask,
+                       const void* lane_map, const void* mean0,
+                       const void* chol0, void* out0, void* out1, void* out2,
+                       void* out3, void* out4, void* out5, int L, int t_steps,
+                       int N, int n, int store, void* stream) {
+  if (store)
+    return launch<T, true>(phi, q, z, r, y, mask, lane_map, mean0, chol0,
+                           out0, out1, out2, out3, out4, out5, L, t_steps, N,
+                           n, stream);
+  return launch<T, false>(phi, q, z, r, y, mask, lane_map, mean0, chol0,
+                          out0, out1, out2, out3, out4, out5, L, t_steps, N,
+                          n, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// out0..out5: (mean_p, chol_p, mean_f, chol_f, sigma, detf) with store;
+// without, out0/out1 are unused and out2/out3 receive the final (m, S).
+// mean0/chol0 may be null: the carry then starts from (0, I).
+int metran_sqrt_filter_f32(const void* phi, const void* q, const void* z,
+                           const void* r, const void* y, const void* mask,
+                           const void* lane_map, const void* mean0,
+                           const void* chol0, void* out0, void* out1,
+                           void* out2, void* out3, void* out4, void* out5,
+                           int L, int t_steps, int N, int n, int store,
+                           void* stream) {
+  return launch_sqrt_filter<float>(phi, q, z, r, y, mask, lane_map, mean0,
+                                   chol0, out0, out1, out2, out3, out4, out5,
+                                   L, t_steps, N, n, store, stream);
+}
+
+int metran_sqrt_filter_f64(const void* phi, const void* q, const void* z,
+                           const void* r, const void* y, const void* mask,
+                           const void* lane_map, const void* mean0,
+                           const void* chol0, void* out0, void* out1,
+                           void* out2, void* out3, void* out4, void* out5,
+                           int L, int t_steps, int N, int n, int store,
+                           void* stream) {
+  return launch_sqrt_filter<double>(phi, q, z, r, y, mask, lane_map, mean0,
+                                    chol0, out0, out1, out2, out3, out4, out5,
+                                    L, t_steps, N, n, store, stream);
+}
+
+const char* metran_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -4,13 +4,16 @@ Port of ``metran_tpu/models/kalman_runner.py``.  Plays the role of the
 reference's ``SPKalmanFilter`` object (``metran/kalmanfilter.py:479-778``):
 holds the packed observations on the model's device, the currently-set
 state-space matrices and lazily-cached filter/smoother results, so model
-accessors re-use a single filter pass.  The filter is the stored
-sequential filter (kernel K6 in its ``store`` mode), the smoother kernel
-K8, the forecasts K2 and the path draws K7 + K6 + K8; accessors return
-numpy arrays.
+accessors re-use a single filter pass.  On ``engine="sequential"`` the
+filter is the stored sequential filter (kernel K6 in its ``store``
+mode), the smoother kernel K8 and the path draws K7 + K6 + K8; on
+``engine="sqrt"`` the filter is the stored square-root filter (K9),
+whose factors are cached and smoothed in factored form (K10), and the
+path draws are K7 + K9 + K10; the forecasts are K2 either way.
+Accessors return numpy arrays.
 
-Only the sequential engine is ported: the square-root (B6), joint-store
-and associative-scan (B8) engines raise with their ROADMAP item (A7).
+The joint-store and associative-scan (B8) engines raise with their
+ROADMAP item (A7).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..ops.kalman import (
     FilterResult,
     SmootherResult,
     _require,
+    chol_outer,
     decompose_states,
     deviance_terms,
     innovations,
@@ -34,16 +38,18 @@ from ..ops.kalman import (
     project,
     rts_smoother,
     sample_states,
+    sqrt_kalman_filter,
 )
 from ..ops.statespace import StateSpace
 
 logger = getLogger(__name__)
 
+
 def check_engine(engine: str) -> str:
-    """``engine`` when the runner has it (the sequential one); the JAX
-    engines not ported yet raise ``NotImplementedError`` naming their
-    ROADMAP item."""
-    _require(engine, ("sequential",))
+    """``engine`` when the runner has it (the sequential or the
+    square-root one); the JAX engines not ported yet raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    _require(engine, ("sequential", "sqrt"))
     return engine
 
 
@@ -72,6 +78,9 @@ class KalmanRunner:
     def init_states(self) -> None:
         self.filtered: Optional[FilterResult] = None
         self.smoothed: Optional[SmootherResult] = None
+        # the square-root engine: the factored filter pass is cached so
+        # the smoother consumes factors, not reconstituted covariances
+        self._sqrt_filtered = None
 
     def set_observations(self, panel: Panel) -> None:
         self.panel = panel
@@ -88,13 +97,29 @@ class KalmanRunner:
         if self.filtered is None:
             if self.mask_active:
                 logger.info("Running Kalman filter with masked observations.")
-            self.filtered = kalman_filter(self.ss, self.y, self.mask,
-                                          engine=self.engine, store=True)
+            if self.engine == "sqrt":
+                # one factored pass (K9 store), cached for the smoother;
+                # the accessors read the reconstituted moments
+                sq = sqrt_kalman_filter(self.ss, self.y, self.mask,
+                                        store=True)
+                self._sqrt_filtered = sq
+                self.filtered = FilterResult(
+                    sq.mean_p, chol_outer(sq.chol_p), sq.mean_f,
+                    chol_outer(sq.chol_f), sq.sigma, sq.detf,
+                )
+            else:
+                self.filtered = kalman_filter(self.ss, self.y, self.mask,
+                                              engine=self.engine,
+                                              store=True)
         return self.filtered
 
     def run_smoother(self) -> SmootherResult:
         if self.smoothed is None:
-            self.smoothed = rts_smoother(self.ss, self.run_filter(),
+            filtered = self.run_filter()
+            if self._sqrt_filtered is not None:
+                # rts_smoother dispatches on the factored result (K10)
+                filtered = self._sqrt_filtered
+            self.smoothed = rts_smoother(self.ss, filtered,
                                          engine=self.engine)
         return self.smoothed
 

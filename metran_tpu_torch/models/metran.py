@@ -7,12 +7,16 @@ lives on a device (``device=``, default the CUDA card; ``"cpu"`` runs the
 kernels' plain versions) in the JAX package's precision: float64 on the
 CPU, float32 on the card unless ``METRAN_TPU_X64=1``.
 
-Internally the likelihood is the sequential deviance (kernel K3, its
-exact gradient the closed-form adjoint K4), the filter the stored
-sequential filter (K6 ``store``), the smoother K8, the forecasts K2 and
-the path draws K7 with K6 and K8.  The port runs ``engine="sequential"``
-on every device (the JAX package's CPU default); the joint, square-root
-and associative-scan engines raise (ROADMAP A7), as do ``plots``,
+The engine follows the JAX package's rule: ``"sqrt"`` on the card (an
+accelerator), ``"sequential"`` on the CPU (:func:`default_engine`).  On
+``"sqrt"`` the filter is the stored square-root filter (kernel K9), the
+smoother the factored smoother K10, the path draws K7 with K9 and K10;
+on ``"sequential"`` the stored sequential filter (K6 ``store``), the
+smoother K8 and the draws K7 with K6 and K8; the forecasts are K2 either
+way.  The fit's likelihood is the sequential deviance (kernel K3, its
+exact gradient the closed-form adjoint K4) on the card's LanesSolve
+whatever the engine, as in the JAX package.  The joint and
+associative-scan engines raise (ROADMAP A7), as do ``plots``,
 ``to_file`` and ``from_file`` (ROADMAP A5).
 """
 
@@ -60,6 +64,14 @@ def _not_ported(what: str) -> NotImplementedError:
         f"Metran.{what} is not ported yet ({_NOT_PORTED[what]})")
 
 
+def default_engine(device) -> str:
+    """The engine a model on ``device`` runs when none is named: the
+    square-root engine on the CUDA card (the JAX package's accelerator
+    default — PSD-by-construction covariances in float32), the
+    sequential engine on the CPU (float64 parity with the reference)."""
+    return "sqrt" if torch.device(device).type == "cuda" else "sequential"
+
+
 def _engine(name: str) -> str:
     """The canonical engine of ``name``; the engines the port does not
     have raise ``NotImplementedError`` naming ROADMAP A7."""
@@ -82,11 +94,13 @@ class Metran:
     tmin, tmax : str, optional
         Start/end of the analysis period.
     engine : str, optional
-        Kalman engine.  The port has "sequential" (the reference's
-        sequential processing; "numba"/"numpy" are aliases), the
-        default on every device; "joint", "sqrt", "parallel" and
-        "sqrt_parallel" raise ``NotImplementedError`` (ROADMAP A7: the
-        card's default becomes "sqrt" when that engine is ported).
+        Kalman engine: "sequential" (the reference's sequential
+        processing; "numba"/"numpy" are aliases) or "sqrt" (QR
+        square-root filtering and smoothing, covariances PSD by
+        construction — the robust float32 engine).  Default "sqrt" on
+        the CUDA card and "sequential" on the CPU, as the JAX package
+        chooses by accelerator.  "joint", "parallel" and
+        "sqrt_parallel" raise ``NotImplementedError`` (ROADMAP A7).
     device : str or torch.device, optional
         Where the model runs: the CUDA card by default (raises without
         one); ``"cpu"`` runs the kernels' plain versions in float64.
@@ -104,7 +118,8 @@ class Metran:
     ):
         self.device = resolve_device(device)
         self.dtype = default_dtype(self.device)
-        self._engine = _engine("sequential" if engine is None else engine)
+        self._engine = _engine(default_engine(self.device) if engine is None
+                               else engine)
         self.settings = {
             "tmin": None,
             "tmax": None,

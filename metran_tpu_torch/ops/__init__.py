@@ -1,5 +1,5 @@
-"""State-space build, the joint and sequential Kalman engines, the RTS
-smoother and the single-model products, the lane-layout fleet deviance,
+"""State-space build, the joint, sequential and square-root Kalman
+engines, the RTS smoothers and the single-model products, the lane-layout fleet deviance,
 the lane-layout post-fit products and closed-form forecasts."""
 
 from .adjoint import ADJOINT_ENGINES, resolve_grad_engine
@@ -11,6 +11,9 @@ from .forecast import (
 from .kalman import (
     FilterResult,
     SmootherResult,
+    SqrtFilterResult,
+    SqrtSmootherResult,
+    chol_outer,
     decompose_states,
     deviance,
     deviance_terms,
@@ -21,6 +24,10 @@ from .kalman import (
     project,
     rts_smoother,
     sample_states,
+    sqrt_filter_append,
+    sqrt_filter_update,
+    sqrt_kalman_filter,
+    sqrt_rts_smoother,
 )
 from .lanes import (
     lanes_deviance_terms,
@@ -45,8 +52,11 @@ __all__ = [
     "ADJOINT_ENGINES",
     "FilterResult",
     "SmootherResult",
+    "SqrtFilterResult",
+    "SqrtSmootherResult",
     "StateSpace",
     "ar1_decay",
+    "chol_outer",
     "decompose_states",
     "deviance",
     "deviance_terms",
@@ -71,4 +81,8 @@ __all__ = [
     "rts_smoother",
     "sample_states",
     "scale_observation_matrix",
+    "sqrt_filter_append",
+    "sqrt_filter_update",
+    "sqrt_kalman_filter",
+    "sqrt_rts_smoother",
 ]

@@ -83,13 +83,12 @@ def forecast_horizons(ss: StateSpace, mean_last, fac_last, horizons,
                       sqrt: bool = False, device=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Predictive observation moments at an arbitrary horizon set from
-    the covariance-form posterior (the commit-time pass of the
-    materialized read path).  ``sqrt=True`` (a Cholesky-factor carry)
-    comes with the square-root slice."""
+    either posterior carry form (the commit-time pass of the
+    materialized read path): ``fac_last`` is the filtered covariance
+    (``sqrt=False``) or its Cholesky factor (``sqrt=True``, reconstituted
+    here by one ``fac fac'`` — a plain matmul — ahead of K2)."""
     if sqrt:
-        raise ValueError(
-            "forecast_horizons(sqrt=True) is not ported yet: ROADMAP A7 "
-            "(square-root engine, kernel B6)"
-        )
+        fac = as_tensor(fac_last, None)
+        fac_last = fac @ fac.transpose(-1, -2)
     return forecast_observation_moments(ss, mean_last, fac_last, horizons,
                                         device=device)

@@ -26,12 +26,24 @@ of draws with K6 ``store`` + K8, one launch each.
 objective; under differentiation with the closed-form adjoint their
 backward is kernel K4.
 
+The square-root engine (``engine="sqrt"``) carries the mean and a
+Cholesky factor of the covariance and updates them by QR array
+transformations — PSD by construction, no Cholesky of a computed
+matrix: :func:`sqrt_kalman_filter` is kernel K9
+(:func:`metran_tpu_torch.kernels.sqrt_filter.sqrt_filter`) with or
+without its per-step store, :func:`sqrt_filter_update`/
+:func:`sqrt_filter_append` K9 from a given carry, and
+:func:`sqrt_rts_smoother` the factored smoother K10
+(:func:`metran_tpu_torch.kernels.sqrt_smoother.sqrt_smooth`).
+``kalman_filter``/``deviance``/``rts_smoother``/``sample_states`` take
+``engine="sqrt"`` as in the JAX package.
+
 ``_predict``/``_joint_update``/``_make_core_step`` are the joint
 engine's per-step building blocks, batched, for callers that step one
 row at a time; the first two are the plain version's own steps.
 
-The other engines, and ``store=True`` with the joint engine, raise with
-the ROADMAP item that will port them.
+The associative-scan engines, and ``store=True`` with the joint engine,
+raise with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -49,6 +61,8 @@ from ..kernels.joint_filter import (
 )
 from ..kernels.lanes import lanes_filter
 from ..kernels.smoother import rts_smooth
+from ..kernels.sqrt_filter import sqrt_filter
+from ..kernels.sqrt_smoother import sqrt_smooth
 from .adjoint import DEFAULT_SEG, resolve_grad_engine
 from .lanes import lanes_terms, prepare_data
 from .statespace import StateSpace
@@ -59,7 +73,6 @@ LOG2PI = 1.8378770664093453  # log(2*pi)
 _NOT_PORTED = {
     "joint": "ROADMAP A7 (batch-layout adjoint, kernel B7)",
     "sequential": "ROADMAP A8 (sequential serving updates, kernel B9b)",
-    "sqrt": "ROADMAP A7 (square-root engine, kernel B6)",
     "parallel": "ROADMAP A7 (associative-scan engine, kernel B8)",
     "sqrt_parallel": "ROADMAP A7 (associative-scan engine, kernel B8)",
 }
@@ -70,13 +83,21 @@ class NotPortedError(NotImplementedError, ValueError):
     names the ROADMAP item that brings it."""
 
 
+#: every engine name of the JAX package
+ENGINES = ("joint", "sequential", "sqrt", "parallel", "sqrt_parallel")
+
+
 def _require(engine: str, ported=("joint",)) -> None:
     """Raise unless ``engine`` is one of ``ported`` (what the calling
     function has in the port)."""
     if engine in ported:
         return
-    if engine not in _NOT_PORTED:
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
+    if engine not in _NOT_PORTED:
+        raise ValueError(
+            f"engine {engine!r} has no path through this function; it has "
+            + " or ".join(repr(e) for e in ported))
     raise NotPortedError(
         f"engine {engine!r} is not ported yet here "
         f"({_NOT_PORTED[engine]}); this function has engine "
@@ -153,9 +174,19 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "joint",
     final carry and ``sigma``/``detf`` the per-step terms ((T,) or
     (B, T)).  ``store=True`` (sequential engine: K6 in its ``store``
     mode) returns every step's predicted and filtered moments, the JAX
-    function's default contract.
+    function's default contract.  ``engine="sqrt"`` runs K9
+    (:func:`sqrt_kalman_filter`) and reconstitutes the covariances from
+    its factors (``chol_outer``), with or without ``store``.
     """
-    _require(engine, ("joint", "sequential"))
+    _require(engine, ("joint", "sequential", "sqrt"))
+    if engine == "sqrt":
+        res = sqrt_kalman_filter(ss, y, mask, store=store, device=device)
+        if not store:
+            cov_t = chol_outer(res.chol_f)
+            return FilterResult(res.mean_f, cov_t, res.mean_f, cov_t,
+                                res.sigma, res.detf)
+        return FilterResult(res.mean_p, chol_outer(res.chol_p), res.mean_f,
+                            chol_outer(res.chol_f), res.sigma, res.detf)
     if store and engine != "sequential":
         raise NotPortedError(
             "store=True with the joint engine is not ported yet: ROADMAP "
@@ -188,23 +219,25 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "joint",
     return FilterResult(mean_t, cov_t, mean_t, cov_t, sigma, detf)
 
 
-def _check_diagonal_q(q) -> None:
-    """Reject non-diagonal transition covariances: the sequential engine
-    of the port (kernel K3) reads the process noise off the diagonal,
-    so off-diagonal entries would be dropped silently."""
+def _check_diagonal_q(q, engine: str = "sequential") -> None:
+    """Reject non-diagonal transition covariances: the sequential and
+    square-root engines of the port (kernels K3 and K9) read the process
+    noise off the diagonal, so off-diagonal entries would be dropped
+    silently."""
     off = q - torch.diag_embed(torch.diagonal(q, 0, -2, -1))
     if bool((off.abs() > 0).any()):
+        name = "square-root" if engine == "sqrt" else engine
         raise ValueError(
-            "the sequential engine requires a diagonal transition "
+            f"the {name} engine requires a diagonal transition "
             "covariance Q (the form dfm_statespace builds); got off-diagonal "
             "entries"
         )
 
 
-def _lanes_ss(ss_b: StateSpace):
-    """A batch of models (leaves lead with B) as K3's lanes: ``(phi
-    (S, B), q (S, B), z (N, S, B), r (N, B))``."""
-    _check_diagonal_q(ss_b.q)
+def _lanes_ss(ss_b: StateSpace, engine: str = "sequential"):
+    """A batch of models (leaves lead with B) as K3's (and K9's) lanes:
+    ``(phi (S, B), q (S, B), z (N, S, B), r (N, B))``."""
+    _check_diagonal_q(ss_b.q, engine)
     q = torch.diagonal(ss_b.q, 0, -2, -1)
     return ss_b.phi.T, q.T, ss_b.z.permute(1, 2, 0), ss_b.r.T
 
@@ -217,8 +250,14 @@ def filter_append(ss: StateSpace, mean, cov, y_new, mask_new,
     One model: mean (S,), cov (S, S), y_new/mask_new (k, N) (or (N,)).
     A batch: leaves and moments lead with B, y_new/mask_new (B, k, N).
     Returns ``(mean_T, cov_T, sigma, detf)`` with per-step terms (k,)
-    or (B, k).
+    or (B, k).  The square-root engine carries a factor instead: use
+    :func:`sqrt_filter_append`.
     """
+    if engine in ("sqrt", "sqrt_parallel"):
+        raise ValueError(
+            "filter_append carries a covariance; the square-root engine "
+            "carries a Cholesky factor — use sqrt_filter_append"
+        )
     _require(engine)
     ss_b, device, dtype, single = _prepare(ss, device)
     y_new = as_tensor(y_new, device, dtype)
@@ -236,6 +275,143 @@ def filter_append(ss: StateSpace, mean, cov, y_new, mask_new,
     if single:
         out = tuple(o[0] for o in out)
     return out
+
+
+# ----------------------------------------------------------------------
+# the square-root (Cholesky-factor) engine
+# ----------------------------------------------------------------------
+class SqrtFilterResult(NamedTuple):
+    """Filter moments in square-root form: ``chol_p``/``chol_f`` are
+    lower-triangular factors of the predicted/filtered covariances
+    (``P = S S'``).  With ``store=True`` every field is per step
+    ((T, ...), or (B, T, ...) for a batch); otherwise the moments hold
+    the final carry and only ``sigma``/``detf`` are per step."""
+
+    mean_p: torch.Tensor
+    chol_p: torch.Tensor
+    mean_f: torch.Tensor
+    chol_f: torch.Tensor
+    sigma: torch.Tensor
+    detf: torch.Tensor
+
+
+class SqrtSmootherResult(NamedTuple):
+    mean_s: torch.Tensor  # (T, n), or (B, T, n)
+    chol_s: torch.Tensor  # (T, n, n) lower factor of the smoothed cov
+
+
+def chol_outer(chol: torch.Tensor) -> torch.Tensor:
+    """Reconstitute ``S S'`` from stacked factors (leading batch axes):
+    exactly symmetric and PSD up to one matmul's roundoff — for consumer
+    boundaries only; the engine itself carries the factors."""
+    return chol @ chol.transpose(-1, -2)
+
+
+def sqrt_kalman_filter(ss: StateSpace, y, mask, store: bool = True,
+                       device=None) -> SqrtFilterResult:
+    """Masked Kalman filter propagating Cholesky factors by QR updates:
+    one K9 launch, one lane per model (``ss`` leaves lead with B for a
+    batch, ``y``/``mask`` (B, T, N); one model: (T, N)).
+
+    Same recursion, masking and likelihood terms as
+    :func:`kalman_filter`, but every covariance is carried as its lower
+    factor and updated by orthogonal transformations (PSD by
+    construction, no Cholesky of a computed matrix).  ``store=False``
+    keeps the final carry only.  Requires the DFM's diagonal ``Q``.
+    """
+    ss_b, device, dtype, single = _prepare(ss, device)
+    y = as_tensor(y, device, dtype)
+    mask = as_tensor(mask, device, torch.bool)
+    if single:
+        y, mask = y[None], mask[None]
+    phi, q, z, r = _lanes_ss(ss_b, "sqrt")
+    out = sqrt_filter(phi, q, z, r, y.contiguous(), mask.contiguous(),
+                      store=store)
+    if store:
+        res = SqrtFilterResult(*out)
+    else:
+        mean, chol, sigma, detf = out
+        res = SqrtFilterResult(mean, chol, mean, chol, sigma, detf)
+    if single:
+        res = SqrtFilterResult(*(o[0] for o in res))
+    return res
+
+
+def sqrt_filter_append(ss: StateSpace, mean, chol, y_new, mask_new,
+                       device=None) -> Tuple[torch.Tensor, ...]:
+    """Assimilate ``k`` appended rows carrying a Cholesky factor (the
+    square-root counterpart of :func:`filter_append`, the serving
+    path's factored update): K9 from the given carry.
+
+    One model: mean (S,), chol (S, S) (any factor of the covariance, it
+    need not be triangular), y_new/mask_new (k, N) (or (N,)).  A batch:
+    leaves and carry lead with B, y_new/mask_new (B, k, N).  Returns
+    ``(mean_T, chol_T, sigma, detf)`` with per-step terms (k,) or
+    (B, k); ``chol_T`` is lower-triangular, PSD by construction.
+    """
+    ss_b, device, dtype, single = _prepare(ss, device)
+    y_new = as_tensor(y_new, device, dtype)
+    mask_new = as_tensor(mask_new, device, torch.bool)
+    mean = as_tensor(mean, device, dtype)
+    chol = as_tensor(chol, device, dtype)
+    if single:
+        if y_new.dim() == 1:
+            y_new, mask_new = y_new[None], mask_new[None]
+        y_new, mask_new = y_new[None], mask_new[None]
+        mean, chol = mean[None], chol[None]
+    phi, q, z, r = _lanes_ss(ss_b, "sqrt")
+    out = sqrt_filter(phi, q, z, r, y_new.contiguous(),
+                      mask_new.contiguous(), mean0=mean.contiguous(),
+                      chol0=chol.contiguous())
+    if single:
+        out = tuple(o[0] for o in out)
+    return out
+
+
+def sqrt_filter_update(ss: StateSpace, mean, chol, y_t, mask_t,
+                       device=None) -> Tuple[torch.Tensor, ...]:
+    """One online-assimilation step carrying a Cholesky factor: ``(mean_f,
+    chol_f, sigma, detf)`` with scalar (or (B,)) terms — the step
+    :func:`sqrt_filter_append` takes per row."""
+    y_t = torch.as_tensor(y_t)
+    mask_t = torch.as_tensor(mask_t)
+    mean_f, chol_f, sigma, detf = sqrt_filter_append(
+        ss, mean, chol, y_t[..., None, :], mask_t[..., None, :],
+        device=device)
+    return mean_f, chol_f, sigma[..., 0], detf[..., 0]
+
+
+def sqrt_rts_smoother(ss: StateSpace, filtered: SqrtFilterResult
+                      ) -> SqrtSmootherResult:
+    """RTS smoother propagating Cholesky factors over a ``store=True``
+    :func:`sqrt_kalman_filter` result: one K10 launch with one lane per
+    model.  The gain solves against the stored predicted factor
+    (triangular solves only) and the smoothed factor is one ``tria`` of
+    ``[(I - G Phi) S_f | G Q^1/2 | G S_s']`` — PSD by construction."""
+    return SqrtSmootherResult(*_sqrt_smooth(ss, filtered, want_cov=True))
+
+
+def _sqrt_smooth(ss: StateSpace, filtered: SqrtFilterResult,
+                 want_cov: bool):
+    """K10 over stored factors (one model, or a batch whose ``ss``
+    leaves and ``filtered`` lead with B): ``(mean_s, chol_s or None)``;
+    ``want_cov=False`` skips the smoothed factor (the mean recursion
+    never reads it)."""
+    dev, dtype = filtered.mean_f.device, filtered.mean_f.dtype
+    phi = as_tensor(ss.phi, dev, dtype)
+    q = as_tensor(ss.q, dev, dtype)
+    _check_diagonal_q(q, "sqrt")
+    q = torch.diagonal(q, 0, -2, -1)
+    single = filtered.mean_f.dim() == 2
+    args = [filtered.mean_f, filtered.chol_f, filtered.mean_p,
+            filtered.chol_p]
+    if single:
+        phi, q, args = phi[None], q[None], [a[None] for a in args]
+    mean_s, chol_s = sqrt_smooth(phi.contiguous(), q.contiguous(), *args,
+                                 want_cov=want_cov)
+    if single:
+        return mean_s[0], None if chol_s is None else chol_s[0]
+    return mean_s, chol_s
 
 
 def project(z, means, covs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -277,24 +453,32 @@ def _finite_or_inf(total):
 def deviance(ss: StateSpace, y, mask, warmup: int = 1,
              engine: str = "sequential", remat_seg=None, grad=None,
              device=None):
-    """-2 log-likelihood (the quantity the reference minimizes) of the
-    sequential engine: one K3 launch over the model (or the batch whose
-    ``ss`` leaves lead with B; then a (B,) result).
+    """-2 log-likelihood (the quantity the reference minimizes): one
+    K3 launch over the model (or the batch whose ``ss`` leaves lead with
+    B; then a (B,) result) for ``engine="sequential"``, one K9 launch
+    (carry only) for ``engine="sqrt"``.
 
     ``grad`` selects how the value differentiates (w.r.t. ``ss.phi`` and
     the diagonal of ``ss.q``): ``"adjoint"`` (``"auto"`` resolves to
     it) is kernel K4, with ``remat_seg`` (default 128) as its segment
     length; ``"autodiff"`` is torch autograd through the plain filter,
     CPU tensors only.  ``None`` reads ``METRAN_TPU_GRAD_ENGINE``.  The
-    value is the same either way; a non-finite one is ``+inf``.
+    value is the same either way; a non-finite one is ``+inf``.  The
+    square-root deviance differentiates by ``"autodiff"`` only: its
+    closed-form adjoint is kernel B7 (ROADMAP A7), so differentiating
+    it in ``"adjoint"`` mode (what ``"auto"`` resolves to in float64)
+    raises :class:`NotPortedError`.
     """
-    _require(engine, ("sequential",))
+    _require(engine, ("sequential", "sqrt"))
     mode = resolve_grad_engine(grad, engine, dtype=float_dtype(ss.q))
     ss_b, device, dtype, single = _prepare(ss, device)
     y = as_tensor(y, device, dtype)
     mask = as_tensor(mask, device, torch.bool)
     if single:
         y, mask = y[None], mask[None]
+    if engine == "sqrt":
+        total = _sqrt_deviance(ss_b, y, mask, warmup, mode)
+        return total[0] if single else total
     phi, q, z, r = _lanes_ss(ss_b)
     data = prepare_data(y, mask)
     sigma, detf = lanes_terms(phi, q, z, r, data, None,
@@ -302,6 +486,29 @@ def deviance(ss: StateSpace, y, mask, warmup: int = 1,
     total = _finite_or_inf(deviance_terms(sigma.T, detf.T, mask,
                                           warmup=warmup))
     return total[0] if single else total
+
+
+def _sqrt_deviance(ss_b: StateSpace, y, mask, warmup: int, mode: str):
+    """The square-root deviance of a batch: K9's per-step terms (or,
+    under autodiff, the plain filter's), summed by ``deviance_terms``."""
+    needs_grad = torch.is_grad_enabled() and any(
+        leaf.requires_grad for leaf in ss_b)
+    if needs_grad and mode == "adjoint":
+        raise NotPortedError(
+            "the square-root deviance has no closed-form adjoint here yet "
+            "(ROADMAP A7, kernel B7); differentiate it with "
+            "grad='autodiff' on CPU tensors (a float64 ScipySolve on "
+            "engine='sqrt' needs METRAN_TPU_GRAD_ENGINE=autodiff until "
+            "then), or fit on engine='sequential'")
+    if needs_grad and y.device.type != "cpu":
+        raise RuntimeError(
+            "grad='autodiff' differentiates the plain PyTorch filter, "
+            "which runs on CPU tensors only; on the card fit with "
+            "LanesSolve (kernels K3/K4)")
+    phi, q, z, r = _lanes_ss(ss_b, "sqrt")
+    _, _, sigma, detf = sqrt_filter(phi, q, z, r, y.contiguous(),
+                                    mask.contiguous())
+    return _finite_or_inf(deviance_terms(sigma, detf, mask, warmup=warmup))
 
 
 def log_likelihood(ss: StateSpace, y, mask, warmup: int = 1,
@@ -320,19 +527,25 @@ class SmootherResult(NamedTuple):
     cov_s: torch.Tensor  # (T, n, n), or (B, T, n, n)
 
 
-def rts_smoother(ss: StateSpace, filtered: FilterResult,
-                 engine: str = "sequential") -> SmootherResult:
+def rts_smoother(ss: StateSpace, filtered, engine: str = "sequential"
+                 ) -> SmootherResult:
     """RTS smoother over a ``store=True`` filter result: one K8 launch
     with one lane per model (``ss`` leaves and ``filtered`` lead with B
     for a batch).
 
     The JAX function's covariance-form reverse scan: a Cholesky of each
     predicted covariance, ``G = P_f Phi' P_p^-1``, a step whose
-    Cholesky fails degraded to its filtered moments.  ``engine`` names
-    the filter engine that produced ``filtered``; the square-root and
-    associative-scan smoothers raise (ROADMAP A7).
+    Cholesky fails degraded to its filtered moments.  A
+    :class:`SqrtFilterResult` is smoothed in factored form instead
+    (:func:`sqrt_rts_smoother`, K10) and its covariances reconstituted
+    only at return.  ``engine`` names the filter engine that produced
+    ``filtered``; the associative-scan smoothers raise (ROADMAP A7).
     """
-    _require(engine, ("sequential", "joint"))
+    if isinstance(filtered, SqrtFilterResult):
+        _require(engine, ("sqrt", "sequential", "joint"))
+        sm = sqrt_rts_smoother(ss, filtered)
+        return SmootherResult(sm.mean_s, chol_outer(sm.chol_s))
+    _require(engine, ("sequential", "joint", "sqrt"))
     phi = as_tensor(ss.phi, filtered.mean_f.device, filtered.mean_f.dtype)
     single = filtered.mean_f.dim() == 2
     args = [filtered.mean_f, filtered.cov_f, filtered.mean_p,
@@ -347,7 +560,12 @@ def rts_smoother(ss: StateSpace, filtered: FilterResult,
 
 def _smoothed_means(ss: StateSpace, y, mask, engine: str = "sequential",
                     device=None):
-    """Smoothed state means: the stored filter (K6) and K8."""
+    """Smoothed state means: the stored filter and its smoother — K6 and
+    K8, or on ``engine="sqrt"`` K9 and K10 in its mean-only mode (the
+    mean recursion never reads the smoothed factor)."""
+    if engine == "sqrt":
+        filt = sqrt_kalman_filter(ss, y, mask, store=True, device=device)
+        return _sqrt_smooth(ss, filt, want_cov=False)[0]
     filt = kalman_filter(ss, y, mask, engine=engine, store=True,
                          device=device)
     return rts_smoother(ss, filt, engine=engine).mean_s
@@ -442,8 +660,9 @@ def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
     prior paths ``x_t = phi o x_{t-1} + sqrt(q) o w_t`` from ``x_0 =
     x0`` and their pseudo-observations ``y* = Z x + sqrt(r) o e``; K6
     ``store`` filters ``y*`` on the data's missing pattern and K8
-    smooths it (means only)."""
-    _require(engine, ("sequential",))
+    smooths it (means only) — on ``engine="sqrt"`` K9 ``store`` and K10
+    in its mean-only mode."""
+    _require(engine, ("sequential", "sqrt"))
     ss_b, device, dtype, single = _prepare(ss, device)
     if not single:
         raise ValueError("sample_states takes one model (unbatched ss)")
@@ -469,10 +688,19 @@ def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
                                      w[i:i + c].contiguous(),
                                      e[i:i + c].contiguous())
         mask_l = mask[None].expand(c, *mask.shape).contiguous()
-        stored = kp.lanes_forward(phi_l, q_l, z_l, r_l, y_star, mask_l,
-                                  "store")
-        sm_star, _ = rts_smooth(phi_l.T.contiguous(), stored[2], stored[3],
-                                stored[0], stored[1], want_cov=False)
+        if engine == "sqrt":
+            stored = sqrt_filter(phi_l, q_l, z_l, r_l, y_star, mask_l,
+                                 store=True)
+            sm_star, _ = sqrt_smooth(phi_l.T.contiguous(),
+                                     q_l.T.contiguous(), stored[2],
+                                     stored[3], stored[0], stored[1],
+                                     want_cov=False)
+        else:
+            stored = kp.lanes_forward(phi_l, q_l, z_l, r_l, y_star, mask_l,
+                                      "store")
+            sm_star, _ = rts_smooth(phi_l.T.contiguous(), stored[2],
+                                    stored[3], stored[0], stored[1],
+                                    want_cov=False)
         out.append(sm_data + xs - sm_star)
     if not out:
         return sm_data.new_zeros((0, *sm_data.shape))

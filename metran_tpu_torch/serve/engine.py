@@ -1,11 +1,14 @@
 """Serving kernels: batched incremental update and forecast per bucket.
 
-Port of the joint-engine half of ``metran_tpu/serve/engine.py``.  The
-models of one shape bucket are padded to the bucket's ``(N, S)`` and
-stacked along a leading batch axis, and the per-model computation —
-:func:`~metran_tpu_torch.ops.filter_append` for assimilation,
-:func:`~metran_tpu_torch.ops.forecast_observation_moments` for
-forecasts — runs as ONE call of the K1/K2 kernel wrapper per dispatch.
+Port of the joint- and square-root-engine halves of
+``metran_tpu/serve/engine.py``.  The models of one shape bucket are
+padded to the bucket's ``(N, S)`` and stacked along a leading batch
+axis, and the per-model computation —
+:func:`~metran_tpu_torch.ops.filter_append` (K1) or, on the square-root
+engine, :func:`~metran_tpu_torch.ops.sqrt_filter_append` (K9 from the
+stacked factors) for assimilation,
+:func:`~metran_tpu_torch.ops.forecast_observation_moments` (K2) for
+forecasts — runs as ONE kernel-wrapper call per dispatch.
 
 Padding semantics (as in the JAX package): a padded observation slot is
 masked False at every appended step and carries zero loadings, so it
@@ -13,8 +16,8 @@ never touches the gain, the likelihood terms or the real slots; a
 padded state slot starts at the filter's ``N(0, 1)`` init with zero
 cross-covariance and stays decoupled.
 
-Gate, detect, robust, fused horizons and the square-root engine come in
-later slices; asking for them raises with the ROADMAP item.
+Gate, detect, robust and fused horizons come in later slices; asking
+for them raises with the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,7 +28,12 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..ops import dfm_statespace, filter_append, forecast_observation_moments
+from ..ops import (
+    dfm_statespace,
+    filter_append,
+    forecast_observation_moments,
+    sqrt_filter_append,
+)
 from ..ops.statespace import StateSpace
 
 _LATER = {
@@ -33,7 +41,7 @@ _LATER = {
     "detect": "ROADMAP A8 (serving features: detection, kernel B11)",
     "robust": "ROADMAP A8 (serving features: implicit MAP, kernel B12)",
     "horizons": "ROADMAP A8 (serving features: read path)",
-    "sqrt": "ROADMAP A7 (square-root engine, kernel B6)",
+    "sqrt_parallel": "ROADMAP A7 (associative-scan engine, kernel B8)",
 }
 
 
@@ -43,11 +51,14 @@ def _not_ported(what: str):
 
 class BucketBatch(NamedTuple):
     """A shape bucket's models stacked for one device dispatch; every
-    leaf leads with the batch axis B."""
+    leaf leads with the batch axis B.  ``chol`` is the stacked
+    covariance factors when the bucket serves the square-root engine
+    (``stack_bucket(..., sqrt=True)``; ``cov`` is then None)."""
 
     ss: StateSpace
     mean: torch.Tensor  # (B, S)
-    cov: torch.Tensor  # (B, S, S)
+    cov: "torch.Tensor | None"  # (B, S, S)
+    chol: "torch.Tensor | None" = None  # (B, S, S)
 
 
 def posterior_fault(mean, cov, sym_rtol: float = 1e-4, psd_tol: float = 1e-4,
@@ -92,11 +103,29 @@ def state_slot_index(n_series: int, n_factors: int,
     )
 
 
-def pad_state_arrays(state, bucket: Tuple[int, int], dtype=None):
-    """Pad one state's arrays into bucket shape ``(N, S)`` (covariance
-    form): ``(alpha_sdf (N,), alpha_cdf (S-N,), loadings (N, S-N),
-    mean (S,), cov (S, S))``.  Padded alphas are 1.0, padded loadings
-    zero, padded mean/cov slots the ``N(0, I)`` init."""
+def psd_factor(cov: np.ndarray) -> np.ndarray:
+    """A (host-side) factor ``F`` with ``F F' = cov`` for a PSD matrix:
+    the migration shim for covariance-form states entering the
+    square-root serving path.  ``np.linalg.cholesky`` would refuse the
+    structurally singular filtered covariances of the DFM (``r = 0``),
+    so the factor comes from an eigendecomposition with negative
+    roundoff eigenvalues clipped at zero; the square-root update
+    re-triangularizes it on the first step."""
+    cov = np.asarray(cov)
+    w, v = np.linalg.eigh((cov + cov.T) * 0.5)
+    return (v * np.sqrt(np.clip(w, 0.0, None))).astype(cov.dtype)
+
+
+def pad_state_arrays(state, bucket: Tuple[int, int], dtype=None,
+                     sqrt: bool = False):
+    """Pad one state's arrays into bucket shape ``(N, S)``:
+    ``(alpha_sdf (N,), alpha_cdf (S-N,), loadings (N, S-N), mean (S,),
+    cov (S, S) | None, chol (S, S) | None)``, exactly one of ``cov``/
+    ``chol`` filled.  Padded alphas are 1.0, padded loadings zero,
+    padded mean/cov slots the ``N(0, I)`` init.  ``sqrt=True`` pads a
+    covariance factor instead: the state's own ``chol`` scattered into
+    an identity (the true slots decouple exactly from the padding) when
+    it has one, else :func:`psd_factor` of its ``cov``."""
     n_pad, s_pad = bucket
     n, k = state.n_series, state.n_factors
     if n > n_pad or k > s_pad - n_pad:
@@ -116,9 +145,16 @@ def pad_state_arrays(state, bucket: Tuple[int, int], dtype=None):
     idx = state_slot_index(n, k, n_pad)
     mean = np.zeros(s_pad, dtype)
     mean[idx] = state.mean
-    cov = np.eye(s_pad, dtype=dtype)
-    cov[np.ix_(idx, idx)] = state.cov
-    return alpha[:n_pad], alpha[n_pad:], loadings, mean, cov
+    cov = chol = None
+    if sqrt:
+        factor = (state.chol if getattr(state, "chol", None) is not None
+                  else psd_factor(state.cov))
+        chol = np.eye(s_pad, dtype=dtype)
+        chol[np.ix_(idx, idx)] = factor
+    else:
+        cov = np.eye(s_pad, dtype=dtype)
+        cov[np.ix_(idx, idx)] = state.cov
+    return alpha[:n_pad], alpha[n_pad:], loadings, mean, cov, chol
 
 
 def stack_bucket(states: List, bucket: Tuple[int, int], dtype=None,
@@ -126,34 +162,44 @@ def stack_bucket(states: List, bucket: Tuple[int, int], dtype=None,
     """Stack same-bucket models into one :class:`BucketBatch` on
     ``device`` (default: the CUDA card).  The host stacks the small
     parameter arrays; the state-space build runs batched on the device.
+    ``sqrt=True`` stacks covariance factors instead of covariances (see
+    :func:`pad_state_arrays`), for the square-root update.
     """
-    if sqrt:
-        raise _not_ported("sqrt")
     device = resolve_device(device)
     if dtype is None:
         dtype = states[0].dtype
-    padded = [pad_state_arrays(st, bucket, dtype) for st in states]
-    a_sdf, a_cdf, lds, means, covs = (
-        torch.from_numpy(np.stack(part)).to(device) for part in zip(*padded)
+    padded = [pad_state_arrays(st, bucket, dtype, sqrt=sqrt)
+              for st in states]
+    a_sdf, a_cdf, lds, means = (
+        torch.from_numpy(np.stack(part)).to(device)
+        for part in list(zip(*padded))[:4]
     )
+    fac = torch.from_numpy(
+        np.stack([p[5] if sqrt else p[4] for p in padded])).to(device)
     dts = torch.from_numpy(
         np.array([st.dt for st in states], dtype)
     ).to(device)
     ss = dfm_statespace(a_sdf, a_cdf, lds, dts, device=device)
-    return BucketBatch(ss=ss, mean=means, cov=covs)
+    if sqrt:
+        return BucketBatch(ss=ss, mean=means, cov=None, chol=fac)
+    return BucketBatch(ss=ss, mean=means, cov=fac)
 
 
 def make_update_fn(engine: str = "joint", gate=None, horizons=None,
                    detect=None, robust=None):
     """The batched incremental-update function of a bucket.
 
-    ``fn(ss, mean, cov, y_new, mask_new) -> (mean_T, cov_T, sigma,
+    ``fn(ss, mean, fac, y_new, mask_new) -> (mean_T, fac_T, sigma,
     detf)`` with every argument batch-leading (``y_new``/``mask_new``
-    (B, k, N)) — one K1 launch on CUDA tensors.
+    (B, k, N)): on ``engine="joint"`` ``fac`` is the covariance and the
+    call one K1 launch; on ``engine="sqrt"`` it is a covariance factor,
+    carried by :func:`~metran_tpu_torch.ops.sqrt_filter_append` (one K9
+    launch from the given carry), and the returned factor is
+    lower-triangular, PSD by construction.
     """
-    if engine in ("sqrt", "sqrt_parallel"):
-        raise _not_ported("sqrt")
-    if engine != "joint":
+    if engine == "sqrt_parallel":
+        raise _not_ported("sqrt_parallel")
+    if engine not in ("joint", "sqrt"):
         raise ValueError(f"unknown serve engine {engine!r}")
     for name, spec in (("gate", gate), ("detect", detect),
                        ("robust", robust)):
@@ -161,6 +207,12 @@ def make_update_fn(engine: str = "joint", gate=None, horizons=None,
             raise _not_ported(name)
     if horizons:
         raise _not_ported("horizons")
+
+    if engine == "sqrt":
+        def fn(ss, mean, chol, y_new, mask_new):
+            return sqrt_filter_append(ss, mean, chol, y_new, mask_new)
+
+        return fn
 
     def fn(ss, mean, cov, y_new, mask_new):
         return filter_append(ss, mean, cov, y_new, mask_new, engine=engine)

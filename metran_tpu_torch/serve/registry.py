@@ -37,8 +37,12 @@ class ModelRegistry:
         for a purely in-memory registry.
     bucket_multiple : both bucket dims round up to a multiple of this
         (default from :func:`metran_tpu_torch.config.serve_defaults`).
-    engine : update engine (default ``serve_defaults()["engine"]``);
-        only ``"joint"`` is ported.
+    engine : update engine (default ``serve_defaults()["engine"]``):
+        ``"joint"`` (covariance form, K1) or ``"sqrt"`` (square-root
+        form: updates carry Cholesky factors through
+        :func:`~metran_tpu_torch.ops.sqrt_filter_append`, K9; posteriors
+        are PSD by construction and the per-slot integrity gate is a
+        finiteness check — the engine for float32 serving).
     """
 
     def __init__(self, root=None, bucket_multiple: Optional[int] = None,
@@ -48,10 +52,10 @@ class ModelRegistry:
             engine = defaults["engine"]
         if bucket_multiple is None:
             bucket_multiple = defaults["bucket_multiple"]
-        if engine != "joint":
+        if engine not in ("joint", "sqrt"):
             raise ValueError(
                 f"serve engine {engine!r} is not ported yet (ROADMAP A7); "
-                "the port serves engine='joint'"
+                "the port serves engine='joint' and engine='sqrt'"
             )
         self.engine = engine
         self.bucket_multiple = int(bucket_multiple)
@@ -156,6 +160,10 @@ class ModelRegistry:
                 if not p.name.startswith(".")
             )
         return sorted(ids)
+
+    @property
+    def _sqrt_engine(self) -> bool:
+        return self.engine == "sqrt"
 
     # ------------------------------------------------------------------
     def bucket_of(self, state: PosteriorState) -> ShapeBucket:

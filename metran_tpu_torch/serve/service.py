@@ -3,9 +3,9 @@
 Port of the core of the JAX package's ``serve/service.py``::
 
     update(model_id, new_obs) ─┐                       ┌─> K1 launch
-                               ├─> MicroBatcher ──────>┤   (one per
+                               ├─> MicroBatcher ──────>┤   (K9 on sqrt;
     forecast(model_id, steps) ─┘    (group by          └─> K2 launch
-                                     bucket+horizon)        group)
+                                     bucket+horizon)        one per group)
 
 - Requests take and return **data units**; standardization happens at
   submit with each model's stored scaler constants.
@@ -19,6 +19,10 @@ Port of the core of the JAX package's ``serve/service.py``::
   batch slot's posterior passes the integrity gate before
   ``registry.put`` — a poisoned model fails its own request while the
   other slots of the same launch commit.
+- A ``ModelRegistry(engine="sqrt")`` assimilates in factored form:
+  the stacked factors go through K9, each slot's factor is committed
+  beside its reconstituted covariance, and the gate is a finiteness
+  check.
 
 The dispatch runs on the service's device (default: the CUDA card).
 Breakers, retries, the observation gate, the read path, steady-state
@@ -594,8 +598,9 @@ class MetranService:
         return results
 
     def _run_update(self, bucket, k: int, requests):
-        """One batched assimilation (one K1 launch) over distinct-model
-        requests: read each model's current state, write the bumped one.
+        """One batched assimilation (one K1 launch, or one K9 launch on a
+        square-root registry) over distinct-model requests: read each
+        model's current state, write the bumped one.
         Callers hold ``_update_lock``.  A slot whose posterior fails the
         integrity gate gets :class:`StateIntegrityError` and its stored
         state stays as it was, while the healthy slots commit."""
@@ -603,7 +608,14 @@ class MetranService:
         states, live = self._lookup_states(requests, results)
         if not live:
             return results
-        batch = stack_bucket(states, bucket, device=self.device)
+        # square-root registries assimilate in factored form: the kernel
+        # carries Cholesky factors, the posterior gate collapses to a
+        # finiteness check (PSD by construction), and a covariance-form
+        # state is migrated to a factor once (stack_bucket) and stays
+        # factored thereafter
+        sqrt_engine = self.registry._sqrt_engine
+        batch = stack_bucket(states, bucket, device=self.device,
+                             sqrt=sqrt_engine)
         n_pad = bucket[0]
         dtype = states[0].dtype
         y = np.zeros((len(states), k, n_pad), dtype)
@@ -613,9 +625,10 @@ class MetranService:
             y[i, :, : st.n_series] = y_std
             m[i, :, : st.n_series] = mask
         fn = self.registry.update_fn(bucket, k)
-        mean_t, cov_t, sigma_t, detf_t = (
+        mean_t, fac_t, sigma_t, detf_t = (
             t.cpu().numpy() for t in fn(
-                batch.ss, batch.mean, batch.cov,
+                batch.ss, batch.mean,
+                batch.chol if sqrt_engine else batch.cov,
                 torch.from_numpy(y).to(self.device),
                 torch.from_numpy(m).to(self.device),
             )
@@ -625,13 +638,22 @@ class MetranService:
             try:
                 idx = state_slot_index(st.n_series, st.n_factors, n_pad)
                 mean_i = mean_t[i][idx].astype(st.dtype)
-                cov_i = cov_t[i][np.ix_(idx, idx)].astype(st.dtype)
+                if sqrt_engine:
+                    # the slot submatrix of the factor IS the factor of
+                    # the slot submatrix (padding decouples exactly); the
+                    # covariance is reconstituted for consumers, the
+                    # factor persists and carries forward
+                    chol_i = fac_t[i][np.ix_(idx, idx)].astype(st.dtype)
+                    cov_i = chol_i @ chol_i.T
+                else:
+                    chol_i = None
+                    cov_i = fac_t[i][np.ix_(idx, idx)].astype(st.dtype)
                 # a degraded filter step books detf = +inf: the rows
                 # were NOT assimilated, so the slot must not commit
                 if np.all(np.isfinite(detf_t[i])) and np.all(
                     np.isfinite(sigma_t[i])
                 ):
-                    fault = posterior_fault(mean_i, cov_i)
+                    fault = posterior_fault(mean_i, cov_i, chol=chol_i)
                 else:
                     fault = (
                         "non-finite likelihood step (degraded filter "
@@ -647,9 +669,11 @@ class MetranService:
                         "not applied and the stored state is unchanged"
                     )
                     continue
+                # chol_i is None on the joint engine, which also drops any
+                # stale factor a square-root state carried
                 new_state = st._replace(
                     version=st.version + 1, t_seen=st.t_seen + k,
-                    mean=mean_i, cov=cov_i, chol=None,
+                    mean=mean_i, cov=cov_i, chol=chol_i,
                 )
                 try:
                     self.registry.put(new_state,

@@ -214,12 +214,15 @@ def posterior_state_from_metran(mt, model_id: Optional[str] = None,
                                 p=None) -> PosteriorState:
     """Extract the serving state from a (fitted) port :class:`Metran`.
 
-    Runs one stored filter pass (K6) over the model's current (possibly
-    masked) observations at parameters ``p`` (default: the fitted
-    optimum, falling back to the initial table like every other
-    accessor) and freezes the filtered posterior at the last timestep,
-    as float64 host arrays.  Factor loadings must exist (call
-    ``solve()`` or ``get_factors()`` first).
+    Runs one stored filter pass (K6, or K9 on ``engine="sqrt"``) over
+    the model's current (possibly masked) observations at parameters
+    ``p`` (default: the fitted optimum, falling back to the initial table
+    like every other accessor) and freezes the filtered posterior at the
+    last timestep, as float64 host arrays.  A square-root runner's
+    cached factor is frozen beside the covariance (``chol``), so a
+    ``ModelRegistry(engine="sqrt")`` assimilates in factored form from
+    the first request.  Factor loadings must exist (call ``solve()`` or
+    ``get_factors()`` first).
     """
     if mt.factors is None:
         raise ValueError(
@@ -232,6 +235,7 @@ def posterior_state_from_metran(mt, model_id: Optional[str] = None,
         mt.set_init_parameters()
     mt._run_kalman("filter", p=p)
     filt = mt.kf.run_filter()
+    sq = getattr(mt.kf, "_sqrt_filtered", None)
     params = mt._param_array(p if p is not None else mt.get_parameters())
     return PosteriorState(
         model_id=str(model_id if model_id is not None else mt.name),
@@ -245,4 +249,5 @@ def posterior_state_from_metran(mt, model_id: Optional[str] = None,
         scaler_mean=np.asarray(mt.oseries_mean, float),
         scaler_std=np.asarray(mt.oseries_std, float),
         names=tuple(mt.snames),
+        chol=None if sq is None else sq.chol_f[-1].double().cpu().numpy(),
     )

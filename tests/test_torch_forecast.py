@@ -128,9 +128,12 @@ def test_batched_forecast_matches_per_model():
 
 
 def test_sqrt_horizons_raise_until_ported():
+    # ported with the square-root engine: the factor form is its
+    # ``fac fac'`` ahead of K2, as in the JAX function
     rng = np.random.default_rng(99)
     ss, y, mask = random_ssm(rng, 3, 1, t=10)
-    m, c = _posterior(ss, y, mask)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pf.forecast_horizons(_port_ss(ss), m, c, [1, 2], sqrt=True,
-                             device="cpu")
+    res = jk.sqrt_kalman_filter(ss, y, mask, store=False)
+    m, c = np.array(res.mean_f), np.array(res.chol_f)
+    want = jf.forecast_horizons(ss, m, c, np.array([1, 2]), sqrt=True)
+    _close(pf.forecast_horizons(_port_ss(ss), m, c, [1, 2], sqrt=True,
+                                device="cpu"), want)

@@ -205,12 +205,25 @@ def test_unported_engines_and_store_raise(engine):
     rng = np.random.default_rng(29)
     ss, y, mask = random_ssm(rng, 3, 1, t=5)
     pss = _port_ss(ss)
-    if engine != "sequential":  # kalman_filter has it (kernel K3)
+    if engine == "sqrt":
+        # ported (kernel K9): kalman_filter reconstitutes the factors'
+        # covariances as the JAX function does; the covariance-form
+        # append refuses the engine as JAX's does
+        for store in (False, True):
+            got = pk.kalman_filter(pss, y, mask, engine="sqrt", store=store,
+                                   device="cpu")
+            want = jk.kalman_filter(ss, y, mask, engine="sqrt", store=store)
+            _close(got, want)
+        with pytest.raises(ValueError, match="sqrt_filter_append"):
+            pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1], mask[:1],
+                             engine=engine, device="cpu")
+    else:
+        if engine != "sequential":  # kalman_filter has it (kernel K3)
+            with pytest.raises(ValueError, match="ROADMAP"):
+                pk.kalman_filter(pss, y, mask, engine=engine, device="cpu")
         with pytest.raises(ValueError, match="ROADMAP"):
-            pk.kalman_filter(pss, y, mask, engine=engine, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1], mask[:1],
-                         engine=engine, device="cpu")
+            pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1], mask[:1],
+                             engine=engine, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
         pk.kalman_filter(pss, y, mask, store=True, device="cpu")
     # the sequential engine stores its per-step moments (kernel K6's

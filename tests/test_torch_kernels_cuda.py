@@ -195,3 +195,66 @@ def test_stored_filter_and_rts_smoother_kernels_match_plain(card, dtype,
             assert got[1] is None
         # the degraded step is the filtered one
         assert torch.equal(got[0][1, 29], mean_f[1, 29])
+
+
+def _outer(chol):
+    return chol @ chol.transpose(-1, -2)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_sqrt_filter_kernel_matches_plain(card, dtype, bar):
+    """K9 in its store and carry-only instantiations, from (0, I) and
+    from a given (non-triangular) carry, against the plain version;
+    lane 1 is fully masked and lane 2 has an observed slot with r < 0
+    (detf = +inf, the state passed through).  Filtered factors are held
+    through the covariance they stand for (rank-deficient under r = 0)."""
+    phi, q, z, r, y, mask, lane_map = _lanes_inputs(card, dtype)
+    mask = mask.clone()
+    mask[1] = False
+    r = r.clone()
+    r[0, 2] = -1.0
+    mask[2, 4, 0] = True
+    args = (phi, q, z, r, y, mask, lane_map)
+    got = kernels.sqrt_filter(*args, store=True)
+    want = kernels.sqrt_filter_plain(*args, store=True)
+    torch.cuda.synchronize()
+    for i in (0, 1, 2, 4, 5):
+        assert _rel(got[i], want[i]) <= bar
+    assert _rel(_outer(got[3]), _outer(want[3])) <= bar
+    assert torch.isinf(got[5][2, 4]) and got[4][2, 4] == 0
+    assert torch.equal(got[5][1], torch.zeros_like(got[5][1]))
+    carry = kernels.sqrt_filter(*args)
+    assert _rel(carry[0], got[2][:, -1]) <= bar
+    assert _rel(_outer(carry[1]), _outer(got[3][:, -1])) <= bar
+    n = phi.shape[0]
+    rot = torch.linalg.qr(torch.randn(phi.shape[1], n, n, dtype=dtype,
+                                      device=card)).Q
+    m0 = want[2][:, 20].contiguous()
+    c0 = (want[3][:, 20] @ rot).contiguous()
+    got = kernels.sqrt_filter(*args, mean0=m0, chol0=c0)
+    ref = kernels.sqrt_filter_plain(*args, mean0=m0, chol0=c0)
+    torch.cuda.synchronize()
+    for i in (0, 2, 3):
+        assert _rel(got[i], ref[i]) <= bar
+    assert _rel(_outer(got[1]), _outer(ref[1])) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_sqrt_smoother_kernel_matches_plain(card, dtype, bar):
+    """K10 in its covariance and mean-only modes over K9's plain store,
+    against the plain version."""
+    phi, q, z, r, y, mask, lane_map = _lanes_inputs(card, dtype)
+    st = kernels.sqrt_filter_plain(phi, q, z, r, y, mask, lane_map,
+                                   store=True)
+    sm = (phi.T.contiguous(), q.T.contiguous(), st[2], st[3], st[0], st[1])
+    for want_cov in (True, False):
+        got = kernels.sqrt_smooth(*sm, want_cov=want_cov)
+        ref = kernels.sqrt_smooth_plain(*sm, want_cov=want_cov)
+        torch.cuda.synchronize()
+        assert _rel(got[0], ref[0]) <= bar
+        if want_cov:
+            assert _rel(_outer(got[1]), _outer(ref[1])) <= bar
+        else:
+            assert got[1] is None

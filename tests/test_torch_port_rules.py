@@ -6,7 +6,8 @@
   of running on the CPU quietly;
 - the CUDA kernel launchers take CUDA tensors only, and the dispatching
   wrappers never count a launch for the plain CPU path (the products'
-  K5/K6/K7, K6's store mode and the RTS smoother K8 included);
+  K5/K6/K7, K6's store mode, the RTS smoother K8 and the square-root
+  engine's K9/K10 included);
 - the score that needs a plain version (``score="autodiff"``) refuses
   CUDA tensors, so no plain version runs on the card's path.
 """
@@ -32,7 +33,7 @@ from metran_tpu_torch.ops import (
     lanes_dfm_deviance,
 )
 from metran_tpu_torch.ops import lanes_products as products
-from metran_tpu_torch.ops.kalman import sample_states
+from metran_tpu_torch.ops.kalman import sample_states, sqrt_filter_append
 from metran_tpu_torch.ops.lanes import LanesData, lanes_terms
 from metran_tpu_torch.ops.statespace import StateSpace, dfm_statespace
 from metran_tpu_torch.parallel import (
@@ -170,6 +171,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         kalman_filter(ss_np, y, mask, engine="sequential", store=True)
     with pytest.raises(RuntimeError, match="CUDA device required"):
         sample_states(ss_np, y, mask, 0)
+    # the square-root engine's entry points
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        kalman_filter(ss_np, y, mask, engine="sqrt", store=True)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        deviance(ss_np, y, mask, engine="sqrt")
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        sqrt_filter_append(ss_np, np.zeros(4), np.eye(4), y, mask)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        MetranService(ModelRegistry(root=None, engine="sqrt"),
+                      flush_deadline=None)
     with pytest.raises(RuntimeError, match="CUDA device required"):
         fleet_stderr(params, fleet, method="lanes-fd")
     import pandas as pd
@@ -256,6 +267,20 @@ def test_kernel_launchers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ksm.rts_smooth_kernel(phi_l, stored[2], stored[3], stored[0],
                               stored[1])
+    # the square-root engine: K9 in both instantiations and from a given
+    # carry, K10 in both modes
+    for kw in ({}, {"store": True},
+               {"mean0": torch.zeros(3, 3, dtype=torch.float64),
+                "chol0": torch.eye(3, dtype=torch.float64).expand(
+                    3, 3, 3).contiguous()}):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.sqrt_filter_kernel(*k3, **kw)
+    sq = kernels.sqrt_filter(*k3, store=True)
+    q_l = k3[1].T.contiguous()
+    for want_cov in (True, False):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.sqrt_smooth_kernel(phi_l, q_l, sq[2], sq[3], sq[0],
+                                       sq[1], want_cov=want_cov)
 
 
 def test_autodiff_score_refuses_the_card(monkeypatch):
@@ -306,11 +331,18 @@ def test_plain_path_counts_no_launch_and_counters_reset():
     stored = kernels.lanes_forward(*k3, "store")
     ksm.rts_smooth(k3[0].T.contiguous(), stored[2], stored[3], stored[0],
                    stored[1])
+    sq = kernels.sqrt_filter(*k3, store=True)
+    kernels.sqrt_filter(*k3, mean0=sq[2][:, -1].contiguous(),
+                        chol0=sq[3][:, -1].contiguous())
+    for want_cov in (True, False):
+        kernels.sqrt_smooth(k3[0].T.contiguous(), k3[1].T.contiguous(),
+                            sq[2], sq[3], sq[0], sq[1], want_cov=want_cov)
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "forecast_moments": 0,
                                   "lanes_filter": 0, "lanes_adjoint": 0,
                                   "lanes_smooth_bwd": 0, "lanes_forward": 0,
-                                  "lanes_sample": 0, "rts_smooth": 0}
+                                  "lanes_sample": 0, "rts_smooth": 0,
+                                  "sqrt_filter": 0, "sqrt_smooth": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -332,7 +364,8 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in build.sources()} == {
         "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
         "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
-        "lanes_sample.cu", "rts_smoother.cu"}
+        "lanes_sample.cu", "rts_smoother.cu", "sqrt_filter.cu",
+        "sqrt_smoother.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 

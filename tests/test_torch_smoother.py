@@ -156,6 +156,17 @@ def test_joint_store_and_other_smoothers_raise_naming_the_roadmap():
                          device="cpu")
     filt = pk.kalman_filter(pss, y, mask, engine="sequential", store=True,
                             device="cpu")
-    for engine in ("sqrt", "parallel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            pk.rts_smoother(pss, filt, engine=engine)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        pk.rts_smoother(pss, filt, engine="parallel")
+    # engine="sqrt" over a covariance-form result is the covariance
+    # smoother (K8), as in the JAX function; a factored result goes to
+    # the factored smoother (K10, tests/test_torch_sqrt_kalman.py)
+    got = pk.rts_smoother(pss, filt, engine="sqrt")
+    want = pk.rts_smoother(pss, filt, engine="sequential")
+    torch.testing.assert_close(got.mean_s, want.mean_s, rtol=0, atol=0)
+    torch.testing.assert_close(got.cov_s, want.cov_s, rtol=0, atol=0)
+    ref = jk.rts_smoother(ss, jk.kalman_filter(ss, y, mask,
+                                               engine="sequential"),
+                          engine="sqrt")
+    np.testing.assert_allclose(got.mean_s.numpy(), np.asarray(ref.mean_s),
+                               rtol=1e-10, atol=1e-12)

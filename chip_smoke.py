@@ -25,12 +25,22 @@ non-zero):
    fully masked series and an observed slot with r < 0, which must book
    detf = +inf and pass the state through); the lanes and square-root
    kernels are held against their plain versions (a Python loop over
-   steps) at full width over the first ``T_CMP`` = 1,000 steps and timed
+   steps) at full width over the first ``T_CMP`` = 400 steps and timed
    at the full T; then the square-root engine's f32 contract
    (``tests/test_precision.py``'s recipe, copied): K9's f32 deviance
    within 2e-6 of the CPU f64 one in all four alpha regimes,
    near-unit-root included, finite f32 factors and a final posterior
    that passes ``posterior_fault(psd_tol=0)``, K3's f32 error beside it;
+   then the batch-layout adjoint (``adjoint_kernels``): K11 against its
+   plain version over each engine's segment boundaries (K1 ``bounds``,
+   K9 ``bounds``, K3 ``keep_bounds``; a model observing an r < 0 slot
+   and a fully masked step) in f64 and f32 and at the flagship shape
+   over ADJ_T_CMP = 1,000 steps; K1 and K9 ``bounds`` bit for bit their carry
+   instantiations, each boundary the carry-only run to that point; the
+   anchored adjoint from a non-triangular anchor (its value the score of
+   ``sqrt_filter_append``, its gradient the CPU f64 one's); K11's f64
+   gradient against central differences of the K1 deviance (rel 1e-6);
+   K11 and both ``bounds`` modes timed at the flagship shape;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -51,6 +61,22 @@ non-zero):
    ``fleet_stderr(method="lanes-fd")`` of the 512 fitted models (B * 2P
    = 21,504 lanes over one data copy through the lane map), 4 of them
    recomputed in f64 in a worker process (checked after phase 7);
+5b. batch fit — the slice's path: ``fit_fleet(fleet, p0=...)`` with the
+   JAX defaults (``layout="batch"``, ``engine="joint"``, the gradient
+   through K1 ``bounds`` + K11, optax's zoom-line-search L-BFGS) on phase
+   5's fleet, ``maxiter=60, tol=0.05, stall_tol=1e-3``: wall, fits/s,
+   iterations, converged/stalled fractions, objective calls, the K1 and
+   K11 shares; every lane finite, no worse than its start, converged at
+   least as often as the lanes fit, and each model's deviance within
+   GAP_BAR = 1e-4 (relative) of the lanes fit's; the launch counts are
+   the fit's own; 8 models' f32 value and gradient held to the CPU
+   f64 plain path over ADJ_T_CMP steps (1e-4, 1e-3); then the square-root
+   engine's batch fit on 16 models (K9 ``bounds`` + K11) and
+   ``JaxSolve``'s fit in f64 on the example on the card default
+   ``"sqrt"`` (K9 ``bounds`` + K11) held to the golden fit (rel 1e-6 /
+   abs 1e-4, parameters rtol 2e-2); the counters must show K1, K9 and
+   K11; the path's launches are the three fits' own, not the 8-model
+   check's;
 6. products path — the post-fit products of the fitted fleet under the
    JAX bench's product settings (``fleet_simulate`` smoothed and
    filtered, ``fleet_decompose``, ``fleet_innovations(warmup=50)`` and
@@ -113,8 +139,12 @@ FIT = dict(layout="lanes", remat_seg=100, tol=0.05, stall_tol=1e-3,
 PRODUCTS = dict(seg=100, warmup=50, n_draws=4, steps=FORECAST_STEPS)
 CPU_MODELS = 4  # fitted models the products phase recomputes on the CPU
 LS_TRIALS = 4  # the grid line search's trial points per iteration
-T_CMP = 1_000  # steps of the full-width kernel-vs-plain comparisons of
-#                the lanes kernels (their plain versions loop over steps)
+T_CMP = 400  # steps of the full-width kernel-vs-plain comparisons of
+#              the lanes and square-root kernels (their plain versions
+#              loop over steps; cut from 1,000 when the batch-layout fit
+#              joined the run, to keep it near 600 s); K1's history pass,
+#              on the batch fit's path, is compared at the full T
+ADJ_T_CMP = 1_000  # the same for K11 and the batch fit's CPU recompute
 DEVICE = "cuda"  # the card the lanes and fit phases run on
 
 # H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
@@ -588,6 +618,62 @@ def k10_cost(chol_p, want_cov, itemsize):
                       for j in range(n)))
     return nbytes, ok * per
 
+
+def _adjoint_step_ops(n, k, o):
+    """The least operations of one step of K11 with ``o`` observed slots,
+    Z = [I | L] with K = ``k`` factors (each row of Z_o has k + 1
+    nonzeros, nnz(Z_o) = o (k + 1)): the replay's predict (``phi o m``,
+    ``(phi phi') o P + q`` on the upper half), ``v``, ``P_p Z_o'``, F on
+    its upper half, its Cholesky, the solves for ``K'`` (two per column),
+    ``e`` and ``L^-1 Z_o`` (one per column), ``m_f`` and ``P_f`` (upper
+    half); the sweep's ``w``, ``K'u``, ``A'u``, ``S K``, ``(S K) Z_o``,
+    ``K' SA``, ``Z_o' (K' SA)``, ``(L^-1 Z_o)'(L^-1 Z_o)`` on its upper
+    half, the assembly of ``S_p`` and ``u_p``; then the predict's
+    adjoint (``S_p o P``, two products with phi, ``S o (phi phi')``)."""
+    half = n * (n + 1) / 2
+    predict = n + 2 * half
+    adjoint = n * n + 4 * n * n + 2 * n * n + 2 * n
+    if o == 0:
+        return predict + adjoint
+    nnz = o * (k + 1)
+    replay = (2 * nnz + 2 * nnz * n + (o + 1) * nnz + o**3 / 3
+              + 2 * o * o * n + 2 * o * o + o * o * n + 2 * o * n
+              + 2 * o * half)
+    sweep = (2 * nnz + 2 * o * n + 2 * nnz + 2 * n * n * o + 2 * nnz * n
+             + 2 * o * n * n + 2 * nnz * n + 2 * o * half + 6 * n * n
+             + 3 * n)
+    return predict + replay + sweep + adjoint
+
+
+def k11_cost(z, mask, seg, itemsize):
+    """Bytes the K11 call must move (phi, q, Z, r, the data, the
+    boundaries and the cotangents read once; phibar and qbar written
+    once — the replay scratch is the kernel's own) and the least
+    operations this run's data needs (:func:`_adjoint_step_ops` at each
+    model step's own observed count)."""
+    import collections
+
+    b, big_n, n = z.shape
+    t_steps = mask.shape[1]
+    n_seg = -(-t_steps // seg)
+    nbytes = (b * (2 * n + big_n * n + big_n) * itemsize
+              + b * t_steps * big_n * (itemsize + 1)
+              + b * n_seg * (n + n * n) * itemsize
+              + 2 * b * t_steps * itemsize + 2 * b * n * itemsize)
+    obs = mask.sum(-1).flatten().tolist()
+    ops = sum(c * _adjoint_step_ops(n, n - big_n, o)
+              for o, c in collections.Counter(obs).items())
+    return nbytes, ops
+
+
+def bounds_cost(cost, b, n, t_steps, seg, itemsize):
+    """A carry-only filter's ``(bytes, operations)`` plus the boundaries
+    its bounds instantiation writes: ``(m, P)`` (or ``(m, S)``) at the
+    start of each of the ``ceil(T / seg)`` segments."""
+    nbytes, ops = cost
+    return nbytes + b * -(-t_steps // seg) * (n + n * n) * itemsize, ops
+
+
 def bound_ms(nbytes, flops, dtype_name):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
@@ -725,9 +811,14 @@ def phase_kernels():
     dtype = torch.float32
 
     def at_main_shape(key, kernel, label, fn, plain, args, bar, cost,
-                      reps=20, warm=2, plain_reps=20):
+                      reps=20, warm=2, plain_reps=20, cmp_args=None):
+        """Time ``fn`` at ``args``; compare it with ``plain`` (and time
+        that) at ``cmp_args``, default ``args``."""
         ms, got = cuda_ms(lambda: fn(*args), reps=reps, warm=warm)
-        plain_ms, want = cuda_ms(lambda: plain(*args), reps=plain_reps,
+        if cmp_args is not None:
+            got = fn(*cmp_args)
+        plain_ms, want = cuda_ms(lambda: plain(*(cmp_args or args)),
+                                 reps=plain_reps,
                                  warm=min(warm, plain_reps))
         errs = [rel_err(g, w) for g, w in zip(got, want)]
         checks.append({
@@ -740,6 +831,8 @@ def phase_kernels():
         bms, bby = bound_ms(*cost, "float32")
         times[key] = {"shape": label, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bms, "bound_by": bby}
+        if cmp_args is not None:
+            times[key]["plain_shape"] = f"the first {T_CMP} steps, once"
 
     rng = np.random.default_rng(SEED + 3)
     phi, q, z, r, y, mask = padded_inputs(rng, FLEET, 1, dtype, dev)
@@ -966,7 +1059,8 @@ def phase_main_path(engine="joint"):
                                      device="cpu")
             m_c, s_c = r_c.mean_f, r_c.chol_f
         else:
-            r_c = kalman_filter(ss_c, y_c, mask[i], device="cpu")
+            r_c = kalman_filter(ss_c, y_c, mask[i], engine="joint",
+                                store=False, device="cpu")
             m_c, c_c = r_c.mean_f, r_c.cov_f
         for rows in upd_rows:
             row = rows[i]
@@ -1720,6 +1814,307 @@ def phase_sqrt_kernels():
     return checks, times
 
 
+ADJ_SEG = 128  # the batch-layout adjoint's segment (DEFAULT_SEG)
+ADJ_T = 300  # steps of the small K11 and bounds checks (3 segments)
+
+
+def _adjoint_case(rng, b, t, dtype, dev, degraded=False):
+    """``(ss, y, mask)`` of ``b`` flagship-width models (leaves leading
+    with B) over ``t`` steps, a fully masked step and, with ``degraded``,
+    model 0 observing a slot with r < 0 (its updates degrade)."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import dfm_statespace
+
+    y, mask, lds, a_s, a_c = make_workload(rng, b, t=t)
+    mask = mask.copy()
+    mask[:, 3] = False
+    ss = dfm_statespace(a_s, a_c, lds, 1.0, device=dev, dtype=dtype)
+    if degraded:
+        r = ss.r.clone()
+        r[0, 2] = -5.0
+        ss = ss._replace(r=r)
+    return (ss, torch.as_tensor(np.where(mask, y, 0.0), dtype=dtype,
+                                device=dev), torch.as_tensor(mask, device=dev))
+
+
+def _boundaries(engine, ss, y, mask, seg):
+    """The segment boundaries the adjoint's forward keeps for ``engine``
+    (K1 ``bounds``, K9 ``bounds`` or K3 ``keep_bounds``): ``(bounds_mean
+    (B, n_seg, n), bounds (B, n_seg, n, n), factored)``."""
+    import torch
+
+    from metran_tpu_torch.kernels.joint_filter import joint_filter_append
+    from metran_tpu_torch.kernels.lanes import lanes_filter
+    from metran_tpu_torch.kernels.sqrt_filter import sqrt_filter
+
+    b, n = ss.phi.shape
+    qd = torch.diagonal(ss.q, 0, -2, -1)
+    if engine == "joint":
+        out = joint_filter_append(
+            ss.phi, ss.q, ss.z, ss.r, ss.phi.new_zeros((b, n)),
+            torch.eye(n, dtype=ss.phi.dtype, device=ss.phi.device).expand(
+                b, n, n).contiguous(), y, mask, bounds_seg=seg)
+        return out[4], out[5], False
+    lanes = (ss.phi.T.contiguous(), qd.T.contiguous(),
+             ss.z.permute(1, 2, 0).contiguous(), ss.r.T.contiguous(), y,
+             mask)
+    if engine == "sqrt":
+        out = sqrt_filter(*lanes, bounds_seg=seg)
+        return out[4], out[5], True
+    res = lanes_filter(*lanes, seg=seg, keep_bounds=True)
+    return (res.bounds_mean.permute(2, 0, 1).contiguous(),
+            res.bounds_cov.permute(3, 0, 1, 2).contiguous(), False)
+
+
+def phase_adjoint_kernels():
+    """K11 (the batch-layout adjoint) against its plain version on the
+    card, f64 and f32, NaN-strict: at flagship widths (n = 21, N = 20)
+    over ADJ_T steps for each engine's boundaries (K1 ``bounds``, K9
+    ``bounds`` — a factor, entered as S S' — and K3 ``keep_bounds``),
+    with a fully masked step and, on the covariance and factor
+    boundaries, a model observing a slot with r < 0; then at the
+    flagship shape (512 models) over the first ADJ_T_CMP steps.  K1 and K9
+    ``bounds``: the per-step terms and the final carry equal the
+    carry-only instantiation's bit for bit, and each boundary equals the
+    carry-only kernel run to that segment's start, bit for bit.  The
+    anchored adjoint from a non-triangular anchor: its value is the
+    score of ``sqrt_filter_append``'s K9 call, bit for bit, and its
+    gradient the CPU f64 plain path's.  An independent check in f64:
+    K11's gradient of the K1 deviance against central differences (rel
+    1e-6).  Then K11 and the two ``bounds`` modes timed at the full
+    flagship shape beside their bounds."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels.joint_adjoint import (
+        joint_adjoint,
+        joint_adjoint_plain,
+    )
+    from metran_tpu_torch.kernels.joint_filter import (
+        joint_filter_append,
+        joint_filter_append_plain,
+    )
+    from metran_tpu_torch.kernels.sqrt_filter import (
+        sqrt_filter,
+        sqrt_filter_plain,
+    )
+    from metran_tpu_torch.ops import (
+        anchored_adjoint_deviance,
+        deviance,
+        dfm_statespace,
+        sqrt_filter_append,
+    )
+
+    dev = torch.device(DEVICE)
+    checks = []
+
+    def compare(kernel, case, dtype, got, want, bar):
+        checks.append(check_entry(kernel, case, dtype, got, want, bar))
+
+    def cotangents(rng, shape, dtype):
+        return (torch.as_tensor(rng.uniform(0.5, 1.5, shape), dtype=dtype,
+                                device=dev),
+                torch.as_tensor(rng.uniform(0.5, 1.5, shape), dtype=dtype,
+                                device=dev))
+
+    # K11 against its plain version over each engine's boundaries
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        for engine in ("joint", "sqrt", "sequential"):
+            rng = np.random.default_rng(SEED + 90)
+            ss, y, mask = _adjoint_case(rng, 8, ADJ_T, dtype, dev,
+                                        degraded=engine != "sequential")
+            bm, bc, factored = _boundaries(engine, ss, y, mask, ADJ_SEG)
+            sb, db = cotangents(rng, y.shape[:2], dtype)
+            args = (ss.phi, torch.diagonal(ss.q, 0, -2, -1).contiguous(),
+                    ss.z, ss.r, y, mask, bm, bc, sb, db, ADJ_SEG, factored)
+            got = joint_adjoint(*args)
+            want = joint_adjoint_plain(*args)
+            torch.cuda.synchronize()
+            compare("joint_adjoint", f"8 models n=21 T={ADJ_T} seg="
+                    f"{ADJ_SEG}, {engine} boundaries"
+                    + ("" if engine == "sequential" else
+                       ", model 0 degraded (r < 0)"), dtype, got, want, bar)
+    dtype = torch.float32
+    rng = np.random.default_rng(SEED + 91)
+    ss, y, mask = _adjoint_case(rng, FLEET, ADJ_T_CMP, dtype, dev)
+    bm, bc, _ = _boundaries("joint", ss, y, mask, ADJ_SEG)
+    sb, db = cotangents(rng, y.shape[:2], dtype)
+    args = (ss.phi, torch.diagonal(ss.q, 0, -2, -1).contiguous(), ss.z,
+            ss.r, y, mask, bm, bc, sb, db, ADJ_SEG, False)
+    got = joint_adjoint(*args)
+    plain_ms, want = cuda_ms(lambda: joint_adjoint_plain(*args), reps=1,
+                             warm=0)
+    compare("joint_adjoint", f"{FLEET} models n=21 T={ADJ_T_CMP} "
+            f"seg={ADJ_SEG}, joint boundaries (the flagship shape)", dtype,
+            got, want, 1e-3)
+    times = {"joint_adjoint_plain_ms": plain_ms}
+
+    # K1 and K9 bounds: bit for bit the carry instantiations
+    bitwise = []
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(SEED + 92)
+        ss, y, mask = _adjoint_case(rng, 16, ADJ_T_CMP, dtype, dev)
+        b, n = ss.phi.shape
+        m0 = ss.phi.new_zeros((b, n))
+        c0 = torch.eye(n, dtype=dtype, device=dev).expand(b, n, n)
+        c0 = c0.contiguous()
+        lanes = (ss.phi.T.contiguous(),
+                 torch.diagonal(ss.q, 0, -2, -1).T.contiguous(),
+                 ss.z.permute(1, 2, 0).contiguous(), ss.r.T.contiguous())
+        for kernel, run in (
+                ("joint_filter_append", lambda yy, mm, seg=None:
+                 joint_filter_append(ss.phi, ss.q, ss.z, ss.r, m0, c0, yy,
+                                     mm, bounds_seg=seg)),
+                ("sqrt_filter", lambda yy, mm, seg=None:
+                 sqrt_filter(*lanes, yy.contiguous(), mm.contiguous(),
+                             bounds_seg=seg))):
+            carry = run(y, mask)
+            bnd = run(y, mask, ADJ_SEG)
+            same = all(torch.equal(a, c) for a, c in zip(carry, bnd[:4]))
+            for k in range(1, bnd[4].shape[1]):
+                pre = run(y[:, :k * ADJ_SEG], mask[:, :k * ADJ_SEG])
+                same = (same and torch.equal(pre[0], bnd[4][:, k])
+                        and torch.equal(pre[1], bnd[5][:, k]))
+            torch.cuda.synchronize()
+            bitwise.append({"kernel": kernel,
+                            "dtype": str(dtype).replace("torch.", ""),
+                            "case": f"16 models T={ADJ_T_CMP} seg={ADJ_SEG}",
+                            "bitwise": bool(same)})
+    emit({"phase": "bounds_bitwise", "checks": bitwise})
+    require(all(c["bitwise"] for c in bitwise),
+            f"a bounds instantiation is not its carry instantiation: "
+            f"{bitwise}")
+
+    # the anchored adjoint from a non-triangular anchor (f64): the value
+    # is sqrt_filter_append's score, the gradient the CPU plain path's
+    rng = np.random.default_rng(SEED + 93)
+    y, mask, lds, a_s, a_c = make_workload(rng, 8, t=ADJ_T)
+    alpha = np.concatenate([a_s, a_c], axis=1)
+    anchor = sqrt_filter_append(
+        dfm_statespace(a_s, a_c, lds, 1.0, device="cpu"),
+        np.zeros((8, N_SERIES + 1)),
+        np.broadcast_to(np.eye(N_SERIES + 1), (8, N_SERIES + 1,
+                                              N_SERIES + 1)),
+        np.where(mask, y, 0.0)[:, :100], mask[:, :100], device="cpu")
+    rot = np.linalg.qr(rng.normal(size=(N_SERIES + 1, N_SERIES + 1)))[0]
+    m_a, c_a = anchor[0].numpy(), anchor[1].numpy() @ rot  # not triangular
+    tail = (np.where(mask, y, 0.0)[:, 100:], mask[:, 100:])
+    grads, values = [], []
+    for where in (dev, "cpu"):
+        p = torch.tensor(alpha, dtype=torch.float64, device=where,
+                         requires_grad=True)
+        ss = dfm_statespace(p[:, :N_SERIES], p[:, N_SERIES:], lds, 1.0,
+                            device=where)
+        val = anchored_adjoint_deviance(ss, m_a, c_a, *tail, device=where)
+        (g,) = torch.autograd.grad(val.sum(), p)
+        grads.append(g.cpu())
+        values.append(val.detach().cpu())
+    ss_free = dfm_statespace(alpha[:, :N_SERIES], alpha[:, N_SERIES:], lds,
+                             1.0, device=dev, dtype=torch.float64)
+    _, _, sig, det = sqrt_filter_append(ss_free, m_a, c_a, *tail, device=dev)
+    score = (sig.sum(-1) + det.sum(-1)).cpu()
+    anchored = {"value_is_the_score": bool(torch.equal(values[0], score)),
+                "value_vs_cpu": rel_err(values[0], values[1]),
+                "grad_vs_cpu": rel_err(grads[0], grads[1])}
+    emit({"phase": "anchored_adjoint", "models": 8, "tail": ADJ_T - 100,
+          **anchored})
+    require(anchored["value_is_the_score"],
+            "anchored value is not sqrt_filter_append's score")
+    require(anchored["value_vs_cpu"] <= 1e-9
+            and anchored["grad_vs_cpu"] <= 1e-9, f"anchored: {anchored}")
+
+    # an independent check (f64): K11's gradient of the K1 deviance
+    # against central differences of the K1 deviance, all 2P points of
+    # every model in one K1 launch
+    rng = np.random.default_rng(SEED + 94)
+    b_fd = 4
+    y, mask, lds, a_s, a_c = make_workload(rng, b_fd, t=ADJ_T)
+    alpha = np.concatenate([a_s, a_c], axis=1)
+    n_p = alpha.shape[1]
+    yt = torch.as_tensor(np.where(mask, y, 0.0), device=dev)
+    mt_ = torch.as_tensor(mask, device=dev)
+    p = torch.tensor(alpha, device=dev, requires_grad=True)
+    val = deviance(dfm_statespace(p[:, :N_SERIES], p[:, N_SERIES:], lds,
+                                  1.0, device=dev), yt, mt_, engine="joint",
+                   grad="adjoint")
+    (g_adj,) = torch.autograd.grad(val.sum(), p)
+    h = 1e-5 * alpha
+    pert = np.concatenate([alpha[:, None, :] + np.eye(n_p) * h[:, None, :],
+                           alpha[:, None, :] - np.eye(n_p) * h[:, None, :]],
+                          axis=1).reshape(-1, n_p)  # (B * 2P, P)
+    rep = np.repeat(np.arange(b_fd), 2 * n_p)
+    with torch.no_grad():
+        v = deviance(dfm_statespace(pert[:, :N_SERIES], pert[:, N_SERIES:],
+                                    lds[rep], 1.0, device=dev),
+                     yt[rep], mt_[rep], engine="joint")
+    v = v.reshape(b_fd, 2, n_p).cpu().numpy()
+    g_fd = (v[:, 0] - v[:, 1]) / (2.0 * h)
+    fd_err = rel_err(g_adj.cpu(), torch.as_tensor(g_fd))
+    emit({"phase": "adjoint_central_difference", "models": b_fd,
+          "t_steps": ADJ_T, "step": "1e-5 alpha", "rel_err": fd_err,
+          "bar": 1e-6})
+    require(fd_err <= 1e-6, f"K11 vs central differences: {fd_err}")
+
+    # timed at the full flagship shape (f32) beside their bounds
+    dtype = torch.float32
+    rng = np.random.default_rng(SEED + 95)
+    ss, y, mask = _adjoint_case(rng, FLEET, T_STEPS, dtype, dev)
+    b, n = ss.phi.shape
+    qd = torch.diagonal(ss.q, 0, -2, -1).contiguous()
+    m0 = ss.phi.new_zeros((b, n))
+    c0 = torch.eye(n, dtype=dtype, device=dev).expand(b, n, n).contiguous()
+    k1_args = (ss.phi, ss.q, ss.z, ss.r, m0, c0, y, mask)
+    ms1, out = cuda_ms(lambda: joint_filter_append(*k1_args,
+                                                   bounds_seg=ADJ_SEG),
+                       reps=3, warm=1)
+    short = (*k1_args[:6], y[:, :ADJ_T_CMP], mask[:, :ADJ_T_CMP])
+    plain1, _ = cuda_ms(lambda: joint_filter_append_plain(
+        *short, bounds_seg=ADJ_SEG), reps=1, warm=0)
+    bms, bby = bound_ms(*bounds_cost(k1_cost(ss.z, ss.q, mask, 4), b, n,
+                                     T_STEPS, ADJ_SEG, 4), "float32")
+    times["joint_filter_append_bounds"] = {
+        "shape": f"B={FLEET} k={T_STEPS} (20,21) f32, seg={ADJ_SEG} "
+                 "boundaries", "ms": ms1, "plain_ms": plain1,
+        "plain_shape": f"{FLEET} models, T={ADJ_T_CMP}, once",
+        "bound_ms": bms, "bound_by": bby}
+    sb = torch.ones(y.shape[:2], dtype=dtype, device=dev)
+    k11_args = (ss.phi, qd, ss.z, ss.r, y, mask, out[4], out[5], sb, sb,
+                ADJ_SEG, False)
+    ms11, _ = cuda_ms(lambda: joint_adjoint(*k11_args), reps=3, warm=1)
+    bms, bby = bound_ms(*k11_cost(ss.z, mask, ADJ_SEG, 4), "float32")
+    times["joint_adjoint"] = {
+        "shape": f"B={FLEET} T={T_STEPS} (20,21) f32 seg={ADJ_SEG}, joint "
+                 "boundaries", "ms": ms11,
+        "plain_ms": times.pop("joint_adjoint_plain_ms"),
+        "plain_shape": f"{FLEET} models, T={ADJ_T_CMP}, once",
+        "bound_ms": bms, "bound_by": bby}
+    lanes = (ss.phi.T.contiguous(), qd.T.contiguous(),
+             ss.z.permute(1, 2, 0).contiguous(), ss.r.T.contiguous(), y, mask)
+    ms9, _ = cuda_ms(lambda: sqrt_filter(*lanes, bounds_seg=ADJ_SEG), reps=3,
+                     warm=1)
+    t_pl = 50
+    plain9, _ = cuda_ms(lambda: sqrt_filter_plain(
+        *lanes[:4], y[:, :t_pl], mask[:, :t_pl], bounds_seg=ADJ_SEG), reps=1,
+        warm=0)
+    lane_map = torch.arange(FLEET, dtype=torch.int32, device=dev)
+    bms, bby = bound_ms(*bounds_cost(k9_cost(lanes[2], mask, lane_map, False,
+                                             False, 4), b, n, T_STEPS,
+                                     ADJ_SEG, 4), "float32")
+    times["sqrt_filter_bounds"] = {
+        "shape": f"{FLEET} lanes, n=21 T={T_STEPS} f32, seg={ADJ_SEG} "
+                 "boundaries", "ms": ms9, "plain_ms": plain9,
+        "plain_shape": f"{FLEET} lanes, T={t_pl}, once",
+        "bound_ms": bms, "bound_by": bby}
+    emit({"phase": "adjoint_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks], "times": times})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+    return checks, times
+
+
 # the f32 precision recipe of tests/test_precision.py (make_flagship,
 # ALPHAS, DEV_RTOL), copied: that test imports JAX
 PREC_N, PREC_K, PREC_T = 20, 1, 5000
@@ -1827,6 +2222,8 @@ def phase_sqrt_precision():
 
 #: the kernel launchers a run times with CUDA events: (module, name)
 TIMED_KERNELS = (
+    ("metran_tpu_torch.kernels.joint_filter", "joint_filter_append_kernel"),
+    ("metran_tpu_torch.kernels.joint_adjoint", "joint_adjoint_kernel"),
     ("metran_tpu_torch.kernels.lanes", "lanes_filter_kernel"),
     ("metran_tpu_torch.kernels.lanes", "lanes_adjoint_kernel"),
     ("metran_tpu_torch.kernels.lanes_products", "lanes_smooth_bwd_kernel"),
@@ -1840,11 +2237,11 @@ TIMED_KERNELS = (
 
 
 class _KernelTimer:
-    """CUDA events around every launch of the lanes kernels, K2, K8, K9
-    and K10 in
-    a window (the device-busy share of a fit and of each product) and,
-    for the fit, host-clock times of each optimizer dispatch (its
-    working-set width)."""
+    """CUDA events around every launch of the kernels in
+    :data:`TIMED_KERNELS` in a window (the device-busy share of a fit and
+    of each product, and each kernel's share) and, for the lanes fit,
+    host-clock times of each optimizer dispatch (its working-set
+    width)."""
 
     def __init__(self):
         self.events = []
@@ -1863,14 +2260,14 @@ class _KernelTimer:
                        for mod, name in self._saved]
         self._runner = lanes_lbfgs.make_chunk_runner
 
-        def timed(fn):
+        def timed(fn, name):
             def wrapper(*args, **kw):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 out = fn(*args, **kw)
                 end.record()
-                self.events.append((start, end))
+                self.events.append((start, end, name))
                 return out
             return wrapper
 
@@ -1890,7 +2287,7 @@ class _KernelTimer:
             return run_chunk
 
         for mod, name, fn in self._saved:
-            setattr(mod, name, timed(fn))
+            setattr(mod, name, timed(fn, name))
         lanes_lbfgs.make_chunk_runner = make_timed_runner
         return self
 
@@ -1901,12 +2298,14 @@ class _KernelTimer:
             setattr(mod, name, fn)
         lanes_lbfgs.make_chunk_runner = self._runner
 
-    def kernel_ms(self, since=0):
-        """Milliseconds of the launches timed since event ``since``."""
+    def kernel_ms(self, since=0, names=None):
+        """Milliseconds of the launches timed since event ``since`` (of
+        the launchers in ``names`` only, when given)."""
         import torch
 
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in self.events[since:])
+        return sum(s.elapsed_time(e) for s, e, name in self.events[since:]
+                   if names is None or name in names)
 
 
 def cpu_stderr(host, params):
@@ -2066,10 +2465,266 @@ def phase_fit_path(pool):
         "stderr": se_stats,
     })
     return {"counts": counts, "fleet": fleet, "params": fit.params,
+            "deviance": dev_fit, "dev_start": dev_start.cpu().numpy(),
+            "converged_frac": float(fit.converged.float().mean()),
             "y32": y32, "mask": mask, "lds": lds,
             "stderr": (se_futures, se[idx_se[::2] + idx_se[1::2]],
                        params[idx_se[::2] + idx_se[1::2]],
                        idx_se[::2] + idx_se[1::2])}
+
+
+# the batch-layout fit (phase 5b): fit_fleet with the JAX defaults
+# (layout="batch", engine="joint") under the JAX bench's fit tolerances
+BATCH_FIT = dict(maxiter=60, tol=0.05, stall_tol=1e-3)
+BATCH_CPU = 8  # models whose value and gradient are recomputed in f64
+#               (over the first ADJ_T_CMP steps)
+SQRT_FIT_MODELS = 16  # the square-root engine's batch fit (K9 + K11)
+SQRT_FIT = dict(maxiter=20, tol=0.05, stall_tol=1e-3)
+# per-model |deviance gap| to the lanes fit, relative: the joint and
+# sequential deviances are equal in exact arithmetic, and the f32 stall
+# stops leave gaps of ~1e-5 (PERF.md); a fit at a wrong optimum, e.g.
+# through a wrong gradient past the compared steps, leaves more
+GAP_BAR = 1e-4
+
+
+def cpu_batch_vg(host, params):
+    """``fleet_value_and_grad(layout="batch")`` of the models in ``host``
+    (``y``, ``mask``, ``lds``) at ``params``, in f64 on the CPU with the
+    plain versions (K1 with boundaries, K11).  Runs in a worker process;
+    returns numpy ``(values, grads)``."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    torch.set_num_threads(1)
+    from metran_tpu_torch.parallel import fleet as pf
+
+    b = len(host["y"])
+    fleet = pf.Fleet(torch.as_tensor(host["y"]), torch.as_tensor(host["mask"]),
+                     torch.as_tensor(host["lds"]), torch.ones(b),
+                     torch.full((b,), N_SERIES))
+    val, grad = pf.fleet_value_and_grad(np.asarray(params), fleet,
+                                        device="cpu")
+    return val.numpy(), grad.numpy()
+
+
+class _RowCounter:
+    """Counts the model rows the batch-layout objective evaluates (the
+    line-search evaluations of every lane) by wrapping
+    ``parallel.fleet._model_deviance``."""
+
+    def __enter__(self):
+        from metran_tpu_torch.parallel import fleet as pf
+
+        self.rows = 0
+        self.calls = 0
+        self._saved = pf._model_deviance
+
+        def counted(p, *args, **kw):
+            self.rows += int(p.shape[0])
+            self.calls += 1
+            return self._saved(p, *args, **kw)
+
+        pf._model_deviance = counted
+        return self
+
+    def __exit__(self, *exc):
+        from metran_tpu_torch.parallel import fleet as pf
+
+        pf._model_deviance = self._saved
+
+
+def phase_batch_fit(pool, lanes):
+    """The slice's path at full width: ``fit_fleet(fleet, p0=...)`` with
+    the JAX defaults (``layout="batch"``, ``engine="joint"``, ``grad``
+    auto -> the closed-form adjoint: K1 ``bounds`` forward, K11 backward,
+    optax's zoom-line-search L-BFGS) on phase 5's flagship fleet, f32,
+    held to phase 5's lane-layout fit of the same fleet; BATCH_CPU
+    models' value and gradient at the fitted parameters recomputed in
+    f64 on the CPU over the first ADJ_T_CMP steps; then the square-root
+    engine's batch fit (K9 ``bounds`` + K11) on SQRT_FIT_MODELS of the
+    models; then ``JaxSolve``'s fit in f64 (``METRAN_TPU_X64=1``) on the
+    reference's example model on its card default ``engine="sqrt"`` (K9
+    ``bounds`` + K11), held to the golden fit (its standard errors need
+    the exact Hessian, ROADMAP A3, and are not run).  The launch counters
+    are reset before and read after the three."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch import Metran
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.models import JaxSolve
+    from metran_tpu_torch.parallel import (
+        Fleet,
+        autocorr_init_params,
+        fit_fleet,
+        fleet_deviance,
+        fleet_value_and_grad,
+    )
+    from metran_tpu_torch.parallel.fleet import (
+        ALPHA_MAX,
+        _alpha_to_theta,
+        _theta_to_alpha,
+    )
+
+    fleet = lanes["fleet"]
+    p0 = autocorr_init_params(fleet)
+    cap = float(np.log(ALPHA_MAX))
+    dev_start = fleet_deviance(_theta_to_alpha(_alpha_to_theta(p0, cap), cap),
+                               fleet).cpu().numpy()
+    reset_launches()
+    with _KernelTimer() as timer, _RowCounter() as rows:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = fit_fleet(fleet, p0=p0, **BATCH_FIT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fit_counts = launches()
+        k1_ms = timer.kernel_ms(names={"joint_filter_append_kernel"})
+        k11_ms = timer.kernel_ms(names={"joint_adjoint_kernel"})
+        all_ms = timer.kernel_ms()
+    for kern in ("joint_filter_append", "joint_adjoint"):
+        require(fit_counts[kern] > 0, f"batch fit never launched {kern}")
+    iters = fit.iterations.cpu().numpy()
+    dev_fit = fit.deviance.cpu().numpy()
+    params = fit.params.cpu().numpy()
+    require(np.isfinite(dev_fit).all() and np.isfinite(params).all(),
+            "a batch-fit lane ended non-finite")
+    worse = np.flatnonzero(dev_fit > dev_start)
+    require(worse.size == 0, f"batch lanes ended worse: {worse}")
+    conv = float(fit.converged.float().mean())
+    require(conv >= lanes["converged_frac"],
+            f"batch fit converged {conv} < the lanes fit's "
+            f"{lanes['converged_frac']}")
+    # the two layouts' optima (equal in exact arithmetic; the f32 stall
+    # stops leave the gap)
+    gap = (dev_fit - lanes["deviance"]) / np.abs(lanes["deviance"])
+    require(np.abs(gap).max() <= GAP_BAR,
+            f"batch fit deviances vs the lanes fit's: max |rel gap| "
+            f"{np.abs(gap).max()} at model {int(np.abs(gap).argmax())}")
+
+    # BATCH_CPU models: the card's f32 value and gradient at the fitted
+    # parameters against the CPU f64 plain path, first ADJ_T_CMP steps
+    idx = list(range(0, FLEET, FLEET // BATCH_CPU))
+    y32, mask, lds = lanes["y32"], lanes["mask"], lanes["lds"]
+    host = {"y": y32[idx, :ADJ_T_CMP].astype(np.float64),
+            "mask": mask[idx, :ADJ_T_CMP], "lds": lds[idx]}
+    future = pool.submit(cpu_batch_vg, host, params[idx].astype(np.float64))
+    dev = fleet.y.device
+    short = Fleet(fleet.y[idx, :ADJ_T_CMP].contiguous(),
+                  fleet.mask[idx, :ADJ_T_CMP].contiguous(),
+                  fleet.loadings[idx], fleet.dt[idx], fleet.n_series[idx])
+    val32, grad32 = fleet_value_and_grad(fit.params[idx], short)
+
+    # the square-root engine's batch fit (K9 bounds + K11), f32
+    sel = torch.arange(SQRT_FIT_MODELS, device=dev)
+    small = Fleet(*(None if a is None else a.index_select(0, sel)
+                    for a in fleet))
+    c0 = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_s = fit_fleet(small, p0=p0[:SQRT_FIT_MODELS], engine="sqrt",
+                      grad_engine="adjoint", **SQRT_FIT)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    c1 = launches()
+    for kern in ("sqrt_filter", "joint_adjoint"):
+        require(c1[kern] > c0[kern], f"sqrt batch fit never launched {kern}")
+    dev_s = fit_s.deviance.cpu().numpy()
+    require(np.isfinite(dev_s).all()
+            and (dev_s <= dev_start[:SQRT_FIT_MODELS]).all(),
+            f"sqrt batch fit: {dev_s}")
+    gap_s = np.abs(dev_s - lanes["deviance"][:SQRT_FIT_MODELS]) \
+        / np.abs(lanes["deviance"][:SQRT_FIT_MODELS])
+    require(gap_s.max() <= GAP_BAR,
+            f"sqrt batch fit deviances vs the lanes fit's: {gap_s}")
+
+    # JaxSolve's fit core in f64 on the example, card default engine sqrt
+    golden = json.loads(GOLDEN.read_text())
+    os.environ["METRAN_TPU_X64"] = "1"
+    try:
+        mt = Metran(example_series(), name=EXAMPLE)
+    finally:
+        del os.environ["METRAN_TPU_X64"]
+    require(mt.dtype == torch.float64 and mt._engine == "sqrt"
+            and mt.device.type == "cuda", (mt.dtype, mt._engine))
+    mt.get_factors(mt.oseries)
+    mt._init_kalmanfilter()
+    mt.set_init_parameters()
+    solver = JaxSolve(mt=mt)
+    c2 = launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, obj, nfev, converged = solver.fit_core()
+    torch.cuda.synchronize()
+    wall_j = time.perf_counter() - t0
+    c3 = launches()
+    for kern in ("sqrt_filter", "joint_adjoint"):
+        require(c3[kern] > c2[kern], f"JaxSolve never launched {kern}")
+    require(mt._resolved_grad() == "adjoint", mt._resolved_grad())
+    opt = solver._full_params(x)
+    obj_rel = abs(obj - golden["obj_func"]) / abs(golden["obj_func"])
+    require(abs(obj - golden["obj_func"])
+            <= max(1e-6 * abs(golden["obj_func"]), 1e-4),
+            f"JaxSolve obj {obj} vs golden {golden['obj_func']}")
+    opt_rel = float(np.max(np.abs(opt - golden["optimal"])
+                           / np.abs(golden["optimal"])))
+    require(opt_rel <= 2e-2, f"JaxSolve optimal {opt}")
+    # the path's launches: the three fits', not the 8-model check's
+    counts = {k: fit_counts[k] + c1[k] - c0[k] + c3[k] - c2[k]
+              for k in fit_counts}
+
+    val64, grad64 = future.result()
+    v_rel = np.abs(val32.cpu().numpy() - val64) / np.abs(val64)
+    g_rel = rel_err(grad32.cpu(), torch.as_tensor(grad64))
+    require(within(v_rel.tolist(), 1e-4), f"batch value f32 vs f64 {v_rel}")
+    require(g_rel <= 1e-3, f"batch gradient f32 vs f64 {g_rel}")
+    emit({
+        "phase": "batch_fit", "fleet": FLEET, "t_steps": T_STEPS,
+        "settings": {**BATCH_FIT, "layout": "batch", "engine": "joint",
+                     "grad": "adjoint"},
+        "fit_wall_s": wall, "fits_per_s": FLEET / wall,
+        "iterations": {"mean": float(iters.mean()), "max": int(iters.max())},
+        "converged_frac": conv,
+        "stalled_frac": float(fit.stalled.float().mean()),
+        "objective_calls": rows.calls,
+        "evaluations_per_model": rows.rows / FLEET,
+        "kernel_ms": {"joint_filter_append_bounds": k1_ms,
+                      "joint_adjoint": k11_ms, "all": all_ms},
+        "kernel_share": {"joint_filter_append_bounds": k1_ms / 1e3 / wall,
+                         "joint_adjoint": k11_ms / 1e3 / wall},
+        "launches": {k: v for k, v in fit_counts.items() if v},
+        "deviance_mean": float(dev_fit.mean()),
+        "vs_lanes_fit": {
+            "lanes_converged_frac": lanes["converged_frac"],
+            "rel_gap_median": float(np.median(gap)),
+            "rel_gap_min": float(gap.min()), "rel_gap_max": float(gap.max()),
+            "bar": GAP_BAR,
+            "batch_lower_frac": float((gap < 0).mean())},
+        "cpu_f64_over_t": ADJ_T_CMP, "value_rel_err": float(v_rel.max()),
+        "grad_rel_err": g_rel,
+        "sqrt_fit": {"models": SQRT_FIT_MODELS, "settings": SQRT_FIT,
+                     "wall_s": wall_s,
+                     "iterations_mean": float(
+                         fit_s.iterations.float().mean()),
+                     "converged_frac": float(fit_s.converged.float().mean()),
+                     "rel_gap_to_lanes_max": float(gap_s.max()),
+                     "launches": {k: c1[k] - c0[k] for k in c1
+                                  if c1[k] > c0[k]}},
+        "jaxsolve_f64_example": {"engine": mt._engine, "wall_s": wall_j,
+                                 "obj_func": obj, "obj_rel_to_golden": obj_rel,
+                                 "optimal_rel_to_golden": opt_rel,
+                                 "nfev": nfev, "converged": converged,
+                                 "iterations": solver.telemetry.n_iters,
+                                 "stop": solver.telemetry.stop_reason,
+                                 "launches": {k: c3[k] - c2[k] for k in c3
+                                              if c3[k] > c2[k]}},
+    })
+    return counts
 
 
 def check_stderr(fit):
@@ -2683,6 +3338,10 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/sqrt_smoother.cu",
         "replaces": "metran_tpu/ops/kalman.py:1829",
     },
+    "joint_adjoint": {
+        "source": "metran_tpu_torch/kernels/csrc/joint_adjoint.cu",
+        "replaces": "metran_tpu/ops/adjoint.py:212",
+    },
 }
 
 
@@ -2708,7 +3367,8 @@ def main() -> int:
     phase_build()
     checks, times = phase_kernels()
     for phase in (phase_lanes_kernels, phase_products_kernels,
-                  phase_single_kernels, phase_sqrt_kernels):
+                  phase_single_kernels, phase_sqrt_kernels,
+                  phase_adjoint_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
@@ -2724,6 +3384,7 @@ def main() -> int:
             mp_context=multiprocessing.get_context("spawn")) as pool:
         fit = phase_fit_path(pool)
         paths["fit"] = fit["counts"]
+        paths["batch_fit"] = phase_batch_fit(pool, fit)
         paths["products"] = phase_products_path(fit)
         paths["metran"] = phase_metran_path(pool)
         check_stderr(fit)
@@ -2746,6 +3407,7 @@ def main() -> int:
             entry["plain_shape"] = t["plain_shape"]
         if name == "joint_filter_append":
             entry["history_pass"] = times["joint_filter_append_history"]
+            entry["bounds"] = times["joint_filter_append_bounds"]
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
         others = {k: v for k, v in times.items()

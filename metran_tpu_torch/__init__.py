@@ -6,28 +6,31 @@ the single-model API) ``pandas`` only.  Module paths mirror the JAX
 package (``metran_tpu/serve/engine.py`` ->
 ``metran_tpu_torch/serve/engine.py``).
 
-Ported so far — the serving path, the lane-layout fleet fit, the
-lane-layout post-fit products of a fitted fleet and the single-model
-``Metran`` API:
+Ported so far — the serving path, the lane-layout and batch-layout
+fleet fits, the lane-layout post-fit products of a fitted fleet, the
+single-model ``Metran`` API and the square-root engine:
 
 - :mod:`.models` — ``Metran`` (``Metran(series).solve()`` and its
-  products), ``FactorAnalysis``, ``ScipySolve`` and ``LanesSolve``,
-  exported here (imported at first use, so the rest of the package
-  imports without pandas);
-- :mod:`.ops` — DFM state-space build, the joint and sequential Kalman
-  engines (``kalman_filter``, ``store=True`` included, ``filter_append``,
-  ``deviance``), the RTS smoother, the lane-layout deviance with its
-  closed-form adjoint, the lane-layout products (smoother, filtered
-  projections, innovations, forecasts, path draws), closed-form
-  forecasts and factor analysis;
+  products), ``FactorAnalysis``, ``ScipySolve``, ``JaxSolve`` and
+  ``LanesSolve``, exported here (imported at first use, so the rest of
+  the package imports without pandas), and the batched L-BFGS with the
+  zoom line search (``models.lbfgs``, a copy of optax's);
+- :mod:`.ops` — DFM state-space build, the joint, sequential and
+  square-root Kalman engines (``kalman_filter``, ``filter_append``,
+  ``deviance``), the RTS smoothers, the closed-form adjoints (lane
+  layout, and the batch layout of ``ops.adjoint``), the lane-layout
+  products (smoother, filtered projections, innovations, forecasts,
+  path draws), closed-form forecasts and factor analysis;
 - :mod:`.kernels` — the hand-written Hopper kernels those ops run on
   CUDA tensors (K1 joint filter append, K2 forecast moments, K3 lanes
   filter, K4 lanes adjoint, K5 lanes smoother, K6 lanes forward filter
-  with outputs or stored moments, K7 path draw, K8 RTS smoother), each
-  beside its plain PyTorch version;
+  with outputs or stored moments, K7 path draw, K8 RTS smoother, K9
+  square-root filter, K10 square-root smoother, K11 batch-layout
+  adjoint), each beside its plain PyTorch version;
 - :mod:`.parallel` — packed fleets, the batched L-BFGS,
-  ``fit_fleet(layout="lanes")``, ``fleet_stderr(method="lanes-fd")`` and
-  the fleet products;
+  ``fit_fleet`` (``layout="batch"``, the default, and ``"lanes"``),
+  ``fleet_stderr(method="lanes-fd")`` and the fleet products;
+- :mod:`.obs` — the per-fit optimizer telemetry;
 - :mod:`.data`, :mod:`.utils` — ingestion, standardization and packing;
 - :mod:`.diagnostics` — the Ljung-Box whiteness test of innovations;
 - :mod:`.serve` — posterior states, shape-bucketed registry,
@@ -39,7 +42,8 @@ Entry points run on the CUDA card unless the caller passes
 
 __version__ = "0.1.0"
 
-_MODELS = ("Metran", "FactorAnalysis", "ScipySolve", "LanesSolve")
+_MODELS = ("Metran", "FactorAnalysis", "ScipySolve", "JaxSolve",
+           "LanesSolve")
 
 
 def __getattr__(name):

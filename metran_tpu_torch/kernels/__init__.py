@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-- :mod:`.joint_filter` — K1, the joint-update filter append;
+- :mod:`.joint_filter` — K1, the joint-update filter append, with or
+  without segment boundaries;
 - :mod:`.forecast` — K2, the closed-form forecast moments;
 - :mod:`.lanes` — K3, the lane-layout sequential filter, and K4, its
   closed-form adjoint;
@@ -9,17 +10,20 @@
   ``store`` mode, the stored moments), and K7, the simulation
   smoother's path draw;
 - :mod:`.smoother` — K8, the RTS smoother over stored moments;
-- :mod:`.sqrt_filter` — K9, the square-root (QR array) filter, with or
-  without its per-step store, from ``(0, I)`` or a given carry;
+- :mod:`.sqrt_filter` — K9, the square-root (QR array) filter, with its
+  per-step store, with segment boundaries or with neither, from
+  ``(0, I)`` or a given carry;
 - :mod:`.sqrt_smoother` — K10, the factored RTS smoother over K9's
   stored factors;
+- :mod:`.joint_adjoint` — K11, the closed-form reverse sweep of the
+  batch-layout deviance (the backward of ``ops.adjoint``);
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
 Each wrapper (``joint_filter_append``, ``forecast_moments``,
 ``lanes_filter``, ``lanes_adjoint``, ``lanes_smooth_bwd``,
 ``lanes_forward``, ``lanes_sample``, ``rts_smooth``, ``sqrt_filter``,
-``sqrt_smooth``) launches its kernel (``*_kernel``,
+``sqrt_smooth``, ``joint_adjoint``) launches its kernel (``*_kernel``,
 which takes CUDA tensors only and raises if it cannot build or launch)
 on CUDA tensors and runs the plain version (``*_plain``) on CPU
 tensors; there is no fallback between them.  Nothing is built or
@@ -32,6 +36,11 @@ from .forecast import (
     forecast_moments,
     forecast_moments_kernel,
     forecast_moments_plain,
+)
+from .joint_adjoint import (
+    joint_adjoint,
+    joint_adjoint_kernel,
+    joint_adjoint_plain,
 )
 from .joint_filter import (
     joint_filter_append,
@@ -72,6 +81,9 @@ __all__ = [
     "forecast_moments",
     "forecast_moments_kernel",
     "forecast_moments_plain",
+    "joint_adjoint",
+    "joint_adjoint_kernel",
+    "joint_adjoint_plain",
     "joint_filter_append",
     "joint_filter_append_kernel",
     "joint_filter_append_plain",

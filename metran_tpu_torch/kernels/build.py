@@ -45,7 +45,7 @@ _count_lock = threading.Lock()
 LAUNCHES = {"joint_filter_append": 0, "forecast_moments": 0,
             "lanes_filter": 0, "lanes_adjoint": 0, "lanes_smooth_bwd": 0,
             "lanes_forward": 0, "lanes_sample": 0, "rts_smooth": 0,
-            "sqrt_filter": 0, "sqrt_smooth": 0}
+            "sqrt_filter": 0, "sqrt_smooth": 0, "joint_adjoint": 0}
 
 
 def count_launch(name: str) -> None:
@@ -137,8 +137,12 @@ _INT = ctypes.c_int
 
 _SIGNATURES = {
     # phi, q, z, r, mean0, cov0, y, mask, mean, cov, sigma, detf,
-    # B, k, N, S, stream
-    "joint_filter": ("metran_joint_filter", [_PTR] * 12 + [_INT] * 4 + [_PTR]),
+    # bounds_mean, bounds_cov, B, k, N, S, seg, stream
+    "joint_filter": ("metran_joint_filter", [_PTR] * 14 + [_INT] * 5 + [_PTR]),
+    # phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov, sb, db, scratch,
+    # phibar, qbar, B, T, N, n, seg, factored, stream
+    "joint_adjoint": ("metran_joint_adjoint",
+                      [_PTR] * 13 + [_INT] * 6 + [_PTR]),
     # phi, q, z, r, mean, cov, horizons, means, variances, B, H, N, S,
     # stream
     "forecast": ("metran_forecast_moments", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
@@ -161,9 +165,9 @@ _SIGNATURES = {
     "lanes_sample": ("metran_lanes_sample", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
     # phi, mean_f, cov_f, mean_p, cov_p, mean_s, cov_s, L, T, n, stream
     "rts_smoother": ("metran_rts_smoother", [_PTR] * 7 + [_INT] * 3 + [_PTR]),
-    # phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, ..., out5, L,
-    # T, N, n, store, stream
-    "sqrt_filter": ("metran_sqrt_filter", [_PTR] * 15 + [_INT] * 5 + [_PTR]),
+    # phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, ..., out5,
+    # bounds_mean, bounds_chol, L, T, N, n, store, seg, stream
+    "sqrt_filter": ("metran_sqrt_filter", [_PTR] * 17 + [_INT] * 6 + [_PTR]),
     # phi, q, mean_f, chol_f, mean_p, chol_p, mean_s, chol_s, L, T, n,
     # stream
     "sqrt_smoother": ("metran_sqrt_smoother",

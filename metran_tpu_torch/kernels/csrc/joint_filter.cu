@@ -27,6 +27,17 @@
 // device memory sees only y/mask once and the posterior once, and the
 // time loop runs inside the kernel: one launch per dispatch, k = 1 or
 // k = 5000 alike.  Many models per SM hide the barrier latency.
+//
+// Two instantiations (a template parameter, not a run-time branch):
+//   carry   per step sigma, detf and the final (m, P) — serving and the
+//           deviance;
+//   bounds  the same, and the carry (m, P) at the start of every segment
+//           of `seg` steps, (B, n_seg, S) and (B, n_seg, S, S): the forward
+//           of the batch-layout adjoint (metran_tpu/ops/adjoint.py::
+//           _run_segments, engine="joint"), whose backward (K11) replays
+//           each segment from its boundary.  Each thread stores the
+//           entries it then predicts, so the arithmetic is the carry
+//           instantiation's, bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,7 +47,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T>
+template <typename T, bool kBounds>
 __global__ void __launch_bounds__(kThreads)
 joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                     const T* __restrict__ z, const T* __restrict__ r,
@@ -44,7 +55,8 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                     const T* __restrict__ y, const uint8_t* __restrict__ mask,
                     T* __restrict__ mean_out, T* __restrict__ cov_out,
                     T* __restrict__ sigma_out, T* __restrict__ detf_out,
-                    int k, int N, int S) {
+                    T* __restrict__ bounds_mean, T* __restrict__ bounds_cov,
+                    int k, int N, int S, int seg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* P = reinterpret_cast<T*>(smem_raw);  // S*S covariance
   T* Zs = P + S * S;                       // N*S observation matrix
@@ -78,6 +90,13 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
     const uint8_t* mt = mask + ((size_t)b * k + t) * N;
     if (tid == 0) has_obs_s = 0;
     __syncthreads();
+    if (kBounds && t % seg == 0) {  // the carry entering this segment
+      const int n_seg = (k + seg - 1) / seg;
+      const size_t sb = (size_t)b * n_seg + t / seg;
+      for (int i = tid; i < S; i += nt) bounds_mean[sb * S + i] = m[i];
+      for (int idx = tid; idx < S * S; idx += nt)
+        bounds_cov[sb * S * S + idx] = P[idx];
+    }
     // predict (each thread owns its entries)
     for (int i = tid; i < S; i += nt) m[i] = ph[i] * m[i];
     for (int idx = tid; idx < S * S; idx += nt) {
@@ -215,25 +234,46 @@ size_t joint_filter_smem(int N, int S) {
                       (size_t)S * N + 2 * (size_t)S + 3 * (size_t)N);
 }
 
+template <typename T, bool kBounds>
+int launch(const void* phi, const void* q, const void* z, const void* r,
+           const void* mean0, const void* cov0, const void* y,
+           const void* mask, void* mean_out, void* cov_out, void* sigma_out,
+           void* detf_out, void* bounds_mean, void* bounds_cov, int B, int k,
+           int N, int S, int seg, void* stream) {
+  const size_t smem = joint_filter_smem<T>(N, S);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        joint_filter_kernel<T, kBounds>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (B == 0) return 0;
+  joint_filter_kernel<T, kBounds>
+      <<<B, kThreads, smem, (cudaStream_t)stream>>>(
+          (const T*)phi, (const T*)q, (const T*)z, (const T*)r,
+          (const T*)mean0, (const T*)cov0, (const T*)y, (const uint8_t*)mask,
+          (T*)mean_out, (T*)cov_out, (T*)sigma_out, (T*)detf_out,
+          (T*)bounds_mean, (T*)bounds_cov, k, N, S, seg);
+  return (int)cudaGetLastError();
+}
+
+// bounds_mean/bounds_cov null: the carry instantiation (seg unused)
 template <typename T>
 int launch_joint_filter(const void* phi, const void* q, const void* z,
                         const void* r, const void* mean0, const void* cov0,
                         const void* y, const void* mask, void* mean_out,
-                        void* cov_out, void* sigma_out, void* detf_out, int B,
-                        int k, int N, int S, void* stream) {
-  const size_t smem = joint_filter_smem<T>(N, S);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        joint_filter_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                        void* cov_out, void* sigma_out, void* detf_out,
+                        void* bounds_mean, void* bounds_cov, int B, int k,
+                        int N, int S, int seg, void* stream) {
+  if (bounds_mean != nullptr) {
+    if (seg < 1) return (int)cudaErrorInvalidValue;
+    return launch<T, true>(phi, q, z, r, mean0, cov0, y, mask, mean_out,
+                           cov_out, sigma_out, detf_out, bounds_mean,
+                           bounds_cov, B, k, N, S, seg, stream);
   }
-  if (B == 0) return 0;
-  joint_filter_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)phi, (const T*)q, (const T*)z, (const T*)r, (const T*)mean0,
-      (const T*)cov0, (const T*)y, (const uint8_t*)mask, (T*)mean_out,
-      (T*)cov_out, (T*)sigma_out, (T*)detf_out, k, N, S);
-  return (int)cudaGetLastError();
+  return launch<T, false>(phi, q, z, r, mean0, cov0, y, mask, mean_out,
+                          cov_out, sigma_out, detf_out, nullptr, nullptr, B,
+                          k, N, S, 1, stream);
 }
 
 }  // namespace
@@ -244,22 +284,26 @@ int metran_joint_filter_f32(const void* phi, const void* q, const void* z,
                             const void* r, const void* mean0,
                             const void* cov0, const void* y, const void* mask,
                             void* mean_out, void* cov_out, void* sigma_out,
-                            void* detf_out, int B, int k, int N, int S,
-                            void* stream) {
+                            void* detf_out, void* bounds_mean,
+                            void* bounds_cov, int B, int k, int N, int S,
+                            int seg, void* stream) {
   return launch_joint_filter<float>(phi, q, z, r, mean0, cov0, y, mask,
-                                    mean_out, cov_out, sigma_out, detf_out, B,
-                                    k, N, S, stream);
+                                    mean_out, cov_out, sigma_out, detf_out,
+                                    bounds_mean, bounds_cov, B, k, N, S, seg,
+                                    stream);
 }
 
 int metran_joint_filter_f64(const void* phi, const void* q, const void* z,
                             const void* r, const void* mean0,
                             const void* cov0, const void* y, const void* mask,
                             void* mean_out, void* cov_out, void* sigma_out,
-                            void* detf_out, int B, int k, int N, int S,
-                            void* stream) {
+                            void* detf_out, void* bounds_mean,
+                            void* bounds_cov, int B, int k, int N, int S,
+                            int seg, void* stream) {
   return launch_joint_filter<double>(phi, q, z, r, mean0, cov0, y, mask,
                                      mean_out, cov_out, sigma_out, detf_out,
-                                     B, k, N, S, stream);
+                                     bounds_mean, bounds_cov, B, k, N, S, seg,
+                                     stream);
 }
 
 const char* metran_error_string(int err) {

@@ -28,14 +28,21 @@
 // when it fails the step passes through: m_f = m_p, S_f = S_p, sigma = 0,
 // detf = +inf.
 //
-// Two instantiations (a template parameter, not a run-time branch):
+// Three instantiations (template parameters, not a run-time branch):
 //   kStore  per step (m_p, S_p, m_f, S_f, sigma, detf): (L, T, n),
 //           (L, T, n, n) twice, then (L, T) twice — what the factored
 //           smoother K10 reads;
 //   carry   per step sigma, detf (L, T) and the final (m, S) (L, n),
 //           (L, n, n), from (0, I) or from a given (mean0, chol0) per lane
 //           — the deviance, the serving history pass and
-//           sqrt_filter_append.
+//           sqrt_filter_append;
+//   kBounds the carry outputs, and the carry (m, S) at the start of every
+//           segment of `seg` steps, (L, n_seg, n) and (L, n_seg, n, n): the
+//           forward of the batch-layout adjoint
+//           (metran_tpu/ops/adjoint.py::_run_segments, engine="sqrt"),
+//           whose backward (K11) replays each segment from S S'.  The
+//           stores read the carry before the step touches it, so the
+//           arithmetic is the carry instantiation's, bit for bit.
 // The deviance is summed by the caller (deviance_terms), not here: a
 // serial float32 sum over thousands of steps would cost about as much as
 // the engine's whole f32 precision bar.
@@ -91,7 +98,7 @@ __host__ __device__ size_t carve(unsigned char* base, int N, int n,
   return used * sizeof(T) + (size_t)N * sizeof(int);
 }
 
-template <typename T, bool kStore>
+template <typename T, bool kStore, bool kBounds>
 __global__ void __launch_bounds__(kThreads)
 sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                    const T* __restrict__ z, const T* __restrict__ r,
@@ -100,8 +107,10 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                    const T* __restrict__ mean0, const T* __restrict__ chol0,
                    T* __restrict__ o_mean_p, T* __restrict__ o_chol_p,
                    T* __restrict__ o_mean_f, T* __restrict__ o_chol_f,
-                   T* __restrict__ o_sigma, T* __restrict__ o_detf, int L,
-                   int t_steps, int N, int n) {
+                   T* __restrict__ o_sigma, T* __restrict__ o_detf,
+                   T* __restrict__ o_bounds_mean,
+                   T* __restrict__ o_bounds_chol, int L, int t_steps, int N,
+                   int n, int seg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<T> s;
   carve<T>(smem_raw, N, n, &s);
@@ -132,6 +141,13 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
   const uint8_t* ml = mask + (size_t)dl * t_steps * N;
 
   for (int t = 0; t < t_steps; ++t) {
+    if (kBounds && t % seg == 0) {  // the carry entering this segment
+      const size_t sb = (size_t)l * ((t_steps + seg - 1) / seg) + t / seg;
+      for (int a = tid; a < n; a += kThreads)
+        o_bounds_mean[sb * n + a] = s.m[a];
+      for (int idx = tid; idx < nn; idx += kThreads)
+        o_bounds_chol[sb * nn + idx] = s.S[idx];
+    }
     // ---- predict: m_p, and the pre-array [(phi o S)' ; diag sqrt q]
     for (int a = tid; a < n; a += kThreads) s.mp[a] = s.ph[a] * s.m[a];
     for (int idx = tid; idx < 2 * n * n; idx += kThreads) {
@@ -283,42 +299,56 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
   }
 }
 
-template <typename T, bool kStore>
+template <typename T, bool kStore, bool kBounds>
 int launch(const void* phi, const void* q, const void* z, const void* r,
            const void* y, const void* mask, const void* lane_map,
            const void* mean0, const void* chol0, void* out0, void* out1,
-           void* out2, void* out3, void* out4, void* out5, int L, int t_steps,
-           int N, int n, void* stream) {
+           void* out2, void* out3, void* out4, void* out5, void* bounds_mean,
+           void* bounds_chol, int L, int t_steps, int N, int n, int seg,
+           void* stream) {
   const size_t smem = carve<T>(nullptr, N, n, nullptr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sqrt_filter_kernel<T, kStore>,
+        sqrt_filter_kernel<T, kStore, kBounds>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (L == 0) return 0;
-  sqrt_filter_kernel<T, kStore><<<L, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)phi, (const T*)q, (const T*)z, (const T*)r, (const T*)y,
-      (const uint8_t*)mask, (const int*)lane_map, (const T*)mean0,
-      (const T*)chol0, (T*)out0, (T*)out1, (T*)out2, (T*)out3, (T*)out4,
-      (T*)out5, L, t_steps, N, n);
+  sqrt_filter_kernel<T, kStore, kBounds>
+      <<<L, kThreads, smem, (cudaStream_t)stream>>>(
+          (const T*)phi, (const T*)q, (const T*)z, (const T*)r, (const T*)y,
+          (const uint8_t*)mask, (const int*)lane_map, (const T*)mean0,
+          (const T*)chol0, (T*)out0, (T*)out1, (T*)out2, (T*)out3, (T*)out4,
+          (T*)out5, (T*)bounds_mean, (T*)bounds_chol, L, t_steps, N, n, seg);
   return (int)cudaGetLastError();
 }
 
+// store and bounds exclude each other; bounds_mean null: no boundaries
 template <typename T>
 int launch_sqrt_filter(const void* phi, const void* q, const void* z,
                        const void* r, const void* y, const void* mask,
                        const void* lane_map, const void* mean0,
                        const void* chol0, void* out0, void* out1, void* out2,
-                       void* out3, void* out4, void* out5, int L, int t_steps,
-                       int N, int n, int store, void* stream) {
+                       void* out3, void* out4, void* out5, void* bounds_mean,
+                       void* bounds_chol, int L, int t_steps, int N, int n,
+                       int store, int seg, void* stream) {
+  if (store && bounds_mean != nullptr) return (int)cudaErrorInvalidValue;
   if (store)
-    return launch<T, true>(phi, q, z, r, y, mask, lane_map, mean0, chol0,
-                           out0, out1, out2, out3, out4, out5, L, t_steps, N,
-                           n, stream);
-  return launch<T, false>(phi, q, z, r, y, mask, lane_map, mean0, chol0,
-                          out0, out1, out2, out3, out4, out5, L, t_steps, N,
-                          n, stream);
+    return launch<T, true, false>(phi, q, z, r, y, mask, lane_map, mean0,
+                                  chol0, out0, out1, out2, out3, out4, out5,
+                                  nullptr, nullptr, L, t_steps, N, n, 1,
+                                  stream);
+  if (bounds_mean != nullptr) {
+    if (seg < 1) return (int)cudaErrorInvalidValue;
+    return launch<T, false, true>(phi, q, z, r, y, mask, lane_map, mean0,
+                                  chol0, out0, out1, out2, out3, out4, out5,
+                                  bounds_mean, bounds_chol, L, t_steps, N, n,
+                                  seg, stream);
+  }
+  return launch<T, false, false>(phi, q, z, r, y, mask, lane_map, mean0,
+                                 chol0, out0, out1, out2, out3, out4, out5,
+                                 nullptr, nullptr, L, t_steps, N, n, 1,
+                                 stream);
 }
 
 }  // namespace
@@ -327,17 +357,21 @@ extern "C" {
 
 // out0..out5: (mean_p, chol_p, mean_f, chol_f, sigma, detf) with store;
 // without, out0/out1 are unused and out2/out3 receive the final (m, S).
+// bounds_mean/bounds_chol, when not null (never with store), receive the
+// carry at the start of every segment of seg steps.
 // mean0/chol0 may be null: the carry then starts from (0, I).
 int metran_sqrt_filter_f32(const void* phi, const void* q, const void* z,
                            const void* r, const void* y, const void* mask,
                            const void* lane_map, const void* mean0,
                            const void* chol0, void* out0, void* out1,
                            void* out2, void* out3, void* out4, void* out5,
-                           int L, int t_steps, int N, int n, int store,
+                           void* bounds_mean, void* bounds_chol, int L,
+                           int t_steps, int N, int n, int store, int seg,
                            void* stream) {
   return launch_sqrt_filter<float>(phi, q, z, r, y, mask, lane_map, mean0,
                                    chol0, out0, out1, out2, out3, out4, out5,
-                                   L, t_steps, N, n, store, stream);
+                                   bounds_mean, bounds_chol, L, t_steps, N, n,
+                                   store, seg, stream);
 }
 
 int metran_sqrt_filter_f64(const void* phi, const void* q, const void* z,
@@ -345,11 +379,13 @@ int metran_sqrt_filter_f64(const void* phi, const void* q, const void* z,
                            const void* lane_map, const void* mean0,
                            const void* chol0, void* out0, void* out1,
                            void* out2, void* out3, void* out4, void* out5,
-                           int L, int t_steps, int N, int n, int store,
+                           void* bounds_mean, void* bounds_chol, int L,
+                           int t_steps, int N, int n, int store, int seg,
                            void* stream) {
   return launch_sqrt_filter<double>(phi, q, z, r, y, mask, lane_map, mean0,
                                     chol0, out0, out1, out2, out3, out4, out5,
-                                    L, t_steps, N, n, store, stream);
+                                    bounds_mean, bounds_chol, L, t_steps, N, n,
+                                    store, seg, stream);
 }
 
 const char* metran_error_string(int err) {

@@ -7,13 +7,23 @@ if that cannot build or launch; on CPU tensors it runs
 :func:`joint_filter_append_plain`, the same computation in batched
 PyTorch ops — the oracle the kernel is held against on the card.
 
+With ``bounds_seg`` it also returns the carry at the start of every
+segment of ``bounds_seg`` steps, ``(bounds_mean (B, n_seg, S),
+bounds_cov (B, n_seg, S, S))``: the forward of the batch-layout
+adjoint (``metran_tpu_torch.ops.adjoint``), whose backward replays each
+segment from its boundary.  The per-step terms and the final carry are
+those of the call without it, bit for bit (the kernel's ``bounds``
+instantiation only adds the stores).
+
 Replaces ``metran_tpu/ops/kalman.py::filter_append(engine="joint")``
-(``_predict``/``_joint_update``, vmapped by ``serve/engine.py``).
+(``_predict``/``_joint_update``, vmapped by ``serve/engine.py``) and,
+with boundaries, the joint engine of ``metran_tpu/ops/adjoint.py::
+_run_segments``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,21 +74,32 @@ def _check(phi, q, z, r, mean, cov, y, mask):
     return b, k, n, s
 
 
-def joint_filter_append(phi, q, z, r, mean, cov, y, mask
+def _n_seg(k: int, bounds_seg) -> int:
+    if int(bounds_seg) < 1:
+        raise ValueError(f"bounds_seg must be >= 1, got {bounds_seg}")
+    return -(-k // int(bounds_seg))
+
+
+def joint_filter_append(phi, q, z, r, mean, cov, y, mask,
+                        bounds_seg: Optional[int] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """``k`` joint-update filter steps per model.
 
     Shapes: phi (B, S), q (B, S, S), z (B, N, S), r (B, N), mean (B, S),
     cov (B, S, S), y (B, k, N), mask (B, k, N) bool.  Returns
-    ``(mean (B, S), cov (B, S, S), sigma (B, k), detf (B, k))``.
+    ``(mean (B, S), cov (B, S, S), sigma (B, k), detf (B, k))``, and with
+    ``bounds_seg`` the segment boundaries after them (module doc).
     """
     _check(phi, q, z, r, mean, cov, y, mask)
     if phi.device.type == "cpu":
-        return joint_filter_append_plain(phi, q, z, r, mean, cov, y, mask)
-    return joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask)
+        return joint_filter_append_plain(phi, q, z, r, mean, cov, y, mask,
+                                         bounds_seg)
+    return joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask,
+                                      bounds_seg)
 
 
-def joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask
+def joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask,
+                               bounds_seg: Optional[int] = None
                                ) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel (CUDA tensors only; raises otherwise, and
     when the kernel cannot build, take the bucket or launch)."""
@@ -98,6 +119,15 @@ def joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask
     cov_out = torch.empty_like(args[5])
     sigma = torch.empty((b, k), dtype=phi.dtype, device=phi.device)
     detf = torch.empty((b, k), dtype=phi.dtype, device=phi.device)
+    bounds, seg = (), 0
+    if bounds_seg is not None:
+        seg = int(bounds_seg)
+        n_seg = _n_seg(k, seg)
+        bounds = (torch.empty((b, n_seg, s), dtype=phi.dtype,
+                              device=phi.device),
+                  torch.empty((b, n_seg, s, s), dtype=phi.dtype,
+                              device=phi.device))
+    bounds_ptr = [t.data_ptr() for t in bounds] or [None, None]
     lib = build.load_library("joint_filter")
     fn = (lib.metran_joint_filter_f64 if phi.dtype == torch.float64
           else lib.metran_joint_filter_f32)
@@ -105,11 +135,11 @@ def joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask
         stream = torch.cuda.current_stream(phi.device).cuda_stream
         err = fn(*[t.data_ptr() for t in args],
                  mean_out.data_ptr(), cov_out.data_ptr(), sigma.data_ptr(),
-                 detf.data_ptr(), b, k, n, s, stream)
+                 detf.data_ptr(), *bounds_ptr, b, k, n, s, seg, stream)
     build.check(lib, err, "joint_filter_append")
     if b:
         build.count_launch("joint_filter_append")
-    return mean_out, cov_out, sigma, detf
+    return (mean_out, cov_out, sigma, detf, *bounds)
 
 
 def predict_plain(mean, cov, phi, q):
@@ -157,15 +187,21 @@ def joint_update_plain(mean, cov, y, mask, z, r):
     return mean, cov, sigma, detf
 
 
-def joint_filter_append_plain(phi, q, z, r, mean, cov, y, mask
+def joint_filter_append_plain(phi, q, z, r, mean, cov, y, mask,
+                              bounds_seg: Optional[int] = None
                               ) -> Tuple[torch.Tensor, ...]:
     """The same function in batched PyTorch ops, a Python loop over k:
     :func:`predict_plain`, :func:`joint_update_plain`, and a step with no
     observation carries the predicted moments."""
     dtype = phi.dtype
     b, k = y.shape[:2]
-    sigmas, detfs = [], []
+    sigmas, detfs, b_mean, b_cov = [], [], [], []
+    if bounds_seg is not None:
+        _n_seg(k, bounds_seg)
     for t in range(k):
+        if bounds_seg is not None and t % int(bounds_seg) == 0:
+            b_mean.append(mean)
+            b_cov.append(cov)
         mean_p, cov_p = predict_plain(mean, cov, phi, q)
         mean_u, cov_u, sigma_t, detf_t = joint_update_plain(
             mean_p, cov_p, y[:, t], mask[:, t], z, r
@@ -179,4 +215,11 @@ def joint_filter_append_plain(phi, q, z, r, mean, cov, y, mask
              else torch.zeros((b, 0), dtype=dtype, device=phi.device))
     detf = (torch.stack(detfs, 1) if detfs
             else torch.zeros((b, 0), dtype=dtype, device=phi.device))
-    return mean, cov, sigma, detf
+    if bounds_seg is None:
+        return mean, cov, sigma, detf
+    s = phi.shape[1]
+    if not b_mean:
+        return (mean, cov, sigma, detf, phi.new_zeros((b, 0, s)),
+                phi.new_zeros((b, 0, s, s)))
+    return (mean, cov, sigma, detf, torch.stack(b_mean, 1),
+            torch.stack(b_cov, 1))

@@ -24,7 +24,12 @@ chol_f, sigma, detf)``: (L, T, n), (L, T, n, n), (L, T, n), (L, T, n, n),
 returns the final carry and the per-step terms, ``(mean (L, n), chol
 (L, n, n), sigma (L, T), detf (L, T))``, starting from ``(0, I)`` or,
 when given, from ``(mean0 (L, n), chol0 (L, n, n))`` per lane (a factor
-that need not be triangular).
+that need not be triangular).  Without ``store`` but with
+``bounds_seg`` it also returns the carry at the start of every segment
+of ``bounds_seg`` steps, ``(bounds_mean (L, n_seg, n), bounds_chol
+(L, n_seg, n, n))`` — the forward of the batch-layout adjoint
+(``metran_tpu_torch.ops.adjoint``); the other outputs are those of the
+call without it, bit for bit.
 
 On CUDA tensors it launches the hand-written kernel
 (``csrc/sqrt_filter.cu``) and raises if that cannot build or launch; on
@@ -153,23 +158,37 @@ def _check_sqrt(phi, q, z, r, y, mask, lane_map, mean0, chol0):
     return out
 
 
+def _n_seg(store, bounds_seg, t_steps):
+    """``n_seg`` of a call with boundaries (None without them)."""
+    if bounds_seg is None:
+        return None
+    if store:
+        raise ValueError("store=True and bounds_seg exclude each other")
+    if int(bounds_seg) < 1:
+        raise ValueError(f"bounds_seg must be >= 1, got {bounds_seg}")
+    return -(-t_steps // int(bounds_seg))
+
+
 def sqrt_filter(phi, q, z, r, y, mask, lane_map=None, store: bool = False,
-                mean0=None, chol0=None) -> Tuple[torch.Tensor, ...]:
+                mean0=None, chol0=None, bounds_seg: Optional[int] = None
+                ) -> Tuple[torch.Tensor, ...]:
     """The square-root filter of every lane (see the module doc)."""
     _check_sqrt(phi, q, z, r, y, mask, lane_map, mean0, chol0)
     if phi.device.type == "cpu":
         return sqrt_filter_plain(phi, q, z, r, y, mask, lane_map, store,
-                                 mean0, chol0)
+                                 mean0, chol0, bounds_seg)
     return sqrt_filter_kernel(phi, q, z, r, y, mask, lane_map, store, mean0,
-                              chol0)
+                              chol0, bounds_seg)
 
 
 def sqrt_filter_kernel(phi, q, z, r, y, mask, lane_map=None,
-                       store: bool = False, mean0=None, chol0=None):
+                       store: bool = False, mean0=None, chol0=None,
+                       bounds_seg: Optional[int] = None):
     """Launch K9 (CUDA tensors only; raises otherwise, and when the
     kernel cannot build, take the shape or launch)."""
     lanes, _, t_steps, big_n, n, _, _, lane_map = _check_sqrt(
         phi, q, z, r, y, mask, lane_map, mean0, chol0)
+    n_seg = _n_seg(store, bounds_seg, t_steps)
     if phi.device.type != "cuda":
         raise ValueError(
             f"the square-root filter kernel runs on CUDA tensors, got "
@@ -193,26 +212,33 @@ def sqrt_filter_kernel(phi, q, z, r, y, mask, lane_map=None,
         outs = (torch.empty((lanes, n), **new),
                 torch.empty((lanes, n, n), **new))
         ptrs = [None, None] + [o.data_ptr() for o in outs]
+    bounds = () if n_seg is None else (
+        torch.empty((lanes, n_seg, n), **new),
+        torch.empty((lanes, n_seg, n, n), **new))
+    bounds_ptr = [t.data_ptr() for t in bounds] or [None, None]
     lib = build.load_library("sqrt_filter")
     fn = (lib.metran_sqrt_filter_f64 if phi.dtype == torch.float64
           else lib.metran_sqrt_filter_f32)
     with torch.cuda.device(phi.device):
         err = fn(*[t.data_ptr() for t in args], _ptr(init[0]), _ptr(init[1]),
-                 *ptrs, *[t.data_ptr() for t in terms], lanes, t_steps,
-                 big_n, n, int(bool(store)), _stream(phi))
+                 *ptrs, *[t.data_ptr() for t in terms], *bounds_ptr, lanes,
+                 t_steps, big_n, n, int(bool(store)), int(bounds_seg or 1),
+                 _stream(phi))
     build.check(lib, err, "sqrt_filter")
     if lanes:
         build.count_launch("sqrt_filter")
-    return (*outs, *terms)
+    return (*outs, *terms, *bounds)
 
 
 def sqrt_filter_plain(phi, q, z, r, y, mask, lane_map=None,
-                      store: bool = False, mean0=None, chol0=None):
+                      store: bool = False, mean0=None, chol0=None,
+                      bounds_seg: Optional[int] = None):
     """The same filter in PyTorch ops: a Python loop over steps, each
     step :func:`sqrt_step_plain` batched over the lanes (autograd runs
     through it)."""
     lanes, _, t_steps, big_n, n, _, _, lane_map = _check_sqrt(
         phi, q, z, r, y, mask, lane_map, mean0, chol0)
+    n_seg = _n_seg(store, bounds_seg, t_steps)
     new = dict(dtype=phi.dtype, device=phi.device)
     ph = phi.T
     qs = torch.sqrt(torch.clamp(q.T, min=0.0))
@@ -225,11 +251,19 @@ def sqrt_filter_plain(phi, q, z, r, y, mask, lane_map=None,
         chol = torch.eye(n, **new).expand(lanes, n, n)
     else:
         mean, chol = mean0, chol0
-    steps = []
+    steps, b_mean, b_chol = [], [], []
     for t in range(t_steps):
+        if n_seg is not None and t % int(bounds_seg) == 0:
+            b_mean.append(mean)
+            b_chol.append(chol)
         out = sqrt_step_plain(ph, qs, zl, rl, mean, chol, yl[:, t], ml[:, t])
         mean, chol = out[2], out[3]
         steps.append(out if store else out[4:])
+    bounds = ()
+    if n_seg is not None:
+        bounds = ((torch.stack(b_mean, 1), torch.stack(b_chol, 1)) if b_mean
+                  else (torch.zeros((lanes, 0, n), **new),
+                        torch.zeros((lanes, 0, n, n), **new)))
     if store:
         if not t_steps:
             moments = ((lanes, 0, n), (lanes, 0, n, n))
@@ -238,9 +272,9 @@ def sqrt_filter_plain(phi, q, z, r, y, mask, lane_map=None,
         return tuple(torch.stack(parts, dim=1) for parts in zip(*steps))
     if not t_steps:
         empty = torch.zeros((lanes, 0), **new)
-        return mean, chol.contiguous(), empty, empty.clone()
+        return (mean, chol.contiguous(), empty, empty.clone(), *bounds)
     sigma, detf = (torch.stack(parts, dim=1) for parts in zip(*steps))
-    return mean, chol, sigma, detf
+    return (mean, chol, sigma, detf, *bounds)
 
 
 __all__ = [

@@ -1,4 +1,5 @@
-"""Model-level API: the Metran orchestrator, factor analysis, solvers."""
+"""Model-level API: the Metran orchestrator, factor analysis, solvers
+and the batched L-BFGS they share (:mod:`.lbfgs`)."""
 
 from .factoranalysis import FactorAnalysis
 from .metran import Metran

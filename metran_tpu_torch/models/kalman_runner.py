@@ -12,8 +12,8 @@ whose factors are cached and smoothed in factored form (K10), and the
 path draws are K7 + K9 + K10; the forecasts are K2 either way.
 Accessors return numpy arrays.
 
-The joint-store and associative-scan (B8) engines raise with their
-ROADMAP item (A7).
+The joint-store (ROADMAP A2) and associative-scan (B8, ROADMAP A6)
+engines raise with their ROADMAP item.
 """
 
 from __future__ import annotations

@@ -15,9 +15,11 @@ on ``"sequential"`` the stored sequential filter (K6 ``store``), the
 smoother K8 and the draws K7 with K6 and K8; the forecasts are K2 either
 way.  The fit's likelihood is the sequential deviance (kernel K3, its
 exact gradient the closed-form adjoint K4) on the card's LanesSolve
-whatever the engine, as in the JAX package.  The joint and
-associative-scan engines raise (ROADMAP A7), as do ``plots``,
-``to_file`` and ``from_file`` (ROADMAP A5).
+whatever the engine, as in the JAX package; ``JaxSolve`` and
+``ScipySolve`` fit the model's own engine (on ``"sqrt"``: K9 with
+segment boundaries, its gradient the batch-layout adjoint K11).  The
+joint engine (ROADMAP A2) and the associative-scan engines (A6) raise,
+as do ``plots``, ``to_file`` and ``from_file`` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..ops import deviance, dfm_statespace
 from ..utils import freq_to_days, frequency_is_supported, validate_name
 from .factoranalysis import FactorAnalysis
 from .kalman_runner import KalmanRunner, check_engine
-from .solver import LanesSolve, ScipySolve
+from .solver import JaxSolve, LanesSolve, ScipySolve
 
 logger = getLogger(__name__)
 
@@ -74,7 +76,7 @@ def default_engine(device) -> str:
 
 def _engine(name: str) -> str:
     """The canonical engine of ``name``; the engines the port does not
-    have raise ``NotImplementedError`` naming ROADMAP A7."""
+    have raise ``NotImplementedError`` naming their ROADMAP item."""
     if name not in _ENGINE_ALIASES:
         raise ValueError(f"unknown engine {name!r}")
     return check_engine(_ENGINE_ALIASES[name])
@@ -100,7 +102,7 @@ class Metran:
         construction — the robust float32 engine).  Default "sqrt" on
         the CUDA card and "sequential" on the CPU, as the JAX package
         chooses by accelerator.  "joint", "parallel" and
-        "sqrt_parallel" raise ``NotImplementedError`` (ROADMAP A7).
+        "sqrt_parallel" raise ``NotImplementedError`` (ROADMAP A2, A6).
     device : str or torch.device, optional
         Where the model runs: the CUDA card by default (raises without
         one); ``"cpu"`` runs the kernels' plain versions in float64.
@@ -789,11 +791,12 @@ class Metran:
         Parameters
         ----------
         solver : solver class (not instance), optional
-            ``ScipySolve`` or ``LanesSolve``.  Default: device-aware —
-            ``ScipySolve`` on the CPU (reference parity); on the card
-            ``LanesSolve`` (the fleet lanes engine at batch 1, lanes-fd
-            standard errors), falling back to ``ScipySolve`` when some
-            parameters are fixed.
+            ``ScipySolve``, ``JaxSolve`` or ``LanesSolve``.  Default:
+            device-aware — ``ScipySolve`` on the CPU (reference parity);
+            on the card ``LanesSolve`` (the fleet lanes engine at batch
+            1, lanes-fd standard errors), falling back to ``JaxSolve``
+            when some parameters are fixed or bounded otherwise (its
+            exact-Hessian standard errors on the card are ROADMAP A3).
         report : bool, optional
             Print fit and metran reports when done.
         engine : str, optional
@@ -826,9 +829,10 @@ class Metran:
         if solver is None:
             if self.device.type != "cpu":
                 # the lanes engine optimizes every parameter over the
-                # standard box; other fits take ScipySolve
+                # standard box; other fits take JaxSolve, as in the JAX
+                # package
                 desired = (
-                    LanesSolve if LanesSolve.supports(self) else ScipySolve
+                    LanesSolve if LanesSolve.supports(self) else JaxSolve
                 )
             else:
                 desired = ScipySolve
@@ -1005,9 +1009,15 @@ class Metran:
                 "zero — treat the affected\nstderr values as "
                 "unreliable (flat or degenerate optimum)."
             )
-        # (the JAX package's "Fit telemetry" block, FitTelemetry, is not
-        # ported: the port's solvers record no optimizer trajectory)
-        return header + basic + block + correlations + note
+        tele = ""
+        telemetry = getattr(self.fit, "telemetry", None)
+        if telemetry is not None and telemetry.stop_reason is not None:
+            # why the optimizer stopped (obs.FitTelemetry, filled by
+            # JaxSolve's run_lbfgs): stop reason, checkpointed deviance
+            # drop, gradient norm, line-search stalls, divergence
+            tele = ("\n\nFit telemetry\n" + "=" * width + "\n"
+                    + telemetry.summary())
+        return header + basic + block + correlations + note + tele
 
     def metran_report(self, output: str = "full") -> str:
         """Factor analysis, communality, state/observation parameters

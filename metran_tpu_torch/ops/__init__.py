@@ -1,8 +1,14 @@
 """State-space build, the joint, sequential and square-root Kalman
-engines, the RTS smoothers and the single-model products, the lane-layout fleet deviance,
-the lane-layout post-fit products and closed-form forecasts."""
+engines, the RTS smoothers and the single-model products, the
+batch-layout closed-form adjoint, the lane-layout fleet deviance, the
+lane-layout post-fit products and closed-form forecasts."""
 
-from .adjoint import ADJOINT_ENGINES, resolve_grad_engine
+from .adjoint import (
+    ADJOINT_ENGINES,
+    adjoint_deviance_terms,
+    anchored_adjoint_deviance,
+    resolve_grad_engine,
+)
 from .forecast import (
     forecast_horizons,
     forecast_observation_moments,
@@ -55,6 +61,8 @@ __all__ = [
     "SqrtFilterResult",
     "SqrtSmootherResult",
     "StateSpace",
+    "adjoint_deviance_terms",
+    "anchored_adjoint_deviance",
     "ar1_decay",
     "chol_outer",
     "decompose_states",

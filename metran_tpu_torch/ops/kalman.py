@@ -22,9 +22,13 @@ products of one model (:func:`innovations`, :func:`decompose_states`,
 :func:`sample_states` draws its prior paths on K7 and smooths each chunk
 of draws with K6 ``store`` + K8, one launch each.
 
-``deviance``/``log_likelihood`` are the sequential engine's MLE
-objective; under differentiation with the closed-form adjoint their
-backward is kernel K4.
+``deviance``/``log_likelihood`` are the MLE objective on the
+sequential, joint and square-root engines: the per-step terms of K3, K1
+or K9 summed by :func:`deviance_terms`.  Under differentiation with the
+closed-form adjoint the sequential engine's backward is kernel K4 (the
+lane layout's own adjoint), the joint and square-root engines' the
+batch-layout adjoint (:mod:`metran_tpu_torch.ops.adjoint`: K1 or K9 with
+segment boundaries, then kernel K11).
 
 The square-root engine (``engine="sqrt"``) carries the mean and a
 Cholesky factor of the covariance and updates them by QR array
@@ -43,7 +47,8 @@ engine's per-step building blocks, batched, for callers that step one
 row at a time; the first two are the plain version's own steps.
 
 The associative-scan engines, and ``store=True`` with the joint engine,
-raise with the ROADMAP item that will port them.
+raise with the ROADMAP item that will port them.  ``kalman_filter``
+keeps the JAX defaults, ``engine="sequential", store=True``.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from ..kernels.lanes import lanes_filter
 from ..kernels.smoother import rts_smooth
 from ..kernels.sqrt_filter import sqrt_filter
 from ..kernels.sqrt_smoother import sqrt_smooth
-from .adjoint import DEFAULT_SEG, resolve_grad_engine
+from .adjoint import DEFAULT_SEG, adjoint_deviance_terms, resolve_grad_engine
 from .lanes import lanes_terms, prepare_data
 from .statespace import StateSpace
 
@@ -71,10 +76,10 @@ LOG2PI = 1.8378770664093453  # log(2*pi)
 
 #: where each engine that a function lacks will come from
 _NOT_PORTED = {
-    "joint": "ROADMAP A7 (batch-layout adjoint, kernel B7)",
-    "sequential": "ROADMAP A8 (sequential serving updates, kernel B9b)",
-    "parallel": "ROADMAP A7 (associative-scan engine, kernel B8)",
-    "sqrt_parallel": "ROADMAP A7 (associative-scan engine, kernel B8)",
+    "joint": "ROADMAP A2 (the joint store, a store instantiation of K1)",
+    "sequential": "ROADMAP A4.2 (sequential serving updates, kernel B9b)",
+    "parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
+    "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
 }
 
 
@@ -163,18 +168,18 @@ def _prepare(ss: StateSpace, device):
     return ss, device, dtype, False
 
 
-def kalman_filter(ss: StateSpace, y, mask, engine: str = "joint",
-                  store: bool = False, device=None) -> FilterResult:
+def kalman_filter(ss: StateSpace, y, mask, engine: str = "sequential",
+                  store: bool = True, device=None) -> FilterResult:
     """Filter over a whole panel from the ``N(0, I)`` init.
 
     ``y``/``mask``: (T, N) for one model or (B, T, N) for a batch whose
-    ``ss`` leaves lead with B.  ``engine="joint"`` runs K1,
-    ``engine="sequential"`` (which needs a diagonal ``q``) runs K3 with
-    one lane per model.  With ``store=False``, ``mean``/``cov`` hold the
-    final carry and ``sigma``/``detf`` the per-step terms ((T,) or
-    (B, T)).  ``store=True`` (sequential engine: K6 in its ``store``
-    mode) returns every step's predicted and filtered moments, the JAX
-    function's default contract.  ``engine="sqrt"`` runs K9
+    ``ss`` leaves lead with B.  The defaults are the JAX function's:
+    ``engine="sequential", store=True`` returns every step's predicted
+    and filtered moments (K6 in its ``store`` mode; the sequential engine
+    needs a diagonal ``q``).  With ``store=False``, ``mean``/``cov`` hold
+    the final carry and ``sigma``/``detf`` the per-step terms ((T,) or
+    (B, T)): ``engine="sequential"`` runs K3 with one lane per model,
+    ``engine="joint"`` K1 (its store is ROADMAP A2).  ``engine="sqrt"`` runs K9
     (:func:`sqrt_kalman_filter`) and reconstitutes the covariances from
     its factors (``chol_outer``), with or without ``store``.
     """
@@ -190,7 +195,8 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "joint",
     if store and engine != "sequential":
         raise NotPortedError(
             "store=True with the joint engine is not ported yet: ROADMAP "
-            "A7 (batch-layout products); use engine='sequential'"
+            "A2 (the joint store and the batch-layout products); use "
+            "engine='sequential'"
         )
     ss_b, device, dtype, single = _prepare(ss, device)
     y = as_tensor(y, device, dtype)
@@ -453,62 +459,68 @@ def _finite_or_inf(total):
 def deviance(ss: StateSpace, y, mask, warmup: int = 1,
              engine: str = "sequential", remat_seg=None, grad=None,
              device=None):
-    """-2 log-likelihood (the quantity the reference minimizes): one
-    K3 launch over the model (or the batch whose ``ss`` leaves lead with
-    B; then a (B,) result) for ``engine="sequential"``, one K9 launch
-    (carry only) for ``engine="sqrt"``.
+    """-2 log-likelihood (the quantity the reference minimizes) of one
+    model, or of the batch whose ``ss`` leaves lead with B (then a (B,)
+    result): the per-step terms of one filter launch summed by
+    :func:`deviance_terms` — K3 for ``engine="sequential"``, K1 (carry
+    only) for ``"joint"``, K9 (carry only) for ``"sqrt"``.
 
     ``grad`` selects how the value differentiates (w.r.t. ``ss.phi`` and
-    the diagonal of ``ss.q``): ``"adjoint"`` (``"auto"`` resolves to
-    it) is kernel K4, with ``remat_seg`` (default 128) as its segment
-    length; ``"autodiff"`` is torch autograd through the plain filter,
-    CPU tensors only.  ``None`` reads ``METRAN_TPU_GRAD_ENGINE``.  The
-    value is the same either way; a non-finite one is ``+inf``.  The
-    square-root deviance differentiates by ``"autodiff"`` only: its
-    closed-form adjoint is kernel B7 (ROADMAP A7), so differentiating
-    it in ``"adjoint"`` mode (what ``"auto"`` resolves to in float64)
-    raises :class:`NotPortedError`.
+    the diagonal of ``ss.q``; ``None`` reads ``METRAN_TPU_GRAD_ENGINE``):
+    ``"adjoint"`` is the closed-form adjoint with ``remat_seg`` (default
+    128) as its segment length — kernel K4 for the sequential engine,
+    K11 after K1/K9 with segment boundaries for the joint and
+    square-root engines (:func:`metran_tpu_torch.ops.adjoint.
+    adjoint_deviance_terms`); ``"autodiff"`` is torch autograd through
+    the plain filter, CPU tensors only; ``"auto"`` resolves as in the
+    JAX package (the adjoint, except autodiff for a float32 square-root
+    deviance).  The value is the same either way; a non-finite one is
+    ``+inf``.  The associative-scan engines raise
+    :class:`NotPortedError` (kernel B8).
     """
-    _require(engine, ("sequential", "sqrt"))
+    _require(engine, ("sequential", "joint", "sqrt"))
     mode = resolve_grad_engine(grad, engine, dtype=float_dtype(ss.q))
     ss_b, device, dtype, single = _prepare(ss, device)
     y = as_tensor(y, device, dtype)
     mask = as_tensor(mask, device, torch.bool)
     if single:
         y, mask = y[None], mask[None]
-    if engine == "sqrt":
-        total = _sqrt_deviance(ss_b, y, mask, warmup, mode)
-        return total[0] if single else total
-    phi, q, z, r = _lanes_ss(ss_b)
-    data = prepare_data(y, mask)
-    sigma, detf = lanes_terms(phi, q, z, r, data, None,
-                              remat_seg or DEFAULT_SEG, mode)
-    total = _finite_or_inf(deviance_terms(sigma.T, detf.T, mask,
-                                          warmup=warmup))
+    if engine == "sequential":
+        phi, q, z, r = _lanes_ss(ss_b)
+        data = prepare_data(y, mask)
+        sigma, detf = lanes_terms(phi, q, z, r, data, None,
+                                  remat_seg or DEFAULT_SEG, mode)
+        sigma, detf = sigma.T, detf.T
+    else:
+        sigma, detf = _batch_terms(ss_b, y, mask, engine, mode, remat_seg)
+    total = _finite_or_inf(deviance_terms(sigma, detf, mask, warmup=warmup))
     return total[0] if single else total
 
 
-def _sqrt_deviance(ss_b: StateSpace, y, mask, warmup: int, mode: str):
-    """The square-root deviance of a batch: K9's per-step terms (or,
-    under autodiff, the plain filter's), summed by ``deviance_terms``."""
+def _batch_terms(ss_b: StateSpace, y, mask, engine: str, mode: str,
+                 remat_seg):
+    """(B, T) terms of the joint or square-root engine: the kernel's
+    carry-only pass for a value, the closed-form adjoint (or, on CPU
+    tensors, autodiff through the plain filter) under differentiation."""
     needs_grad = torch.is_grad_enabled() and any(
         leaf.requires_grad for leaf in ss_b)
     if needs_grad and mode == "adjoint":
-        raise NotPortedError(
-            "the square-root deviance has no closed-form adjoint here yet "
-            "(ROADMAP A7, kernel B7); differentiate it with "
-            "grad='autodiff' on CPU tensors (a float64 ScipySolve on "
-            "engine='sqrt' needs METRAN_TPU_GRAD_ENGINE=autodiff until "
-            "then), or fit on engine='sequential'")
+        return adjoint_deviance_terms(ss_b, y, mask, engine=engine,
+                                      seg=remat_seg or DEFAULT_SEG)
     if needs_grad and y.device.type != "cpu":
         raise RuntimeError(
-            "grad='autodiff' differentiates the plain PyTorch filter, "
-            "which runs on CPU tensors only; on the card fit with "
-            "LanesSolve (kernels K3/K4)")
-    phi, q, z, r = _lanes_ss(ss_b, "sqrt")
-    _, _, sigma, detf = sqrt_filter(phi, q, z, r, y.contiguous(),
-                                    mask.contiguous())
-    return _finite_or_inf(deviance_terms(sigma, detf, mask, warmup=warmup))
+            f"grad='autodiff' differentiates the plain PyTorch filter, "
+            f"which runs on CPU tensors only (the {engine} engine resolves "
+            f"to it in {ss_b.q.dtype}); on the card differentiate with "
+            f"grad='adjoint' (kernel K11) or fit with LanesSolve (kernels "
+            f"K3/K4)")
+    y, mask = y.contiguous(), mask.contiguous()
+    if engine == "sqrt":
+        phi, q, z, r = _lanes_ss(ss_b, "sqrt")
+        return sqrt_filter(phi, q, z, r, y, mask)[2:4]
+    mean0, cov0 = _init_state(ss_b, ss_b.q.dtype)
+    return joint_filter_append(ss_b.phi, ss_b.q, ss_b.z, ss_b.r, mean0, cov0,
+                               y, mask)[2:4]
 
 
 def log_likelihood(ss: StateSpace, y, mask, warmup: int = 1,
@@ -539,7 +551,7 @@ def rts_smoother(ss: StateSpace, filtered, engine: str = "sequential"
     :class:`SqrtFilterResult` is smoothed in factored form instead
     (:func:`sqrt_rts_smoother`, K10) and its covariances reconstituted
     only at return.  ``engine`` names the filter engine that produced
-    ``filtered``; the associative-scan smoothers raise (ROADMAP A7).
+    ``filtered``; the associative-scan smoothers raise (ROADMAP A6).
     """
     if isinstance(filtered, SqrtFilterResult):
         _require(engine, ("sqrt", "sequential", "joint"))

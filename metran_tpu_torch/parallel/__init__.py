@@ -1,5 +1,6 @@
-"""Fleet fitting and products: packed fleets, the lane-layout batched
-L-BFGS and ``fit_fleet(layout="lanes")``, the lane-layout post-fit
+"""Fleet fitting and products: packed fleets, ``fit_fleet`` in the batch
+layout (optax's zoom-line-search L-BFGS, the default) and the lane
+layout (the lane-layout batched L-BFGS), the lane-layout post-fit
 products (``fleet_simulate``, ``fleet_decompose``, ``fleet_forecast``,
 ``fleet_innovations``, ``fleet_sample``), standard errors
 (``fleet_stderr(method="lanes-fd")``), plus the padding rule."""

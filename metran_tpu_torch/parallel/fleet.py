@@ -1,13 +1,26 @@
 """Fleet-scale fitting and post-fit products: many independent Metran
 DFMs on one card.
 
-Port of the lane-layout half of ``metran_tpu/parallel/fleet.py``: a
-fleet of DFMs padded to common shapes (:class:`Fleet`, :func:`pack_fleet`)
-fitted by the batched L-BFGS of :mod:`.lanes_lbfgs` over the lanes
-deviance (:mod:`metran_tpu_torch.ops.lanes`: kernel K3 for values, K4 for
-gradients).  The optimizer advances in chunks of ``chunk`` iterations;
-between chunks the host reads the frozen flags to stop early and, once
-most lanes are done, compacts the live lanes into a smaller working set.
+Port of ``metran_tpu/parallel/fleet.py``: a fleet of DFMs padded to
+common shapes (:class:`Fleet`, :func:`pack_fleet`) fitted in one of two
+layouts.
+
+- ``layout="batch"`` (the default, as in the JAX package): the fleet
+  axis leads, and every model runs optax's zoom-line-search L-BFGS
+  (:mod:`metran_tpu_torch.models.lbfgs`) on the engine's own deviance
+  (:func:`fleet_deviance`; ``engine="joint"`` by default).  One
+  line-search round of all the lanes still searching is one batched
+  objective call: K1 with segment boundaries forward, the closed-form
+  adjoint K11 backward (K9 forward for ``engine="sqrt"``, K3/K4 for
+  ``"sequential"``).  The optimizer advances in chunks of ``chunk``
+  iterations; between chunks the host freezes lanes whose value stopped
+  moving (the stall stop).
+- ``layout="lanes"``: the batched L-BFGS of :mod:`.lanes_lbfgs` over
+  the lanes deviance (:mod:`metran_tpu_torch.ops.lanes`: kernel K3 for
+  values, K4 for gradients), a grid line search of fixed structure;
+  between chunks the host reads the frozen flags to stop early and,
+  once most lanes are done, compacts the live lanes into a smaller
+  working set.
 
 Standard errors (:func:`fleet_stderr`, ``method="lanes-fd"``) are central
 differences of the exact K3/K4 gradient with every model's 2P
@@ -24,10 +37,11 @@ Padding semantics (as the JAX package's): padded timesteps and series
 slots are masked everywhere, padded factors have zero loadings, so none
 of them touches the likelihood.
 
-Not ported yet: ``layout="batch"`` (the batch-leading fleet fit, ROADMAP
-A7), ``mesh``/``use_shard_map`` (ROADMAP A7), ``checkpoint`` (ROADMAP A5,
-``io.save_fleet_state``) and ``lane_min_batch`` (a TPU tile pad); each
-raises ``NotImplementedError``.
+Not ported yet: ``mesh``/``use_shard_map`` (ROADMAP A6),
+``checkpoint`` (ROADMAP A3, ``io.save_fleet_state``),
+``lane_min_batch`` (a TPU tile pad, A6 with the mesh) and
+``fleet_stderr(method="exact")`` (A3, the exact Hessian); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,8 +54,9 @@ import torch
 
 from ..config import as_tensor, resolve_device
 from ..data import Panel
-from ..ops.adjoint import resolve_grad_engine
 from ..kernels import lanes_products as kp
+from ..ops.adjoint import resolve_grad_engine
+from ..ops.kalman import deviance as _deviance
 from ..ops.lanes import lanes_deviance, lanes_statespace, prepare_data
 from ..ops.lanes_products import (
     _forecast_lanes,
@@ -192,15 +207,34 @@ def _lanes_score(grad) -> str:
 def _not_ported(what: str, where: str):
     return NotImplementedError(
         f"{what} is not ported yet ({where}); the port fits "
-        "layout='lanes' on one card")
+        "layout='batch' or layout='lanes' on one card")
 
 
 def _check_layout(layout: str) -> None:
-    if layout == "batch":
-        raise _not_ported("layout='batch'",
-                          "ROADMAP A7, the batch-leading fleet fit")
-    if layout != "lanes":
+    if layout not in ("batch", "lanes"):
         raise ValueError(f"unknown layout {layout!r}")
+
+
+def _model_deviance(p, y, mask, loadings, dt, warmup, engine,
+                    remat_seg=None, grad=None):
+    """(B,) deviance of a batch of fleet members (every argument leads
+    with B); ``p = [alpha_sdf (N), alpha_cdf (K)]`` per row.  One filter
+    launch for the batch (and, differentiated, one backward launch)."""
+    from ..ops.statespace import dfm_statespace
+
+    n = loadings.shape[-2]
+    ss = dfm_statespace(p[:, :n], p[:, n:], loadings, dt)
+    return _deviance(ss, y, mask, warmup=warmup, engine=engine,
+                     remat_seg=remat_seg, grad=grad)
+
+
+def _batch_args(params, fleet: Fleet, device=None):
+    """``(params, y, mask, loadings, dt)`` batch-leading, on the fleet's
+    device, in its dtype."""
+    fleet = _on_device(fleet, device)
+    dtype = fleet.y.dtype
+    return (as_tensor(params, fleet.y.device, dtype), fleet.y, fleet.mask,
+            fleet.loadings.to(dtype), fleet.dt.to(dtype))
 
 
 def fleet_deviance(params, fleet: Fleet, warmup: int = 1,
@@ -209,11 +243,16 @@ def fleet_deviance(params, fleet: Fleet, warmup: int = 1,
                    device=None) -> torch.Tensor:
     """(B,) deviance of every fleet member at ``params`` (B, N+K).
 
-    ``layout="lanes"`` evaluates the lanes deviance (sequential-
-    processing semantics; ``engine`` is ignored there).  ``grad`` picks
-    the gradient engine when the value is differentiated.
+    ``layout="batch"`` evaluates ``engine``'s deviance of the whole batch
+    in one filter launch (K1 for ``"joint"``, K9 for ``"sqrt"``, K3 for
+    ``"sequential"``); ``layout="lanes"`` the lanes deviance
+    (sequential-processing semantics; ``engine`` is ignored there).
+    ``grad`` picks the gradient engine when the value is differentiated.
     """
     _check_layout(layout)
+    if layout == "batch":
+        return _model_deviance(*_batch_args(params, fleet, device), warmup,
+                               engine, remat_seg, grad)
     alpha_t, data, loadings_l, dt_l = _lanes_args(params, fleet, device)
     return lanes_deviance(alpha_t, loadings_l, dt_l, data, None, warmup,
                           remat_seg, _lanes_score(grad))
@@ -224,16 +263,23 @@ def fleet_value_and_grad(params, fleet: Fleet, warmup: int = 1,
                          remat_seg: Optional[int] = None, grad=None,
                          device=None):
     """Per-model ``(deviance (B,), gradient (B, N+K))``: one forward and
-    one backward pass of the lanes deviance (deviances are separable
-    across the fleet, so the gradient of their sum is every model's)."""
+    one backward pass (deviances are separable across the fleet, so the
+    gradient of their sum is every model's).  ``layout="batch"``: the
+    engine's filter with segment boundaries and, for ``grad`` resolving
+    to ``"adjoint"``, the closed-form adjoint K11 (K4 for
+    ``"sequential"``); ``layout="lanes"``: K3 and K4."""
     _check_layout(layout)
+    from ..models.lbfgs import value_and_grad_rows
+
+    if layout == "batch":
+        p, *rows = _batch_args(params, fleet, device)
+        return value_and_grad_rows(_model_deviance, p, *rows, warmup, engine,
+                                   remat_seg, grad)
     alpha_t, data, loadings_l, dt_l = _lanes_args(params, fleet, device)
-    with torch.enable_grad():
-        alpha_t = alpha_t.detach().requires_grad_(True)
-        val = lanes_deviance(alpha_t, loadings_l, dt_l, data, None, warmup,
-                             remat_seg, _lanes_score(grad))
-        (grad_t,) = torch.autograd.grad(val.sum(), alpha_t)
-    return val.detach(), grad_t.T
+    val, grad_t = value_and_grad_rows(
+        lanes_deviance, alpha_t, loadings_l, dt_l, data, None, warmup,
+        remat_seg, _lanes_score(grad))
+    return val, grad_t.T
 
 
 def default_init_params(fleet: Fleet) -> torch.Tensor:
@@ -356,6 +402,7 @@ def _make_lanes_runner(warmup, tol, chunk, maxiter, ls_steps, history,
     ``data``; K trial points are one call over K*B lanes, and the
     gradient is one backward against a ones-vector.
     """
+    from ..models.lbfgs import value_and_grad_rows
 
     def deviance(theta, data, loadings, dt, lane_map):
         alpha = _theta_to_alpha(theta, theta_cap)
@@ -372,11 +419,8 @@ def _make_lanes_runner(warmup, tol, chunk, maxiter, ls_steps, history,
         return val.reshape(n_trials, b)
 
     def vg_fn(theta, data, loadings, dt, lane_map):
-        with torch.enable_grad():
-            th = theta.detach().requires_grad_(True)
-            val = deviance(th, data, loadings, dt, lane_map)
-            (grad,) = torch.autograd.grad(val.sum(), th)
-        return val.detach(), grad
+        return value_and_grad_rows(deviance, theta, data, loadings, dt,
+                                   lane_map)
 
     def init(theta, *data):
         return lanes_lbfgs.init_state(vg_fn, theta, history, *data)
@@ -516,49 +560,66 @@ def fit_fleet(
 ) -> FleetFit:
     """Fit every model in the fleet by batched L-BFGS on its device.
 
-    The JAX package's signature; ``layout="lanes"`` is the ported path
-    (the other options raise ``NotImplementedError`` naming their
-    ROADMAP item).  The fleet's tensors decide the device: a fleet
-    packed for the card fits there (kernels K3/K4), a CPU fleet runs the
-    plain versions.
+    The JAX package's signature and defaults.  The fleet's tensors
+    decide the device: a fleet packed for the card fits there, a CPU
+    fleet runs the kernels' plain versions.  The optimizer advances in
+    chunks of ``chunk`` iterations; the host checks convergence between
+    chunks and stops when every model is done.
 
     Parameters
     ----------
     fleet : packed fleet (see :func:`pack_fleet`).
     p0 : (B, N+K) initial parameters (default: reference init, alpha=10).
-    engine : "sequential" or "joint": both select the lanes
-        sequential-processing deviance.
+    engine : ``layout="batch"``: "joint" (the default; K1 forward, K11
+        backward), "sequential" (K3/K4) or "sqrt" (K9 forward, K11
+        backward).  ``layout="lanes"``: "sequential" or "joint", both the
+        lanes sequential-processing deviance.
     tol : gradient-norm convergence tolerance (default ``sqrt(eps)`` of
         the fleet dtype).
-    chunk : L-BFGS iterations per dispatch (default: maxiter).
-    max_linesearch_steps : trial points of the grid line search (at
-        most 6 are used).
+    chunk : L-BFGS iterations per dispatch (default: maxiter; with the
+        batch layout's stall stop on, ``min(20, maxiter - 1)``, since
+        the stop is evaluated between chunks).
+    max_linesearch_steps : the batch layout's cap on zoom line-search
+        evaluations per iteration; the trial points of the lanes
+        layout's grid line search (at most 6 are used).
     alpha_max : soft upper cap on alpha during optimization.
-    stall_tol, stall_rtol : freeze a lane whose objective improves by
-        at most ``stall_tol + stall_rtol * |value|`` for consecutive
-        iterations, counting it converged (``FleetFit.stalled``).
+    stall_tol, stall_rtol : freeze a lane whose objective changes by at
+        most ``stall_tol + stall_rtol * max(|value|, 1)`` — across a
+        whole chunk, two-sided, for ``layout="batch"``; per iteration
+        for ``"lanes"`` — counting it converged (``FleetFit.stalled``).
         ``stall_tol=None``: off in float64, ``0.0`` in float32.
+    layout : "batch" (fleet axis leading, optax's zoom-line-search
+        L-BFGS) or "lanes" (the lane-layout kernels and the grid
+        line-search L-BFGS).  Both converge to the same optima; their
+        line searches differ.
     remat_seg : segment length of the adjoint's boundaries (memory
-        O(T/seg) boundaries plus one segment's residuals per lane).
+        O(T/seg) boundaries plus one segment's replay per model).
     max_chunks : bound the number of chunk dispatches of this call.
-    compact_min : smallest power-of-two working set tail compaction may
-        shrink to; results are identical for any value.
+    compact_min : (``layout="lanes"``) smallest power-of-two working set
+        tail compaction may shrink to; results are identical for any
+        value.
     grad_engine : ``"auto"``/``"adjoint"``/``"autodiff"`` (default
-        ``METRAN_TPU_GRAD_ENGINE``); ``"autodiff"`` runs on CPU fleets
-        only.
+        ``METRAN_TPU_GRAD_ENGINE``), resolved for ``engine`` and the
+        fleet dtype as in the JAX package; ``"autodiff"`` runs on CPU
+        fleets only (a float32 ``engine="sqrt"`` fit on the card needs
+        ``grad_engine="adjoint"``).
+
+    ``mesh``/``use_shard_map`` (ROADMAP A6), ``checkpoint`` (A3) and
+    ``lane_min_batch`` (a TPU lane-tile pad, A6) raise
+    ``NotImplementedError``.
     """
     _check_layout(layout)
     fleet = _on_device(fleet)
     if mesh is not None or use_shard_map:
         raise _not_ported("mesh/use_shard_map",
-                          "ROADMAP A7, parallel/mesh.py")
+                          "ROADMAP A6, parallel/mesh.py")
     if checkpoint is not None:
         raise _not_ported("checkpoint",
-                          "ROADMAP A5, io.save_fleet_state/load_fleet_state")
+                          "ROADMAP A3, io.save_fleet_state/load_fleet_state")
     if lane_min_batch is not None:
         raise _not_ported("lane_min_batch",
-                          "a TPU lane-tile pad; ROADMAP A7 with the mesh")
-    if engine not in ("sequential", "joint"):
+                          "a TPU lane-tile pad; ROADMAP A6 with the mesh")
+    if layout == "lanes" and engine not in ("sequential", "joint"):
         raise ValueError(f"unknown engine {engine!r}")
     if p0 is None:
         p0 = default_init_params(fleet)
@@ -573,15 +634,142 @@ def fit_fleet(
     if not np.isfinite(alpha_max) or alpha_max <= ALPHA_PMIN:
         raise ValueError(
             f"alpha_max must be finite and > {ALPHA_PMIN}, got {alpha_max}")
+    stall_on = (stall_tol is not None and stall_tol >= 0) or stall_rtol > 0
+    if chunk is None and layout == "batch" and stall_on:
+        # the batch layout's stall stop runs host-side BETWEEN chunks, so
+        # a single maxiter-sized dispatch would never evaluate it
+        chunk = max(1, min(20, maxiter - 1))
     if chunk is None or chunk >= maxiter:
         chunk = maxiter
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if layout == "batch":
+        grad = resolve_grad_engine(grad_engine, engine, dtype=dtype)
+        return _fit_fleet_batch(
+            fleet, p0, warmup, engine, maxiter, tol, chunk,
+            max_linesearch_steps, alpha_max, stall_tol, stall_rtol,
+            remat_seg, max_chunks, grad)
     grad = resolve_grad_engine(grad_engine, "sequential", dtype=dtype)
     return _fit_fleet_lanes(
         fleet, p0, warmup, maxiter, tol, chunk, max_linesearch_steps,
         alpha_max, stall_tol, remat_seg, max_chunks=max_chunks,
         compact_min=compact_min, stall_rtol=stall_rtol, score=grad)
+
+
+# ----------------------------------------------------------------------
+# the batch-layout fit (layout="batch")
+# ----------------------------------------------------------------------
+def _make_chunk_runner(fleet: Fleet, warmup, engine, tol, chunk, maxiter,
+                       max_linesearch_steps, theta_cap, remat_seg=None,
+                       grad=None):
+    """``(advance, outputs)`` of the batch-layout fit (the JAX
+    package's ``_make_chunk_runner``, ``_solve_chunk`` and
+    ``_chunk_outputs``).
+
+    ``advance(theta, state, frozen, nfev)`` runs up to ``chunk`` L-BFGS
+    iterations of every lane (a ``frozen`` lane takes none, so its
+    result does not depend on what else shares the batch); each
+    line-search round evaluates the lanes still searching in ONE
+    objective call — their rows of the fleet, one filter launch with
+    segment boundaries and one backward launch.
+    ``outputs(theta, state)`` gives ``(params, value, count, gnorm <
+    tol)``.
+    """
+    from ..models import lbfgs as _lbfgs
+
+    data = (fleet.y, fleet.mask, fleet.loadings.to(fleet.y.dtype),
+            fleet.dt.to(fleet.y.dtype))
+    full = torch.arange(fleet.batch, device=fleet.y.device)
+
+    def deviance(theta, *rows):
+        return _model_deviance(_theta_to_alpha(theta, theta_cap), *rows,
+                               warmup, engine, remat_seg, grad)
+
+    def objective(theta, lanes):
+        rows = data if torch.equal(lanes, full) else tuple(
+            d.index_select(0, lanes) for d in data)
+        return _lbfgs.value_and_grad_rows(deviance, theta, *rows)
+
+    def advance(theta, state, frozen, nfev):
+        lane_maxiter = torch.where(frozen, torch.zeros_like(state.count),
+                                   torch.full_like(state.count, maxiter))
+        return _lbfgs.lbfgs_advance(objective, theta, state, tol,
+                                    lane_maxiter, chunk, nfev,
+                                    max_linesearch_steps)
+
+    def outputs(theta, state):
+        return (_theta_to_alpha(theta, theta_cap), state.value, state.count,
+                _lbfgs.grad_norm(state) < tol)
+
+    return advance, outputs
+
+
+def _fit_fleet_batch(fleet, p0, warmup, engine, maxiter, tol, chunk,
+                     max_linesearch_steps, alpha_max, stall_tol, stall_rtol,
+                     remat_seg, max_chunks, grad):
+    """The batch-layout fit loop (see ``fit_fleet(layout="batch")``)."""
+    from ..models import lbfgs as _lbfgs
+
+    theta_cap = float(np.log(alpha_max))
+    advance, outputs = _make_chunk_runner(
+        fleet, warmup, engine, tol, chunk, maxiter, max_linesearch_steps,
+        theta_cap, remat_seg, grad)
+    device = fleet.y.device
+    theta = _alpha_to_theta(as_tensor(p0, device, fleet.y.dtype), theta_cap)
+    state = _lbfgs.init(theta)
+    frozen = torch.zeros(fleet.batch, dtype=torch.bool, device=device)
+    nfev = torch.zeros(fleet.batch, dtype=torch.int32, device=device)
+    prev_value = None
+    n_chunks = max(-(-maxiter // chunk), 1)
+    if max_chunks is not None:
+        n_chunks = min(n_chunks, max_chunks)
+    for _ in range(n_chunks):
+        theta, state, nfev = advance(theta, state, frozen, nfev)
+        if chunk >= maxiter:
+            break
+        count = state.count.cpu().numpy()
+        value = state.value.cpu().numpy()
+        err = _lbfgs.grad_norm(state).cpu().numpy()
+        done = (err < tol) | (count >= maxiter)
+        stall_on = stall_tol is not None or stall_rtol > 0
+        if stall_on and prev_value is not None:
+            # two-sided: freeze only lanes whose value CHANGED by at most
+            # the threshold over the chunk.  A lane that regressed beyond
+            # it (a line-search failure excursion) keeps running; a
+            # frozen lane takes no further iterations, so its result
+            # never depends on what else shares the batch
+            thresh = (stall_tol or 0.0) + stall_rtol * np.maximum(
+                np.abs(value), 1.0)
+            frozen_host = frozen.cpu().numpy() | (
+                np.abs(value - prev_value) <= thresh)
+            done |= frozen_host
+            frozen = torch.as_tensor(frozen_host, device=device)
+        prev_value = value
+        if done.all():
+            break
+    params, value, count, conv = outputs(theta, state)
+    # frozen is only ever set by the stall bookkeeping above, so the
+    # floor-frozen subset is exactly the frozen lanes the gradient test
+    # does not explain; a non-finite lane is divergence, never either
+    err = _lbfgs.grad_norm(state).cpu().numpy()
+    finite = np.isfinite(value.cpu().numpy())
+    stalled = frozen.cpu().numpy() & ~(err < tol) & finite
+    conv = torch.as_tensor((conv.cpu().numpy() | stalled) & finite,
+                           device=device)
+    # a lane pinned at the soft cap is a cap-limited optimum, not an
+    # interior one (the reference has no upper alpha bound)
+    at_cap = (params >= 0.5 * alpha_max).cpu().numpy()
+    if at_cap.any():
+        capped_rows = np.flatnonzero(at_cap.any(axis=-1))
+        logger.warning(
+            "fleet lanes %s have parameters at/near the alpha soft cap "
+            "(alpha_max=%g); their optima are cap-limited, not interior "
+            "(raise alpha_max to compare with an uncapped fit)",
+            capped_rows.tolist()[:20], alpha_max,
+        )
+    return FleetFit(params, value, count, conv,
+                    torch.as_tensor(stalled, device=device))
+
 
 
 # ----------------------------------------------------------------------
@@ -594,8 +782,8 @@ def _check_products_layout(layout: str, engine: str = "joint") -> None:
     if layout == "batch":
         raise NotImplementedError(
             "layout='batch' for the fleet products is not ported yet "
-            "(ROADMAP A6/A7: the batch-leading rts_smoother, kernel B5, "
-            "and the batch fleet layout); use layout='lanes'")
+            "(ROADMAP A2: the joint store and the batch-layout products); "
+            "use layout='lanes'")
     if engine != "joint":
         # loud, not silent: the lanes products always use sequential-
         # processing semantics (same numbers, different layout), so an
@@ -845,15 +1033,15 @@ def fleet_stderr(params, fleet: Fleet, warmup: int = 1,
     exact lanes gradient, symmetrized, with all 2P points of every
     model in one K3 + K4 pass over ``B * 2P`` lanes that read one copy
     of the data through the lane map.  ``method="exact"`` (the
-    batch-layout forward-over-reverse Hessian) raises: ROADMAP A7
-    (kernel B7).  ``engine`` is ignored (sequential-processing
+    batch-layout forward-over-reverse Hessian) raises: ROADMAP A3 (the
+    exact Hessian).  ``engine`` is ignored (sequential-processing
     semantics, as the fit); ``batch_chunk`` models per dispatch
     (default: all).
     """
     if method == "exact":
         raise NotImplementedError(
-            "fleet_stderr(method='exact') is not ported yet (ROADMAP A7, "
-            "the batch-layout adjoint B7); use method='lanes-fd'")
+            "fleet_stderr(method='exact') is not ported yet (ROADMAP A3, "
+            "the exact Hessian); use method='lanes-fd'")
     if method != "lanes-fd":
         raise ValueError(f"unknown method {method!r}")
 

@@ -37,11 +37,11 @@ from ..ops import (
 from ..ops.statespace import StateSpace
 
 _LATER = {
-    "gate": "ROADMAP A8 (serving features: observation gate, kernel B9b)",
-    "detect": "ROADMAP A8 (serving features: detection, kernel B11)",
-    "robust": "ROADMAP A8 (serving features: implicit MAP, kernel B12)",
-    "horizons": "ROADMAP A8 (serving features: read path)",
-    "sqrt_parallel": "ROADMAP A7 (associative-scan engine, kernel B8)",
+    "gate": "ROADMAP A4.2 (serving features: observation gate, kernel B9b)",
+    "detect": "ROADMAP A4.4 (serving features: detection, kernel B11)",
+    "robust": "ROADMAP A4.3 (serving features: implicit MAP, kernel B12)",
+    "horizons": "ROADMAP A4.5 (serving features: read path)",
+    "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
 }
 
 

@@ -54,7 +54,8 @@ class ModelRegistry:
             bucket_multiple = defaults["bucket_multiple"]
         if engine not in ("joint", "sqrt"):
             raise ValueError(
-                f"serve engine {engine!r} is not ported yet (ROADMAP A7); "
+                f"serve engine {engine!r} is not ported yet (ROADMAP A4.2 "
+                "for 'sequential', A6 for the associative-scan engines); "
                 "the port serves engine='joint' and engine='sqrt'"
             )
         self.engine = engine

@@ -27,7 +27,7 @@ Port of the core of the JAX package's ``serve/service.py``::
 The dispatch runs on the service's device (default: the CUDA card).
 Breakers, retries, the observation gate, the read path, steady-state
 serving, detection, robust updates, refit, durability, the cluster and
-observability layers come in later slices (ROADMAP A8-A9).
+observability layers come in later slices (ROADMAP A4, A7).
 """
 
 from __future__ import annotations

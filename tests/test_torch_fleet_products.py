@@ -203,9 +203,9 @@ def test_fleet_sample_chunk_invariant_and_state_draws():
 
 def test_layouts_and_engine_rules(caplog):
     _, pfleet, params = make_fleets(9, b=2, t=20)
-    with pytest.raises(NotImplementedError, match="A6/A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         pf.fleet_simulate(params, pfleet, layout="batch")
-    with pytest.raises(NotImplementedError, match="A6/A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         pf.fleet_sample(params, pfleet, layout="batch")
     with pytest.raises(ValueError, match="unknown layout"):
         pf.fleet_innovations(params, pfleet, layout="lane")

@@ -68,9 +68,11 @@ def test_filter_append_equals_refilter_and_batches():
     rng = np.random.default_rng(5)
     models = [random_ssm(rng, 4, 1, t=60) for _ in range(3)]
     pss = [_port_ss(ss) for ss, _, _ in models]
-    full = [pk.kalman_filter(p, y, m, device="cpu")
+    full = [pk.kalman_filter(p, y, m, engine="joint", store=False,
+                             device="cpu")
             for p, (_, y, m) in zip(pss, models)]
-    head = [pk.kalman_filter(p, y[:50], m[:50], device="cpu")
+    head = [pk.kalman_filter(p, y[:50], m[:50], engine="joint", store=False,
+                             device="cpu")
             for p, (_, y, m) in zip(pss, models)]
     for p, h, f, (_, y, m) in zip(pss, head, full, models):
         app = pk.filter_append(p, h.mean_f, h.cov_f, y[50:], m[50:],
@@ -80,7 +82,8 @@ def test_filter_append_equals_refilter_and_batches():
     stacked = StateSpace(*(torch.stack(leaves) for leaves in zip(*pss)))
     ys = np.stack([y for _, y, _ in models])
     ms = np.stack([m for _, _, m in models])
-    batch = pk.kalman_filter(stacked, ys, ms, device="cpu")
+    batch = pk.kalman_filter(stacked, ys, ms, engine="joint", store=False,
+                             device="cpu")
     for i, f in enumerate(full):
         np.testing.assert_allclose(batch.mean_f[i].numpy(),
                                    f.mean_f.numpy(), rtol=1e-13, atol=1e-14)
@@ -111,11 +114,13 @@ def test_padded_bucket_parity_and_padding_is_invisible():
     y_p[:, :n], m_p[:, :n] = y, mask
     ss_p = jss.dfm_statespace(alpha_s, alpha_c, lds_p)
     want = jk.kalman_filter(ss_p, y_p, m_p, engine="joint", store=False)
-    got = pk.kalman_filter(_port_ss(ss_p), y_p, m_p, device="cpu")
+    got = pk.kalman_filter(_port_ss(ss_p), y_p, m_p, engine="joint",
+                           store=False, device="cpu")
     _close(got, want)
     # the real slots equal the unpadded model's filter
     small = pk.kalman_filter(_port_ss(jss.dfm_statespace(a_s, a_c, lds)),
-                             y, mask, device="cpu")
+                             y, mask, engine="joint", store=False,
+                             device="cpu")
     idx = np.concatenate([np.arange(n), n_pad + np.arange(kf)])
     np.testing.assert_allclose(got.mean_f.numpy()[idx],
                                small.mean_f.numpy(), rtol=1e-12, atol=1e-13)
@@ -194,7 +199,8 @@ def test_plain_kernel_version_is_what_cpu_tensors_run():
         *leaves, mean0, cov0, torch.as_tensor(y)[None],
         torch.as_tensor(mask)[None],
     )
-    via_op = pk.kalman_filter(pss, y, mask, device="cpu")
+    via_op = pk.kalman_filter(pss, y, mask, engine="joint", store=False,
+                              device="cpu")
     for a, b in zip(direct, (via_op.mean_f, via_op.cov_f, via_op.sigma,
                              via_op.detf)):
         torch.testing.assert_close(a[0], b, rtol=0, atol=0)
@@ -225,9 +231,23 @@ def test_unported_engines_and_store_raise(engine):
             pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1], mask[:1],
                              engine=engine, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP"):
-        pk.kalman_filter(pss, y, mask, store=True, device="cpu")
+        pk.kalman_filter(pss, y, mask, engine="joint", store=True,
+                         device="cpu")
     # the sequential engine stores its per-step moments (kernel K6's
     # store mode); tests/test_torch_smoother.py holds them against JAX
     stored = pk.kalman_filter(pss, y, mask, engine="sequential", store=True,
                               device="cpu")
     assert stored.cov_p.shape == (5, 4, 4)
+
+
+def test_kalman_filter_defaults_are_the_jax_functions():
+    """``kalman_filter(ss, y, mask)`` with the JAX defaults
+    (``engine="sequential", store=True``): every step's stored moments,
+    shape (T, n), equal to the JAX function's default call."""
+    rng = np.random.default_rng(31)
+    ss, y, mask = random_ssm(rng, 4, 1, t=40)
+    want = jk.kalman_filter(ss, y, mask)
+    got = pk.kalman_filter(_port_ss(ss), y, mask, device="cpu")
+    assert got.mean_f.shape == np.asarray(want.mean_f).shape == (40, 5)
+    assert got.cov_p.shape == (40, 5, 5)
+    _close(got, want)

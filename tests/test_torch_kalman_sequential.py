@@ -38,7 +38,7 @@ def test_sequential_filter_and_deviance_parity(n_series, n_factors):
     ss, y, mask = random_ssm(rng, n_series, n_factors, t=100)
     want = jk.kalman_filter(ss, y, mask, engine="sequential", store=False)
     got = pk.kalman_filter(_port_ss(ss), y, mask, engine="sequential",
-                           device="cpu")
+                           store=False, device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
                                    atol=1e-13)

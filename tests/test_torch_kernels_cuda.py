@@ -258,3 +258,65 @@ def test_sqrt_smoother_kernel_matches_plain(card, dtype, bar):
             assert _rel(_outer(got[1]), _outer(ref[1])) <= bar
         else:
             assert got[1] is None
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_bounds_modes_are_the_carry_modes_bit_for_bit(card, dtype, bar):
+    """K1 and K9 with segment boundaries: the terms and the final carry
+    equal the carry-only instantiation's exactly; the boundaries equal
+    the plain versions'.  Observation noise keeps the 40 steps'
+    covariances well conditioned (with r = 0 and two factors they go
+    singular, and two factorizations of them disagree)."""
+    phi, q, z, r, mean, cov, y, mask = _inputs(card, dtype, k=40)
+    r = torch.full_like(r, 0.2)
+    carry = kernels.joint_filter_append(phi, q, z, r, mean, cov, y, mask)
+    bnd = kernels.joint_filter_append(phi, q, z, r, mean, cov, y, mask,
+                                      bounds_seg=16)
+    plain = kernels.joint_filter_append_plain(phi, q, z, r, mean, cov, y,
+                                              mask, bounds_seg=16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(carry, bnd[:4]))
+    for g, w in zip(bnd[4:], plain[4:]):
+        assert _rel(g, w) <= bar
+    lanes = (phi.T.contiguous(), torch.diagonal(q, 0, -2, -1).T.contiguous(),
+             z.permute(1, 2, 0).contiguous(), r.T.contiguous(), y, mask)
+    carry = kernels.sqrt_filter(*lanes)
+    bnd = kernels.sqrt_filter(*lanes, bounds_seg=16)
+    plain = kernels.sqrt_filter_plain(*lanes, bounds_seg=16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(carry, bnd[:4]))
+    assert _rel(bnd[4], plain[4]) <= bar
+    assert _rel(bnd[5] @ bnd[5].transpose(-1, -2),
+                plain[5] @ plain[5].transpose(-1, -2)) <= bar
+
+
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_joint_adjoint_kernel_matches_plain(card, dtype, bar, factored):
+    """K11 over covariance (K1) or factor (K9) boundaries, with an r < 0
+    slot on one model (degraded steps) and an all-masked step."""
+    phi, q, z, r, mean, cov, y, mask = _inputs(card, dtype, k=40)
+    r = torch.full_like(r, 0.2)
+    r[0, 2] = -5.0
+    qd = torch.diagonal(q, 0, -2, -1).contiguous()
+    if factored:
+        out = kernels.sqrt_filter(phi.T.contiguous(), qd.T.contiguous(),
+                                  z.permute(1, 2, 0).contiguous(),
+                                  r.T.contiguous(), y, mask, bounds_seg=16)
+    else:
+        out = kernels.joint_filter_append(phi, q, z, r, mean, cov, y, mask,
+                                          bounds_seg=16)
+    g = torch.Generator(device=card).manual_seed(3)
+    sb = torch.rand(y.shape[:2], generator=g, device=card, dtype=dtype)
+    db = torch.rand(y.shape[:2], generator=g, device=card, dtype=dtype)
+    kernels.reset_launches()
+    got = kernels.joint_adjoint(phi, qd, z, r, y, mask, out[4], out[5], sb,
+                                db, 16, factored)
+    want = kernels.joint_adjoint_plain(phi, qd, z, r, y, mask, out[4],
+                                       out[5], sb, db, 16, factored)
+    torch.cuda.synchronize()
+    assert kernels.launches()["joint_adjoint"] == 1
+    for gt, wt in zip(got, want):
+        assert _rel(gt, wt) <= bar

@@ -152,14 +152,24 @@ def test_sqrt_posterior_state_carries_the_factor(mt, mt_jax):
                            chol=got.chol) is None
 
 
-def test_sqrt_scipy_solve_waits_for_the_b7_adjoint(series_list,
-                                                   monkeypatch):
+def test_sqrt_scipy_solve_waits_for_the_b7_adjoint(monkeypatch):
     """A float64 ScipySolve differentiates the deviance in "adjoint" mode,
-    which the square-root engine gets with kernel B7: it raises naming
-    it (and the autodiff way round it) instead of fitting another way."""
+    which the square-root engine now has (B7: K9 with segment boundaries,
+    then K11; their plain versions here): the fit runs without
+    ``METRAN_TPU_GRAD_ENGINE=autodiff`` and lands on the JAX package's
+    ScipySolve optimum on the same engine (a short panel: the plain
+    filter over the example's 6,255 steps is too slow for tier-1)."""
+    from test_torch_metran_solve import short_panel
+
     monkeypatch.delenv("METRAN_TPU_GRAD_ENGINE", raising=False)
-    model = metran_tpu_torch.Metran(series_list, name=NAME, engine="sqrt",
-                                    device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="B7.*METRAN_TPU_GRAD_ENGINE=autodiff"):
-        model.solve(report=False)
+    series = short_panel(6, t=60, n=3)
+    fits = []
+    for pkg, kw in ((metran_tpu, {}), (metran_tpu_torch, {"device": "cpu"})):
+        model = pkg.Metran(series, name="syn", engine="sqrt", **kw)
+        model.solve(solver=pkg.models.ScipySolve, report=False)
+        fits.append(model)
+    want, got = fits
+    assert got._resolved_grad() == "adjoint"
+    assert got.fit.obj_func == pytest.approx(want.fit.obj_func, rel=1e-8)
+    np.testing.assert_allclose(got.parameters["optimal"].values,
+                               want.parameters["optimal"].values, rtol=1e-4)

@@ -144,8 +144,11 @@ def test_engines_devices_and_unported_features(series_list, mt):
     # are held against JAX in tests/test_torch_metran_sqrt.py
     assert metran_tpu_torch.Metran(series_list, engine="sqrt",
                                    device="cpu")._engine == "sqrt"
-    for engine in ("joint", "parallel", "sqrt_parallel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    # the joint engine waits for its store (ROADMAP A2), the
+    # associative-scan engines for kernel B8 (A6)
+    for engine, item in (("joint", "A2"), ("parallel", "A6"),
+                         ("sqrt_parallel", "A6")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             metran_tpu_torch.Metran(series_list, engine=engine,
                                     device="cpu")
     assert metran_tpu_torch.Metran(series_list, engine="numba",

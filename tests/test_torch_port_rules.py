@@ -1,7 +1,10 @@
 """The port's standing rules, checked on the CPU:
 
-- ``metran_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
-  the JAX package (checked in a fresh interpreter and by source scan);
+- ``metran_tpu_torch`` and ``chip_smoke.py`` import neither ``jax``,
+  ``optax`` nor the JAX package (checked in a fresh interpreter and by
+  source scan);
+- every ROADMAP item a not-ported message names exists in
+  ``ROADMAP.md``;
 - entry points default to the CUDA card and raise without one instead
   of running on the CPU quietly;
 - the CUDA kernel launchers take CUDA tensors only, and the dispatching
@@ -55,11 +58,11 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "metran_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"
 ]
-# an import of jax or of the JAX package (``metran_tpu`` not followed by
-# ``_torch``): import statements and dynamic imports
+# an import of jax, of optax or of the JAX package (``metran_tpu`` not
+# followed by ``_torch``): import statements and dynamic imports
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|metran_tpu)\b"
-    r"|(?:import_module|__import__)\(\s*[\"'](?:jax|metran_tpu)\b",
+    r"^\s*(?:import|from)\s+(?:jax|optax|metran_tpu)\b"
+    r"|(?:import_module|__import__)\(\s*[\"'](?:jax|optax|metran_tpu)\b",
     re.MULTILINE,
 )
 
@@ -81,12 +84,13 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "metran_tpu" or m.startswith("metran_tpu."))
+             if m in ("jax", "optax", "metran_tpu")
+             or m.startswith(("jax.", "optax.", "metran_tpu.")))
 # the single-model API's modules (pandas-based, imported on demand)
 assert {"metran_tpu_torch.models.metran", "metran_tpu_torch.models.solver",
         "metran_tpu_torch.models.kalman_runner", "metran_tpu_torch.ops.fa",
         "metran_tpu_torch.kernels.smoother", "metran_tpu_torch.utils",
+        "metran_tpu_torch.models.lbfgs", "metran_tpu_torch.obs.telemetry",
         } <= set(names), names
 metran_tpu_torch.Metran, metran_tpu_torch.LanesSolve
 print(len(names), bad)
@@ -110,7 +114,9 @@ def test_source_scan_finds_no_jax_import():
     # the pattern itself catches what it must
     for line in ("import jax", "from jax import numpy", "import metran_tpu",
                  "from metran_tpu.ops import x", "  from metran_tpu import y",
-                 "importlib.import_module('metran_tpu.serve')"):
+                 "importlib.import_module('metran_tpu.serve')",
+                 "import optax", "import optax.tree_utils as otu",
+                 "from optax import lbfgs"):
         assert FORBIDDEN.search(line), line
     for line in ("import metran_tpu_torch", "from metran_tpu_torch.ops "
                  "import x", "# the JAX package's metran_tpu/ops/kalman.py"):
@@ -144,10 +150,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     fleet = Fleet(y[None], mask[None], np.asarray(lds)[None], np.ones(1),
                   np.array([3]))
     for fn in (fleet_deviance, fleet_value_and_grad):
+        for layout in ("lanes", "batch"):
+            with pytest.raises(RuntimeError, match="CUDA device required"):
+                fn(np.full((1, 4), 10.0), fleet, layout=layout)
+    for layout in ("lanes", "batch"):
         with pytest.raises(RuntimeError, match="CUDA device required"):
-            fn(np.full((1, 4), 10.0), fleet, layout="lanes")
-    with pytest.raises(RuntimeError, match="CUDA device required"):
-        fit_fleet(fleet, layout="lanes", maxiter=1)
+            fit_fleet(fleet, layout=layout, maxiter=1)
     with pytest.raises(RuntimeError, match="CUDA device required"):
         pack_fleet([], [])
     # the products slice: numpy fleets and lane inputs go to the card too
@@ -235,6 +243,18 @@ def _k7_args(dtype=torch.float64, lanes=3, t=7, n_obs=2, n=3):
             torch.randn(lanes, t, n_obs, generator=g, dtype=dtype)]
 
 
+def _k11_args(dtype=torch.float64, b=2, t=5, n_obs=3, s=4, seg=2):
+    """K11's inputs: K1's model and data with boundaries every ``seg``
+    steps and unit cotangents."""
+    phi, q, z, r, mean, cov, y, mask = _k1_args(dtype=dtype, b=b, k=t,
+                                                n=n_obs, s=s)
+    out = kernels.joint_filter_append(phi, q, z, r, mean, cov, y, mask,
+                                      bounds_seg=seg)
+    ones = torch.ones(b, t, dtype=dtype)
+    return (phi, torch.diagonal(q, 0, -2, -1).contiguous(), z, r, y, mask,
+            out[4], out[5], ones, ones)
+
+
 def test_kernel_launchers_raise_on_cpu_tensors():
     args = _k1_args()
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -281,6 +301,13 @@ def test_kernel_launchers_raise_on_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA tensors"):
             kernels.sqrt_smooth_kernel(phi_l, q_l, sq[2], sq[3], sq[0],
                                        sq[1], want_cov=want_cov)
+    # the batch-layout adjoint's forward modes and K11
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.joint_filter_append_kernel(*args, bounds_seg=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.sqrt_filter_kernel(*k3, bounds_seg=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.joint_adjoint_kernel(*_k11_args(), 2)
 
 
 def test_autodiff_score_refuses_the_card(monkeypatch):
@@ -337,12 +364,15 @@ def test_plain_path_counts_no_launch_and_counters_reset():
     for want_cov in (True, False):
         kernels.sqrt_smooth(k3[0].T.contiguous(), k3[1].T.contiguous(),
                             sq[2], sq[3], sq[0], sq[1], want_cov=want_cov)
+    kernels.sqrt_filter(*k3, bounds_seg=3)
+    kernels.joint_adjoint(*_k11_args(), 2)  # K1 bounds and K11
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "forecast_moments": 0,
                                   "lanes_filter": 0, "lanes_adjoint": 0,
                                   "lanes_smooth_bwd": 0, "lanes_forward": 0,
                                   "lanes_sample": 0, "rts_smooth": 0,
-                                  "sqrt_filter": 0, "sqrt_smooth": 0}
+                                  "sqrt_filter": 0, "sqrt_smooth": 0,
+                                  "joint_adjoint": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -365,7 +395,7 @@ def test_library_name_follows_the_sources():
         "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
         "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
         "lanes_sample.cu", "rts_smoother.cu", "sqrt_filter.cu",
-        "sqrt_smoother.cu"}
+        "sqrt_smoother.cu", "joint_adjoint.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 
@@ -381,3 +411,53 @@ def test_chip_smoke_refuses_without_a_card_and_outside_a_checkout(tmp_path):
                          env={k: v for k, v in os.environ.items()
                               if k != "PYTHONPATH"})
     assert out.returncode != 0 and out.stdout == ""
+
+
+# the ROADMAP items a message names: "ROADMAP A3", "ROADMAP A2, A6",
+# "ROADMAP A4.2 for 'sequential', A6 for ..." (a kernel's own name, as in
+# "kernel B8", is not an item)
+_ID = r"[AC]\d+(?:\.\d+)?"
+ITEM = re.compile(rf"ROADMAP\s+({_ID}(?:(?:,\s*|/|\s+and\s+|"
+                  rf"\s+for\s+'[^']*',\s*){_ID})*)")
+ITEM_ID = re.compile(r"\b([AC])(\d+)(?:\.(\d+))?\b")
+
+
+def _roadmap_items():
+    """``{"A1", "A4", "A4.2", "C1", ...}``: the numbered entries of
+    ROADMAP.md's sections A and C (an item is ``N.`` at the start of a
+    line within its section; ``A4.2`` an ``   2.`` sub-entry)."""
+    items, section, parent = set(), None, None
+    for line in (REPO / "ROADMAP.md").read_text().splitlines():
+        head = re.match(r"### ([AC])\. ", line)
+        if head:
+            section = head.group(1)
+            continue
+        if line.startswith("## "):
+            section = None
+            continue
+        if section is None:
+            continue
+        top = re.match(r"(\d+)\. ", line)
+        if top:
+            parent = top.group(1)
+            items.add(f"{section}{parent}")
+            continue
+        sub = re.match(r"\s{2,}(\d+)\. ", line)
+        if sub and parent is not None:
+            items.add(f"{section}{parent}.{sub.group(1)}")
+    return items
+
+
+def test_not_ported_messages_name_items_that_exist_in_the_roadmap():
+    items = _roadmap_items()
+    assert {"A1", "A2", "A3", "A4.2", "A6", "C1"} <= items, items
+    named = {}
+    for path in sorted((REPO / "metran_tpu_torch").rglob("*.py")):
+        text = path.read_text()
+        for m in ITEM.finditer(text):
+            for sec, num, sub in ITEM_ID.findall(m.group(1)):
+                key = f"{sec}{num}" + (f".{sub}" if sub else "")
+                named.setdefault(key, []).append(path.name)
+    assert named, "no ROADMAP item named anywhere"
+    missing = {k: v for k, v in named.items() if k not in items}
+    assert not missing, missing

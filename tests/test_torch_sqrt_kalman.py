@@ -222,15 +222,20 @@ def test_sqrt_autodiff_gradient_matches_jax_and_adjoint_raises():
                         device="cpu")
     (got,) = torch.autograd.grad(value, p)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9)
-    # the closed-form adjoint of the square-root deviance is kernel B7:
-    # differentiating in "adjoint" mode (float64 "auto") raises, while
-    # the value alone needs no gradient engine
+    # the closed-form adjoint of the square-root deviance (B7: K9 with
+    # segment boundaries, then K11; here their plain versions), which
+    # float64 "auto" resolves to: the same value, bit for bit, and the
+    # gradient of JAX's sqrt autodiff at the JAX package's adjoint bar
+    # (tests/test_adjoint.py, rel 1e-10)
     for grad in ("adjoint", "auto"):
         q = torch.tensor(a, requires_grad=True)
-        with pytest.raises(NotImplementedError, match="B7"):
-            pk.deviance(dfm_statespace(q[:5], q[5:], loadings,
-                                       device="cpu"),
-                        y, mask, engine="sqrt", grad=grad, device="cpu")
+        adj = pk.deviance(dfm_statespace(q[:5], q[5:], loadings,
+                                         device="cpu"),
+                          y, mask, engine="sqrt", grad=grad, device="cpu")
+        assert float(adj) == float(value)
+        (g_adj,) = torch.autograd.grad(adj, q)
+        assert (np.linalg.norm(g_adj.numpy() - np.asarray(want))
+                / np.linalg.norm(np.asarray(want))) < 1e-10
     free = pk.deviance(dfm_statespace(a[:5], a[5:], loadings, device="cpu"),
                        y, mask, engine="sqrt", grad="adjoint", device="cpu")
     assert float(free) == pytest.approx(float(value.detach()), rel=1e-14)

@@ -82,7 +82,7 @@ def test_perturbation_lanes_read_one_data_copy(monkeypatch):
 
 def test_exact_method_raises_naming_the_roadmap():
     _, pfleet, params = _fleets(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         pf.fleet_stderr(params, pfleet, method="exact")
     with pytest.raises(ValueError, match="unknown method"):
         pf.fleet_stderr(params, pfleet, method="fd")

@@ -40,7 +40,17 @@ non-zero):
    anchored adjoint from a non-triangular anchor (its value the score of
    ``sqrt_filter_append``, its gradient the CPU f64 one's); K11's f64
    gradient against central differences of the K1 deviance (rel 1e-6);
-   K11 and both ``bounds`` modes timed at the flagship shape;
+   K11 and both ``bounds`` modes timed at the flagship shape; then the
+   serving path's input defences (``gate_kernels``): K12 (the gated
+   sequential update) in each policy, K9's gated instantiation and K13
+   (the detector) against their plain versions on the flagship bucket
+   (512 models, (24, 32)) with spikes on known slots and an armed mix
+   (f64 and f32, verdicts and alarm counts equal), K12 armed but never
+   tripping bit for bit K12 ``off`` and gated K9 never tripping bit for
+   bit K9 from the given carry, K1's ``store`` bit for bit its history
+   pass at every step (16 models; the flagship fleet at T = 5,000 for
+   the last step, the terms and 16 models' every step), each timed at
+   the main path's shapes beside its bound;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -50,7 +60,22 @@ non-zero):
    engine (history pass ``sqrt_kalman_filter``, K9; states carrying
    factors; ``ModelRegistry(engine="sqrt")`` updating through K9 from
    the stacked factors; 4 models recomputed), and both engines' dispatch
-   medians side by side;
+   medians side by side; then the gated serving path (``gated_serving``,
+   per engine): ``ModelRegistry(engine=...)`` for ``"joint"``,
+   ``"sequential"`` and ``"sqrt"`` holding the 512 flagship posteriors
+   after their history pass, and ``MetranService(registry,
+   gate=GateSpec(policy="reject"), detect=DetectSpec(enabled=True))``
+   assimilating 12 rows of the fleet's own continuation with spikes on
+   known (model, slot) cells, a level shift on one series, a poisoned
+   model and a cold one; the armed spikes must be flagged, the cold
+   model disarmed, the poisoned model's breaker open after 5 failures
+   while every other slot of the same launches commits (and
+   ``health()`` name it), the shift raise a changepoint in
+   ``anomalies()`` and an ``alerts()`` entry, each dispatch launch one
+   update kernel (K12, or gated K9) and one K13, and 16 models' flagged
+   counts equal a CPU f64 replay through the plain versions; 8 threads
+   then make synchronous calls; the same with ``huber`` and ``inflate``
+   on the joint registry (6 rounds, no threads);
 5. fit path — the same flagship fleet (its own seed) packed with
    ``pack_fleet`` and fitted by ``fit_fleet(layout="lanes")`` under the
    JAX bench's fit settings (autocorrelation init, ``remat_seg=100``,
@@ -103,7 +128,11 @@ non-zero):
    timed, and those of the two f32 models held to CPU f64 recomputes at
    the card's fitted tables (worker processes, ≤ 1e-3; the deviance
    ≤ 1e-4); the launch counters must show K3, K4, K6, K7, K8, K9, K10
-   and K2.
+   and K2;
+8. the JAX defaults the port now shares (``c2_defaults``), on the f64
+   example: ``innovations`` (K1 ``store``), ``sample_states`` (K7, K1
+   ``store``, K8) and ``filter_append`` (K12 ``off``), each held to the
+   sequential engine's within 1e-9.
 
 The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
@@ -2118,6 +2147,696 @@ def phase_adjoint_kernels():
 # the f32 precision recipe of tests/test_precision.py (make_flagship,
 # ALPHAS, DEV_RTOL), copied: that test imports JAX
 PREC_N, PREC_K, PREC_T = 20, 1, 5000
+# ----------------------------------------------------------------------
+# the serving path's input defences: K12, gated K9, K13 and K1's store
+# ----------------------------------------------------------------------
+GATE_NSIGMA = 4.0  # the gate's default bar (GateSpec)
+GATE_SPIKE = 30.0  # injected spikes, standardized data units
+GATE_SPIKED = 64  # models of the bucket carrying one spike each
+
+
+def k12_cost(z, q, mask, itemsize):
+    """Bytes the K12 call must move (the model constants, the carry, the
+    data and the armed flags read once; the posterior, the terms, the
+    z-scores and the int8 verdicts written once) and the least
+    operations this run's data needs: the predict as K1's (``phi o m``,
+    ``(phi phi') o P + q`` on the upper half and q's nonzeros), then per
+    observed slot ``v = y - z.m`` and ``f = z.d`` on the row's nonzeros,
+    ``d = P z`` (nnz(z) per row of P), the score and its test, the gain
+    ``k = d / f``, ``m += k v`` and ``P -= (k f) k'`` on the upper
+    half."""
+    import torch
+
+    b, n, s = z.shape
+    k = mask.shape[1]
+    nbytes = (b * (2 * s + 2 * s * s + n * s + n) * itemsize + b
+              + b * k * n * (itemsize + 1)
+              + b * (s + s * s + 2 * k) * itemsize
+              + b * k * n * (itemsize + 1))
+    half = s * (s + 1) / 2
+    nnz = (z != 0).double().sum(-1)  # (B, N) nonzeros per row of Z
+    per_slot = 4 * nnz + 2 * nnz * s + 6 + s + 2 * s + s + 2 * half
+    ops = float((mask.double() * per_slot[:, None, :]).sum())
+    q_up = int(torch.triu(q != 0).sum())
+    ops += b * k * (s + half) + k * q_up + b * half
+    return nbytes, ops
+
+
+def k13_cost(mask, itemsize):
+    """Bytes the K13 call must move (the (B, 6, N) state, the z-scores,
+    the mask and the armed flags read once; the state and the (B, 3, N)
+    int32 counts written once) and its operations: per observed step the
+    anomaly test, the two CUSUM recursions with their alarm, the three
+    forgetting-factor sums and the two LB statistics (~30)."""
+    b, k, n = mask.shape
+    nbytes = (2 * b * 6 * n * itemsize + b * k * n * (itemsize + 1) + b
+              + b * 3 * n * 4)
+    return nbytes, 30.0 * float(mask.sum())
+
+
+def k9_gated_cost(z, mask, lane_map, itemsize):
+    """K9 from a given carry (:func:`k9_cost`) plus the gate: per
+    observed slot the marginal ``|(Z S_p)_i|^2`` on the row of the
+    compact pre-array the update forms anyway (2n), the z-score and its
+    test; bytes plus the armed flags, the z-scores and the verdicts."""
+    nbytes, ops = k9_cost(z, mask, lane_map, False, True, itemsize)
+    big_n, n, lanes = z.shape
+    t_steps = mask.shape[1]
+    obs = float(mask[lane_map.long()].sum())
+    return (nbytes + lanes + lanes * t_steps * big_n * (itemsize + 1),
+            ops + obs * (2 * n + 6))
+
+
+def store_cost(cost, b, s, t_steps, itemsize):
+    """A carry-only filter's ``(bytes, operations)`` with its store's
+    outputs: every step's (m_p, P_p, m_f, P_f) in place of the final
+    carry."""
+    nbytes, ops = cost
+    return (nbytes + b * (t_steps * (2 * s + 2 * s * s) - (s + s * s))
+            * itemsize, ops)
+
+
+def _gate_case(rng, dtype, dev, k=1):
+    """The flagship bucket (24, 32) warmed by 64 steps of its own data
+    (K1 from N(0, I)), then ``k`` appended steps with a spike on one
+    known slot of each of the first GATE_SPIKED models and an armed mix
+    (every fourth model disarmed).  Returns the K1/K12 argument tuple,
+    ``armed`` and the spiked (model, step, slot) cells."""
+    import torch
+
+    from metran_tpu_torch.kernels import joint_filter_append
+
+    batch = FLEET
+    phi, q, z, r, y, mask = padded_inputs(rng, batch, 64 + k, dtype, dev)
+    s = phi.shape[1]
+    mean0 = torch.zeros((batch, s), dtype=dtype, device=dev)
+    cov0 = torch.eye(s, dtype=dtype, device=dev).expand(
+        batch, s, s).contiguous()
+    warm = joint_filter_append(phi, q, z, r, mean0, cov0, y[:, :64],
+                               mask[:, :64])
+    y_k, m_k = y[:, 64:].clone(), mask[:, 64:].clone()
+    spiked = []
+    for b in range(min(GATE_SPIKED, batch)):
+        t, i = b % k, b % N_SERIES
+        y_k[b, t, i] += GATE_SPIKE if b % 2 else -GATE_SPIKE
+        m_k[b, t, i] = True
+        spiked.append((b, t, i))
+    armed = torch.tensor([b % 4 != 3 for b in range(batch)], device=dev)
+    return ((phi, q, z, r, warm[0], warm[1], y_k.contiguous(),
+             m_k.contiguous()), armed, spiked)
+
+
+def phase_gate_kernels():
+    """K12 (the gated sequential update, each policy), K9's gated
+    instantiation and K13 (the detector) against their plain versions on
+    the card, f64 and f32 (normwise 1e-9 / 1e-3, NaN-strict, verdicts
+    and counts equal), on the flagship bucket (B = 512, (24, 32)) with
+    spikes on known slots and an armed mix; the two bit-exactness
+    contracts (K12 armed but never tripping = K12 ``off``; gated K9
+    never tripping = K9's given-carry run); K1's ``store`` against its
+    history pass (the terms and the last step bitwise, every stored
+    filtered step bitwise K1's one-step carry from the step before, 16
+    models; the plain store over T_CMP steps).  Then each timed at the
+    main path's shapes in f32 beside its bound."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import (
+        detect_scan,
+        detect_scan_plain,
+        gated_filter_append,
+        gated_filter_append_plain,
+        joint_filter_append,
+        joint_filter_store,
+        joint_filter_store_plain,
+        sqrt_filter,
+        sqrt_filter_gated,
+        sqrt_filter_gated_plain,
+    )
+    from metran_tpu_torch.ops import chol_outer, dfm_statespace
+    from metran_tpu_torch.ops.kalman import _lanes_ss
+    from metran_tpu_torch.ops.statespace import StateSpace
+
+    dev = torch.device(DEVICE)
+    thresh = GATE_NSIGMA ** 2
+    checks, times, contracts = [], {}, {}
+
+    def record(kernel, case, dtype, got, want, bar, exact=()):
+        """One check: normwise errors of the float outputs, equality of
+        the ``exact`` (integer) ones."""
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        same = [bool(torch.equal(got[i], want[i])) for i in exact]
+        checks.append({
+            "kernel": kernel, "case": case, "dtype": str(dtype)[6:],
+            "rel_err": errs, "bar": bar, "exact_equal": same,
+            "max_abs_err": max(abs_err(g, w) for g, w in zip(got, want)),
+            "ok": within(errs, bar) and all(same)})
+
+    def lanes_of(args):
+        phi, q, z, r = _lanes_ss(StateSpace(*args[:4]), "sqrt")
+        return phi, q, z, r, args[6], args[7]
+
+    for dtype in (torch.float64, torch.float32):
+        bar = 1e-9 if dtype == torch.float64 else 1e-3
+        rng = np.random.default_rng(SEED + 90)
+        args, armed, spiked = _gate_case(rng, dtype, dev)
+        off = gated_filter_append(*args, armed, "off", 0.0)
+        for policy in ("off", "reject", "huber", "inflate"):
+            got = gated_filter_append(*args, armed, policy, thresh)
+            want = gated_filter_append_plain(*args, armed, policy, thresh)
+            torch.cuda.synchronize()
+            record("gated_filter", f"{policy}, B={FLEET} k=1 (24, 32)",
+                   dtype, got[:5], want[:5], bar)
+            record("gated_filter", f"{policy} verdicts", dtype,
+                   [got[5].double()], [want[5].double()], 0.0, exact=(0,))
+            padded = got[4][:, :, N_SERIES:]
+            require(torch.isnan(padded).all()
+                    and not got[5][:, :, N_SERIES:].any(),
+                    f"K12 {policy}: a padded slot was scored or gated")
+            if policy != "off":
+                caught = [int(got[5][b, t, i]) for b, t, i in spiked]
+                require(all(c != 0 for (b, _, _), c in zip(spiked, caught)
+                            if b % 4 != 3),
+                        f"K12 {policy}: an armed spike passed the gate")
+                require(all(c == 0 for (b, _, _), c in zip(spiked, caught)
+                            if b % 4 == 3),
+                        f"K12 {policy}: a disarmed model was gated")
+                never = gated_filter_append(*args, armed, policy,
+                                            float("inf"))
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b)
+                           for a, b in zip(never[:4], off[:4]))
+                contracts[f"K12 {policy} never trips == off, "
+                          f"{str(dtype)[6:]}"] = same
+                require(same and not never[5].any(),
+                        f"K12 {policy} armed but never tripping is not "
+                        "the off update bit for bit")
+        # K9 gated from the warm carry, its covariance given as a factor
+        # that is not triangular (as a migrated state's is)
+        lanes = lanes_of(args)
+        m0, c0 = args[4].contiguous(), _psd_factor(args[5])
+        base = sqrt_filter(*lanes, mean0=m0, chol0=c0)
+        for policy in ("reject", "huber", "inflate"):
+            got = sqrt_filter_gated(*lanes, m0, c0, armed, policy, thresh)
+            want = sqrt_filter_gated_plain(*lanes, m0, c0, armed, policy,
+                                           thresh)
+            torch.cuda.synchronize()
+            record("sqrt_filter_gated", f"{policy}, B={FLEET} k=1",
+                   dtype, (got[0], chol_outer(got[1]), *got[2:5]),
+                   (want[0], chol_outer(want[1]), *want[2:5]), bar)
+            record("sqrt_filter_gated", f"{policy} verdicts", dtype,
+                   [got[5].double()], [want[5].double()], 0.0, exact=(0,))
+            caught = [int(got[5][bb, t, i]) for bb, t, i in spiked]
+            require(all(c != 0 for (bb, _, _), c in zip(spiked, caught)
+                        if bb % 4 != 3),
+                    f"gated K9 {policy}: an armed spike passed the gate")
+            never = sqrt_filter_gated(*lanes, m0, c0, armed, policy,
+                                      float("inf"))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(never[:4], base))
+            contracts[f"K9 gated {policy} never trips == K9, "
+                      f"{str(dtype)[6:]}"] = same
+            require(same, f"gated K9 {policy} never tripping is not K9 "
+                    "from the given carry bit for bit")
+        # K13 over a stream of z-scores with shifts, drift and gaps
+        g = torch.Generator(device=dev).manual_seed(SEED + 91)
+        kd = 200
+        zs = torch.randn((FLEET, kd, 24), generator=g, device=dev,
+                         dtype=dtype)
+        zs[:, 100:, 0] += 2.5
+        zs[:, 1:, 1] = 0.2 * zs[:, 1:, 1] + 0.98 * zs[:, :-1, 1]
+        dmask = torch.rand((FLEET, kd, 24), generator=g, device=dev) > 0.1
+        dmask[:, :, N_SERIES:] = False
+        zs = torch.where(dmask, zs, torch.full_like(zs, float("nan")))
+        darmed = torch.tensor([b % 8 != 7 for b in range(FLEET)],
+                              device=dev)
+        state0 = torch.zeros((FLEET, 6, 24), dtype=dtype, device=dev)
+        kw = dict(cusum_h=8.0, lb_window=32, lb_thresh=9.0, nsigma=3.0)
+        got = detect_scan(state0, zs, dmask, darmed, **kw)
+        want = detect_scan_plain(state0, zs, dmask, darmed, **kw)
+        torch.cuda.synchronize()
+        record("detect", f"B={FLEET} k={kd} N=24", dtype, [got[0]],
+               [want[0]], bar)
+        record("detect", "counts", dtype, [got[1].double()],
+               [want[1].double()], 0.0, exact=(0,))
+        require(bool(got[1].sum(dim=(0, 2)).gt(0).all()),
+                "K13: some alarm kind never fired")
+        # K1's store against its carry-only history pass (16 models here;
+        # the flagship fleet in the timing below)
+        rng = np.random.default_rng(SEED + 92)
+        yh, mh, lds, a_s, a_c = make_workload(rng, 16, t=T_CMP)
+        ss = dfm_statespace(a_s, a_c, lds, 1.0, device=dev, dtype=dtype)
+        sh = ss.phi.shape[1]
+        hist = (*ss, torch.zeros((16, sh), dtype=dtype, device=dev),
+                torch.eye(sh, dtype=dtype, device=dev).expand(
+                    16, sh, sh).contiguous(),
+                torch.as_tensor(yh, dtype=dtype, device=dev),
+                torch.as_tensor(mh, device=dev))
+        st = joint_filter_store(*hist)
+        carry = joint_filter_append(*hist)
+        plain = joint_filter_store_plain(*hist)
+        torch.cuda.synchronize()
+        record("joint_filter_store", f"B=16 T={T_CMP} (20, 21)", dtype,
+               st, plain, bar)
+        contracts[f"K1 store == K1 history, {str(dtype)[6:]}"] = same = (
+            _store_is_carry(joint_filter_append, hist, st, carry))
+        require(same, "K1 store is not K1's carry at every step")
+    for c in checks:
+        emit({"phase": "kernel_check", **c})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+
+    # the main path's shapes, f32: the update dispatch (B = 512, k = 1,
+    # the bucket (24, 32)), the detector after it, K1's store over the
+    # flagship history
+    dtype = torch.float32
+    rng = np.random.default_rng(SEED + 93)
+    args, armed, _ = _gate_case(rng, dtype, dev)
+    lanes = lanes_of(args)
+    m0, c0 = args[4].contiguous(), _psd_factor(args[5])
+
+    def timed(key, label, fn, plain, cost, reps=20, plain_reps=5):
+        ms, _ = cuda_ms(fn, reps=reps)
+        plain_ms, _ = cuda_ms(plain, reps=plain_reps, warm=1)
+        bms, bby = bound_ms(*cost, "float32")
+        times[key] = {"shape": label, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bms, "bound_by": bby}
+
+    n, s = args[2].shape[1:]
+    for policy in ("reject", "off", "huber", "inflate"):
+        key = "gated_filter" if policy == "reject" else \
+            f"gated_filter_{policy}"
+        timed(key, f"{policy}, B={FLEET} k=1 N={n} S={s} f32 "
+              "(update dispatch)",
+              lambda p=policy: gated_filter_append(*args, armed, p, thresh),
+              lambda p=policy: gated_filter_append_plain(*args, armed, p,
+                                                         thresh),
+              k12_cost(args[2], args[1], args[7], 4))
+    timed("sqrt_filter_gated", f"reject, B={FLEET} k=1 N={n} n={s} f32 "
+          "(update dispatch)",
+          lambda: sqrt_filter_gated(*lanes, m0, c0, armed, "reject",
+                                    thresh),
+          lambda: sqrt_filter_gated_plain(*lanes, m0, c0, armed, "reject",
+                                          thresh),
+          k9_gated_cost(lanes[2], lanes[5], torch.arange(
+              FLEET, dtype=torch.int32, device=dev), 4))
+    zs1 = gated_filter_append(*args, armed, "reject", thresh)[4]
+    st0 = torch.zeros((FLEET, 6, n), dtype=dtype, device=dev)
+    timed("detect", f"B={FLEET} k=1 N={n} f32 (after the update)",
+          lambda: detect_scan(st0, zs1, args[7], armed),
+          lambda: detect_scan_plain(st0, zs1, args[7], armed),
+          k13_cost(args[7], 4))
+    yh, mh, lds, a_s, a_c = make_workload(np.random.default_rng(SEED + 4),
+                                          FLEET)
+    ss = dfm_statespace(a_s, a_c, lds, 1.0, device=dev, dtype=dtype)
+    sh = ss.phi.shape[1]
+    hist = (*ss, torch.zeros((FLEET, sh), dtype=dtype, device=dev),
+            torch.eye(sh, dtype=dtype, device=dev).expand(
+                FLEET, sh, sh).contiguous(),
+            torch.as_tensor(yh, dtype=dtype, device=dev),
+            torch.as_tensor(mh, device=dev))
+    ms, st = cuda_ms(lambda: joint_filter_store(*hist), reps=3, warm=1)
+    carry = joint_filter_append(*hist)
+    same = _store_is_carry(joint_filter_append, hist, st, carry, models=16)
+    contracts["K1 store == K1 history, flagship B=512 T=5000 f32"] = same
+    require(same, "K1 store at the flagship shape is not K1's carry")
+    del st
+    short = tuple(a[:, :T_CMP] if i >= 6 else a
+                  for i, a in enumerate(hist))
+    plain_ms, _ = cuda_ms(lambda: joint_filter_store_plain(*short), reps=1,
+                          warm=0)
+    bms, bby = bound_ms(*store_cost(k1_cost(hist[2], hist[1], hist[7], 4),
+                                    FLEET, sh, T_STEPS, 4), "float32")
+    times["joint_filter_store"] = {
+        "shape": f"B={FLEET} k={T_STEPS} N={N_SERIES} S={sh} f32 "
+                 "(the joint store of the fleet's history)",
+        "ms": ms, "plain_ms": plain_ms, "plain_shape":
+        f"the first {T_CMP} steps, once", "bound_ms": bms, "bound_by": bby}
+    torch.cuda.empty_cache()
+    emit({"phase": "gate_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar",
+                           "ok")} for c in checks],
+        "bitwise_contracts": contracts, "times": times})
+    return checks, times
+
+
+def _psd_factor(cov):
+    """A factor ``F F' = cov`` of PSD matrices (leading batch axis) from
+    their eigendecompositions, negative roundoff eigenvalues clipped."""
+    import torch
+
+    w, v = torch.linalg.eigh((cov + cov.transpose(-1, -2)) * 0.5)
+    return (v * torch.sqrt(torch.clamp(w, min=0.0))[:, None, :]).contiguous()
+
+
+def _store_is_carry(k1, hist, st, carry, models=None):
+    """Whether K1's store is its carry instantiation at every step: the
+    terms and the last step equal the history pass's bit for bit, and
+    every stored filtered step equals K1's one-step carry from the stored
+    step before it (the first ``models`` models; all by default)."""
+    import torch
+
+    ok = (torch.equal(st[4], carry[2]) and torch.equal(st[5], carry[3])
+          and torch.equal(st[2][:, -1], carry[0])
+          and torch.equal(st[3][:, -1], carry[1]))
+    sel = slice(None) if models is None else slice(0, models)
+    phi, q, z, r, _, _, y, mask = (a[sel] for a in hist)
+    b, k, s = st[2][sel].shape
+
+    def rep(t):
+        return t[:, None].expand(b, k - 1, *t.shape[1:]).reshape(
+            b * (k - 1), *t.shape[1:]).contiguous()
+
+    one = k1(rep(phi), rep(q), rep(z), rep(r),
+             st[2][sel, :-1].reshape(-1, s).contiguous(),
+             st[3][sel, :-1].reshape(-1, s, s).contiguous(),
+             y[:, 1:].reshape(-1, 1, y.shape[-1]).contiguous(),
+             mask[:, 1:].reshape(-1, 1, mask.shape[-1]).contiguous())
+    torch.cuda.synchronize()
+    return bool(ok and torch.equal(one[0], st[2][sel, 1:].reshape(-1, s))
+                and torch.equal(one[1],
+                                st[3][sel, 1:].reshape(-1, s, s)))
+
+
+GATED_ROUNDS = 12  # update rounds of the gated serving path
+GATED_CPU = 16  # models whose rounds are replayed in f64 on the CPU
+SPIKE_DATA = 5.0  # spikes in data units (over 5 innovation sigmas)
+SHIFT = (1, 3, 2, 4.0)  # model, slot, first round, size (data units)
+POISONED, COLD = 2, 3  # a NaN posterior; t_seen below the gate's floor
+
+
+def phase_gated_serving(engine, policy="reject", rounds=GATED_ROUNDS,
+                        sync=True):
+    """The serving path with its input defences, through the entry
+    points a user calls: ``ModelRegistry(engine=engine)`` holding the
+    flagship fleet's 512 posteriors after its 5,000-step history pass,
+    and ``MetranService(registry, gate=GateSpec(policy=policy),
+    detect=DetectSpec(enabled=True))`` assimilating ``rounds`` rows of
+    the fleet's own continuation, with spikes on known (model, slot)
+    cells, a level shift on one series, a poisoned model and a cold one.
+    Checks: the armed spikes flagged, the cold model disarmed, the
+    poisoned model's breaker open after ``breaker_failures`` failures
+    while every other slot of the same launches committed, ``health()``
+    naming it, the shift raising a changepoint in ``anomalies()`` and an
+    ``alerts()`` entry, one update launch and one detector launch per
+    dispatch, and the flagged counts of GATED_CPU models equal to a CPU
+    f64 replay of the rounds through the plain versions (models with a
+    score within 1e-3 of the gate are reported, not compared).  With
+    ``sync``, 8 threads then make synchronous update/forecast calls
+    through the background flusher.  Returns the launch counts and the
+    timings."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.ops import (
+        chol_outer,
+        dfm_statespace,
+        gated_filter_append,
+        gated_sqrt_filter_append,
+        kalman_filter,
+        sqrt_kalman_filter,
+    )
+    from metran_tpu_torch.reliability import CircuitOpenError
+    from metran_tpu_torch.serve import (
+        DetectSpec,
+        GateSpec,
+        MetranService,
+        ModelRegistry,
+        PosteriorState,
+    )
+
+    dev = torch.device(DEVICE)
+    f32 = np.float32
+    sqrt = engine == "sqrt"
+    gate = GateSpec(policy=policy)
+    rng = np.random.default_rng(SEED + 100)
+    y, mask, lds, a_s, a_c = make_workload(rng, FLEET, t=T_STEPS + rounds)
+    y, mask = y.astype(f32), mask
+    rows = np.where(mask[:, T_STEPS:], y[:, T_STEPS:], np.nan)
+    spiked = {}
+    for b in range(4, 4 + 32):
+        # the first observed slot from b % N: the spike sits on a real
+        # reading (a standardized series' predictive sd is below 1, so
+        # the spike is over 5 sigmas)
+        r = b % rounds
+        i = next((b + j) % N_SERIES for j in range(N_SERIES)
+                 if np.isfinite(rows[b, r, (b + j) % N_SERIES]))
+        rows[b, r, i] += SPIKE_DATA
+        spiked[b] = (r, i)
+    rows[COLD, 0, 0] = SPIKE_DATA
+    m_s, i_s, r_s, size = SHIFT
+    rows[m_s, r_s:, i_s] = np.nan_to_num(rows[m_s, r_s:, i_s]) + size
+    reset_launches()
+    ss = dfm_statespace(a_s.astype(f32), a_c.astype(f32), lds.astype(f32),
+                        1.0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yh, mh = y[:, :T_STEPS], mask[:, :T_STEPS]
+    if sqrt:
+        res = sqrt_kalman_filter(ss, yh, mh, store=False)
+        chols = res.chol_f.cpu().numpy()
+        covs = chol_outer(res.chol_f).cpu().numpy()
+    else:
+        res = kalman_filter(ss, yh, mh, engine=engine, store=False)
+        covs, chols = res.cov_f.cpu().numpy(), [None] * FLEET
+    means = res.mean_f.cpu().numpy()
+    t_history = time.perf_counter() - t0
+    reg = ModelRegistry(root=None, engine=engine)
+    names = tuple(f"s{j}" for j in range(N_SERIES))
+    ids = [f"m{i}" for i in range(FLEET)]
+    start = []
+    for i in range(FLEET):
+        st = PosteriorState(
+            model_id=ids[i], version=0,
+            t_seen=10 if i == COLD else T_STEPS,
+            mean=(np.full_like(means[i], np.nan) if i == POISONED
+                  else means[i]), cov=covs[i],
+            params=np.concatenate([a_s[i], a_c[i]]).astype(f32),
+            loadings=lds[i].astype(f32), dt=1.0,
+            scaler_mean=np.zeros(N_SERIES, f32),
+            scaler_std=np.ones(N_SERIES, f32), names=names, chol=chols[i])
+        reg.put(st, persist=False)
+        start.append(st)
+    svc = MetranService(reg, flush_deadline=None, max_batch=1024,
+                        persist_updates=False, gate=gate,
+                        detect=DetectSpec(enabled=True), device=dev)
+    upd_times, outcomes = [], []
+    before = launches()
+    for r in range(rounds):
+        futs = {}
+        for i, mid in enumerate(ids):
+            try:
+                futs[mid] = svc.update_async(mid, rows[i, r][None])
+            except CircuitOpenError:
+                futs[mid] = "CircuitOpenError"
+        t = time.perf_counter()
+        svc.flush()
+        upd_times.append(time.perf_counter() - t)
+        outcomes.append({mid: (f if isinstance(f, str) else (
+            type(f.exception()).__name__ if f.exception() is not None
+            else "ok")) for mid, f in futs.items()})
+    after = launches()
+    kern = "sqrt_filter_gated" if sqrt else "gated_filter"
+    per_dispatch = {k: (after[k] - before[k]) / rounds for k in after
+                    if after[k] != before[k]}
+    require(per_dispatch == {kern: 1.0, "detect": 1.0},
+            f"launches per update dispatch: {per_dispatch}")
+    failures = svc.reliability.breaker_failures
+    poisoned = [o[ids[POISONED]] for o in outcomes]
+    require(poisoned[:failures] == ["StateIntegrityError"] * failures
+            and set(poisoned[failures:]) == {"CircuitOpenError"},
+            f"the poisoned model's outcomes: {poisoned}")
+    for o in outcomes:
+        bad = {m: v for m, v in o.items()
+               if m != ids[POISONED] and v != "ok"}
+        require(not bad, f"slots of a launch failed: {bad}")
+    for i, mid in enumerate(ids):
+        if i != POISONED:
+            st = reg.get(mid)
+            require(st.version == rounds and np.isfinite(st.mean).all(),
+                    (mid, st.version))
+    health = svc.health()
+    require(health["breakers"]["open"] == [ids[POISONED]],
+            f"health breakers: {health['breakers']}")
+    gate_stats = svc.monitor.gate_stats()
+    missed = [b for b in spiked if b % 4 != 3
+              and gate_stats.get(ids[b], {}).get("rejected", 0) < 1]
+    require(not missed, f"armed spikes not flagged: {missed}")
+    require(gate_stats.get(ids[COLD], {}).get("rejected", 0) == 0,
+            "the cold model was gated")
+    anomalies = svc.anomalies()
+    shift = anomalies[ids[m_s]]
+    require(shift["cusum_alarms"] >= 1
+            and f"s{i_s}" in shift["slots_flagged"],
+            "the level shift raised no changepoint: "
+            f"{ {k: shift[k] for k in ('cusum_alarms', 'slots_flagged')} }")
+    alerts = {(a["model_id"], a["kind"]) for a in svc.alerts()}
+    require((ids[m_s], "changepoint") in alerts, f"alerts: {alerts}")
+
+    # the CPU f64 replay of GATED_CPU models' rounds (plain versions)
+    picks = sorted({m_s, COLD, *range(4, 4 + GATED_CPU - 2)})[:GATED_CPU]
+    near, compared, errs = [], 0, []
+    for i in picks:
+        st = start[i]
+        ss_c = dfm_statespace(a_s[i].astype(f32).astype(float),
+                              a_c[i].astype(f32).astype(float),
+                              lds[i].astype(f32).astype(float), 1.0,
+                              device="cpu")
+        m = torch.as_tensor(st.mean, dtype=torch.float64)
+        fac = torch.as_tensor(st.chol if sqrt else st.cov,
+                              dtype=torch.float64)
+        flagged, t_seen, close = 0, st.t_seen, False
+        for r in range(rounds):
+            row = rows[i, r]
+            msk = np.isfinite(row)
+            fn = gated_sqrt_filter_append if sqrt else gated_filter_append
+            m, fac, _, _, z, v = fn(
+                ss_c, m, fac, np.where(msk, row, 0.0)[None], msk[None],
+                armed=t_seen >= gate.min_seen, policy=policy,
+                nsigma=gate.nsigma, device="cpu")
+            t_seen += 1
+            flagged += int((v != 0).sum())
+            score = z[torch.isfinite(z)] ** 2
+            close |= bool(((score - gate.nsigma ** 2).abs()
+                           < 1e-3 * gate.nsigma ** 2).any())
+        got = gate_stats.get(ids[i], {}).get("rejected", 0)
+        if close:
+            near.append(ids[i])
+            continue
+        compared += 1
+        require(got == flagged, f"{ids[i]}: card flagged {got}, CPU f64 "
+                f"{flagged}")
+        cov_c = chol_outer(fac) if sqrt else fac
+        now = reg.get(ids[i])
+        errs.append(max(rel_err(torch.as_tensor(now.mean), m),
+                        rel_err(torch.as_tensor(now.cov), cov_c)))
+    require(compared >= GATED_CPU - 2 and within(errs, 1e-3),
+            f"CPU f64 replay: compared {compared}, errors {errs}")
+    svc.close()
+
+    call_ms: dict = {"update": [], "forecast": []}
+    if sync:
+        sync_ids = ids[64:128]
+        sync_rows = np.random.default_rng(SEED + 101).normal(
+            size=(64, 1, N_SERIES)) * 0.05
+        errors: list = []
+        lock = threading.Lock()
+        with MetranService(reg, flush_deadline=0.002, max_batch=1024,
+                           persist_updates=False, gate=gate,
+                           detect=DetectSpec(enabled=True),
+                           device=dev) as svc2:
+
+            def worker(w):
+                try:
+                    for j in range(w, 64, 8):
+                        t = time.perf_counter()
+                        st = svc2.update(sync_ids[j], sync_rows[j])
+                        t_u = time.perf_counter() - t
+                        t = time.perf_counter()
+                        f = svc2.forecast(ids[-64 + j], FORECAST_STEPS)
+                        t_f = time.perf_counter() - t
+                        require(st.version == rounds + 1,
+                                (sync_ids[j], st.version))
+                        require(np.isfinite(f.means).all(),
+                                "non-finite forecast")
+                        with lock:
+                            call_ms["update"].append(t_u * 1e3)
+                            call_ms["forecast"].append(t_f * 1e3)
+                except BaseException as exc:  # noqa: BLE001 - re-raised
+                    with lock:
+                        errors.append(exc)
+
+            threads = [threading.Thread(target=worker, args=(w,))
+                       for w in range(8)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+                require(not th.is_alive(), "a sync-call thread hung")
+        if errors:
+            raise errors[0]
+    counts = launches()
+    for k in (kern, "detect"):
+        require(counts[k] > 0, f"gated serving never launched {k}")
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p)) if xs else None
+
+    out = {"update_dispatch_ms": pct(upd_times, 50) * 1e3,
+           "update_dispatch_p99_ms": pct(upd_times, 99) * 1e3,
+           "sync_update_p50_ms": pct(call_ms["update"], 50),
+           "sync_update_p99_ms": pct(call_ms["update"], 99),
+           "sync_forecast_p50_ms": pct(call_ms["forecast"], 50)}
+    emit({"phase": "gated_serving", "engine": engine, "policy": policy,
+          "fleet": FLEET, "rounds": rounds, "history_pass_s": t_history,
+          **out, "launches_per_dispatch": per_dispatch,
+          "gate_verdicts": health.get("gate_verdicts"),
+          "degraded_models": health["gate"]["degraded_models"],
+          "detect": health["detect"], "breakers": health["breakers"],
+          "shift_model": shift, "cpu_f64": {
+              "compared": compared, "near_threshold": near,
+              "max_rel_err": max(errs) if errs else None},
+          "launches": counts})
+    return counts, out
+
+
+def phase_c2_defaults(mt):
+    """The JAX defaults the port now shares, driven on the f64 example
+    model ``mt`` on the card: ``innovations`` (the joint store, K1
+    ``store``) held to the sequential engine's (K6 ``store``) within
+    1e-9, ``sample_states`` (K7 draws, K1 ``store`` + K8 per chunk) held
+    to the sequential engine's draws through the same normals within
+    1e-9, and ``filter_append`` (K12 ``off``) over the last 100 rows from
+    the joint store's carry, held to the store's last step within
+    1e-9."""
+    import torch
+
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.ops import (
+        filter_append,
+        innovations,
+        kalman_filter,
+        sample_states,
+    )
+    from metran_tpu_torch.ops.kalman import (
+        _draw_normals,
+        _sample_states_given,
+    )
+
+    kf = mt.kf
+    ss, y, mask = kf.ss, kf.y, kf.mask
+    reset_launches()
+    t0 = time.perf_counter()
+    v_j, f_j = innovations(ss, y, mask)
+    draws = sample_states(ss, y, mask, SEED, n_draws=8)
+    filt = kalman_filter(ss, y, mask, engine="joint", store=True)
+    tail = 100
+    app = filter_append(ss, filt.mean_f[-tail - 1], filt.cov_f[-tail - 1],
+                        y[-tail:], mask[-tail:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    v_s, f_s = innovations(ss, y, mask, engine="sequential")
+    # the same normals (sample_states' generator, seed and order)
+    normals = _draw_normals(8, y.shape[0], ss.phi.shape[0], y.shape[1],
+                            torch.Generator(y.device).manual_seed(SEED),
+                            y.dtype, y.device)
+    seq = _sample_states_given(ss, y, mask, *normals, engine="sequential")
+    errs = {"innovations": rel_err(v_j, v_s),
+            "innovation_variances": rel_err(f_j, f_s),
+            "sample_states": rel_err(draws, seq),
+            "filter_append_mean": rel_err(app[0], filt.mean_f[-1]),
+            "filter_append_cov": rel_err(app[1], filt.cov_f[-1])}
+    require(within(list(errs.values()), 1e-9), f"C2 defaults: {errs}")
+    for k in ("joint_filter_store", "gated_filter", "lanes_sample",
+              "rts_smooth"):
+        require(counts[k] > 0, f"C2 defaults never launched {k}")
+    emit({"phase": "c2_defaults", "wall_s": wall, "rel_err": errs,
+          "launches": counts})
+    return counts
+
+
 DEV_RTOL = 2e-6
 PREC_ALPHAS = {
     "init": [10.0] * (PREC_N + PREC_K),
@@ -3294,7 +4013,7 @@ def phase_metran_path(pool):
                          "sample_through_observed_rel": throughf},
         "cpu_f64_rel_err": cpu_err, "cpu_wait_s": cpu_wait,
     })
-    return counts
+    return counts, mt64
 
 
 KERNELS = {
@@ -3342,6 +4061,22 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/joint_adjoint.cu",
         "replaces": "metran_tpu/ops/adjoint.py:212",
     },
+    "joint_filter_store": {
+        "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
+        "replaces": "metran_tpu/ops/kalman.py:188",
+    },
+    "gated_filter": {
+        "source": "metran_tpu_torch/kernels/csrc/gated_filter.cu",
+        "replaces": "metran_tpu/ops/kalman.py:734",
+    },
+    "sqrt_filter_gated": {
+        "source": "metran_tpu_torch/kernels/csrc/sqrt_filter.cu",
+        "replaces": "metran_tpu/ops/kalman.py:838",
+    },
+    "detect": {
+        "source": "metran_tpu_torch/kernels/csrc/detect.cu",
+        "replaces": "metran_tpu/ops/detect.py:104",
+    },
 }
 
 
@@ -3368,7 +4103,7 @@ def main() -> int:
     checks, times = phase_kernels()
     for phase in (phase_lanes_kernels, phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
-                  phase_adjoint_kernels):
+                  phase_adjoint_kernels, phase_gate_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
@@ -3377,6 +4112,13 @@ def main() -> int:
     for engine, path in (("joint", "serve"), ("sqrt", "serve_sqrt")):
         paths[path], medians[engine] = phase_main_path(engine)
     emit({"phase": "serve_engines", "dispatch_medians": medians})
+    gated = {}
+    for engine in ("joint", "sequential", "sqrt"):
+        paths[f"gated_{engine}"], gated[engine] = phase_gated_serving(engine)
+    for policy in ("huber", "inflate"):
+        paths[f"gated_joint_{policy}"], gated[f"joint_{policy}"] = (
+            phase_gated_serving("joint", policy, rounds=6, sync=False))
+    emit({"phase": "gated_engines", "timings": gated})
     # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
     # fleet stderr's run through phases 6 and 7, checked last)
     with ProcessPoolExecutor(
@@ -3386,8 +4128,9 @@ def main() -> int:
         paths["fit"] = fit["counts"]
         paths["batch_fit"] = phase_batch_fit(pool, fit)
         paths["products"] = phase_products_path(fit)
-        paths["metran"] = phase_metran_path(pool)
+        paths["metran"], mt64 = phase_metran_path(pool)
         check_stderr(fit)
+    paths["c2_defaults"] = phase_c2_defaults(mt64)
 
     summary = []
     for name, meta in KERNELS.items():
@@ -3411,7 +4154,7 @@ def main() -> int:
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
         others = {k: v for k, v in times.items()
-                  if k.startswith(name + "_") and k != name}
+                  if k.startswith(name + "_") and k not in KERNELS}
         if name != "joint_filter_append" and others:
             entry["other_launches"] = others
         summary.append(entry)

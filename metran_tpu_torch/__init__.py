@@ -8,7 +8,8 @@ package (``metran_tpu/serve/engine.py`` ->
 
 Ported so far — the serving path, the lane-layout and batch-layout
 fleet fits, the lane-layout post-fit products of a fitted fleet, the
-single-model ``Metran`` API and the square-root engine:
+single-model ``Metran`` API, the square-root engine and the serving
+path's input defences (reliability, observation gate, detection):
 
 - :mod:`.models` — ``Metran`` (``Metran(series).solve()`` and its
   products), ``FactorAnalysis``, ``ScipySolve``, ``JaxSolve`` and
@@ -17,7 +18,9 @@ single-model ``Metran`` API and the square-root engine:
   zoom line search (``models.lbfgs``, a copy of optax's);
 - :mod:`.ops` — DFM state-space build, the joint, sequential and
   square-root Kalman engines (``kalman_filter``, ``filter_append``,
-  ``deviance``), the RTS smoothers, the closed-form adjoints (lane
+  ``deviance``), the observation gate (``gated_filter_append``,
+  ``gated_sqrt_filter_append``), streaming detection (``ops.detect``),
+  the RTS smoothers, the closed-form adjoints (lane
   layout, and the batch layout of ``ops.adjoint``), the lane-layout
   products (smoother, filtered projections, innovations, forecasts,
   path draws), closed-form forecasts and factor analysis;
@@ -26,15 +29,18 @@ single-model ``Metran`` API and the square-root engine:
   filter, K4 lanes adjoint, K5 lanes smoother, K6 lanes forward filter
   with outputs or stored moments, K7 path draw, K8 RTS smoother, K9
   square-root filter, K10 square-root smoother, K11 batch-layout
-  adjoint), each beside its plain PyTorch version;
+  adjoint, K12 gated sequential update, K13 detector), each beside its
+  plain PyTorch version;
 - :mod:`.parallel` — packed fleets, the batched L-BFGS,
   ``fit_fleet`` (``layout="batch"``, the default, and ``"lanes"``),
   ``fleet_stderr(method="lanes-fd")`` and the fleet products;
 - :mod:`.obs` — the per-fit optimizer telemetry;
 - :mod:`.data`, :mod:`.utils` — ingestion, standardization and packing;
 - :mod:`.diagnostics` — the Ljung-Box whiteness test of innovations;
+- :mod:`.reliability` — retries, circuit breakers, the health monitor;
 - :mod:`.serve` — posterior states, shape-bucketed registry,
-  micro-batcher and ``MetranService``.
+  micro-batcher, gate and detection specs, alerting and
+  ``MetranService``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (or CPU tensors); without a card they raise.

@@ -1,8 +1,10 @@
 """Serving defaults, the gradient engine and the device policy of the
 PyTorch port.
 
-The four serving knobs and the gradient-engine knob mirror the JAX
-package's ``config.py`` (same names, same ``METRAN_TPU_SERVE_*`` and
+The serving knobs the port reads (batching, buckets, the engine, the
+reliability layer, the observation gate and streaming detection) and
+the gradient-engine knob mirror the JAX package's ``config.py`` (same
+names, same defaults, same ``METRAN_TPU_SERVE_*`` and
 ``METRAN_TPU_GRAD_ENGINE`` environment overrides), so one deployment's
 settings drive either package.
 
@@ -25,7 +27,31 @@ logger = getLogger(__name__)
 SERVE_FLUSH_DEADLINE_S = 0.005  # micro-batch coalescing window
 SERVE_MAX_BATCH = 256  # a batch this full dispatches immediately
 SERVE_BUCKET_MULTIPLE = 8  # shape-bucket rounding for (n_series, n_state)
-SERVE_ENGINE = "joint"  # assimilation kernel (the only engine ported yet)
+SERVE_ENGINE = "joint"  # assimilation kernel: "joint", "sequential" or
+#                         "sqrt" (factored posteriors, PSD by construction)
+# reliability (reliability.policy wired into MetranService)
+SERVE_REQUEST_DEADLINE_S = 30.0  # hard cap on any sync service call
+SERVE_RETRY_ATTEMPTS = 2  # total attempts for transient failures
+SERVE_RETRY_BACKOFF_S = 0.02  # first-retry backoff (doubles per retry)
+SERVE_BREAKER_FAILURES = 5  # consecutive failures that open a breaker
+SERVE_BREAKER_COOLDOWN_S = 30.0  # open -> half-open probe window
+SERVE_VALIDATE_UPDATES = 1  # per-slot posterior finiteness/PSD checks
+# the observation gate ships OFF: arming it is a per-deployment
+# calibration (nsigma trades false rejections of real level shifts
+# against spike protection)
+SERVE_GATE_POLICY = "off"  # "reject" | "huber" | "inflate" | "off"
+SERVE_GATE_NSIGMA = 4.0  # gate at z^2 > nsigma^2 (chi-square(1) null)
+SERVE_GATE_MIN_SEEN = 32  # disarm models with t_seen below this
+# streaming detection ships OFF (a per-deployment calibration of the
+# false-alarm rate against detection delay)
+SERVE_DETECT = 0  # 1 = arm streaming detection + alerting
+SERVE_DETECT_CUSUM_K = 0.5  # CUSUM reference value (innovation sigmas)
+SERVE_DETECT_CUSUM_H = 12.0  # CUSUM alarm threshold
+SERVE_DETECT_LB_WINDOW = 64  # autocorrelation-drift window (> lag 1)
+SERVE_DETECT_LB_THRESH = 25.0  # autocorrelation-drift alarm bar
+SERVE_DETECT_NSIGMA = 5.0  # per-observation anomaly bar
+SERVE_DETECT_MIN_SEEN = 64  # disarm models below this t_seen
+SERVE_DETECT_ALERT_COOLDOWN_S = 60.0  # alert raise/clear hysteresis (s)
 
 
 def _env(name, cast, default):
@@ -55,6 +81,58 @@ def serve_defaults() -> dict:
             "METRAN_TPU_SERVE_BUCKET_MULTIPLE", int, SERVE_BUCKET_MULTIPLE
         ),
         "engine": _env("METRAN_TPU_SERVE_ENGINE", str, SERVE_ENGINE),
+        "request_deadline_s": _env(
+            "METRAN_TPU_SERVE_DEADLINE_S", float, SERVE_REQUEST_DEADLINE_S
+        ),
+        "retry_attempts": _env(
+            "METRAN_TPU_SERVE_RETRY_ATTEMPTS", int, SERVE_RETRY_ATTEMPTS
+        ),
+        "retry_backoff_s": _env(
+            "METRAN_TPU_SERVE_RETRY_BACKOFF_S", float, SERVE_RETRY_BACKOFF_S
+        ),
+        "breaker_failures": _env(
+            "METRAN_TPU_SERVE_BREAKER_FAILURES", int, SERVE_BREAKER_FAILURES
+        ),
+        "breaker_cooldown_s": _env(
+            "METRAN_TPU_SERVE_BREAKER_COOLDOWN_S", float,
+            SERVE_BREAKER_COOLDOWN_S,
+        ),
+        "validate_updates": _env(
+            "METRAN_TPU_SERVE_VALIDATE_UPDATES", int, SERVE_VALIDATE_UPDATES
+        ),
+        "gate_policy": _env(
+            "METRAN_TPU_SERVE_GATE_POLICY", str, SERVE_GATE_POLICY
+        ),
+        "gate_nsigma": _env(
+            "METRAN_TPU_SERVE_GATE_NSIGMA", float, SERVE_GATE_NSIGMA
+        ),
+        "gate_min_seen": _env(
+            "METRAN_TPU_SERVE_GATE_MIN_SEEN", int, SERVE_GATE_MIN_SEEN
+        ),
+        "detect": _env("METRAN_TPU_SERVE_DETECT", int, SERVE_DETECT),
+        "detect_cusum_k": _env(
+            "METRAN_TPU_SERVE_DETECT_CUSUM_K", float, SERVE_DETECT_CUSUM_K
+        ),
+        "detect_cusum_h": _env(
+            "METRAN_TPU_SERVE_DETECT_CUSUM_H", float, SERVE_DETECT_CUSUM_H
+        ),
+        "detect_lb_window": _env(
+            "METRAN_TPU_SERVE_DETECT_LB_WINDOW", int, SERVE_DETECT_LB_WINDOW
+        ),
+        "detect_lb_thresh": _env(
+            "METRAN_TPU_SERVE_DETECT_LB_THRESH", float,
+            SERVE_DETECT_LB_THRESH,
+        ),
+        "detect_nsigma": _env(
+            "METRAN_TPU_SERVE_DETECT_NSIGMA", float, SERVE_DETECT_NSIGMA
+        ),
+        "detect_min_seen": _env(
+            "METRAN_TPU_SERVE_DETECT_MIN_SEEN", int, SERVE_DETECT_MIN_SEEN
+        ),
+        "detect_alert_cooldown_s": _env(
+            "METRAN_TPU_SERVE_DETECT_ALERT_COOLDOWN_S", float,
+            SERVE_DETECT_ALERT_COOLDOWN_S,
+        ),
     }
 
 

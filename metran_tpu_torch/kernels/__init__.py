@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
 - :mod:`.joint_filter` — K1, the joint-update filter append, with or
-  without segment boundaries;
+  without segment boundaries, or with every step's moments stored;
 - :mod:`.forecast` — K2, the closed-form forecast moments;
 - :mod:`.lanes` — K3, the lane-layout sequential filter, and K4, its
   closed-form adjoint;
@@ -12,18 +12,24 @@
 - :mod:`.smoother` — K8, the RTS smoother over stored moments;
 - :mod:`.sqrt_filter` — K9, the square-root (QR array) filter, with its
   per-step store, with segment boundaries or with neither, from
-  ``(0, I)`` or a given carry;
+  ``(0, I)`` or a given carry, or gated (the observation gate) from a
+  given carry;
 - :mod:`.sqrt_smoother` — K10, the factored RTS smoother over K9's
   stored factors;
 - :mod:`.joint_adjoint` — K11, the closed-form reverse sweep of the
   batch-layout deviance (the backward of ``ops.adjoint``);
+- :mod:`.gated_filter` — K12, the gated sequential-processing filter
+  append (the observation gate; with the gate off, the sequential
+  serving update);
+- :mod:`.detect` — K13, the streaming detector over z-scores;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
-Each wrapper (``joint_filter_append``, ``forecast_moments``,
-``lanes_filter``, ``lanes_adjoint``, ``lanes_smooth_bwd``,
-``lanes_forward``, ``lanes_sample``, ``rts_smooth``, ``sqrt_filter``,
-``sqrt_smooth``, ``joint_adjoint``) launches its kernel (``*_kernel``,
+Each wrapper (``joint_filter_append``, ``joint_filter_store``,
+``forecast_moments``, ``lanes_filter``, ``lanes_adjoint``,
+``lanes_smooth_bwd``, ``lanes_forward``, ``lanes_sample``,
+``rts_smooth``, ``sqrt_filter``, ``sqrt_filter_gated``, ``sqrt_smooth``,
+``joint_adjoint``, ``gated_filter_append``, ``detect_scan``) launches its kernel (``*_kernel``,
 which takes CUDA tensors only and raises if it cannot build or launch)
 on CUDA tensors and runs the plain version (``*_plain``) on CPU
 tensors; there is no fallback between them.  Nothing is built or
@@ -32,10 +38,16 @@ loaded at import.
 
 from . import build
 from .build import launches, reset_launches
+from .detect import detect_scan, detect_scan_kernel, detect_scan_plain
 from .forecast import (
     forecast_moments,
     forecast_moments_kernel,
     forecast_moments_plain,
+)
+from .gated_filter import (
+    gated_filter_append,
+    gated_filter_append_kernel,
+    gated_filter_append_plain,
 )
 from .joint_adjoint import (
     joint_adjoint,
@@ -46,6 +58,9 @@ from .joint_filter import (
     joint_filter_append,
     joint_filter_append_kernel,
     joint_filter_append_plain,
+    joint_filter_store,
+    joint_filter_store_kernel,
+    joint_filter_store_plain,
 )
 from .lanes import (
     LanesFilterResult,
@@ -68,7 +83,14 @@ from .lanes_products import (
     lanes_smooth_bwd_plain,
 )
 from .smoother import rts_smooth, rts_smooth_kernel, rts_smooth_plain
-from .sqrt_filter import sqrt_filter, sqrt_filter_kernel, sqrt_filter_plain
+from .sqrt_filter import (
+    sqrt_filter,
+    sqrt_filter_gated,
+    sqrt_filter_gated_kernel,
+    sqrt_filter_gated_plain,
+    sqrt_filter_kernel,
+    sqrt_filter_plain,
+)
 from .sqrt_smoother import (
     sqrt_smooth,
     sqrt_smooth_kernel,
@@ -78,15 +100,24 @@ from .sqrt_smoother import (
 __all__ = [
     "LanesFilterResult",
     "build",
+    "detect_scan",
+    "detect_scan_kernel",
+    "detect_scan_plain",
     "forecast_moments",
     "forecast_moments_kernel",
     "forecast_moments_plain",
+    "gated_filter_append",
+    "gated_filter_append_kernel",
+    "gated_filter_append_plain",
     "joint_adjoint",
     "joint_adjoint_kernel",
     "joint_adjoint_plain",
     "joint_filter_append",
     "joint_filter_append_kernel",
     "joint_filter_append_plain",
+    "joint_filter_store",
+    "joint_filter_store_kernel",
+    "joint_filter_store_plain",
     "lanes_adjoint",
     "lanes_adjoint_kernel",
     "lanes_adjoint_plain",
@@ -108,6 +139,9 @@ __all__ = [
     "rts_smooth_kernel",
     "rts_smooth_plain",
     "sqrt_filter",
+    "sqrt_filter_gated",
+    "sqrt_filter_gated_kernel",
+    "sqrt_filter_gated_plain",
     "sqrt_filter_kernel",
     "sqrt_filter_plain",
     "sqrt_smooth",

@@ -42,10 +42,12 @@ build_info: dict = {}
 # launch counters: each wrapper adds one where it launches its kernel
 # ----------------------------------------------------------------------
 _count_lock = threading.Lock()
-LAUNCHES = {"joint_filter_append": 0, "forecast_moments": 0,
-            "lanes_filter": 0, "lanes_adjoint": 0, "lanes_smooth_bwd": 0,
-            "lanes_forward": 0, "lanes_sample": 0, "rts_smooth": 0,
-            "sqrt_filter": 0, "sqrt_smooth": 0, "joint_adjoint": 0}
+LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
+            "forecast_moments": 0, "lanes_filter": 0, "lanes_adjoint": 0,
+            "lanes_smooth_bwd": 0, "lanes_forward": 0, "lanes_sample": 0,
+            "rts_smooth": 0, "sqrt_filter": 0, "sqrt_filter_gated": 0,
+            "sqrt_smooth": 0, "joint_adjoint": 0, "gated_filter": 0,
+            "detect": 0}
 
 
 def count_launch(name: str) -> None:
@@ -134,11 +136,27 @@ def build() -> dict:
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_DBL = ctypes.c_double
 
+#: per source, its entry points (each in an ``_f32`` and an ``_f64``
+#: instantiation): base name and argument types
 _SIGNATURES = {
     # phi, q, z, r, mean0, cov0, y, mask, mean, cov, sigma, detf,
-    # bounds_mean, bounds_cov, B, k, N, S, seg, stream
-    "joint_filter": ("metran_joint_filter", [_PTR] * 14 + [_INT] * 5 + [_PTR]),
+    # bounds_mean, bounds_cov, B, k, N, S, seg, stream; and the store
+    # mode: phi, q, z, r, mean0, cov0, y, mask, mean_p, cov_p, mean_f,
+    # cov_f, sigma, detf, B, k, N, S, stream
+    "joint_filter": (
+        ("metran_joint_filter", [_PTR] * 14 + [_INT] * 5 + [_PTR]),
+        ("metran_joint_filter_store", [_PTR] * 14 + [_INT] * 4 + [_PTR]),
+    ),
+    # phi, q, z, r, mean0, cov0, y, mask, armed, thresh, mean, cov, sigma,
+    # detf, zscore, verdict, B, k, N, S, policy, stream
+    "gated_filter": ("metran_gated_filter",
+                     [_PTR] * 9 + [_DBL] + [_PTR] * 6 + [_INT] * 5 + [_PTR]),
+    # state, zs, mask, armed, state_out, counts, B, k, N, cusum_k, cusum_h,
+    # lam, warm, lb_thresh, nsigma^2, tiny, stream
+    "detect": ("metran_detect", [_PTR] * 6 + [_INT] * 3 + [_DBL] * 7
+               + [_PTR]),
     # phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov, sb, db, scratch,
     # phibar, qbar, B, T, N, n, seg, factored, stream
     "joint_adjoint": ("metran_joint_adjoint",
@@ -166,8 +184,15 @@ _SIGNATURES = {
     # phi, mean_f, cov_f, mean_p, cov_p, mean_s, cov_s, L, T, n, stream
     "rts_smoother": ("metran_rts_smoother", [_PTR] * 7 + [_INT] * 3 + [_PTR]),
     # phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, ..., out5,
-    # bounds_mean, bounds_chol, L, T, N, n, store, seg, stream
-    "sqrt_filter": ("metran_sqrt_filter", [_PTR] * 17 + [_INT] * 6 + [_PTR]),
+    # bounds_mean, bounds_chol, L, T, N, n, store, seg, stream; and the
+    # gated mode: phi, q, z, r, y, mask, lane_map, mean0, chol0, armed,
+    # thresh, mean, chol, sigma, detf, zscore, verdict, L, T, N, n,
+    # policy, stream
+    "sqrt_filter": (
+        ("metran_sqrt_filter", [_PTR] * 17 + [_INT] * 6 + [_PTR]),
+        ("metran_sqrt_filter_gated",
+         [_PTR] * 10 + [_DBL] + [_PTR] * 6 + [_INT] * 5 + [_PTR]),
+    ),
     # phi, q, mean_f, chol_f, mean_p, chol_p, mean_s, chol_s, L, T, n,
     # stream
     "sqrt_smoother": ("metran_sqrt_smoother",
@@ -182,11 +207,14 @@ def load_library(stem: str):
         if not _libs:
             for name, path in build().items():
                 lib = ctypes.CDLL(str(path))
-                base, argtypes = _SIGNATURES[name]
-                for suffix in ("f32", "f64"):
-                    fn = getattr(lib, f"{base}_{suffix}")
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                entries = _SIGNATURES[name]
+                if isinstance(entries[0], str):
+                    entries = (entries,)
+                for base, argtypes in entries:
+                    for suffix in ("f32", "f64"):
+                        fn = getattr(lib, f"{base}_{suffix}")
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
                 lib.metran_error_string.argtypes = [ctypes.c_int]
                 lib.metran_error_string.restype = ctypes.c_char_p
                 _libs[name] = lib

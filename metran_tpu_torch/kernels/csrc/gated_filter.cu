@@ -1,0 +1,252 @@
+// K12: gated sequential-processing Kalman filter append, one thread block
+// per model.
+//
+// Replaces the JAX package's device program B9b (gated) in
+// metran_tpu/ops/kalman.py: _gated_sequential_update and
+// _make_gated_core_step behind gated_filter_append (the serving path's
+// observation gate, vmapped over a shape bucket by serve/engine.py), and,
+// with the gate off, _sequential_update behind
+// filter_append(engine="sequential").
+//
+// Per model and appended step:
+//   predict   m = phi o m,  P = (phi phi') o P + q
+//   then one rank-1 update per OBSERVED slot i, in slot order:
+//     v = y_i - z_i.m,  d = P z_i,  f = z_i.d + r_i,  z = v / sqrt(f)
+//     hit = armed && z^2 > t            (t = nsigma^2; never with "off")
+//     reject   use = !hit
+//     huber    v <- w v, w = hit ? sqrt(t / z^2) : 1
+//     inflate  f <- hit ? v^2 / t : f   (> f exactly when hit)
+//     if use:  k = d / f,  m += k v,  P -= (k k') f,
+//              sigma += v^2 / f,  detf += log f
+//   verdict: 2 (rejected) or 1 (downweighted) where hit, else 0; the
+//   z-score is NaN on unobserved slots and, with the gate off, on every
+//   slot, as the JAX function returns them.
+// An unobserved slot changes nothing, exactly as the JAX select does.
+//
+// Bit-exactness contract: a slot that does not trip executes the same
+// floating-point operations in every policy (w = 1 and the selects are
+// exact identities), so an armed gate that never trips gives the
+// posterior and likelihood terms of the "off" instantiation bit for bit.
+// The policy is a template parameter; every instantiation shares the one
+// body below.
+//
+// What bounds it on an H100: latency, as K1.  At the flagship bucket
+// (N = 24, S = 32) a step is N dependent rank-1 updates of ~3 S^2 flops
+// each, four block barriers apiece; the covariance, Z and the carry stay
+// in shared memory for all k steps, device memory sees y, mask and the
+// posterior once, and one launch serves the dispatch.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+enum Policy { kOff = 0, kReject = 1, kHuber = 2, kInflate = 3 };
+
+template <typename T, int kPolicy>
+__global__ void __launch_bounds__(kThreads)
+gated_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
+                    const T* __restrict__ z, const T* __restrict__ r,
+                    const T* __restrict__ mean0, const T* __restrict__ cov0,
+                    const T* __restrict__ y, const uint8_t* __restrict__ mask,
+                    const uint8_t* __restrict__ armed, double thresh_d,
+                    T* __restrict__ mean_out, T* __restrict__ cov_out,
+                    T* __restrict__ sigma_out, T* __restrict__ detf_out,
+                    T* __restrict__ z_out, int8_t* __restrict__ verdict_out,
+                    int k, int N, int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* P = reinterpret_cast<T*>(smem_raw);  // S*S covariance
+  T* Zs = P + S * S;                       // N*S observation matrix
+  T* m = Zs + N * S;                       // S mean
+  T* ph = m + S;                           // S transition diagonal
+  T* d = ph + S;                           // S: P z_i
+  T* kg = d + S;                           // S: the gain d / f
+  __shared__ T s_v, s_f, s_sigma, s_detf;
+  __shared__ int s_use;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const T* qb = q + (size_t)b * S * S;
+  const T* rb = r + (size_t)b * N;
+  const T thresh = T(thresh_d);
+  const bool arm = kPolicy != kOff && armed[b] != 0;
+  const T nan = T(NAN);
+
+  for (int i = tid; i < S * S; i += kThreads)
+    P[i] = cov0[(size_t)b * S * S + i];
+  for (int i = tid; i < N * S; i += kThreads) Zs[i] = z[(size_t)b * N * S + i];
+  for (int i = tid; i < S; i += kThreads) {
+    m[i] = mean0[(size_t)b * S + i];
+    ph[i] = phi[(size_t)b * S + i];
+  }
+  __syncthreads();
+
+  for (int t = 0; t < k; ++t) {
+    const size_t row = (size_t)b * k + t;
+    const T* yt = y + row * N;
+    const uint8_t* mt = mask + row * N;
+    // predict (each thread owns its entries)
+    for (int i = tid; i < S; i += kThreads) m[i] = ph[i] * m[i];
+    for (int idx = tid; idx < S * S; idx += kThreads) {
+      const int i = idx / S, j = idx - (idx / S) * S;
+      P[idx] = ph[i] * P[idx] * ph[j] + qb[idx];
+    }
+    if (tid == 0) {
+      s_sigma = T(0);
+      s_detf = T(0);
+    }
+    __syncthreads();
+    for (int a = 0; a < N; ++a) {
+      const size_t zo = row * N + a;
+      if (mt[a] == 0) {  // block-uniform: the slot is unobserved
+        if (tid == 0) {
+          z_out[zo] = nan;
+          verdict_out[zo] = 0;
+        }
+        continue;
+      }
+      const T* za = Zs + a * S;
+      for (int i = tid; i < S; i += kThreads) {
+        T acc = 0;
+        for (int j = 0; j < S; ++j) acc += P[i * S + j] * za[j];
+        d[i] = acc;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        T zm = 0, zd = 0;
+        for (int j = 0; j < S; ++j) zm += za[j] * m[j];
+        for (int j = 0; j < S; ++j) zd += za[j] * d[j];
+        const T v = yt[a] - zm;
+        const T f = zd + rb[a];
+        const T zs = v / sqrt(f);
+        const T score = zs * zs;
+        const bool hit = arm && score > thresh;
+        T vv = v, fe = f;
+        bool use = true;
+        if (kPolicy == kReject) use = !hit;
+        if (kPolicy == kHuber) vv = (hit ? sqrt(thresh / score) : T(1)) * v;
+        if (kPolicy == kInflate) fe = hit ? v * v / thresh : f;
+        if (use) {
+          s_sigma = s_sigma + vv * vv / fe;
+          s_detf = s_detf + log(fe);
+        }
+        s_v = vv;
+        s_f = fe;
+        s_use = use ? 1 : 0;
+        z_out[zo] = kPolicy == kOff ? nan : zs;
+        verdict_out[zo] = hit ? (kPolicy == kReject ? 2 : 1) : 0;
+      }
+      __syncthreads();
+      if (s_use) {  // block-uniform
+        for (int i = tid; i < S; i += kThreads) kg[i] = d[i] / s_f;
+        __syncthreads();
+        for (int i = tid; i < S; i += kThreads) m[i] = m[i] + kg[i] * s_v;
+        for (int idx = tid; idx < S * S; idx += kThreads) {
+          const int i = idx / S, j = idx - (idx / S) * S;
+          P[idx] = P[idx] - kg[i] * kg[j] * s_f;
+        }
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      sigma_out[row] = s_sigma;
+      detf_out[row] = s_detf;
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < S * S; i += kThreads)
+    cov_out[(size_t)b * S * S + i] = P[i];
+  for (int i = tid; i < S; i += kThreads) mean_out[(size_t)b * S + i] = m[i];
+}
+
+template <typename T>
+size_t gated_filter_smem(int N, int S) {
+  return sizeof(T) * ((size_t)S * S + (size_t)N * S + 4 * (size_t)S);
+}
+
+template <typename T, int kPolicy>
+int launch(const void* phi, const void* q, const void* z, const void* r,
+           const void* mean0, const void* cov0, const void* y,
+           const void* mask, const void* armed, double thresh,
+           void* mean_out, void* cov_out, void* sigma_out, void* detf_out,
+           void* z_out, void* verdict_out, int B, int k, int N, int S,
+           void* stream) {
+  const size_t smem = gated_filter_smem<T>(N, S);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gated_filter_kernel<T, kPolicy>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (B == 0) return 0;
+  gated_filter_kernel<T, kPolicy>
+      <<<B, kThreads, smem, (cudaStream_t)stream>>>(
+          (const T*)phi, (const T*)q, (const T*)z, (const T*)r,
+          (const T*)mean0, (const T*)cov0, (const T*)y, (const uint8_t*)mask,
+          (const uint8_t*)armed, thresh, (T*)mean_out, (T*)cov_out,
+          (T*)sigma_out, (T*)detf_out, (T*)z_out, (int8_t*)verdict_out, k, N,
+          S);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gated_filter(const void* phi, const void* q, const void* z,
+                        const void* r, const void* mean0, const void* cov0,
+                        const void* y, const void* mask, const void* armed,
+                        double thresh, void* mean_out, void* cov_out,
+                        void* sigma_out, void* detf_out, void* z_out,
+                        void* verdict_out, int B, int k, int N, int S,
+                        int policy, void* stream) {
+#define METRAN_GATED(P)                                                    \
+  return launch<T, P>(phi, q, z, r, mean0, cov0, y, mask, armed, thresh,  \
+                      mean_out, cov_out, sigma_out, detf_out, z_out,      \
+                      verdict_out, B, k, N, S, stream)
+  switch (policy) {
+    case kOff: METRAN_GATED(kOff);
+    case kReject: METRAN_GATED(kReject);
+    case kHuber: METRAN_GATED(kHuber);
+    case kInflate: METRAN_GATED(kInflate);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef METRAN_GATED
+}
+
+}  // namespace
+
+extern "C" {
+
+// policy: 0 off, 1 reject, 2 huber, 3 inflate; thresh = nsigma^2;
+// armed (B,) uint8 (read only when policy != 0)
+int metran_gated_filter_f32(const void* phi, const void* q, const void* z,
+                            const void* r, const void* mean0,
+                            const void* cov0, const void* y, const void* mask,
+                            const void* armed, double thresh, void* mean_out,
+                            void* cov_out, void* sigma_out, void* detf_out,
+                            void* z_out, void* verdict_out, int B, int k,
+                            int N, int S, int policy, void* stream) {
+  return launch_gated_filter<float>(phi, q, z, r, mean0, cov0, y, mask, armed,
+                                    thresh, mean_out, cov_out, sigma_out,
+                                    detf_out, z_out, verdict_out, B, k, N, S,
+                                    policy, stream);
+}
+
+int metran_gated_filter_f64(const void* phi, const void* q, const void* z,
+                            const void* r, const void* mean0,
+                            const void* cov0, const void* y, const void* mask,
+                            const void* armed, double thresh, void* mean_out,
+                            void* cov_out, void* sigma_out, void* detf_out,
+                            void* z_out, void* verdict_out, int B, int k,
+                            int N, int S, int policy, void* stream) {
+  return launch_gated_filter<double>(phi, q, z, r, mean0, cov0, y, mask,
+                                     armed, thresh, mean_out, cov_out,
+                                     sigma_out, detf_out, z_out, verdict_out,
+                                     B, k, N, S, policy, stream);
+}
+
+const char* metran_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -28,7 +28,7 @@
 // time loop runs inside the kernel: one launch per dispatch, k = 1 or
 // k = 5000 alike.  Many models per SM hide the barrier latency.
 //
-// Two instantiations (a template parameter, not a run-time branch):
+// Three instantiations (a template parameter, not a run-time branch):
 //   carry   per step sigma, detf and the final (m, P) — serving and the
 //           deviance;
 //   bounds  the same, and the carry (m, P) at the start of every segment
@@ -37,7 +37,15 @@
 //           _run_segments, engine="joint"), whose backward (K11) replays
 //           each segment from its boundary.  Each thread stores the
 //           entries it then predicts, so the arithmetic is the carry
-//           instantiation's, bit for bit.
+//           instantiation's, bit for bit;
+//   store   per step sigma, detf and the predicted and filtered moments
+//           (m_p, P_p, m_f, P_f): (B, k, S), (B, k, S, S) twice — the
+//           joint engine's kalman_filter(store=True) (metran_tpu/ops/
+//           kalman.py::kalman_filter, engine="joint"), what the RTS
+//           smoother K8 and the single-model products read.  The stores
+//           read shared memory between the carry instantiation's own
+//           barriers, so every stored step is the carry run's, bit for
+//           bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,8 +54,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+enum Mode { kCarry = 0, kBounds = 1, kStore = 2 };
 
-template <typename T, bool kBounds>
+// x0, x1: the segment boundaries (bounds); x0..x3: m_p, P_p, m_f, P_f
+// per step (store)
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                     const T* __restrict__ z, const T* __restrict__ r,
@@ -55,8 +66,9 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                     const T* __restrict__ y, const uint8_t* __restrict__ mask,
                     T* __restrict__ mean_out, T* __restrict__ cov_out,
                     T* __restrict__ sigma_out, T* __restrict__ detf_out,
-                    T* __restrict__ bounds_mean, T* __restrict__ bounds_cov,
-                    int k, int N, int S, int seg) {
+                    T* __restrict__ x0, T* __restrict__ x1,
+                    T* __restrict__ x2, T* __restrict__ x3, int k, int N,
+                    int S, int seg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* P = reinterpret_cast<T*>(smem_raw);  // S*S covariance
   T* Zs = P + S * S;                       // N*S observation matrix
@@ -77,6 +89,14 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
   const int nt = blockDim.x;
   const T* qb = q + (size_t)b * S * S;
   const T* rb = r + (size_t)b * N;
+  // store: the carry leaving step t (read between barriers)
+  auto store_filtered = [&](int t) {
+    if (kMode != kStore) return;
+    const size_t st = (size_t)b * k + t;
+    for (int i = tid; i < S; i += nt) x2[st * S + i] = m[i];
+    for (int idx = tid; idx < S * S; idx += nt)
+      x3[st * S * S + idx] = P[idx];
+  };
 
   for (int i = tid; i < S * S; i += nt) P[i] = cov0[(size_t)b * S * S + i];
   for (int i = tid; i < N * S; i += nt) Zs[i] = z[(size_t)b * N * S + i];
@@ -90,12 +110,11 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
     const uint8_t* mt = mask + ((size_t)b * k + t) * N;
     if (tid == 0) has_obs_s = 0;
     __syncthreads();
-    if (kBounds && t % seg == 0) {  // the carry entering this segment
+    if (kMode == kBounds && t % seg == 0) {  // the carry entering it
       const int n_seg = (k + seg - 1) / seg;
       const size_t sb = (size_t)b * n_seg + t / seg;
-      for (int i = tid; i < S; i += nt) bounds_mean[sb * S + i] = m[i];
-      for (int idx = tid; idx < S * S; idx += nt)
-        bounds_cov[sb * S * S + idx] = P[idx];
+      for (int i = tid; i < S; i += nt) x0[sb * S + i] = m[i];
+      for (int idx = tid; idx < S * S; idx += nt) x1[sb * S * S + idx] = P[idx];
     }
     // predict (each thread owns its entries)
     for (int i = tid; i < S; i += nt) m[i] = ph[i] * m[i];
@@ -105,6 +124,12 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
     }
     for (int a = tid; a < N; a += nt) msk[a] = mt[a] ? T(1) : T(0);
     __syncthreads();
+    if (kMode == kStore) {  // the predicted moments of step t
+      const size_t st = (size_t)b * k + t;
+      for (int i = tid; i < S; i += nt) x0[st * S + i] = m[i];
+      for (int idx = tid; idx < S * S; idx += nt)
+        x1[st * S * S + idx] = P[idx];
+    }
     // innovation and the (masked) rows of Z P
     for (int a = tid; a < N; a += nt) {
       T acc = 0;
@@ -124,6 +149,7 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         sigma_out[(size_t)b * k + t] = 0;
         detf_out[(size_t)b * k + t] = 0;
       }
+      store_filtered(t);
       __syncthreads();
       continue;
     }
@@ -167,6 +193,7 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         sigma_out[(size_t)b * k + t] = 0;
         detf_out[(size_t)b * k + t] = INFINITY;
       }
+      store_filtered(t);
       __syncthreads();
       continue;
     }
@@ -222,8 +249,10 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
       P[idx] = P[idx] - acc;
     }
     __syncthreads();
+    store_filtered(t);
   }
   __syncthreads();
+  if (kMode == kStore) return;  // the last stored step is the carry
   for (int i = tid; i < S * S; i += nt) cov_out[(size_t)b * S * S + i] = P[i];
   for (int i = tid; i < S; i += nt) mean_out[(size_t)b * S + i] = m[i];
 }
@@ -234,26 +263,26 @@ size_t joint_filter_smem(int N, int S) {
                       (size_t)S * N + 2 * (size_t)S + 3 * (size_t)N);
 }
 
-template <typename T, bool kBounds>
+template <typename T, int kMode>
 int launch(const void* phi, const void* q, const void* z, const void* r,
            const void* mean0, const void* cov0, const void* y,
            const void* mask, void* mean_out, void* cov_out, void* sigma_out,
-           void* detf_out, void* bounds_mean, void* bounds_cov, int B, int k,
-           int N, int S, int seg, void* stream) {
+           void* detf_out, void* x0, void* x1, void* x2, void* x3, int B,
+           int k, int N, int S, int seg, void* stream) {
   const size_t smem = joint_filter_smem<T>(N, S);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        joint_filter_kernel<T, kBounds>,
+        joint_filter_kernel<T, kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (B == 0) return 0;
-  joint_filter_kernel<T, kBounds>
+  joint_filter_kernel<T, kMode>
       <<<B, kThreads, smem, (cudaStream_t)stream>>>(
           (const T*)phi, (const T*)q, (const T*)z, (const T*)r,
           (const T*)mean0, (const T*)cov0, (const T*)y, (const uint8_t*)mask,
-          (T*)mean_out, (T*)cov_out, (T*)sigma_out, (T*)detf_out,
-          (T*)bounds_mean, (T*)bounds_cov, k, N, S, seg);
+          (T*)mean_out, (T*)cov_out, (T*)sigma_out, (T*)detf_out, (T*)x0,
+          (T*)x1, (T*)x2, (T*)x3, k, N, S, seg);
   return (int)cudaGetLastError();
 }
 
@@ -267,13 +296,14 @@ int launch_joint_filter(const void* phi, const void* q, const void* z,
                         int N, int S, int seg, void* stream) {
   if (bounds_mean != nullptr) {
     if (seg < 1) return (int)cudaErrorInvalidValue;
-    return launch<T, true>(phi, q, z, r, mean0, cov0, y, mask, mean_out,
-                           cov_out, sigma_out, detf_out, bounds_mean,
-                           bounds_cov, B, k, N, S, seg, stream);
+    return launch<T, kBounds>(phi, q, z, r, mean0, cov0, y, mask, mean_out,
+                              cov_out, sigma_out, detf_out, bounds_mean,
+                              bounds_cov, nullptr, nullptr, B, k, N, S, seg,
+                              stream);
   }
-  return launch<T, false>(phi, q, z, r, mean0, cov0, y, mask, mean_out,
-                          cov_out, sigma_out, detf_out, nullptr, nullptr, B,
-                          k, N, S, 1, stream);
+  return launch<T, kCarry>(phi, q, z, r, mean0, cov0, y, mask, mean_out,
+                           cov_out, sigma_out, detf_out, nullptr, nullptr,
+                           nullptr, nullptr, B, k, N, S, 1, stream);
 }
 
 }  // namespace
@@ -304,6 +334,34 @@ int metran_joint_filter_f64(const void* phi, const void* q, const void* z,
                                      mean_out, cov_out, sigma_out, detf_out,
                                      bounds_mean, bounds_cov, B, k, N, S, seg,
                                      stream);
+}
+
+// the store instantiation: per step (m_p, P_p, m_f, P_f), (B, k, S) and
+// (B, k, S, S), and sigma, detf (B, k)
+int metran_joint_filter_store_f32(const void* phi, const void* q,
+                                  const void* z, const void* r,
+                                  const void* mean0, const void* cov0,
+                                  const void* y, const void* mask,
+                                  void* mean_p, void* cov_p, void* mean_f,
+                                  void* cov_f, void* sigma_out,
+                                  void* detf_out, int B, int k, int N, int S,
+                                  void* stream) {
+  return launch<float, kStore>(phi, q, z, r, mean0, cov0, y, mask, nullptr,
+                               nullptr, sigma_out, detf_out, mean_p, cov_p,
+                               mean_f, cov_f, B, k, N, S, 1, stream);
+}
+
+int metran_joint_filter_store_f64(const void* phi, const void* q,
+                                  const void* z, const void* r,
+                                  const void* mean0, const void* cov0,
+                                  const void* y, const void* mask,
+                                  void* mean_p, void* cov_p, void* mean_f,
+                                  void* cov_f, void* sigma_out,
+                                  void* detf_out, int B, int k, int N, int S,
+                                  void* stream) {
+  return launch<double, kStore>(phi, q, z, r, mean0, cov0, y, mask, nullptr,
+                                nullptr, sigma_out, detf_out, mean_p, cov_p,
+                                mean_f, cov_f, B, k, N, S, 1, stream);
 }
 
 const char* metran_error_string(int err) {

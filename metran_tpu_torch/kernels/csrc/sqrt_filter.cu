@@ -43,6 +43,20 @@
 //           whose backward (K11) replays each segment from S S'.  The
 //           stores read the carry before the step touches it, so the
 //           arithmetic is the carry instantiation's, bit for bit.
+//   kGate   the carry outputs from a given carry, each observed slot's
+//           marginal innovation tested against an observation gate first
+//           (metran_tpu/ops/kalman.py::_make_gated_sqrt_core_step behind
+//           gated_sqrt_filter_append, B9b gated): f_i = |(Z S_p)_i|^2 +
+//           r_i, z_i = v_i / sqrt(f_i), hit = armed && z_i^2 > t; then the
+//           policy pre-transforms the slot's row and the SAME QR update
+//           runs — reject drops the slot from the step's observed list,
+//           huber scales v_i by sqrt(t) / |z_i|, inflate adds
+//           v_i^2 / t - f_i to its r_i.  A slot that does not trip feeds
+//           the update exactly the row the ungated instantiation builds,
+//           so a step where nothing trips is the given-carry carry
+//           instantiation's, bit for bit.  Per step and slot it also
+//           writes z_i (NaN where unobserved) and an int8 verdict (2
+//           rejected, 1 downweighted, 0 pass), (L, T, N) each.
 // The deviance is summed by the caller (deviance_terms), not here: a
 // serial float32 sum over thousands of steps would cost about as much as
 // the engine's whole f32 precision bar.
@@ -64,11 +78,13 @@
 namespace {
 
 constexpr int kThreads = 64;
+enum Gate { kNoGate = 0, kReject = 1, kHuber = 2, kInflate = 3 };
 
 template <typename T>
 struct Smem {
-  T *zs, *rr, *ph, *qs, *m, *S, *mp, *Sp, *pa, *ua, *dg, *vv, *ww;
-  int* obs;
+  T *zs, *rr, *ph, *qs, *m, *S, *mp, *Sp, *pa, *ua, *dg, *vv, *ww, *wsc,
+      *reff;
+  int *obs, *hit;
 };
 
 // the layout of one block's dynamic shared memory (with s null, only
@@ -78,27 +94,30 @@ __host__ __device__ size_t carve(unsigned char* base, int N, int n,
                                  Smem<T>* s) {
   const int ldp = sqrtqr::odd_ld(2 * n);
   const int ldu = sqrtqr::odd_ld(N + n);
-  const size_t counts[13] = {
+  const size_t counts[15] = {
       (size_t)N * n, (size_t)N, (size_t)n, (size_t)n, (size_t)n,
       (size_t)n * n, (size_t)n, (size_t)n * n, (size_t)ldp * n,
-      (size_t)ldu * (N + n), (size_t)(N + n), (size_t)N, (size_t)N};
-  size_t offs[13];
+      (size_t)ldu * (N + n), (size_t)(N + n), (size_t)N, (size_t)N,
+      (size_t)N, (size_t)N};
+  size_t offs[15];
   size_t used = 0;
-  for (int k = 0; k < 13; ++k) {
+  for (int k = 0; k < 15; ++k) {
     offs[k] = used;
     used += counts[k];
   }
   if (s != nullptr) {
     T* p = reinterpret_cast<T*>(base);
-    T** slots[13] = {&s->zs, &s->rr, &s->ph, &s->qs, &s->m,  &s->S, &s->mp,
-                     &s->Sp, &s->pa, &s->ua, &s->dg, &s->vv, &s->ww};
-    for (int k = 0; k < 13; ++k) *slots[k] = p + offs[k];
+    T** slots[15] = {&s->zs, &s->rr, &s->ph, &s->qs, &s->m,  &s->S,
+                     &s->mp, &s->Sp, &s->pa, &s->ua, &s->dg, &s->vv,
+                     &s->ww, &s->wsc, &s->reff};
+    for (int k = 0; k < 15; ++k) *slots[k] = p + offs[k];
     s->obs = reinterpret_cast<int*>(p + used);
+    s->hit = s->obs + N;
   }
-  return used * sizeof(T) + (size_t)N * sizeof(int);
+  return used * sizeof(T) + 2 * (size_t)N * sizeof(int);
 }
 
-template <typename T, bool kStore, bool kBounds>
+template <typename T, bool kStore, bool kBounds, int kGate>
 __global__ void __launch_bounds__(kThreads)
 sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                    const T* __restrict__ z, const T* __restrict__ r,
@@ -109,8 +128,10 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                    T* __restrict__ o_mean_f, T* __restrict__ o_chol_f,
                    T* __restrict__ o_sigma, T* __restrict__ o_detf,
                    T* __restrict__ o_bounds_mean,
-                   T* __restrict__ o_bounds_chol, int L, int t_steps, int N,
-                   int n, int seg) {
+                   T* __restrict__ o_bounds_chol,
+                   const uint8_t* __restrict__ armed, double thresh_d,
+                   T* __restrict__ o_z, int8_t* __restrict__ o_verdict,
+                   int L, int t_steps, int N, int n, int seg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<T> s;
   carve<T>(smem_raw, N, n, &s);
@@ -121,6 +142,8 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
   const int nn = n * n;
   const int ldp = sqrtqr::odd_ld(2 * n);
   const T inf = T(INFINITY);
+  const T thresh = T(thresh_d);
+  const bool arm = kGate != kNoGate && armed[l] != 0;
 
   for (int idx = tid; idx < N * n; idx += kThreads)
     s.zs[idx] = z[(size_t)idx * L + l];  // z[i, a, l], idx = i * n + a
@@ -182,6 +205,52 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
       s.Sp[idx] = v;
     }
     __syncthreads();
+    if (kGate != kNoGate) {
+      // the gate, on each observed slot's marginal innovation off S_p
+      const size_t row = ((size_t)l * t_steps + t) * N;
+      for (int i = tid; i < N; i += kThreads) {
+        if (ml[(size_t)t * N + i] == 0) {
+          o_z[row + i] = T(NAN);
+          o_verdict[row + i] = 0;
+        }
+      }
+      for (int k = tid; k < mo; k += kThreads) {
+        const int i = s.obs[k];
+        T v = yl[(size_t)t * N + i];
+        for (int a = 0; a < n; ++a) v -= s.zs[i * n + a] * s.mp[a];
+        T f = T(0);
+        for (int a = 0; a < n; ++a) {
+          T e = T(0);
+          for (int b = a; b < n; ++b) e += s.zs[i * n + b] * s.Sp[b * n + a];
+          f += e * e;
+        }
+        f = f + s.rr[i];
+        const T zi = v / sqrt(f);
+        const T score = zi * zi;
+        const bool hit = arm && score > thresh;
+        s.wsc[i] = kGate == kHuber && hit ? sqrt(thresh / score) : T(1);
+        s.reff[i] = kGate == kInflate && hit ? s.rr[i] + (v * v / thresh - f)
+                                              : s.rr[i];
+        s.hit[k] = hit ? 1 : 0;
+        o_z[row + i] = zi;
+        o_verdict[row + i] = hit ? (kGate == kReject ? 2 : 1) : 0;
+      }
+      __syncthreads();
+      if (kGate == kReject && tid < 32) {  // drop the rejected slots
+        const int m0 = mo;
+        int base = 0;
+        for (int k0 = 0; k0 < m0; k0 += 32) {
+          const int k = k0 + tid;
+          const bool keep = k < m0 && s.hit[k] == 0;
+          const int i = k < m0 ? s.obs[k] : 0;
+          const unsigned bal = __ballot_sync(0xffffffffu, keep);
+          if (keep) s.obs[base + __popc(bal & ((1u << tid) - 1u))] = i;
+          base += __popc(bal);
+        }
+        if (tid == 0) mo = base;
+      }
+      __syncthreads();
+    }
     const int o = mo;
 
     if (o == 0) {
@@ -203,7 +272,7 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         const int i = s.obs[k];
         T acc = yl[(size_t)t * N + i];
         for (int a = 0; a < n; ++a) acc -= s.zs[i * n + a] * s.mp[a];
-        s.vv[k] = acc;
+        s.vv[k] = kGate == kHuber ? s.wsc[i] * acc : acc;
       }
       // the compact pre-array, column-major
       for (int idx = tid; idx < R * R; idx += kThreads) {
@@ -212,7 +281,8 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         if (c < o) {
           const int i = s.obs[c];
           if (row < o) {
-            v = row == c ? sqrt(s.rr[i]) : T(0);
+            v = row == c ? sqrt(kGate == kInflate ? s.reff[i] : s.rr[i])
+                         : T(0);
           } else {  // (Z_o S_p)'[a, c] = sum_b z[i, b] S_p[b, a], b >= a
             const int a = row - o;
             v = T(0);
@@ -299,27 +369,29 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
   }
 }
 
-template <typename T, bool kStore, bool kBounds>
+template <typename T, bool kStore, bool kBounds, int kGate>
 int launch(const void* phi, const void* q, const void* z, const void* r,
            const void* y, const void* mask, const void* lane_map,
            const void* mean0, const void* chol0, void* out0, void* out1,
            void* out2, void* out3, void* out4, void* out5, void* bounds_mean,
-           void* bounds_chol, int L, int t_steps, int N, int n, int seg,
+           void* bounds_chol, const void* armed, double thresh, void* o_z,
+           void* o_verdict, int L, int t_steps, int N, int n, int seg,
            void* stream) {
   const size_t smem = carve<T>(nullptr, N, n, nullptr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sqrt_filter_kernel<T, kStore, kBounds>,
+        sqrt_filter_kernel<T, kStore, kBounds, kGate>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (L == 0) return 0;
-  sqrt_filter_kernel<T, kStore, kBounds>
+  sqrt_filter_kernel<T, kStore, kBounds, kGate>
       <<<L, kThreads, smem, (cudaStream_t)stream>>>(
           (const T*)phi, (const T*)q, (const T*)z, (const T*)r, (const T*)y,
           (const uint8_t*)mask, (const int*)lane_map, (const T*)mean0,
           (const T*)chol0, (T*)out0, (T*)out1, (T*)out2, (T*)out3, (T*)out4,
-          (T*)out5, (T*)bounds_mean, (T*)bounds_chol, L, t_steps, N, n, seg);
+          (T*)out5, (T*)bounds_mean, (T*)bounds_chol, (const uint8_t*)armed,
+          thresh, (T*)o_z, (int8_t*)o_verdict, L, t_steps, N, n, seg);
   return (int)cudaGetLastError();
 }
 
@@ -334,21 +406,46 @@ int launch_sqrt_filter(const void* phi, const void* q, const void* z,
                        int store, int seg, void* stream) {
   if (store && bounds_mean != nullptr) return (int)cudaErrorInvalidValue;
   if (store)
-    return launch<T, true, false>(phi, q, z, r, y, mask, lane_map, mean0,
-                                  chol0, out0, out1, out2, out3, out4, out5,
-                                  nullptr, nullptr, L, t_steps, N, n, 1,
-                                  stream);
+    return launch<T, true, false, kNoGate>(
+        phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, out1, out2,
+        out3, out4, out5, nullptr, nullptr, nullptr, 0.0, nullptr, nullptr,
+        L, t_steps, N, n, 1, stream);
   if (bounds_mean != nullptr) {
     if (seg < 1) return (int)cudaErrorInvalidValue;
-    return launch<T, false, true>(phi, q, z, r, y, mask, lane_map, mean0,
-                                  chol0, out0, out1, out2, out3, out4, out5,
-                                  bounds_mean, bounds_chol, L, t_steps, N, n,
-                                  seg, stream);
+    return launch<T, false, true, kNoGate>(
+        phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, out1, out2,
+        out3, out4, out5, bounds_mean, bounds_chol, nullptr, 0.0, nullptr,
+        nullptr, L, t_steps, N, n, seg, stream);
   }
-  return launch<T, false, false>(phi, q, z, r, y, mask, lane_map, mean0,
-                                 chol0, out0, out1, out2, out3, out4, out5,
-                                 nullptr, nullptr, L, t_steps, N, n, 1,
-                                 stream);
+  return launch<T, false, false, kNoGate>(
+      phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, out1, out2, out3,
+      out4, out5, nullptr, nullptr, nullptr, 0.0, nullptr, nullptr, L,
+      t_steps, N, n, 1, stream);
+}
+
+// the gated instantiations: from a given carry, carry outputs only
+template <typename T>
+int launch_sqrt_filter_gated(const void* phi, const void* q, const void* z,
+                             const void* r, const void* y, const void* mask,
+                             const void* lane_map, const void* mean0,
+                             const void* chol0, const void* armed,
+                             double thresh, void* mean, void* chol,
+                             void* sigma, void* detf, void* o_z,
+                             void* o_verdict, int L, int t_steps, int N,
+                             int n, int policy, void* stream) {
+  if (mean0 == nullptr || chol0 == nullptr) return (int)cudaErrorInvalidValue;
+#define METRAN_SQRT_GATED(G)                                                \
+  return launch<T, false, false, G>(                                        \
+      phi, q, z, r, y, mask, lane_map, mean0, chol0, nullptr, nullptr, mean, \
+      chol, sigma, detf, nullptr, nullptr, armed, thresh, o_z, o_verdict, L, \
+      t_steps, N, n, 1, stream)
+  switch (policy) {
+    case kReject: METRAN_SQRT_GATED(kReject);
+    case kHuber: METRAN_SQRT_GATED(kHuber);
+    case kInflate: METRAN_SQRT_GATED(kInflate);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef METRAN_SQRT_GATED
 }
 
 }  // namespace
@@ -386,6 +483,36 @@ int metran_sqrt_filter_f64(const void* phi, const void* q, const void* z,
                                     chol0, out0, out1, out2, out3, out4, out5,
                                     bounds_mean, bounds_chol, L, t_steps, N, n,
                                     store, seg, stream);
+}
+
+// policy: 1 reject, 2 huber, 3 inflate; thresh = nsigma^2; armed (L,)
+// uint8; zscore (L, T, N), verdict (L, T, N) int8
+int metran_sqrt_filter_gated_f32(const void* phi, const void* q,
+                                 const void* z, const void* r, const void* y,
+                                 const void* mask, const void* lane_map,
+                                 const void* mean0, const void* chol0,
+                                 const void* armed, double thresh, void* mean,
+                                 void* chol, void* sigma, void* detf,
+                                 void* o_z, void* o_verdict, int L,
+                                 int t_steps, int N, int n, int policy,
+                                 void* stream) {
+  return launch_sqrt_filter_gated<float>(
+      phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, thresh, mean,
+      chol, sigma, detf, o_z, o_verdict, L, t_steps, N, n, policy, stream);
+}
+
+int metran_sqrt_filter_gated_f64(const void* phi, const void* q,
+                                 const void* z, const void* r, const void* y,
+                                 const void* mask, const void* lane_map,
+                                 const void* mean0, const void* chol0,
+                                 const void* armed, double thresh, void* mean,
+                                 void* chol, void* sigma, void* detf,
+                                 void* o_z, void* o_verdict, int L,
+                                 int t_steps, int N, int n, int policy,
+                                 void* stream) {
+  return launch_sqrt_filter_gated<double>(
+      phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, thresh, mean,
+      chol, sigma, detf, o_z, o_verdict, L, t_steps, N, n, policy, stream);
 }
 
 const char* metran_error_string(int err) {

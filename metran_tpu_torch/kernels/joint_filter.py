@@ -15,9 +15,16 @@ segment from its boundary.  The per-step terms and the final carry are
 those of the call without it, bit for bit (the kernel's ``bounds``
 instantiation only adds the stores).
 
+:func:`joint_filter_store` is the kernel's ``store`` instantiation: every
+step's predicted and filtered moments ``(mean_p, cov_p, mean_f, cov_f,
+sigma, detf)``, (B, k, S), (B, k, S, S), (B, k, S), (B, k, S, S), (B,
+k), (B, k) — the joint engine's ``kalman_filter(store=True)``.  Each
+stored step is the carry instantiation's, bit for bit.
+
 Replaces ``metran_tpu/ops/kalman.py::filter_append(engine="joint")``
-(``_predict``/``_joint_update``, vmapped by ``serve/engine.py``) and,
-with boundaries, the joint engine of ``metran_tpu/ops/adjoint.py::
+(``_predict``/``_joint_update``, vmapped by ``serve/engine.py``), with
+its store ``kalman_filter(engine="joint", store=True)`` and, with
+boundaries, the joint engine of ``metran_tpu/ops/adjoint.py::
 _run_segments``.
 """
 
@@ -142,6 +149,51 @@ def joint_filter_append_kernel(phi, q, z, r, mean, cov, y, mask,
     return (mean_out, cov_out, sigma, detf, *bounds)
 
 
+def joint_filter_store(phi, q, z, r, mean, cov, y, mask
+                       ) -> Tuple[torch.Tensor, ...]:
+    """``k`` joint-update filter steps per model with every step's
+    moments stored: ``(mean_p, cov_p, mean_f, cov_f, sigma, detf)``
+    (module doc).  Shapes as :func:`joint_filter_append`."""
+    _check(phi, q, z, r, mean, cov, y, mask)
+    if phi.device.type == "cpu":
+        return joint_filter_store_plain(phi, q, z, r, mean, cov, y, mask)
+    return joint_filter_store_kernel(phi, q, z, r, mean, cov, y, mask)
+
+
+def joint_filter_store_kernel(phi, q, z, r, mean, cov, y, mask
+                              ) -> Tuple[torch.Tensor, ...]:
+    """Launch K1's ``store`` instantiation (CUDA tensors only; raises
+    otherwise, and when the kernel cannot build, take the bucket or
+    launch)."""
+    b, k, n, s = _check(phi, q, z, r, mean, cov, y, mask)
+    if phi.device.type != "cuda":
+        raise ValueError(
+            f"the joint-filter kernel runs on CUDA tensors, got {phi.device}"
+        )
+    smem = smem_bytes(n, s, phi.dtype)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"bucket (N={n}, S={s}) at {phi.dtype} needs {smem} bytes of "
+            f"shared memory per block; the kernel takes at most {MAX_SMEM}"
+        )
+    args = [t.contiguous() for t in (phi, q, z, r, mean, cov, y, mask)]
+    new = dict(dtype=phi.dtype, device=phi.device)
+    moments = ((b, k, s), (b, k, s, s))
+    outs = tuple(torch.empty(shape, **new)
+                 for shape in (*moments, *moments, (b, k), (b, k)))
+    lib = build.load_library("joint_filter")
+    fn = (lib.metran_joint_filter_store_f64 if phi.dtype == torch.float64
+          else lib.metran_joint_filter_store_f32)
+    with torch.cuda.device(phi.device):
+        stream = torch.cuda.current_stream(phi.device).cuda_stream
+        err = fn(*[t.data_ptr() for t in args],
+                 *[o.data_ptr() for o in outs], b, k, n, s, stream)
+    build.check(lib, err, "joint_filter_store")
+    if b:
+        build.count_launch("joint_filter_store")
+    return outs
+
+
 def predict_plain(mean, cov, phi, q):
     """Diagonal-transition predict step (batched): Phi = diag(phi)."""
     return phi * mean, phi[..., :, None] * cov * phi[..., None, :] + q
@@ -223,3 +275,27 @@ def joint_filter_append_plain(phi, q, z, r, mean, cov, y, mask,
                 phi.new_zeros((b, 0, s, s)))
     return (mean, cov, sigma, detf, torch.stack(b_mean, 1),
             torch.stack(b_cov, 1))
+
+
+def joint_filter_store_plain(phi, q, z, r, mean, cov, y, mask
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The store in batched PyTorch ops: the steps of
+    :func:`joint_filter_append_plain`, each step's predicted and filtered
+    moments kept."""
+    b, k, _, s = _check(phi, q, z, r, mean, cov, y, mask)
+    steps = []
+    for t in range(k):
+        mean_p, cov_p = predict_plain(mean, cov, phi, q)
+        mean_u, cov_u, sigma_t, detf_t = joint_update_plain(
+            mean_p, cov_p, y[:, t], mask[:, t], z, r
+        )
+        has_obs = mask[:, t].any(dim=-1)
+        mean = torch.where(has_obs[:, None], mean_u, mean_p)
+        cov = torch.where(has_obs[:, None, None], cov_u, cov_p)
+        steps.append((mean_p, cov_p, mean, cov, sigma_t, detf_t))
+    if not k:
+        new = dict(dtype=phi.dtype, device=phi.device)
+        moments = ((b, 0, s), (b, 0, s, s))
+        return tuple(torch.zeros(shape, **new) for shape in
+                     (*moments, *moments, (b, 0), (b, 0)))
+    return tuple(torch.stack(parts, 1) for parts in zip(*steps))

@@ -31,6 +31,17 @@ of ``bounds_seg`` steps, ``(bounds_mean (L, n_seg, n), bounds_chol
 (``metran_tpu_torch.ops.adjoint``); the other outputs are those of the
 call without it, bit for bit.
 
+:func:`sqrt_filter_gated` is the kernel's gated instantiation, from a
+given carry: each observed slot's marginal innovation ``z_i = v_i /
+sqrt(f_i)``, ``f_i = |(Z_m S_p)_i|^2 + r_i``, is tested against ``z_i^2 >
+thresh`` on armed lanes and the policy pre-transforms the slot's row of
+the pre-array — ``"reject"`` masks it, ``"huber"`` scales ``v_i`` by
+``sqrt(thresh) / |z_i|``, ``"inflate"`` adds ``v_i^2 / thresh - f_i`` to
+``r_i`` — before the same QR update runs.  It returns the carry outputs
+and the per-step ``zscore`` (L, T, N) (NaN where unobserved) and int8
+``verdict``.  A step where no slot trips is the ungated given-carry
+call's, bit for bit (kernel and plain version alike).
+
 On CUDA tensors it launches the hand-written kernel
 (``csrc/sqrt_filter.cu``) and raises if that cannot build or launch; on
 CPU tensors it runs :func:`sqrt_filter_plain`, the JAX algorithm step by
@@ -43,7 +54,8 @@ Layouts as :func:`metran_tpu_torch.kernels.lanes_products.lanes_forward`:
 
 Replaces ``metran_tpu/ops/kalman.py``: ``_sqrt_kalman_filter``
 (``_make_sqrt_core_step``, ``_sqrt_qr_update``, ``_tria``; B6) and the
-square-root half of B9b, ``sqrt_filter_append``.
+square-root half of B9b, ``sqrt_filter_append`` and, gated,
+``_make_gated_sqrt_core_step`` behind ``gated_sqrt_filter_append``.
 """
 
 from __future__ import annotations
@@ -53,6 +65,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+from .gated_filter import (
+    GATE_DOWNWEIGHTED,
+    GATE_PASS,
+    GATE_REJECTED,
+    policy_code,
+)
 from .joint_filter import MAX_SMEM
 from .lanes import _check, _ptr, _stream
 
@@ -64,13 +82,14 @@ def _odd(rows: int) -> int:
 def smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory one block of K9 needs (mirrors ``carve`` in
     the source): Z, the carry, the predicted factor, both work arrays
-    and a few vectors, plus the observed-slot list."""
+    and a few vectors, plus the observed-slot list and the gate's
+    per-slot flags."""
     item = torch.finfo(dtype).bits // 8
     big_n, n = n_obs, n_state
     elems = (big_n * n + big_n + 3 * n + n * n + n + n * n
              + _odd(2 * n) * n + _odd(big_n + n) * (big_n + n)
-             + (big_n + n) + 2 * big_n)
-    return elems * item + 4 * big_n
+             + (big_n + n) + 4 * big_n)
+    return elems * item + 8 * big_n
 
 
 # ----------------------------------------------------------------------
@@ -95,25 +114,35 @@ def tria(blocks: torch.Tensor) -> torch.Tensor:
     return sign_normalize_rows(r).transpose(-1, -2)
 
 
-def sqrt_step_plain(ph, qs, zl, rl, mean, chol, y_t, mask_t):
-    """One square-root filter step of a batch of lanes (the JAX
-    ``_make_sqrt_core_step`` + ``_sqrt_qr_update``): ``ph``/``qs`` (L, n)
-    (``qs`` = ``sqrt(max(q, 0))``), ``zl`` (L, N, n), ``rl`` (L, N),
-    ``mean`` (L, n), ``chol`` (L, n, n), ``y_t`` (L, N), ``mask_t``
-    (L, N) bool.  Returns ``(mean_p, chol_p, mean_f, chol_f, sigma,
-    detf)``."""
-    dtype = mean.dtype
-    lanes, big_n, n = zl.shape
+def sqrt_predict_plain(ph, qs, mean, chol):
+    """The square-root predict of a batch of lanes: ``(m_p, S_p)`` with
+    ``S_p = tria([phi o S | diag(qs)])``."""
     mean_p = ph * mean
     chol_p = tria(torch.cat([ph[:, :, None] * chol, torch.diag_embed(qs)],
                             dim=2))
-    maskf = mask_t.to(dtype)
+    return mean_p, chol_p
+
+
+def sqrt_masked_row(zl, rl, mean_p, y_t, mask_t):
+    """The masked observation row of a step: ``(Z_m, r_t, v)`` with unit
+    pseudo-noise and zero innovation on masked slots."""
+    maskf = mask_t.to(mean_p.dtype)
     z_m = zl * maskf[:, :, None]
     r_t = torch.where(mask_t, rl, torch.zeros_like(rl)) + (1.0 - maskf)
     v = torch.where(mask_t, y_t - (zl @ mean_p[:, :, None])[..., 0],
                     torch.zeros_like(y_t))
+    return z_m, r_t, v
+
+
+def sqrt_qr_update_plain(z_m, r_t, v, mean_p, chol_p):
+    """The QR array update of one step (the JAX ``_sqrt_qr_update``),
+    shared verbatim by the plain and the gated step so a gated step
+    where nothing trips is the plain one bit for bit.  Returns
+    ``(mean_f, chol_f, sigma, detf)``."""
+    dtype = mean_p.dtype
+    lanes, big_n, n = z_m.shape
     top = torch.cat([torch.diag_embed(torch.sqrt(r_t)),
-                     zl.new_zeros((lanes, big_n, n))], dim=2)
+                     z_m.new_zeros((lanes, big_n, n))], dim=2)
     bottom = torch.cat([(z_m @ chol_p).transpose(-1, -2),
                         chol_p.transpose(-1, -2)], dim=2)
     pre = torch.cat([top, bottom], dim=1)
@@ -123,19 +152,60 @@ def sqrt_step_plain(ph, qs, zl, rl, mean, chol, y_t, mask_t):
     chol_u = rfull[:, big_n:, big_n:].transpose(-1, -2)
     d = torch.diagonal(fu, 0, -2, -1)
     ok = (d > 0).all(dim=-1) & torch.isfinite(rfull).all(dim=(-2, -1))
-    eye_m = torch.eye(big_n, dtype=dtype, device=mean.device)
+    eye_m = torch.eye(big_n, dtype=dtype, device=mean_p.device)
     fu_safe = torch.where(ok[:, None, None], fu, eye_m)
     w = torch.linalg.solve_triangular(fu_safe.transpose(-1, -2),
                                       v[:, :, None], upper=False)[..., 0]
     mean_f = torch.where(ok[:, None], mean_p + (kbar @ w[:, :, None])[..., 0],
                          mean_p)
     chol_f = torch.where(ok[:, None, None], chol_u, chol_p)
-    zero = torch.zeros((), dtype=dtype, device=mean.device)
+    zero = torch.zeros((), dtype=dtype, device=mean_p.device)
     sigma = torch.where(ok, torch.sum(w * w, dim=-1), zero)
     logd = torch.log(torch.where(ok[:, None], d, torch.ones_like(d)))
     detf = torch.where(ok, 2.0 * torch.sum(logd, dim=-1),
                        torch.full_like(sigma, float("inf")))
-    return mean_p, chol_p, mean_f, chol_f, sigma, detf
+    return mean_f, chol_f, sigma, detf
+
+
+def sqrt_step_plain(ph, qs, zl, rl, mean, chol, y_t, mask_t):
+    """One square-root filter step of a batch of lanes (the JAX
+    ``_make_sqrt_core_step`` + ``_sqrt_qr_update``): ``ph``/``qs`` (L, n)
+    (``qs`` = ``sqrt(max(q, 0))``), ``zl`` (L, N, n), ``rl`` (L, N),
+    ``mean`` (L, n), ``chol`` (L, n, n), ``y_t`` (L, N), ``mask_t``
+    (L, N) bool.  Returns ``(mean_p, chol_p, mean_f, chol_f, sigma,
+    detf)``."""
+    mean_p, chol_p = sqrt_predict_plain(ph, qs, mean, chol)
+    z_m, r_t, v = sqrt_masked_row(zl, rl, mean_p, y_t, mask_t)
+    return (mean_p, chol_p,
+            *sqrt_qr_update_plain(z_m, r_t, v, mean_p, chol_p))
+
+
+def gated_sqrt_step_plain(ph, qs, zl, rl, mean, chol, y_t, mask_t, armed,
+                          policy: str, thresh: float):
+    """One gated square-root step (the JAX ``_make_gated_sqrt_core_step``):
+    the marginal z-scores off ``S_p``, the policy's transform of the
+    masked row, then :func:`sqrt_qr_update_plain`.  Returns ``(mean_f,
+    chol_f, sigma, detf, zscore, verdict)``."""
+    dtype = mean.dtype
+    one = torch.ones((), dtype=dtype, device=mean.device)
+    t = torch.tensor(float(thresh), dtype=dtype, device=mean.device)
+    mean_p, chol_p = sqrt_predict_plain(ph, qs, mean, chol)
+    z_m, r_t, v = sqrt_masked_row(zl, rl, mean_p, y_t, mask_t)
+    f_diag = torch.sum((z_m @ chol_p) ** 2, dim=-1) + r_t
+    zscore = v / torch.sqrt(f_diag)
+    score = zscore * zscore
+    hit = armed[:, None] & mask_t & (score > t)
+    if policy == "reject":
+        z_m, r_t, v = sqrt_masked_row(zl, rl, mean_p, y_t, mask_t & ~hit)
+    elif policy == "huber":
+        v = torch.where(hit, torch.sqrt(t / score), one) * v
+    else:  # "inflate": v^2/t > f_i exactly when hit
+        r_t = torch.where(hit, r_t + (v * v / t - f_diag), r_t)
+    upd = sqrt_qr_update_plain(z_m, r_t, v, mean_p, chol_p)
+    code = GATE_REJECTED if policy == "reject" else GATE_DOWNWEIGHTED
+    verdict = torch.where(hit, code, GATE_PASS).to(torch.int8)
+    nan = torch.full((), float("nan"), dtype=dtype, device=mean.device)
+    return (*upd, torch.where(mask_t, zscore, nan), verdict)
 
 
 # ----------------------------------------------------------------------
@@ -277,12 +347,124 @@ def sqrt_filter_plain(phi, q, z, r, y, mask, lane_map=None,
     return (mean, chol, sigma, detf, *bounds)
 
 
+GATED_POLICIES = ("reject", "huber", "inflate")
+
+
+def _check_gated(phi, q, z, r, y, mask, lane_map, mean0, chol0, armed,
+                 policy):
+    out = _check_sqrt(phi, q, z, r, y, mask, lane_map, mean0, chol0)
+    if policy not in GATED_POLICIES:
+        raise ValueError(
+            f"the gated square-root filter takes policy "
+            f"{' / '.join(GATED_POLICIES)}, got {policy!r} (with the gate "
+            f"off, call sqrt_filter)")
+    if mean0 is None:
+        raise ValueError("the gated square-root filter runs from a given "
+                         "carry (mean0, chol0)")
+    lanes = out[0]
+    if tuple(armed.shape) != (lanes,) or armed.dtype != torch.bool:
+        raise ValueError(f"armed must be a bool ({lanes},) tensor, got "
+                         f"{tuple(armed.shape)} {armed.dtype}")
+    if armed.device != phi.device:
+        raise ValueError(f"armed is on {armed.device}, phi on {phi.device}")
+    return out
+
+
+def sqrt_filter_gated(phi, q, z, r, y, mask, mean0, chol0, armed,
+                      policy: str = "reject", thresh: float = 16.0,
+                      lane_map=None) -> Tuple[torch.Tensor, ...]:
+    """The gated square-root filter of every lane from a given carry:
+    ``(mean (L, n), chol (L, n, n), sigma (L, T), detf (L, T), zscore
+    (L, T, N), verdict (L, T, N) int8)`` (module doc)."""
+    _check_gated(phi, q, z, r, y, mask, lane_map, mean0, chol0, armed,
+                 policy)
+    fn = (sqrt_filter_gated_plain if phi.device.type == "cpu"
+          else sqrt_filter_gated_kernel)
+    return fn(phi, q, z, r, y, mask, mean0, chol0, armed, policy, thresh,
+              lane_map)
+
+
+def sqrt_filter_gated_kernel(phi, q, z, r, y, mask, mean0, chol0, armed,
+                             policy: str = "reject", thresh: float = 16.0,
+                             lane_map=None):
+    """Launch K9's gated instantiation (CUDA tensors only; raises
+    otherwise, and when the kernel cannot build, take the shape or
+    launch)."""
+    lanes, _, t_steps, big_n, n, _, _, lane_map = _check_gated(
+        phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, policy)
+    if phi.device.type != "cuda":
+        raise ValueError(
+            f"the square-root filter kernel runs on CUDA tensors, got "
+            f"{phi.device}")
+    smem = smem_bytes(big_n, n, phi.dtype)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"(N={big_n}, n={n}) at {phi.dtype} needs {smem} bytes of "
+            f"shared memory per block; the kernel takes at most {MAX_SMEM}")
+    args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map,
+                                     mean0, chol0, armed)]
+    new = dict(dtype=phi.dtype, device=phi.device)
+    outs = (torch.empty((lanes, n), **new), torch.empty((lanes, n, n), **new),
+            torch.empty((lanes, t_steps), **new),
+            torch.empty((lanes, t_steps), **new),
+            torch.empty((lanes, t_steps, big_n), **new),
+            torch.empty((lanes, t_steps, big_n), dtype=torch.int8,
+                        device=phi.device))
+    lib = build.load_library("sqrt_filter")
+    fn = (lib.metran_sqrt_filter_gated_f64 if phi.dtype == torch.float64
+          else lib.metran_sqrt_filter_gated_f32)
+    with torch.cuda.device(phi.device):
+        err = fn(*[t.data_ptr() for t in args], float(thresh),
+                 *[o.data_ptr() for o in outs], lanes, t_steps, big_n, n,
+                 policy_code(policy), _stream(phi))
+    build.check(lib, err, "sqrt_filter_gated")
+    if lanes:
+        build.count_launch("sqrt_filter_gated")
+    return outs
+
+
+def sqrt_filter_gated_plain(phi, q, z, r, y, mask, mean0, chol0, armed,
+                            policy: str = "reject", thresh: float = 16.0,
+                            lane_map=None):
+    """The gated filter in PyTorch ops: a Python loop over steps, each
+    :func:`gated_sqrt_step_plain` batched over the lanes."""
+    lanes, _, t_steps, big_n, n, _, _, lane_map = _check_gated(
+        phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, policy)
+    ph = phi.T
+    qs = torch.sqrt(torch.clamp(q.T, min=0.0))
+    zl = z.permute(2, 0, 1)
+    rl = r.T
+    idx = lane_map.long()
+    yl, ml = y[idx], mask[idx]
+    mean, chol = mean0, chol0
+    steps = []
+    for t in range(t_steps):
+        mean, chol, *rest = gated_sqrt_step_plain(
+            ph, qs, zl, rl, mean, chol, yl[:, t], ml[:, t], armed, policy,
+            thresh)
+        steps.append(rest)
+    if not t_steps:
+        new = dict(dtype=phi.dtype, device=phi.device)
+        return (mean, chol.contiguous(), torch.zeros((lanes, 0), **new),
+                torch.zeros((lanes, 0), **new),
+                torch.zeros((lanes, 0, big_n), **new),
+                torch.zeros((lanes, 0, big_n), dtype=torch.int8,
+                            device=phi.device))
+    return (mean, chol, *(torch.stack(p, dim=1) for p in zip(*steps)))
+
+
 __all__ = [
+    "GATED_POLICIES",
+    "gated_sqrt_step_plain",
     "sign_normalize_rows",
     "smem_bytes",
     "sqrt_filter",
+    "sqrt_filter_gated",
+    "sqrt_filter_gated_kernel",
+    "sqrt_filter_gated_plain",
     "sqrt_filter_kernel",
     "sqrt_filter_plain",
+    "sqrt_qr_update_plain",
     "sqrt_step_plain",
     "tria",
 ]

@@ -1,5 +1,6 @@
 """State-space build, the joint, sequential and square-root Kalman
-engines, the RTS smoothers and the single-model products, the
+engines with the serving path's observation gate, the streaming
+detector, the RTS smoothers and the single-model products, the
 batch-layout closed-form adjoint, the lane-layout fleet deviance, the
 lane-layout post-fit products and closed-form forecasts."""
 
@@ -9,12 +10,22 @@ from .adjoint import (
     anchored_adjoint_deviance,
     resolve_grad_engine,
 )
+from .detect import (
+    DETECT_STATE_ROWS,
+    detect_append,
+    detect_init,
+    detect_stats,
+)
 from .forecast import (
     forecast_horizons,
     forecast_observation_moments,
     forecast_state_moments,
 )
 from .kalman import (
+    GATE_DOWNWEIGHTED,
+    GATE_PASS,
+    GATE_POLICIES,
+    GATE_REJECTED,
     FilterResult,
     SmootherResult,
     SqrtFilterResult,
@@ -24,6 +35,8 @@ from .kalman import (
     deviance,
     deviance_terms,
     filter_append,
+    gated_filter_append,
+    gated_sqrt_filter_append,
     innovations,
     kalman_filter,
     log_likelihood,
@@ -56,7 +69,12 @@ from .statespace import (
 
 __all__ = [
     "ADJOINT_ENGINES",
+    "DETECT_STATE_ROWS",
     "FilterResult",
+    "GATE_DOWNWEIGHTED",
+    "GATE_PASS",
+    "GATE_POLICIES",
+    "GATE_REJECTED",
     "SmootherResult",
     "SqrtFilterResult",
     "SqrtSmootherResult",
@@ -67,12 +85,17 @@ __all__ = [
     "chol_outer",
     "decompose_states",
     "deviance",
+    "detect_append",
+    "detect_init",
+    "detect_stats",
     "deviance_terms",
     "dfm_statespace",
     "filter_append",
     "forecast_horizons",
     "forecast_observation_moments",
     "forecast_state_moments",
+    "gated_filter_append",
+    "gated_sqrt_filter_append",
     "innovations",
     "kalman_filter",
     "lanes_deviance_terms",

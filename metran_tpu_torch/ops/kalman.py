@@ -12,10 +12,16 @@ the lane-layout sequential filter with one lane per model) for
 ``engine="sequential"``.  Each runs its hand-written kernel on CUDA
 tensors and its plain PyTorch version on CPU tensors.
 
-``kalman_filter(engine="sequential", store=True)`` keeps every step's
-predicted and filtered moments: kernel K6 in its ``store`` mode
+``kalman_filter(store=True)`` keeps every step's predicted and filtered
+moments: kernel K6 in its ``store`` mode on the sequential engine
 (:func:`metran_tpu_torch.kernels.lanes_products.lanes_forward`, one lane
-per model).  :func:`rts_smoother` is kernel K8
+per model), K1 in its ``store`` mode on the joint engine
+(:func:`metran_tpu_torch.kernels.joint_filter.joint_filter_store`).
+:func:`filter_append` on the sequential engine (the JAX default) is
+kernel K12 with the gate off, and the observation gate of the serving
+path is K12 armed (:func:`gated_filter_append`) or, in factored form,
+K9's gated instantiation (:func:`gated_sqrt_filter_append`).
+:func:`rts_smoother` is kernel K8
 (:func:`metran_tpu_torch.kernels.smoother.rts_smooth`) over them.  The
 products of one model (:func:`innovations`, :func:`decompose_states`,
 :func:`project`) are plain tensor code on those moments;
@@ -46,9 +52,8 @@ without its per-step store, :func:`sqrt_filter_update`/
 engine's per-step building blocks, batched, for callers that step one
 row at a time; the first two are the plain version's own steps.
 
-The associative-scan engines, and ``store=True`` with the joint engine,
-raise with the ROADMAP item that will port them.  ``kalman_filter``
-keeps the JAX defaults, ``engine="sequential", store=True``.
+The associative-scan engines raise with the ROADMAP item that will port
+them.  Every function keeps its JAX twin's defaults.
 """
 
 from __future__ import annotations
@@ -59,14 +64,23 @@ import torch
 
 from ..config import as_tensor, float_dtype, resolve_device
 from ..kernels import lanes_products as kp
+from ..kernels.gated_filter import (
+    GATE_DOWNWEIGHTED,
+    GATE_PASS,
+    GATE_POLICIES,
+    GATE_REJECTED,
+    gated_filter_append as _gated_kernel,
+    gated_update_plain,
+)
 from ..kernels.joint_filter import (
     joint_filter_append,
+    joint_filter_store,
     joint_update_plain,
     predict_plain,
 )
 from ..kernels.lanes import lanes_filter
 from ..kernels.smoother import rts_smooth
-from ..kernels.sqrt_filter import sqrt_filter
+from ..kernels.sqrt_filter import sqrt_filter, sqrt_filter_gated
 from ..kernels.sqrt_smoother import sqrt_smooth
 from .adjoint import DEFAULT_SEG, adjoint_deviance_terms, resolve_grad_engine
 from .lanes import lanes_terms, prepare_data
@@ -76,8 +90,8 @@ LOG2PI = 1.8378770664093453  # log(2*pi)
 
 #: where each engine that a function lacks will come from
 _NOT_PORTED = {
-    "joint": "ROADMAP A2 (the joint store, a store instantiation of K1)",
-    "sequential": "ROADMAP A4.2 (sequential serving updates, kernel B9b)",
+    "joint": "ROADMAP A2 (Metran(engine='joint') and the batch-layout "
+             "products)",
     "parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
     "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
 }
@@ -139,17 +153,23 @@ def _init_state(ss: StateSpace, dtype):
 
 
 def _make_core_step(ss: StateSpace, engine: str):
-    """Shared predict+update body of one filter timestep (batched).
-    Returns ``core(mean, cov, y_t, mask_t) -> (mean_p, cov_p, mean_f,
-    cov_f, sigma, detf)``."""
-    _require(engine)
+    """Shared predict+update body of one filter timestep (batched), on
+    the joint or the sequential engine.  Returns ``core(mean, cov, y_t,
+    mask_t) -> (mean_p, cov_p, mean_f, cov_f, sigma, detf)``."""
+    _require(engine, ("joint", "sequential"))
+
+    def update(mean_p, cov_p, y_t, mask_t):
+        if engine == "joint":
+            return _joint_update(mean_p, cov_p, y_t, mask_t, ss.z, ss.r)
+        armed = torch.zeros(mean_p.shape[0], dtype=torch.bool,
+                            device=mean_p.device)
+        return gated_update_plain(mean_p, cov_p, y_t, mask_t, ss.z, ss.r,
+                                  armed, "off", 0.0)[:4]
 
     def core(mean, cov, y_t, mask_t):
         mean_p, cov_p = _predict(mean, cov, ss.phi, ss.q)
         has_obs = mask_t.any(dim=-1)
-        mean_f, cov_f, sigma, detf = _joint_update(
-            mean_p, cov_p, y_t, mask_t, ss.z, ss.r
-        )
+        mean_f, cov_f, sigma, detf = update(mean_p, cov_p, y_t, mask_t)
         mean_f = torch.where(has_obs[..., None], mean_f, mean_p)
         cov_f = torch.where(has_obs[..., None, None], cov_f, cov_p)
         return mean_p, cov_p, mean_f, cov_f, sigma, detf
@@ -179,7 +199,8 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "sequential",
     needs a diagonal ``q``).  With ``store=False``, ``mean``/``cov`` hold
     the final carry and ``sigma``/``detf`` the per-step terms ((T,) or
     (B, T)): ``engine="sequential"`` runs K3 with one lane per model,
-    ``engine="joint"`` K1 (its store is ROADMAP A2).  ``engine="sqrt"`` runs K9
+    ``engine="joint"`` K1 (its store: K1's ``store`` mode).
+    ``engine="sqrt"`` runs K9
     (:func:`sqrt_kalman_filter`) and reconstitutes the covariances from
     its factors (``chol_outer``), with or without ``store``.
     """
@@ -192,17 +213,18 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "sequential",
                                 res.sigma, res.detf)
         return FilterResult(res.mean_p, chol_outer(res.chol_p), res.mean_f,
                             chol_outer(res.chol_f), res.sigma, res.detf)
-    if store and engine != "sequential":
-        raise NotPortedError(
-            "store=True with the joint engine is not ported yet: ROADMAP "
-            "A2 (the joint store and the batch-layout products); use "
-            "engine='sequential'"
-        )
     ss_b, device, dtype, single = _prepare(ss, device)
     y = as_tensor(y, device, dtype)
     mask = as_tensor(mask, device, torch.bool)
     if single:
         y, mask = y[None], mask[None]
+    if store and engine == "joint":
+        mean0, cov0 = _init_state(ss_b, dtype)
+        out = joint_filter_store(ss_b.phi, ss_b.q, ss_b.z, ss_b.r, mean0,
+                                 cov0, y.contiguous(), mask.contiguous())
+        if single:
+            out = tuple(o[0] for o in out)
+        return FilterResult(*out)
     if store:
         phi, q, z, r = _lanes_ss(ss_b)
         out = kp.lanes_forward(phi, q, z, r, y.contiguous(),
@@ -248,36 +270,95 @@ def _lanes_ss(ss_b: StateSpace, engine: str = "sequential"):
     return ss_b.phi.T, q.T, ss_b.z.permute(1, 2, 0), ss_b.r.T
 
 
+def _append_args(ss: StateSpace, mean, fac, y_new, mask_new, device):
+    """``(ss_b, mean, fac, y_new, mask_new, single)`` of an append: the
+    leaves and the carry with a leading batch axis, the rows (B, k, N)."""
+    ss_b, device, dtype, single = _prepare(ss, device)
+    y_new = as_tensor(y_new, device, dtype)
+    mask_new = as_tensor(mask_new, device, torch.bool)
+    mean = as_tensor(mean, device, dtype)
+    fac = as_tensor(fac, device, dtype)
+    if single:
+        if y_new.dim() == 1:
+            y_new, mask_new = y_new[None], mask_new[None]
+        y_new, mask_new = y_new[None], mask_new[None]
+        mean, fac = mean[None], fac[None]
+    return ss_b, mean, fac, y_new, mask_new, single
+
+
+def _armed(armed, batch: int, device) -> torch.Tensor:
+    """``armed`` (a bool, or one per model) as a (B,) bool tensor."""
+    armed = torch.as_tensor(armed, dtype=torch.bool, device=device)
+    return armed.expand(batch).contiguous() if armed.dim() == 0 else armed
+
+
 def filter_append(ss: StateSpace, mean, cov, y_new, mask_new,
-                  engine: str = "joint", device=None
+                  engine: str = "sequential", device=None
                   ) -> Tuple[torch.Tensor, ...]:
     """Assimilate ``k`` appended rows from a carried posterior.
 
     One model: mean (S,), cov (S, S), y_new/mask_new (k, N) (or (N,)).
     A batch: leaves and moments lead with B, y_new/mask_new (B, k, N).
     Returns ``(mean_T, cov_T, sigma, detf)`` with per-step terms (k,)
-    or (B, k).  The square-root engine carries a factor instead: use
-    :func:`sqrt_filter_append`.
+    or (B, k).  ``engine="sequential"`` (the JAX default) conditions on
+    the observed slots one at a time: kernel K12 with the gate off;
+    ``engine="joint"`` updates jointly through a Cholesky of the
+    innovation covariance: kernel K1.  The square-root engine carries a
+    factor instead: use :func:`sqrt_filter_append`.
     """
     if engine in ("sqrt", "sqrt_parallel"):
         raise ValueError(
             "filter_append carries a covariance; the square-root engine "
             "carries a Cholesky factor — use sqrt_filter_append"
         )
-    _require(engine)
-    ss_b, device, dtype, single = _prepare(ss, device)
-    y_new = as_tensor(y_new, device, dtype)
-    mask_new = as_tensor(mask_new, device, torch.bool)
-    mean = as_tensor(mean, device, dtype)
-    cov = as_tensor(cov, device, dtype)
+    _require(engine, ("sequential", "joint"))
+    ss_b, mean, cov, y_new, mask_new, single = _append_args(
+        ss, mean, cov, y_new, mask_new, device)
+    if engine == "sequential":
+        out = _gated_kernel(ss_b.phi, ss_b.q, ss_b.z, ss_b.r, mean, cov,
+                            y_new, mask_new,
+                            _armed(False, mean.shape[0], mean.device),
+                            "off")[:4]
+    else:
+        out = joint_filter_append(
+            ss_b.phi, ss_b.q, ss_b.z, ss_b.r, mean, cov, y_new, mask_new
+        )
     if single:
-        if y_new.dim() == 1:
-            y_new, mask_new = y_new[None], mask_new[None]
-        y_new, mask_new = y_new[None], mask_new[None]
-        mean, cov = mean[None], cov[None]
-    out = joint_filter_append(
-        ss_b.phi, ss_b.q, ss_b.z, ss_b.r, mean, cov, y_new, mask_new
-    )
+        out = tuple(o[0] for o in out)
+    return out
+
+
+def gated_filter_append(ss: StateSpace, mean, cov, y_new, mask_new,
+                        armed=True, policy: str = "reject",
+                        nsigma: float = 4.0, device=None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """:func:`filter_append` (sequential engine) with per-slot online
+    innovation gating: one K12 launch.
+
+    Each observed slot's normalized innovation ``z = v / sqrt(f)`` is
+    tested against ``z^2 > nsigma^2`` on armed models and the policy
+    applied: ``"reject"`` (the slot is treated as missing), ``"huber"``
+    (``v`` scaled by ``nsigma / |z|``) or ``"inflate"`` (``f`` raised to
+    ``v^2 / nsigma^2``); ``"off"`` is :func:`filter_append`.  ``armed``
+    is a bool or one per model.  Returns ``(mean_T, cov_T, sigma, detf,
+    zscore, verdict)``: the first four as :func:`filter_append`, then
+    the per-step (k, N) (or (B, k, N)) signed z-scores (NaN where
+    unobserved, and everywhere with the gate off) and int8 verdicts
+    (:data:`GATE_PASS`/:data:`GATE_DOWNWEIGHTED`/:data:`GATE_REJECTED`).
+
+    Contract: with ``policy="off"``, or an armed gate that never trips,
+    the posterior and likelihood outputs are bit-identical to
+    :func:`filter_append` with ``engine="sequential"``.
+    """
+    if policy not in GATE_POLICIES:
+        raise ValueError(
+            f"unknown gate policy {policy!r}; expected one of "
+            f"{GATE_POLICIES}")
+    ss_b, mean, cov, y_new, mask_new, single = _append_args(
+        ss, mean, cov, y_new, mask_new, device)
+    out = _gated_kernel(ss_b.phi, ss_b.q, ss_b.z, ss_b.r, mean, cov, y_new,
+                        mask_new, _armed(armed, mean.shape[0], mean.device),
+                        policy, float(nsigma) * float(nsigma))
     if single:
         out = tuple(o[0] for o in out)
     return out
@@ -355,20 +436,54 @@ def sqrt_filter_append(ss: StateSpace, mean, chol, y_new, mask_new,
     ``(mean_T, chol_T, sigma, detf)`` with per-step terms (k,) or
     (B, k); ``chol_T`` is lower-triangular, PSD by construction.
     """
-    ss_b, device, dtype, single = _prepare(ss, device)
-    y_new = as_tensor(y_new, device, dtype)
-    mask_new = as_tensor(mask_new, device, torch.bool)
-    mean = as_tensor(mean, device, dtype)
-    chol = as_tensor(chol, device, dtype)
-    if single:
-        if y_new.dim() == 1:
-            y_new, mask_new = y_new[None], mask_new[None]
-        y_new, mask_new = y_new[None], mask_new[None]
-        mean, chol = mean[None], chol[None]
+    ss_b, mean, chol, y_new, mask_new, single = _append_args(
+        ss, mean, chol, y_new, mask_new, device)
     phi, q, z, r = _lanes_ss(ss_b, "sqrt")
     out = sqrt_filter(phi, q, z, r, y_new.contiguous(),
                       mask_new.contiguous(), mean0=mean.contiguous(),
                       chol0=chol.contiguous())
+    if single:
+        out = tuple(o[0] for o in out)
+    return out
+
+
+def gated_sqrt_filter_append(ss: StateSpace, mean, chol, y_new, mask_new,
+                             armed=True, policy: str = "reject",
+                             nsigma: float = 4.0, device=None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """:func:`sqrt_filter_append` with per-slot online innovation
+    gating: one launch of K9's gated instantiation from the given
+    carry (``policy="off"``: :func:`sqrt_filter_append`, with NaN
+    z-scores and PASS verdicts).
+
+    The gate tests each observed slot's marginal z-score off the
+    predicted factor, ``f_i = |(Z S_p)_i|^2 + r_i``; the policy then
+    pre-transforms the slot's row of the pre-array and the same QR
+    update runs, so every posterior stays PSD by construction.  Returns
+    ``(mean_T, chol_T, sigma, detf, zscore, verdict)``; same
+    bit-exactness contract as :func:`gated_filter_append`, against
+    :func:`sqrt_filter_append`.
+    """
+    if policy not in GATE_POLICIES:
+        raise ValueError(
+            f"unknown gate policy {policy!r}; expected one of "
+            f"{GATE_POLICIES}")
+    ss_b, mean, chol, y_new, mask_new, single = _append_args(
+        ss, mean, chol, y_new, mask_new, device)
+    phi, q, z, r = _lanes_ss(ss_b, "sqrt")
+    y_new, mask_new = y_new.contiguous(), mask_new.contiguous()
+    if policy == "off":
+        out = sqrt_filter(phi, q, z, r, y_new, mask_new,
+                          mean0=mean.contiguous(), chol0=chol.contiguous())
+        out = (*out, torch.full(y_new.shape, float("nan"), dtype=y_new.dtype,
+                                device=y_new.device),
+               torch.zeros(y_new.shape, dtype=torch.int8,
+                           device=y_new.device))
+    else:
+        out = sqrt_filter_gated(
+            phi, q, z, r, y_new, mask_new, mean.contiguous(),
+            chol.contiguous(), _armed(armed, mean.shape[0], mean.device),
+            policy, float(nsigma) * float(nsigma))
     if single:
         out = tuple(o[0] for o in out)
     return out
@@ -584,7 +699,7 @@ def _smoothed_means(ss: StateSpace, y, mask, engine: str = "sequential",
 
 
 def innovations(ss: StateSpace, y, mask, filt: Optional[FilterResult] = None,
-                standardized: bool = True, engine: str = "sequential",
+                standardized: bool = True, engine: str = "joint",
                 warmup: int = 0, device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-step-ahead prediction residuals ``v = y - Z m_p`` and their
@@ -592,9 +707,8 @@ def innovations(ss: StateSpace, y, mask, filt: Optional[FilterResult] = None,
     a ``store=True`` filter (``filt``, or one run here), the joint
     (vector) definition; standardized by ``sqrt(max(f, tiny))`` when
     asked, NaN where unobserved or before ``warmup``.  One model: (T, N)
-    each; a batch: (B, T, N).  The port's default engine is the
-    sequential one, whose stored filter is ported (the predicted
-    moments are the same)."""
+    each; a batch: (B, T, N).  The default engine is the JAX function's,
+    ``"joint"`` (K1's ``store`` mode)."""
     if filt is None:
         filt = kalman_filter(ss, y, mask, engine=engine, store=True,
                              device=device)
@@ -636,7 +750,7 @@ def _draw_normals(n_draws: int, t_steps: int, n_state: int, n_obs: int,
 
 
 def sample_states(ss: StateSpace, y, mask, generator=None, n_draws: int = 1,
-                  engine: str = "sequential", sm_data=None,
+                  engine: str = "joint", sm_data=None,
                   draw_chunk: int = 8, device=None) -> torch.Tensor:
     """Joint posterior draws of one model's state paths, (n_draws, T, n):
     the Durbin-Koopman mean-correction simulation smoother
@@ -671,10 +785,10 @@ def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
     Per chunk of ``draw_chunk`` draws, one lane per draw: K7 draws the
     prior paths ``x_t = phi o x_{t-1} + sqrt(q) o w_t`` from ``x_0 =
     x0`` and their pseudo-observations ``y* = Z x + sqrt(r) o e``; K6
-    ``store`` filters ``y*`` on the data's missing pattern and K8
-    smooths it (means only) — on ``engine="sqrt"`` K9 ``store`` and K10
-    in its mean-only mode."""
-    _require(engine, ("sequential", "sqrt"))
+    ``store`` (K1 ``store`` on ``engine="joint"``) filters ``y*`` on the
+    data's missing pattern and K8 smooths it (means only) — on
+    ``engine="sqrt"`` K9 ``store`` and K10 in its mean-only mode."""
+    _require(engine, ("sequential", "joint", "sqrt"))
     ss_b, device, dtype, single = _prepare(ss, device)
     if not single:
         raise ValueError("sample_states takes one model (unbatched ss)")
@@ -700,7 +814,14 @@ def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
                                      w[i:i + c].contiguous(),
                                      e[i:i + c].contiguous())
         mask_l = mask[None].expand(c, *mask.shape).contiguous()
-        if engine == "sqrt":
+        if engine == "joint":
+            leaves = [leaf.expand(c, *leaf.shape[1:]).contiguous()
+                      for leaf in ss_b]
+            mean0, cov0 = _init_state(StateSpace(*leaves), dtype)
+            stored = joint_filter_store(*leaves, mean0, cov0, y_star, mask_l)
+            sm_star, _ = rts_smooth(leaves[0], stored[2], stored[3],
+                                    stored[0], stored[1], want_cov=False)
+        elif engine == "sqrt":
             stored = sqrt_filter(phi_l, q_l, z_l, r_l, y_star, mask_l,
                                  store=True)
             sm_star, _ = sqrt_smooth(phi_l.T.contiguous(),

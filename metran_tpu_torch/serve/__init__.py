@@ -1,8 +1,11 @@
-"""Online serving: posterior states, registry, batcher and service."""
+"""Online serving: posterior states, registry, batcher, the service with
+its reliability layer, observation gate and streaming detection."""
 
 from .batching import MicroBatcher, Request
 from .engine import (
     BucketBatch,
+    DetectSpec,
+    GateSpec,
     make_forecast_fn,
     make_update_fn,
     pad_state_arrays,
@@ -10,6 +13,7 @@ from .engine import (
     stack_bucket,
     state_slot_index,
 )
+from .monitoring import Alert, AlertBoard, DetectorMirror
 from .registry import ModelRegistry
 from .service import Forecast, MetranService
 from .state import (
@@ -19,8 +23,13 @@ from .state import (
 )
 
 __all__ = [
+    "Alert",
+    "AlertBoard",
     "BucketBatch",
+    "DetectSpec",
+    "DetectorMirror",
     "Forecast",
+    "GateSpec",
     "MetranService",
     "MicroBatcher",
     "ModelRegistry",

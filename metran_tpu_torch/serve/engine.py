@@ -1,14 +1,18 @@
 """Serving kernels: batched incremental update and forecast per bucket.
 
-Port of the joint- and square-root-engine halves of
-``metran_tpu/serve/engine.py``.  The models of one shape bucket are
-padded to the bucket's ``(N, S)`` and stacked along a leading batch
-axis, and the per-model computation —
-:func:`~metran_tpu_torch.ops.filter_append` (K1) or, on the square-root
+Port of the dict-registry half of ``metran_tpu/serve/engine.py``.  The
+models of one shape bucket are padded to the bucket's ``(N, S)`` and
+stacked along a leading batch axis, and the per-model computation —
+:func:`~metran_tpu_torch.ops.filter_append` (K1 on the joint engine,
+K12 with the gate off on the sequential one) or, on the square-root
 engine, :func:`~metran_tpu_torch.ops.sqrt_filter_append` (K9 from the
 stacked factors) for assimilation,
 :func:`~metran_tpu_torch.ops.forecast_observation_moments` (K2) for
-forecasts — runs as ONE kernel-wrapper call per dispatch.
+forecasts — runs as ONE kernel-wrapper call per dispatch.  An armed
+observation gate (:class:`GateSpec`) runs the gated update instead (K12,
+or K9's gated instantiation on the square-root engine), and streaming
+detection (:class:`DetectSpec`) adds one detector launch (K13) after
+it.
 
 Padding semantics (as in the JAX package): a padded observation slot is
 masked False at every appended step and carries zero loadings, so it
@@ -16,29 +20,33 @@ never touches the gain, the likelihood terms or the real slots; a
 padded state slot starts at the filter's ``N(0, 1)`` init with zero
 cross-covariance and stays decoupled.
 
-Gate, detect, robust and fused horizons come in later slices; asking
-for them raises with the ROADMAP item.
+Robust updates and fused horizons come in later slices; asking for them
+raises with the ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, serve_defaults
 from ..ops import (
+    GATE_POLICIES,
+    detect_append,
+    detect_stats,
     dfm_statespace,
     filter_append,
     forecast_observation_moments,
+    gated_filter_append,
+    gated_sqrt_filter_append,
     sqrt_filter_append,
 )
+from ..ops.kalman import NotPortedError
 from ..ops.statespace import StateSpace
 
 _LATER = {
-    "gate": "ROADMAP A4.2 (serving features: observation gate, kernel B9b)",
-    "detect": "ROADMAP A4.4 (serving features: detection, kernel B11)",
     "robust": "ROADMAP A4.3 (serving features: implicit MAP, kernel B12)",
     "horizons": "ROADMAP A4.5 (serving features: read path)",
     "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
@@ -46,7 +54,145 @@ _LATER = {
 
 
 def _not_ported(what: str):
-    return ValueError(f"{what} is not ported yet: {_LATER[what]}")
+    return NotPortedError(f"{what} is not ported yet: {_LATER[what]}")
+
+
+class GateSpec(NamedTuple):
+    """Observation-gate policy for the serving update path.
+
+    ``policy`` is one of :data:`metran_tpu_torch.ops.GATE_POLICIES`
+    (``"off"``/``"reject"``/``"huber"``/``"inflate"``): what happens to
+    an observed slot whose squared normalized innovation exceeds
+    ``nsigma**2`` (chi-square(1) under the model).  ``min_seen`` disarms
+    the gate for models with fewer assimilated grid steps (a cold
+    filter's innovations are over-dispersed); it is evaluated per model
+    per dispatch, the kernel's ``armed`` flag.
+
+    Defaults come from :func:`metran_tpu_torch.config.serve_defaults`
+    (``METRAN_TPU_SERVE_GATE_{POLICY,NSIGMA,MIN_SEEN}``); the shipped
+    default is ``policy="off"`` — gating is opt-in.
+    """
+
+    policy: str = "off"
+    nsigma: float = 4.0
+    min_seen: int = 32
+
+    @property
+    def enabled(self) -> bool:
+        return self.policy != "off"
+
+    @classmethod
+    def from_defaults(cls) -> "GateSpec":
+        d = serve_defaults()
+        spec = cls(
+            policy=str(d["gate_policy"]),
+            nsigma=float(d["gate_nsigma"]),
+            min_seen=int(d["gate_min_seen"]),
+        )
+        spec.validate()
+        return spec
+
+    def validate(self) -> "GateSpec":
+        if self.policy not in GATE_POLICIES:
+            raise ValueError(
+                f"unknown gate policy {self.policy!r}; expected one of "
+                f"{GATE_POLICIES}"
+            )
+        if self.enabled and not self.nsigma > 0:
+            raise ValueError(
+                f"gate nsigma must be > 0, got {self.nsigma!r}"
+            )
+        return self
+
+
+class DetectSpec(NamedTuple):
+    """Streaming-detection policy for the serving update path.
+
+    Armed (``enabled=True``), every update dispatch also advances the
+    :mod:`metran_tpu_torch.ops.detect` recursions over the update's
+    normalized innovations — per-slot **anomaly** flags (``z^2 >
+    nsigma^2``), two-sided **CUSUM** changepoint accumulators
+    (``cusum_k``/``cusum_h``) and the exponentially-windowed
+    **autocorrelation-drift** statistic (``lb_window``/``lb_thresh``) —
+    one detector launch (K13) after the update kernel.  The service
+    books the outcomes, raises alerts with ``alert_cooldown_s``
+    raise/clear hysteresis, and feeds changepoints to the health
+    monitor's refit candidates.  ``min_seen`` disarms detection for cold
+    models like the gate's floor.  With detection enabled an ungated
+    registry serves through the gated update with the gate permanently
+    disarmed: real z-scores, posteriors bit-identical to the plain
+    update on the sequential and square-root engines (a joint registry
+    moves to the sequential update, as in the JAX package).
+
+    Defaults from :func:`metran_tpu_torch.config.serve_defaults`
+    (``METRAN_TPU_SERVE_DETECT{,_CUSUM_K,_CUSUM_H,_LB_WINDOW,
+    _LB_THRESH,_NSIGMA,_MIN_SEEN,_ALERT_COOLDOWN_S}``); shipped off.
+    """
+
+    enabled: bool = False
+    cusum_k: float = 0.5
+    cusum_h: float = 12.0
+    lb_window: int = 64
+    lb_thresh: float = 25.0
+    nsigma: float = 5.0
+    min_seen: int = 64
+    alert_cooldown_s: float = 60.0
+
+    @classmethod
+    def from_defaults(cls) -> "DetectSpec":
+        d = serve_defaults()
+        return cls(
+            enabled=bool(d["detect"]),
+            cusum_k=float(d["detect_cusum_k"]),
+            cusum_h=float(d["detect_cusum_h"]),
+            lb_window=int(d["detect_lb_window"]),
+            lb_thresh=float(d["detect_lb_thresh"]),
+            nsigma=float(d["detect_nsigma"]),
+            min_seen=int(d["detect_min_seen"]),
+            alert_cooldown_s=float(d["detect_alert_cooldown_s"]),
+        ).validate()
+
+    def validate(self) -> "DetectSpec":
+        """Reject inert or broken combinations — an armed detector
+        that could never alarm (or that would alarm on everything) is
+        paid for and silently useless."""
+        if not self.enabled:
+            return self
+        if self.min_seen < 0:
+            raise ValueError(
+                f"detect min_seen must be >= 0, got {self.min_seen}"
+            )
+        if self.lb_window <= 1:
+            raise ValueError(
+                "detect lb_window must exceed the autocorrelation "
+                f"lag (1), got {self.lb_window}"
+            )
+        if self.alert_cooldown_s < 0.0:
+            raise ValueError(
+                "detect alert_cooldown_s must be >= 0, got "
+                f"{self.alert_cooldown_s}"
+            )
+        if self.cusum_k < 0.0 or not self.cusum_h > 0.0:
+            raise ValueError(
+                "detect cusum_k must be >= 0 and cusum_h > 0, got "
+                f"k={self.cusum_k} h={self.cusum_h}"
+            )
+        if not self.lb_thresh > 0.0 or not self.nsigma > 0.0:
+            raise ValueError(
+                "detect lb_thresh and nsigma must be > 0, got "
+                f"lb_thresh={self.lb_thresh} nsigma={self.nsigma}"
+            )
+        return self
+
+    @property
+    def kernel_params(self) -> dict:
+        """The threshold half, as :func:`metran_tpu_torch.ops.
+        detect_append` keyword arguments."""
+        return dict(
+            cusum_k=float(self.cusum_k), cusum_h=float(self.cusum_h),
+            lb_window=int(self.lb_window),
+            lb_thresh=float(self.lb_thresh), nsigma=float(self.nsigma),
+        )
 
 
 class BucketBatch(NamedTuple):
@@ -185,39 +331,93 @@ def stack_bucket(states: List, bucket: Tuple[int, int], dtype=None,
     return BucketBatch(ss=ss, mean=means, cov=fac)
 
 
-def make_update_fn(engine: str = "joint", gate=None, horizons=None,
-                   detect=None, robust=None):
+def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
+                   horizons=None, detect: Optional[DetectSpec] = None,
+                   robust=None):
     """The batched incremental-update function of a bucket.
 
     ``fn(ss, mean, fac, y_new, mask_new) -> (mean_T, fac_T, sigma,
     detf)`` with every argument batch-leading (``y_new``/``mask_new``
     (B, k, N)): on ``engine="joint"`` ``fac`` is the covariance and the
-    call one K1 launch; on ``engine="sqrt"`` it is a covariance factor,
+    call one K1 launch; on ``engine="sequential"`` one K12 launch with
+    the gate off; on ``engine="sqrt"`` it is a covariance factor,
     carried by :func:`~metran_tpu_torch.ops.sqrt_filter_append` (one K9
     launch from the given carry), and the returned factor is
     lower-triangular, PSD by construction.
+
+    With an **enabled** ``gate`` the function takes one more
+    batch-leading argument ``armed`` ((B,) bool, the host's per-model
+    ``t_seen >= min_seen``) and returns the per-slot z-scores and int8
+    verdicts ((B, k, N) each) after the four: square-root buckets run
+    :func:`~metran_tpu_torch.ops.gated_sqrt_filter_append` (K9 gated),
+    covariance buckets :func:`~metran_tpu_torch.ops.gated_filter_append`
+    (K12) — a joint registry arming the gate serves through the gated
+    *sequential* update, as in the JAX package.
+
+    With an **enabled** ``detect`` it takes two more trailing arguments,
+    ``det_state`` ((B, 6, N)) and ``det_armed`` ((B,) bool), runs the
+    detector (K13) over the update's z-scores and appends ``(det_state',
+    det_counts, det_stats)`` ((B, 6, N), (B, 3, N) int32, (B, 3, N)).
+    An ungated registry arming detection serves through the gated
+    update with the gate disarmed (real z-scores; the service then
+    books no gate verdicts).  ``robust`` and ``horizons`` raise
+    :class:`~metran_tpu_torch.ops.kalman.NotPortedError`.
     """
     if engine == "sqrt_parallel":
         raise _not_ported("sqrt_parallel")
-    if engine not in ("joint", "sqrt"):
+    if engine not in ("joint", "sequential", "sqrt"):
         raise ValueError(f"unknown serve engine {engine!r}")
-    for name, spec in (("gate", gate), ("detect", detect),
-                       ("robust", robust)):
-        if spec is not None and getattr(spec, "enabled", True):
-            raise _not_ported(name)
+    sqrt_engine = engine == "sqrt"
+    gated = gate is not None and gate.enabled
+    det_on = detect is not None and detect.enabled
+    if robust is not None and getattr(robust, "enabled", True):
+        if gated:
+            raise ValueError(
+                "gate and robust are mutually exclusive on one update "
+                "kernel (the robust likelihood IS the outlier treatment); "
+                "arm one of them"
+            )
+        raise _not_ported("robust")
     if horizons:
         raise _not_ported("horizons")
+    gated_append = (gated_sqrt_filter_append if sqrt_engine
+                    else gated_filter_append)
+    if gated:
+        gate.validate()
+        policy, nsigma = gate.policy, float(gate.nsigma)
 
-    if engine == "sqrt":
-        def fn(ss, mean, chol, y_new, mask_new):
+        def core(ss, mean, fac, y_new, mask_new, armed):
+            return gated_append(ss, mean, fac, y_new, mask_new, armed=armed,
+                                policy=policy, nsigma=nsigma)
+    elif det_on:
+        # detection needs z-scores: the gated update with the gate
+        # permanently disarmed (a slot that cannot trip computes the
+        # ungated update's operations exactly)
+        def core(ss, mean, fac, y_new, mask_new):
+            return gated_append(ss, mean, fac, y_new, mask_new, armed=False,
+                                policy="reject", nsigma=4.0)
+    elif sqrt_engine:
+        def core(ss, mean, chol, y_new, mask_new):
             return sqrt_filter_append(ss, mean, chol, y_new, mask_new)
+    else:
+        def core(ss, mean, cov, y_new, mask_new):
+            return filter_append(ss, mean, cov, y_new, mask_new,
+                                 engine=engine)
 
-        return fn
+    if not det_on:
+        return core
+    detect.validate()
+    dpar = detect.kernel_params
 
-    def fn(ss, mean, cov, y_new, mask_new):
-        return filter_append(ss, mean, cov, y_new, mask_new, engine=engine)
+    def fused(ss, mean, fac, y_new, mask_new, *extra):
+        *gate_extra, det_state, det_armed = extra
+        out = core(ss, mean, fac, y_new, mask_new, *gate_extra)
+        res = tuple(out) if gated else tuple(out[:4])
+        det_new, det_counts = detect_append(det_state, out[4], mask_new,
+                                            det_armed, **dpar)
+        return res + (det_new, det_counts, detect_stats(det_new))
 
-    return fn
+    return fused
 
 
 def make_forecast_fn(steps: int):

@@ -38,8 +38,9 @@ class ModelRegistry:
     bucket_multiple : both bucket dims round up to a multiple of this
         (default from :func:`metran_tpu_torch.config.serve_defaults`).
     engine : update engine (default ``serve_defaults()["engine"]``):
-        ``"joint"`` (covariance form, K1) or ``"sqrt"`` (square-root
-        form: updates carry Cholesky factors through
+        ``"joint"`` (covariance form, K1), ``"sequential"`` (covariance
+        form, one slot at a time, K12 with the gate off) or ``"sqrt"``
+        (square-root form: updates carry Cholesky factors through
         :func:`~metran_tpu_torch.ops.sqrt_filter_append`, K9; posteriors
         are PSD by construction and the per-slot integrity gate is a
         finiteness check — the engine for float32 serving).
@@ -52,11 +53,11 @@ class ModelRegistry:
             engine = defaults["engine"]
         if bucket_multiple is None:
             bucket_multiple = defaults["bucket_multiple"]
-        if engine not in ("joint", "sqrt"):
+        if engine not in ("joint", "sequential", "sqrt"):
             raise ValueError(
-                f"serve engine {engine!r} is not ported yet (ROADMAP A4.2 "
-                "for 'sequential', A6 for the associative-scan engines); "
-                "the port serves engine='joint' and engine='sqrt'"
+                f"serve engine {engine!r} is not ported yet (ROADMAP A6 for "
+                "the associative-scan engines); the port serves "
+                "engine='joint', 'sequential' and 'sqrt'"
             )
         self.engine = engine
         self.bucket_multiple = int(bucket_multiple)
@@ -176,7 +177,8 @@ class ModelRegistry:
     def update_fn(self, bucket: ShapeBucket, k: int, gate=None,
                   horizons=None, detect=None, robust=None):
         """The bucket's assimilation function for ``k`` appended steps
-        (:func:`~metran_tpu_torch.serve.engine.make_update_fn`)."""
+        (:func:`~metran_tpu_torch.serve.engine.make_update_fn`): the gate
+        and detect specs select the gated update and the detector."""
         return make_update_fn(engine=self.engine, gate=gate,
                               horizons=horizons, detect=detect,
                               robust=robust)

@@ -1,11 +1,16 @@
 """`MetranService`: the in-process serving API of the port.
 
-Port of the core of the JAX package's ``serve/service.py``::
+Port of the dict-registry core of the JAX package's
+``serve/service.py``::
 
     update(model_id, new_obs) ─┐                       ┌─> K1 launch
-                               ├─> MicroBatcher ──────>┤   (K9 on sqrt;
-    forecast(model_id, steps) ─┘    (group by          └─> K2 launch
-                                     bucket+horizon)        one per group)
+                               ├─> MicroBatcher ──────>┤   (K12 on
+    forecast(model_id, steps) ─┘    (group by          │   sequential or
+                                     bucket+horizon)   │   gated, K9 on
+                                                       │   sqrt; + K13
+                                                       │   with detect)
+                                                       └─> K2 launch
+                                                            one per group
 
 - Requests take and return **data units**; standardization happens at
   submit with each model's stored scaler constants.
@@ -23,11 +28,33 @@ Port of the core of the JAX package's ``serve/service.py``::
   the stacked factors go through K9, each slot's factor is committed
   beside its reconstituted covariance, and the gate is a finiteness
   check.
+- **Reliability** (:class:`~metran_tpu_torch.reliability.
+  ReliabilityPolicy`): a hard deadline on every synchronous call,
+  retries of retryable failures with backoff inside it, a circuit
+  breaker per model (:class:`~metran_tpu_torch.reliability.
+  CircuitOpenError` while open, one half-open probe after the
+  cooldown) and a :class:`~metran_tpu_torch.reliability.HealthMonitor`
+  behind :meth:`MetranService.health`.
+- **The observation gate** (:class:`~metran_tpu_torch.serve.engine.
+  GateSpec`): armed per model once ``t_seen >= min_seen``; each
+  dispatch runs the gated update and books its verdicts
+  (:attr:`MetranService.gate_verdicts`, the monitor's per-model
+  rejection window) before the integrity gate.
+- **Streaming detection** (:class:`~metran_tpu_torch.serve.engine.
+  DetectSpec`): the detector runs after the update over its z-scores;
+  its state is parked per model in a host mirror
+  (:class:`~metran_tpu_torch.serve.monitoring.DetectorMirror`),
+  alarms raise alerts with hysteresis
+  (:class:`~metran_tpu_torch.serve.monitoring.AlertBoard`) and
+  changepoints make the model a refit candidate; :meth:`MetranService.
+  anomalies` and :meth:`MetranService.alerts` read them.
 
 The dispatch runs on the service's device (default: the CUDA card).
-Breakers, retries, the observation gate, the read path, steady-state
-serving, detection, robust updates, refit, durability, the cluster and
-observability layers come in later slices (ROADMAP A4, A7).
+Robust updates, the read path, steady-state serving, fixed-lag
+smoothing, refit, the arena, durability, the cluster and the
+observability layers come in later slices: asking for them raises
+:class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming the
+ROADMAP item (A4, A7).
 """
 
 from __future__ import annotations
@@ -44,20 +71,69 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, serve_defaults
-from ..reliability.policy import (
+from ..ops import DETECT_STATE_ROWS, GATE_DOWNWEIGHTED, GATE_REJECTED
+from ..ops.kalman import NotPortedError
+from ..reliability import (
+    BreakerBoard,
     ChainedRequestError,
+    CircuitOpenError,
     DeadlineExceededError,
+    HealthMonitor,
+    ReliabilityPolicy,
     StateIntegrityError,
+    is_retryable,
 )
 from .batching import MicroBatcher
-from .engine import posterior_fault, stack_bucket, state_slot_index
+from .engine import (
+    DetectSpec,
+    GateSpec,
+    posterior_fault,
+    stack_bucket,
+    state_slot_index,
+)
+from .monitoring import AlertBoard, DetectorMirror
 from .registry import ModelRegistry
 from .state import PosteriorState
 
 logger = getLogger(__name__)
 
-#: hard cap on any synchronous call, seconds (``None`` disables)
-REQUEST_DEADLINE_S = 30.0
+#: the JAX service's layers this port does not have yet, by keyword
+_LATER = {
+    "robust": "ROADMAP A4.3 (robust updates, kernel B12)",
+    "readpath": "ROADMAP A4.5 (the materialized read path)",
+    "steady": "ROADMAP A4.6 (steady-state serving)",
+    "fixed_lag": "ROADMAP A4.7 (fixed-lag smoothing)",
+    "refit": "ROADMAP A4.9 (the refit worker)",
+    "durability": "ROADMAP A7 (durability)",
+    "cluster": "ROADMAP A7 (the cluster layer)",
+    "replication": "ROADMAP A7 (replication)",
+}
+
+
+def _armed_spec(spec) -> bool:
+    """Whether a keyword of a layer not ported asks for it: a spec with
+    ``enabled``, or any other truthy value (``readpath=True``,
+    ``fixed_lag=8``)."""
+    if spec is None:
+        return False
+    return bool(getattr(spec, "enabled", spec))
+
+
+class EventCounters:
+    """Thread-safe named counters (``increment``/``snapshot``): the
+    service's error, gate-verdict and detection tallies."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: Counter = Counter()
+
+    def increment(self, kind: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[kind] += int(n)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
 
 
 def _transfer(src: Future, dst: Future) -> None:
@@ -151,6 +227,19 @@ class MetranService:
     max_batch : dispatch immediately once a group is this full.
     persist_updates : write updated states through to the registry's
         disk root (ignored for in-memory registries).
+    reliability : deadline/retry/breaker/validation policy
+        (:class:`~metran_tpu_torch.reliability.ReliabilityPolicy`);
+        default from :func:`metran_tpu_torch.config.serve_defaults`.
+    gate : observation-gate policy (:class:`~metran_tpu_torch.serve.
+        engine.GateSpec`); default from ``serve_defaults()``
+        (``METRAN_TPU_SERVE_GATE_*``, shipped ``policy="off"``).
+    detect : streaming-detection policy (:class:`~metran_tpu_torch.
+        serve.engine.DetectSpec`); default from ``serve_defaults()``
+        (``METRAN_TPU_SERVE_DETECT*``, shipped off).
+    robust, readpath, steady, fixed_lag, refit, durability, cluster,
+    replication : the JAX service's other layers; not ported yet —
+        asking for one raises :class:`~metran_tpu_torch.ops.kalman.
+        NotPortedError` naming its ROADMAP item.
     device : where the kernels run (default: the CUDA card; without one
         construction raises — pass ``device="cpu"`` for the CPU).
     """
@@ -158,7 +247,30 @@ class MetranService:
     def __init__(self, registry: ModelRegistry,
                  flush_deadline: Optional[float] = "default",
                  max_batch: Optional[int] = None,
-                 persist_updates: bool = True, device=None):
+                 persist_updates: bool = True,
+                 reliability: Optional[ReliabilityPolicy] = None,
+                 gate: Optional[GateSpec] = None,
+                 robust=None, readpath=None, steady=None, fixed_lag=None,
+                 refit=None, detect: Optional[DetectSpec] = None,
+                 durability=None, cluster=None, replication=None,
+                 device=None):
+        self.gate = (gate.validate() if gate is not None
+                     else GateSpec.from_defaults())
+        if _armed_spec(robust) and self.gate.enabled:
+            raise ValueError(
+                "gate and robust are mutually exclusive: the robust "
+                "likelihood IS the outlier treatment (huber_t subsumes "
+                "the gate's huber policy); arm one of them"
+            )
+        for name, spec in (("robust", robust), ("readpath", readpath),
+                           ("steady", steady), ("fixed_lag", fixed_lag),
+                           ("refit", refit), ("durability", durability),
+                           ("cluster", cluster),
+                           ("replication", replication)):
+            if _armed_spec(spec):
+                raise NotPortedError(
+                    f"MetranService({name}=...) is not ported yet: "
+                    f"{_LATER[name]}")
         self.device = resolve_device(device)
         defaults = serve_defaults()
         if flush_deadline == "default":
@@ -167,9 +279,35 @@ class MetranService:
             max_batch = defaults["max_batch"]
         self.registry = registry
         self.persist_updates = persist_updates
-        self.deadline_s = REQUEST_DEADLINE_S
-        self._stats: Counter = Counter()
-        self._stats_lock = threading.Lock()
+        self.reliability = (reliability if reliability is not None
+                            else ReliabilityPolicy.from_defaults())
+        self.deadline_s = self.reliability.deadline_s
+        self.breakers = BreakerBoard(
+            failure_threshold=self.reliability.breaker_failures,
+            cooldown_s=self.reliability.breaker_cooldown_s,
+            clock=self.reliability.clock,
+        )
+        self.monitor = HealthMonitor(
+            window=self.reliability.health_window,
+            max_error_rate=self.reliability.max_error_rate,
+        )
+        #: observations the gate acted on, ``{"rejected": n,
+        #: "downweighted": m}``, booked before the integrity gate
+        self.gate_verdicts = EventCounters()
+        self.detect = (detect.validate() if detect is not None
+                       else DetectSpec.from_defaults())
+        #: detection outcomes by kind (``anomaly``, ``changepoint_cusum``,
+        #: ``changepoint_lb``, ``alert_raised``, ``alert_cleared``)
+        self.detect_total = EventCounters()
+        self.detector: Optional[DetectorMirror] = None
+        self.alert_board: Optional[AlertBoard] = None
+        if self.detect.enabled:
+            self.detector = DetectorMirror()
+            self.alert_board = AlertBoard(
+                cooldown_s=self.detect.alert_cooldown_s,
+                counter=self.detect_total,
+            )
+        self._errors = EventCounters()
         # one lock around each assimilation round keeps every model's
         # read -> compute -> put sequential across dispatch threads
         self._update_lock = threading.Lock()
@@ -185,16 +323,81 @@ class MetranService:
 
     # ------------------------------------------------------------------
     def _count(self, kind: str, n: int = 1) -> None:
-        with self._stats_lock:
-            self._stats[kind] += n
+        self._errors.increment(kind, n)
 
     @property
     def stats(self) -> dict:
         """Lifetime counters: validation errors, poisoned updates and
         forecasts (integrity-gate rejections), chain failures, masked
-        cells, empty updates, ..."""
-        with self._stats_lock:
-            return dict(self._stats)
+        cells, empty updates, retries, breaker rejections, ..."""
+        return self._errors.snapshot()
+
+    def _ready(self) -> bool:
+        """The orchestrator bit: the batcher can dispatch and the
+        windowed error rate is under the policy's threshold."""
+        alive = self.batcher.worker_alive() and not self.batcher.closed
+        return bool(alive and self.monitor.healthy())
+
+    def health(self) -> dict:
+        """Readiness/health snapshot for probes (the JAX service's
+        ``health()`` without the observability layer's latency and event
+        sections, ROADMAP A7): ``ready``, the windowed error rate and
+        the per-model gate window (:meth:`~metran_tpu_torch.reliability.
+        HealthMonitor.snapshot`), batcher liveness and depth, open
+        breakers, lifetime error counters, the registry's integrity
+        events and, with detection armed, its tallies."""
+        alive = self.batcher.worker_alive() and not self.batcher.closed
+        extra = {
+            "ready": self._ready(),
+            "batcher": {
+                "worker_alive": alive,
+                "pending": self.batcher.pending(),
+                "oldest_wait_s": round(self.batcher.oldest_wait(), 4),
+                "flush_deadline_s": self.batcher.flush_deadline,
+            },
+            "breakers": {
+                "open": self.breakers.open_models(),
+                "tracked": len(self.breakers),
+            },
+            "errors": self.stats,
+            "integrity": self.registry.integrity_stats,
+        }
+        if self.gate.enabled:
+            extra["gate_verdicts"] = self.gate_verdicts.snapshot()
+        if self.detect.enabled:
+            extra["detect"] = {
+                "tracked": len(self.detector),
+                "alerts": self.alert_board.stats(),
+                "changepoints_pending": self.monitor.changepoint_models(),
+                **self.detect_total.snapshot(),
+            }
+        return self.monitor.snapshot(extra)
+
+    def _require_detect(self) -> None:
+        if not self.detect.enabled:
+            raise ValueError(
+                "streaming detection is disabled; construct the service "
+                "with detect=DetectSpec(enabled=True) or set "
+                "METRAN_TPU_SERVE_DETECT=1"
+            )
+
+    def anomalies(self, model_id: Optional[str] = None) -> dict:
+        """Per-model streaming-detection snapshot (detection armed):
+        ``{model_id: {...}}`` with the per-slot ``cusum_pos``/
+        ``cusum_neg``/``lb_q`` statistics read from the host mirror,
+        cumulative ``anomalies``/``cusum_alarms``/``lb_alarms`` counts,
+        the stream position of the last alarm and the flagged slots."""
+        self._require_detect()
+        if model_id is not None:
+            self.registry.get(model_id)  # unknown ids raise KeyError
+        return self.detector.snapshot(model_id)
+
+    def alerts(self, model_id: Optional[str] = None,
+               active_only: bool = True) -> list:
+        """Alert records, newest raise first (detection armed): one per
+        detection episode, raise/clear hysteresis applied."""
+        self._require_detect()
+        return self.alert_board.alerts(model_id, active_only=active_only)
 
     # ------------------------------------------------------------------
     # public API
@@ -214,10 +417,65 @@ class MetranService:
         if steps < 1:
             self._count("validation_errors")
             raise ValueError(f"forecast steps must be >= 1, got {steps}")
-        state = self.registry.get(model_id)
-        bucket = self.registry.bucket_of(state)
-        return self.batcher.submit(("forecast", bucket, steps), model_id,
-                                   None)
+        state = self._known_state("forecast", model_id)
+        breaker, token = self._admit(model_id)
+        try:
+            fut = self.batcher.submit(
+                ("forecast", self.registry.bucket_of(state), steps),
+                model_id, None)
+        except BaseException:
+            breaker.record_abandoned(token)  # no request existed
+            raise
+        self._observe(fut, "forecast", breaker, token)
+        return fut
+
+    def _known_state(self, kind: str, model_id: str) -> PosteriorState:
+        """The registry's state of a known model; a model whose stored
+        state is bad books a failure against its breaker (unknown ids
+        earn no breaker state)."""
+        try:
+            return self.registry.get(model_id)
+        except StateIntegrityError:
+            self.breakers.get(model_id).record_failure()
+            self.monitor.record(False)
+            self._count(f"{kind}_errors")
+            raise
+
+    def _admit(self, model_id: str):
+        """``(breaker, token)`` of an admitted request, or
+        :class:`CircuitOpenError` while the model's breaker is open."""
+        breaker = self.breakers.get(model_id)
+        try:
+            return breaker, breaker.allow()
+        except CircuitOpenError:
+            self._count("breaker_rejections")
+            raise
+
+    def _observe(self, fut: Future, kind: str, breaker, token) -> None:
+        """Record a request's final outcome in its breaker, the health
+        monitor and the error counters.  ``token`` attributes the
+        verdict to the admission it came from, so a stale outcome
+        cannot move an open or half-open breaker."""
+
+        def _done(f: Future) -> None:
+            try:
+                if f.cancelled():
+                    breaker.record_abandoned(token)
+                    return
+                exc = f.exception()
+                if exc is None:
+                    breaker.record_success(token)
+                    self.monitor.record(True)
+                elif getattr(exc, "_metran_infra_refusal", False):
+                    breaker.record_abandoned(token)
+                else:
+                    breaker.record_failure(token)
+                    self.monitor.record(False)
+                    self._count(f"{kind}_errors")
+            except Exception:  # outcome telemetry must not kill resolvers
+                logger.exception("outcome telemetry failed")
+
+        fut.add_done_callback(_done)
 
     def update(self, model_id: str, new_obs,
                deadline: Optional[float] = "default") -> PosteriorState:
@@ -230,7 +488,7 @@ class MetranService:
 
     def update_async(self, model_id: str,
                      new_obs) -> "Future[PosteriorState]":
-        state = self.registry.get(model_id)
+        state = self._known_state("update", model_id)
         new_obs = np.atleast_2d(np.asarray(new_obs, float))
         if new_obs.shape[1] != state.n_series:
             self._count("validation_errors")
@@ -245,6 +503,7 @@ class MetranService:
                 f"new_obs for model {model_id!r} contains infinite "
                 "values; use NaN to mark missing observations"
             )
+        breaker, token = self._admit(model_id)
         mask = np.isfinite(new_obs)
         n_masked = int(mask.size - np.count_nonzero(mask))
         if n_masked:
@@ -254,43 +513,78 @@ class MetranService:
         )
         bucket = self.registry.bucket_of(state)
         key = ("update", bucket, new_obs.shape[0])
-        out = self._enqueue_update(model_id, key, (y_std, mask),
-                                   time.monotonic())
+        try:
+            out = self._enqueue_update(model_id, key, (y_std, mask),
+                                       time.monotonic())
+        except BaseException:
+            breaker.record_abandoned(token)  # the batcher refused it
+            raise
+        self._observe(out, "update", breaker, token)
         # drop the ordering entry once resolved (registered outside
         # _order_lock: a done future runs the callback inline)
         out.add_done_callback(lambda _f: self._forget_entry(model_id, out))
         return out
 
     def _call(self, kind: str, model_id: str, submit, deadline):
-        """Sync-call engine: submit, then wait under a hard deadline."""
-        deadline_s = self.deadline_s if deadline == "default" else deadline
-        t_end = None if deadline_s is None else time.monotonic() + deadline_s
-        fut = submit()
-        try:
-            return self._resolve(fut, t_end)
-        except _FutureTimeout as exc:
-            if fut.done() and not fut.cancelled() and fut.exception() is exc:
-                raise  # the dispatch itself raised a TimeoutError
-            in_flight = not fut.cancel()
-            self._count("deadline_exceeded")
-            raise DeadlineExceededError(
-                kind, model_id, deadline_s, in_flight=in_flight
-            ) from None
+        """Sync-call engine: a hard deadline and bounded retries.  A
+        failed attempt is retried (after the policy's backoff, inside
+        the deadline) only when :func:`~metran_tpu_torch.reliability.
+        is_retryable` allows it — an exception outcome of a dispatch
+        means nothing was applied; a deadline hit is final."""
+        pol = self.reliability
+        deadline_s = pol.deadline_s if deadline == "default" else deadline
+        t_end = None if deadline_s is None else pol.clock() + deadline_s
+        attempt = 0
+        while True:
+            attempt += 1
+            failure = None
+            try:
+                fut = submit()
+            except BaseException as exc:
+                failure = exc
+            if failure is None:
+                try:
+                    return self._resolve(fut, t_end)
+                except _FutureTimeout as exc:
+                    if (fut.done() and not fut.cancelled()
+                            and fut.exception() is exc):
+                        failure = exc  # the dispatch raised a TimeoutError
+                    else:
+                        in_flight = not fut.cancel()
+                        self._count("deadline_exceeded")
+                        self.monitor.record(False)
+                        raise DeadlineExceededError(
+                            kind, model_id, deadline_s, in_flight=in_flight
+                        ) from None
+                except BaseException as exc:
+                    failure = exc
+            if is_retryable(failure) and attempt < pol.retry.max_attempts:
+                delay = pol.retry.delay(attempt)
+                if t_end is None or pol.clock() + delay < t_end:
+                    self._count("retries")
+                    logger.warning(
+                        "retrying %s for model %r (attempt %d) after: %s",
+                        kind, model_id, attempt, failure,
+                    )
+                    pol.sleep(delay)
+                    continue
+            raise failure
 
     def _resolve(self, fut: Future, t_end: Optional[float] = None):
         """Wait for a sync call's future; in manual-flush mode nobody
         else dispatches, so drain the batcher first (a pass at a time:
         a deferred update enters it only once its predecessor
-        resolved)."""
+        resolved).  ``t_end`` is an instant on the policy's clock."""
+        clock = self.reliability.clock
         if self.batcher.flush_deadline is None:
             while not fut.done():
-                if t_end is not None and time.monotonic() >= t_end:
+                if t_end is not None and clock() >= t_end:
                     break
                 if self.batcher.flush() == 0:
                     break
         if t_end is None:
             return fut.result()
-        return fut.result(timeout=max(t_end - time.monotonic(), 0.0))
+        return fut.result(timeout=max(t_end - clock(), 0.0))
 
     # ------------------------------------------------------------------
     # per-model ordering
@@ -390,6 +684,12 @@ class MetranService:
                 )
             )
         except BaseException as exc:
+            try:
+                # an infrastructure refusal, not the model's failure:
+                # _observe books no breaker verdict for it
+                exc._metran_infra_refusal = True
+            except Exception:  # an exception without attribute support
+                pass
             try:
                 if not fut.done():
                     fut.set_exception(exc)
@@ -598,12 +898,15 @@ class MetranService:
         return results
 
     def _run_update(self, bucket, k: int, requests):
-        """One batched assimilation (one K1 launch, or one K9 launch on a
-        square-root registry) over distinct-model requests: read each
-        model's current state, write the bumped one.
-        Callers hold ``_update_lock``.  A slot whose posterior fails the
-        integrity gate gets :class:`StateIntegrityError` and its stored
-        state stays as it was, while the healthy slots commit."""
+        """One batched assimilation over distinct-model requests: one
+        launch of the registry engine's update (K1 joint, K12 sequential
+        or gated, K9 square-root or gated K9), plus one detector launch
+        (K13) with detection armed; read each model's current state,
+        write the bumped one.  Callers hold ``_update_lock``.  Gate
+        verdicts are booked per slot before the integrity gate; a slot
+        whose posterior fails that gate gets :class:`StateIntegrityError`
+        and its stored state stays as it was, while the healthy slots
+        commit."""
         results: list = [None] * len(requests)
         states, live = self._lookup_states(requests, results)
         if not live:
@@ -624,18 +927,47 @@ class MetranService:
             y_std, mask = requests[live[i]].payload
             y[i, :, : st.n_series] = y_std
             m[i, :, : st.n_series] = mask
-        fn = self.registry.update_fn(bucket, k)
-        mean_t, fac_t, sigma_t, detf_t = (
-            t.cpu().numpy() for t in fn(
-                batch.ss, batch.mean,
-                batch.chol if sqrt_engine else batch.cov,
-                torch.from_numpy(y).to(self.device),
-                torch.from_numpy(m).to(self.device),
-            )
-        )
+        gated = self.gate.enabled
+        det = self.detect if self.detect.enabled else None
+        fn = self.registry.update_fn(bucket, k,
+                                     gate=self.gate if gated else None,
+                                     detect=det)
+
+        def flags(floor):
+            # per model: armed once it has assimilated `floor` steps (a
+            # cold filter's innovations are over-dispersed)
+            return torch.tensor([st.t_seen >= floor for st in states],
+                                dtype=torch.bool, device=self.device)
+
+        extra = (flags(self.gate.min_seen),) if gated else ()
+        if det is not None:
+            # each model's carried detector state, zeroed for first-touch
+            # models and on version discontinuities (an external put)
+            det_state = self.detector.stack(
+                [st.model_id for st in states],
+                [st.version for st in states], n_pad, DETECT_STATE_ROWS,
+                dtype)
+            extra += (torch.from_numpy(det_state).to(self.device),
+                      flags(det.min_seen))
+        outs = [t.cpu().numpy() for t in fn(
+            batch.ss, batch.mean, batch.chol if sqrt_engine else batch.cov,
+            torch.from_numpy(y).to(self.device),
+            torch.from_numpy(m).to(self.device), *extra)]
+        if det is not None:
+            det_new, det_counts, det_stats = outs[-3:]
+            outs = outs[:-3]
+        mean_t, fac_t, sigma_t, detf_t = outs[:4]
+        validate = self.reliability.validate_updates
         for i, (st, j) in enumerate(zip(states, live)):
             # per-slot finalize: a failure here stays this slot's alone
             try:
+                if gated:
+                    # the observations were evaluated either way: a dying
+                    # sensor shows in the rejection window even while its
+                    # tempered updates keep committing
+                    self._book_gate_verdicts(
+                        st, outs[4][i, :, : st.n_series],
+                        outs[5][i, :, : st.n_series])
                 idx = state_slot_index(st.n_series, st.n_factors, n_pad)
                 mean_i = mean_t[i][idx].astype(st.dtype)
                 if sqrt_engine:
@@ -650,7 +982,9 @@ class MetranService:
                     cov_i = fac_t[i][np.ix_(idx, idx)].astype(st.dtype)
                 # a degraded filter step books detf = +inf: the rows
                 # were NOT assimilated, so the slot must not commit
-                if np.all(np.isfinite(detf_t[i])) and np.all(
+                if not validate:
+                    fault = None
+                elif np.all(np.isfinite(detf_t[i])) and np.all(
                     np.isfinite(sigma_t[i])
                 ):
                     fault = posterior_fault(mean_i, cov_i, chol=chol_i)
@@ -695,7 +1029,65 @@ class MetranService:
                 results[j] = exc
                 continue
             results[j] = new_state
+            if det is not None:
+                # its own guard: the update is applied, and a monitoring
+                # hiccup must never relabel it failed
+                try:
+                    n = st.n_series
+                    self._book_detect(
+                        st.model_id, det_counts[i][:, :n],
+                        det_stats[i][:, :n], new_state.version,
+                        new_state.t_seen, st.names, n,
+                        state=det_new[i][:, :n])
+                except Exception:
+                    logger.exception("detection booking failed for model "
+                                     "%r", st.model_id)
         return results
+
+    def _book_gate_verdicts(self, st, zs, verdicts) -> None:
+        """Book one slot's gate outcome (``zs``/``verdicts`` its
+        real-series (k, n_series) slices, ``zs`` NaN where unobserved):
+        the verdict counts and the monitor's per-model rejection window
+        (flagged = rejected or downweighted: the soft policies never
+        reject, and a sensor they downweight every step is as dead)."""
+        n_obs = int(np.count_nonzero(np.isfinite(zs)))
+        n_rej = int(np.count_nonzero(verdicts == GATE_REJECTED))
+        n_dw = int(np.count_nonzero(verdicts == GATE_DOWNWEIGHTED))
+        if n_obs:
+            self.monitor.record_gate(st.model_id, n_obs, n_rej + n_dw)
+        if n_rej:
+            self.gate_verdicts.increment("rejected", n_rej)
+        if n_dw:
+            self.gate_verdicts.increment("downweighted", n_dw)
+        if n_rej or n_dw:
+            logger.info("gate %s: model %r rejected %d, downweighted %d "
+                        "observation(s)", self.gate.policy, st.model_id,
+                        n_rej, n_dw)
+
+    def _book_detect(self, model_id: str, counts, stats, version: int,
+                     t_seen: int, names, n_series: int, state) -> None:
+        """Book one committed slot's detection outcome: the mirror
+        (stats, cumulative counts, the advanced state), the counters, the
+        health monitor's changepoint flag and the alert board."""
+        per_kind = np.asarray(counts).sum(axis=1)
+        n_an, n_cp, n_lb = (int(x) for x in per_kind)
+        flagged = np.flatnonzero(np.asarray(counts).sum(axis=0) > 0)
+        slots = tuple(names[int(j)] for j in flagged)
+        self.detector.commit(model_id, version, t_seen, n_series, stats,
+                             per_kind, state=state, slots=slots)
+        if n_an:
+            self.detect_total.increment("anomaly", n_an)
+            self.alert_board.note(model_id, "anomaly", n_an, slots)
+        if n_cp:
+            self.detect_total.increment("changepoint_cusum", n_cp)
+        if n_lb:
+            self.detect_total.increment("changepoint_lb", n_lb)
+        if n_cp or n_lb:
+            # a detected structural break makes the model a refit
+            # candidate (HealthMonitor.refit_candidates)
+            self.monitor.record_changepoint(model_id)
+            self.alert_board.note(model_id, "changepoint", n_cp + n_lb,
+                                  slots)
 
 
 __all__ = ["Forecast", "MetranService"]

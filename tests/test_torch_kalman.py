@@ -143,7 +143,7 @@ def test_indefinite_innovation_covariance_is_a_noop_in_both(k):
     m_new = np.ones((k, 4), bool)
     want = jk.filter_append(bad, m0, c0, y_new, m_new, engine="joint")
     got = pk.filter_append(_port_ss(bad), m0, c0, y_new, m_new,
-                           device="cpu")
+                           engine="joint", device="cpu")
     assert np.all(np.isinf(np.asarray(want[3])))
     assert torch.isinf(got[3]).all()
     np.testing.assert_array_equal(got[2].numpy(), 0.0)
@@ -223,16 +223,22 @@ def test_unported_engines_and_store_raise(engine):
         with pytest.raises(ValueError, match="sqrt_filter_append"):
             pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1], mask[:1],
                              engine=engine, device="cpu")
+    elif engine == "sequential":
+        # ported: the append is kernel K12 with the gate off
+        _close(pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1],
+                                mask[:1], engine=engine, device="cpu"),
+               jk.filter_append(ss, np.zeros(4), np.eye(4), y[:1], mask[:1],
+                                engine=engine))
     else:
-        if engine != "sequential":  # kalman_filter has it (kernel K3)
-            with pytest.raises(ValueError, match="ROADMAP"):
-                pk.kalman_filter(pss, y, mask, engine=engine, device="cpu")
+        with pytest.raises(ValueError, match="ROADMAP"):
+            pk.kalman_filter(pss, y, mask, engine=engine, device="cpu")
         with pytest.raises(ValueError, match="ROADMAP"):
             pk.filter_append(pss, np.zeros(4), np.eye(4), y[:1], mask[:1],
                              engine=engine, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pk.kalman_filter(pss, y, mask, engine="joint", store=True,
-                         device="cpu")
+    # the joint store is ported too (K1's store mode)
+    _close(pk.kalman_filter(pss, y, mask, engine="joint", store=True,
+                            device="cpu"),
+           jk.kalman_filter(ss, y, mask, engine="joint", store=True))
     # the sequential engine stores its per-step moments (kernel K6's
     # store mode); tests/test_torch_smoother.py holds them against JAX
     stored = pk.kalman_filter(pss, y, mask, engine="sequential", store=True,
@@ -251,3 +257,68 @@ def test_kalman_filter_defaults_are_the_jax_functions():
     assert got.mean_f.shape == np.asarray(want.mean_f).shape == (40, 5)
     assert got.cov_p.shape == (40, 5, 5)
     _close(got, want)
+
+
+@pytest.mark.parametrize("n_series,n_factors", [(5, 1), (4, 2)])
+def test_kalman_filter_joint_store_parity_and_its_last_step(n_series,
+                                                            n_factors):
+    """``kalman_filter(engine="joint", store=True)`` (the plain version
+    of K1's ``store`` mode) against the JAX function, every step's
+    moments; its last filtered step is the carry-only pass, bit for
+    bit, and a batch stores each model's own steps."""
+    rng = np.random.default_rng(41)
+    ss, y, mask = random_ssm(rng, n_series, n_factors, t=60)
+    pss = _port_ss(ss)
+    want = jk.kalman_filter(ss, y, mask, engine="joint", store=True)
+    got = pk.kalman_filter(pss, y, mask, engine="joint", store=True,
+                           device="cpu")
+    assert got.cov_p.shape == (60, n_series + n_factors,
+                               n_series + n_factors)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-13)
+    carry = pk.kalman_filter(pss, y, mask, engine="joint", store=False,
+                             device="cpu")
+    assert torch.equal(got.mean_f[-1], carry.mean_f)
+    assert torch.equal(got.cov_f[-1], carry.cov_f)
+    assert torch.equal(got.sigma, carry.sigma)
+    stacked = StateSpace(*(torch.stack([leaf, leaf]) for leaf in pss))
+    batch = pk.kalman_filter(stacked, np.stack([y, y]), np.stack([mask] * 2),
+                             engine="joint", store=True, device="cpu")
+    for b, g in zip(batch, got):
+        assert torch.equal(b[1], g)
+
+
+def test_c2_default_engines_are_the_jax_functions():
+    """The three defaults ROADMAP C2 listed: ``filter_append`` is
+    ``"sequential"``, ``innovations`` and ``sample_states`` are
+    ``"joint"``, as in the JAX package; each default call equals the
+    JAX function's default call."""
+    import inspect
+
+    for name in ("filter_append", "innovations", "sample_states"):
+        p_def = inspect.signature(getattr(pk, name)).parameters["engine"]
+        j_def = inspect.signature(getattr(jk, name)).parameters["engine"]
+        assert p_def.default == j_def.default, name
+    rng = np.random.default_rng(43)
+    ss, y, mask = random_ssm(rng, 4, 1, t=50)
+    pss = _port_ss(ss)
+    base = jk.kalman_filter(ss, y[:40], mask[:40], engine="joint",
+                            store=False)
+    m0, c0 = np.asarray(base.mean_f), np.asarray(base.cov_f)
+    _close(pk.filter_append(pss, m0, c0, y[40:], mask[40:], device="cpu"),
+           jk.filter_append(ss, m0, c0, y[40:], mask[40:]))
+    _close(pk.innovations(pss, y, mask, device="cpu"),
+           jk.innovations(ss, y, mask))
+    # sample_states: JAX's own normals fed to the port (its RNG differs)
+    import jax
+
+    from test_torch_kalman_products import _jax_normals
+
+    key = jax.random.PRNGKey(5)
+    want = jk.sample_states(ss, y, mask, key, n_draws=3)
+    got = pk._sample_states_given(pss, y, mask,
+                                  *_jax_normals(key, 3, 50, 5, 4),
+                                  engine="joint", device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10,
+                               atol=1e-10)

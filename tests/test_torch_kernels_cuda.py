@@ -320,3 +320,151 @@ def test_joint_adjoint_kernel_matches_plain(card, dtype, bar, factored):
     assert kernels.launches()["joint_adjoint"] == 1
     for gt, wt in zip(got, want):
         assert _rel(gt, wt) <= bar
+
+
+def _gate_inputs(card, dtype, k=6):
+    """K12's inputs with spikes on known cells and an armed mix (the
+    loadings keep every communality below 1, so Q is PSD)."""
+    b, n, kf = 8, 5, 2
+    rng = np.random.default_rng(4)
+    ss = dfm_statespace(rng.uniform(5, 40, (b, n)),
+                        rng.uniform(10, 60, (b, kf)),
+                        rng.uniform(0.3, 0.8, (b, n, kf)) / np.sqrt(kf), 1.0,
+                        device=card, dtype=dtype)
+    s = n + kf
+    y = torch.as_tensor(rng.normal(size=(b, k, n)), dtype=dtype, device=card)
+    mask = torch.as_tensor(rng.uniform(size=(b, k, n)) > 0.3, device=card)
+    mask[:, 1] = False
+    mean = torch.zeros(b, s, dtype=dtype, device=card)
+    cov = torch.eye(s, dtype=dtype, device=card).expand(b, s, s).contiguous()
+    phi, q, z, r = ss
+    for b, t, i, size in ((0, 0, 2, 30.0), (2, 3, 0, -25.0), (5, 2, 4, 40.0)):
+        y[b, t, i] += size
+        mask[b, t, i] = True
+    armed = torch.tensor([True, True, False, True, True, True, False, True],
+                         device=card)
+    return (phi, q, z, r, mean, cov, y, mask), armed
+
+
+def _nan_rel(got, want):
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    return _rel(got, want) if torch.isfinite(want).any() else 0.0
+
+
+@pytest.mark.parametrize("policy", ["off", "reject", "huber", "inflate"])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_gated_filter_kernel_matches_plain(card, dtype, bar, policy):
+    """K12 in each policy against its plain version (NaN-strict, equal
+    verdicts); an armed gate that never trips (nsigma = inf) is the
+    ``off`` instantiation bit for bit."""
+    args, armed = _gate_inputs(card, dtype)
+    got = kernels.gated_filter_append(*args, armed, policy, 4.0)
+    want = kernels.gated_filter_append_plain(*args, armed, policy, 4.0)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:5], want[:5]):
+        assert _nan_rel(g, w) <= bar
+    assert torch.equal(got[5], want[5])
+    if policy != "off":
+        assert got[5][0, 0, 2] != 0 and got[5][2].eq(0).all()
+    off = kernels.gated_filter_append(*args, armed, "off", 0.0)
+    never = kernels.gated_filter_append(*args, armed, policy, float("inf"))
+    torch.cuda.synchronize()
+    for g, w in zip(never[:4], off[:4]):
+        assert torch.equal(g, w)
+    assert not never[5].any()
+
+
+def _lanes_of(args):
+    phi, q, z, r, mean, cov, y, mask = args
+    return (phi.T.contiguous(), torch.diagonal(q, 0, -2, -1).T.contiguous(),
+            z.permute(1, 2, 0).contiguous(), r.T.contiguous(), y, mask)
+
+
+@pytest.mark.parametrize("policy", ["reject", "huber", "inflate"])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_gated_sqrt_filter_kernel_matches_plain(card, dtype, bar, policy):
+    """K9's gated instantiation against its plain version from a given
+    non-triangular carry (factors through S S'); a run where nothing
+    trips is K9's given-carry instantiation bit for bit."""
+    args, armed = _gate_inputs(card, dtype)
+    lanes = _lanes_of(args)
+    b, s = args[4].shape
+    m0 = torch.randn(b, s, dtype=dtype, device=card) * 0.1
+    c0 = torch.linalg.qr(torch.randn(b, s, s, dtype=dtype,
+                                     device=card)).Q * 0.7
+    got = kernels.sqrt_filter_gated(*lanes, m0, c0, armed, policy, 4.0)
+    want = kernels.sqrt_filter_gated_plain(*lanes, m0, c0, armed, policy,
+                                           4.0)
+    torch.cuda.synchronize()
+    assert _rel(got[0], want[0]) <= bar
+    assert _rel(_outer(got[1]), _outer(want[1])) <= bar
+    for g, w in zip(got[2:5], want[2:5]):
+        assert _nan_rel(g, w) <= bar
+    assert torch.equal(got[5], want[5])
+    assert got[5].any()
+    base = kernels.sqrt_filter(*lanes, mean0=m0, chol0=c0)
+    never = kernels.sqrt_filter_gated(*lanes, m0, c0, armed, policy,
+                                      float("inf"))
+    torch.cuda.synchronize()
+    for g, w in zip(never[:4], base):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_detect_kernel_matches_plain(card, dtype, bar):
+    """K13 against its plain version: a drifting, autocorrelated stream
+    with NaN z-scores, masked steps and a disarmed model; equal counts."""
+    g = torch.Generator(device=card).manual_seed(5)
+    b, k, n = 6, 200, 7
+    zs = torch.randn((b, k, n), generator=g, device=card, dtype=dtype)
+    zs[:, 100:, 0] += 2.5  # a level shift
+    zs[:, 1:, 1] = 0.2 * zs[:, 1:, 1] + 0.98 * zs[:, :-1, 1]  # drift
+    zs[:, ::17, 2] = float("nan")
+    mask = torch.rand((b, k, n), generator=g, device=card) > 0.1
+    armed = torch.tensor([True] * 5 + [False], device=card)
+    state = torch.zeros((b, 6, n), dtype=dtype, device=card)
+    args = (state, zs, mask, armed)
+    kw = dict(cusum_k=0.5, cusum_h=8.0, lb_window=32, lb_thresh=9.0,
+              nsigma=2.5)
+    got = kernels.detect_scan(*args, **kw)
+    want = kernels.detect_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got[0], want[0]) <= bar
+    assert torch.equal(got[1], want[1])
+    assert got[1][:5].sum(dim=(0, 2)).gt(0).all()  # every kind alarmed
+    assert torch.equal(got[0][5], state[5]) and not got[1][5].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_joint_store_mode_is_the_carry_mode_bit_for_bit(card, dtype):
+    """K1's store: the terms equal the carry instantiation's, every
+    stored filtered step is K1's one-step carry from the step before,
+    and the moments match the plain store."""
+    phi, q, z, r, mean, cov, y, mask = _inputs(card, dtype, k=40)
+    r = torch.full_like(r, 0.2)
+    args = (phi, q, z, r, mean, cov, y, mask)
+    carry = kernels.joint_filter_append(*args)
+    st = kernels.joint_filter_store(*args)
+    plain = kernels.joint_filter_store_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(st[2][:, -1], carry[0])
+    assert torch.equal(st[3][:, -1], carry[1])
+    assert torch.equal(st[4], carry[2]) and torch.equal(st[5], carry[3])
+    bar = 1e-9 if dtype == torch.float64 else 1e-3
+    for g, w in zip(st, plain):
+        assert _rel(g, w) <= bar
+    b, k, s = st[2].shape
+    rep = lambda t: t[:, None].expand(b, k - 1, *t.shape[1:]).reshape(
+        b * (k - 1), *t.shape[1:]).contiguous()
+    one = kernels.joint_filter_append(
+        rep(phi), rep(q), rep(z), rep(r),
+        st[2][:, :-1].reshape(-1, s).contiguous(),
+        st[3][:, :-1].reshape(-1, s, s).contiguous(),
+        y[:, 1:].reshape(-1, 1, y.shape[-1]).contiguous(),
+        mask[:, 1:].reshape(-1, 1, mask.shape[-1]).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], st[2][:, 1:].reshape(-1, s))
+    assert torch.equal(one[1], st[3][:, 1:].reshape(-1, s, s))

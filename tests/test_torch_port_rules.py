@@ -9,8 +9,9 @@
   of running on the CPU quietly;
 - the CUDA kernel launchers take CUDA tensors only, and the dispatching
   wrappers never count a launch for the plain CPU path (the products'
-  K5/K6/K7, K6's store mode, the RTS smoother K8 and the square-root
-  engine's K9/K10 included);
+  K5/K6/K7, K6's store mode, the RTS smoother K8, the square-root
+  engine's K9/K10, K1's store mode, the gated updates K12 and gated K9
+  and the detector K13 included);
 - the score that needs a plain version (``score="autodiff"``) refuses
   CUDA tensors, so no plain version runs on the card's path.
 """
@@ -30,8 +31,11 @@ from metran_tpu_torch import kernels
 from metran_tpu_torch.kernels import build
 from metran_tpu_torch.kernels import smoother as ksm
 from metran_tpu_torch.ops import (
+    detect_append,
     deviance,
     filter_append,
+    gated_filter_append,
+    gated_sqrt_filter_append,
     kalman_filter,
     lanes_dfm_deviance,
 )
@@ -52,7 +56,12 @@ from metran_tpu_torch.parallel import (
     fleet_value_and_grad,
     pack_fleet,
 )
-from metran_tpu_torch.serve import MetranService, ModelRegistry
+from metran_tpu_torch.serve import (
+    DetectSpec,
+    GateSpec,
+    MetranService,
+    ModelRegistry,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "metran_tpu_torch").rglob("*.py")) + [
@@ -191,6 +200,17 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
                       flush_deadline=None)
     with pytest.raises(RuntimeError, match="CUDA device required"):
         fleet_stderr(params, fleet, method="lanes-fd")
+    # the serving defences: the gated updates, the detector, the service
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        gated_filter_append(ss_np, np.zeros(4), np.eye(4), y, mask)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        gated_sqrt_filter_append(ss_np, np.zeros(4), np.eye(4), y, mask)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        detect_append(np.zeros((6, 3)), y, mask)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        MetranService(ModelRegistry(root=None, engine="sequential"),
+                      flush_deadline=None, gate=GateSpec(policy="reject"),
+                      detect=DetectSpec(enabled=True))
     import pandas as pd
 
     idx = pd.date_range("2000-01-01", periods=30, freq="D")
@@ -255,6 +275,14 @@ def _k11_args(dtype=torch.float64, b=2, t=5, n_obs=3, s=4, seg=2):
             out[4], out[5], ones, ones)
 
 
+def _k13_args(dtype=torch.float64, b=2, k=4, n=3):
+    g = torch.Generator().manual_seed(3)
+    return (torch.zeros(b, 6, n, dtype=dtype),
+            torch.randn(b, k, n, generator=g, dtype=dtype),
+            torch.rand(b, k, n, generator=g) > 0.2,
+            torch.ones(b, dtype=torch.bool))
+
+
 def test_kernel_launchers_raise_on_cpu_tensors():
     args = _k1_args()
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -308,6 +336,22 @@ def test_kernel_launchers_raise_on_cpu_tensors():
         kernels.sqrt_filter_kernel(*k3, bounds_seg=4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.joint_adjoint_kernel(*_k11_args(), 2)
+    # the joint store, the gated updates and the detector
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.joint_filter_store_kernel(*args)
+    armed = torch.ones(2, dtype=torch.bool)
+    for policy in ("off", "reject", "huber", "inflate"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.gated_filter_append_kernel(*args, armed, policy, 16.0)
+    m0 = torch.zeros(3, 3, dtype=torch.float64)
+    c0 = torch.eye(3, dtype=torch.float64).expand(3, 3, 3).contiguous()
+    for policy in ("reject", "huber", "inflate"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.sqrt_filter_gated_kernel(*k3, m0, c0,
+                                             torch.ones(3, dtype=torch.bool),
+                                             policy, 16.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.detect_scan_kernel(*_k13_args())
 
 
 def test_autodiff_score_refuses_the_card(monkeypatch):
@@ -366,13 +410,25 @@ def test_plain_path_counts_no_launch_and_counters_reset():
                             sq[2], sq[3], sq[0], sq[1], want_cov=want_cov)
     kernels.sqrt_filter(*k3, bounds_seg=3)
     kernels.joint_adjoint(*_k11_args(), 2)  # K1 bounds and K11
+    kernels.joint_filter_store(*args)
+    armed = torch.tensor([True, False])
+    for policy in ("off", "reject", "huber", "inflate"):
+        kernels.gated_filter_append(*args, armed, policy, 1.0)
+    for policy in ("reject", "huber", "inflate"):
+        kernels.sqrt_filter_gated(*k3, sq[2][:, -1].contiguous(),
+                                  sq[3][:, -1].contiguous(),
+                                  torch.ones(3, dtype=torch.bool), policy,
+                                  1.0)
+    kernels.detect_scan(*_k13_args())
     assert kernels.launches() == {"joint_filter_append": 0,
+                                  "joint_filter_store": 0,
                                   "forecast_moments": 0,
                                   "lanes_filter": 0, "lanes_adjoint": 0,
                                   "lanes_smooth_bwd": 0, "lanes_forward": 0,
                                   "lanes_sample": 0, "rts_smooth": 0,
-                                  "sqrt_filter": 0, "sqrt_smooth": 0,
-                                  "joint_adjoint": 0}
+                                  "sqrt_filter": 0, "sqrt_filter_gated": 0,
+                                  "sqrt_smooth": 0, "joint_adjoint": 0,
+                                  "gated_filter": 0, "detect": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -395,7 +451,8 @@ def test_library_name_follows_the_sources():
         "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
         "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
         "lanes_sample.cu", "rts_smoother.cu", "sqrt_filter.cu",
-        "sqrt_smoother.cu", "joint_adjoint.cu"}
+        "sqrt_smoother.cu", "joint_adjoint.cu", "gated_filter.cu",
+        "detect.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 

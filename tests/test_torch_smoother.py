@@ -151,9 +151,18 @@ def test_joint_store_and_other_smoothers_raise_naming_the_roadmap():
     rng = np.random.default_rng(23)
     ss, y, mask = random_ssm(rng, 3, 1, t=10)
     pss = _port_ss(ss)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        pk.kalman_filter(pss, y, mask, engine="joint", store=True,
-                         device="cpu")
+    # the joint store is ported (K1's store mode): its smoother is the
+    # JAX function's
+    joint = pk.rts_smoother(pss, pk.kalman_filter(pss, y, mask,
+                                                  engine="joint", store=True,
+                                                  device="cpu"),
+                            engine="joint")
+    jref = jk.rts_smoother(ss, jk.kalman_filter(ss, y, mask, engine="joint"),
+                           engine="joint")
+    np.testing.assert_allclose(joint.mean_s.numpy(), np.asarray(jref.mean_s),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(joint.cov_s.numpy(), np.asarray(jref.cov_s),
+                               rtol=1e-10, atol=1e-12)
     filt = pk.kalman_filter(pss, y, mask, engine="sequential", store=True,
                             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):

@@ -50,7 +50,18 @@ non-zero):
    bit K9 from the given carry, K1's ``store`` bit for bit its history
    pass at every step (16 models; the flagship fleet at T = 5,000 for
    the last step, the terms and 16 models' every step), each timed at
-   the main path's shapes beside its bound;
+   the main path's shapes beside its bound; then the robust serving
+   updates (``robust_kernels``): K12's and K9's robust modes against
+   their plain versions for each likelihood (censored at rails 5% of the
+   readings reach, quantized on a 0.1 grid, Student-t with 10-sd spikes
+   on 32 cells at scale 0.5) on the flagship bucket at k = 1 and k = 4,
+   f64 and f32 (normwise 1e-9 / 1e-3, NaN-strict, equal flagged sets;
+   verdicts and iterations equal in f64, within 0.5% of the flagged
+   slots in f32), an armed mix; disarmed, and censored with nothing
+   railed, each is K12 ``off`` or K9 from the given carry bit for bit,
+   kernel and plain; a reading at a rail moves its slot only toward the
+   rail's side; the Student-t solves at the default scale 0.05
+   reported; each mode timed at B = 512, k = 1 beside its bound;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -75,7 +86,17 @@ non-zero):
    update kernel (K12, or gated K9) and one K13, and 16 models' flagged
    counts equal a CPU f64 replay through the plain versions; 8 threads
    then make synchronous calls; the same with ``huber`` and ``inflate``
-   on the joint registry (6 rounds, no threads);
+   on the joint registry (6 rounds, no threads); then the robust
+   serving path (``robust_serving``): ``MetranService(registry,
+   robust=RobustSpec(likelihood=...))`` on the flagship posteriors with
+   the fleet's continuation as the sensor reports it — censored on the
+   joint registry with detection armed and 8 sync threads, censored on
+   ``"sqrt"`` (12 rounds each), huber_t on joint and quantized on
+   ``"sqrt"`` (6 rounds each); one robust launch (+ K13) per dispatch,
+   every flag the data call for booked, the cold model disarmed, 16
+   models replayed on the CPU in f32 (1e-3, the same non-converged
+   solves) and f64 (1e-2), a rail probe (censored) and the spikes'
+   bounded influence (huber_t);
 5. fit path — the same flagship fleet (its own seed) packed with
    ``pack_fleet`` and fitted by ``fit_fleet(layout="lanes")`` under the
    JAX bench's fit settings (autocorrelation init, ``remat_seg=100``,
@@ -2518,6 +2539,322 @@ def _store_is_carry(k1, hist, st, carry, models=None):
                                 st[3][sel, 1:].reshape(-1, s, s)))
 
 
+# ----------------------------------------------------------------------
+# the robust (implicit-MAP) updates: K12's and K9's robust modes
+# ----------------------------------------------------------------------
+ROBUST_LIKELIHOODS = ("censored", "quantized", "huber_t")
+ROBUST_SCALE = 0.05  # RobustSpec's default likelihood scale
+# huber_t's scale in the checks: at 0.05 more than half of the Student-t
+# solves stop at their step cap, where a result is not reproducible to
+# the roundoff (1 ulp of input moves a f64 posterior by ~1e-6, a f32 one
+# by its own size); at 0.5 every solve converges (reported beside it)
+ROBUST_T_SCALE = 0.5
+ROBUST_RAIL_Q = 0.05  # censored: the share of readings beyond each rail
+ROBUST_QUANTUM = 0.1  # quantized: the grid, in series standard deviations
+ROBUST_SPIKED = 32  # huber_t: spiked (model, slot) cells
+ROBUST_SPIKE_SD = 10.0  # their size, in one-step predictive sds
+# least operations of one likelihood evaluation (value, first and second
+# derivative), each elementary function counted as one
+ROBUST_EVAL_OPS = {"censored": 30, "quantized": 75, "huber_t": 25}
+
+
+def robust_cost(cost, verdict, iters, likelihood, itemsize):
+    """A gated update's ``(bytes, operations)`` (:func:`k12_cost` or
+    :func:`k9_gated_cost`) with the robust mode's extra traffic (the four
+    (B, N) per-slot parameters read, the (B, k, N) int32 iterations
+    written) and work: per flagged slot its likelihood evaluations at the
+    steps this run's data took (``iters + 1``), the Newton step's ~10
+    operations each, and the MAP update's scalars (~12)."""
+    nbytes, ops = cost
+    b, k, n = verdict.shape
+    flagged = verdict != 0
+    evals = float((iters.double() + 1.0)[flagged].sum())
+    return (nbytes + 4 * b * n * itemsize + 4 * b * k * n,
+            ops + evals * (ROBUST_EVAL_OPS[likelihood] + 10)
+            + 12.0 * float(flagged.sum()))
+
+
+def _robust_case(rng, dtype, dev, likelihood, k=1,
+                 t_scale=ROBUST_T_SCALE):
+    """The flagship bucket (24, 32) warmed by 64 steps of its own data
+    (K1 from N(0, I)), then ``k`` appended steps of its continuation as
+    the likelihood's sensor reports them: clipped at rails that about
+    ROBUST_RAIL_Q of the readings reach on each side (censored), rounded
+    to a grid of ROBUST_QUANTUM (quantized), or with spikes of
+    ROBUST_SPIKE_SD predictive sds on ROBUST_SPIKED known cells
+    (huber_t); every fourth model disarmed.  Returns the K12 argument
+    tuple, ``armed``, the (B, N) ``(rail_lo, rail_hi, quantum, scale)``
+    and the spiked (model, step, slot) cells."""
+    import torch
+
+    from metran_tpu_torch.kernels import joint_filter_append
+
+    batch = FLEET
+    phi, q, z, r, y, mask = padded_inputs(rng, batch, 64 + k, dtype, dev)
+    s = phi.shape[1]
+    mean0 = torch.zeros((batch, s), dtype=dtype, device=dev)
+    cov0 = torch.eye(s, dtype=dtype, device=dev).expand(
+        batch, s, s).contiguous()
+    warm = joint_filter_append(phi, q, z, r, mean0, cov0, y[:, :64],
+                               mask[:, :64])
+    y_k, m_k = y[:, 64:].clone(), mask[:, 64:].clone()
+    n = y.shape[-1]
+    full = dict(dtype=dtype, device=dev)
+    lo = torch.full((batch, n), -float("inf"), **full)
+    hi = torch.full((batch, n), float("inf"), **full)
+    quantum = torch.ones((batch, n), **full)
+    spiked = []
+    if likelihood == "censored":
+        obs = y_k[m_k].double()
+        lo[:], hi[:] = (float(obs.quantile(ROBUST_RAIL_Q)),
+                        float(obs.quantile(1.0 - ROBUST_RAIL_Q)))
+        y_k = torch.minimum(torch.maximum(y_k, lo[:, None]), hi[:, None])
+    elif likelihood == "quantized":
+        quantum[:, :N_SERIES] = ROBUST_QUANTUM
+        y_k = ROBUST_QUANTUM * torch.round(y_k / ROBUST_QUANTUM)
+    else:
+        p_pred = phi[:, :, None] * warm[1] * phi[:, None, :] + q
+        sd = torch.sqrt(torch.einsum("bis,bst,bit->bi", z, p_pred, z) + r)
+        for b in range(min(ROBUST_SPIKED, batch)):
+            t, i = b % k, b % N_SERIES
+            sign = 1.0 if b % 2 else -1.0
+            y_k[b, t, i] += sign * ROBUST_SPIKE_SD * sd[b, i]
+            m_k[b, t, i] = True
+            spiked.append((b, t, i))
+    scale = torch.full((batch, n), t_scale if likelihood == "huber_t"
+                       else ROBUST_SCALE, **full)
+    armed = torch.tensor([b % 4 != 3 for b in range(batch)], device=dev)
+    return ((phi, q, z, r, warm[0], warm[1], y_k.contiguous(),
+             m_k.contiguous()), armed, (lo, hi, quantum, scale), spiked)
+
+
+def _verdict_check(got, want, dtype):
+    """The flagged sets must be equal; in f64 the verdicts and the
+    iterations too; in f32 the MAP/NONCONV split and the iterations
+    (+-1) may differ on at most 0.5% of the flagged slots.  Returns the
+    counts."""
+    import torch
+
+    flagged = int((want[5] != 0).sum())
+    same_set = bool(torch.equal(got[5] != 0, want[5] != 0))
+    verdicts = int((got[5] != want[5]).sum())
+    iters = int(((got[6] - want[6]).abs() > (1 if dtype == torch.float32
+                                              else 0)).sum())
+    ok = same_set and (verdicts == iters == 0 if dtype == torch.float64
+                       else verdicts + iters <= 0.005 * flagged)
+    return {"flagged": flagged, "same_flagged_set": same_set,
+            "verdicts_differ": verdicts, "iters_differ": iters,
+            "nonconv": int((want[5] == 4).sum()), "ok": ok}
+
+
+def phase_robust_kernels():
+    """K12's and K9's robust instantiations against their plain versions
+    on the card, each likelihood, f64 and f32 (normwise 1e-9 / 1e-3,
+    NaN-strict; verdicts and iterations by :func:`_verdict_check`) on the
+    flagship bucket (B = 512, (24, 32)) at k = 1 and k = 4, an armed mix;
+    the bitwise contracts, kernel and plain alike (an armed censored
+    update whose readings never rail, and a disarmed one of each
+    likelihood, are K12 ``off`` or K9 from the given carry); a one-slot
+    probe (each railed reading moves its slot's prediction only toward
+    its rail); the Student-t solves at the default scale reported.  Then
+    each mode timed at B = 512, k = 1 in f32 beside its bound."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import (
+        gated_filter_append,
+        gated_filter_append_plain,
+        robust_filter_append,
+        robust_filter_append_plain,
+        sqrt_filter,
+        sqrt_filter_plain,
+        sqrt_filter_robust,
+        sqrt_filter_robust_plain,
+    )
+    from metran_tpu_torch.ops import chol_outer
+    from metran_tpu_torch.ops.kalman import _lanes_ss
+    from metran_tpu_torch.ops.statespace import StateSpace
+
+    dev = torch.device(DEVICE)
+    checks, times, contracts, verdicts = [], {}, {}, {}
+
+    def record(kernel, case, dtype, got, want, bar, vcheck):
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        checks.append({
+            "kernel": kernel, "case": case, "dtype": str(dtype)[6:],
+            "rel_err": errs, "bar": bar,
+            "max_abs_err": max(abs_err(g, w) for g, w in zip(got, want)),
+            "ok": within(errs, bar) and vcheck["ok"]})
+        verdicts[f"{kernel} {case} {str(dtype)[6:]}"] = vcheck
+
+    def lanes_of(args):
+        phi, q, z, r = _lanes_ss(StateSpace(*args[:4]), "sqrt")
+        return phi, q, z, r, args[6], args[7]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+
+    for dtype in (torch.float64, torch.float32):
+        bar = 1e-9 if dtype == torch.float64 else 1e-3
+        tag = str(dtype)[6:]
+        for lik in ROBUST_LIKELIHOODS:
+            for k in (1, 4):
+                rng = np.random.default_rng(SEED + 110 + k)
+                args, armed, par, _ = _robust_case(rng, dtype, dev, lik, k)
+                got = robust_filter_append(*args, armed, *par,
+                                           likelihood=lik)
+                want = robust_filter_append_plain(*args, armed, *par,
+                                                  likelihood=lik)
+                torch.cuda.synchronize()
+                case = f"{lik}, B={FLEET} k={k} (24, 32)"
+                record("gated_filter_robust", case, dtype, got[:5],
+                       want[:5], bar, _verdict_check(got, want, dtype))
+                require(bool(got[5].any()) and not got[5][3::4].any(),
+                        f"K12 {lik}: nothing flagged, or a disarmed model "
+                        "flagged")
+                lanes = lanes_of(args)
+                m0, c0 = args[4].contiguous(), _psd_factor(args[5])
+                got = sqrt_filter_robust(*lanes, m0, c0, armed, *par,
+                                         likelihood=lik)
+                want = sqrt_filter_robust_plain(*lanes, m0, c0, armed,
+                                                *par, likelihood=lik)
+                torch.cuda.synchronize()
+                record("sqrt_filter_robust", case, dtype,
+                       (got[0], chol_outer(got[1]), *got[2:5]),
+                       (want[0], chol_outer(want[1]), *want[2:5]), bar,
+                       _verdict_check(got, want, dtype))
+                require(bool(got[5].any()) and not got[5][3::4].any(),
+                        f"K9 robust {lik}: nothing flagged, or a disarmed "
+                        "model flagged")
+            # the bitwise contracts, kernel and plain (k = 1)
+            rng = np.random.default_rng(SEED + 111)
+            args, armed, par, _ = _robust_case(rng, dtype, dev, lik)
+            lo, hi, quantum, scale = par
+            lanes = lanes_of(args)
+            m0, c0 = args[4].contiguous(), _psd_factor(args[5])
+            runs = {"disarmed": (torch.zeros_like(armed), par)}
+            if lik == "censored":
+                runs["never railed"] = (armed, (lo - 1e6, hi + 1e6, quantum,
+                                                scale))
+            for name, (arm, prm) in runs.items():
+                for route, k12, k12_off, k9, k9_off in (
+                        ("kernel", robust_filter_append, gated_filter_append,
+                         sqrt_filter_robust, sqrt_filter),
+                        ("plain", robust_filter_append_plain,
+                         gated_filter_append_plain,
+                         sqrt_filter_robust_plain, sqrt_filter_plain)):
+                    out = k12(*args, arm, *prm, likelihood=lik)
+                    off = k12_off(*args, armed, "off", 0.0)
+                    ok12 = same(out, off) and not out[5].any()
+                    out = k9(*lanes, m0, c0, arm, *prm, likelihood=lik)
+                    torch.cuda.synchronize()
+                    base = k9_off(*lanes, mean0=m0, chol0=c0)
+                    torch.cuda.synchronize()
+                    ok9 = same(out, base) and not out[5].any()
+                    contracts[f"K12 {lik} {name} == off, {route}, {tag}"] = (
+                        ok12)
+                    contracts[f"K9 robust {lik} {name} == K9, {route}, "
+                              f"{tag}"] = ok9
+                    require(ok12 and ok9, f"{lik} {name} ({route}, {tag}) "
+                            "is not the plain update bit for bit")
+        # the one-slot probe: a reading at a rail moves its own slot's
+        # prediction only toward the rail's side (the truth lies beyond
+        # it), even where the reading sits on the other side of the
+        # prediction and a Gaussian update would pull it back
+        rng = np.random.default_rng(SEED + 112)
+        args, armed, par, _ = _robust_case(rng, dtype, dev, "censored")
+        phi, q, z, r, m0, cov0, y, mask = args
+        pred = (z[:, 0] * (phi * m0)).sum(-1)  # slot 0's prior prediction
+        hi_side = torch.arange(FLEET, device=dev) % 2 == 0
+        y1 = torch.zeros_like(y)
+        y1[:, 0, 0] = torch.where(hi_side, pred - 0.5, pred + 0.5)
+        m1 = torch.zeros_like(mask)
+        m1[:, 0, 0] = True
+        lo1 = torch.where(hi_side, y1[:, 0, 0] - 10.0, y1[:, 0, 0])
+        hi1 = torch.where(hi_side, y1[:, 0, 0], y1[:, 0, 0] + 10.0)
+        prm = (lo1[:, None].expand_as(par[0]).contiguous(),
+               hi1[:, None].expand_as(par[0]).contiguous(), *par[2:])
+        lanes = (*lanes_of(args)[:4], y1, m1)
+        c0 = _psd_factor(cov0)
+        for kern, out in (
+                ("K12", robust_filter_append(phi, q, z, r, m0, cov0, y1, m1,
+                                             armed, *prm)),
+                ("K9", sqrt_filter_robust(*lanes, m0, c0, armed, *prm))):
+            moved = (z[:, 0] * out[0]).sum(-1) - pred
+            up = torch.where(hi_side, moved, -moved)[armed]
+            # the sums' roundoff: the slot's prediction is formed here and
+            # in the kernel in different orders
+            tol = (1e-12 if dtype == torch.float64 else 1e-5) * max(
+                1.0, float(pred.abs().max()))
+            ok = bool((up >= -tol).all()
+                      and (out[5][armed, 0, 0] != 0).all())
+            contracts[f"{kern} railed slot moves toward its rail, {tag}"] = ok
+            require(ok, f"{kern}: a railed reading moved its slot away from "
+                    "its rail's side")
+        # Student-t at the default scale: the share of solves at the cap,
+        # kernel against plain (reported, not held)
+        rng = np.random.default_rng(SEED + 113)
+        args, armed, par, _ = _robust_case(rng, dtype, dev, "huber_t",
+                                           t_scale=ROBUST_SCALE)
+        got = robust_filter_append(*args, armed, *par, likelihood="huber_t")
+        want = robust_filter_append_plain(*args, armed, *par,
+                                          likelihood="huber_t")
+        torch.cuda.synchronize()
+        flagged = int((want[5] != 0).sum())
+        verdicts[f"huber_t at scale {ROBUST_SCALE}, K12, {tag}"] = {
+            "flagged": flagged,
+            "nonconv_share": float((want[5] == 4).sum()) / max(flagged, 1),
+            "mean_iters": float(want[6][want[5] != 0].double().mean()),
+            "rel_err_mean": rel_err(got[0], want[0])}
+    for c in checks:
+        emit({"phase": "kernel_check", **c})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}; "
+            f"verdicts {verdicts}")
+
+    # each mode at the main path's shape: B = 512, k = 1, f32
+    dtype = torch.float32
+    for lik in ROBUST_LIKELIHOODS:
+        rng = np.random.default_rng(SEED + 114)
+        args, armed, par, _ = _robust_case(rng, dtype, dev, lik)
+        lanes = lanes_of(args)
+        m0, c0 = args[4].contiguous(), _psd_factor(args[5])
+        n, s = args[2].shape[1:]
+        suffix = "" if lik == "censored" else f"_{lik}"
+        for key, fn, plain, base_cost in (
+                ("gated_filter_robust",
+                 lambda: robust_filter_append(*args, armed, *par,
+                                              likelihood=lik),
+                 lambda: robust_filter_append_plain(*args, armed, *par,
+                                                    likelihood=lik),
+                 k12_cost(args[2], args[1], args[7], 4)),
+                ("sqrt_filter_robust",
+                 lambda: sqrt_filter_robust(*lanes, m0, c0, armed, *par,
+                                            likelihood=lik),
+                 lambda: sqrt_filter_robust_plain(*lanes, m0, c0, armed,
+                                                  *par, likelihood=lik),
+                 k9_gated_cost(lanes[2], lanes[5], torch.arange(
+                     FLEET, dtype=torch.int32, device=dev), 4))):
+            ms, out = cuda_ms(fn, reps=20)
+            plain_ms, _ = cuda_ms(plain, reps=3, warm=1)
+            bms, bby = bound_ms(*robust_cost(base_cost, out[5], out[6], lik,
+                                             4), "float32")
+            flag = out[5] != 0
+            times[key + suffix] = {
+                "shape": f"{lik}, B={FLEET} k=1 N={n} S={s} f32 (update "
+                         "dispatch)",
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": bby, "flagged_slots": int(flag.sum()),
+                "mean_iters": float(out[6][flag].double().mean())}
+    torch.cuda.empty_cache()
+    emit({"phase": "robust_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar",
+                           "ok")} for c in checks],
+        "verdicts": verdicts, "bitwise_contracts": contracts,
+        "times": times})
+    return checks, times
+
+
 GATED_ROUNDS = 12  # update rounds of the gated serving path
 GATED_CPU = 16  # models whose rounds are replayed in f64 on the CPU
 SPIKE_DATA = 5.0  # spikes in data units (over 5 innovation sigmas)
@@ -2779,6 +3116,318 @@ def phase_gated_serving(engine, policy="reject", rounds=GATED_ROUNDS,
               "max_rel_err": max(errs) if errs else None},
           "launches": counts})
     return counts, out
+
+
+ROBUST_ROUNDS = 12  # update rounds of the robust serving runs
+ROBUST_CPU = 16  # models whose rounds are replayed in f64 on the CPU
+ROBUST_COLD = 3  # a model with t_seen below the robust floor
+
+
+def phase_robust_serving(engine, likelihood, rounds=ROBUST_ROUNDS,
+                         sync=False, detect=False):
+    """The robust serving path through the entry points a user calls:
+    ``ModelRegistry(engine=engine)`` holding the flagship fleet's 512
+    posteriors after its 5,000-step history pass, and
+    ``MetranService(registry, robust=RobustSpec(likelihood=...))``
+    assimilating ``rounds`` rows of the fleet's own continuation as the
+    likelihood's sensor reports them (clipped at rails ROBUST_RAIL_Q of
+    the readings reach, rounded to ROBUST_QUANTUM, or spiked by
+    ROBUST_SPIKE_SD predictive sds on 32 known cells), one model cold
+    (below ``min_seen``).  Checks: one robust launch per dispatch (and
+    one K13 with ``detect``); every armed observation flagged where the
+    likelihood says (the MAP slots counted against the data); every armed
+    commit booked (a MAP update or a fallback) and the cold model never;
+    ``health()`` showing the counters; ROBUST_CPU models replayed on the
+    CPU through the plain versions: in f32 the same observations and
+    non-converged solves per model and posteriors within 1e-3 of the
+    card's, in f64 within 1e-2 (the f32 solve stops at 8 sqrt(eps) of
+    its residual; the non-converged counts are reported); censored: a probe
+    round of readings at a rail moves each read slot's prediction only
+    toward the rail's side; huber_t: each replayed spike
+    moves the state less than a third of what the plain update moves it.
+    With ``sync``, 8 threads then make synchronous calls.  Returns the
+    launch counts and the timings."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.ops import (
+        chol_outer,
+        dfm_statespace,
+        implicit_map_filter_append,
+        implicit_map_sqrt_filter_append,
+        kalman_filter,
+        sqrt_kalman_filter,
+    )
+    from metran_tpu_torch.serve import (
+        DetectSpec,
+        MetranService,
+        ModelRegistry,
+        PosteriorState,
+        RobustSpec,
+    )
+
+    dev = torch.device(DEVICE)
+    f32 = np.float32
+    sqrt = engine == "sqrt"
+    rng = np.random.default_rng(SEED + 120)
+    y, mask, lds, a_s, a_c = make_workload(rng, FLEET, t=T_STEPS + rounds)
+    y = y.astype(f32)
+    rows = np.where(mask[:, T_STEPS:], y[:, T_STEPS:], np.nan)
+    obs = rows[np.isfinite(rows)]
+    kw = dict(likelihood=likelihood, scale=ROBUST_SCALE)
+    if likelihood == "censored":
+        # rails a float32 holds exactly, so the card's standardized rails
+        # and the CPU replay's are the same numbers
+        kw.update(rail_lo=float(f32(np.quantile(obs, ROBUST_RAIL_Q))),
+                  rail_hi=float(f32(np.quantile(obs, 1.0 - ROBUST_RAIL_Q))))
+        rows = np.clip(rows, kw["rail_lo"], kw["rail_hi"])
+    elif likelihood == "quantized":
+        kw.update(quantum=ROBUST_QUANTUM)
+        rows = ROBUST_QUANTUM * np.round(rows / ROBUST_QUANTUM)
+    else:
+        kw.update(scale=ROBUST_T_SCALE)
+    spec = RobustSpec(**kw)
+    reset_launches()
+    ss = dfm_statespace(a_s.astype(f32), a_c.astype(f32), lds.astype(f32),
+                        1.0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yh, mh = y[:, :T_STEPS], mask[:, :T_STEPS]
+    if sqrt:
+        res = sqrt_kalman_filter(ss, yh, mh, store=False)
+        cov_t = chol_outer(res.chol_f)
+        chols = res.chol_f.cpu().numpy()
+    else:
+        res = kalman_filter(ss, yh, mh, engine=engine, store=False)
+        cov_t, chols = res.cov_f, [None] * FLEET
+    means, covs = res.mean_f.cpu().numpy(), cov_t.cpu().numpy()
+    t_history = time.perf_counter() - t0
+    spiked = {}
+    if likelihood == "huber_t":
+        # ROBUST_SPIKE_SD one-step predictive sds on one observed slot of
+        # 32 models, in their first round (the replay checks each)
+        p_pred = (ss.phi[:, :, None] * cov_t * ss.phi[:, None, :] + ss.q)
+        sd = torch.sqrt(torch.einsum("bis,bst,bit->bi", ss.z, p_pred, ss.z)
+                        + ss.r).cpu().numpy()
+        for b in range(4, 4 + 32):
+            i = next((b + j) % N_SERIES for j in range(N_SERIES)
+                     if np.isfinite(rows[b, 0, (b + j) % N_SERIES]))
+            size = (1.0 if b % 2 else -1.0) * ROBUST_SPIKE_SD * sd[b, i]
+            rows[b, 0, i] += size
+            spiked[b] = (i, size)
+    reg = ModelRegistry(root=None, engine=engine)
+    names = tuple(f"s{j}" for j in range(N_SERIES))
+    ids = [f"m{i}" for i in range(FLEET)]
+    start = []
+    for i in range(FLEET):
+        st = PosteriorState(
+            model_id=ids[i], version=0,
+            t_seen=10 if i == ROBUST_COLD else T_STEPS,
+            mean=means[i], cov=covs[i],
+            params=np.concatenate([a_s[i], a_c[i]]).astype(f32),
+            loadings=lds[i].astype(f32), dt=1.0,
+            scaler_mean=np.zeros(N_SERIES, f32),
+            scaler_std=np.ones(N_SERIES, f32), names=names, chol=chols[i])
+        reg.put(st, persist=False)
+        start.append(st)
+    det = DetectSpec(enabled=True) if detect else None
+    svc = MetranService(reg, flush_deadline=None, max_batch=1024,
+                        persist_updates=False, robust=spec, detect=det,
+                        device=dev)
+    upd_times = []
+    before = launches()
+    for r in range(rounds):
+        futs = {mid: svc.update_async(mid, rows[i, r][None])
+                for i, mid in enumerate(ids)}
+        t = time.perf_counter()
+        svc.flush()
+        upd_times.append(time.perf_counter() - t)
+        bad = {m: type(f.exception()).__name__ for m, f in futs.items()
+               if f.exception() is not None}
+        require(not bad, f"robust updates failed: {bad}")
+    after = launches()
+    kern = "sqrt_filter_robust" if sqrt else "gated_filter_robust"
+    per_dispatch = {k: (after[k] - before[k]) / rounds for k in after
+                    if after[k] != before[k]}
+    want_launches = {kern: 1.0, **({"detect": 1.0} if detect else {})}
+    require(per_dispatch == want_launches,
+            f"launches per update dispatch: {per_dispatch}")
+    for mid in ids:
+        require(reg.get(mid).version == rounds, mid)
+    counts = svc.robust_total.snapshot()
+    armed_obs = np.isfinite(rows).copy()
+    armed_obs[ROBUST_COLD] = False
+    if likelihood == "censored":
+        flag = armed_obs & ((rows <= spec.rail_lo) | (rows >= spec.rail_hi))
+    else:
+        flag = armed_obs
+    require(counts.get("map_slots", 0) == int(flag.sum()),
+            f"MAP slots {counts.get('map_slots')} != the {int(flag.sum())} "
+            "the data flag")
+    require(counts.get("map_updates", 0) + counts.get("fallback_updates", 0)
+            == rounds * (FLEET - 1),
+            f"armed commits booked: {counts} (the cold model must book none)")
+    health = svc.health()
+    require(health["robust_total"] == counts and counts, health.get(
+        "robust_total"))
+    require(sum(health["robust_iterations"].values()) == counts["map_slots"],
+            health["robust_iterations"])
+    window = svc.monitor.gate_stats()
+
+    # the CPU replay of ROBUST_CPU models through the plain versions, in
+    # f32 (the card's arithmetic and solver tolerance) and in f64
+    picks = sorted({ROBUST_COLD, *range(4, 4 + ROBUST_CPU - 1)})[:ROBUST_CPU]
+    fn = (implicit_map_sqrt_filter_append if sqrt
+          else implicit_map_filter_append)
+    par = dict(rail_lo=spec.rail_lo, rail_hi=spec.rail_hi,
+               quantum=spec.quantum if spec.quantum > 0 else 1.0,
+               scale=spec.scale, likelihood=likelihood, nu=spec.nu)
+    errs = {"float32": [], "float64": []}
+    nonconv = {"card": 0, "float32": 0, "float64": 0}
+    same_nonconv, influence = True, []
+    for i in picks:
+        st = start[i]
+        got = window.get(ids[i], {"observed": 0, "rejected": 0})
+        nonconv["card"] += got["rejected"]
+        for dt in (torch.float32, torch.float64):
+            tag = str(dt)[6:]
+            ss_c = dfm_statespace(a_s[i].astype(f32), a_c[i].astype(f32),
+                                  lds[i].astype(f32), 1.0, device="cpu",
+                                  dtype=dt)
+            m = torch.as_tensor(st.mean).to(dt)
+            fac = torch.as_tensor(st.chol if sqrt else st.cov).to(dt)
+            n_nonconv, n_obs, t_seen = 0, 0, st.t_seen
+            for r in range(rounds):
+                row = rows[i, r]
+                msk = np.isfinite(row)
+                armed = t_seen >= spec.min_seen
+                y_r = np.where(msk, row, 0.0)[None]
+                out = fn(ss_c, m, fac, y_r, msk[None], armed=armed,
+                         device="cpu", **par)
+                if r == 0 and i in spiked and dt == torch.float64:
+                    # the spike's influence against the plain update's
+                    slot, size = spiked[i]
+                    clean = y_r.copy()
+                    clean[0, slot] -= size
+                    rc = fn(ss_c, m, fac, clean, msk[None], armed=armed,
+                            device="cpu", **par)
+                    g = dict(par, likelihood="gaussian")
+                    ps = fn(ss_c, m, fac, y_r, msk[None], device="cpu", **g)
+                    pc = fn(ss_c, m, fac, clean, msk[None], device="cpu",
+                            **g)
+                    influence.append(float((out[0] - rc[0]).abs().max()
+                                           / (ps[0] - pc[0]).abs().max()))
+                m, fac = out[0], out[1]
+                t_seen += 1
+                n_nonconv += int((out[5] == 4).sum())
+                n_obs += int(msk.sum())
+            nonconv[tag] += n_nonconv
+            if dt == torch.float32:
+                same_nonconv &= (got["observed"] == n_obs
+                                 and got["rejected"] == n_nonconv)
+            cov_c = chol_outer(fac) if sqrt else fac
+            now = reg.get(ids[i])
+            errs[tag].append(max(rel_err(torch.as_tensor(now.mean), m),
+                                 rel_err(torch.as_tensor(now.cov), cov_c)))
+    require(same_nonconv, "the card's observations or non-converged solves "
+            "per model differ from the CPU f32 replay's")
+    # f32 holds the card to the same arithmetic; f64 to the exact solve,
+    # whose f32 twin stops at 8 sqrt(eps_f32) = 2.8e-3 of the
+    # dimensionless residual (every flagged slot's MAP point carries up
+    # to that much of its prior sd)
+    require(within(errs["float32"], 1e-3) and within(errs["float64"], 1e-2),
+            f"CPU replay: errors {errs}")
+    if likelihood == "huber_t":
+        require(influence and max(influence) < 1.0 / 3.0,
+                f"spike influence against the plain update: {influence}")
+
+    probe = None
+    if likelihood == "censored":
+        # a probe round: slot 0 of 16 armed models read at a rail; its
+        # prediction may only move toward the rail's side
+        probe_ids = list(range(40, 56))
+        moved = []
+        for j, i in enumerate(probe_ids):
+            st = reg.get(ids[i])
+            ss_i = dfm_statespace(a_s[i].astype(float),
+                                  a_c[i].astype(float),
+                                  lds[i].astype(float), 1.0, device="cpu")
+            z0 = ss_i.z[0].numpy()
+            pred = float(z0 @ (ss_i.phi.numpy() * st.mean))
+            row = np.full(N_SERIES, np.nan)
+            high = j % 2 == 0
+            row[0] = spec.rail_hi if high else spec.rail_lo
+            moved.append((high, pred, row[0]))
+            svc.update_async(ids[i], row[None])
+        svc.flush()
+        ok = True
+        for (high, pred, rail), i in zip(moved, probe_ids):
+            st = reg.get(ids[i])
+            ss_i = dfm_statespace(a_s[i].astype(float), a_c[i].astype(float),
+                                  lds[i].astype(float), 1.0, device="cpu")
+            after_pred = float(ss_i.z[0].numpy() @ st.mean)
+            step = after_pred - pred if high else pred - after_pred
+            ok &= step >= -1e-5 * max(1.0, abs(pred))
+        probe = {"models": len(probe_ids), "toward_rail": ok}
+        require(ok, "a railed reading moved its slot away from its rail")
+    svc.close()
+
+    call_ms: list = []
+    if sync:
+        sync_ids = ids[64:128]
+        errors: list = []
+        lock = threading.Lock()
+        with MetranService(reg, flush_deadline=0.002, max_batch=1024,
+                           persist_updates=False, robust=spec, detect=det,
+                           device=dev) as svc2:
+
+            def worker(w):
+                try:
+                    for j in range(w, len(sync_ids), 8):
+                        i = 64 + j
+                        t = time.perf_counter()
+                        st = svc2.update(sync_ids[j], rows[i, -1][None])
+                        t_u = time.perf_counter() - t
+                        require(np.isfinite(st.mean).all(), sync_ids[j])
+                        with lock:
+                            call_ms.append(t_u * 1e3)
+                except BaseException as exc:  # noqa: BLE001 - re-raised
+                    with lock:
+                        errors.append(exc)
+
+            threads = [threading.Thread(target=worker, args=(w,))
+                       for w in range(8)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+                require(not th.is_alive(), "a sync-call thread hung")
+        if errors:
+            raise errors[0]
+    counts_all = launches()
+    require(counts_all[kern] > 0, f"robust serving never launched {kern}")
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs), p)) if xs else None
+
+    out = {"update_dispatch_ms": pct(upd_times, 50) * 1e3,
+           "update_dispatch_p99_ms": pct(upd_times, 99) * 1e3,
+           "sync_update_p50_ms": pct(call_ms, 50),
+           "sync_update_p99_ms": pct(call_ms, 99)}
+    emit({"phase": "robust_serving", "engine": engine,
+          "likelihood": likelihood, "spec": spec._asdict(), "fleet": FLEET,
+          "rounds": rounds, "history_pass_s": t_history, **out,
+          "launches_per_dispatch": per_dispatch, "robust_total": counts,
+          "robust_iterations": health["robust_iterations"],
+          "degraded_models": health["gate"]["degraded_models"],
+          "detect": health.get("detect"), "probe": probe,
+          "spike_influence_max": max(influence) if influence else None,
+          "cpu_replay": {"compared": len(picks), "nonconv": nonconv,
+                         "max_rel_err": {k: max(v) for k, v in
+                                         errs.items()}},
+          "launches": counts_all})
+    return counts_all, out
 
 
 def phase_c2_defaults(mt):
@@ -4077,6 +4726,14 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/detect.cu",
         "replaces": "metran_tpu/ops/detect.py:104",
     },
+    "gated_filter_robust": {
+        "source": "metran_tpu_torch/kernels/csrc/gated_filter.cu",
+        "replaces": "metran_tpu/ops/implicit_map.py:260",
+    },
+    "sqrt_filter_robust": {
+        "source": "metran_tpu_torch/kernels/csrc/sqrt_filter.cu",
+        "replaces": "metran_tpu/ops/implicit_map.py:358",
+    },
 }
 
 
@@ -4103,7 +4760,8 @@ def main() -> int:
     checks, times = phase_kernels()
     for phase in (phase_lanes_kernels, phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
-                  phase_adjoint_kernels, phase_gate_kernels):
+                  phase_adjoint_kernels, phase_gate_kernels,
+                  phase_robust_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
@@ -4119,6 +4777,17 @@ def main() -> int:
         paths[f"gated_joint_{policy}"], gated[f"joint_{policy}"] = (
             phase_gated_serving("joint", policy, rounds=6, sync=False))
     emit({"phase": "gated_engines", "timings": gated})
+    robust = {}
+    for engine, likelihood, kw in (
+            ("joint", "censored", dict(sync=True, detect=True)),
+            ("sqrt", "censored", {}),
+            ("joint", "huber_t", dict(rounds=6)),
+            ("sqrt", "quantized", dict(rounds=6))):
+        key = f"{engine}_{likelihood}"
+        paths[f"robust_{key}"], robust[key] = phase_robust_serving(
+            engine, likelihood, **kw)
+    emit({"phase": "robust_engines", "timings": robust,
+          "gated_timings": gated})
     # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
     # fleet stderr's run through phases 6 and 7, checked last)
     with ProcessPoolExecutor(
@@ -4153,8 +4822,11 @@ def main() -> int:
             entry["bounds"] = times["joint_filter_append_bounds"]
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
+        # another kernel's name that extends this one's owns its keys
+        longer = [o for o in KERNELS if o.startswith(name + "_")]
         others = {k: v for k, v in times.items()
-                  if k.startswith(name + "_") and k not in KERNELS}
+                  if k.startswith(name + "_") and k not in KERNELS
+                  and not any(k.startswith(o + "_") for o in longer)}
         if name != "joint_filter_append" and others:
             entry["other_launches"] = others
         summary.append(entry)

@@ -2,11 +2,11 @@
 PyTorch port.
 
 The serving knobs the port reads (batching, buckets, the engine, the
-reliability layer, the observation gate and streaming detection) and
-the gradient-engine knob mirror the JAX package's ``config.py`` (same
-names, same defaults, same ``METRAN_TPU_SERVE_*`` and
-``METRAN_TPU_GRAD_ENGINE`` environment overrides), so one deployment's
-settings drive either package.
+reliability layer, the observation gate, robust updates and streaming
+detection) and the gradient-engine knob mirror the JAX package's
+``config.py`` (same names, same defaults, same ``METRAN_TPU_SERVE_*``
+and ``METRAN_TPU_GRAD_ENGINE`` environment overrides), so one
+deployment's settings drive either package.
 
 Device policy: entry points run on the CUDA card unless the caller asks
 for another device.  :func:`default_device` never picks the CPU
@@ -42,6 +42,24 @@ SERVE_VALIDATE_UPDATES = 1  # per-slot posterior finiteness/PSD checks
 SERVE_GATE_POLICY = "off"  # "reject" | "huber" | "inflate" | "off"
 SERVE_GATE_NSIGMA = 4.0  # gate at z^2 > nsigma^2 (chi-square(1) null)
 SERVE_GATE_MIN_SEEN = 32  # disarm models with t_seen below this
+# non-Gaussian observation robustness: the implicit-MAP update for
+# censored / quantized / heavy-tailed sensors.  Ships OFF: arming it is
+# a per-deployment sensor-model decision (rails and quanta describe the
+# physical logger), and the robust spec is mutually exclusive with an
+# enabled observation gate (the likelihood IS the outlier treatment).
+SERVE_ROBUST = 0  # 1 = arm the implicit-MAP robust update path
+SERVE_ROBUST_LIKELIHOOD = "censored"  # "censored" | "quantized" |
+#                                       "huber_t" (| "gaussian": the
+#                                       exact update, for pinning)
+SERVE_ROBUST_RAIL_LO = float("-inf")  # low saturation rail, data units
+SERVE_ROBUST_RAIL_HI = float("inf")  # high saturation rail, data units
+SERVE_ROBUST_QUANTUM = 0.0  # quantization cell width, data units
+SERVE_ROBUST_NU = 4.0  # Student-t degrees of freedom (huber_t; > 2)
+SERVE_ROBUST_SCALE = 0.05  # sensor-noise scale in STANDARDIZED units
+#                            (smooths the censored/quantized
+#                            likelihoods; the DFM's r = 0 channel is a
+#                            hard indicator without it)
+SERVE_ROBUST_MIN_SEEN = 32  # disarm models below this t_seen
 # streaming detection ships OFF (a per-deployment calibration of the
 # false-alarm rate against detection delay)
 SERVE_DETECT = 0  # 1 = arm streaming detection + alerting
@@ -108,6 +126,28 @@ def serve_defaults() -> dict:
         ),
         "gate_min_seen": _env(
             "METRAN_TPU_SERVE_GATE_MIN_SEEN", int, SERVE_GATE_MIN_SEEN
+        ),
+        "robust": _env("METRAN_TPU_SERVE_ROBUST", int, SERVE_ROBUST),
+        "robust_likelihood": _env(
+            "METRAN_TPU_SERVE_ROBUST_LIKELIHOOD", str,
+            SERVE_ROBUST_LIKELIHOOD,
+        ),
+        "robust_rail_lo": _env(
+            "METRAN_TPU_SERVE_ROBUST_RAIL_LO", float, SERVE_ROBUST_RAIL_LO
+        ),
+        "robust_rail_hi": _env(
+            "METRAN_TPU_SERVE_ROBUST_RAIL_HI", float, SERVE_ROBUST_RAIL_HI
+        ),
+        "robust_quantum": _env(
+            "METRAN_TPU_SERVE_ROBUST_QUANTUM", float, SERVE_ROBUST_QUANTUM
+        ),
+        "robust_nu": _env("METRAN_TPU_SERVE_ROBUST_NU", float,
+                          SERVE_ROBUST_NU),
+        "robust_scale": _env(
+            "METRAN_TPU_SERVE_ROBUST_SCALE", float, SERVE_ROBUST_SCALE
+        ),
+        "robust_min_seen": _env(
+            "METRAN_TPU_SERVE_ROBUST_MIN_SEEN", int, SERVE_ROBUST_MIN_SEEN
         ),
         "detect": _env("METRAN_TPU_SERVE_DETECT", int, SERVE_DETECT),
         "detect_cusum_k": _env(

@@ -12,15 +12,17 @@
 - :mod:`.smoother` — K8, the RTS smoother over stored moments;
 - :mod:`.sqrt_filter` — K9, the square-root (QR array) filter, with its
   per-step store, with segment boundaries or with neither, from
-  ``(0, I)`` or a given carry, or gated (the observation gate) from a
-  given carry;
+  ``(0, I)`` or a given carry, or gated (the observation gate) or robust
+  (the implicit-MAP update) from a given carry;
 - :mod:`.sqrt_smoother` — K10, the factored RTS smoother over K9's
   stored factors;
 - :mod:`.joint_adjoint` — K11, the closed-form reverse sweep of the
   batch-layout deviance (the backward of ``ops.adjoint``);
 - :mod:`.gated_filter` — K12, the gated sequential-processing filter
   append (the observation gate; with the gate off, the sequential
-  serving update);
+  serving update; in its robust modes, the implicit-MAP update);
+- :mod:`.implicit_map` — the scalar MAP solve of the robust modes of K12
+  and K9 (``csrc/implicit_map.cuh`` on the card), in PyTorch ops;
 - :mod:`.detect` — K13, the streaming detector over z-scores;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
@@ -28,12 +30,15 @@
 Each wrapper (``joint_filter_append``, ``joint_filter_store``,
 ``forecast_moments``, ``lanes_filter``, ``lanes_adjoint``,
 ``lanes_smooth_bwd``, ``lanes_forward``, ``lanes_sample``,
-``rts_smooth``, ``sqrt_filter``, ``sqrt_filter_gated``, ``sqrt_smooth``,
-``joint_adjoint``, ``gated_filter_append``, ``detect_scan``) launches its kernel (``*_kernel``,
-which takes CUDA tensors only and raises if it cannot build or launch)
-on CUDA tensors and runs the plain version (``*_plain``) on CPU
-tensors; there is no fallback between them.  Nothing is built or
-loaded at import.
+``rts_smooth``, ``sqrt_filter``, ``sqrt_filter_gated``,
+``sqrt_filter_robust``, ``sqrt_smooth``, ``joint_adjoint``,
+``gated_filter_append``, ``robust_filter_append``, ``detect_scan``)
+launches its kernel (``*_kernel``, which takes CUDA tensors only and
+raises if it cannot build or launch) on CUDA tensors and runs the plain
+version (``*_plain``) on CPU tensors; there is no fallback between
+them.  Nothing is built or loaded at import.  The robust modes count
+their launches apart (``gated_filter_robust``, ``sqrt_filter_robust``),
+so a run shows which instantiation a dispatch went through.
 """
 
 from . import build
@@ -48,6 +53,9 @@ from .gated_filter import (
     gated_filter_append,
     gated_filter_append_kernel,
     gated_filter_append_plain,
+    robust_filter_append,
+    robust_filter_append_kernel,
+    robust_filter_append_plain,
 )
 from .joint_adjoint import (
     joint_adjoint,
@@ -90,6 +98,9 @@ from .sqrt_filter import (
     sqrt_filter_gated_plain,
     sqrt_filter_kernel,
     sqrt_filter_plain,
+    sqrt_filter_robust,
+    sqrt_filter_robust_kernel,
+    sqrt_filter_robust_plain,
 )
 from .sqrt_smoother import (
     sqrt_smooth,
@@ -135,6 +146,9 @@ __all__ = [
     "lanes_smooth_bwd_plain",
     "launches",
     "reset_launches",
+    "robust_filter_append",
+    "robust_filter_append_kernel",
+    "robust_filter_append_plain",
     "rts_smooth",
     "rts_smooth_kernel",
     "rts_smooth_plain",
@@ -144,6 +158,9 @@ __all__ = [
     "sqrt_filter_gated_plain",
     "sqrt_filter_kernel",
     "sqrt_filter_plain",
+    "sqrt_filter_robust",
+    "sqrt_filter_robust_kernel",
+    "sqrt_filter_robust_plain",
     "sqrt_smooth",
     "sqrt_smooth_kernel",
     "sqrt_smooth_plain",

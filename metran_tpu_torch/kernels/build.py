@@ -47,7 +47,7 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
             "lanes_smooth_bwd": 0, "lanes_forward": 0, "lanes_sample": 0,
             "rts_smooth": 0, "sqrt_filter": 0, "sqrt_filter_gated": 0,
             "sqrt_smooth": 0, "joint_adjoint": 0, "gated_filter": 0,
-            "detect": 0}
+            "detect": 0, "gated_filter_robust": 0, "sqrt_filter_robust": 0}
 
 
 def count_launch(name: str) -> None:
@@ -150,9 +150,16 @@ _SIGNATURES = {
         ("metran_joint_filter_store", [_PTR] * 14 + [_INT] * 4 + [_PTR]),
     ),
     # phi, q, z, r, mean0, cov0, y, mask, armed, thresh, mean, cov, sigma,
-    # detf, zscore, verdict, B, k, N, S, policy, stream
-    "gated_filter": ("metran_gated_filter",
-                     [_PTR] * 9 + [_DBL] + [_PTR] * 6 + [_INT] * 5 + [_PTR]),
+    # detf, zscore, verdict, B, k, N, S, policy, stream; and the robust
+    # modes: phi, q, z, r, mean0, cov0, y, mask, armed, rail_lo, rail_hi,
+    # quantum, scale, nu, tol, nonconv_tol, c_floor, mean, cov, sigma,
+    # detf, zscore, verdict, iters, B, k, N, S, likelihood, stream
+    "gated_filter": (
+        ("metran_gated_filter",
+         [_PTR] * 9 + [_DBL] + [_PTR] * 6 + [_INT] * 5 + [_PTR]),
+        ("metran_gated_filter_robust",
+         [_PTR] * 13 + [_DBL] * 4 + [_PTR] * 7 + [_INT] * 5 + [_PTR]),
+    ),
     # state, zs, mask, armed, state_out, counts, B, k, N, cusum_k, cusum_h,
     # lam, warm, lb_thresh, nsigma^2, tiny, stream
     "detect": ("metran_detect", [_PTR] * 6 + [_INT] * 3 + [_DBL] * 7
@@ -187,11 +194,16 @@ _SIGNATURES = {
     # bounds_mean, bounds_chol, L, T, N, n, store, seg, stream; and the
     # gated mode: phi, q, z, r, y, mask, lane_map, mean0, chol0, armed,
     # thresh, mean, chol, sigma, detf, zscore, verdict, L, T, N, n,
-    # policy, stream
+    # policy, stream; and the robust modes: phi, q, z, r, y, mask,
+    # lane_map, mean0, chol0, armed, rail_lo, rail_hi, quantum, scale, nu,
+    # tol, nonconv_tol, c_floor, eps, mean, chol, sigma, detf, zscore,
+    # verdict, iters, L, T, N, n, likelihood, stream
     "sqrt_filter": (
         ("metran_sqrt_filter", [_PTR] * 17 + [_INT] * 6 + [_PTR]),
         ("metran_sqrt_filter_gated",
          [_PTR] * 10 + [_DBL] + [_PTR] * 6 + [_INT] * 5 + [_PTR]),
+        ("metran_sqrt_filter_robust",
+         [_PTR] * 14 + [_DBL] * 5 + [_PTR] * 7 + [_INT] * 5 + [_PTR]),
     ),
     # phi, q, mean_f, chol_f, mean_p, chol_p, mean_s, chol_s, L, T, n,
     # stream

@@ -6,12 +6,15 @@
 // _make_gated_core_step behind gated_filter_append (the serving path's
 // observation gate, vmapped over a shape bucket by serve/engine.py), and,
 // with the gate off, _sequential_update behind
-// filter_append(engine="sequential").
+// filter_append(engine="sequential"); in its robust modes, B12's
+// sequential half in metran_tpu/ops/implicit_map.py:
+// _robust_sequential_update (:260) with _make_robust_core_step (:336)
+// behind implicit_map_filter_append (the robust serving update).
 //
 // Per model and appended step:
 //   predict   m = phi o m,  P = (phi phi') o P + q
 //   then one rank-1 update per OBSERVED slot i, in slot order:
-//     v = y_i - z_i.m,  d = P z_i,  f = z_i.d + r_i,  z = v / sqrt(f)
+//     v = y_i - z_i.m,  d = P z_i,  c = z_i.d,  f = c + r_i,  z = v / sqrt(f)
 //     hit = armed && z^2 > t            (t = nsigma^2; never with "off")
 //     reject   use = !hit
 //     huber    v <- w v, w = hit ? sqrt(t / z^2) : 1
@@ -21,29 +24,57 @@
 //   verdict: 2 (rejected) or 1 (downweighted) where hit, else 0; the
 //   z-score is NaN on unobserved slots and, with the gate off, on every
 //   slot, as the JAX function returns them.
+// The robust modes (one per likelihood, censored / quantized / huber_t:
+// kRobust + its code in implicit_map.cuh) never gate; an armed slot that
+// flags (censored: y_i at or beyond a rail; the others: every reading)
+// solves its scalar MAP problem on thread 0 (implicit_map.cuh, prior
+// N(mu, c) with mu = y_i - v and c = max(c, sqrt(tiny))) and the same
+// rank-1 update runs with d in place of k, (s_hat - mu) / c in place of v
+// and w / (1 + c w) in place of f:
+//     m += d (s_hat - mu) / c,  P -= (d d') w / (1 + c w),
+//     sigma += (s_hat - mu)^2 / c + 2 nll(s_hat),  detf += log1p(c w);
+//   verdict 3 (MAP) or 4 (the solve missed its residual bar), the Newton
+//   steps in an int32 (B, k, N) output (0 where nothing flagged), and the
+//   real z-score.
 // An unobserved slot changes nothing, exactly as the JAX select does.
 //
-// Bit-exactness contract: a slot that does not trip executes the same
-// floating-point operations in every policy (w = 1 and the selects are
-// exact identities), so an armed gate that never trips gives the
-// posterior and likelihood terms of the "off" instantiation bit for bit.
-// The policy is a template parameter; every instantiation shares the one
-// body below.
+// Bit-exactness contract: a slot that does not trip (or flag) executes
+// the same floating-point operations in every instantiation (w = 1 and
+// the selects are exact identities, and the robust branch only chooses
+// the rank-1 update's operands), so an armed gate that never trips, or an
+// armed robust mode where nothing flags, gives the posterior and
+// likelihood terms of the "off" instantiation bit for bit.  The policy is
+// a template parameter; every instantiation shares the one body below.
 //
 // What bounds it on an H100: latency, as K1.  At the flagship bucket
 // (N = 24, S = 32) a step is N dependent rank-1 updates of ~3 S^2 flops
 // each, four block barriers apiece; the covariance, Z and the carry stay
 // in shared memory for all k steps, device memory sees y, mask and the
-// posterior once, and one launch serves the dispatch.
+// posterior once, and one launch serves the dispatch.  A flagged slot adds
+// its serial Newton solve (up to 13 evaluations of the likelihood on one
+// thread) between two of those barriers; huber_t and quantized flag every
+// observed slot.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "implicit_map.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-enum Policy { kOff = 0, kReject = 1, kHuber = 2, kInflate = 3 };
+// the gate's policies, then the robust likelihoods (kRobust + the
+// likelihood's code in implicit_map.cuh)
+enum Policy { kOff = 0, kReject = 1, kHuber = 2, kInflate = 3, kRobust = 4 };
+
+// the robust modes' extra inputs and outputs (unused by the gate)
+template <typename T>
+struct RobustArgs {
+  const T *rail_lo, *rail_hi, *quantum, *scale;  // (B, N)
+  double nu, tol, nonconv_tol, c_floor;
+  int* iters_out;  // (B, k, N)
+};
 
 template <typename T, int kPolicy>
 __global__ void __launch_bounds__(kThreads)
@@ -55,7 +86,9 @@ gated_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                     T* __restrict__ mean_out, T* __restrict__ cov_out,
                     T* __restrict__ sigma_out, T* __restrict__ detf_out,
                     T* __restrict__ z_out, int8_t* __restrict__ verdict_out,
-                    int k, int N, int S) {
+                    RobustArgs<T> rob, int k, int N, int S) {
+  constexpr bool kRob = kPolicy >= kRobust;
+  constexpr int kLik = kRob ? kPolicy - kRobust : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* P = reinterpret_cast<T*>(smem_raw);  // S*S covariance
   T* Zs = P + S * S;                       // N*S observation matrix
@@ -64,14 +97,14 @@ gated_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
   T* d = ph + S;                           // S: P z_i
   T* kg = d + S;                           // S: the gain d / f
   __shared__ T s_v, s_f, s_sigma, s_detf;
-  __shared__ int s_use;
+  __shared__ int s_use, s_map;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const T* qb = q + (size_t)b * S * S;
   const T* rb = r + (size_t)b * N;
   const T thresh = T(thresh_d);
-  const bool arm = kPolicy != kOff && armed[b] != 0;
+  const bool arm = kPolicy != kOff && !kRob && armed[b] != 0;  // the gate
   const T nan = T(NAN);
 
   for (int i = tid; i < S * S; i += kThreads)
@@ -104,6 +137,7 @@ gated_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         if (tid == 0) {
           z_out[zo] = nan;
           verdict_out[zo] = 0;
+          if (kRob) rob.iters_out[zo] = 0;
         }
         continue;
       }
@@ -128,19 +162,47 @@ gated_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         if (kPolicy == kReject) use = !hit;
         if (kPolicy == kHuber) vv = (hit ? sqrt(thresh / score) : T(1)) * v;
         if (kPolicy == kInflate) fe = hit ? v * v / thresh : f;
-        if (use) {
-          s_sigma = s_sigma + vv * vv / fe;
-          s_detf = s_detf + log(fe);
+        // robust: an armed slot that flags is conditioned on its scalar
+        // MAP summary; the rank-1 update below then reads d for the gain
+        // and (s_hat - mu) / c, w / (1 + c w) for v and f
+        const size_t pa = (size_t)b * N + a;
+        const bool map = kRob && armed[b] != 0 &&
+                         imap::flags<T, kLik>(yt[a], rob.rail_lo[pa],
+                                              rob.rail_hi[pa]);
+        if (map) {
+          const T mu = yt[a] - v;  // z_i' m, as the JAX update forms it
+          const T cf = T(rob.c_floor);
+          const T c = zd < cf ? cf : zd;  // NaN passes, as jnp.maximum
+          const imap::Solve<T> sol = imap::map_solve<T, kLik>(
+              mu, c, yt[a], imap::slot_scale(rb[a], rob.scale[pa]),
+              rob.quantum[pa], rob.rail_lo[pa], rob.rail_hi[pa], rob.nu,
+              T(rob.tol), T(rob.nonconv_tol));
+          const T dev = imap::sub(sol.s_hat, mu);
+          vv = dev / c;
+          fe = sol.w / imap::add(T(1), imap::mul(c, sol.w));
+          s_sigma = imap::add(s_sigma, imap::add(imap::mul(dev, dev) / c,
+                                                 imap::mul(T(2), sol.f)));
+          s_detf = imap::add(s_detf, imap::m_log1p(imap::mul(c, sol.w)));
+          verdict_out[zo] = sol.nonconv ? imap::kNonconv : imap::kMap;
+          rob.iters_out[zo] = sol.iters;
+        } else {
+          if (use) {
+            s_sigma = s_sigma + vv * vv / fe;
+            s_detf = s_detf + log(fe);
+          }
+          verdict_out[zo] = hit ? (kPolicy == kReject ? 2 : 1) : 0;
+          if (kRob) rob.iters_out[zo] = 0;
         }
         s_v = vv;
         s_f = fe;
         s_use = use ? 1 : 0;
+        s_map = map ? 1 : 0;
         z_out[zo] = kPolicy == kOff ? nan : zs;
-        verdict_out[zo] = hit ? (kPolicy == kReject ? 2 : 1) : 0;
       }
       __syncthreads();
       if (s_use) {  // block-uniform
-        for (int i = tid; i < S; i += kThreads) kg[i] = d[i] / s_f;
+        for (int i = tid; i < S; i += kThreads)
+          kg[i] = (kRob && s_map) ? d[i] : d[i] / s_f;
         __syncthreads();
         for (int i = tid; i < S; i += kThreads) m[i] = m[i] + kg[i] * s_v;
         for (int idx = tid; idx < S * S; idx += kThreads) {
@@ -171,8 +233,8 @@ int launch(const void* phi, const void* q, const void* z, const void* r,
            const void* mean0, const void* cov0, const void* y,
            const void* mask, const void* armed, double thresh,
            void* mean_out, void* cov_out, void* sigma_out, void* detf_out,
-           void* z_out, void* verdict_out, int B, int k, int N, int S,
-           void* stream) {
+           void* z_out, void* verdict_out, RobustArgs<T> rob, int B, int k,
+           int N, int S, void* stream) {
   const size_t smem = gated_filter_smem<T>(N, S);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -186,8 +248,8 @@ int launch(const void* phi, const void* q, const void* z, const void* r,
           (const T*)phi, (const T*)q, (const T*)z, (const T*)r,
           (const T*)mean0, (const T*)cov0, (const T*)y, (const uint8_t*)mask,
           (const uint8_t*)armed, thresh, (T*)mean_out, (T*)cov_out,
-          (T*)sigma_out, (T*)detf_out, (T*)z_out, (int8_t*)verdict_out, k, N,
-          S);
+          (T*)sigma_out, (T*)detf_out, (T*)z_out, (int8_t*)verdict_out, rob,
+          k, N, S);
   return (int)cudaGetLastError();
 }
 
@@ -199,10 +261,11 @@ int launch_gated_filter(const void* phi, const void* q, const void* z,
                         void* sigma_out, void* detf_out, void* z_out,
                         void* verdict_out, int B, int k, int N, int S,
                         int policy, void* stream) {
+  const RobustArgs<T> none = {};
 #define METRAN_GATED(P)                                                    \
   return launch<T, P>(phi, q, z, r, mean0, cov0, y, mask, armed, thresh,  \
                       mean_out, cov_out, sigma_out, detf_out, z_out,      \
-                      verdict_out, B, k, N, S, stream)
+                      verdict_out, none, B, k, N, S, stream)
   switch (policy) {
     case kOff: METRAN_GATED(kOff);
     case kReject: METRAN_GATED(kReject);
@@ -211,6 +274,34 @@ int launch_gated_filter(const void* phi, const void* q, const void* z,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef METRAN_GATED
+}
+
+template <typename T>
+int launch_robust_filter(const void* phi, const void* q, const void* z,
+                         const void* r, const void* mean0, const void* cov0,
+                         const void* y, const void* mask, const void* armed,
+                         const void* rail_lo, const void* rail_hi,
+                         const void* quantum, const void* scale, double nu,
+                         double tol, double nonconv_tol, double c_floor,
+                         void* mean_out, void* cov_out, void* sigma_out,
+                         void* detf_out, void* z_out, void* verdict_out,
+                         void* iters_out, int B, int k, int N, int S,
+                         int likelihood, void* stream) {
+  const RobustArgs<T> rob = {(const T*)rail_lo, (const T*)rail_hi,
+                             (const T*)quantum, (const T*)scale, nu, tol,
+                             nonconv_tol, c_floor, (int*)iters_out};
+#define METRAN_ROBUST(L)                                                    \
+  return launch<T, kRobust + L>(phi, q, z, r, mean0, cov0, y, mask, armed, \
+                                0.0, mean_out, cov_out, sigma_out,         \
+                                detf_out, z_out, verdict_out, rob, B, k, N, \
+                                S, stream)
+  switch (likelihood) {
+    case imap::kCensored: METRAN_ROBUST(imap::kCensored);
+    case imap::kQuantized: METRAN_ROBUST(imap::kQuantized);
+    case imap::kHuberT: METRAN_ROBUST(imap::kHuberT);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef METRAN_ROBUST
 }
 
 }  // namespace
@@ -243,6 +334,41 @@ int metran_gated_filter_f64(const void* phi, const void* q, const void* z,
                                      armed, thresh, mean_out, cov_out,
                                      sigma_out, detf_out, z_out, verdict_out,
                                      B, k, N, S, policy, stream);
+}
+
+// likelihood: 0 censored, 1 quantized, 2 huber_t; rail_lo, rail_hi,
+// quantum, scale (B, N); tol, nonconv_tol: the solve's residual bars;
+// c_floor: the floor of the slot's prior variance; iters (B, k, N) int32
+int metran_gated_filter_robust_f32(
+    const void* phi, const void* q, const void* z, const void* r,
+    const void* mean0, const void* cov0, const void* y, const void* mask,
+    const void* armed, const void* rail_lo, const void* rail_hi,
+    const void* quantum, const void* scale, double nu, double tol,
+    double nonconv_tol, double c_floor, void* mean_out, void* cov_out,
+    void* sigma_out, void* detf_out, void* z_out, void* verdict_out,
+    void* iters_out, int B, int k, int N, int S, int likelihood,
+    void* stream) {
+  return launch_robust_filter<float>(
+      phi, q, z, r, mean0, cov0, y, mask, armed, rail_lo, rail_hi, quantum,
+      scale, nu, tol, nonconv_tol, c_floor, mean_out, cov_out, sigma_out,
+      detf_out, z_out, verdict_out, iters_out, B, k, N, S, likelihood,
+      stream);
+}
+
+int metran_gated_filter_robust_f64(
+    const void* phi, const void* q, const void* z, const void* r,
+    const void* mean0, const void* cov0, const void* y, const void* mask,
+    const void* armed, const void* rail_lo, const void* rail_hi,
+    const void* quantum, const void* scale, double nu, double tol,
+    double nonconv_tol, double c_floor, void* mean_out, void* cov_out,
+    void* sigma_out, void* detf_out, void* z_out, void* verdict_out,
+    void* iters_out, int B, int k, int N, int S, int likelihood,
+    void* stream) {
+  return launch_robust_filter<double>(
+      phi, q, z, r, mean0, cov0, y, mask, armed, rail_lo, rail_hi, quantum,
+      scale, nu, tol, nonconv_tol, c_floor, mean_out, cov_out, sigma_out,
+      detf_out, z_out, verdict_out, iters_out, B, k, N, S, likelihood,
+      stream);
 }
 
 const char* metran_error_string(int err) {

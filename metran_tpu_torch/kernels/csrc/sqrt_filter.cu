@@ -28,7 +28,7 @@
 // when it fails the step passes through: m_f = m_p, S_f = S_p, sigma = 0,
 // detf = +inf.
 //
-// Three instantiations (template parameters, not a run-time branch):
+// The instantiations (template parameters, not a run-time branch):
 //   kStore  per step (m_p, S_p, m_f, S_f, sigma, detf): (L, T, n),
 //           (L, T, n, n) twice, then (L, T) twice — what the factored
 //           smoother K10 reads;
@@ -57,12 +57,31 @@
 //           instantiation's, bit for bit.  Per step and slot it also
 //           writes z_i (NaN where unobserved) and an int8 verdict (2
 //           rejected, 1 downweighted, 0 pass), (L, T, N) each.
+//   kRobust the gate's outputs from a given carry, one instantiation per
+//           likelihood (kRobust + its code in implicit_map.cuh: censored,
+//           quantized, huber_t; metran_tpu/ops/implicit_map.py::
+//           _make_robust_sqrt_core_step :358 behind
+//           implicit_map_sqrt_filter_append, B12's square-root half): an
+//           armed observed slot that flags (censored: y_i at or beyond a
+//           rail; the others: every reading) solves its scalar MAP
+//           problem off the predicted marginal, mu = Z_i m_p and
+//           c_i = |(Z S_p)_i|^2 floored at sqrt(tiny), one thread per
+//           observed slot (N <= 64 = kThreads), and feeds the SAME QR
+//           update its pseudo-observation r_eff = 1 / max(w, 0.01 eps /
+//           c_i), v_eff = (c_i + r_eff)(s_hat - mu) / c_i in place of
+//           (r_i, v_i); a slot that does not flag keeps its row, so a step
+//           where nothing flags is the given-carry carry instantiation's,
+//           bit for bit.  Verdicts 3 (MAP) or 4 (the solve missed its
+//           residual bar) and the Newton steps, (L, T, N) int32, beside
+//           the z-scores.
 // The deviance is summed by the caller (deviance_terms), not here: a
 // serial float32 sum over thousands of steps would cost about as much as
 // the engine's whole f32 precision bar.
 //
 // Inputs: the lane constants with the lane axis last, phi, q (n, L),
-// z (N, n, L), r (N, L); the data (D, T, N) read through lane_map (L,).
+// z (N, n, L), r (N, L); the data (D, T, N) read through lane_map (L,);
+// the robust modes' per-slot parameters rail_lo, rail_hi, quantum, scale
+// (L, N).
 //
 // What bounds it on an H100: latency.  A step is a chain of
 // n + (m_o + n) Householder stages, one block barrier each, plus a few
@@ -71,14 +90,27 @@
 // per thread).  The design keeps one lane's constants, carry and both
 // work arrays in shared memory, one block per lane with the time loop
 // inside the kernel, so one pass is one launch and device memory is
-// touched only to read each step's data and write its outputs once.
+// touched only to read each step's data and write its outputs once.  The
+// robust modes add one serial Newton solve per flagged slot, the slots'
+// solves running side by side on their own threads before the QR.
 
+#include "implicit_map.cuh"
 #include "sqrt_qr.cuh"
 
 namespace {
 
 constexpr int kThreads = 64;
-enum Gate { kNoGate = 0, kReject = 1, kHuber = 2, kInflate = 3 };
+// the gate's policies, then the robust likelihoods (kRobust + the
+// likelihood's code in implicit_map.cuh)
+enum Gate { kNoGate = 0, kReject = 1, kHuber = 2, kInflate = 3, kRobust = 4 };
+
+// the robust modes' extra inputs and outputs (unused otherwise)
+template <typename T>
+struct RobustArgs {
+  const T *rail_lo, *rail_hi, *quantum, *scale;  // (L, N)
+  double nu, tol, nonconv_tol, c_floor, eps;
+  int* iters;  // (L, T, N)
+};
 
 template <typename T>
 struct Smem {
@@ -131,7 +163,10 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                    T* __restrict__ o_bounds_chol,
                    const uint8_t* __restrict__ armed, double thresh_d,
                    T* __restrict__ o_z, int8_t* __restrict__ o_verdict,
-                   int L, int t_steps, int N, int n, int seg) {
+                   RobustArgs<T> rob, int L, int t_steps, int N, int n,
+                   int seg) {
+  constexpr bool kRob = kGate >= kRobust;
+  constexpr int kLik = kRob ? kGate - kRobust : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<T> s;
   carve<T>(smem_raw, N, n, &s);
@@ -143,7 +178,7 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
   const int ldp = sqrtqr::odd_ld(2 * n);
   const T inf = T(INFINITY);
   const T thresh = T(thresh_d);
-  const bool arm = kGate != kNoGate && armed[l] != 0;
+  const bool arm = kGate != kNoGate && armed[l] != 0;  // gate or robust
 
   for (int idx = tid; idx < N * n; idx += kThreads)
     s.zs[idx] = z[(size_t)idx * L + l];  // z[i, a, l], idx = i * n + a
@@ -212,6 +247,7 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         if (ml[(size_t)t * N + i] == 0) {
           o_z[row + i] = T(NAN);
           o_verdict[row + i] = 0;
+          if (kRob) rob.iters[row + i] = 0;
         }
       }
       for (int k = tid; k < mo; k += kThreads) {
@@ -224,16 +260,49 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
           for (int b = a; b < n; ++b) e += s.zs[i * n + b] * s.Sp[b * n + a];
           f += e * e;
         }
+        const T c = f;  // the slot's marginal prior variance |(Z S_p)_i|^2
         f = f + s.rr[i];
         const T zi = v / sqrt(f);
         const T score = zi * zi;
-        const bool hit = arm && score > thresh;
-        s.wsc[i] = kGate == kHuber && hit ? sqrt(thresh / score) : T(1);
-        s.reff[i] = kGate == kInflate && hit ? s.rr[i] + (v * v / thresh - f)
-                                              : s.rr[i];
-        s.hit[k] = hit ? 1 : 0;
         o_z[row + i] = zi;
-        o_verdict[row + i] = hit ? (kGate == kReject ? 2 : 1) : 0;
+        if (kRob) {
+          // an armed slot that flags solves its scalar MAP problem off
+          // the predicted marginal and enters the QR as the
+          // pseudo-observation (r_eff, v_eff); the others keep their row
+          const size_t pl = (size_t)l * N + i;
+          const T yi = yl[(size_t)t * N + i];
+          const bool map = arm && imap::flags<T, kLik>(yi, rob.rail_lo[pl],
+                                                       rob.rail_hi[pl]);
+          s.reff[i] = s.rr[i];
+          s.hit[k] = map ? 1 : 0;
+          o_verdict[row + i] = 0;
+          rob.iters[row + i] = 0;
+          if (map) {
+            T mu = T(0);
+            for (int a = 0; a < n; ++a) mu += s.zs[i * n + a] * s.mp[a];
+            const T cf = T(rob.c_floor);
+            const T cs = c < cf ? cf : c;  // NaN passes, as jnp.maximum
+            const imap::Solve<T> sol = imap::map_solve<T, kLik>(
+                mu, cs, yi, imap::slot_scale(s.rr[i], rob.scale[pl]),
+                rob.quantum[pl], rob.rail_lo[pl], rob.rail_hi[pl], rob.nu,
+                T(rob.tol), T(rob.nonconv_tol));
+            const T wf = imap::mul(T(rob.eps), T(1e-2)) / cs;
+            const T w_eff = (sol.w < wf || isnan(wf)) ? wf : sol.w;
+            const T r_eff = T(1) / w_eff;
+            s.reff[i] = r_eff;
+            s.wsc[i] = imap::mul(imap::add(cs, r_eff),
+                                 imap::sub(sol.s_hat, mu)) / cs;
+            o_verdict[row + i] = sol.nonconv ? imap::kNonconv : imap::kMap;
+            rob.iters[row + i] = sol.iters;
+          }
+        } else {
+          const bool hit = arm && score > thresh;
+          s.wsc[i] = kGate == kHuber && hit ? sqrt(thresh / score) : T(1);
+          s.reff[i] = kGate == kInflate && hit
+                          ? s.rr[i] + (v * v / thresh - f) : s.rr[i];
+          s.hit[k] = hit ? 1 : 0;
+          o_verdict[row + i] = hit ? (kGate == kReject ? 2 : 1) : 0;
+        }
       }
       __syncthreads();
       if (kGate == kReject && tid < 32) {  // drop the rejected slots
@@ -272,7 +341,8 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         const int i = s.obs[k];
         T acc = yl[(size_t)t * N + i];
         for (int a = 0; a < n; ++a) acc -= s.zs[i * n + a] * s.mp[a];
-        s.vv[k] = kGate == kHuber ? s.wsc[i] * acc : acc;
+        s.vv[k] = kGate == kHuber ? s.wsc[i] * acc
+                  : (kRob && s.hit[k]) ? s.wsc[i] : acc;  // v_eff
       }
       // the compact pre-array, column-major
       for (int idx = tid; idx < R * R; idx += kThreads) {
@@ -281,7 +351,8 @@ sqrt_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
         if (c < o) {
           const int i = s.obs[c];
           if (row < o) {
-            v = row == c ? sqrt(kGate == kInflate ? s.reff[i] : s.rr[i])
+            v = row == c ? sqrt((kGate == kInflate || kRob) ? s.reff[i]
+                                                           : s.rr[i])
                          : T(0);
           } else {  // (Z_o S_p)'[a, c] = sum_b z[i, b] S_p[b, a], b >= a
             const int a = row - o;
@@ -375,8 +446,8 @@ int launch(const void* phi, const void* q, const void* z, const void* r,
            const void* mean0, const void* chol0, void* out0, void* out1,
            void* out2, void* out3, void* out4, void* out5, void* bounds_mean,
            void* bounds_chol, const void* armed, double thresh, void* o_z,
-           void* o_verdict, int L, int t_steps, int N, int n, int seg,
-           void* stream) {
+           void* o_verdict, RobustArgs<T> rob, int L, int t_steps, int N,
+           int n, int seg, void* stream) {
   const size_t smem = carve<T>(nullptr, N, n, nullptr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -391,7 +462,7 @@ int launch(const void* phi, const void* q, const void* z, const void* r,
           (const uint8_t*)mask, (const int*)lane_map, (const T*)mean0,
           (const T*)chol0, (T*)out0, (T*)out1, (T*)out2, (T*)out3, (T*)out4,
           (T*)out5, (T*)bounds_mean, (T*)bounds_chol, (const uint8_t*)armed,
-          thresh, (T*)o_z, (int8_t*)o_verdict, L, t_steps, N, n, seg);
+          thresh, (T*)o_z, (int8_t*)o_verdict, rob, L, t_steps, N, n, seg);
   return (int)cudaGetLastError();
 }
 
@@ -405,21 +476,22 @@ int launch_sqrt_filter(const void* phi, const void* q, const void* z,
                        void* bounds_chol, int L, int t_steps, int N, int n,
                        int store, int seg, void* stream) {
   if (store && bounds_mean != nullptr) return (int)cudaErrorInvalidValue;
+  const RobustArgs<T> none = {};
   if (store)
     return launch<T, true, false, kNoGate>(
         phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, out1, out2,
         out3, out4, out5, nullptr, nullptr, nullptr, 0.0, nullptr, nullptr,
-        L, t_steps, N, n, 1, stream);
+        none, L, t_steps, N, n, 1, stream);
   if (bounds_mean != nullptr) {
     if (seg < 1) return (int)cudaErrorInvalidValue;
     return launch<T, false, true, kNoGate>(
         phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, out1, out2,
         out3, out4, out5, bounds_mean, bounds_chol, nullptr, 0.0, nullptr,
-        nullptr, L, t_steps, N, n, seg, stream);
+        nullptr, none, L, t_steps, N, n, seg, stream);
   }
   return launch<T, false, false, kNoGate>(
       phi, q, z, r, y, mask, lane_map, mean0, chol0, out0, out1, out2, out3,
-      out4, out5, nullptr, nullptr, nullptr, 0.0, nullptr, nullptr, L,
+      out4, out5, nullptr, nullptr, nullptr, 0.0, nullptr, nullptr, none, L,
       t_steps, N, n, 1, stream);
 }
 
@@ -434,11 +506,12 @@ int launch_sqrt_filter_gated(const void* phi, const void* q, const void* z,
                              void* o_verdict, int L, int t_steps, int N,
                              int n, int policy, void* stream) {
   if (mean0 == nullptr || chol0 == nullptr) return (int)cudaErrorInvalidValue;
+  const RobustArgs<T> none = {};
 #define METRAN_SQRT_GATED(G)                                                \
   return launch<T, false, false, G>(                                        \
       phi, q, z, r, y, mask, lane_map, mean0, chol0, nullptr, nullptr, mean, \
-      chol, sigma, detf, nullptr, nullptr, armed, thresh, o_z, o_verdict, L, \
-      t_steps, N, n, 1, stream)
+      chol, sigma, detf, nullptr, nullptr, armed, thresh, o_z, o_verdict,    \
+      none, L, t_steps, N, n, 1, stream)
   switch (policy) {
     case kReject: METRAN_SQRT_GATED(kReject);
     case kHuber: METRAN_SQRT_GATED(kHuber);
@@ -446,6 +519,35 @@ int launch_sqrt_filter_gated(const void* phi, const void* q, const void* z,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef METRAN_SQRT_GATED
+}
+
+// the robust instantiations: from a given carry, carry outputs only
+template <typename T>
+int launch_sqrt_filter_robust(
+    const void* phi, const void* q, const void* z, const void* r,
+    const void* y, const void* mask, const void* lane_map, const void* mean0,
+    const void* chol0, const void* armed, const void* rail_lo,
+    const void* rail_hi, const void* quantum, const void* scale, double nu,
+    double tol, double nonconv_tol, double c_floor, double eps, void* mean,
+    void* chol, void* sigma, void* detf, void* o_z, void* o_verdict,
+    void* o_iters, int L, int t_steps, int N, int n, int likelihood,
+    void* stream) {
+  if (mean0 == nullptr || chol0 == nullptr) return (int)cudaErrorInvalidValue;
+  const RobustArgs<T> rob = {(const T*)rail_lo, (const T*)rail_hi,
+                             (const T*)quantum, (const T*)scale, nu, tol,
+                             nonconv_tol, c_floor, eps, (int*)o_iters};
+#define METRAN_SQRT_ROBUST(G)                                               \
+  return launch<T, false, false, kRobust + G>(                              \
+      phi, q, z, r, y, mask, lane_map, mean0, chol0, nullptr, nullptr, mean, \
+      chol, sigma, detf, nullptr, nullptr, armed, 0.0, o_z, o_verdict, rob,  \
+      L, t_steps, N, n, 1, stream)
+  switch (likelihood) {
+    case imap::kCensored: METRAN_SQRT_ROBUST(imap::kCensored);
+    case imap::kQuantized: METRAN_SQRT_ROBUST(imap::kQuantized);
+    case imap::kHuberT: METRAN_SQRT_ROBUST(imap::kHuberT);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef METRAN_SQRT_ROBUST
 }
 
 }  // namespace
@@ -513,6 +615,41 @@ int metran_sqrt_filter_gated_f64(const void* phi, const void* q,
   return launch_sqrt_filter_gated<double>(
       phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, thresh, mean,
       chol, sigma, detf, o_z, o_verdict, L, t_steps, N, n, policy, stream);
+}
+
+// likelihood: 0 censored, 1 quantized, 2 huber_t; armed (L,) uint8;
+// rail_lo, rail_hi, quantum, scale (L, N); tol, nonconv_tol: the solve's
+// residual bars; c_floor: the floor of a slot's prior variance; eps: the
+// type's epsilon (the pseudo-noise floor); zscore (L, T, N), verdict
+// (L, T, N) int8, iters (L, T, N) int32
+int metran_sqrt_filter_robust_f32(
+    const void* phi, const void* q, const void* z, const void* r,
+    const void* y, const void* mask, const void* lane_map, const void* mean0,
+    const void* chol0, const void* armed, const void* rail_lo,
+    const void* rail_hi, const void* quantum, const void* scale, double nu,
+    double tol, double nonconv_tol, double c_floor, double eps, void* mean,
+    void* chol, void* sigma, void* detf, void* o_z, void* o_verdict,
+    void* o_iters, int L, int t_steps, int N, int n, int likelihood,
+    void* stream) {
+  return launch_sqrt_filter_robust<float>(
+      phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, rail_lo, rail_hi,
+      quantum, scale, nu, tol, nonconv_tol, c_floor, eps, mean, chol, sigma,
+      detf, o_z, o_verdict, o_iters, L, t_steps, N, n, likelihood, stream);
+}
+
+int metran_sqrt_filter_robust_f64(
+    const void* phi, const void* q, const void* z, const void* r,
+    const void* y, const void* mask, const void* lane_map, const void* mean0,
+    const void* chol0, const void* armed, const void* rail_lo,
+    const void* rail_hi, const void* quantum, const void* scale, double nu,
+    double tol, double nonconv_tol, double c_floor, double eps, void* mean,
+    void* chol, void* sigma, void* detf, void* o_z, void* o_verdict,
+    void* o_iters, int L, int t_steps, int N, int n, int likelihood,
+    void* stream) {
+  return launch_sqrt_filter_robust<double>(
+      phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, rail_lo, rail_hi,
+      quantum, scale, nu, tol, nonconv_tol, c_floor, eps, mean, chol, sigma,
+      detf, o_z, o_verdict, o_iters, L, t_steps, N, n, likelihood, stream);
 }
 
 const char* metran_error_string(int err) {

@@ -42,6 +42,16 @@ and the per-step ``zscore`` (L, T, N) (NaN where unobserved) and int8
 ``verdict``.  A step where no slot trips is the ungated given-carry
 call's, bit for bit (kernel and plain version alike).
 
+:func:`sqrt_filter_robust` is its robust (implicit-MAP) instantiation,
+one per likelihood: each armed, observed slot that flags solves its
+scalar MAP problem off the predicted marginal (``mu = Z_i m_p``, ``c_i
+= |(Z S_p)_i|^2``; :mod:`.implicit_map`) and feeds the same QR the
+pseudo-observation ``r_eff = 1 / max(w, 0.01 eps / c_i)``, ``v_eff =
+(c_i + r_eff)(s_hat - mu) / c_i``; it returns the gated outputs and the
+Newton iterations (int32).  A step where nothing flags is the
+given-carry call's bit for bit; its launches count as
+``sqrt_filter_robust``.
+
 On CUDA tensors it launches the hand-written kernel
 (``csrc/sqrt_filter.cu``) and raises if that cannot build or launch; on
 CPU tensors it runs :func:`sqrt_filter_plain`, the JAX algorithm step by
@@ -55,7 +65,9 @@ Layouts as :func:`metran_tpu_torch.kernels.lanes_products.lanes_forward`:
 Replaces ``metran_tpu/ops/kalman.py``: ``_sqrt_kalman_filter``
 (``_make_sqrt_core_step``, ``_sqrt_qr_update``, ``_tria``; B6) and the
 square-root half of B9b, ``sqrt_filter_append`` and, gated,
-``_make_gated_sqrt_core_step`` behind ``gated_sqrt_filter_append``.
+``_make_gated_sqrt_core_step`` behind ``gated_sqrt_filter_append``; in
+its robust modes ``metran_tpu/ops/implicit_map.py::
+_make_robust_sqrt_core_step`` (B12).
 """
 
 from __future__ import annotations
@@ -65,12 +77,15 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+from . import implicit_map as im
 from .gated_filter import (
     GATE_DOWNWEIGHTED,
     GATE_PASS,
     GATE_REJECTED,
+    check_robust_params,
     policy_code,
 )
+from .implicit_map import RobustParams
 from .joint_filter import MAX_SMEM
 from .lanes import _check, _ptr, _stream
 
@@ -181,30 +196,67 @@ def sqrt_step_plain(ph, qs, zl, rl, mean, chol, y_t, mask_t):
 
 
 def gated_sqrt_step_plain(ph, qs, zl, rl, mean, chol, y_t, mask_t, armed,
-                          policy: str, thresh: float):
+                          policy: str, thresh: float,
+                          robust: Optional[RobustParams] = None):
     """One gated square-root step (the JAX ``_make_gated_sqrt_core_step``):
     the marginal z-scores off ``S_p``, the policy's transform of the
     masked row, then :func:`sqrt_qr_update_plain`.  Returns ``(mean_f,
-    chol_f, sigma, detf, zscore, verdict)``."""
+    chol_f, sigma, detf, zscore, verdict)``.
+
+    With ``robust`` (``policy="robust"``) it is the JAX
+    ``_make_robust_sqrt_core_step``: each armed, observed slot that
+    flags solves its scalar MAP problem off the predicted marginal
+    (``mu = Z m_p``, ``c_i = |(Z S_p)_i|^2``) and enters the same QR as
+    the pseudo-observation ``r_eff = 1 / max(w, 0.01 eps / c)``, ``v_eff
+    = (c + r_eff)(s_hat - mu) / c``; an unflagged slot keeps its row.
+    The verdicts are :data:`ROBUST_MAP`/:data:`ROBUST_NONCONV` and a
+    seventh output holds the Newton iterations (int32)."""
     dtype = mean.dtype
     one = torch.ones((), dtype=dtype, device=mean.device)
     t = torch.tensor(float(thresh), dtype=dtype, device=mean.device)
     mean_p, chol_p = sqrt_predict_plain(ph, qs, mean, chol)
     z_m, r_t, v = sqrt_masked_row(zl, rl, mean_p, y_t, mask_t)
-    f_diag = torch.sum((z_m @ chol_p) ** 2, dim=-1) + r_t
+    c_diag = torch.sum((z_m @ chol_p) ** 2, dim=-1)
+    f_diag = c_diag + r_t
     zscore = v / torch.sqrt(f_diag)
     score = zscore * zscore
     hit = armed[:, None] & mask_t & (score > t)
-    if policy == "reject":
+    if robust is not None:
+        hit = armed[:, None] & mask_t & im.flag(
+            robust.likelihood, y_t, robust.rail_lo, robust.rail_hi)
+        iters = torch.zeros(hit.shape, dtype=torch.int32,
+                            device=mean.device)
+        verdict = torch.zeros(hit.shape, dtype=torch.int8,
+                              device=mean.device)
+        if bool(hit.any()):
+            mu = (zl @ mean_p[:, :, None])[..., 0]
+            c_safe = torch.clamp(c_diag, min=im.c_floor(dtype))
+            s_hat, w, _, it, nonconv = im.scalar_map_solve_plain(
+                robust.likelihood, robust.nu, mu, c_safe, y_t,
+                im.slot_scale(rl, robust.scale), robust.quantum,
+                robust.rail_lo, robust.rail_hi, hit)
+            eps = torch.tensor(float(torch.finfo(dtype).eps), dtype=dtype,
+                               device=mean.device)
+            r_eff = one / torch.maximum(w, eps * 1e-2 / c_safe)
+            v_eff = (c_safe + r_eff) * (s_hat - mu) / c_safe
+            r_t = torch.where(hit, r_eff, r_t)
+            v = torch.where(hit, v_eff, v)
+            verdict = torch.where(
+                hit, torch.where(nonconv, im.ROBUST_NONCONV, im.ROBUST_MAP),
+                0).to(torch.int8)
+            iters = torch.where(hit, it, 0)
+    elif policy == "reject":
         z_m, r_t, v = sqrt_masked_row(zl, rl, mean_p, y_t, mask_t & ~hit)
     elif policy == "huber":
         v = torch.where(hit, torch.sqrt(t / score), one) * v
     else:  # "inflate": v^2/t > f_i exactly when hit
         r_t = torch.where(hit, r_t + (v * v / t - f_diag), r_t)
     upd = sqrt_qr_update_plain(z_m, r_t, v, mean_p, chol_p)
+    nan = torch.full((), float("nan"), dtype=dtype, device=mean.device)
+    if robust is not None:
+        return (*upd, torch.where(mask_t, zscore, nan), verdict, iters)
     code = GATE_REJECTED if policy == "reject" else GATE_DOWNWEIGHTED
     verdict = torch.where(hit, code, GATE_PASS).to(torch.int8)
-    nan = torch.full((), float("nan"), dtype=dtype, device=mean.device)
     return (*upd, torch.where(mask_t, zscore, nan), verdict)
 
 
@@ -348,12 +400,17 @@ def sqrt_filter_plain(phi, q, z, r, y, mask, lane_map=None,
 
 
 GATED_POLICIES = ("reject", "huber", "inflate")
+#: the plain body's policy name for the robust instantiation
+_ROBUST = "robust"
 
 
 def _check_gated(phi, q, z, r, y, mask, lane_map, mean0, chol0, armed,
-                 policy):
+                 policy, robust: bool = False):
     out = _check_sqrt(phi, q, z, r, y, mask, lane_map, mean0, chol0)
-    if policy not in GATED_POLICIES:
+    if robust and policy != _ROBUST:
+        raise ValueError(f"the robust filter runs policy {_ROBUST!r}, got "
+                         f"{policy!r}")
+    if not robust and policy not in GATED_POLICIES:
         raise ValueError(
             f"the gated square-root filter takes policy "
             f"{' / '.join(GATED_POLICIES)}, got {policy!r} (with the gate "
@@ -425,11 +482,14 @@ def sqrt_filter_gated_kernel(phi, q, z, r, y, mask, mean0, chol0, armed,
 
 def sqrt_filter_gated_plain(phi, q, z, r, y, mask, mean0, chol0, armed,
                             policy: str = "reject", thresh: float = 16.0,
-                            lane_map=None):
+                            lane_map=None,
+                            robust: Optional[RobustParams] = None):
     """The gated filter in PyTorch ops: a Python loop over steps, each
-    :func:`gated_sqrt_step_plain` batched over the lanes."""
+    :func:`gated_sqrt_step_plain` batched over the lanes (with
+    ``robust``, :func:`sqrt_filter_robust_plain`'s body)."""
     lanes, _, t_steps, big_n, n, _, _, lane_map = _check_gated(
-        phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, policy)
+        phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, policy,
+        robust is not None)
     ph = phi.T
     qs = torch.sqrt(torch.clamp(q.T, min=0.0))
     zl = z.permute(2, 0, 1)
@@ -441,16 +501,106 @@ def sqrt_filter_gated_plain(phi, q, z, r, y, mask, mean0, chol0, armed,
     for t in range(t_steps):
         mean, chol, *rest = gated_sqrt_step_plain(
             ph, qs, zl, rl, mean, chol, yl[:, t], ml[:, t], armed, policy,
-            thresh)
+            thresh, robust)
         steps.append(rest)
     if not t_steps:
         new = dict(dtype=phi.dtype, device=phi.device)
-        return (mean, chol.contiguous(), torch.zeros((lanes, 0), **new),
-                torch.zeros((lanes, 0), **new),
-                torch.zeros((lanes, 0, big_n), **new),
-                torch.zeros((lanes, 0, big_n), dtype=torch.int8,
-                            device=phi.device))
+        out = (mean, chol.contiguous(), torch.zeros((lanes, 0), **new),
+               torch.zeros((lanes, 0), **new),
+               torch.zeros((lanes, 0, big_n), **new),
+               torch.zeros((lanes, 0, big_n), dtype=torch.int8,
+                           device=phi.device))
+        return out + ((torch.zeros((lanes, 0, big_n), dtype=torch.int32,
+                                   device=phi.device),)
+                      if robust is not None else ())
     return (mean, chol, *(torch.stack(p, dim=1) for p in zip(*steps)))
+
+
+def sqrt_filter_robust(phi, q, z, r, y, mask, mean0, chol0, armed, rail_lo,
+                       rail_hi, quantum, scale, likelihood: str = "censored",
+                       nu: float = 4.0, lane_map=None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The robust (implicit-MAP) square-root filter of every lane from a
+    given carry: the per-lane parameters ``rail_lo``, ``rail_hi``,
+    ``quantum``, ``scale`` are (L, N) in standardized units; returns
+    ``(mean (L, n), chol (L, n, n), sigma (L, T), detf (L, T), zscore
+    (L, T, N), verdict (L, T, N) int8, iters (L, T, N) int32)`` (module
+    doc).  A step where nothing flags is the given-carry call's bit for
+    bit."""
+    out = _check_gated(phi, q, z, r, y, mask, lane_map, mean0, chol0, armed,
+                       _ROBUST, True)
+    im.likelihood_code(likelihood)
+    check_robust_params((rail_lo, rail_hi, quantum, scale), out[0], out[3],
+                        phi)
+    fn = (sqrt_filter_robust_plain if phi.device.type == "cpu"
+          else sqrt_filter_robust_kernel)
+    return fn(phi, q, z, r, y, mask, mean0, chol0, armed, rail_lo, rail_hi,
+              quantum, scale, likelihood, nu, lane_map)
+
+
+def sqrt_filter_robust_kernel(phi, q, z, r, y, mask, mean0, chol0, armed,
+                              rail_lo, rail_hi, quantum, scale,
+                              likelihood: str = "censored", nu: float = 4.0,
+                              lane_map=None):
+    """Launch K9's robust instantiation (CUDA tensors only; raises
+    otherwise, and when the kernel cannot build, take the shape or
+    launch)."""
+    lanes, _, t_steps, big_n, n, _, _, lane_map = _check_gated(
+        phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, _ROBUST, True)
+    code = im.likelihood_code(likelihood)
+    check_robust_params((rail_lo, rail_hi, quantum, scale), lanes, big_n,
+                        phi)
+    if phi.device.type != "cuda":
+        raise ValueError(
+            f"the square-root filter kernel runs on CUDA tensors, got "
+            f"{phi.device}")
+    smem = smem_bytes(big_n, n, phi.dtype)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"(N={big_n}, n={n}) at {phi.dtype} needs {smem} bytes of "
+            f"shared memory per block; the kernel takes at most {MAX_SMEM}")
+    args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map,
+                                     mean0, chol0, armed, rail_lo, rail_hi,
+                                     quantum, scale)]
+    new = dict(dtype=phi.dtype, device=phi.device)
+    outs = (torch.empty((lanes, n), **new), torch.empty((lanes, n, n), **new),
+            torch.empty((lanes, t_steps), **new),
+            torch.empty((lanes, t_steps), **new),
+            torch.empty((lanes, t_steps, big_n), **new),
+            torch.empty((lanes, t_steps, big_n), dtype=torch.int8,
+                        device=phi.device),
+            torch.empty((lanes, t_steps, big_n), dtype=torch.int32,
+                        device=phi.device))
+    tol, nonconv_tol = im.solver_tols(phi.dtype)
+    lib = build.load_library("sqrt_filter")
+    fn = (lib.metran_sqrt_filter_robust_f64 if phi.dtype == torch.float64
+          else lib.metran_sqrt_filter_robust_f32)
+    with torch.cuda.device(phi.device):
+        err = fn(*[t.data_ptr() for t in args], float(nu), tol, nonconv_tol,
+                 im.c_floor(phi.dtype), float(torch.finfo(phi.dtype).eps),
+                 *[o.data_ptr() for o in outs], lanes, t_steps, big_n, n,
+                 code, _stream(phi))
+    build.check(lib, err, "sqrt_filter_robust")
+    if lanes:
+        build.count_launch("sqrt_filter_robust")
+    return outs
+
+
+def sqrt_filter_robust_plain(phi, q, z, r, y, mask, mean0, chol0, armed,
+                             rail_lo, rail_hi, quantum, scale,
+                             likelihood: str = "censored", nu: float = 4.0,
+                             lane_map=None):
+    """The robust filter in PyTorch ops: the gated plain body
+    (:func:`sqrt_filter_gated_plain`) with the robust branch on."""
+    out = _check_gated(phi, q, z, r, y, mask, lane_map, mean0, chol0, armed,
+                       _ROBUST, True)
+    im.likelihood_code(likelihood)
+    check_robust_params((rail_lo, rail_hi, quantum, scale), out[0], out[3],
+                        phi)
+    return sqrt_filter_gated_plain(
+        phi, q, z, r, y, mask, mean0, chol0, armed, _ROBUST, 0.0, lane_map,
+        RobustParams(likelihood, float(nu), rail_lo, rail_hi, quantum,
+                     scale))
 
 
 __all__ = [
@@ -464,6 +614,9 @@ __all__ = [
     "sqrt_filter_gated_plain",
     "sqrt_filter_kernel",
     "sqrt_filter_plain",
+    "sqrt_filter_robust",
+    "sqrt_filter_robust_kernel",
+    "sqrt_filter_robust_plain",
     "sqrt_qr_update_plain",
     "sqrt_step_plain",
     "tria",

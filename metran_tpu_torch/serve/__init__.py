@@ -1,11 +1,13 @@
 """Online serving: posterior states, registry, batcher, the service with
-its reliability layer, observation gate and streaming detection."""
+its reliability layer, observation gate, robust updates and streaming
+detection."""
 
 from .batching import MicroBatcher, Request
 from .engine import (
     BucketBatch,
     DetectSpec,
     GateSpec,
+    RobustSpec,
     make_forecast_fn,
     make_update_fn,
     pad_state_arrays,
@@ -35,6 +37,7 @@ __all__ = [
     "ModelRegistry",
     "PosteriorState",
     "Request",
+    "RobustSpec",
     "STATE_FORMAT_VERSION",
     "make_forecast_fn",
     "make_update_fn",

@@ -10,9 +10,10 @@ stacked factors) for assimilation,
 :func:`~metran_tpu_torch.ops.forecast_observation_moments` (K2) for
 forecasts — runs as ONE kernel-wrapper call per dispatch.  An armed
 observation gate (:class:`GateSpec`) runs the gated update instead (K12,
-or K9's gated instantiation on the square-root engine), and streaming
-detection (:class:`DetectSpec`) adds one detector launch (K13) after
-it.
+or K9's gated instantiation on the square-root engine), an armed robust
+policy (:class:`RobustSpec`) the implicit-MAP update (K12's or K9's
+robust instantiation), and streaming detection (:class:`DetectSpec`)
+adds one detector launch (K13) after it.
 
 Padding semantics (as in the JAX package): a padded observation slot is
 masked False at every appended step and carries zero loadings, so it
@@ -20,8 +21,8 @@ never touches the gain, the likelihood terms or the real slots; a
 padded state slot starts at the filter's ``N(0, 1)`` init with zero
 cross-covariance and stays decoupled.
 
-Robust updates and fused horizons come in later slices; asking for them
-raises with the ROADMAP item.
+The fused horizon pass (the read path) and the parallel-in-time engine
+come in later slices; asking for them raises with the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,13 +42,15 @@ from ..ops import (
     forecast_observation_moments,
     gated_filter_append,
     gated_sqrt_filter_append,
+    implicit_map_filter_append,
+    implicit_map_sqrt_filter_append,
     sqrt_filter_append,
 )
+from ..ops.implicit_map import ROBUST_LIKELIHOODS
 from ..ops.kalman import NotPortedError
 from ..ops.statespace import StateSpace
 
 _LATER = {
-    "robust": "ROADMAP A4.3 (serving features: implicit MAP, kernel B12)",
     "horizons": "ROADMAP A4.5 (serving features: read path)",
     "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
 }
@@ -195,6 +198,140 @@ class DetectSpec(NamedTuple):
         )
 
 
+class RobustSpec(NamedTuple):
+    """Non-Gaussian observation policy for the serving update path.
+
+    Armed (``likelihood != "off"``), each update's observed slots are
+    conditioned through the **implicit-MAP** update
+    (:mod:`metran_tpu_torch.ops.implicit_map`): flagged slots solve the
+    per-step MAP problem under the configured likelihood and commit its
+    Laplace summary, while clean Gaussian slots fall back
+    **bit-identically** to the closed-form update.
+
+    - ``likelihood="censored"``: readings at/beyond ``rail_lo``/
+      ``rail_hi`` (data units — standardized per model at dispatch)
+      contribute the one-sided Tobit tail mass; un-railed readings stay
+      exact Gaussian.
+    - ``likelihood="quantized"``: every reading contributes the interval
+      likelihood over its ``quantum``-wide cell (data units).
+    - ``likelihood="huber_t"``: every reading is scored under the
+      heavy-tailed Student-t(``nu``) loss — bounded outlier influence
+      without the gate's hard reject.
+
+    ``scale`` is the sensor-noise scale in **standardized** units
+    (fraction of the series' fitted std) that smooths the censored /
+    quantized likelihoods and scales the Student-t residuals — the DFM's
+    exact ``r = 0`` observation channel would otherwise make them hard
+    indicators.  ``min_seen`` disarms the robust path for cold models
+    exactly like the gate's floor (per model, per dispatch).  Mutually
+    exclusive with an enabled :class:`GateSpec`: the robust likelihood
+    IS the outlier treatment (``huber_t`` subsumes the gate's ``huber``
+    policy), and one slot cannot serve two masters.  Any armed robust
+    slot is a time-invariance break (``time_varying``), the contract the
+    steady-state layer will read.
+
+    Defaults from :func:`metran_tpu_torch.config.serve_defaults`
+    (``METRAN_TPU_SERVE_ROBUST{,_LIKELIHOOD,_RAIL_LO,_RAIL_HI,_QUANTUM,
+    _NU,_SCALE,_MIN_SEEN}``); shipped off.
+    """
+
+    likelihood: str = "off"
+    rail_lo: float = float("-inf")
+    rail_hi: float = float("inf")
+    quantum: float = 0.0
+    nu: float = 4.0
+    scale: float = 0.05
+    min_seen: int = 32
+
+    @property
+    def enabled(self) -> bool:
+        return self.likelihood != "off"
+
+    @property
+    def time_varying(self) -> bool:
+        """Whether an armed model breaks time-invariance: every real
+        likelihood can flag a slot and change the gain, but
+        ``"gaussian"`` — the pinning configuration — never flags."""
+        return self.enabled and self.likelihood != "gaussian"
+
+    @property
+    def flags_selectively(self) -> bool:
+        """Whether flagged slots are the EXCEPTION (censored: railed
+        readings only).  The always-flagging likelihoods (quantized,
+        huber_t) book counters but log no per-update ``robust_update``
+        line — one per model per commit carries no information."""
+        return self.likelihood == "censored"
+
+    @classmethod
+    def from_defaults(cls) -> "RobustSpec":
+        d = serve_defaults()
+        return cls(
+            likelihood=str(d["robust_likelihood"])
+            if d["robust"] else "off",
+            rail_lo=float(d["robust_rail_lo"]),
+            rail_hi=float(d["robust_rail_hi"]),
+            quantum=float(d["robust_quantum"]),
+            nu=float(d["robust_nu"]),
+            scale=float(d["robust_scale"]),
+            min_seen=int(d["robust_min_seen"]),
+        ).validate()
+
+    def validate(self) -> "RobustSpec":
+        """Reject inert or broken combinations — an armed robust path
+        that could never flag a slot (or that would blow up the inner
+        solve) is paid for and silently useless."""
+        if not self.enabled:
+            return self
+        if self.likelihood not in ROBUST_LIKELIHOODS:
+            raise ValueError(
+                f"unknown robust likelihood {self.likelihood!r}; "
+                f"expected one of {('off',) + ROBUST_LIKELIHOODS}"
+            )
+        if self.min_seen < 0:
+            raise ValueError(
+                f"robust min_seen must be >= 0, got {self.min_seen}"
+            )
+        if not self.scale > 0.0:
+            raise ValueError(
+                "robust scale must be > 0 (it smooths the censored/"
+                f"quantized likelihoods), got {self.scale!r}"
+            )
+        if self.likelihood == "censored":
+            if not self.rail_lo < self.rail_hi:
+                raise ValueError(
+                    "censored rails are inverted: rail_lo "
+                    f"{self.rail_lo!r} must be < rail_hi "
+                    f"{self.rail_hi!r}"
+                )
+            if not (np.isfinite(self.rail_lo)
+                    or np.isfinite(self.rail_hi)):
+                raise ValueError(
+                    "censored likelihood needs at least one finite "
+                    "rail; both are infinite — no reading could ever "
+                    "flag"
+                )
+        if self.likelihood == "quantized" and not self.quantum > 0.0:
+            raise ValueError(
+                "quantized likelihood needs quantum > 0 (the cell "
+                f"width), got {self.quantum!r}"
+            )
+        if self.likelihood == "huber_t" and not self.nu > 2.0:
+            raise ValueError(
+                "huber_t needs nu > 2 (finite observation variance), "
+                f"got {self.nu!r}"
+            )
+        return self
+
+    def compile_key(self) -> tuple:
+        """Every field that selects the update's behaviour (the JAX
+        package's compile-key suffix; the port keys nothing on it yet)."""
+        return (
+            "rob", self.likelihood, float(self.rail_lo),
+            float(self.rail_hi), float(self.quantum), float(self.nu),
+            float(self.scale),
+        )
+
+
 class BucketBatch(NamedTuple):
     """A shape bucket's models stacked for one device dispatch; every
     leaf leads with the batch axis B.  ``chol`` is the stacked
@@ -331,9 +468,41 @@ def stack_bucket(states: List, bucket: Tuple[int, int], dtype=None,
     return BucketBatch(ss=ss, mean=means, cov=fac)
 
 
+def _robust_core(sqrt_engine: bool, robust: RobustSpec):
+    """The robust update of a bucket: ``core(ss, mean, fac, y, mask,
+    armed, rail_lo, rail_hi, quantum, scale) -> (mean', fac', sigma,
+    detf, zscore, verdict, iters)``, batch-leading — one launch of K9's
+    robust instantiation on the square-root engine, of K12's on the
+    covariance engines.  ``likelihood="gaussian"`` (the pinning
+    configuration) is the gated update with the gate permanently
+    disarmed: posteriors bit-identical to the plain update, real
+    z-scores, zero verdicts and iterations, as in the JAX package."""
+    lik, nu = robust.likelihood, float(robust.nu)
+    if lik == "gaussian":
+        gated_append = (gated_sqrt_filter_append if sqrt_engine
+                        else gated_filter_append)
+
+        def fallback_core(ss, mean, fac, y, mask, armed, rl, rh, q, sc):
+            out = gated_append(ss, mean, fac, y, mask, armed=False,
+                               policy="reject", nsigma=4.0)
+            return tuple(out) + (torch.zeros(y.shape, dtype=torch.int32,
+                                             device=y.device),)
+
+        return fallback_core
+    append = (implicit_map_sqrt_filter_append if sqrt_engine
+              else implicit_map_filter_append)
+
+    def core(ss, mean, fac, y, mask, armed, rl, rh, q, sc):
+        return append(ss, mean, fac, y, mask, armed=armed, rail_lo=rl,
+                      rail_hi=rh, quantum=q, scale=sc, likelihood=lik,
+                      nu=nu)
+
+    return core
+
+
 def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
                    horizons=None, detect: Optional[DetectSpec] = None,
-                   robust=None):
+                   robust: Optional[RobustSpec] = None):
     """The batched incremental-update function of a bucket.
 
     ``fn(ss, mean, fac, y_new, mask_new) -> (mean_T, fac_T, sigma,
@@ -354,13 +523,26 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
     (K12) — a joint registry arming the gate serves through the gated
     *sequential* update, as in the JAX package.
 
+    With an **enabled** ``robust`` (:class:`RobustSpec`, mutually
+    exclusive with an enabled gate) the function takes ``armed`` and
+    the four (B, N) per-slot parameters ``rail_lo, rail_hi, quantum,
+    scale`` (standardized per model from the physical spec) and returns
+    ``(zscore, verdict, iters)`` after the four: one launch of K9's
+    robust instantiation on square-root buckets
+    (:func:`~metran_tpu_torch.ops.implicit_map_sqrt_filter_append`), of
+    K12's on covariance buckets
+    (:func:`~metran_tpu_torch.ops.implicit_map_filter_append`; a joint
+    registry serves through the sequential update, as in the JAX
+    package).  Clean Gaussian slots are bit-identical to the plain
+    update.
+
     With an **enabled** ``detect`` it takes two more trailing arguments,
     ``det_state`` ((B, 6, N)) and ``det_armed`` ((B,) bool), runs the
     detector (K13) over the update's z-scores and appends ``(det_state',
     det_counts, det_stats)`` ((B, 6, N), (B, 3, N) int32, (B, 3, N)).
     An ungated registry arming detection serves through the gated
     update with the gate disarmed (real z-scores; the service then
-    books no gate verdicts).  ``robust`` and ``horizons`` raise
+    books no gate verdicts).  ``horizons`` raises
     :class:`~metran_tpu_torch.ops.kalman.NotPortedError`.
     """
     if engine == "sqrt_parallel":
@@ -370,19 +552,20 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
     sqrt_engine = engine == "sqrt"
     gated = gate is not None and gate.enabled
     det_on = detect is not None and detect.enabled
-    if robust is not None and getattr(robust, "enabled", True):
-        if gated:
-            raise ValueError(
-                "gate and robust are mutually exclusive on one update "
-                "kernel (the robust likelihood IS the outlier treatment); "
-                "arm one of them"
-            )
-        raise _not_ported("robust")
+    robust_on = robust is not None and robust.enabled
+    if robust_on and gated:
+        raise ValueError(
+            "gate and robust are mutually exclusive on one update "
+            "kernel (the robust likelihood IS the outlier treatment); "
+            "arm one of them"
+        )
     if horizons:
         raise _not_ported("horizons")
     gated_append = (gated_sqrt_filter_append if sqrt_engine
                     else gated_filter_append)
-    if gated:
+    if robust_on:
+        core = _robust_core(sqrt_engine, robust.validate())
+    elif gated:
         gate.validate()
         policy, nsigma = gate.policy, float(gate.nsigma)
 
@@ -410,9 +593,11 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
     dpar = detect.kernel_params
 
     def fused(ss, mean, fac, y_new, mask_new, *extra):
-        *gate_extra, det_state, det_armed = extra
-        out = core(ss, mean, fac, y_new, mask_new, *gate_extra)
-        res = tuple(out) if gated else tuple(out[:4])
+        *update_extra, det_state, det_armed = extra
+        out = core(ss, mean, fac, y_new, mask_new, *update_extra)
+        # gated and robust updates keep their per-slot outputs (robust:
+        # with the iterations); the detect-only path strips them
+        res = tuple(out) if (gated or robust_on) else tuple(out[:4])
         det_new, det_counts = detect_append(det_state, out[4], mask_new,
                                             det_armed, **dpar)
         return res + (det_new, det_counts, detect_stats(det_new))

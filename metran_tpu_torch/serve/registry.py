@@ -177,8 +177,9 @@ class ModelRegistry:
     def update_fn(self, bucket: ShapeBucket, k: int, gate=None,
                   horizons=None, detect=None, robust=None):
         """The bucket's assimilation function for ``k`` appended steps
-        (:func:`~metran_tpu_torch.serve.engine.make_update_fn`): the gate
-        and detect specs select the gated update and the detector."""
+        (:func:`~metran_tpu_torch.serve.engine.make_update_fn`): the
+        gate, robust and detect specs select the gated or robust update
+        and the detector."""
         return make_update_fn(engine=self.engine, gate=gate,
                               horizons=horizons, detect=detect,
                               robust=robust)

@@ -5,8 +5,9 @@ Port of the dict-registry core of the JAX package's
 
     update(model_id, new_obs) ─┐                       ┌─> K1 launch
                                ├─> MicroBatcher ──────>┤   (K12 on
-    forecast(model_id, steps) ─┘    (group by          │   sequential or
-                                     bucket+horizon)   │   gated, K9 on
+    forecast(model_id, steps) ─┘    (group by          │   sequential,
+                                     bucket+horizon)   │   gated or
+                                                       │   robust, K9 on
                                                        │   sqrt; + K13
                                                        │   with detect)
                                                        └─> K2 launch
@@ -40,6 +41,15 @@ Port of the dict-registry core of the JAX package's
   dispatch runs the gated update and books its verdicts
   (:attr:`MetranService.gate_verdicts`, the monitor's per-model
   rejection window) before the integrity gate.
+- **Robust updates** (:class:`~metran_tpu_torch.serve.engine.
+  RobustSpec`, exclusive with the gate): armed per model once ``t_seen
+  >= min_seen``; censored, quantized or Student-t readings are
+  conditioned through the implicit-MAP update (K12's or K9's robust
+  instantiation) on per-slot parameters standardized through each
+  model's scaler, clean slots falling back bit for bit; each dispatch
+  books its outcomes (:attr:`MetranService.robust_total`, the Newton
+  iteration tally :attr:`MetranService.robust_iters`, the monitor's
+  window of non-converged solves) before the integrity gate.
 - **Streaming detection** (:class:`~metran_tpu_torch.serve.engine.
   DetectSpec`): the detector runs after the update over its z-scores;
   its state is parked per model in a host mirror
@@ -50,9 +60,9 @@ Port of the dict-registry core of the JAX package's
   anomalies` and :meth:`MetranService.alerts` read them.
 
 The dispatch runs on the service's device (default: the CUDA card).
-Robust updates, the read path, steady-state serving, fixed-lag
-smoothing, refit, the arena, durability, the cluster and the
-observability layers come in later slices: asking for them raises
+The read path, steady-state serving, fixed-lag smoothing, refit, the
+arena, durability, the cluster and the observability layers come in
+later slices: asking for them raises
 :class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming the
 ROADMAP item (A4, A7).
 """
@@ -71,7 +81,12 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, serve_defaults
-from ..ops import DETECT_STATE_ROWS, GATE_DOWNWEIGHTED, GATE_REJECTED
+from ..ops import (
+    DETECT_STATE_ROWS,
+    GATE_DOWNWEIGHTED,
+    GATE_REJECTED,
+    ROBUST_NONCONV,
+)
 from ..ops.kalman import NotPortedError
 from ..reliability import (
     BreakerBoard,
@@ -87,6 +102,7 @@ from .batching import MicroBatcher
 from .engine import (
     DetectSpec,
     GateSpec,
+    RobustSpec,
     posterior_fault,
     stack_bucket,
     state_slot_index,
@@ -99,7 +115,6 @@ logger = getLogger(__name__)
 
 #: the JAX service's layers this port does not have yet, by keyword
 _LATER = {
-    "robust": "ROADMAP A4.3 (robust updates, kernel B12)",
     "readpath": "ROADMAP A4.5 (the materialized read path)",
     "steady": "ROADMAP A4.6 (steady-state serving)",
     "fixed_lag": "ROADMAP A4.7 (fixed-lag smoothing)",
@@ -119,9 +134,16 @@ def _armed_spec(spec) -> bool:
     return bool(getattr(spec, "enabled", spec))
 
 
+def _gate_robust_clash() -> ValueError:
+    return ValueError(
+        "gate and robust are mutually exclusive: the robust likelihood IS "
+        "the outlier treatment (huber_t subsumes the gate's huber "
+        "policy); arm one of them")
+
+
 class EventCounters:
     """Thread-safe named counters (``increment``/``snapshot``): the
-    service's error, gate-verdict and detection tallies."""
+    service's error, gate-verdict, robust and detection tallies."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -233,10 +255,20 @@ class MetranService:
     gate : observation-gate policy (:class:`~metran_tpu_torch.serve.
         engine.GateSpec`); default from ``serve_defaults()``
         (``METRAN_TPU_SERVE_GATE_*``, shipped ``policy="off"``).
+    robust : non-Gaussian observation policy (:class:`~metran_tpu_torch.
+        serve.engine.RobustSpec`); default from ``serve_defaults()``
+        (``METRAN_TPU_SERVE_ROBUST*``, shipped off).  Enabled, updates
+        run through the implicit-MAP update: censored (railed) readings
+        contribute their one-sided tail mass, quantized readings their
+        cell's interval likelihood, heavy-tailed feeds the Student-t
+        loss, each flagged slot solved by a damped Newton inner solve
+        and committed as its Laplace summary, while clean slots fall
+        back bit-identically to the closed-form update.  Mutually
+        exclusive with an enabled ``gate``.
     detect : streaming-detection policy (:class:`~metran_tpu_torch.
         serve.engine.DetectSpec`); default from ``serve_defaults()``
         (``METRAN_TPU_SERVE_DETECT*``, shipped off).
-    robust, readpath, steady, fixed_lag, refit, durability, cluster,
+    readpath, steady, fixed_lag, refit, durability, cluster,
     replication : the JAX service's other layers; not ported yet —
         asking for one raises :class:`~metran_tpu_torch.ops.kalman.
         NotPortedError` naming its ROADMAP item.
@@ -256,13 +288,14 @@ class MetranService:
                  device=None):
         self.gate = (gate.validate() if gate is not None
                      else GateSpec.from_defaults())
+        # the exclusion first: it holds whatever the robust spec is
         if _armed_spec(robust) and self.gate.enabled:
-            raise ValueError(
-                "gate and robust are mutually exclusive: the robust "
-                "likelihood IS the outlier treatment (huber_t subsumes "
-                "the gate's huber policy); arm one of them"
-            )
-        for name, spec in (("robust", robust), ("readpath", readpath),
+            raise _gate_robust_clash()
+        self.robust = (robust.validate() if robust is not None
+                       else RobustSpec.from_defaults())
+        if self.robust.enabled and self.gate.enabled:  # both from defaults
+            raise _gate_robust_clash()
+        for name, spec in (("readpath", readpath),
                            ("steady", steady), ("fixed_lag", fixed_lag),
                            ("refit", refit), ("durability", durability),
                            ("cluster", cluster),
@@ -294,6 +327,16 @@ class MetranService:
         #: observations the gate acted on, ``{"rejected": n,
         #: "downweighted": m}``, booked before the integrity gate
         self.gate_verdicts = EventCounters()
+        #: robust-update outcomes by kind (``map_updates`` — commits with
+        #: at least one MAP-conditioned slot; ``map_slots`` — the
+        #: MAP-conditioned observations; ``fallback_updates`` — armed
+        #: commits where nothing flagged, the bit-identical Gaussian
+        #: update; ``nonconverged`` — flagged slots whose inner solve
+        #: missed its residual bar), booked before the integrity gate
+        self.robust_total = EventCounters()
+        #: the inner solve's Newton steps per MAP-conditioned slot, as
+        #: counts by the number of steps (the JAX service's histogram)
+        self.robust_iters = EventCounters()
         self.detect = (detect.validate() if detect is not None
                        else DetectSpec.from_defaults())
         #: detection outcomes by kind (``anomaly``, ``changepoint_cusum``,
@@ -345,7 +388,8 @@ class MetranService:
         the per-model gate window (:meth:`~metran_tpu_torch.reliability.
         HealthMonitor.snapshot`), batcher liveness and depth, open
         breakers, lifetime error counters, the registry's integrity
-        events and, with detection armed, its tallies."""
+        events and, with the gate, robust updates or detection armed,
+        their tallies."""
         alive = self.batcher.worker_alive() and not self.batcher.closed
         extra = {
             "ready": self._ready(),
@@ -364,6 +408,9 @@ class MetranService:
         }
         if self.gate.enabled:
             extra["gate_verdicts"] = self.gate_verdicts.snapshot()
+        if self.robust.enabled:
+            extra["robust_total"] = self.robust_total.snapshot()
+            extra["robust_iterations"] = self.robust_iters.snapshot()
         if self.detect.enabled:
             extra["detect"] = {
                 "tracked": len(self.detector),
@@ -899,14 +946,14 @@ class MetranService:
 
     def _run_update(self, bucket, k: int, requests):
         """One batched assimilation over distinct-model requests: one
-        launch of the registry engine's update (K1 joint, K12 sequential
-        or gated, K9 square-root or gated K9), plus one detector launch
-        (K13) with detection armed; read each model's current state,
-        write the bumped one.  Callers hold ``_update_lock``.  Gate
-        verdicts are booked per slot before the integrity gate; a slot
-        whose posterior fails that gate gets :class:`StateIntegrityError`
-        and its stored state stays as it was, while the healthy slots
-        commit."""
+        launch of the registry engine's update (K1 joint, K12 sequential,
+        gated or robust, K9 square-root, gated or robust), plus one
+        detector launch (K13) with detection armed; read each model's
+        current state, write the bumped one.  Callers hold
+        ``_update_lock``.  Gate and robust verdicts are booked per slot
+        before the integrity gate; a slot whose posterior fails that gate
+        gets :class:`StateIntegrityError` and its stored state stays as
+        it was, while the healthy slots commit."""
         results: list = [None] * len(requests)
         states, live = self._lookup_states(requests, results)
         if not live:
@@ -928,10 +975,11 @@ class MetranService:
             y[i, :, : st.n_series] = y_std
             m[i, :, : st.n_series] = mask
         gated = self.gate.enabled
+        rob = self.robust if self.robust.enabled else None
         det = self.detect if self.detect.enabled else None
         fn = self.registry.update_fn(bucket, k,
                                      gate=self.gate if gated else None,
-                                     detect=det)
+                                     detect=det, robust=rob)
 
         def flags(floor):
             # per model: armed once it has assimilated `floor` steps (a
@@ -940,6 +988,14 @@ class MetranService:
                                 dtype=torch.bool, device=self.device)
 
         extra = (flags(self.gate.min_seen),) if gated else ()
+        if rob is not None:
+            # the per-model arming, and the per-slot likelihood
+            # parameters standardized through each model's scaler (the
+            # spec's physical rails and quantum, the update's
+            # standardized units), in one vectorized pass
+            armed_rb = [st.t_seen >= rob.min_seen for st in states]
+            extra = (flags(rob.min_seen),
+                     *self._robust_params(rob, states, n_pad, dtype))
         if det is not None:
             # each model's carried detector state, zeroed for first-touch
             # models and on version discontinuities (an external put)
@@ -968,6 +1024,13 @@ class MetranService:
                     self._book_gate_verdicts(
                         st, outs[4][i, :, : st.n_series],
                         outs[5][i, :, : st.n_series])
+                elif rob is not None:
+                    # robust outcomes book in the same position, for the
+                    # same reason
+                    self._book_robust(
+                        st, armed_rb[i], outs[4][i, :, : st.n_series],
+                        outs[5][i, :, : st.n_series],
+                        outs[6][i, :, : st.n_series])
                 idx = state_slot_index(st.n_series, st.n_factors, n_pad)
                 mean_i = mean_t[i][idx].astype(st.dtype)
                 if sqrt_engine:
@@ -1063,6 +1126,77 @@ class MetranService:
             logger.info("gate %s: model %r rejected %d, downweighted %d "
                         "observation(s)", self.gate.policy, st.model_id,
                         n_rej, n_dw)
+
+    def _robust_params(self, rob: RobustSpec, states, n_pad: int, dtype):
+        """The (B, N) ``rail_lo, rail_hi, quantum, scale`` of a dispatch
+        on the service's device: the rails ``(rail - mean) / std`` (padded
+        slots at -inf / +inf), the quantum ``quantum / std`` where the
+        slot is real and the spec's quantum positive (else 1), the scale
+        as given — formed in float64 and rounded once to ``dtype``, as
+        the JAX service does."""
+        b = len(states)
+        sm = np.zeros((b, n_pad))
+        sd = np.ones((b, n_pad))
+        real = np.zeros((b, n_pad), bool)
+        for i, st in enumerate(states):
+            n_i = st.n_series
+            sm[i, :n_i] = st.scaler_mean
+            sd[i, :n_i] = st.scaler_std
+            real[i, :n_i] = True
+        params = (
+            np.where(real, (rob.rail_lo - sm) / sd, -np.inf),
+            np.where(real, (rob.rail_hi - sm) / sd, np.inf),
+            np.where(real & (rob.quantum > 0.0),
+                     np.divide(rob.quantum, sd), 1.0),
+            np.full((b, n_pad), rob.scale),
+        )
+        return tuple(torch.from_numpy(p.astype(dtype)).to(self.device)
+                     for p in params)
+
+    def _book_robust(self, st, armed: bool, zs, verdicts, iters) -> None:
+        """Book one slot's robust outcome (``zs``/``verdicts``/``iters``
+        its real-series (k, n_series) slices, ``zs`` NaN where
+        unobserved): the monitor's window counts the observations and
+        the non-converged solves (a flagged slot that converged was
+        handled, not lost); an armed commit where nothing flagged is the
+        bit-identical Gaussian fallback (``fallback_updates``); otherwise
+        the MAP counts and the iteration tally."""
+        n_obs = int(np.count_nonzero(np.isfinite(zs)))
+        flagged = verdicts != 0
+        nonconv = verdicts == ROBUST_NONCONV
+        n_map = int(np.count_nonzero(flagged))
+        n_nonconv = int(np.count_nonzero(nonconv))
+        if n_obs:
+            self.monitor.record_gate(st.model_id, n_obs, n_nonconv)
+        if not armed:
+            return
+        lik = self.robust.likelihood
+        if not n_map:
+            self.robust_total.increment("fallback_updates")
+            logger.debug("robust %s: model %r fell back to the Gaussian "
+                         "update (nothing flagged)", lik, st.model_id)
+            return
+        self.robust_total.increment("map_updates")
+        self.robust_total.increment("map_slots", n_map)
+        steps, counts = np.unique(np.asarray(iters)[flagged],
+                                  return_counts=True)
+        for n_steps, count in zip(steps, counts):
+            self.robust_iters.increment(int(n_steps), int(count))
+        if self.robust.flags_selectively:
+            # one line per MAP-acted commit; the always-flagging
+            # likelihoods would log every armed commit, so their
+            # counters tell that story instead
+            slots = sorted({st.names[int(c)]
+                            for c in np.nonzero(flagged)[1]})
+            logger.info("robust %s: model %r conditioned %d observation(s) "
+                        "by MAP (slots %s)", lik, st.model_id, n_map, slots)
+        if n_nonconv:
+            self.robust_total.increment("nonconverged", n_nonconv)
+            slots = sorted({st.names[int(c)]
+                            for c in np.nonzero(nonconv)[1]})
+            logger.warning("robust %s: model %r: %d inner solve(s) missed "
+                           "the residual bar (slots %s)", lik, st.model_id,
+                           n_nonconv, slots)
 
     def _book_detect(self, model_id: str, counts, stats, version: int,
                      t_seen: int, names, n_series: int, state) -> None:

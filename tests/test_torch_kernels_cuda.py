@@ -468,3 +468,131 @@ def test_joint_store_mode_is_the_carry_mode_bit_for_bit(card, dtype):
     torch.cuda.synchronize()
     assert torch.equal(one[0], st[2][:, 1:].reshape(-1, s))
     assert torch.equal(one[1], st[3][:, 1:].reshape(-1, s, s))
+
+
+def _robust_case(card, dtype, likelihood, k=6, warm=40):
+    """K12's gate inputs (an armed mix) from the posterior after ``warm``
+    steps of the same kind of data, as the likelihood's sensor reports
+    them: both rails (censored, about a fifth of the readings beyond
+    each), a grid of 0.25 (quantized) or spikes on known cells (huber_t,
+    at a likelihood scale of 0.5, where every solve converges: at 0.05
+    most hit the step cap, and a capped solve is not reproducible to the
+    roundoff); per-slot parameters (B, N)."""
+    args, armed = _gate_inputs(card, dtype, warm + k)
+    phi, q, z, r, mean, cov, y, mask = args
+    mean, cov = kernels.joint_filter_append(
+        phi, q, z, r, mean, cov, y[:, :warm].contiguous(),
+        mask[:, :warm].contiguous())[:2]
+    y, mask = y[:, warm:].clone(), mask[:, warm:].clone()
+    if likelihood == "huber_t":
+        for b, t, i, size in ((0, 0, 2, 30.0), (2, 3, 0, -25.0),
+                              (5, 2, 4, 40.0)):
+            y[b, t, i] += size
+            mask[b, t, i] = True
+    b, n = y.shape[0], y.shape[2]
+    full = dict(dtype=dtype, device=card)
+    lo = torch.full((b, n), -float("inf"), **full)
+    hi = torch.full((b, n), float("inf"), **full)
+    quantum = torch.ones((b, n), **full)
+    if likelihood == "censored":
+        obs = y[mask]
+        lo[:], hi[:] = obs.quantile(0.2), obs.quantile(0.8)
+        y = torch.minimum(torch.maximum(y, lo[:, None]), hi[:, None])
+    elif likelihood == "quantized":
+        quantum[:] = 0.25
+        y = 0.25 * torch.round(y / 0.25)
+    scale = torch.full((b, n), 0.5 if likelihood == "huber_t" else 0.1,
+                       **full)
+    return ((phi, q, z, r, mean, cov, y.contiguous(), mask.contiguous()),
+            armed, (lo, hi, quantum, scale))
+
+
+def _robust_equal(got, want, dtype):
+    """Verdicts and iterations: equal in f64; in f32 the MAP/NONCONV
+    split and the steps (+-1) may differ on a few flagged slots."""
+    assert torch.equal(got[5] != 0, want[5] != 0)  # the flagged sets
+    if dtype == torch.float64:
+        assert torch.equal(got[5], want[5]) and torch.equal(got[6], want[6])
+    else:
+        flagged = int((want[5] != 0).sum())
+        off = int((got[5] != want[5]).sum()) + int(
+            ((got[6] - want[6]).abs() > 1).sum())
+        assert off <= max(1, 0.005 * flagged)
+
+
+@pytest.mark.parametrize("likelihood", ["censored", "quantized", "huber_t"])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_robust_filter_kernel_matches_plain(card, dtype, bar, likelihood):
+    """K12's robust instantiation against its plain version (NaN-strict;
+    verdicts and iterations as ``_robust_equal``), counted under its own
+    name; disarmed, and (censored) with rails nothing reaches, it is the
+    ``off`` instantiation bit for bit."""
+    args, armed, par = _robust_case(card, dtype, likelihood)
+    kernels.reset_launches()
+    got = kernels.robust_filter_append(*args, armed, *par,
+                                       likelihood=likelihood)
+    torch.cuda.synchronize()
+    assert kernels.launches()["gated_filter_robust"] == 1
+    assert kernels.launches()["gated_filter"] == 0
+    want = kernels.robust_filter_append_plain(*args, armed, *par,
+                                              likelihood=likelihood)
+    for g, w in zip(got[:5], want[:5]):
+        assert _nan_rel(g, w) <= bar
+    _robust_equal(got, want, dtype)
+    assert got[5].any() and not got[5][2].any()  # model 2 is disarmed
+    off = kernels.gated_filter_append(*args, armed, "off", 0.0)
+    lo, hi, quantum, scale = par
+    nothing = [kernels.robust_filter_append(
+        *args, torch.zeros_like(armed), *par, likelihood=likelihood)]
+    if likelihood == "censored":
+        nothing.append(kernels.robust_filter_append(
+            *args, armed, lo - 1e6, hi + 1e6, quantum, scale))
+    torch.cuda.synchronize()
+    for out in nothing:
+        for g, w in zip(out[:4], off[:4]):
+            assert torch.equal(g, w)
+        assert not out[5].any() and not out[6].any()
+
+
+@pytest.mark.parametrize("likelihood", ["censored", "quantized", "huber_t"])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_sqrt_robust_kernel_matches_plain(card, dtype, bar, likelihood):
+    """K9's robust instantiation against its plain version from a given
+    non-triangular carry (factors through S S'), counted under its own
+    name; disarmed, and (censored) with rails nothing reaches, it is K9's
+    given-carry instantiation bit for bit."""
+    args, armed, par = _robust_case(card, dtype, likelihood)
+    lanes = _lanes_of(args)
+    b, s = args[4].shape
+    m0 = torch.randn(b, s, dtype=dtype, device=card) * 0.1
+    c0 = torch.linalg.qr(torch.randn(b, s, s, dtype=dtype,
+                                     device=card)).Q * 0.7
+    kernels.reset_launches()
+    got = kernels.sqrt_filter_robust(*lanes, m0, c0, armed, *par,
+                                     likelihood=likelihood)
+    torch.cuda.synchronize()
+    assert kernels.launches()["sqrt_filter_robust"] == 1
+    assert kernels.launches()["sqrt_filter_gated"] == 0
+    want = kernels.sqrt_filter_robust_plain(*lanes, m0, c0, armed, *par,
+                                            likelihood=likelihood)
+    assert _rel(got[0], want[0]) <= bar
+    assert _rel(_outer(got[1]), _outer(want[1])) <= bar
+    for g, w in zip(got[2:5], want[2:5]):
+        assert _nan_rel(g, w) <= bar
+    _robust_equal(got, want, dtype)
+    assert got[5].any() and not got[5][2].any()
+    base = kernels.sqrt_filter(*lanes, mean0=m0, chol0=c0)
+    lo, hi, quantum, scale = par
+    nothing = [kernels.sqrt_filter_robust(
+        *lanes, m0, c0, torch.zeros_like(armed), *par,
+        likelihood=likelihood)]
+    if likelihood == "censored":
+        nothing.append(kernels.sqrt_filter_robust(
+            *lanes, m0, c0, armed, lo - 1e6, hi + 1e6, quantum, scale))
+    torch.cuda.synchronize()
+    for out in nothing:
+        for g, w in zip(out[:4], base):
+            assert torch.equal(g, w)
+        assert not out[5].any() and not out[6].any()

@@ -10,8 +10,11 @@
 - the CUDA kernel launchers take CUDA tensors only, and the dispatching
   wrappers never count a launch for the plain CPU path (the products'
   K5/K6/K7, K6's store mode, the RTS smoother K8, the square-root
-  engine's K9/K10, K1's store mode, the gated updates K12 and gated K9
-  and the detector K13 included);
+  engine's K9/K10, K1's store mode, the gated updates K12 and gated K9,
+  their robust modes and the detector K13 included), and the robust
+  modes count under names of their own;
+- robust updates are ported: no not-ported message names their item
+  (A4.3);
 - the score that needs a plain version (``score="autodiff"``) refuses
   CUDA tensors, so no plain version runs on the card's path.
 """
@@ -36,6 +39,8 @@ from metran_tpu_torch.ops import (
     filter_append,
     gated_filter_append,
     gated_sqrt_filter_append,
+    implicit_map_filter_append,
+    implicit_map_sqrt_filter_append,
     kalman_filter,
     lanes_dfm_deviance,
 )
@@ -61,6 +66,7 @@ from metran_tpu_torch.serve import (
     GateSpec,
     MetranService,
     ModelRegistry,
+    RobustSpec,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -211,6 +217,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         MetranService(ModelRegistry(root=None, engine="sequential"),
                       flush_deadline=None, gate=GateSpec(policy="reject"),
                       detect=DetectSpec(enabled=True))
+    # the robust updates and the robust service
+    for fn in (implicit_map_filter_append, implicit_map_sqrt_filter_append):
+        with pytest.raises(RuntimeError, match="CUDA device required"):
+            fn(ss_np, np.zeros(4), np.eye(4), y, mask, likelihood="huber_t")
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        MetranService(ModelRegistry(root=None, engine="sqrt"),
+                      flush_deadline=None,
+                      robust=RobustSpec(likelihood="huber_t"))
     import pandas as pd
 
     idx = pd.date_range("2000-01-01", periods=30, freq="D")
@@ -352,6 +366,25 @@ def test_kernel_launchers_raise_on_cpu_tensors():
                                              policy, 16.0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.detect_scan_kernel(*_k13_args())
+    # the robust modes of K12 and K9
+    for lik in ("censored", "quantized", "huber_t"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.robust_filter_append_kernel(*args, armed,
+                                                *_robust_params(2, 4),
+                                                likelihood=lik)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.sqrt_filter_robust_kernel(
+                *k3, m0, c0, torch.ones(3, dtype=torch.bool),
+                *_robust_params(3, 2), likelihood=lik)
+
+
+def _robust_params(b, n, dtype=torch.float64):
+    """Per-slot robust parameters that flag everything the censored
+    likelihood sees (rails at +-0.1)."""
+    return (torch.full((b, n), -0.1, dtype=dtype),
+            torch.full((b, n), 0.1, dtype=dtype),
+            torch.full((b, n), 0.5, dtype=dtype),
+            torch.full((b, n), 0.1, dtype=dtype))
 
 
 def test_autodiff_score_refuses_the_card(monkeypatch):
@@ -420,6 +453,16 @@ def test_plain_path_counts_no_launch_and_counters_reset():
                                   torch.ones(3, dtype=torch.bool), policy,
                                   1.0)
     kernels.detect_scan(*_k13_args())
+    for lik in ("censored", "quantized", "huber_t"):
+        out = kernels.robust_filter_append(*args, armed,
+                                           *_robust_params(2, 4),
+                                           likelihood=lik)
+        assert (out[5] != 0).any()  # the MAP path ran
+        out = kernels.sqrt_filter_robust(
+            *k3, sq[2][:, -1].contiguous(), sq[3][:, -1].contiguous(),
+            torch.ones(3, dtype=torch.bool), *_robust_params(3, 2),
+            likelihood=lik)
+        assert (out[5] != 0).any()
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "joint_filter_store": 0,
                                   "forecast_moments": 0,
@@ -428,7 +471,9 @@ def test_plain_path_counts_no_launch_and_counters_reset():
                                   "lanes_sample": 0, "rts_smooth": 0,
                                   "sqrt_filter": 0, "sqrt_filter_gated": 0,
                                   "sqrt_smooth": 0, "joint_adjoint": 0,
-                                  "gated_filter": 0, "detect": 0}
+                                  "gated_filter": 0, "detect": 0,
+                                  "gated_filter_robust": 0,
+                                  "sqrt_filter_robust": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -518,3 +563,20 @@ def test_not_ported_messages_name_items_that_exist_in_the_roadmap():
     assert named, "no ROADMAP item named anywhere"
     missing = {k: v for k, v in named.items() if k not in items}
     assert not missing, missing
+
+
+def test_robust_updates_are_ported_and_named_by_no_message():
+    """Robust updates (B12) are ported: no not-ported message of the
+    port names their ROADMAP item, the service and the update factory
+    take a robust spec, and the robust modes count under names of their
+    own."""
+    for path in sorted((REPO / "metran_tpu_torch").rglob("*.py")):
+        for m in ITEM.finditer(path.read_text()):
+            assert "A4.3" not in m.group(1), (path.name, m.group(0))
+    svc = MetranService(ModelRegistry(root=None), flush_deadline=None,
+                        robust=RobustSpec(likelihood="huber_t"),
+                        device="cpu")
+    assert svc.robust.enabled
+    svc.close()
+    assert {"gated_filter_robust", "sqrt_filter_robust"} <= set(
+        kernels.launches())

@@ -61,7 +61,18 @@ non-zero):
    railed, each is K12 ``off`` or K9 from the given carry bit for bit,
    kernel and plain; a reading at a rail moves its slot only toward the
    rail's side; the Student-t solves at the default scale 0.05
-   reported; each mode timed at B = 512, k = 1 beside its bound;
+   reported; each mode timed at B = 512, k = 1 beside its bound; then
+   bounded-cost serving (``steady_kernels``): K14 (the frozen-gain
+   steady append) in every policy and form against its plain version
+   on the flagship bucket (B = 512, k = 1 and 4, spikes, masked cells,
+   an armed mix; f64 and f32, broke and verdicts equal), K15 (the DARE
+   solve and the frozen gains) in f64 on the flagship fleet's 512
+   models and the four alpha regimes of the precision panel (1e-9, the
+   DARE residual within 1e-10 of |P|), in f32 on the flagship models
+   with its f32-vs-f64 error reported per regime, K9 ``store`` from a
+   given non-triangular carry against its plain version and bit for
+   bit its own full store's continuation; K14 timed at B = 512, k = 1
+   in f32 per policy and form, K15 in f64 for 1 and 512 models;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -96,7 +107,23 @@ non-zero):
    every flag the data call for booked, the cold model disarmed, 16
    models replayed on the CPU in f32 (1e-3, the same non-converged
    solves) and f64 (1e-2), a rail probe (censored) and the spikes'
-   bounded influence (huber_t);
+   bounded influence (huber_t); then steady-state serving
+   (``steady_serving``): ``MetranService(steady=SteadySpec(tol=1e-4,
+   min_seen=256))`` and its exact twin on the flagship fleet after a
+   fully observed 400-step history, 12 paired, interleaved k = 1 rounds
+   on the joint registry with ``GateSpec("reject", nsigma=12)`` and
+   detection and on ``"sqrt"`` ungated: the models freeze (K15), frozen
+   dispatches are one K14 launch (+ one K13), the mean deviation within
+   2e-3; NaN cells on 8 frozen models, 30-sigma spikes on 8 others
+   (they thaw through the gate; ungated they stay frozen) and an
+   external put thaw, replay and match their twins; 64 models in f64 at
+   tol 1e-9 (bar 1e-8); the dispatch ratio reported; then fixed-lag
+   smoothing (``fixed_lag``): ``fixed_lag_smooth`` bit for bit the full
+   square-root filter + smoother's last 64 steps on one flagship model
+   (f64, f32), and ``MetranService(ModelRegistry(engine="sqrt"),
+   fixed_lag=16)`` over 24 rounds on 32 models, every ``smoothed()``
+   window held to the card's full filter + smoother over the same rows
+   (1e-5, bitwise reported), its wall and one tracker advance timed;
 5. fit path — the same flagship fleet (its own seed) packed with
    ``pack_fleet`` and fitted by ``fit_fleet(layout="lanes")`` under the
    JAX bench's fit settings (autocorrelation init, ``remat_seg=100``,
@@ -199,7 +226,9 @@ DEVICE = "cuda"  # the card the lanes and fit phases run on
 
 # H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"float32": 67e12, "float64": 34e12}  # non-tensor-core
+# ``float32``/``float64`` outside the tensor cores; ``float64_tensor`` the
+# f64 tensor cores (DMMA, full IEEE f64), for matrix products
+PEAK_FLOPS_S = {"float32": 67e12, "float64": 34e12, "float64_tensor": 67e12}
 
 
 def emit(obj) -> None:
@@ -725,8 +754,13 @@ def bounds_cost(cost, b, n, t_steps, seg, itemsize):
 
 
 def bound_ms(nbytes, flops, dtype_name):
+    """The larger of the bytes' time and the operations' time; ``flops``
+    is a count at ``dtype_name``'s rate, or a dict of counts keyed by
+    their ``PEAK_FLOPS_S`` rate (products on the tensor cores, the rest
+    outside them)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS_S[dtype_name] * 1e3
+    work = flops if isinstance(flops, dict) else {dtype_name: flops}
+    t_ops = sum(v / PEAK_FLOPS_S[k] for k, v in work.items()) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -4665,6 +4699,786 @@ def phase_metran_path(pool):
     return counts, mt64
 
 
+# ----------------------------------------------------------------------
+# bounded-cost serving: K14 (the steady append), K15 (the DARE solve),
+# the steady serving path and fixed-lag smoothing
+# ----------------------------------------------------------------------
+STEADY_FORMS = (("off", False), ("reject", False), ("huber", False),
+                ("inflate", False), ("reject", True), ("huber", True),
+                ("inflate", True))
+DARE_NEWTON, DARE_DOUBLING = 24, 32  # dare_solve's defaults
+
+
+def k14_cost(z, kgain, mask, itemsize):
+    """Bytes the K14 call must move (phi, Z, the gain, the variances,
+    the real flags, the mean, the rows, the mask and the armed flags
+    read once; the mean, sigma, detf, broke, the z-scores and the int8
+    verdicts written once) and the least operations this run's data
+    needs: per step the predict (S), and per observed slot the dot
+    ``Z_i.m`` on the row's nonzeros, the z-score and its test, the gain
+    column's product on its nonzeros and the two sums (~10)."""
+    b, n, s = z.shape
+    k = mask.shape[1]
+    nbytes = (b * ((2 * s + 2 * n * s + n) * itemsize + n + 1)
+              + b * k * n * (itemsize + 1)
+              + b * (s + 2) * itemsize + b
+              + b * k * n * (itemsize + 1))
+    nnz_z = (z != 0).double().sum(-1)  # (B, N)
+    nnz_k = (kgain != 0).double().sum(-2)  # (B, N): a gain column's
+    per_slot = 2 * nnz_z + 2 * nnz_k + 10
+    ops = float((mask.double() * per_slot[:, None, :]).sum()) + b * k * s
+    return nbytes, ops
+
+
+def k15_cost(z, itemsize, newton=DARE_NEWTON, doubling=DARE_DOUBLING):
+    """Bytes the K15 call must move (phi, Q, Z and r read once; the two
+    (S, S) covariances, the two (S, N) gains and the two (N,) variance
+    vectors written once) and its float64 operations, keyed by rate:
+    the matrix products, which the card's f64 tensor cores can run
+    (``float64_tensor``), and the rest (``float64``).  The first
+    Lyapunov solve has ``M = diag(phi)``, so each of its doubling steps
+    scales S elementwise (3 S^2 + S, no product).  Per Newton step: the
+    gain at P (``Z P`` and ``(Z P) Z'`` on Z's nonzeros; the Cholesky
+    and cho_solve of F), ``A = Phi (I - K Z)`` (``K Z`` on Z's
+    nonzeros), ``B = Phi K R K' Phi' + Q`` (2 S^2 N) and a doubling
+    Lyapunov solve of dense products (6 S^3 a step, plus 3 S^2 for the
+    sum and the symmetrisation).  Then the gains, ``p_filt`` (``K F``
+    and ``(K F) K'``) and the per-slot scan (matrix-vector steps)."""
+    b, n, s = z.shape
+    nbytes = b * (s + s * s + n * s + n + 2 * s * s + 2 * s * n
+                  + 2 * n) * itemsize
+    nnz = float((z != 0).double().sum()) / max(b, 1)
+    gain_prod = 2 * nnz * s + 2 * nnz * n
+    gain_rest = n ** 3 / 3 + 2 * n * n * s + n * n
+    prod = (newton * (gain_prod + 2 * nnz * s + 2 * s * s * n
+                      + doubling * 6.0 * s ** 3)
+            + gain_prod + 2 * s * n * n + 2 * s * s * n)
+    rest = (doubling * (3.0 * s * s + s)
+            + newton * (gain_rest + 3 * s * s + doubling * 3.0 * s * s
+                        + 2 * s * s)
+            + gain_rest + 2 * s * s + n * (2 * s * s + 2 * s + 3 * s * s))
+    return nbytes, {"float64_tensor": b * prod, "float64": b * rest}
+
+
+def dare_residual(p, phi, q, z, r):
+    """``max|P - Phi (P - P Z' F^-1 Z P) Phi' - Q| / max|P|`` per model
+    (float64, torch.linalg on the fixed point: a check, not the
+    port)."""
+    import torch
+
+    p, phi, q, z, r = (t.double() for t in (p, phi, q, z, r))
+    f = z @ p @ z.transpose(-1, -2) + torch.diag_embed(r)
+    pz = p @ z.transpose(-1, -2)
+    res = (p - phi[:, :, None] * (p - pz @ torch.linalg.solve(
+        f, pz.transpose(-1, -2))) * phi[:, None, :] - q)
+    return (res.abs().amax(dim=(1, 2)) / p.abs().amax(dim=(1, 2)))
+
+
+def _scatter_gains(gains, n, kf, bucket, dtype):
+    """True-dimension frozen gains into the bucket layout, as the
+    service scatters them: ``(kgain, fdiag, kgain_seq, fdiag_seq)``."""
+    import torch
+
+    from metran_tpu_torch.serve.engine import state_slot_index
+
+    n_pad, s_pad = bucket
+    idx = torch.as_tensor(state_slot_index(n, kf, n_pad))
+    out = []
+    for kg, fd in ((gains[2], gains[3]), (gains[4], gains[5])):
+        b = kg.shape[0]
+        kp = torch.zeros((b, s_pad, n_pad), dtype=dtype, device=kg.device)
+        kp[:, idx[:, None], torch.arange(n)[None, :]] = kg.to(dtype)
+        fp = torch.ones((b, n_pad), dtype=dtype, device=kg.device)
+        fp[:, :n] = fd.to(dtype)
+        out += [kp, fp]
+    return out
+
+
+def _steady_bucket_case(rng, dtype, dev, k=1):
+    """The flagship bucket (24, 32) at B = FLEET: the models' frozen
+    gains from K15 (float64, true dimensions, scattered into the
+    bucket), the mean after 64 fully observed steps (K1), then ``k``
+    fully observed rows with a spike on one slot of each of the first
+    GATE_SPIKED models, a masked cell on every 16th model and an armed
+    mix (every fourth model disarmed).  Returns ``(phi, z, (kgain,
+    fdiag, kgain_seq, fdiag_seq), real, mean, y, mask, armed)``."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import dare_gains, joint_filter_append
+    from metran_tpu_torch.ops import dfm_statespace
+
+    y, mask, lds, a_s, a_c = make_workload(rng, FLEET, t=64 + k,
+                                           missing=0.0)
+    true = dfm_statespace(a_s, a_c, lds, 1.0, device=dev,
+                          dtype=torch.float64)
+    gains = _scatter_gains(dare_gains(*true), N_SERIES, N_FACTORS, BUCKET,
+                           dtype)
+    n_pad, s_pad = BUCKET
+    alpha_s = np.ones((FLEET, n_pad))
+    alpha_s[:, :N_SERIES] = a_s
+    alpha_c = np.ones((FLEET, s_pad - n_pad))
+    alpha_c[:, :N_FACTORS] = a_c
+    loadings = np.zeros((FLEET, n_pad, s_pad - n_pad))
+    loadings[:, :N_SERIES, :N_FACTORS] = lds
+    ss = dfm_statespace(alpha_s, alpha_c, loadings, 1.0, device=dev,
+                        dtype=dtype)
+    yp = torch.zeros((FLEET, 64 + k, n_pad), dtype=dtype, device=dev)
+    yp[:, :, :N_SERIES] = torch.as_tensor(y, dtype=dtype, device=dev)
+    mp = torch.zeros((FLEET, 64 + k, n_pad), dtype=torch.bool, device=dev)
+    mp[:, :, :N_SERIES] = True
+    mean0 = torch.zeros((FLEET, s_pad), dtype=dtype, device=dev)
+    cov0 = torch.eye(s_pad, dtype=dtype, device=dev).expand(
+        FLEET, s_pad, s_pad).contiguous()
+    warm = joint_filter_append(*ss, mean0, cov0, yp[:, :64].contiguous(),
+                               mp[:, :64].contiguous())
+    y_k, m_k = yp[:, 64:].clone(), mp[:, 64:].clone()
+    for b in range(min(GATE_SPIKED, FLEET)):
+        y_k[b, b % k, b % N_SERIES] += GATE_SPIKE if b % 2 else -GATE_SPIKE
+    for b in range(5, FLEET, 16):
+        m_k[b, (b // 16) % k, (b * 7) % N_SERIES] = False
+    real = torch.zeros((FLEET, n_pad), dtype=torch.bool, device=dev)
+    real[:, :N_SERIES] = True
+    armed = torch.tensor([b % 4 != 3 for b in range(FLEET)], device=dev)
+    return (ss.phi, ss.z, gains, real, warm[0].contiguous(),
+            y_k.contiguous(), m_k.contiguous(), armed)
+
+
+def phase_steady_kernels():
+    """K14 (the frozen-gain steady append) in every policy and form, and
+    K15 (the DARE solve and the frozen gains), against their plain
+    versions on the card; K9 ``store`` from a given carry (the fixed-lag
+    window's filter).  K14 on the flagship bucket (B = 512, (24, 32),
+    k = 1 and k = 4) with spikes on known slots, masked cells and an
+    armed mix, f64 and f32 (normwise 1e-9 / 1e-3, NaN-strict; broke and
+    the verdicts equal); K15 in f64 on the flagship fleet's 512 models
+    at their true dimensions (20, 21) and in the four alpha regimes of
+    the precision panel (1e-9, plus the DARE residual within 1e-10 of
+    |P|), in f32 on the flagship models (1e-3) with its error against
+    f64 reported per regime; K9 ``store`` from a non-triangular carry
+    against its plain version and bit for bit the continuation of its
+    own full store.  Then each timed at the main path's shapes beside
+    its bound: K14 at B = 512, k = 1, f32, each policy and form; K15 in
+    f64 for 1 model and for 512 in one launch."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import (
+        dare_gains,
+        dare_gains_plain,
+        sqrt_filter,
+        sqrt_filter_plain,
+        steady_filter,
+        steady_filter_plain,
+    )
+    from metran_tpu_torch.ops import chol_outer, dfm_statespace
+    from metran_tpu_torch.ops.kalman import _lanes_ss
+
+    dev = torch.device(DEVICE)
+    thresh = GATE_NSIGMA ** 2
+    checks, times, info = [], {}, {}
+
+    def record(kernel, case, dtype, got, want, bar, exact=()):
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        same = [bool(torch.equal(got[i], want[i])) for i in exact]
+        checks.append({
+            "kernel": kernel, "case": case, "dtype": str(dtype)[6:],
+            "rel_err": errs, "bar": bar, "exact_equal": same,
+            "max_abs_err": max(abs_err(g, w) for g, w in zip(got, want)),
+            "ok": within(errs, bar) and all(same)})
+
+    for dtype in (torch.float64, torch.float32):
+        bar = 1e-9 if dtype == torch.float64 else 1e-3
+        for k in (1, 4):
+            rng = np.random.default_rng(SEED + 110 + k)
+            phi, z, g, real, mean, y, mask, armed = _steady_bucket_case(
+                rng, dtype, dev, k)
+            for policy, seq in STEADY_FORMS:
+                kg, fd = (g[2], g[3]) if seq else (g[0], g[1])
+                args = (phi, z, kg, fd, real, mean, y, mask, armed, policy,
+                        thresh, seq)
+                got = steady_filter(*args)
+                want = steady_filter_plain(*args)
+                torch.cuda.synchronize()
+                form = "per-slot" if seq else "vector"
+                case = f"{policy} {form}, B={FLEET} k={k} (24, 32)"
+                record("steady_filter", case, dtype,
+                       (got[0], got[1], got[2], got[4]),
+                       (want[0], want[1], want[2], want[4]), bar)
+                record("steady_filter", f"{case}: broke, verdicts", dtype,
+                       [got[3].double(), got[5].double()],
+                       [want[3].double(), want[5].double()], 0.0,
+                       exact=(0, 1))
+                masked = [b for b in range(5, FLEET, 16)]
+                require(bool(got[3][masked].all()),
+                        f"K14 {case}: a masked cell did not break the row")
+                if policy != "off":
+                    spiked = [b for b in range(min(GATE_SPIKED, FLEET))
+                              if b % 4 != 3]
+                    require(bool(got[5][spiked].any(-1).any(-1).all()),
+                            f"K14 {case}: an armed spike passed the gate")
+                    require(bool(got[3][spiked].all())
+                            == (policy in ("reject", "inflate")),
+                            f"K14 {case}: broke on a gate hit")
+        # K15 on the flagship fleet's models, true dimensions
+        rng = np.random.default_rng(SEED + 115)
+        _, _, lds, a_s, a_c = make_workload(rng, FLEET, t=2)
+        true = dfm_statespace(a_s, a_c, lds, 1.0, device=dev, dtype=dtype)
+        got = dare_gains(*true)
+        want = dare_gains_plain(*true)
+        torch.cuda.synchronize()
+        record("dare", f"B={FLEET} (N, S)=(20, 21), flagship", dtype, got,
+               want, bar)
+        if dtype == torch.float64:
+            res = float(dare_residual(got[0], *true).max())
+            info["flagship_residual_f64"] = res
+            require(res <= 1e-10, f"K15 f64 DARE residual {res}")
+            ref64 = want
+        else:
+            info["flagship_f32_vs_f64"] = max(
+                rel_err(g, w) for g, w in zip(got, ref64))
+    # K15 in the four alpha regimes of the precision panel
+    _, _, loadings = make_precision_panel()
+    n = PREC_N
+    alphas = dict(PREC_ALPHAS)
+    alphas["mixed"] = list(np.linspace(0.1, 100.0, n)) + [1e4]
+    names = list(alphas)
+    a = np.array([alphas[key] for key in names])
+    ld = np.broadcast_to(loadings, (len(names), n, PREC_K))
+    ss64 = dfm_statespace(a[:, :n], a[:, n:], ld, 1.0, device=dev,
+                          dtype=torch.float64)
+    got = dare_gains(*ss64)
+    want = dare_gains_plain(*ss64)
+    torch.cuda.synchronize()
+    record("dare", "the 4 alpha regimes (20, 21)", torch.float64, got, want,
+           1e-9)
+    res = dare_residual(got[0], *ss64)
+    ss32 = dfm_statespace(a[:, :n], a[:, n:], ld, 1.0, device=dev,
+                          dtype=torch.float32)
+    got32 = dare_gains(*ss32)
+    torch.cuda.synchronize()
+    regimes = {}
+    for i, name in enumerate(names):
+        r = float(res[i])
+        require(r <= 1e-10, f"K15 f64 residual in regime {name}: {r}")
+        regimes[name] = {
+            "residual_f64": r,
+            "f32_vs_f64_rel": {
+                field: rel_err(g32[i], g64[i]) for field, g32, g64 in zip(
+                    ("p_pred", "p_filt", "kgain", "fdiag", "kgain_seq",
+                     "fdiag_seq"), got32, got)},
+            "f32_residual": float(dare_residual(got32[0][i:i + 1],
+                                                *(t[i:i + 1]
+                                                  for t in ss64))[0]),
+            "f32_finite": all(bool(torch.isfinite(t[i]).all())
+                              for t in got32)}
+    info["regimes"] = regimes
+    # K9 store from a given carry: the fixed-lag window's filter
+    for dtype in (torch.float64, torch.float32):
+        bar = 1e-9 if dtype == torch.float64 else 1e-3
+        rng = np.random.default_rng(SEED + 116)
+        yw, mw, lds, a_s, a_c = make_workload(rng, 16, t=160)
+        ss = dfm_statespace(a_s, a_c, lds, 1.0, device=dev, dtype=dtype)
+        lanes = _lanes_ss(ss, "sqrt")
+        yt = torch.as_tensor(yw, dtype=dtype, device=dev)
+        mt = torch.as_tensor(mw, device=dev)
+        full = sqrt_filter(*lanes, yt, mt, store=True)
+        cut = 96
+        # a non-triangular factor of the carry (rotated by a fixed
+        # orthogonal matrix), as a migrated state's is
+        rot = torch.linalg.qr(torch.as_tensor(
+            rng.normal(size=(N_SERIES + 1, N_SERIES + 1)), dtype=dtype,
+            device=dev)).Q
+        m0 = full[2][:, cut - 1].contiguous()
+        c0 = (full[3][:, cut - 1] @ rot).contiguous()
+        rest = (yt[:, cut:].contiguous(), mt[:, cut:].contiguous())
+        got = sqrt_filter(*lanes, *rest, store=True, mean0=m0, chol0=c0)
+        want = sqrt_filter_plain(*lanes, *rest, store=True, mean0=m0,
+                                 chol0=c0)
+        torch.cuda.synchronize()
+        record("sqrt_filter", "store from a given non-triangular carry, "
+               "16 lanes, 64 steps", dtype,
+               (got[0], chol_outer(got[1]), got[2], chol_outer(got[3]),
+                got[4], got[5]),
+               (want[0], chol_outer(want[1]), want[2], chol_outer(want[3]),
+                want[4], want[5]), bar)
+        again = sqrt_filter(*lanes, *rest, store=True, mean0=m0,
+                            chol0=full[3][:, cut - 1].contiguous())
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, f[:, cut:]) for g, f in zip(again, full))
+        info[f"k9_store_from_carry_continues_bitwise_{str(dtype)[6:]}"] = \
+            same
+        require(same, "K9 store from its own carry is not its full store's "
+                "continuation bit for bit")
+    for c in checks:
+        emit({"phase": "kernel_check", **c})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+
+    # the main path's shapes: K14 at B = 512, k = 1, f32; K15 in f64
+    dtype = torch.float32
+    rng = np.random.default_rng(SEED + 117)
+    phi, z, g, real, mean, y, mask, armed = _steady_bucket_case(rng, dtype,
+                                                                dev)
+    n_b, s_b = z.shape[1:]
+    for policy, seq in STEADY_FORMS:
+        kg, fd = (g[2], g[3]) if seq else (g[0], g[1])
+        args = (phi, z, kg, fd, real, mean, y, mask, armed, policy, thresh,
+                seq)
+        ms, _ = cuda_ms(lambda a=args: steady_filter(*a))
+        plain_ms, _ = cuda_ms(lambda a=args: steady_filter_plain(*a), reps=5,
+                              warm=1)
+        bms, bby = bound_ms(*k14_cost(z, kg, mask, 4), "float32")
+        form = "slot" if seq else "vector"
+        key = ("steady_filter" if (policy, seq) == ("reject", True)
+               else f"steady_filter_{policy}_{form}")
+        times[key] = {
+            "shape": f"{policy} {form}, B={FLEET} k=1 N={n_b} S={s_b} f32 "
+                     "(steady update dispatch)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bby}
+    _, _, lds, a_s, a_c = make_workload(np.random.default_rng(SEED + 118),
+                                        FLEET, t=2)
+    true = dfm_statespace(a_s, a_c, lds, 1.0, device=dev,
+                          dtype=torch.float64)
+    one = type(true)(*(t[:1].contiguous() for t in true))
+    for key, ss_t, reps in (("dare", true, 5), ("dare_one_model", one, 10)):
+        ms, _ = cuda_ms(lambda s=ss_t: dare_gains(*s), reps=reps, warm=1)
+        plain_ms, _ = cuda_ms(lambda s=ss_t: dare_gains_plain(*s), reps=3,
+                              warm=1)
+        bms, bby = bound_ms(*k15_cost(ss_t.z, 8), "float64")
+        times[key] = {
+            "shape": f"B={ss_t.z.shape[0]} (N, S)=(20, 21) f64, "
+                     f"{DARE_NEWTON} Newton x {DARE_DOUBLING} doubling "
+                     "(a freeze group)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bby}
+    emit({"phase": "steady_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar",
+                           "ok")} for c in checks], **info, "times": times})
+    return checks, times
+
+
+STEADY_HIST = 400  # the fully observed history (bench.py::run_steady_bench)
+STEADY_ROUNDS = 12  # k = 1 update rounds of each steady run
+STEADY_TOL = {"float32": 1e-4, "float64": 1e-9}  # tests/test_steady.py _TOL
+STEADY_DEV = {"float32": 2e-3, "float64": 1e-8}  # ... and _DEV_BOUND
+STEADY_MIN_SEEN = 256  # SteadySpec's default floor
+STEADY_F64_MODELS = 64
+STEADY_THAWS = 8  # models thawed by a NaN cell, and by a spike, each
+STEADY_SPIKE_SD = 30.0  # the spikes, in one-step predictive sds
+
+
+def _steady_run(engine, dtype, batch, gate, detect, thaws, seed):
+    """One steady service and its exact twin on the same fleet and
+    stream (module doc of :func:`phase_steady_serving`); returns the
+    run's summary, whose ``launches`` are the steady service's own: the
+    sum of the launch deltas around its dispatches (freezes and thaws
+    included), not the history pass, the twin or the spikes' sizing."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches
+    from metran_tpu_torch.ops import (
+        chol_outer,
+        dfm_statespace,
+        kalman_filter,
+        sqrt_kalman_filter,
+    )
+    from metran_tpu_torch.serve import (
+        MetranService,
+        ModelRegistry,
+        PosteriorState,
+        SteadySpec,
+    )
+
+    dev = torch.device(DEVICE)
+    npd = np.float32 if dtype == "float32" else np.float64
+    sqrt = engine == "sqrt"
+    rng = np.random.default_rng(seed)
+    y, mask, lds, a_s, a_c = make_workload(
+        rng, batch, t=STEADY_HIST + STEADY_ROUNDS + 2, missing=0.0)
+    ss = dfm_statespace(a_s.astype(npd), a_c.astype(npd), lds.astype(npd),
+                        1.0, device=dev)
+    yh = y[:, :STEADY_HIST].astype(npd)
+    mh = mask[:, :STEADY_HIST]
+    if sqrt:
+        res = sqrt_kalman_filter(ss, yh, mh, store=False)
+        chols = res.chol_f.cpu().numpy()
+        covs = chol_outer(res.chol_f).cpu().numpy()
+    else:
+        res = kalman_filter(ss, yh, mh, engine="joint", store=False)
+        covs, chols = res.cov_f.cpu().numpy(), [None] * batch
+    means = res.mean_f.cpu().numpy()
+    rows = y[:, STEADY_HIST:].astype(npd)
+    names = tuple(f"s{j}" for j in range(N_SERIES))
+    ids = [f"m{i}" for i in range(batch)]
+    states = [PosteriorState(
+        model_id=ids[i], version=0, t_seen=STEADY_HIST, mean=means[i],
+        cov=covs[i], params=np.concatenate([a_s[i], a_c[i]]).astype(npd),
+        loadings=lds[i].astype(npd), dt=1.0,
+        scaler_mean=np.zeros(N_SERIES, npd),
+        scaler_std=np.ones(N_SERIES, npd), names=names, chol=chols[i])
+        for i in range(batch)]
+    svcs = {}
+    for kind, tol in (("steady", STEADY_TOL[dtype]), ("exact", 0.0)):
+        reg = ModelRegistry(root=None, engine=engine)
+        for st in states:
+            reg.put(st, persist=False)
+        svcs[kind] = MetranService(
+            reg, flush_deadline=None, max_batch=4096, persist_updates=False,
+            gate=gate, detect=detect,
+            steady=SteadySpec(tol=tol, min_seen=STEADY_MIN_SEEN),
+            device=dev)
+    svc_s, svc_e = svcs["steady"], svcs["exact"]
+
+    own = dict.fromkeys(launches(), 0)  # the steady service's launches
+
+    def tick(svc, obs):
+        before = launches()
+        futs = [svc.update_async(mid, obs[i]) for i, mid in enumerate(ids)]
+        t0 = time.perf_counter()
+        svc.flush()
+        dt = time.perf_counter() - t0
+        after = launches()
+        bad = [f.exception() for f in futs if f.exception() is not None]
+        require(not bad, f"a steady-run update failed: {bad[:1]}")
+        delta = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        if svc is svc_s:
+            for k, v in delta.items():
+                own[k] += v
+        return dt, delta
+
+    def deviation(sel=None):
+        sel = range(batch) if sel is None else sel
+        return max(float(np.abs(
+            svc_s.registry.get(ids[i]).mean.astype(float)
+            - svc_e.registry.get(ids[i]).mean.astype(float)).max())
+            for i in sel)
+
+    times = {"steady": [], "exact": []}
+    per_dispatch, frozen_after = [], None
+    for r in range(STEADY_ROUNDS):
+        obs = rows[:, r:r + 1]
+        order = ("steady", "exact") if r % 2 == 0 else ("exact", "steady")
+        for kind in order:
+            dt, delta = tick(svcs[kind], obs)
+            times[kind].append(dt)
+            if kind == "steady" and r >= 1:
+                per_dispatch.append(delta)
+        if r == 0:
+            frozen_after = svc_s._steady_count()
+        if r == STEADY_ROUNDS - 2:
+            covs_prev = {mid: svc_e.registry.get(mid).cov for mid in ids}
+    frozen = svc_s._steady_count()
+    bar = STEADY_DEV[dtype]
+    dev_max = deviation()
+    not_frozen = [mid for mid in ids if mid not in svc_s._steady_info]
+    last_delta = {mid: float(np.abs(svc_e.registry.get(mid).cov
+                                    - covs_prev[mid]).max())
+                  for mid in not_frozen[:8]}
+    # every model freezes on the first exact commit (a K15 that fails
+    # for any group of candidates leaves it exact, and shows here)
+    require(frozen_after == batch and frozen == batch,
+            f"{engine} {dtype}: {frozen_after} then {frozen} of {batch} "
+            f"models frozen (last deltas {last_delta})")
+    require(dev_max <= bar, f"{engine} {dtype}: frozen vs exact mean "
+            f"deviation {dev_max} over the bar {bar}")
+    want = {"steady_filter": 1}
+    if detect is not None:
+        want["detect"] = 1
+    require(all(d == want for d in per_dispatch),
+            f"launches per steady dispatch: {per_dispatch}")
+    out = {"engine": engine, "dtype": dtype, "models": batch,
+           "gate": None if gate is None else gate._asdict(),
+           "detect": detect is not None, "tol": STEADY_TOL[dtype],
+           "frozen_after_first_round": frozen_after, "frozen": frozen,
+           "not_frozen_last_delta": last_delta,
+           "max_mean_deviation": dev_max, "bar": bar,
+           "launches_per_steady_dispatch": per_dispatch[-1],
+           "dispatch_ms": {kind: float(np.median(t[2:]) * 1e3)
+                           for kind, t in times.items()},
+           "throughput_ratio": float(np.median(
+               np.asarray(times["exact"][2:])
+               / np.asarray(times["steady"][2:])))}
+    if thaws:
+        # a NaN cell on STEADY_THAWS frozen models, a spike on as many
+        # others and an external put of one more: each thaws, replays
+        # through the exact update in the same dispatch and then matches
+        # its twin
+        frozen_ids = [i for i in range(batch)
+                      if ids[i] in svc_s._steady_info][:2 * STEADY_THAWS + 1]
+        require(len(frozen_ids) == 2 * STEADY_THAWS + 1,
+                "too few frozen models for the thaw checks")
+        nan_m = frozen_ids[:STEADY_THAWS]
+        spike_m = frozen_ids[STEADY_THAWS:2 * STEADY_THAWS]
+        put_m = frozen_ids[-1]
+        obs = rows[:, STEADY_ROUNDS:STEADY_ROUNDS + 1].copy()
+        sd = np.sqrt(np.stack([f.variances[0] for f in svc_e.forecast_batch(
+            [ids[i] for i in spike_m], 1)]))
+        for j, i in enumerate(nan_m):
+            obs[i, 0, j % N_SERIES] = np.nan
+        for j, i in enumerate(spike_m):
+            obs[i, 0, j % N_SERIES] += STEADY_SPIKE_SD * sd[j, j % N_SERIES]
+        st = svc_s.registry.get(ids[put_m])
+        svc_s.registry.put(st._replace(params=np.array(st.params),
+                                       loadings=np.array(st.loadings)),
+                           persist=False)
+        thaw0 = svc_s.steady_transitions.snapshot().get("thaw", 0)
+        for svc in (svc_s, svc_e):
+            tick(svc, obs)
+        thawed = svc_s.steady_transitions.snapshot().get("thaw", 0) - thaw0
+        # a spike thaws through a reject gate; ungated, the frozen gain
+        # absorbs it as the exact update would, and the model stays
+        sel = nan_m + (spike_m if gate is not None else []) + [put_m]
+        still = [ids[i] for i in sel if ids[i] in svc_s._steady_info]
+        dev_thawed = deviation(sel)
+        require(thawed == len(sel) and not still,
+                f"thaws: {thawed} of {len(sel)} (still frozen {still})")
+        if gate is None:
+            require(all(ids[i] in svc_s._steady_info for i in spike_m),
+                    "an ungated spike thawed a model")
+        require(dev_thawed <= bar, f"thawed models vs their twin: "
+                f"{dev_thawed} over {bar}")
+        if gate is not None:
+            rej_s = svc_s.gate_verdicts.snapshot().get("rejected", 0)
+            rej_e = svc_e.gate_verdicts.snapshot().get("rejected", 0)
+            require(rej_s == rej_e and rej_s >= STEADY_THAWS,
+                    f"rejected spikes: steady {rej_s}, exact {rej_e}")
+        out["thaws"] = {"nan_cells": len(nan_m), "spikes": len(spike_m),
+                        "spikes_thaw": gate is not None,
+                        "external_puts": 1, "thawed": thawed,
+                        "max_mean_deviation_thawed": dev_thawed}
+        for svc in (svc_s, svc_e):
+            tick(svc, rows[:, STEADY_ROUNDS + 1:])
+        out["max_mean_deviation_after"] = deviation()
+        require(out["max_mean_deviation_after"] <= bar,
+                f"after the thaws: {out['max_mean_deviation_after']}")
+    out["health_steady"] = svc_s.health()["steady"]
+    out["launches"] = own
+    for svc in svcs.values():
+        svc.close()
+    return out
+
+
+def phase_steady_serving():
+    """The bounded-cost serving path through the entry points a user
+    calls: ``MetranService(registry, steady=SteadySpec(tol,
+    min_seen=256))`` against its exact twin (``tol = 0``), both on the
+    flagship fleet's 512 models in f32 after a fully observed 400-step
+    history pass (the JAX steady bench's shape), assimilating the same
+    12 rows of the fleet's continuation in paired, interleaved rounds:
+    on the joint registry with ``GateSpec("reject", nsigma=12)`` and
+    detection (the exact twin is K12 gated + K13; frozen models are K14
+    per-slot + K13), and on the square-root registry ungated (K9 / K14
+    vector form); freezes solve K15.  Checks: models freeze after the
+    first round, every steady dispatch of frozen models is one K14
+    launch (+ one K13), the frozen-vs-exact mean deviation within the
+    JAX test's ``_DEV_BOUND`` (f32 2e-3) at ``_TOL`` = 1e-4; then NaN
+    cells on 8 frozen models, 30-sigma spikes on 8 others and an
+    external put of one more — each thaws, replays through the exact
+    update in the same dispatch and matches its twin, the rejected
+    counts equal.  Then 64 models in f64 at tol 1e-9 (bar 1e-8).
+    Reports models frozen, freeze and thaw counts, the deviation beside
+    tol, the last covariance delta of models that did not freeze and
+    the steady-vs-exact dispatch ratio.  Returns the steady services'
+    own launch counts (summed around their dispatches: not the history
+    passes, the exact twins or the spikes' sizing)."""
+    from metran_tpu_torch.serve import DetectSpec, GateSpec
+
+    runs = [
+        _steady_run("joint", "float32", FLEET,
+                    GateSpec(policy="reject", nsigma=12.0, min_seen=1),
+                    DetectSpec(enabled=True), True, SEED + 120),
+        _steady_run("sqrt", "float32", FLEET, None, None, True, SEED + 121),
+        _steady_run("joint", "float64", STEADY_F64_MODELS,
+                    GateSpec(policy="reject", nsigma=12.0, min_seen=1),
+                    None, False, SEED + 122),
+    ]
+    counts = {key: sum(r["launches"][key] for r in runs)
+              for key in runs[0]["launches"]}
+    for key in ("steady_filter", "dare", "gated_filter", "sqrt_filter",
+                "detect"):
+        require(counts[key] > 0, f"steady serving never launched {key}")
+    emit({"phase": "steady_serving", "runs": runs, "launches": counts})
+    return counts, {r["engine"] + "_" + r["dtype"]: r["dispatch_ms"]
+                    for r in runs}
+
+
+FIXED_LAG = 16  # the service's window
+FIXED_LAG_MODELS = 32
+FIXED_LAG_ROUNDS = 24
+FIXED_LAG_OPS_L = 64  # the ops-level window on one flagship model
+
+
+def phase_fixed_lag():
+    """Fixed-lag smoothing on the card.  Ops level, on one flagship
+    model (400 steps, 30% missing), f64 and f32: ``fixed_lag_smooth``
+    over the last 64 steps from the full filter's carry (K9 ``store``
+    from the carry, then K10) bit for bit the full ``sqrt_kalman_filter``
+    + ``sqrt_rts_smoother``'s last 64 steps.  Then the path:
+    ``MetranService(ModelRegistry(engine="sqrt"), fixed_lag=16)`` on 32
+    flagship models (f32 posteriors after a 400-step history) over 24
+    rounds of k = 1 (30% missing), so the anchor advances; every
+    model's ``smoothed()`` window held to the card's full filter and
+    smoother over the same rows from the posterior the window started
+    at (the tracker works in f64, as the JAX package's does), normwise
+    1e-5, and reported whether bitwise; ``smoothed()`` wall and one
+    tracker advance timed.  Returns the path's launch counts, read
+    right after the ``smoothed()`` calls: the references and the
+    advance probe run after that."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches, reset_launches, sqrt_filter
+    from metran_tpu_torch.ops import (
+        SqrtFilterResult,
+        chol_outer,
+        dfm_statespace,
+        fixed_lag_smooth,
+        project,
+        sqrt_kalman_filter,
+        sqrt_rts_smoother,
+    )
+    from metran_tpu_torch.ops.kalman import _lanes_ss
+    from metran_tpu_torch.serve import (
+        FixedLagTracker,
+        MetranService,
+        ModelRegistry,
+        PosteriorState,
+    )
+
+    dev = torch.device(DEVICE)
+    out = {"ops": {}}
+    lag = FIXED_LAG_OPS_L
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(SEED + 130)
+        y, mask, lds, a_s, a_c = make_workload(rng, 1, t=T_CMP)
+        ss = dfm_statespace(a_s[0], a_c[0], lds[0], 1.0, device=dev,
+                            dtype=dtype)
+        yt = torch.as_tensor(y[0], dtype=dtype, device=dev)
+        mt = torch.as_tensor(mask[0], device=dev)
+        filt = sqrt_kalman_filter(ss, yt, mt)
+        full = sqrt_rts_smoother(ss, filt)
+        t = T_CMP
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        win = fixed_lag_smooth(ss, filt.mean_f[t - lag - 1],
+                               filt.chol_f[t - lag - 1], yt[t - lag:],
+                               mt[t - lag:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = (torch.equal(win.mean_s, full.mean_s[t - lag:])
+                and torch.equal(win.chol_s, full.chol_s[t - lag:]))
+        out["ops"][str(dtype)[6:]] = {"bitwise": same,
+                                      "window_wall_ms": wall * 1e3}
+        require(same, f"fixed_lag_smooth {dtype} is not the full smoother's "
+                "last steps bit for bit")
+
+    rng = np.random.default_rng(SEED + 131)
+    b, rounds = FIXED_LAG_MODELS, FIXED_LAG_ROUNDS
+    y, mask, lds, a_s, a_c = make_workload(rng, b, t=STEADY_HIST + rounds)
+    f32 = np.float32
+    ss = dfm_statespace(a_s.astype(f32), a_c.astype(f32), lds.astype(f32),
+                        1.0, device=dev)
+    res = sqrt_kalman_filter(ss, y[:, :STEADY_HIST].astype(f32),
+                             mask[:, :STEADY_HIST], store=False)
+    chols = res.chol_f.cpu().numpy()
+    means = res.mean_f.cpu().numpy()
+    names = tuple(f"s{j}" for j in range(N_SERIES))
+    ids = [f"m{i}" for i in range(b)]
+    reg = ModelRegistry(root=None, engine="sqrt")
+    for i in range(b):
+        reg.put(PosteriorState(
+            model_id=ids[i], version=0, t_seen=STEADY_HIST, mean=means[i],
+            cov=chols[i] @ chols[i].T,
+            params=np.concatenate([a_s[i], a_c[i]]).astype(f32),
+            loadings=lds[i].astype(f32), dt=1.0,
+            scaler_mean=np.zeros(N_SERIES, f32),
+            scaler_std=np.ones(N_SERIES, f32), names=names, chol=chols[i]),
+            persist=False)
+    rows = np.where(mask[:, STEADY_HIST:], y[:, STEADY_HIST:],
+                    np.nan).astype(f32)
+    # the path's own launches: the service's updates and smoothed()
+    reset_launches()
+    svc = MetranService(reg, flush_deadline=None, max_batch=4096,
+                        persist_updates=False, fixed_lag=FIXED_LAG,
+                        device=dev)
+    first = None
+    for r in range(rounds):
+        futs = [svc.update_async(mid, rows[i, r][None])
+                for i, mid in enumerate(ids)]
+        svc.flush()
+        require(all(f.exception() is None for f in futs),
+                "a fixed-lag run update failed")
+        if r == 0:
+            first = [reg.get(mid) for mid in ids]
+    torch.cuda.synchronize()
+    walls, windows = [], []
+    for mid in ids:
+        t0 = time.perf_counter()
+        windows.append(svc.smoothed(mid))
+        walls.append(time.perf_counter() - t0)
+    counts = launches()
+    for key in ("sqrt_filter", "sqrt_smooth"):
+        require(counts[key] > 0, f"fixed-lag path never launched {key}")
+    errs, bitwise = [], True
+    for i, (mid, got) in enumerate(zip(ids, windows)):
+        require(got.lag == FIXED_LAG and got.t_end == STEADY_HIST + rounds,
+                f"{mid}: window {got.lag} ending {got.t_end}")
+        # the reference: the card's full square-root filter (K9 store
+        # from the posterior the window started at) and smoother (K10)
+        # over every row since, in f64 as the tracker runs
+        st = first[i]
+        n = N_SERIES
+        ss64 = dfm_statespace(st.params[None, :n].astype(float),
+                              st.params[None, n:].astype(float),
+                              st.loadings[None].astype(float), 1.0,
+                              device=dev)
+        rest = rows[i, 1:]
+        m_r = np.isfinite(rest)
+        filt = SqrtFilterResult(*sqrt_filter(
+            *_lanes_ss(ss64, "sqrt"),
+            torch.as_tensor(np.where(m_r, rest, 0.0)[None], device=dev,
+                            dtype=torch.float64),
+            torch.as_tensor(m_r[None], device=dev), store=True,
+            mean0=torch.as_tensor(st.mean[None], device=dev,
+                                  dtype=torch.float64),
+            chol0=torch.as_tensor(st.chol[None], device=dev,
+                                  dtype=torch.float64)))
+        full = sqrt_rts_smoother(ss64, filt)
+        ref_mean = full.mean_s[0, -FIXED_LAG:]
+        ref_means, ref_vars = project(
+            ss64.z[0], ref_mean, chol_outer(full.chol_s[0, -FIXED_LAG:]))
+        ref = [t.cpu().numpy() for t in (ref_mean, ref_means, ref_vars)]
+        mine = [got.state_means, got.means, got.variances]
+        bitwise &= all(np.array_equal(a_, b_) for a_, b_ in zip(mine, ref))
+        errs.append(max(rel_err(torch.as_tensor(a_), torch.as_tensor(b_))
+                        for a_, b_ in zip(mine[:2], ref[:2])))
+    # one tracker advance: a copy of one model's window takes one row
+    tr = FixedLagTracker(FIXED_LAG, device=dev)
+    tr.restore({ids[0]: svc.smoother.dump()[ids[0]]})
+    row = np.zeros((1, N_SERIES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.observe(ids[0], row, np.ones((1, N_SERIES), bool),
+               STEADY_HIST + rounds + 1, lambda: None)
+    torch.cuda.synchronize()
+    advance = time.perf_counter() - t0
+    require(within(errs, 1e-5), f"smoothed() vs the full smoother: {errs}")
+    svc.close()
+    out.update({
+        "models": b, "rounds": rounds, "lag": FIXED_LAG,
+        "max_rel_err_vs_full": max(errs), "bitwise_vs_full": bitwise,
+        "smoothed_wall_ms_median": float(np.median(walls) * 1e3),
+        "smoothed_wall_ms_max": float(np.max(walls) * 1e3),
+        "tracker_advance_ms": advance * 1e3,
+        "health_fixed_lag": svc.health()["fixed_lag"], "launches": counts})
+    emit({"phase": "fixed_lag", **out})
+    return counts
+
+
 KERNELS = {
     "joint_filter_append": {
         "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
@@ -4734,6 +5548,14 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/sqrt_filter.cu",
         "replaces": "metran_tpu/ops/implicit_map.py:358",
     },
+    "steady_filter": {
+        "source": "metran_tpu_torch/kernels/csrc/steady_filter.cu",
+        "replaces": "metran_tpu/ops/kalman.py:1362",
+    },
+    "dare": {
+        "source": "metran_tpu_torch/kernels/csrc/dare.cu",
+        "replaces": "metran_tpu/ops/kalman.py:1155",
+    },
 }
 
 
@@ -4761,7 +5583,7 @@ def main() -> int:
     for phase in (phase_lanes_kernels, phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
-                  phase_robust_kernels):
+                  phase_robust_kernels, phase_steady_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
@@ -4788,6 +5610,9 @@ def main() -> int:
             engine, likelihood, **kw)
     emit({"phase": "robust_engines", "timings": robust,
           "gated_timings": gated})
+    paths["steady_serving"], steady = phase_steady_serving()
+    paths["fixed_lag"] = phase_fixed_lag()
+    emit({"phase": "steady_engines", "dispatch_ms": steady})
     # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
     # fleet stderr's run through phases 6 and 7, checked last)
     with ProcessPoolExecutor(

@@ -70,6 +70,15 @@ SERVE_DETECT_LB_THRESH = 25.0  # autocorrelation-drift alarm bar
 SERVE_DETECT_NSIGMA = 5.0  # per-observation anomaly bar
 SERVE_DETECT_MIN_SEEN = 64  # disarm models below this t_seen
 SERVE_DETECT_ALERT_COOLDOWN_S = 60.0  # alert raise/clear hysteresis (s)
+# steady-state (frozen-gain) serving ships OFF (tol = 0.0): freezing
+# trades a bounded posterior deviation (within the freeze tolerance) for
+# update throughput, a deployment decision
+SERVE_STEADY_TOL = 0.0  # freeze when the posterior factor moves <= tol
+#                         across a fully-observed append (0 disables)
+SERVE_STEADY_MIN_SEEN = 256  # assimilated-steps floor before freezing
+# fixed-lag smoothed products (MetranService.smoothed): window length in
+# grid steps; 0 disables tracking
+SERVE_FIXED_LAG = 0
 
 
 def _env(name, cast, default):
@@ -172,6 +181,15 @@ def serve_defaults() -> dict:
         "detect_alert_cooldown_s": _env(
             "METRAN_TPU_SERVE_DETECT_ALERT_COOLDOWN_S", float,
             SERVE_DETECT_ALERT_COOLDOWN_S,
+        ),
+        "steady_tol": _env(
+            "METRAN_TPU_SERVE_STEADY_TOL", float, SERVE_STEADY_TOL
+        ),
+        "steady_min_seen": _env(
+            "METRAN_TPU_SERVE_STEADY_MIN_SEEN", int, SERVE_STEADY_MIN_SEEN
+        ),
+        "fixed_lag": _env(
+            "METRAN_TPU_SERVE_FIXED_LAG", int, SERVE_FIXED_LAG
         ),
     }
 

@@ -24,6 +24,11 @@
 - :mod:`.implicit_map` — the scalar MAP solve of the robust modes of K12
   and K9 (``csrc/implicit_map.cuh`` on the card), in PyTorch ops;
 - :mod:`.detect` — K13, the streaming detector over z-scores;
+- :mod:`.steady_filter` — K14, the frozen-gain (steady-state) mean
+  append of frozen serving models, in the vector (joint gain) or the
+  per-slot (sequential gains) form;
+- :mod:`.dare` — K15, the steady-state DARE solve by Newton-Kleinman
+  with doubled Lyapunov solves, and the frozen gains from it;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
@@ -32,7 +37,8 @@ Each wrapper (``joint_filter_append``, ``joint_filter_store``,
 ``lanes_smooth_bwd``, ``lanes_forward``, ``lanes_sample``,
 ``rts_smooth``, ``sqrt_filter``, ``sqrt_filter_gated``,
 ``sqrt_filter_robust``, ``sqrt_smooth``, ``joint_adjoint``,
-``gated_filter_append``, ``robust_filter_append``, ``detect_scan``)
+``gated_filter_append``, ``robust_filter_append``, ``detect_scan``,
+``steady_filter``, ``dare_gains``)
 launches its kernel (``*_kernel``, which takes CUDA tensors only and
 raises if it cannot build or launch) on CUDA tensors and runs the plain
 version (``*_plain``) on CPU tensors; there is no fallback between
@@ -43,6 +49,7 @@ so a run shows which instantiation a dispatch went through.
 
 from . import build
 from .build import launches, reset_launches
+from .dare import dare_gains, dare_gains_kernel, dare_gains_plain
 from .detect import detect_scan, detect_scan_kernel, detect_scan_plain
 from .forecast import (
     forecast_moments,
@@ -107,10 +114,18 @@ from .sqrt_smoother import (
     sqrt_smooth_kernel,
     sqrt_smooth_plain,
 )
+from .steady_filter import (
+    steady_filter,
+    steady_filter_kernel,
+    steady_filter_plain,
+)
 
 __all__ = [
     "LanesFilterResult",
     "build",
+    "dare_gains",
+    "dare_gains_kernel",
+    "dare_gains_plain",
     "detect_scan",
     "detect_scan_kernel",
     "detect_scan_plain",
@@ -164,4 +179,7 @@ __all__ = [
     "sqrt_smooth",
     "sqrt_smooth_kernel",
     "sqrt_smooth_plain",
+    "steady_filter",
+    "steady_filter_kernel",
+    "steady_filter_plain",
 ]

@@ -47,7 +47,8 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
             "lanes_smooth_bwd": 0, "lanes_forward": 0, "lanes_sample": 0,
             "rts_smooth": 0, "sqrt_filter": 0, "sqrt_filter_gated": 0,
             "sqrt_smooth": 0, "joint_adjoint": 0, "gated_filter": 0,
-            "detect": 0, "gated_filter_robust": 0, "sqrt_filter_robust": 0}
+            "detect": 0, "gated_filter_robust": 0, "sqrt_filter_robust": 0,
+            "steady_filter": 0, "dare": 0}
 
 
 def count_launch(name: str) -> None:
@@ -209,6 +210,15 @@ _SIGNATURES = {
     # stream
     "sqrt_smoother": ("metran_sqrt_smoother",
                       [_PTR] * 8 + [_INT] * 3 + [_PTR]),
+    # phi, z, kgain, fdiag, real, mean0, y, mask, armed, thresh, mean,
+    # sigma, detf, broke, zscore, verdict, B, k, N, S, policy, sequential,
+    # stream
+    "steady_filter": ("metran_steady_filter",
+                      [_PTR] * 9 + [_DBL] + [_PTR] * 6 + [_INT] * 6
+                      + [_PTR]),
+    # phi, q, z, r, p_given, p_pred, p_filt, kgain, fdiag, kgain_seq,
+    # fdiag_seq, B, N, S, newton, doubling, stream
+    "dare": ("metran_dare", [_PTR] * 11 + [_INT] * 5 + [_PTR]),
 }
 
 

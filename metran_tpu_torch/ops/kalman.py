@@ -52,6 +52,15 @@ without its per-step store, :func:`sqrt_filter_update`/
 engine's per-step building blocks, batched, for callers that step one
 row at a time; the first two are the plain version's own steps.
 
+Steady-state serving: :func:`dare_solve`/:func:`steady_gains` solve the
+DARE and the frozen gains (kernel K15,
+:func:`metran_tpu_torch.kernels.dare.dare_gains`) and
+:func:`steady_filter_append` is the frozen-gain mean-only append (K14,
+:func:`metran_tpu_torch.kernels.steady_filter.steady_filter`);
+:func:`steady_converged` is the host-side freeze test.
+:func:`fixed_lag_smooth` is K9 ``store`` from a given carry followed by
+K10 over the window.
+
 The associative-scan engines raise with the ROADMAP item that will port
 them.  Every function keeps its JAX twin's defaults.
 """
@@ -79,9 +88,11 @@ from ..kernels.joint_filter import (
     predict_plain,
 )
 from ..kernels.lanes import lanes_filter
+from ..kernels.dare import dare_gains
 from ..kernels.smoother import rts_smooth
 from ..kernels.sqrt_filter import sqrt_filter, sqrt_filter_gated
 from ..kernels.sqrt_smoother import sqrt_smooth
+from ..kernels.steady_filter import steady_filter
 from .adjoint import DEFAULT_SEG, adjoint_deviance_terms, resolve_grad_engine
 from .lanes import lanes_terms, prepare_data
 from .statespace import StateSpace
@@ -838,3 +849,185 @@ def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
     if not out:
         return sm_data.new_zeros((0, *sm_data.shape))
     return torch.cat(out)
+
+
+# ----------------------------------------------------------------------
+# steady-state (frozen-gain) serving and fixed-lag smoothing
+# ----------------------------------------------------------------------
+class SteadyGains(NamedTuple):
+    """The frozen serving summary of a converged filter.
+
+    ``kgain`` is the steady Kalman gain ``K = P Z' F^-1`` (S, N) of the
+    fully-observed pattern, ``fdiag`` the (N,) marginal innovation
+    variances ``diag(F)`` (1.0 on zero-``Z``-row slots), ``p_pred``/
+    ``p_filt`` the steady predicted and filtered covariances.
+    ``kgain_seq``/``fdiag_seq`` are the per-slot sequential gains and
+    conditional innovation variances of the slot-ordered rank-1
+    recursion at the fixed point: what a frozen gate on a covariance
+    engine's (sequential) serving path must test against, since the
+    conditional variances are smaller than the marginal ones.  Leaves
+    lead with B for a batch."""
+
+    kgain: torch.Tensor  # (S, N)
+    fdiag: torch.Tensor  # (N,)
+    p_pred: torch.Tensor  # (S, S)
+    p_filt: torch.Tensor  # (S, S)
+    kgain_seq: torch.Tensor  # (S, N)
+    fdiag_seq: torch.Tensor  # (N,)
+
+
+def _real_slots(z: torch.Tensor) -> torch.Tensor:
+    """(..., N) True where an observation slot is real (a nonzero ``Z``
+    row).  Right for true-dimension state spaces (``Z = [I | Gamma]``);
+    NOT for bucket-padded ones, whose identity block covers the padded
+    slots too: padded callers pass their ``real`` mask from the series
+    counts instead."""
+    return (z != 0).any(-1)
+
+
+def _steady_solve(ss: StateSpace, p_pred, newton_iters: int,
+                  doubling_iters: int, device) -> SteadyGains:
+    """One K15 launch over the model (or batch): the gains at
+    ``p_pred``, or at the DARE solution when it is None."""
+    ss_b, device, dtype, single = _prepare(ss, device)
+    if p_pred is not None:
+        p_pred = as_tensor(p_pred, device, dtype)
+        if single:
+            p_pred = p_pred[None]
+    p, p_filt, kgain, fdiag, kgain_seq, fdiag_seq = dare_gains(
+        ss_b.phi, ss_b.q, ss_b.z, ss_b.r, p_pred, newton_iters,
+        doubling_iters)
+    out = SteadyGains(kgain, fdiag, p, p_filt, kgain_seq, fdiag_seq)
+    if single:
+        out = SteadyGains(*(leaf[0] for leaf in out))
+    return out
+
+
+def dare_solve(ss: StateSpace, newton_iters: int = 24,
+               doubling_iters: int = 32, device=None) -> torch.Tensor:
+    """Steady-state *predicted* covariance of the masked filter (DARE):
+    ``P = Phi (P - P Z'(Z P Z' + R)^-1 Z P) Phi' + Q`` for the
+    fully-observed pattern (zero-``Z``-row slots carry unit
+    pseudo-noise and contribute nothing), by Newton-Kleinman iteration
+    from ``K = 0`` with each Lyapunov solve by doubling (``2^32``
+    effective steps: the near-unit-root regime converges too).  Never
+    forms ``R^-1``.  One K15 launch (a batch of models that share their
+    dimensions: leaves leading with B)."""
+    return _steady_solve(ss, None, newton_iters, doubling_iters,
+                         device).p_pred
+
+
+def steady_gains(ss: StateSpace, p_pred=None, device=None) -> SteadyGains:
+    """The frozen serving summary from a steady predicted covariance
+    (default: :func:`dare_solve`'s fixed point), one K15 launch.
+    Zero-``Z``-row slots get unit innovation variance and an exactly
+    zero gain column, so the arrays are safe at any bucket padding."""
+    return _steady_solve(ss, p_pred, 24, 32, device)
+
+
+def steady_filter_append(ss: StateSpace, mean, kgain, fdiag, y_new,
+                         mask_new, armed=True, policy: str = "off",
+                         nsigma: float = 4.0, real=None,
+                         sequential_gate: bool = False, device=None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Assimilate ``k`` appended rows through the FROZEN steady gain:
+    the mean-only recursion ``m <- Phi m + K (y - Z Phi m)``, O(S N) a
+    step, one K14 launch.
+
+    Every condition that breaks the premise of a frozen gain trips the
+    sticky ``broke`` flag instead of being branched on: a step whose
+    mask differs from the ``real`` slot pattern (default: the nonzero-
+    ``Z``-row slots; bucket-padded callers pass theirs), an armed gate
+    firing under ``"reject"``/``"inflate"`` (``"huber"`` only reweights
+    the innovation, which the frozen gain absorbs), or a non-finite
+    mean; the caller discards such a row and replays it through the
+    exact update.  ``sequential_gate=False`` is the vector form
+    (``kgain``/``fdiag`` the joint gain and marginal variances: the
+    square-root and ungated paths); ``True`` the per-slot form through
+    the sequential gains and conditional variances (gated covariance
+    engines).
+
+    One model: mean (S,), kgain (S, N), fdiag (N,), y_new/mask_new
+    (k, N) (or (N,)); a batch leads each with B.  Returns ``(mean_T,
+    sigma, detf, broke, zscore, verdict)``: ``sigma``/``detf`` summed
+    over the steps, ``zscore``/``verdict`` (k, N) as the gated
+    updates'."""
+    if policy not in GATE_POLICIES:
+        raise ValueError(
+            f"unknown gate policy {policy!r}; expected one of "
+            f"{GATE_POLICIES}")
+    ss_b, device, dtype, single = _prepare(ss, device)
+    mean = as_tensor(mean, device, dtype)
+    kgain = as_tensor(kgain, device, dtype)
+    fdiag = as_tensor(fdiag, device, dtype)
+    y_new = as_tensor(y_new, device, dtype)
+    mask_new = as_tensor(mask_new, device, torch.bool)
+    if real is None:
+        real = _real_slots(ss_b.z)
+    else:
+        real = as_tensor(real, device, torch.bool)
+    if single:
+        if y_new.dim() == 1:
+            y_new, mask_new = y_new[None], mask_new[None]
+        y_new, mask_new = y_new[None], mask_new[None]
+        mean, kgain, fdiag = mean[None], kgain[None], fdiag[None]
+        if real.dim() == 1:
+            real = real[None]
+    seq = bool(sequential_gate) and policy != "off"
+    out = steady_filter(
+        ss_b.phi, ss_b.z, kgain, fdiag, real.contiguous(), mean,
+        y_new.contiguous(), mask_new.contiguous(),
+        _armed(armed, mean.shape[0], mean.device), policy,
+        float(nsigma) * float(nsigma), seq)
+    if single:
+        out = tuple(o[0] for o in out)
+    return out
+
+
+def steady_converged(fac_before, fac_after, mask, real, tol
+                     ) -> torch.Tensor:
+    """Per-row convergence verdict of one batched exact update: True
+    where every appended step carried the full ``real`` slot pattern and
+    the posterior factor (or covariance) moved by at most ``tol``
+    (max-abs over the (S, S) block).  ``fac`` (..., S, S), ``mask``
+    (..., k, N), ``real`` (..., N); the serving layer ANDs in its host
+    conditions (``t_seen`` floor, no gate verdicts) before freezing."""
+    fac_before = torch.as_tensor(fac_before)
+    fac_after = torch.as_tensor(fac_after)
+    mask = torch.as_tensor(mask, dtype=torch.bool)
+    real = torch.as_tensor(real, dtype=torch.bool)
+    full = (mask == real[..., None, :]).all(-1).all(-1)
+    delta = (fac_after - fac_before).abs().amax(dim=(-2, -1))
+    return full & (delta <= tol) & torch.isfinite(delta)
+
+
+def fixed_lag_smooth(ss: StateSpace, mean, chol, y_win, mask_win,
+                     device=None) -> SqrtSmootherResult:
+    """Smoothed state moments of the trailing ``L``-step window: the
+    square-root filter over ONLY the window's rows from the carried
+    filtered posterior ``N(mean, chol chol')`` at the step before it
+    (K9 ``store`` from the given carry), then the factored RTS smoother
+    across the window (K10) — O(L) however long the history.  The
+    filter is Markov and the smoother at step t reads only moments from
+    t on, so the result is bit for bit the full filter + smoother's
+    last ``L`` steps.  Returns the smoothed means (L, S) and factors
+    (L, S, S).  Requires the DFM's diagonal ``Q``."""
+    ss_b, device, dtype, single = _prepare(ss, device)
+    _check_diagonal_q(ss_b.q, "sqrt")
+    mean = as_tensor(mean, device, dtype)
+    chol = as_tensor(chol, device, dtype)
+    y_win = as_tensor(y_win, device, dtype)
+    mask_win = as_tensor(mask_win, device, torch.bool)
+    if single:
+        if y_win.dim() == 1:
+            y_win, mask_win = y_win[None], mask_win[None]
+        y_win, mask_win = y_win[None], mask_win[None]
+        mean, chol = mean[None], chol[None]
+    phi, q, z, r = _lanes_ss(ss_b, "sqrt")
+    filt = SqrtFilterResult(*sqrt_filter(
+        phi, q, z, r, y_win.contiguous(), mask_win.contiguous(), store=True,
+        mean0=mean.contiguous(), chol0=chol.contiguous()))
+    mean_s, chol_s = _sqrt_smooth(ss_b, filt, want_cov=True)
+    if single:
+        return SqrtSmootherResult(mean_s[0], chol_s[0])
+    return SqrtSmootherResult(mean_s, chol_s)

@@ -1,6 +1,6 @@
 """Online serving: posterior states, registry, batcher, the service with
-its reliability layer, observation gate, robust updates and streaming
-detection."""
+its reliability layer, observation gate, robust updates, streaming
+detection, steady-state (frozen-gain) serving and fixed-lag smoothing."""
 
 from .batching import MicroBatcher, Request
 from .engine import (
@@ -8,7 +8,9 @@ from .engine import (
     DetectSpec,
     GateSpec,
     RobustSpec,
+    SteadySpec,
     make_forecast_fn,
+    make_steady_update_fn,
     make_update_fn,
     pad_state_arrays,
     posterior_fault,
@@ -18,6 +20,7 @@ from .engine import (
 from .monitoring import Alert, AlertBoard, DetectorMirror
 from .registry import ModelRegistry
 from .service import Forecast, MetranService
+from .smoothing import FixedLagTracker, SmoothedWindow
 from .state import (
     STATE_FORMAT_VERSION,
     PosteriorState,
@@ -30,6 +33,7 @@ __all__ = [
     "BucketBatch",
     "DetectSpec",
     "DetectorMirror",
+    "FixedLagTracker",
     "Forecast",
     "GateSpec",
     "MetranService",
@@ -39,7 +43,10 @@ __all__ = [
     "Request",
     "RobustSpec",
     "STATE_FORMAT_VERSION",
+    "SmoothedWindow",
+    "SteadySpec",
     "make_forecast_fn",
+    "make_steady_update_fn",
     "make_update_fn",
     "pad_state_arrays",
     "posterior_fault",

@@ -13,7 +13,9 @@ observation gate (:class:`GateSpec`) runs the gated update instead (K12,
 or K9's gated instantiation on the square-root engine), an armed robust
 policy (:class:`RobustSpec`) the implicit-MAP update (K12's or K9's
 robust instantiation), and streaming detection (:class:`DetectSpec`)
-adds one detector launch (K13) after it.
+adds one detector launch (K13) after it.  Frozen models
+(:class:`SteadySpec`) run the frozen-gain mean-only update instead
+(:func:`make_steady_update_fn`: K14, and K13 after it with detection).
 
 Padding semantics (as in the JAX package): a padded observation slot is
 masked False at every appended step and carries zero loadings, so it
@@ -45,6 +47,7 @@ from ..ops import (
     implicit_map_filter_append,
     implicit_map_sqrt_filter_append,
     sqrt_filter_append,
+    steady_filter_append,
 )
 from ..ops.implicit_map import ROBUST_LIKELIHOODS
 from ..ops.kalman import NotPortedError
@@ -104,6 +107,52 @@ class GateSpec(NamedTuple):
         if self.enabled and not self.nsigma > 0:
             raise ValueError(
                 f"gate nsigma must be > 0, got {self.nsigma!r}"
+            )
+        return self
+
+
+class SteadySpec(NamedTuple):
+    """Steady-state gain-freeze policy for the serving update path.
+
+    Once a model's covariance recursion has converged — successive
+    posterior factors move by at most ``tol`` across a fully-observed
+    append, with at least ``min_seen`` grid steps assimilated — the
+    service **freezes** its Kalman gain (:func:`metran_tpu_torch.ops.
+    steady_gains`: the DARE solve, K15) and serves its updates through
+    the O(S N) mean-only steady update (K14) instead of the full
+    covariance propagation.  Any step that breaks time-invariance
+    (missing/NaN-masked slots, an observation gate firing under
+    ``reject``/``inflate``, a registry ``put`` replacing the posterior,
+    an armed robust likelihood) **thaws** the model back to the exact
+    update, so results stay within a bounded deviation of the exact
+    filter.
+
+    ``tol`` is the freeze threshold on the max-abs posterior-factor
+    delta in standardized units (0.0 disables the whole path — the
+    shipped default); ``min_seen`` the assimilated-steps floor.
+    Defaults from :func:`metran_tpu_torch.config.serve_defaults`
+    (``METRAN_TPU_SERVE_STEADY_{TOL,MIN_SEEN}``).
+    """
+
+    tol: float = 0.0
+    min_seen: int = 256
+
+    @property
+    def enabled(self) -> bool:
+        return self.tol > 0.0
+
+    @classmethod
+    def from_defaults(cls) -> "SteadySpec":
+        d = serve_defaults()
+        return cls(
+            tol=float(d["steady_tol"]),
+            min_seen=int(d["steady_min_seen"]),
+        ).validate()
+
+    def validate(self) -> "SteadySpec":
+        if self.tol < 0.0:
+            raise ValueError(
+                f"steady tol must be >= 0 (0 disables), got {self.tol!r}"
             )
         return self
 
@@ -400,7 +449,7 @@ def psd_factor(cov: np.ndarray) -> np.ndarray:
 
 
 def pad_state_arrays(state, bucket: Tuple[int, int], dtype=None,
-                     sqrt: bool = False):
+                     sqrt: bool = False, factors: bool = True):
     """Pad one state's arrays into bucket shape ``(N, S)``:
     ``(alpha_sdf (N,), alpha_cdf (S-N,), loadings (N, S-N), mean (S,),
     cov (S, S) | None, chol (S, S) | None)``, exactly one of ``cov``/
@@ -408,7 +457,8 @@ def pad_state_arrays(state, bucket: Tuple[int, int], dtype=None,
     padded mean/cov slots the ``N(0, I)`` init.  ``sqrt=True`` pads a
     covariance factor instead: the state's own ``chol`` scattered into
     an identity (the true slots decouple exactly from the padding) when
-    it has one, else :func:`psd_factor` of its ``cov``."""
+    it has one, else :func:`psd_factor` of its ``cov``.  ``factors=False``
+    leaves both ``None``."""
     n_pad, s_pad = bucket
     n, k = state.n_series, state.n_factors
     if n > n_pad or k > s_pad - n_pad:
@@ -429,40 +479,45 @@ def pad_state_arrays(state, bucket: Tuple[int, int], dtype=None,
     mean = np.zeros(s_pad, dtype)
     mean[idx] = state.mean
     cov = chol = None
-    if sqrt:
+    if factors and sqrt:
         factor = (state.chol if getattr(state, "chol", None) is not None
                   else psd_factor(state.cov))
         chol = np.eye(s_pad, dtype=dtype)
         chol[np.ix_(idx, idx)] = factor
-    else:
+    elif factors:
         cov = np.eye(s_pad, dtype=dtype)
         cov[np.ix_(idx, idx)] = state.cov
     return alpha[:n_pad], alpha[n_pad:], loadings, mean, cov, chol
 
 
 def stack_bucket(states: List, bucket: Tuple[int, int], dtype=None,
-                 device=None, sqrt: bool = False) -> BucketBatch:
+                 device=None, sqrt: bool = False,
+                 factors: bool = True) -> BucketBatch:
     """Stack same-bucket models into one :class:`BucketBatch` on
     ``device`` (default: the CUDA card).  The host stacks the small
     parameter arrays; the state-space build runs batched on the device.
     ``sqrt=True`` stacks covariance factors instead of covariances (see
-    :func:`pad_state_arrays`), for the square-root update.
+    :func:`pad_state_arrays`), for the square-root update;
+    ``factors=False`` stacks neither (the steady update reads only the
+    state space and the means).
     """
     device = resolve_device(device)
     if dtype is None:
         dtype = states[0].dtype
-    padded = [pad_state_arrays(st, bucket, dtype, sqrt=sqrt)
-              for st in states]
+    padded = [pad_state_arrays(st, bucket, dtype, sqrt=sqrt,
+                               factors=factors) for st in states]
     a_sdf, a_cdf, lds, means = (
         torch.from_numpy(np.stack(part)).to(device)
         for part in list(zip(*padded))[:4]
     )
-    fac = torch.from_numpy(
-        np.stack([p[5] if sqrt else p[4] for p in padded])).to(device)
     dts = torch.from_numpy(
         np.array([st.dt for st in states], dtype)
     ).to(device)
     ss = dfm_statespace(a_sdf, a_cdf, lds, dts, device=device)
+    if not factors:
+        return BucketBatch(ss=ss, mean=means, cov=None)
+    fac = torch.from_numpy(
+        np.stack([p[5] if sqrt else p[4] for p in padded])).to(device)
     if sqrt:
         return BucketBatch(ss=ss, mean=means, cov=None, chol=fac)
     return BucketBatch(ss=ss, mean=means, cov=fac)
@@ -616,5 +671,79 @@ def make_forecast_fn(steps: int):
             1, steps + 1, device=mean.device
         ).to(mean.dtype)
         return forecast_observation_moments(ss, mean, cov, horizons)
+
+    return fn
+
+
+def make_steady_update_fn(gate: Optional[GateSpec] = None,
+                          horizons=None, sequential_gate: bool = False,
+                          detect: Optional[DetectSpec] = None):
+    """The batched **steady** (frozen-gain) update function of a bucket.
+
+    ``fn(ss, mean, kgain, fdiag, real, y_new, mask_new[, armed]) ->
+    (mean_T, sigma, detf, broke[, zscore, verdict])``, every argument
+    batch-leading: one K14 launch of
+    :func:`~metran_tpu_torch.ops.steady_filter_append` — a mean-only
+    recursion through the frozen gain, no covariance in or out.
+    Engine-agnostic (the frozen gain IS the engine).  ``broke`` is the
+    per-row thaw verdict: a True row's result must be discarded and its
+    rows replayed through the exact update.  ``real`` is the (B, N)
+    true-observation-slot mask from the host-side series counts.
+    ``sequential_gate`` must match the exact update the rows thaw back
+    to (True on gated covariance-engine registries, whose frozen leaves
+    carry the per-slot sequential gains and conditional variances).
+    With an enabled ``gate`` the function takes ``armed`` and returns
+    the z-scores and verdicts.
+
+    With an enabled ``detect`` the signature becomes ``fn(ss, mean,
+    kgain, fdiag, real, y_new, mask_new, armed, det_state, det_armed)``
+    (``armed`` always present — zeros when the gate is off) and
+    ``(det_state', det_counts, det_stats)`` ride as the last outputs,
+    one K13 launch after K14 armed with ``det_armed & ~broke``: a broken
+    row's detector state carries unchanged (its rows replay through the
+    exact update, which accumulates them exactly once).  ``horizons``
+    raises :class:`~metran_tpu_torch.ops.kalman.NotPortedError`.
+    """
+    if horizons:
+        raise _not_ported("horizons")
+    gated = gate is not None and gate.enabled
+    det_on = detect is not None and detect.enabled
+    if gated:
+        gate.validate()
+        policy, nsigma = gate.policy, float(gate.nsigma)
+    else:
+        policy, nsigma = "off", 4.0
+    seq = bool(sequential_gate) and gated
+
+    def core(ss, mean, kgain, fdiag, real, y_new, mask_new, armed):
+        out = steady_filter_append(
+            ss, mean, kgain, fdiag, y_new, mask_new, armed=armed,
+            policy=policy, nsigma=nsigma, real=real, sequential_gate=seq)
+        res = tuple(out[:4]) + (tuple(out[4:]) if gated else ())
+        return res, out[4], out[3]
+
+    if det_on:
+        detect.validate()
+        dpar = detect.kernel_params
+
+        def fn(ss, mean, kgain, fdiag, real, y_new, mask_new, armed,
+               det_state, det_armed):
+            res, zs, broke = core(ss, mean, kgain, fdiag, real, y_new,
+                                  mask_new, armed)
+            det_new, det_counts = detect_append(
+                det_state, zs, mask_new, det_armed & ~broke, **dpar)
+            return res + (det_new, det_counts, detect_stats(det_new))
+
+    elif gated:
+
+        def fn(ss, mean, kgain, fdiag, real, y_new, mask_new, armed):
+            return core(ss, mean, kgain, fdiag, real, y_new, mask_new,
+                        armed)[0]
+
+    else:
+
+        def fn(ss, mean, kgain, fdiag, real, y_new, mask_new):
+            return core(ss, mean, kgain, fdiag, real, y_new, mask_new,
+                        False)[0]
 
     return fn

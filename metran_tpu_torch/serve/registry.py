@@ -7,8 +7,8 @@ model of a bucket.  States live in memory, with optional write-through
 to one ``{model_id}.npz`` per model under ``root``.
 
 PyTorch runs eagerly, so there is nothing to compile per bucket:
-:meth:`ModelRegistry.update_fn`/:meth:`~ModelRegistry.forecast_fn`
-return the bound serving functions.  The arena, quarantine, commit
+:meth:`ModelRegistry.update_fn`/:meth:`~ModelRegistry.steady_update_fn`/
+:meth:`~ModelRegistry.forecast_fn` return the bound serving functions.  The arena, quarantine, commit
 hooks and observability of the JAX registry come in later slices.
 """
 
@@ -22,7 +22,12 @@ from typing import Dict, List, Optional, Tuple
 from ..config import serve_defaults
 from ..parallel.mesh import pad_to_multiple
 from ..reliability.policy import StateIntegrityError
-from .engine import make_forecast_fn, make_update_fn, posterior_fault
+from .engine import (
+    make_forecast_fn,
+    make_steady_update_fn,
+    make_update_fn,
+    posterior_fault,
+)
 from .state import PosteriorState
 
 ShapeBucket = Tuple[int, int]  # padded (n_series, n_state)
@@ -183,6 +188,30 @@ class ModelRegistry:
         return make_update_fn(engine=self.engine, gate=gate,
                               horizons=horizons, detect=detect,
                               robust=robust)
+
+    def steady_update_fn(self, bucket: ShapeBucket, k: int, gate=None,
+                         horizons=None, detect=None):
+        """The bucket's **steady** (frozen-gain, mean-only) update for
+        ``k`` appended steps
+        (:func:`~metran_tpu_torch.serve.engine.make_steady_update_fn`,
+        K14).  Ungated it is engine-agnostic; an enabled gate selects
+        the gate form of the exact update this registry thaws back to —
+        per slot on the covariance engines, marginal on the square-root
+        one."""
+        return make_steady_update_fn(
+            gate=gate, horizons=horizons,
+            sequential_gate=self.steady_sequential_gate(gate),
+            detect=detect)
+
+    def steady_sequential_gate(self, gate) -> bool:
+        """Whether this registry's frozen models gate per slot: the
+        frozen gate must match the exact update a model thaws back to,
+        so an enabled gate on a covariance engine freezes (and K14
+        reads) the sequential gains ``kgain_seq``/``fdiag_seq`` on
+        conditional variances; the square-root engine and any ungated
+        registry freeze the joint ``kgain``/``fdiag``."""
+        return bool(gate is not None and getattr(gate, "enabled", False)
+                    and not self._sqrt_engine)
 
     def forecast_fn(self, bucket: ShapeBucket, steps: int):
         """The bucket's forecast function for a ``steps``-long horizon."""

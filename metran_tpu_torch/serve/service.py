@@ -58,11 +58,26 @@ Port of the dict-registry core of the JAX package's
   (:class:`~metran_tpu_torch.serve.monitoring.AlertBoard`) and
   changepoints make the model a refit candidate; :meth:`MetranService.
   anomalies` and :meth:`MetranService.alerts` read them.
+- **Steady-state serving** (:class:`~metran_tpu_torch.serve.engine.
+  SteadySpec`): once an exact update leaves a model's posterior factor
+  within ``tol`` of the one before, over a fully-observed append with
+  no gate verdict, the model **freezes** — its DARE solved and its gains
+  frozen (K15, one launch per group of candidates sharing their
+  dimensions) — and its updates run the mean-only steady update (K14,
+  then K13 with detection).  A frozen row that breaks time-invariance
+  (a missing slot, a reject/inflate gate hit, a non-finite mean), whose
+  posterior was replaced by an external ``registry.put``, or an armed
+  robust model **thaws** and replays through the exact update in the
+  same dispatch.  A steady commit replaces only the mean, the version
+  and ``t_seen``: the stored covariance stays (forecasts run K2 on it).
+- **Fixed-lag smoothing** (``fixed_lag=L``): a
+  :class:`~metran_tpu_torch.serve.smoothing.FixedLagTracker` observes
+  every commit; :meth:`MetranService.smoothed` answers the trailing
+  window (K9 ``store`` from the anchor, then K10).
 
 The dispatch runs on the service's device (default: the CUDA card).
-The read path, steady-state serving, fixed-lag smoothing, refit, the
-arena, durability, the cluster and the observability layers come in
-later slices: asking for them raises
+The read path, refit, the arena, durability, the cluster and the
+observability layers come in later slices: asking for them raises
 :class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming the
 ROADMAP item (A4, A7).
 """
@@ -86,6 +101,9 @@ from ..ops import (
     GATE_DOWNWEIGHTED,
     GATE_REJECTED,
     ROBUST_NONCONV,
+    dfm_statespace,
+    steady_converged,
+    steady_gains,
 )
 from ..ops.kalman import NotPortedError
 from ..reliability import (
@@ -103,21 +121,25 @@ from .engine import (
     DetectSpec,
     GateSpec,
     RobustSpec,
+    SteadySpec,
     posterior_fault,
     stack_bucket,
     state_slot_index,
 )
 from .monitoring import AlertBoard, DetectorMirror
 from .registry import ModelRegistry
+from .smoothing import FixedLagTracker, SmoothedWindow
 from .state import PosteriorState
 
 logger = getLogger(__name__)
 
+#: seconds a thawed model waits before it may freeze again, so a gappy
+#: feed does not flap between the two paths
+STEADY_REFREEZE_COOLDOWN_S = 30.0
+
 #: the JAX service's layers this port does not have yet, by keyword
 _LATER = {
     "readpath": "ROADMAP A4.5 (the materialized read path)",
-    "steady": "ROADMAP A4.6 (steady-state serving)",
-    "fixed_lag": "ROADMAP A4.7 (fixed-lag smoothing)",
     "refit": "ROADMAP A4.9 (the refit worker)",
     "durability": "ROADMAP A7 (durability)",
     "cluster": "ROADMAP A7 (the cluster layer)",
@@ -227,6 +249,26 @@ class _PendingUpdate:
         self.prior = prior
 
 
+class _SteadyInfo(NamedTuple):
+    """One frozen model's steady serving summary.
+
+    ``version`` plus the ``params_ref``/``loadings_ref`` object
+    identities pin the posterior lineage the frozen state expects: the
+    service's own commits go through ``st._replace`` (the same parameter
+    objects, the version tracked here), while any external
+    ``registry.put`` — a refit hot-swap, a restore, even one that reuses
+    the frozen version number — carries fresh arrays and thaws the
+    model.  ``kgain``/``fdiag`` are bucket-padded (S_pad, N_pad)/
+    (N_pad,) arrays ready to stack into a steady dispatch.
+    """
+
+    version: int
+    kgain: np.ndarray
+    fdiag: np.ndarray
+    params_ref: object
+    loadings_ref: object
+
+
 class Forecast(NamedTuple):
     """Forecast of one model, data units: ``means``/``variances`` are
     (steps, n_series); ``version`` the posterior version served."""
@@ -268,10 +310,16 @@ class MetranService:
     detect : streaming-detection policy (:class:`~metran_tpu_torch.
         serve.engine.DetectSpec`); default from ``serve_defaults()``
         (``METRAN_TPU_SERVE_DETECT*``, shipped off).
-    readpath, steady, fixed_lag, refit, durability, cluster,
-    replication : the JAX service's other layers; not ported yet —
-        asking for one raises :class:`~metran_tpu_torch.ops.kalman.
-        NotPortedError` naming its ROADMAP item.
+    steady : steady-state gain-freeze policy (:class:`~metran_tpu_torch.
+        serve.engine.SteadySpec`); default from ``serve_defaults()``
+        (``METRAN_TPU_SERVE_STEADY_{TOL,MIN_SEEN}``, shipped off).
+    fixed_lag : arm fixed-lag smoothed products with this window
+        (:meth:`smoothed`); default from ``serve_defaults()``
+        (``METRAN_TPU_SERVE_FIXED_LAG``, shipped 0 = off).
+    readpath, refit, durability, cluster, replication : the JAX
+        service's other layers; not ported yet — asking for one raises
+        :class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming its
+        ROADMAP item.
     device : where the kernels run (default: the CUDA card; without one
         construction raises — pass ``device="cpu"`` for the CPU).
     """
@@ -282,7 +330,9 @@ class MetranService:
                  persist_updates: bool = True,
                  reliability: Optional[ReliabilityPolicy] = None,
                  gate: Optional[GateSpec] = None,
-                 robust=None, readpath=None, steady=None, fixed_lag=None,
+                 robust=None, readpath=None,
+                 steady: Optional[SteadySpec] = None,
+                 fixed_lag: Optional[int] = None,
                  refit=None, detect: Optional[DetectSpec] = None,
                  durability=None, cluster=None, replication=None,
                  device=None):
@@ -296,7 +346,6 @@ class MetranService:
         if self.robust.enabled and self.gate.enabled:  # both from defaults
             raise _gate_robust_clash()
         for name, spec in (("readpath", readpath),
-                           ("steady", steady), ("fixed_lag", fixed_lag),
                            ("refit", refit), ("durability", durability),
                            ("cluster", cluster),
                            ("replication", replication)):
@@ -350,6 +399,19 @@ class MetranService:
                 cooldown_s=self.detect.alert_cooldown_s,
                 counter=self.detect_total,
             )
+        self.steady = (steady.validate() if steady is not None
+                       else SteadySpec.from_defaults())
+        #: freeze/thaw transitions by kind (``freeze``, ``thaw``)
+        self.steady_transitions = EventCounters()
+        #: frozen models (model_id -> _SteadyInfo)
+        self._steady_info: dict = {}
+        #: model_id -> monotonic time of its last thaw (the refreeze
+        #: cooldown)
+        self._steady_thawed_at: dict = {}
+        if fixed_lag is None:
+            fixed_lag = int(defaults["fixed_lag"])
+        self.smoother = (FixedLagTracker(fixed_lag, device=self.device)
+                         if int(fixed_lag) > 0 else None)
         self._errors = EventCounters()
         # one lock around each assimilation round keeps every model's
         # read -> compute -> put sequential across dispatch threads
@@ -388,8 +450,8 @@ class MetranService:
         the per-model gate window (:meth:`~metran_tpu_torch.reliability.
         HealthMonitor.snapshot`), batcher liveness and depth, open
         breakers, lifetime error counters, the registry's integrity
-        events and, with the gate, robust updates or detection armed,
-        their tallies."""
+        events and, with the gate, robust updates, steady-state serving,
+        fixed-lag smoothing or detection armed, their tallies."""
         alive = self.batcher.worker_alive() and not self.batcher.closed
         extra = {
             "ready": self._ready(),
@@ -411,6 +473,13 @@ class MetranService:
         if self.robust.enabled:
             extra["robust_total"] = self.robust_total.snapshot()
             extra["robust_iterations"] = self.robust_iters.snapshot()
+        if self.steady.enabled:
+            extra["steady"] = {"frozen": self._steady_count(),
+                               "tol": self.steady.tol,
+                               **self.steady_transitions.snapshot()}
+        if self.smoother is not None:
+            extra["fixed_lag"] = {"lag": self.smoother.lag,
+                                  "tracked": len(self.smoother)}
         if self.detect.enabled:
             extra["detect"] = {
                 "tracked": len(self.detector),
@@ -445,6 +514,133 @@ class MetranService:
         detection episode, raise/clear hysteresis applied."""
         self._require_detect()
         return self.alert_board.alerts(model_id, active_only=active_only)
+
+    # ------------------------------------------------------------------
+    # steady-state (frozen-gain) serving
+    # ------------------------------------------------------------------
+    def _steady_count(self) -> int:
+        """Models currently frozen."""
+        return len(self._steady_info)
+
+    def _book_steady(self, kind: str, model_id: str, **detail) -> None:
+        """One freeze/thaw transition: the counter, a log line and, on a
+        thaw, the refreeze-cooldown stamp."""
+        if kind == "thaw":
+            self._steady_thawed_at[model_id] = time.monotonic()
+        self.steady_transitions.increment(kind)
+        logger.info("steady %s: model %r %s", kind, model_id, detail)
+
+    def _steady_freezable(self, model_id: str) -> bool:
+        """Whether a freeze candidate is past its refreeze cooldown (a
+        model that never thawed always is)."""
+        thawed_at = self._steady_thawed_at.get(model_id)
+        return (thawed_at is None or time.monotonic() - thawed_at
+                >= STEADY_REFREEZE_COOLDOWN_S)
+
+    def _compute_steady(self, states, bucket) -> dict:
+        """The frozen serving summaries of freeze candidates,
+        bucket-padded: ``{model_id: (kgain, fdiag)}``.
+
+        Each group of candidates that share their true dimensions
+        ``(n_series, n_factors)`` solves its DARE and gains in ONE K15
+        launch, on the true dimensions in float64 (the JAX service
+        solves each model in its parameters' f64 precision, one call
+        per model: the results are the same).  Gated covariance engines
+        freeze the per-slot sequential gains and conditional variances
+        (their exact update gates per slot), square-root and ungated
+        registries the joint gain and marginal variances
+        (:meth:`ModelRegistry.steady_sequential_gate`); the frozen pair
+        is scattered into the bucket layout.
+        """
+        seq = self.registry.steady_sequential_gate(self.gate)
+        n_pad, s_pad = bucket
+        groups: dict = {}
+        for st in states:
+            groups.setdefault((st.n_series, st.n_factors), []).append(st)
+        out = {}
+        for (n, kf), grp in groups.items():
+            params = np.stack([np.asarray(st.params, float) for st in grp])
+            ss = dfm_statespace(
+                params[:, :n], params[:, n:],
+                np.stack([np.asarray(st.loadings, float) for st in grp]),
+                np.array([float(st.dt) for st in grp]), device=self.device,
+                dtype=torch.float64)
+            gains = steady_gains(ss)
+            kgain = (gains.kgain_seq if seq else gains.kgain).cpu().numpy()
+            fdiag = (gains.fdiag_seq if seq else gains.fdiag).cpu().numpy()
+            idx = state_slot_index(n, kf, n_pad)
+            for i, st in enumerate(grp):
+                kg = np.zeros((s_pad, n_pad), st.dtype)
+                kg[np.ix_(idx, np.arange(n))] = kgain[i]
+                fd = np.ones(n_pad, st.dtype)
+                fd[:n] = fdiag[i]
+                out[st.model_id] = (kg, fd)
+        return out
+
+    def _freeze(self, candidates, bucket) -> None:
+        """Freeze the candidates of one exact dispatch (``(state,
+        delta)`` pairs, each past every freeze condition).  Its own
+        guard: the updates are applied, and a freeze hiccup leaves the
+        models exact."""
+        try:
+            frozen = self._compute_steady([st for st, _ in candidates],
+                                          bucket)
+        except Exception:
+            logger.exception("steady freeze failed for models %s (serving "
+                             "stays exact)",
+                             [st.model_id for st, _ in candidates])
+            return
+        for st, delta in candidates:
+            kg, fd = frozen[st.model_id]
+            self._steady_info[st.model_id] = _SteadyInfo(
+                version=st.version, kgain=kg, fdiag=fd,
+                params_ref=st.params, loadings_ref=st.loadings)
+            self._book_steady("freeze", st.model_id, delta=delta,
+                              tol=self.steady.tol, version=st.version)
+
+    def _thaw_dict(self, model_id: str, reason: str) -> None:
+        """Drop a model's frozen state (idempotent)."""
+        if self._steady_info.pop(model_id, None) is not None:
+            self._book_steady("thaw", model_id, reason=reason)
+
+    # ------------------------------------------------------------------
+    # fixed-lag smoothed products (serve.smoothing)
+    # ------------------------------------------------------------------
+    def smoothed(self, model_id: str,
+                 lag: Optional[int] = None) -> SmoothedWindow:
+        """Smoothed moments for the model's trailing ``lag``-step window
+        — the best estimate of the recent past given everything
+        assimilated since, at O(L) cost however long the history
+        (:mod:`metran_tpu_torch.serve.smoothing`).  Requires fixed-lag
+        tracking (``MetranService(fixed_lag=L)`` /
+        ``METRAN_TPU_SERVE_FIXED_LAG``) and updates streamed through
+        this service since; the window reports its realized length.
+        Data units, like :meth:`forecast`."""
+        if self.smoother is None:
+            raise ValueError(
+                "fixed-lag smoothing is disabled; construct the service "
+                "with fixed_lag=L or set METRAN_TPU_SERVE_FIXED_LAG"
+            )
+        self.registry.get(model_id)  # unknown ids raise KeyError here
+        return self.smoother.smooth(model_id, lag)
+
+    def _observe_smoother(self, model_id: str, y_std, mask,
+                          t_seen_after: int, post_state_fn,
+                          verdicts=None) -> None:
+        """Feed one committed update to the fixed-lag tracker (a no-op
+        when off; never raises).  ``verdicts`` is the model's gate or
+        robust verdict slice when armed: a commit the gate (or the MAP
+        update) acted on restarts the window from the served posterior,
+        which did not assimilate those rows as given."""
+        if self.smoother is None:
+            return
+        clean = verdicts is None or not np.any(verdicts)
+        try:
+            self.smoother.observe(model_id, y_std, mask, t_seen_after,
+                                  post_state_fn, clean=clean)
+        except Exception:  # pragma: no cover - tracking only
+            logger.exception("fixed-lag tracking failed for model %r",
+                             model_id)
 
     # ------------------------------------------------------------------
     # public API
@@ -945,15 +1141,194 @@ class MetranService:
         return results
 
     def _run_update(self, bucket, k: int, requests):
-        """One batched assimilation over distinct-model requests: one
-        launch of the registry engine's update (K1 joint, K12 sequential,
-        gated or robust, K9 square-root, gated or robust), plus one
-        detector launch (K13) with detection armed; read each model's
-        current state, write the bumped one.  Callers hold
-        ``_update_lock``.  Gate and robust verdicts are booked per slot
-        before the integrity gate; a slot whose posterior fails that gate
-        gets :class:`StateIntegrityError` and its stored state stays as
-        it was, while the healthy slots commit."""
+        """One batched assimilation over distinct-model requests; reads
+        each model's current state, writes the bumped one.  Callers hold
+        ``_update_lock``.  Returns one result per request (a state, or
+        the exception that request failed with).
+
+        With steady-state serving armed, FROZEN models ride the
+        mean-only steady update first (:meth:`_run_update_steady`); any
+        of them that broke time-invariance, whose posterior was replaced
+        under the frozen gain, or that is an armed robust model thaw and
+        replay through the exact update in this same dispatch, and the
+        exact slots that converged freeze after it
+        (:meth:`_run_update_dict`)."""
+        if not self.steady.enabled:
+            return self._run_update_dict(bucket, k, requests)
+        results: list = [None] * len(requests)
+        steady_idx, exact_idx = [], []
+        rob_on = self.robust.time_varying
+        for j, req in enumerate(requests):
+            if req.model_id not in self._steady_info:
+                exact_idx.append(j)
+                continue
+            if rob_on:
+                # an armed robust model is time-varying (a flagged slot's
+                # MAP conditioning changes the gain): thaw it before the
+                # frozen update can serve it, and replay exact
+                try:
+                    st = self.registry.get(req.model_id)
+                except Exception:  # noqa: BLE001 - the lookup fails below
+                    st = None
+                if st is not None and st.t_seen >= self.robust.min_seen:
+                    self._thaw_dict(req.model_id, reason="robust_armed")
+                    exact_idx.append(j)
+                    continue
+            steady_idx.append(j)
+        if steady_idx:
+            thawed = self._run_update_steady(bucket, k, requests,
+                                             steady_idx, results)
+            exact_idx = sorted(exact_idx + thawed)
+        if exact_idx:
+            sub = [requests[j] for j in exact_idx]
+            for j, res in zip(exact_idx,
+                              self._run_update_dict(bucket, k, sub)):
+                results[j] = res
+        return results
+
+    def _run_update_steady(self, bucket, k: int, requests, idxs,
+                           results) -> list:
+        """Dispatch the FROZEN models of one batch through the steady
+        update (one K14 launch, + one K13 with detection); fills
+        ``results`` at ``idxs`` and returns the positions that must
+        replay through the exact update: rows that broke
+        time-invariance, and frozen states that no longer match the
+        stored posterior (an external ``registry.put``)."""
+        sub = [requests[j] for j in idxs]
+        local: list = [None] * len(sub)
+        states, live = self._lookup_states(sub, local)
+        thawed, keep = [], []
+        for i, j in enumerate(live):
+            st = states[i]
+            info = self._steady_info.get(st.model_id)
+            if (info is None or info.version != st.version
+                    # identity, not equality: an external put carries
+                    # fresh arrays even at the frozen version number;
+                    # only the service's own st._replace commits keep
+                    # these objects
+                    or st.params is not info.params_ref
+                    or st.loadings is not info.loadings_ref):
+                self._thaw_dict(st.model_id, reason="posterior_replaced")
+                thawed.append(idxs[j])
+            else:
+                keep.append((i, j, info))
+        for j, res in zip(idxs, local):
+            if res is not None:
+                results[j] = res
+        if not keep:
+            return thawed
+        kstates = [states[i] for i, _, _ in keep]
+        batch = stack_bucket(kstates, bucket, device=self.device,
+                             factors=False)
+        n_pad = bucket[0]
+        dtype = kstates[0].dtype
+        kg = np.stack([info.kgain for _, _, info in keep]).astype(dtype)
+        fd = np.stack([info.fdiag for _, _, info in keep]).astype(dtype)
+        y = np.zeros((len(kstates), k, n_pad), dtype)
+        m = np.zeros((len(kstates), k, n_pad), bool)
+        for i, st in enumerate(kstates):
+            y_std, mask = sub[keep[i][1]].payload
+            y[i, :, : st.n_series] = y_std
+            m[i, :, : st.n_series] = mask
+        real = (np.arange(n_pad)[None, :]
+                < np.array([st.n_series for st in kstates])[:, None])
+        gated = self.gate.enabled
+        det = self.detect if self.detect.enabled else None
+        fn = self.registry.steady_update_fn(
+            bucket, k, gate=self.gate if gated else None, detect=det)
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+
+        def flags(floor):
+            return dev(np.array([st.t_seen >= floor for st in kstates],
+                                bool))
+
+        args = (batch.ss, batch.mean, dev(kg), dev(fd), dev(real), dev(y),
+                dev(m))
+        if det is not None:
+            # the detect signature always carries the gate's armed flags
+            # (zeros with the gate off) and the detector state
+            det_state = self.detector.stack(
+                [st.model_id for st in kstates],
+                [st.version for st in kstates], n_pad, DETECT_STATE_ROWS,
+                dtype)
+            args += (flags(self.gate.min_seen) if gated
+                     else dev(np.zeros(len(kstates), bool)),
+                     dev(det_state), flags(det.min_seen))
+        elif gated:
+            args += (flags(self.gate.min_seen),)
+        outs = [t.cpu().numpy() for t in fn(*args)]
+        if det is not None:
+            det_new, det_counts, det_stats = outs[-3:]
+            outs = outs[:-3]
+        mean_t, broke = outs[0], outs[3]
+        for i, (si, j, info) in enumerate(keep):
+            st = states[si]
+            try:
+                if broke[i]:
+                    # time-invariance broke (a missing slot, a gate hit, a
+                    # non-finite mean): nothing was applied — thaw and
+                    # replay through the exact update
+                    self._thaw_dict(st.model_id,
+                                    reason="time_invariance_broken")
+                    thawed.append(idxs[j])
+                    continue
+                n = st.n_series
+                if gated:
+                    self._book_gate_verdicts(st, outs[4][i, :, :n],
+                                             outs[5][i, :, :n])
+                idx = state_slot_index(n, st.n_factors, n_pad)
+                # frozen: the covariance (and factor) stays as stored
+                new_state = st._replace(
+                    version=st.version + 1, t_seen=st.t_seen + k,
+                    mean=mean_t[i][idx].astype(st.dtype))
+                self._steady_info[st.model_id] = info._replace(
+                    version=new_state.version)
+                try:
+                    self.registry.put(new_state,
+                                      persist=self.persist_updates)
+                except Exception:
+                    self._count("persist_failures")
+                    logger.exception(
+                        "write-through persist failed for model %r "
+                        "(serving from memory)", st.model_id)
+            except Exception as exc:
+                self._count("finalize_failures")
+                logger.exception("steady finalize failed for model %r; its "
+                                 "update was not applied", st.model_id)
+                results[idxs[j]] = exc
+                continue
+            results[idxs[j]] = new_state
+            self._observe_smoother(
+                st.model_id, y[i, :, :n], m[i, :, :n], new_state.t_seen,
+                lambda ns=new_state: ns,
+                verdicts=outs[5][i, :, :n] if gated else None)
+            if det is not None:
+                try:
+                    self._book_detect(
+                        st.model_id, det_counts[i][:, :n],
+                        det_stats[i][:, :n], new_state.version,
+                        new_state.t_seen, st.names, n,
+                        state=det_new[i][:, :n])
+                except Exception:
+                    logger.exception("detection booking failed for model "
+                                     "%r", st.model_id)
+        return thawed
+
+    def _run_update_dict(self, bucket, k: int, requests):
+        """One batched exact assimilation over distinct-model requests:
+        one launch of the registry engine's update (K1 joint, K12
+        sequential, gated or robust, K9 square-root, gated or robust),
+        plus one detector launch (K13) with detection armed.  Gate and
+        robust verdicts are booked per slot before the integrity gate; a
+        slot whose posterior fails that gate gets
+        :class:`StateIntegrityError` and its stored state stays as it
+        was, while the healthy slots commit.  With steady-state serving
+        armed, every committed slot that converged (its factor moved by
+        at most ``tol`` over a fully-observed append, past ``min_seen``,
+        with no verdict and no armed robust likelihood, and past the
+        refreeze cooldown) freezes after the commits."""
         results: list = [None] * len(requests)
         states, live = self._lookup_states(requests, results)
         if not live:
@@ -1013,7 +1388,19 @@ class MetranService:
             det_new, det_counts, det_stats = outs[-3:]
             outs = outs[:-3]
         mean_t, fac_t, sigma_t, detf_t = outs[:4]
+        verdict_t = outs[5] if (gated or rob is not None) else None
         validate = self.reliability.validate_updates
+        steady_on = self.steady.enabled
+        if steady_on:
+            # host-side convergence detection on the stacked factors
+            fac_before = (batch.chol if sqrt_engine
+                          else batch.cov).cpu().numpy()
+            real = np.zeros((len(states), n_pad), bool)
+            for i, st in enumerate(states):
+                real[i, : st.n_series] = True
+            converged = steady_converged(fac_before, fac_t, m, real,
+                                         self.steady.tol).numpy()
+        candidates = []
         for i, (st, j) in enumerate(zip(states, live)):
             # per-slot finalize: a failure here stays this slot's alone
             try:
@@ -1092,11 +1479,15 @@ class MetranService:
                 results[j] = exc
                 continue
             results[j] = new_state
+            n = st.n_series
+            self._observe_smoother(
+                st.model_id, y[i, :, :n], m[i, :, :n], new_state.t_seen,
+                lambda ns=new_state: ns,
+                verdicts=None if verdict_t is None else verdict_t[i, :, :n])
             if det is not None:
                 # its own guard: the update is applied, and a monitoring
                 # hiccup must never relabel it failed
                 try:
-                    n = st.n_series
                     self._book_detect(
                         st.model_id, det_counts[i][:, :n],
                         det_stats[i][:, :n], new_state.version,
@@ -1105,6 +1496,17 @@ class MetranService:
                 except Exception:
                     logger.exception("detection booking failed for model "
                                      "%r", st.model_id)
+            if steady_on and st.model_id not in self._steady_info:
+                if (converged[i]
+                        and new_state.t_seen >= self.steady.min_seen
+                        and (not gated or not verdict_t[i].any())
+                        and not (rob is not None and rob.time_varying
+                                 and new_state.t_seen >= rob.min_seen)
+                        and self._steady_freezable(st.model_id)):
+                    delta = float(np.max(np.abs(fac_t[i] - fac_before[i])))
+                    candidates.append((new_state, delta))
+        if candidates:
+            self._freeze(candidates, bucket)
         return results
 
     def _book_gate_verdicts(self, st, zs, verdicts) -> None:

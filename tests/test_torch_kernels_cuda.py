@@ -596,3 +596,109 @@ def test_sqrt_robust_kernel_matches_plain(card, dtype, bar, likelihood):
         for g, w in zip(out[:4], base):
             assert torch.equal(g, w)
         assert not out[5].any() and not out[6].any()
+
+
+def _dfm(card, dtype, b=8, n=5, kf=2):
+    """Valid DFMs (communalities below 1, as the fits make them)."""
+    rng = np.random.default_rng(4)
+    return dfm_statespace(rng.uniform(5, 40, (b, n)),
+                          rng.uniform(10, 60, (b, kf)),
+                          rng.uniform(0.3, 0.8, (b, n, kf)) / np.sqrt(kf),
+                          1.0, device=card, dtype=dtype)
+
+
+def _steady_case(card, dtype, b=8, k=5, n=5, kf=2):
+    """Models with their frozen gains (K15's own plain version), a mean,
+    rows with spikes and one masked cell, and an armed mix."""
+    phi, q, z, r = _dfm(card, dtype, b, n, kf)
+    gains = kernels.dare_gains_plain(phi, q, z, r)
+    rng = np.random.default_rng(5)
+    y = torch.as_tensor(rng.normal(size=(b, k, n)) * 0.5, dtype=dtype,
+                        device=card)
+    y[0, 1, 2] += 30.0
+    y[3, 2, 0] -= 30.0
+    mask = torch.ones((b, k, n), dtype=torch.bool, device=card)
+    mask[5, 3, 1] = False
+    real = torch.ones((b, n), dtype=torch.bool, device=card)
+    mean = torch.as_tensor(rng.normal(size=(b, n + kf)) * 0.3, dtype=dtype,
+                           device=card)
+    armed = torch.tensor([i % 4 != 3 for i in range(b)], device=card)
+    return phi, z, gains, real, mean, y, mask, armed
+
+
+STEADY_FORMS = [(p, False) for p in ("off", "reject", "huber", "inflate")] \
+    + [(p, True) for p in ("reject", "huber", "inflate")]
+
+
+@pytest.mark.parametrize("policy,seq", STEADY_FORMS)
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_steady_filter_kernel_matches_plain(card, dtype, bar, policy, seq):
+    """K14 in every policy and form against its plain version: means and
+    terms normwise, broke, verdicts and the NaN pattern equal."""
+    phi, z, g, real, mean, y, mask, armed = _steady_case(card, dtype)
+    kg, fd = (g[4], g[5]) if seq else (g[2], g[3])
+    kernels.reset_launches()
+    got = kernels.steady_filter(phi, z, kg, fd, real, mean, y, mask, armed,
+                                policy, 16.0, seq)
+    torch.cuda.synchronize()
+    assert kernels.launches()["steady_filter"] == 1
+    want = kernels.steady_filter_plain(phi, z, kg, fd, real, mean, y, mask,
+                                       armed, policy, 16.0, seq)
+    for i in (0, 1, 2, 4):
+        assert _nan_rel(got[i], want[i]) <= bar
+    assert torch.equal(got[3], want[3]) and torch.equal(got[5], want[5])
+    assert bool(got[3][5])  # the masked cell
+    if policy != "off":
+        assert bool(got[5][0].any())
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_dare_kernel_matches_plain(card, dtype, bar):
+    """K15 against its plain version in every output, solving and from
+    a given p_pred; the f64 fixed point solves the DARE to 1e-10."""
+    phi, q, z, r = _dfm(card, dtype)
+    kernels.reset_launches()
+    got = kernels.dare_gains(phi, q, z, r)
+    torch.cuda.synchronize()
+    assert kernels.launches()["dare"] == 1
+    want = kernels.dare_gains_plain(phi, q, z, r)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all() and _rel(g, w) <= bar
+    given = kernels.dare_gains(phi, q, z, r, p_pred=want[0])
+    for g, w in zip(given[1:], kernels.dare_gains_plain(phi, q, z, r,
+                                                        p_pred=want[0])[1:]):
+        assert _rel(g, w) <= bar
+    if dtype == torch.float64:
+        p = got[0]
+        f = z @ p @ z.transpose(-1, -2) + torch.diag_embed(r)
+        pz = p @ z.transpose(-1, -2)
+        res = (p - phi[:, :, None] * (p - pz @ torch.linalg.solve(
+            f, pz.transpose(-1, -2))) * phi[:, None, :] - q)
+        assert float(res.abs().max() / p.abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sqrt_store_from_a_carry_matches_plain_and_continues(card, dtype):
+    """K9 ``store`` from a given carry (the fixed-lag window) against its
+    plain version, and bit for bit the full run's last steps."""
+    args = _inputs(card, dtype, k=12)
+    lanes = _lanes_of(args)
+    full = kernels.sqrt_filter(*lanes, store=True)
+    cut = 7
+    rest = [t[:, cut:].contiguous() for t in lanes[4:]]
+    m0 = full[2][:, cut - 1].contiguous()
+    c0 = full[3][:, cut - 1].contiguous()
+    got = kernels.sqrt_filter(*lanes[:4], *rest, store=True, mean0=m0,
+                              chol0=c0)
+    want = kernels.sqrt_filter_plain(*lanes[:4], *rest, store=True,
+                                     mean0=m0, chol0=c0)
+    torch.cuda.synchronize()
+    bar = 1e-9 if dtype == torch.float64 else 1e-3
+    for i in (0, 2, 4, 5):
+        assert _nan_rel(got[i], want[i]) <= bar
+    for i in (1, 3):
+        assert _rel(_outer(got[i]), _outer(want[i])) <= bar
+    for g, f in zip(got, full):
+        assert torch.equal(g, f[:, cut:])

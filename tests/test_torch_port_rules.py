@@ -67,6 +67,7 @@ from metran_tpu_torch.serve import (
     MetranService,
     ModelRegistry,
     RobustSpec,
+    SteadySpec,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -376,6 +377,26 @@ def test_kernel_launchers_raise_on_cpu_tensors():
             kernels.sqrt_filter_robust_kernel(
                 *k3, m0, c0, torch.ones(3, dtype=torch.bool),
                 *_robust_params(3, 2), likelihood=lik)
+    # the steady-state append (each policy and form) and the DARE solve
+    k14 = _k14_args()
+    for policy, seq in (("off", False), ("reject", False), ("huber", True),
+                        ("inflate", True)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.steady_filter_kernel(*k14, policy, 16.0, seq)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.dare_gains_kernel(*args[:4])
+
+
+def _k14_args(b=2, n=4, s=5, k=3):
+    """Inputs of the steady append: frozen gains from the plain DARE of
+    K1's test models."""
+    phi, q, z, r = _k1_args()[:4]
+    g = kernels.dare_gains(phi, q, z, r)
+    return (phi, z, g[2], g[3], torch.ones((b, n), dtype=torch.bool),
+            torch.zeros((b, s), dtype=torch.float64),
+            torch.zeros((b, k, n), dtype=torch.float64),
+            torch.ones((b, k, n), dtype=torch.bool),
+            torch.ones(b, dtype=torch.bool))
 
 
 def _robust_params(b, n, dtype=torch.float64):
@@ -463,6 +484,9 @@ def test_plain_path_counts_no_launch_and_counters_reset():
             torch.ones(3, dtype=torch.bool), *_robust_params(3, 2),
             likelihood=lik)
         assert (out[5] != 0).any()
+    for policy, seq in (("off", False), ("reject", False), ("huber", True)):
+        kernels.steady_filter(*_k14_args(), policy, 16.0, seq)
+    kernels.dare_gains(*args[:4])
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "joint_filter_store": 0,
                                   "forecast_moments": 0,
@@ -473,7 +497,8 @@ def test_plain_path_counts_no_launch_and_counters_reset():
                                   "sqrt_smooth": 0, "joint_adjoint": 0,
                                   "gated_filter": 0, "detect": 0,
                                   "gated_filter_robust": 0,
-                                  "sqrt_filter_robust": 0}
+                                  "sqrt_filter_robust": 0,
+                                  "steady_filter": 0, "dare": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -497,7 +522,7 @@ def test_library_name_follows_the_sources():
         "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
         "lanes_sample.cu", "rts_smoother.cu", "sqrt_filter.cu",
         "sqrt_smoother.cu", "joint_adjoint.cu", "gated_filter.cu",
-        "detect.cu"}
+        "detect.cu", "steady_filter.cu", "dare.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 
@@ -580,3 +605,19 @@ def test_robust_updates_are_ported_and_named_by_no_message():
     svc.close()
     assert {"gated_filter_robust", "sqrt_filter_robust"} <= set(
         kernels.launches())
+
+
+def test_steady_and_fixed_lag_are_ported_and_named_by_no_message():
+    """Steady-state serving (A4.6) and fixed-lag smoothing (A4.7) are
+    ported: no not-ported message names their items, the service takes
+    both, and K14 and K15 count under names of their own."""
+    for path in sorted((REPO / "metran_tpu_torch").rglob("*.py")):
+        for m in ITEM.finditer(path.read_text()):
+            assert "A4.6" not in m.group(1), (path.name, m.group(0))
+            assert "A4.7" not in m.group(1), (path.name, m.group(0))
+    svc = MetranService(ModelRegistry(root=None), flush_deadline=None,
+                        steady=SteadySpec(tol=1e-6), fixed_lag=8,
+                        device="cpu")
+    assert svc.steady.enabled and svc.smoother.lag == 8
+    svc.close()
+    assert {"steady_filter", "dare"} <= set(kernels.launches())

@@ -236,8 +236,8 @@ def test_retries_deadline_specs_and_unported_layers():
     health = svc.health()
     assert health["ready"] and health["breakers"]["open"] == []
     svc.close()
-    for kwargs in (dict(readpath=True), dict(fixed_lag=8),
-                   dict(steady=type("S", (), {"enabled": True})())):
+    for kwargs in (dict(readpath=True),
+                   dict(refit=type("R", (), {"enabled": True})())):
         with pytest.raises(NotPortedError, match="ROADMAP A4"):
             MetranService(reg, flush_deadline=None, device="cpu", **kwargs)
     with pytest.raises(ValueError, match="mutually exclusive"):

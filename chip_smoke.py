@@ -73,6 +73,18 @@ non-zero):
    given non-triangular carry against its plain version and bit for
    bit its own full store's continuation; K14 timed at B = 512, k = 1
    in f32 per policy and form, K15 in f64 for 1 and 512 models;
+   then the state arena (``arena_kernels``): K16 (the exact arena update
+   fused with the integrity gate, the detection tail and the masked
+   in-place scatter; its joint, sequential/gated/robust and square-root
+   families), K17 (the frozen-gain arena update) and K18 (the arena
+   forecast) against their plain versions on an arena of 1,024
+   flagship rows with 512 dispatched, k = 1, f64 and f32 (normwise
+   1e-9 / 1e-3 over the accepted rows, NaN-strict; ok, verdicts,
+   counts, conv and applied equal): a NaN row and a non-PSD covariance
+   row rejected with their rows bit-identical, unnamed rows
+   bit-identical, armed and unarmed rows, a masked cell and a fully
+   masked row, K17's frozen rows beside broken ones; each family timed
+   in f32 beside its bound and its plain version;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -124,6 +136,23 @@ non-zero):
    fixed_lag=16)`` over 24 rounds on 32 models, every ``smoothed()``
    window held to the card's full filter + smoother over the same rows
    (1e-5, bitwise reported), its wall and one tracker advance timed;
+   then the state arena (``arena_serving``): 512 flagship models (f32)
+   after a history pass, each run on a per-request arena service
+   (``ModelRegistry(arena=True)``, 1,024 rows), a bulk arena service
+   (``update_batch``/``forecast_batch``) and a dict service holding the
+   same states and taking the same rows, rounds paired and rotated —
+   joint with ``GateSpec("reject")`` and detection, joint robust
+   censored with detection, sqrt ungated (5 rounds each), steady
+   (``SteadySpec(tol=1e-4, min_seen=256)``) on joint gated and on sqrt
+   after a fully observed 400-step history (8 rounds): equal acks and
+   failures round by round, a poisoned model failing alone with its row
+   unchanged, the arena's posteriors and forecasts within rtol 2e-5 /
+   atol 1e-6 of the dict's (bulk bit for bit the per-request arena),
+   the booked verdicts, robust outcomes, detection and steady
+   transitions equal, per run the launches by kernel and the three
+   dispatch medians; a 64-row registry taking 96 models (eviction,
+   spill, reload, each served again and equal to a dict twin), and a
+   ``close()`` that spills for a bit-for-bit warm restart from disk;
 5. fit path — the same flagship fleet (its own seed) packed with
    ``pack_fleet`` and fitted by ``fit_fleet(layout="lanes")`` under the
    JAX bench's fit settings (autocorrelation init, ``remat_seg=100``,
@@ -360,6 +389,44 @@ def rel_err(got, want) -> float:
         return 0.0
     scale = want[fin].abs().max().clamp_min(1e-300)
     return float((got[fin] - want[fin]).abs().max() / scale)
+
+
+def row_errs(got, want):
+    """Per-row relative errors: for each row along the first axis,
+    ``max|got - want|`` over its finite entries divided by that row's own
+    ``max|want|``, floored at the median row's scale (a row of zeros is
+    held at the field's ordinary scale, not at 1e-300).  One outlier row
+    with huge values thus sets no bar for the ordinary rows, which a
+    normwise error over the whole tensor would.  Returns the (rows,)
+    errors, NaN where a row has no finite entry, or None on a non-finite
+    mismatch (see :func:`_nonfinite_match`)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if not _nonfinite_match(got, want):
+        return None
+    w = want.reshape(want.shape[0] if want.dim() else 1, -1)
+    g = got.reshape(w.shape)
+    fin = torch.isfinite(w)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    diff = torch.where(fin, g - w, zero).abs().amax(1)
+    scale = torch.where(fin, w, zero).abs().amax(1)
+    has = fin.any(1)
+    if not has.any():
+        return torch.full_like(scale, float("nan"))
+    floor = scale[has].median().clamp_min(1e-300)
+    errs = diff / torch.maximum(scale, floor)
+    return torch.where(has, errs, torch.full_like(errs, float("nan")))
+
+
+def row_rel_err(got, want) -> float:
+    """The largest of :func:`row_errs` (infinite on a non-finite
+    mismatch, 0 when nothing is finite)."""
+    errs = row_errs(got, want)
+    if errs is None:
+        return float("inf")
+    errs = errs[~errs.isnan()]
+    return float(errs.max()) if errs.numel() else 0.0
 
 
 def abs_err(got, want) -> float:
@@ -5479,6 +5546,769 @@ def phase_fixed_lag():
     return counts
 
 
+# ----------------------------------------------------------------------
+# the state arena (B13): K16, K17, K18 and ModelRegistry(arena=True)
+# ----------------------------------------------------------------------
+ARENA_ROWS = 1024  # the JAX default arena_rows (metran_tpu/config.py:176)
+ARENA_HIST = 64  # steps of the warm-up filter behind the kernel checks
+ARENA_ROUNDS = 5  # paired update rounds of each arena serving run (the
+#                   poisoned model's breaker opens after 5 failures)
+ARENA_STEADY_ROUNDS = 8  # the same for the steady runs
+ARENA_EVICT_ROWS, ARENA_EVICT_MODELS = 64, 96
+ARENA_EVICT_CHUNK = 32  # models per dispatch of the eviction run
+ARENA_POISONED = 7  # the model whose mean is NaN in the serving runs
+ARENA_DET = dict(cusum_k=0.5, cusum_h=12.0, lb_window=64, lb_thresh=25.0,
+                 nsigma=5.0)  # DetectSpec's defaults, as kernel params
+# K16's checks: (body, mode, robust likelihood, detection, steady_tol)
+ARENA_K16_MODES = (
+    ("joint", "off", None, False, 1e-4),
+    ("gated", "off", None, False, 0.0),
+    ("gated", "reject", None, True, 1e-4),
+    ("gated", "huber", None, False, 0.0),
+    ("gated", "inflate", None, True, 0.0),
+    ("gated", "off", "censored", True, 0.0),
+    ("sqrt", "off", None, False, 1e-4),
+    ("sqrt", "reject", None, True, 0.0),
+    ("sqrt", "off", "quantized", False, 0.0),
+)
+ARENA_K17_MODES = (("off", False, False), ("reject", True, True),
+                   ("huber", False, True))
+
+
+def gate_cost(b, s, sqrt):
+    """Operations of the arena's integrity gate on ``b`` rows: a factor
+    row's ``F F'`` on the lower triangles (~s^3/3); a covariance row's
+    symmetry test and ``sym(F) + jitter`` (~4 s^2) and the jittered
+    Cholesky (~s^3/3).  Finiteness tests are not counted."""
+    return b * (s ** 3 / 3.0 + (0 if sqrt else 4 * s * s))
+
+
+def arena_tail_cost(b, n, s, k, itemsize, det):
+    """Bytes and operations an arena update adds to its step body's: the
+    row indices and ``t_seen`` read, ``t_seen``/``version`` written, the
+    ok and conv flags; with detection the (6, N) state read and written
+    and the counts and stats written, K13's ~30 operations per slot
+    step."""
+    nbytes = b * (4 + 4 + 8 + 4 + 2)
+    ops = 0.0
+    if det:
+        nbytes += b * (2 * 6 * n * itemsize + 3 * n * 4 + 3 * n * itemsize)
+        ops += 30.0 * b * k * n
+    return nbytes, ops
+
+
+def _arena_leaves(dtype, dev, sqrt, rng):
+    """An arena of ARENA_ROWS flagship rows (bucket (24, 32)) holding
+    real posteriors (ARENA_HIST steps of the rows' own data through the
+    port's filter), ``t_seen`` spread across the floors, a NaN row 2 and
+    (covariance) a non-PSD row 4, random detector states; returns the
+    arena and each row's continuation row."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import kalman_filter, sqrt_kalman_filter
+    from metran_tpu_torch.ops.statespace import StateSpace
+    from metran_tpu_torch.serve.state import StateArena
+
+    b = ARENA_ROWS + 1
+    phi, q, z, r, y, mask = padded_inputs(rng, b, ARENA_HIST + 1, dtype,
+                                          dev)
+    ss = StateSpace(phi, q, z, r)
+    yh, mh = y[:, :ARENA_HIST], mask[:, :ARENA_HIST]
+    arena = StateArena(BUCKET, ARENA_ROWS, dtype=dtype, sqrt=sqrt,
+                       device=dev)
+    for leaf, val in zip(arena._static(), ss):
+        leaf.copy_(val)
+    if sqrt:
+        res = sqrt_kalman_filter(ss, yh, mh, store=False)
+        arena._fac.copy_(res.chol_f)
+    else:
+        res = kalman_filter(ss, yh, mh, engine="joint", store=False)
+        arena._fac.copy_(res.cov_f)
+    arena._mean.copy_(res.mean_f)
+    arena._t_seen.copy_(torch.as_tensor(rng.integers(0, 80, b),
+                                        dtype=torch.int32))
+    arena._version.copy_(torch.as_tensor(rng.integers(0, 9, b),
+                                         dtype=torch.int32))
+    arena._mean[2, 1] = float("nan")
+    if not sqrt:
+        arena._fac[4] -= 50 * torch.eye(BUCKET[1], dtype=dtype, device=dev)
+    arena._det.copy_(torch.as_tensor(
+        np.abs(rng.normal(size=(b, 6, BUCKET[0]))), dtype=dtype))
+    return arena, y[:, ARENA_HIST:], mask[:, ARENA_HIST:]
+
+
+def _arena_rows(rng):
+    """The dispatch: FLEET distinct rows, the NaN and non-PSD rows
+    first, every third row left unnamed."""
+    import numpy as np
+
+    others = np.array([r for r in range(5, ARENA_ROWS) if r % 3])
+    pick = rng.permutation(others)[:FLEET - 3]
+    return np.concatenate([[3, 2, 4], pick]).astype(np.int32)
+
+
+def _arena_dispatch(arena, rows, y_next, m_next, rng, k=1):
+    """The dispatch's observations: each row's own continuation (k
+    steps, repeated), a masked cell on every 5th row, a fully masked
+    row, a 30-sd spike on the first rows."""
+    import torch
+
+    idx = torch.as_tensor(rows, device=y_next.device).long()
+    y = y_next[idx].repeat(1, k, 1).contiguous()
+    mask = m_next[idx].repeat(1, k, 1).contiguous()
+    mask[:, :, N_SERIES:] = False
+    mask[::5, 0, 3] = False
+    mask[6] = False
+    y[7:40, 0, 1] += GATE_SPIKE
+    real = torch.zeros((len(rows), BUCKET[0]), dtype=torch.bool,
+                       device=y.device)
+    real[:, :N_SERIES] = True
+    return y, mask, real
+
+
+def phase_arena_kernels():
+    """K16 (the exact arena update: gather, step body, integrity gate,
+    detection tail, masked in-place scatter), K17 (the frozen-gain arena
+    update) and K18 (the arena forecast) against their plain versions on
+    the card at the flagship width: an arena of ARENA_ROWS = 1024 rows of
+    the (24, 32) bucket, FLEET = 512 of them dispatched, k = 1; f64 and
+    f32 (1e-9 / 1e-3, each row of each output and leaf against its own
+    scale — :func:`row_rel_err`, so the f32 quantized spike rows, whose
+    sigma reaches ~1e12, set no bar for the others — over the accepted
+    rows, NaN-strict; ok, verdicts, counts, conv and applied equal).  The rows mix armed and
+    unarmed models, a masked cell and a fully masked row, a NaN row and
+    a non-PSD covariance row (both rejected, their rows bit-identical
+    after the kernel), and unnamed rows that must stay bit-identical;
+    K17 frozen rows beside broken ones.  Then each family timed at f32
+    beside its bound and its plain version."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import arena as karena
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    thresh = GATE_NSIGMA ** 2
+    checks, times = [], {}
+
+    def record(kernel, case, dtype, names, got, want, bar, exact=()):
+        """Each compared tensor held row by row (:func:`row_rel_err`);
+        the largest absolute error is reported with its field, row and
+        that row's scale."""
+        errs = [row_rel_err(g, w) for g, w in zip(got, want)]
+        same = [bool(torch.equal(a, b)) for a, b in exact]
+        absd = [abs_err(g, w) for g, w in zip(got, want)]
+        at = max(range(len(absd)), key=absd.__getitem__)
+        g, w = got[at].double(), want[at].double()
+        diff = torch.where(torch.isfinite(w), g - w,
+                           torch.zeros_like(w)).abs()
+        row = int(diff.reshape(diff.shape[0], -1).amax(1).argmax())
+        wr = w[row][torch.isfinite(w[row])]
+        checks.append({
+            "kernel": kernel, "case": case, "dtype": str(dtype)[6:],
+            "fields": names, "rel_err": errs, "norm": "per row",
+            "bar": bar, "exact_equal": same, "max_abs_err": absd[at],
+            "max_abs_err_at": {
+                "field": names[at], "row": row,
+                "row_scale": float(wr.abs().max()) if wr.numel() else 0.0},
+            "ok": within(errs, bar) and all(same)})
+
+    def rows_same(leaves, ref, rows):
+        idx = torch.as_tensor(rows, device=dev).long()
+        return all(torch.equal(a[idx].nan_to_num(7.0),
+                               b[idx].nan_to_num(7.0))
+                   for a, b in zip(leaves, ref))
+
+    def k16_args(body, mode, lik, det, tol, arena, rows, y, mask, real):
+        g = len(rows)
+        rob = None
+        if lik is not None:
+            scale = torch.full((g, BUCKET[0]), ROBUST_SCALE,
+                               dtype=arena._mean.dtype, device=dev)
+            rob = karena.ArenaRobust(lik, 4.0, *(
+                torch.full((g, BUCKET[0]), v, dtype=arena._mean.dtype,
+                           device=dev) for v in (-1.2, 1.2, 0.1)), scale)
+        return dict(body=body, mode=mode, thresh=thresh, min_seen=32,
+                    robust=rob, steady_tol=tol, real=real,
+                    det=arena._det if det else None, det_min_seen=16,
+                    det_params=ARENA_DET)
+
+    for dtype in (torch.float64, torch.float32):
+        bar = 1e-9 if dtype == torch.float64 else 1e-3
+        for body, mode, lik, det, tol in ARENA_K16_MODES:
+            sqrt = body == "sqrt"
+            rng = np.random.default_rng(SEED + 120)
+            pair = []
+            for fn in (karena.arena_update_kernel,
+                       karena.arena_update_plain):
+                arena, y_next, m_next = _arena_leaves(dtype, dev, sqrt, rng)
+                ref = [t.clone() for t in arena._dynamic() + (arena._det,)]
+                rows = _arena_rows(np.random.default_rng(SEED + 121))
+                y, mask, real = _arena_dispatch(arena, rows, y_next, m_next,
+                                                rng)
+                out = fn(*arena._dynamic(), *arena._static(), rows, y, mask,
+                         **k16_args(body, mode, lik, det, tol, arena, rows,
+                                    y, mask, real))
+                torch.cuda.synchronize()
+                pair.append((out, arena, ref, rows))
+                rng = np.random.default_rng(SEED + 120)
+            (got, ka, kref, rows), (want, pa, _, _) = pair
+            ok = want.ok
+            name = "arena_update_sqrt" if sqrt else "arena_update"
+            case = (f"{body} {mode}{' ' + lik if lik else ''}"
+                    f"{' + detect' if det else ''}"
+                    f"{' + conv' if tol else ''}, B={ARENA_ROWS} G={FLEET} "
+                    "k=1 (24, 32)")
+            fields = [f for f in ("sigma", "detf", "zscore", "iters",
+                                  "det_stats")
+                      if getattr(want, f) is not None]
+            fk, fp = ka._fac, pa._fac
+            if sqrt:
+                fk, fp = fk @ fk.mT, fp @ fp.mT
+            record(name, case, dtype, fields + ["mean", "F F'" if sqrt
+                                                else "cov"],
+                   [getattr(got, f)[ok].double() for f in fields]
+                   + [ka._mean, fk],
+                   [getattr(want, f)[ok].double() for f in fields]
+                   + [pa._mean, fp], bar,
+                   exact=[(got.ok, want.ok), (ka._t_seen, pa._t_seen),
+                          (ka._version, pa._version)]
+                   + [(getattr(got, f), getattr(want, f))
+                      for f in ("verdict", "det_counts", "conv")
+                      if getattr(want, f) is not None])
+            require(not bool(got.ok[1]) and (sqrt or not bool(got.ok[2])),
+                    f"K16 {case}: a NaN or non-PSD row passed the gate")
+            unnamed = [r for r in range(ARENA_ROWS + 1)
+                       if r not in set(rows.tolist())]
+            rejected = [int(rows[i]) for i in
+                        torch.nonzero(~got.ok).flatten().tolist()]
+            require(rows_same(ka._dynamic() + (ka._det,), kref,
+                              unnamed + rejected),
+                    f"K16 {case}: a rejected or unnamed row changed")
+        # K17: frozen rows beside broken ones
+        for mode, seq, det in ARENA_K17_MODES:
+            rng = np.random.default_rng(SEED + 122)
+            pair = []
+            for fn in (karena.arena_steady_update_kernel,
+                       karena.arena_steady_update_plain):
+                arena, y_next, m_next = _arena_leaves(dtype, dev, False, rng)
+                arena._mean[2, 1] = 0.0
+                srng = np.random.default_rng(SEED + 123)
+                arena._steady.copy_(torch.as_tensor(
+                    srng.uniform(size=ARENA_ROWS + 1) > 0.2))
+                arena._kgain.copy_(torch.as_tensor(
+                    srng.normal(size=arena._kgain.shape) * 0.05))
+                arena._fdiag.copy_(torch.as_tensor(
+                    srng.uniform(0.5, 2.0, arena._fdiag.shape)))
+                ref = [t.clone() for t in arena._dynamic() + (arena._det,)]
+                rows = _arena_rows(np.random.default_rng(SEED + 121))
+                y, mask, real = _arena_dispatch(arena, rows, y_next, m_next,
+                                                rng)
+                mask[:, :, :N_SERIES] = True
+                mask[::7, 0, 5] = False  # broken rows
+                out = fn(arena._mean, arena._t_seen, arena._version,
+                         arena._phi, arena._z, *arena._steady_leaves(),
+                         rows, real, y, mask, mode=mode, thresh=thresh,
+                         sequential=seq, min_seen=32,
+                         det=arena._det if det else None, det_min_seen=16,
+                         det_params=ARENA_DET)
+                torch.cuda.synchronize()
+                pair.append((out, arena, ref, rows))
+                rng = np.random.default_rng(SEED + 122)
+            (got, ka, kref, rows), (want, pa, _, _) = pair
+            case = (f"{mode} {'per-slot' if seq else 'vector'}"
+                    f"{' + detect' if det else ''}, B={ARENA_ROWS} "
+                    f"G={FLEET} k=1 (24, 32)")
+            fields = [f for f in ("sigma", "detf", "zscore", "det_stats")
+                      if getattr(want, f) is not None]
+            record("arena_steady_update", case, dtype, fields + ["mean"],
+                   [getattr(got, f).double() for f in fields] + [ka._mean],
+                   [getattr(want, f).double() for f in fields] + [pa._mean],
+                   bar, exact=[(got.applied, want.applied),
+                               (got.verdict, want.verdict),
+                               (ka._t_seen, pa._t_seen), (ka._fac, kref[1])]
+                   + ([(got.det_counts, want.det_counts)] if det else []))
+            require(bool(got.applied.any()) and not bool(got.applied.all()),
+                    f"K17 {case}: no frozen row beside broken ones")
+            unnamed = [r for r in range(ARENA_ROWS + 1)
+                       if r not in set(rows.tolist())]
+            skipped = [int(rows[i]) for i in
+                       torch.nonzero(~got.applied).flatten().tolist()]
+            require(rows_same(ka._dynamic() + (ka._det,), kref,
+                              unnamed + skipped),
+                    f"K17 {case}: an unapplied or unnamed row changed")
+        # K18
+        for sqrt in (False, True):
+            rng = np.random.default_rng(SEED + 124)
+            arena, _, _ = _arena_leaves(dtype, dev, sqrt, rng)
+            rows = _arena_rows(np.random.default_rng(SEED + 121))[3:]
+            hz = torch.arange(1, FORECAST_STEPS + 1, device=dev).to(dtype)
+            got = karena.arena_forecast_kernel(
+                arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+            want = karena.arena_forecast_plain(
+                arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+            torch.cuda.synchronize()
+            record("arena_forecast", f"{'sqrt' if sqrt else 'covariance'} "
+                   f"arena, G={len(rows)} H={FORECAST_STEPS}", dtype,
+                   ["means", "variances"], got, want, bar)
+    for c in checks:
+        emit({"phase": "kernel_check", **c})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+
+    # the main path's shapes, f32: one dispatch of FLEET rows, k = 1
+    dtype = torch.float32
+    timed = {"arena_update": ("joint", "off", None, False, 1e-4),
+             "arena_update_gated": ("gated", "reject", None, True, 1e-4),
+             "arena_update_sqrt": ("sqrt", "off", None, False, 1e-4)}
+    for key, (body, mode, lik, det, tol) in timed.items():
+        sqrt = body == "sqrt"
+        rng = np.random.default_rng(SEED + 125)
+        arena, y_next, m_next = _arena_leaves(dtype, dev, sqrt, rng)
+        rows = _arena_rows(np.random.default_rng(SEED + 121))
+        y, mask, real = _arena_dispatch(arena, rows, y_next, m_next, rng)
+        kw = k16_args(body, mode, lik, det, tol, arena, rows, y, mask, real)
+        leaves = arena._dynamic() + arena._static()
+        ms, _ = cuda_ms(lambda: karena.arena_update_kernel(
+            *leaves, rows, y, mask, **kw))
+        plain_ms, _ = cuda_ms(lambda: karena.arena_update_plain(
+            *leaves, rows, y, mask, **kw), reps=3, warm=1)
+        idx = torch.as_tensor(rows, device=dev).long()
+        z_g, q_g = arena._z[idx], arena._q[idx]
+        if sqrt:
+            zl = z_g.permute(1, 2, 0)
+            cost = k9_cost(zl, mask, torch.arange(len(rows), device=dev),
+                           False, True, 4)
+        elif body == "joint":
+            cost = k1_cost(z_g, q_g, mask, 4)
+        else:
+            cost = k12_cost(z_g, q_g, mask, 4)
+        extra = arena_tail_cost(len(rows), BUCKET[0], BUCKET[1], 1, 4, det)
+        bms, bby = bound_ms(cost[0] + extra[0],
+                            cost[1] + extra[1]
+                            + gate_cost(len(rows), BUCKET[1], sqrt),
+                            "float32")
+        times[key] = {
+            "shape": f"{body} {mode}{' + detect' if det else ''} + conv, "
+                     f"B={ARENA_ROWS} G={FLEET} k=1 (24, 32) f32 (one "
+                     "arena update dispatch)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bby}
+    rng = np.random.default_rng(SEED + 126)
+    arena, y_next, m_next = _arena_leaves(dtype, dev, False, rng)
+    arena._mean[2, 1] = 0.0
+    arena._steady.fill_(True)
+    srng = np.random.default_rng(SEED + 123)
+    arena._kgain.copy_(torch.as_tensor(srng.normal(
+        size=arena._kgain.shape) * 0.05))
+    rows = _arena_rows(np.random.default_rng(SEED + 121))
+    y, mask, real = _arena_dispatch(arena, rows, y_next, m_next, rng)
+    mask[:, :, :N_SERIES] = True
+    sargs = (arena._mean, arena._t_seen, arena._version, arena._phi,
+             arena._z, *arena._steady_leaves(), rows, real, y, mask)
+    skw = dict(mode="reject", thresh=thresh, sequential=True, min_seen=32,
+               det=arena._det, det_min_seen=16, det_params=ARENA_DET)
+    ms, _ = cuda_ms(lambda: karena.arena_steady_update_kernel(*sargs, **skw))
+    plain_ms, _ = cuda_ms(lambda: karena.arena_steady_update_plain(
+        *sargs, **skw), reps=3, warm=1)
+    idx = torch.as_tensor(rows, device=dev).long()
+    cost = k14_cost(arena._z[idx], arena._kgain[idx], mask, 4)
+    extra = arena_tail_cost(len(rows), BUCKET[0], BUCKET[1], 1, 4, True)
+    bms, bby = bound_ms(cost[0] + extra[0], cost[1] + extra[1], "float32")
+    times["arena_steady_update"] = {
+        "shape": f"reject per-slot + detect, B={ARENA_ROWS} G={FLEET} k=1 "
+                 "(24, 32) f32 (one steady arena dispatch)",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby}
+    for sqrt in (False, True):
+        rng = np.random.default_rng(SEED + 127)
+        arena, _, _ = _arena_leaves(dtype, dev, sqrt, rng)
+        arena._mean[2, 1] = 0.0
+        arena._fac[4] += 60 * torch.eye(BUCKET[1], dtype=dtype, device=dev)
+        rows = _arena_rows(np.random.default_rng(SEED + 121))
+        hz = torch.arange(1, FORECAST_STEPS + 1, device=dev).to(dtype)
+        fargs = (arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+        ms, _ = cuda_ms(lambda: karena.arena_forecast_kernel(*fargs))
+        plain_ms, _ = cuda_ms(lambda: karena.arena_forecast_plain(*fargs),
+                              reps=5, warm=1)
+        idx = torch.as_tensor(rows, device=dev).long()
+        nbytes, ops = k2_cost(arena._z[idx], arena._q[idx], FORECAST_STEPS,
+                              4)
+        nbytes += 4 * len(rows)
+        if sqrt:
+            ops += len(rows) * BUCKET[1] ** 3 / 3.0
+        bms, bby = bound_ms(nbytes, ops, "float32")
+        times["arena_forecast" + ("_sqrt" if sqrt else "")] = {
+            "shape": f"{'sqrt' if sqrt else 'covariance'} arena, "
+                     f"B={ARENA_ROWS} G={FLEET} H={FORECAST_STEPS} (24, 32) "
+                     "f32 (one arena forecast dispatch)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bby}
+    emit({"phase": "arena_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "fields", "rel_err",
+                           "norm", "bar", "max_abs_err_at", "ok")}
+        for c in checks], "times": times,
+        "seconds": time.perf_counter() - t_phase})
+    return checks, times
+
+
+def _fleet_states(engine, rng, t_hist, missing, poison=None):
+    """The flagship fleet's posteriors after a history pass of ``t_hist``
+    steps (f32, K1 or K9), as serving states, and each model's next
+    ARENA_STEADY_ROUNDS rows of its own data."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import (
+        chol_outer,
+        dfm_statespace,
+        kalman_filter,
+        sqrt_kalman_filter,
+    )
+    from metran_tpu_torch.serve import PosteriorState
+
+    dev = torch.device(DEVICE)
+    f32 = np.float32
+    y, mask, lds, a_s, a_c = make_workload(
+        rng, FLEET, t=t_hist + ARENA_STEADY_ROUNDS, missing=missing)
+    ss = dfm_statespace(a_s.astype(f32), a_c.astype(f32), lds.astype(f32),
+                        1.0, device=dev)
+    yh, mh = y[:, :t_hist].astype(f32), mask[:, :t_hist]
+    if engine == "sqrt":
+        res = sqrt_kalman_filter(ss, yh, mh, store=False)
+        chols = res.chol_f.cpu().numpy()
+        covs = chol_outer(res.chol_f).cpu().numpy()
+    else:
+        res = kalman_filter(ss, yh, mh, engine="joint", store=False)
+        covs, chols = res.cov_f.cpu().numpy(), [None] * FLEET
+    means = res.mean_f.cpu().numpy()
+    if poison is not None:
+        means[poison] = np.nan
+    names = tuple(f"s{j}" for j in range(N_SERIES))
+    states = [PosteriorState(
+        model_id=f"m{i}", version=0, t_seen=t_hist, mean=means[i],
+        cov=covs[i], params=np.concatenate([a_s[i], a_c[i]]).astype(f32),
+        loadings=lds[i].astype(f32), dt=1.0,
+        scaler_mean=np.zeros(N_SERIES, f32),
+        scaler_std=np.ones(N_SERIES, f32), names=names, chol=chols[i])
+        for i in range(FLEET)]
+    return states, y[:, t_hist:]
+
+
+def _arena_serving_run(name, engine, svc_kw, states, rows_by_round):
+    """One arena serving run: a per-request arena service, a bulk
+    (``update_batch``/``forecast_batch``) arena service and a dict
+    service on the same states and rows, rounds paired and rotated; then
+    forecasts.  A dispatch is timed from the first submit to the last
+    result (``update_dispatch_ms``: the bulk call is one function), and
+    the per-request services' flush alone, as the other serving phases
+    time it (``update_flush_ms``).  Returns the run's summary; its
+    ``launches`` are the arena services' own (launch deltas around their
+    dispatches)."""
+    import numpy as np
+
+    from metran_tpu_torch.kernels import launches
+    from metran_tpu_torch.serve import (
+        ArenaUpdateAck,
+        MetranService,
+        ModelRegistry,
+    )
+
+    ids = [st.model_id for st in states]
+    regs = {kind: ModelRegistry(engine=engine, arena=kind != "dict",
+                                arena_rows=ARENA_ROWS, device=DEVICE)
+            for kind in ("dict", "arena", "bulk")}
+    for reg in regs.values():
+        for st in states:
+            reg.put(st, persist=False)
+    svcs = {kind: MetranService(reg, flush_deadline=None, max_batch=1024,
+                                persist_updates=False, device=DEVICE,
+                                **svc_kw)
+            for kind, reg in regs.items()}
+    counts = {key: 0 for key in launches()}
+    walls = {kind: [] for kind in svcs}
+    flushes = {kind: [] for kind in ("dict", "arena")}
+    acks = {}
+
+    def submit_all(svc, submit, flush_walls=None):
+        """One flush of a request per model; each slot's result or the
+        exception it failed with (at submit: an open breaker).  The
+        flush alone — what the other serving phases time — goes to
+        ``flush_walls``."""
+        futs = []
+        for i, m in enumerate(ids):
+            try:
+                futs.append(submit(svc, i, m))
+            except Exception as exc:  # noqa: BLE001 - per-slot channel
+                futs.append(exc)
+        t0 = time.perf_counter()
+        svc.flush()
+        if flush_walls is not None:
+            flush_walls.append(time.perf_counter() - t0)
+        return [f if isinstance(f, Exception) else
+                (f.exception() or f.result()) for f in futs]
+
+    def dispatch(kind, obs):
+        svc = svcs[kind]
+        before = launches()
+        t0 = time.perf_counter()
+        if kind == "bulk":
+            out = svc.update_batch(ids, obs)
+        else:
+            out = submit_all(svc, lambda s, i, m: s.update_async(m, obs[i]),
+                             flushes[kind])
+        walls[kind].append(time.perf_counter() - t0)
+        if kind != "dict":
+            for key, v in launches().items():
+                counts[key] += v - before[key]
+        return out
+
+    order = ("dict", "arena", "bulk")
+    for r, obs in enumerate(rows_by_round):
+        for kind in order[r % 3:] + order[:r % 3]:
+            acks[kind] = dispatch(kind, obs)
+        for i in range(len(ids)):
+            a, b, d = acks["arena"][i], acks["bulk"][i], acks["dict"][i]
+            if isinstance(d, Exception):
+                require(type(a) is type(d) and isinstance(b, Exception),
+                        (name, ids[i], r, repr(a), repr(b), repr(d)))
+                continue
+            require(isinstance(a, ArenaUpdateAck) and a == b
+                    and (a.version, a.t_seen) == (d.version, d.t_seen),
+                    (name, ids[i], r, a, b, d))
+    fcs = {}
+    for kind, svc in svcs.items():
+        before = launches()
+        t0 = time.perf_counter()
+        if kind == "bulk":
+            fcs[kind] = svc.forecast_batch(ids, FORECAST_STEPS)
+        else:
+            fcs[kind] = submit_all(
+                svc, lambda s, i, m: s.forecast_async(m, FORECAST_STEPS))
+        walls[f"forecast_{kind}"] = [time.perf_counter() - t0]
+        if kind != "dict":
+            for key, v in launches().items():
+                counts[key] += v - before[key]
+    errs = {"mean": 0.0, "cov": 0.0, "fc_means": 0.0, "fc_vars": 0.0}
+    for i, mid in enumerate(ids):
+        d = regs["dict"].get(mid)
+        a = regs["arena"].get(mid)
+        b = regs["bulk"].get(mid)
+        require(a.version == b.version == d.version, (name, mid))
+        if i == ARENA_POISONED:
+            require(np.isnan(a.mean).all() and a.version == 0
+                    and np.array_equal(a.cov, states[i].cov),
+                    (name, "the poisoned row changed"))
+            continue
+        require(np.array_equal(a.mean, b.mean) and np.array_equal(a.cov,
+                                                                  b.cov),
+                (name, mid, "bulk and per-request arena differ"))
+        np.testing.assert_allclose(a.mean, d.mean, rtol=2e-5, atol=1e-6)
+        np.testing.assert_allclose(a.cov, d.cov, rtol=2e-5, atol=1e-6)
+        errs["mean"] = max(errs["mean"], float(np.abs(a.mean - d.mean).max()))
+        errs["cov"] = max(errs["cov"], float(np.abs(a.cov - d.cov).max()))
+        fa, fd = fcs["arena"][i], fcs["dict"][i]
+        require(fa.version == fd.version == fcs["bulk"][i].version,
+                (name, mid))
+        np.testing.assert_allclose(fa.means, fd.means, rtol=2e-5, atol=1e-6)
+        np.testing.assert_allclose(fa.variances, fd.variances, rtol=2e-5,
+                                   atol=1e-6)
+        errs["fc_means"] = max(errs["fc_means"],
+                               float(np.abs(fa.means - fd.means).max()))
+        errs["fc_vars"] = max(errs["fc_vars"], float(
+            np.abs(fa.variances - fd.variances).max()))
+    tallies = {}
+    for kind, svc in svcs.items():
+        tallies[kind] = {
+            "gate_verdicts": svc.gate_verdicts.snapshot(),
+            "robust_total": svc.robust_total.snapshot(),
+            "detect_total": svc.detect_total.snapshot(),
+            "steady_transitions": svc.steady_transitions.snapshot(),
+            "frozen": svc._steady_count(),
+            "poisoned_updates": svc.stats.get("poisoned_updates", 0)}
+        svc.close()
+    # the bulk path books no breaker: the poisoned model fails every round
+    # there, and until its breaker opens on the per-request paths
+    poisoned = {kind: t.pop("poisoned_updates") for kind, t in
+                tallies.items()}
+    for kind in ("arena", "bulk"):
+        require(tallies[kind] == tallies["dict"],
+                (name, kind, tallies[kind], tallies["dict"]))
+    require(poisoned["arena"] == poisoned["dict"] >= 1
+            and poisoned["bulk"] >= poisoned["arena"],
+            (name, "the poisoned model", poisoned))
+
+    def med(xs):
+        return float(np.median(xs)) * 1e3
+
+    summary = {
+        "run": name, "engine": engine, "fleet": len(ids),
+        "rounds": len(rows_by_round),
+        "update_dispatch_ms": {"arena": med(walls["arena"]),
+                               "bulk": med(walls["bulk"]),
+                               "dict": med(walls["dict"])},
+        "update_dispatch_ms_by_round": {
+            k: [w * 1e3 for w in walls[k]] for k in order},
+        "update_flush_ms": {k: med(v) for k, v in flushes.items()},
+        "forecast_dispatch_ms": {k: walls[f"forecast_{k}"][0] * 1e3
+                                 for k in svcs},
+        "arena_vs_dict_max_abs": errs, "tallies": tallies["arena"],
+        "launches": {k: v for k, v in counts.items() if v}}
+    emit({"phase": "arena_serving_run", **summary})
+    return summary, counts
+
+
+def _arena_evict_and_restart(all_states, all_rows):
+    """A registry of ARENA_EVICT_ROWS rows taking ARENA_EVICT_MODELS
+    models in batches of ARENA_EVICT_CHUNK: it must evict (spill) and reload, every
+    model served again and equal to a dict twin; then ``close()`` spills
+    the dirty rows and a fresh registry warm-starts from disk."""
+    import shutil
+
+    import numpy as np
+
+    from metran_tpu_torch.serve import MetranService, ModelRegistry
+
+    root = REPO / "chiprun_out" / "arena_spill"
+    shutil.rmtree(root, ignore_errors=True)
+    keep = [i for i in range(len(all_states))
+            if i != ARENA_POISONED][:ARENA_EVICT_MODELS]
+    sub = [all_states[i] for i in keep]
+    rows = all_rows[keep]
+    ids = [st.model_id for st in sub]
+    reg = ModelRegistry(root=root, arena=True, arena_rows=ARENA_EVICT_ROWS,
+                        device=DEVICE)
+    twin = ModelRegistry(arena=False)
+    for st in sub:
+        reg.put(st)
+        twin.put(st, persist=False)
+    svc = MetranService(reg, flush_deadline=None, max_batch=1024,
+                        device=DEVICE)
+    tsvc = MetranService(twin, flush_deadline=None, max_batch=1024,
+                         persist_updates=False, device=DEVICE)
+    for r in range(3):
+        for lo in range(0, ARENA_EVICT_MODELS, ARENA_EVICT_CHUNK):
+            chunk = ids[lo:lo + ARENA_EVICT_CHUNK]
+            for s in (svc, tsvc):
+                futs = [s.update_async(m, rows[lo + j, r:r + 1])
+                        for j, m in enumerate(chunk)]
+                s.flush()
+                for f in futs:
+                    f.result()
+    stats = reg.arena_stats
+    require(stats["evictions"] > 0 and stats["spills"] > 0
+            and stats["rows_resident"] == ARENA_EVICT_ROWS, stats)
+    before = {}
+    for m in ids:
+        a, d = reg.get(m), twin.get(m)
+        require(a.version == d.version == 3, (m, a.version, d.version))
+        np.testing.assert_allclose(a.mean, d.mean, rtol=2e-5, atol=1e-6)
+        before[m] = a
+    svc.close()  # spills the dirty rows
+    tsvc.close()
+    warm = ModelRegistry(root=root, arena=True, arena_rows=ARENA_EVICT_ROWS,
+                         device=DEVICE)
+    for m in ids:
+        back = warm.get(m)
+        require(back.version == 3 and np.array_equal(back.mean,
+                                                     before[m].mean)
+                and np.array_equal(back.cov, before[m].cov),
+                (m, "the warm restart differs from the spilled row"))
+    out = {"rows": ARENA_EVICT_ROWS, "models": ARENA_EVICT_MODELS,
+           **{k: stats[k] for k in ("loads", "evictions", "spills")},
+           "close_spilled": len(ids), "warm_restart_equal": True}
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_arena_serving():
+    """The arena serving path at the flagship width: FLEET = 512 models
+    (f32) after a history pass, each run on a per-request arena service
+    (``ModelRegistry(arena=True)``, arena_rows = 1024), a bulk arena
+    service (``update_batch``/``forecast_batch``) and a dict service
+    with the same states and traffic, rounds paired and rotated: joint
+    with ``GateSpec("reject")`` and detection; sqrt ungated; joint
+    robust censored with detection; steady (``SteadySpec(tol=1e-4,
+    min_seen=256)``) on joint gated and on sqrt after a fully observed
+    history.  One model is poisoned (NaN mean) and must fail alone, its
+    row unchanged.  Acks equal across the three round by round, the
+    arena's posteriors and forecasts within the f32 bars of the dict's
+    (rtol 2e-5, atol 1e-6; bulk bit for bit the per-request arena), the
+    booked verdicts, robust outcomes, detection and steady transitions
+    equal.  Then a 64-row registry takes 96 models (eviction, spill,
+    reload) and a ``close()`` spills for a warm restart.  Returns the
+    arena services' launch counts and the runs' summaries."""
+    import numpy as np
+
+    from metran_tpu_torch.serve import (
+        DetectSpec,
+        GateSpec,
+        RobustSpec,
+        SteadySpec,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 130)
+    gated = dict(gate=GateSpec("reject", nsigma=GATE_NSIGMA, min_seen=32),
+                 detect=DetectSpec(enabled=True))
+    runs, total = [], None
+
+    def rounds(rows, n, spike=True, nan=True, clip=None):
+        out = []
+        for r in range(n):
+            obs = np.array(rows[:, r:r + 1], dtype=float)
+            if nan and r == 1:
+                obs[::9, 0, 2] = np.nan
+            if spike and r == 2:
+                obs[10:30, 0, 4] += GATE_SPIKE
+            if clip is not None:
+                obs = np.clip(obs, -clip, clip)
+            out.append(obs)
+        return out
+
+    def add(result):
+        nonlocal total
+        summary, counts = result
+        runs.append(summary)
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+
+    joint_states, joint_rows = _fleet_states(
+        "joint", rng, T_STEPS, MISSING, poison=ARENA_POISONED)
+    add(_arena_serving_run("joint_gated_detect", "joint", gated,
+                           joint_states, rounds(joint_rows, ARENA_ROUNDS)))
+    add(_arena_serving_run(
+        "joint_robust_censored_detect", "joint",
+        dict(robust=RobustSpec("censored", rail_lo=-1.5, rail_hi=1.5,
+                               min_seen=32), detect=DetectSpec(enabled=True)),
+        joint_states, rounds(joint_rows, ARENA_ROUNDS, clip=1.5)))
+    sqrt_states, sqrt_rows = _fleet_states(
+        "sqrt", rng, T_STEPS, MISSING, poison=ARENA_POISONED)
+    add(_arena_serving_run("sqrt_ungated", "sqrt", {}, sqrt_states,
+                           rounds(sqrt_rows, ARENA_ROUNDS)))
+    steady = SteadySpec(tol=1e-4, min_seen=256)
+    for engine, kw in (("joint", dict(gated, steady=steady)),
+                       ("sqrt", dict(steady=steady))):
+        st, rows = _fleet_states(engine, rng, STEADY_HIST, 0.0,
+                                 poison=ARENA_POISONED)
+        add(_arena_serving_run(f"steady_{engine}", engine, kw, st,
+                               rounds(rows, ARENA_STEADY_ROUNDS, spike=False,
+                                      nan=False)))
+        require(runs[-1]["tallies"]["steady_transitions"].get("freeze", 0)
+                >= FLEET // 2, (engine, "the steady run froze too few"))
+    evict = _arena_evict_and_restart(joint_states, joint_rows)
+    for key in ("arena_update", "arena_update_sqrt", "arena_steady_update",
+                "arena_forecast"):
+        require(total[key] > 0, f"the arena path never launched {key}")
+    emit({"phase": "arena_serving", "runs": [
+        {k: r[k] for k in ("run", "update_dispatch_ms", "update_flush_ms",
+                           "forecast_dispatch_ms", "launches")}
+        for r in runs], "evict_restart": evict,
+        "launches": {k: v for k, v in total.items() if v},
+        "seconds": time.perf_counter() - t_phase})
+    return total, runs
+
+
 KERNELS = {
     "joint_filter_append": {
         "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
@@ -5556,6 +6386,25 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/dare.cu",
         "replaces": "metran_tpu/ops/kalman.py:1155",
     },
+    "arena_update": {
+        "source": "metran_tpu_torch/kernels/csrc/arena_gated.cu",
+        "replaces": "metran_tpu/serve/engine.py:1042",
+        # the joint family counts under the same name
+        "sources": ["metran_tpu_torch/kernels/csrc/arena_gated.cu",
+                    "metran_tpu_torch/kernels/csrc/arena_joint.cu"],
+    },
+    "arena_update_sqrt": {
+        "source": "metran_tpu_torch/kernels/csrc/arena_sqrt.cu",
+        "replaces": "metran_tpu/serve/engine.py:1042",
+    },
+    "arena_steady_update": {
+        "source": "metran_tpu_torch/kernels/csrc/arena_steady.cu",
+        "replaces": "metran_tpu/serve/engine.py:1337",
+    },
+    "arena_forecast": {
+        "source": "metran_tpu_torch/kernels/csrc/arena_forecast.cu",
+        "replaces": "metran_tpu/serve/engine.py:1473",
+    },
 }
 
 
@@ -5583,7 +6432,8 @@ def main() -> int:
     for phase in (phase_lanes_kernels, phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
-                  phase_robust_kernels, phase_steady_kernels):
+                  phase_robust_kernels, phase_steady_kernels,
+                  phase_arena_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
@@ -5613,6 +6463,7 @@ def main() -> int:
     paths["steady_serving"], steady = phase_steady_serving()
     paths["fixed_lag"] = phase_fixed_lag()
     emit({"phase": "steady_engines", "dispatch_ms": steady})
+    paths["arena_serving"], _ = phase_arena_serving()
     # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
     # fleet stderr's run through phases 6 and 7, checked last)
     with ProcessPoolExecutor(

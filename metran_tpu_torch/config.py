@@ -2,8 +2,8 @@
 PyTorch port.
 
 The serving knobs the port reads (batching, buckets, the engine, the
-reliability layer, the observation gate, robust updates and streaming
-detection) and the gradient-engine knob mirror the JAX package's
+state arena, the reliability layer, the observation gate, robust updates
+and streaming detection) and the gradient-engine knob mirror the JAX package's
 ``config.py`` (same names, same defaults, same ``METRAN_TPU_SERVE_*``
 and ``METRAN_TPU_GRAD_ENGINE`` environment overrides), so one
 deployment's settings drive either package.
@@ -29,6 +29,13 @@ SERVE_MAX_BATCH = 256  # a batch this full dispatches immediately
 SERVE_BUCKET_MULTIPLE = 8  # shape-bucket rounding for (n_series, n_state)
 SERVE_ENGINE = "joint"  # assimilation kernel: "joint", "sequential" or
 #                         "sqrt" (factored posteriors, PSD by construction)
+# device-resident state arena: OFF by default, the arena changes the
+# durability contract (updates persist on spill, not per request) and
+# the update() return type (an ack instead of a PosteriorState)
+SERVE_ARENA = 0  # 1 = serve from device-resident state arenas
+SERVE_ARENA_ROWS = 1024  # per-bucket arena capacity (rows preallocated)
+SERVE_ARENA_MESH = 0  # devices to shard each arena across (0 = single
+#                       device; -1 = every visible device)
 # reliability (reliability.policy wired into MetranService)
 SERVE_REQUEST_DEADLINE_S = 30.0  # hard cap on any sync service call
 SERVE_RETRY_ATTEMPTS = 2  # total attempts for transient failures
@@ -108,6 +115,13 @@ def serve_defaults() -> dict:
             "METRAN_TPU_SERVE_BUCKET_MULTIPLE", int, SERVE_BUCKET_MULTIPLE
         ),
         "engine": _env("METRAN_TPU_SERVE_ENGINE", str, SERVE_ENGINE),
+        "arena": _env("METRAN_TPU_SERVE_ARENA", int, SERVE_ARENA),
+        "arena_rows": _env(
+            "METRAN_TPU_SERVE_ARENA_ROWS", int, SERVE_ARENA_ROWS
+        ),
+        "arena_mesh": _env(
+            "METRAN_TPU_SERVE_ARENA_MESH", int, SERVE_ARENA_MESH
+        ),
         "request_deadline_s": _env(
             "METRAN_TPU_SERVE_DEADLINE_S", float, SERVE_REQUEST_DEADLINE_S
         ),

@@ -29,6 +29,12 @@
   per-slot (sequential gains) form;
 - :mod:`.dare` — K15, the steady-state DARE solve by Newton-Kleinman
   with doubled Lyapunov solves, and the frozen gains from it;
+- :mod:`.arena` — the state arena's in-place kernels: K16, the exact
+  update (gather, the engine's step body, the integrity gate, the
+  detection tail and the masked scatter; joint, sequential/gated/robust
+  and square-root families), K17, the frozen-gain update, and K18, the
+  forecast (imported as ``metran_tpu_torch.kernels.arena``: its plain
+  versions use the ops' detector statistics and convergence test);
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
@@ -38,7 +44,8 @@ Each wrapper (``joint_filter_append``, ``joint_filter_store``,
 ``rts_smooth``, ``sqrt_filter``, ``sqrt_filter_gated``,
 ``sqrt_filter_robust``, ``sqrt_smooth``, ``joint_adjoint``,
 ``gated_filter_append``, ``robust_filter_append``, ``detect_scan``,
-``steady_filter``, ``dare_gains``)
+``steady_filter``, ``dare_gains``, ``arena_update``,
+``arena_steady_update``, ``arena_forecast``)
 launches its kernel (``*_kernel``, which takes CUDA tensors only and
 raises if it cannot build or launch) on CUDA tensors and runs the plain
 version (``*_plain``) on CPU tensors; there is no fallback between

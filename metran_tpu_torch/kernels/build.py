@@ -48,7 +48,9 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
             "rts_smooth": 0, "sqrt_filter": 0, "sqrt_filter_gated": 0,
             "sqrt_smooth": 0, "joint_adjoint": 0, "gated_filter": 0,
             "detect": 0, "gated_filter_robust": 0, "sqrt_filter_robust": 0,
-            "steady_filter": 0, "dare": 0}
+            "steady_filter": 0, "dare": 0, "arena_update": 0,
+            "arena_update_sqrt": 0, "arena_steady_update": 0,
+            "arena_forecast": 0}
 
 
 def count_launch(name: str) -> None:
@@ -219,6 +221,26 @@ _SIGNATURES = {
     # phi, q, z, r, p_given, p_pred, p_filt, kgain, fdiag, kgain_seq,
     # fdiag_seq, B, N, S, newton, doubling, stream
     "dare": ("metran_dare", [_PTR] * 11 + [_INT] * 5 + [_PTR]),
+    # the K16 families (one signature): mean, fac, t_seen, version, phi,
+    # q, z, r, det, rows, y, mask, real, rail_lo, rail_hi, quantum,
+    # scale, ok, sigma, detf, zscore, verdict, iters, det_counts,
+    # det_stats, conv, thresh, nu, tol, nonconv_tol, c_floor, eps,
+    # steady_tol, cusum_k, cusum_h, lam, warm, lb_thresh, nsigma^2, tiny,
+    # min_seen, det_min_seen, validate, mode, G, k, N, S, stream
+    **{f"arena_{body}": (f"metran_arena_{body}",
+                         [_PTR] * 26 + [_DBL] * 14 + [_INT] * 8 + [_PTR])
+       for body in ("joint", "gated", "sqrt")},
+    # mean, t_seen, version, phi, z, steady, kgain, fdiag, det, rows,
+    # real, y, mask, applied, sigma, detf, zscore, verdict, det_counts,
+    # det_stats, thresh, cusum_k, cusum_h, lam, warm, lb_thresh,
+    # nsigma^2, tiny, min_seen, det_min_seen, policy, sequential, G, k, N,
+    # S, stream
+    "arena_steady": ("metran_arena_steady",
+                     [_PTR] * 20 + [_DBL] * 8 + [_INT] * 8 + [_PTR]),
+    # mean, fac, phi, q, z, r, rows, horizons, means, variances, G, H, N,
+    # S, sqrt, stream
+    "arena_forecast": ("metran_arena_forecast",
+                       [_PTR] * 10 + [_INT] * 5 + [_PTR]),
 }
 
 

@@ -30,79 +30,37 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "detect_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 
-__device__ inline float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ inline float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ inline float div(float a, float b) { return __fdiv_rn(a, b); }
-__device__ inline double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ inline double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ inline double div(double a, double b) { return __ddiv_rn(a, b); }
-
-template <typename T>
-__device__ inline T lb_q(T szz, T sz2, T nef, T tiny) {
-  const T rho = div(szz, sz2 > tiny ? sz2 : tiny);
-  return mul(mul(nef, rho), rho);
-}
-
+// The recursion is detectk::scan_slot (detect_step.cuh), which the arena
+// updates' detection tails share.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 detect_kernel(const T* __restrict__ state, const T* __restrict__ zs,
               const uint8_t* __restrict__ mask,
               const uint8_t* __restrict__ armed, T* __restrict__ state_out,
-              int32_t* __restrict__ counts, int B, int k, int N, double ck_d,
-              double ch_d, double lam_d, double warm_d, double qbar_d,
-              double abar_d, double tiny_d) {
+              int32_t* __restrict__ counts, int B, int k, int N,
+              detectk::Params p) {
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= B * N) return;
   const int b = gid / N, i = gid - (gid / N) * N;
-  const T ck = T(ck_d), ch = T(ch_d), lam = T(lam_d), warm = T(warm_d);
-  const T qbar = T(qbar_d), abar = T(abar_d), tiny = T(tiny_d);
-  const T zero = T(0), one = T(1);
   const T* st = state + (size_t)b * 6 * N + i;
-  T cpos = st[0], cneg = st[N], prev = st[2 * N], szz = st[3 * N];
-  T sz2 = st[4 * N], nef = st[5 * N];
-  const bool arm = armed[b] != 0;
-  int n_an = 0, n_cp = 0, n_lb = 0;
-  for (int t = 0; t < k; ++t) {
-    const size_t at = ((size_t)b * k + t) * N + i;
-    const T z_raw = zs[at];
-    const bool obs = mask[at] != 0 && arm && isfinite(z_raw);
-    if (!obs) continue;  // every row carried unchanged
-    const T z = z_raw;
-    if (mul(z, z) > abar) ++n_an;
-    T cp = add(add(cpos, z), -ck);
-    T cn = add(add(cneg, -z), -ck);
-    cp = cp < zero ? zero : cp;  // max(., 0), NaN kept as jnp.maximum
-    cn = cn < zero ? zero : cn;
-    if (cp > ch || cn > ch) {
-      ++n_cp;
-      cp = zero;
-      cn = zero;
-    }
-    cpos = cp;
-    cneg = cn;
-    const bool was = nef >= warm && lb_q(szz, sz2, nef, tiny) > qbar;
-    szz = add(mul(lam, szz), mul(z, prev));
-    sz2 = add(mul(lam, sz2), mul(z, z));
-    nef = add(mul(lam, nef), one);
-    prev = z;
-    const bool now = nef >= warm && lb_q(szz, sz2, nef, tiny) > qbar;
-    if (now && !was) ++n_lb;
-  }
+  T s[6];
+  for (int j = 0; j < 6; ++j) s[j] = st[(size_t)j * N];
+  int cnt[3];
+  const size_t at = (size_t)b * k * N + i;
+  detectk::scan_slot<T>(s, cnt, zs + at, mask + at, (size_t)N, k,
+                        armed[b] != 0, p);
   T* so = state_out + (size_t)b * 6 * N + i;
-  so[0] = cpos;
-  so[N] = cneg;
-  so[2 * N] = prev;
-  so[3 * N] = szz;
-  so[4 * N] = sz2;
-  so[5 * N] = nef;
+  for (int j = 0; j < 6; ++j) so[(size_t)j * N] = s[j];
   int32_t* co = counts + (size_t)b * 3 * N + i;
-  co[0] = n_an;
-  co[N] = n_cp;
-  co[2 * N] = n_lb;
+  co[0] = cnt[0];
+  co[N] = cnt[1];
+  co[2 * N] = cnt[2];
 }
 
 template <typename T>
@@ -113,10 +71,10 @@ int launch_detect(const void* state, const void* zs, const void* mask,
   const int total = B * N;
   if (total == 0) return 0;
   const int blocks = (total + kThreads - 1) / kThreads;
+  const detectk::Params p = {ck, ch, lam, warm, qbar, abar, tiny};
   detect_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)state, (const T*)zs, (const uint8_t*)mask,
-      (const uint8_t*)armed, (T*)state_out, (int32_t*)counts, B, k, N, ck, ch,
-      lam, warm, qbar, abar, tiny);
+      (const uint8_t*)armed, (T*)state_out, (int32_t*)counts, B, k, N, p);
   return (int)cudaGetLastError();
 }
 

@@ -24,10 +24,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "forecast_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 
+// The body is forecastk::moments_block (forecast_step.cuh), which the
+// arena forecast shares.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 forecast_kernel(const T* __restrict__ phi, const T* __restrict__ q,
@@ -36,49 +40,13 @@ forecast_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                 const T* __restrict__ horizons, T* __restrict__ means_out,
                 T* __restrict__ vars_out, int H, int N, int S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ph = reinterpret_cast<T*>(smem_raw);  // S*S state covariance at h
-  T* Zs = Ph + S * S;                       // N*S observation matrix
-  T* W = Zs + N * S;                        // N*S: (Z P_h) o Z
-  T* mh = W + N * S;                        // S state mean at h
-
   const int b = blockIdx.x / H;
   const int hi = blockIdx.x - b * H;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const T h = horizons[hi];
-  const T* phib = phi + (size_t)b * S;
-  const T* qb = q + (size_t)b * S * S;
-  const T* covb = cov + (size_t)b * S * S;
-
-  for (int i = tid; i < N * S; i += nt) Zs[i] = z[(size_t)b * N * S + i];
-  for (int i = tid; i < S; i += nt) mh[i] = pow(phib[i], h) * mean[(size_t)b * S + i];
-  for (int idx = tid; idx < S * S; idx += nt) {
-    const int i = idx / S, j = idx - (idx / S) * S;
-    const T lp = log(phib[i] * phib[j]);
-    const T pph = exp(h * lp);
-    const T den = expm1(lp);
-    const T geom = den == T(0) ? h : expm1(h * lp) / den;
-    Ph[idx] = pph * covb[idx] + geom * qb[idx];
-  }
-  __syncthreads();
-  // W[a, c] = (sum_j Z[a, j] P_h[j, c]) Z[a, c]
-  for (int idx = tid; idx < N * S; idx += nt) {
-    const int a = idx / S, c = idx - (idx / S) * S;
-    T acc = 0;
-    for (int j = 0; j < S; ++j) acc += Zs[a * S + j] * Ph[j * S + c];
-    W[idx] = acc * Zs[idx];
-  }
-  __syncthreads();
-  for (int a = tid; a < N; a += nt) {
-    T mu = 0, var = 0;
-    for (int j = 0; j < S; ++j) {
-      mu += mh[j] * Zs[a * S + j];
-      var += W[a * S + j];
-    }
-    const size_t o = ((size_t)b * H + hi) * N + a;
-    means_out[o] = mu;
-    vars_out[o] = (var > T(0) ? var : T(0)) + r[(size_t)b * N + a];
-  }
+  forecastk::moments_block<T>(
+      smem_raw, phi + (size_t)b * S, q + (size_t)b * S * S,
+      z + (size_t)b * N * S, r + (size_t)b * N, mean + (size_t)b * S,
+      cov + (size_t)b * S * S, horizons[hi], means_out, vars_out,
+      ((size_t)b * H + hi) * N, N, S);
 }
 
 template <typename T>
@@ -86,8 +54,7 @@ int launch_forecast(const void* phi, const void* q, const void* z,
                     const void* r, const void* mean, const void* cov,
                     const void* horizons, void* means_out, void* vars_out,
                     int B, int H, int N, int S, void* stream) {
-  const size_t smem =
-      sizeof(T) * ((size_t)S * S + 2 * (size_t)N * S + (size_t)S);
+  const size_t smem = sizeof(T) * forecastk::smem_elems<T>(N, S);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         forecast_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -59,23 +59,20 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "implicit_map.cuh"
+#include "gated_step.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-// the gate's policies, then the robust likelihoods (kRobust + the
-// likelihood's code in implicit_map.cuh)
-enum Policy { kOff = 0, kReject = 1, kHuber = 2, kInflate = 3, kRobust = 4 };
+using gatedk::kHuber;
+using gatedk::kInflate;
+using gatedk::kOff;
+using gatedk::kReject;
+using gatedk::kRobust;
+using gatedk::kThreads;
+using gatedk::RobustArgs;
 
-// the robust modes' extra inputs and outputs (unused by the gate)
-template <typename T>
-struct RobustArgs {
-  const T *rail_lo, *rail_hi, *quantum, *scale;  // (B, N)
-  double nu, tol, nonconv_tol, c_floor;
-  int* iters_out;  // (B, k, N)
-};
-
+// The step body is gatedk::filter_block (gated_step.cuh), which the
+// arena update shares.
 template <typename T, int kPolicy>
 __global__ void __launch_bounds__(kThreads)
 gated_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
@@ -87,145 +84,24 @@ gated_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                     T* __restrict__ sigma_out, T* __restrict__ detf_out,
                     T* __restrict__ z_out, int8_t* __restrict__ verdict_out,
                     RobustArgs<T> rob, int k, int N, int S) {
-  constexpr bool kRob = kPolicy >= kRobust;
-  constexpr int kLik = kRob ? kPolicy - kRobust : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* P = reinterpret_cast<T*>(smem_raw);  // S*S covariance
-  T* Zs = P + S * S;                       // N*S observation matrix
-  T* m = Zs + N * S;                       // S mean
-  T* ph = m + S;                           // S transition diagonal
-  T* d = ph + S;                           // S: P z_i
-  T* kg = d + S;                           // S: the gain d / f
-  __shared__ T s_v, s_f, s_sigma, s_detf;
-  __shared__ int s_use, s_map;
-
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const T* qb = q + (size_t)b * S * S;
-  const T* rb = r + (size_t)b * N;
-  const T thresh = T(thresh_d);
-  const bool arm = kPolicy != kOff && !kRob && armed[b] != 0;  // the gate
-  const T nan = T(NAN);
-
+  // the gate (or the robust mode) reads the flag; "off" never does
+  const bool armed_b = kPolicy != kOff && armed[b] != 0;
+  gatedk::filter_block<T, kPolicy>(smem_raw, phi, q, z, r, mean0, cov0, y,
+                                   mask, armed_b, thresh_d, sigma_out,
+                                   detf_out, z_out, verdict_out, rob, b, b,
+                                   k, N, S);
+  const gatedk::Smem<T> s = gatedk::carve<T>(smem_raw, N, S);
   for (int i = tid; i < S * S; i += kThreads)
-    P[i] = cov0[(size_t)b * S * S + i];
-  for (int i = tid; i < N * S; i += kThreads) Zs[i] = z[(size_t)b * N * S + i];
-  for (int i = tid; i < S; i += kThreads) {
-    m[i] = mean0[(size_t)b * S + i];
-    ph[i] = phi[(size_t)b * S + i];
-  }
-  __syncthreads();
-
-  for (int t = 0; t < k; ++t) {
-    const size_t row = (size_t)b * k + t;
-    const T* yt = y + row * N;
-    const uint8_t* mt = mask + row * N;
-    // predict (each thread owns its entries)
-    for (int i = tid; i < S; i += kThreads) m[i] = ph[i] * m[i];
-    for (int idx = tid; idx < S * S; idx += kThreads) {
-      const int i = idx / S, j = idx - (idx / S) * S;
-      P[idx] = ph[i] * P[idx] * ph[j] + qb[idx];
-    }
-    if (tid == 0) {
-      s_sigma = T(0);
-      s_detf = T(0);
-    }
-    __syncthreads();
-    for (int a = 0; a < N; ++a) {
-      const size_t zo = row * N + a;
-      if (mt[a] == 0) {  // block-uniform: the slot is unobserved
-        if (tid == 0) {
-          z_out[zo] = nan;
-          verdict_out[zo] = 0;
-          if (kRob) rob.iters_out[zo] = 0;
-        }
-        continue;
-      }
-      const T* za = Zs + a * S;
-      for (int i = tid; i < S; i += kThreads) {
-        T acc = 0;
-        for (int j = 0; j < S; ++j) acc += P[i * S + j] * za[j];
-        d[i] = acc;
-      }
-      __syncthreads();
-      if (tid == 0) {
-        T zm = 0, zd = 0;
-        for (int j = 0; j < S; ++j) zm += za[j] * m[j];
-        for (int j = 0; j < S; ++j) zd += za[j] * d[j];
-        const T v = yt[a] - zm;
-        const T f = zd + rb[a];
-        const T zs = v / sqrt(f);
-        const T score = zs * zs;
-        const bool hit = arm && score > thresh;
-        T vv = v, fe = f;
-        bool use = true;
-        if (kPolicy == kReject) use = !hit;
-        if (kPolicy == kHuber) vv = (hit ? sqrt(thresh / score) : T(1)) * v;
-        if (kPolicy == kInflate) fe = hit ? v * v / thresh : f;
-        // robust: an armed slot that flags is conditioned on its scalar
-        // MAP summary; the rank-1 update below then reads d for the gain
-        // and (s_hat - mu) / c, w / (1 + c w) for v and f
-        const size_t pa = (size_t)b * N + a;
-        const bool map = kRob && armed[b] != 0 &&
-                         imap::flags<T, kLik>(yt[a], rob.rail_lo[pa],
-                                              rob.rail_hi[pa]);
-        if (map) {
-          const T mu = yt[a] - v;  // z_i' m, as the JAX update forms it
-          const T cf = T(rob.c_floor);
-          const T c = zd < cf ? cf : zd;  // NaN passes, as jnp.maximum
-          const imap::Solve<T> sol = imap::map_solve<T, kLik>(
-              mu, c, yt[a], imap::slot_scale(rb[a], rob.scale[pa]),
-              rob.quantum[pa], rob.rail_lo[pa], rob.rail_hi[pa], rob.nu,
-              T(rob.tol), T(rob.nonconv_tol));
-          const T dev = imap::sub(sol.s_hat, mu);
-          vv = dev / c;
-          fe = sol.w / imap::add(T(1), imap::mul(c, sol.w));
-          s_sigma = imap::add(s_sigma, imap::add(imap::mul(dev, dev) / c,
-                                                 imap::mul(T(2), sol.f)));
-          s_detf = imap::add(s_detf, imap::m_log1p(imap::mul(c, sol.w)));
-          verdict_out[zo] = sol.nonconv ? imap::kNonconv : imap::kMap;
-          rob.iters_out[zo] = sol.iters;
-        } else {
-          if (use) {
-            s_sigma = s_sigma + vv * vv / fe;
-            s_detf = s_detf + log(fe);
-          }
-          verdict_out[zo] = hit ? (kPolicy == kReject ? 2 : 1) : 0;
-          if (kRob) rob.iters_out[zo] = 0;
-        }
-        s_v = vv;
-        s_f = fe;
-        s_use = use ? 1 : 0;
-        s_map = map ? 1 : 0;
-        z_out[zo] = kPolicy == kOff ? nan : zs;
-      }
-      __syncthreads();
-      if (s_use) {  // block-uniform
-        for (int i = tid; i < S; i += kThreads)
-          kg[i] = (kRob && s_map) ? d[i] : d[i] / s_f;
-        __syncthreads();
-        for (int i = tid; i < S; i += kThreads) m[i] = m[i] + kg[i] * s_v;
-        for (int idx = tid; idx < S * S; idx += kThreads) {
-          const int i = idx / S, j = idx - (idx / S) * S;
-          P[idx] = P[idx] - kg[i] * kg[j] * s_f;
-        }
-      }
-      __syncthreads();
-    }
-    if (tid == 0) {
-      sigma_out[row] = s_sigma;
-      detf_out[row] = s_detf;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < S * S; i += kThreads)
-    cov_out[(size_t)b * S * S + i] = P[i];
-  for (int i = tid; i < S; i += kThreads) mean_out[(size_t)b * S + i] = m[i];
+    cov_out[(size_t)b * S * S + i] = s.P[i];
+  for (int i = tid; i < S; i += kThreads) mean_out[(size_t)b * S + i] = s.m[i];
 }
 
 template <typename T>
 size_t gated_filter_smem(int N, int S) {
-  return sizeof(T) * ((size_t)S * S + (size_t)N * S + 4 * (size_t)S);
+  return sizeof(T) * gatedk::smem_elems<T>(N, S);
 }
 
 template <typename T, int kPolicy>

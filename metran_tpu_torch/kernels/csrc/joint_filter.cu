@@ -51,13 +51,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "joint_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-enum Mode { kCarry = 0, kBounds = 1, kStore = 2 };
+using jointk::kBounds;
+using jointk::kCarry;
+using jointk::kStore;
 
 // x0, x1: the segment boundaries (bounds); x0..x3: m_p, P_p, m_f, P_f
-// per step (store)
+// per step (store).  The step body is jointk::filter_block
+// (joint_step.cuh), which the joint arena update shares.
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
@@ -70,197 +75,22 @@ joint_filter_kernel(const T* __restrict__ phi, const T* __restrict__ q,
                     T* __restrict__ x2, T* __restrict__ x3, int k, int N,
                     int S, int seg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* P = reinterpret_cast<T*>(smem_raw);  // S*S covariance
-  T* Zs = P + S * S;                       // N*S observation matrix
-  T* KT = Zs + N * S;                      // N*S: Z_m P, then K'
-  T* Fm = KT + N * S;                      // N*N innovation covariance
-  T* L = Fm + N * N;                       // N*N its Cholesky factor
-  T* Hm = L + N * N;                       // S*N: K F (= (K' F)')
-  T* m = Hm + S * N;                       // S mean
-  T* ph = m + S;                           // S transition diagonal
-  T* v = ph + S;                           // N innovation
-  T* w = v + N;                            // N: L^-1 v
-  T* msk = w + N;                          // N: mask as 0/1
-  __shared__ int has_obs_s;
-  __shared__ int ok_s;
-
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const T* qb = q + (size_t)b * S * S;
-  const T* rb = r + (size_t)b * N;
-  // store: the carry leaving step t (read between barriers)
-  auto store_filtered = [&](int t) {
-    if (kMode != kStore) return;
-    const size_t st = (size_t)b * k + t;
-    for (int i = tid; i < S; i += nt) x2[st * S + i] = m[i];
-    for (int idx = tid; idx < S * S; idx += nt)
-      x3[st * S * S + idx] = P[idx];
-  };
-
-  for (int i = tid; i < S * S; i += nt) P[i] = cov0[(size_t)b * S * S + i];
-  for (int i = tid; i < N * S; i += nt) Zs[i] = z[(size_t)b * N * S + i];
-  for (int i = tid; i < S; i += nt) {
-    m[i] = mean0[(size_t)b * S + i];
-    ph[i] = phi[(size_t)b * S + i];
-  }
-
-  for (int t = 0; t < k; ++t) {
-    const T* yt = y + ((size_t)b * k + t) * N;
-    const uint8_t* mt = mask + ((size_t)b * k + t) * N;
-    if (tid == 0) has_obs_s = 0;
-    __syncthreads();
-    if (kMode == kBounds && t % seg == 0) {  // the carry entering it
-      const int n_seg = (k + seg - 1) / seg;
-      const size_t sb = (size_t)b * n_seg + t / seg;
-      for (int i = tid; i < S; i += nt) x0[sb * S + i] = m[i];
-      for (int idx = tid; idx < S * S; idx += nt) x1[sb * S * S + idx] = P[idx];
-    }
-    // predict (each thread owns its entries)
-    for (int i = tid; i < S; i += nt) m[i] = ph[i] * m[i];
-    for (int idx = tid; idx < S * S; idx += nt) {
-      const int i = idx / S, j = idx - (idx / S) * S;
-      P[idx] = ph[i] * P[idx] * ph[j] + qb[idx];
-    }
-    for (int a = tid; a < N; a += nt) msk[a] = mt[a] ? T(1) : T(0);
-    __syncthreads();
-    if (kMode == kStore) {  // the predicted moments of step t
-      const size_t st = (size_t)b * k + t;
-      for (int i = tid; i < S; i += nt) x0[st * S + i] = m[i];
-      for (int idx = tid; idx < S * S; idx += nt)
-        x1[st * S * S + idx] = P[idx];
-    }
-    // innovation and the (masked) rows of Z P
-    for (int a = tid; a < N; a += nt) {
-      T acc = 0;
-      for (int j = 0; j < S; ++j) acc += Zs[a * S + j] * m[j];
-      v[a] = mt[a] ? yt[a] - acc : T(0);
-      if (mt[a]) has_obs_s = 1;
-    }
-    for (int idx = tid; idx < N * S; idx += nt) {
-      const int a = idx / S, i = idx - (idx / S) * S;
-      T acc = 0;
-      for (int j = 0; j < S; ++j) acc += P[i * S + j] * Zs[a * S + j];
-      KT[idx] = msk[a] * acc;
-    }
-    __syncthreads();
-    if (!has_obs_s) {  // block-uniform: nothing observed at this step
-      if (tid == 0) {
-        sigma_out[(size_t)b * k + t] = 0;
-        detf_out[(size_t)b * k + t] = 0;
-      }
-      store_filtered(t);
-      __syncthreads();
-      continue;
-    }
-    // F = Z_m (P Z_m') + diag(r o mask + 1 - mask)
-    for (int idx = tid; idx < N * N; idx += nt) {
-      const int a = idx / N, c = idx - (idx / N) * N;
-      T acc = 0;
-      for (int i = 0; i < S; ++i) acc += Zs[a * S + i] * msk[a] * KT[c * S + i];
-      if (a == c) acc += (msk[a] != T(0) ? rb[a] : T(0)) + (T(1) - msk[a]);
-      Fm[idx] = acc;
-      L[idx] = acc;
-    }
-    if (tid == 0) ok_s = 1;
-    __syncthreads();
-    // right-looking Cholesky on the lower triangle of L
-    for (int c = 0; c < N; ++c) {
-      const T d = L[c * N + c];
-      if (!(d > T(0)) || !isfinite(d)) {  // block-uniform verdict
-        if (tid == 0) ok_s = 0;
-        break;
-      }
-      const T s = sqrt(d);
-      for (int rr = c + 1 + tid; rr < N; rr += nt) L[rr * N + c] /= s;
-      __syncthreads();
-      if (tid == 0) L[c * N + c] = s;
-      const int n2 = N - c - 1;
-      for (int idx = tid; idx < n2 * n2; idx += nt) {
-        const int rr = c + 1 + idx / n2, cc = c + 1 + idx % n2;
-        if (cc <= rr) L[rr * N + cc] -= L[rr * N + c] * L[cc * N + c];
-      }
-      __syncthreads();
-    }
-    __syncthreads();
-    for (int idx = tid; idx < N * N; idx += nt) {
-      const int a = idx / N, c = idx - (idx / N) * N;
-      if (c <= a && !isfinite(L[idx])) ok_s = 0;
-    }
-    __syncthreads();
-    if (!ok_s) {  // degraded step: carry the predicted moments
-      if (tid == 0) {
-        sigma_out[(size_t)b * k + t] = 0;
-        detf_out[(size_t)b * k + t] = INFINITY;
-      }
-      store_filtered(t);
-      __syncthreads();
-      continue;
-    }
-    // K' = L'^-1 L^-1 (Z_m P): column j of KT per thread; column S is v
-    for (int j = tid; j <= S; j += nt) {
-      if (j < S) {
-        for (int a = 0; a < N; ++a) {
-          T acc = KT[a * S + j];
-          for (int c = 0; c < a; ++c) acc -= L[a * N + c] * KT[c * S + j];
-          KT[a * S + j] = acc / L[a * N + a];
-        }
-        for (int a = N - 1; a >= 0; --a) {
-          T acc = KT[a * S + j];
-          for (int c = a + 1; c < N; ++c) acc -= L[c * N + a] * KT[c * S + j];
-          KT[a * S + j] = acc / L[a * N + a];
-        }
-      } else {
-        for (int a = 0; a < N; ++a) {
-          T acc = v[a];
-          for (int c = 0; c < a; ++c) acc -= L[a * N + c] * w[c];
-          w[a] = acc / L[a * N + a];
-        }
-      }
-    }
-    __syncthreads();
-    // m += K v and (K' F)' into Hm; the step's likelihood terms
-    for (int i = tid; i < S; i += nt) {
-      T acc = 0;
-      for (int a = 0; a < N; ++a) acc += KT[a * S + i] * v[a];
-      m[i] = m[i] + acc;
-    }
-    for (int idx = tid; idx < S * N; idx += nt) {
-      const int i = idx / N, c = idx - (idx / N) * N;
-      T acc = 0;
-      for (int a = 0; a < N; ++a) acc += KT[a * S + i] * Fm[a * N + c];
-      Hm[idx] = acc;
-    }
-    if (tid == 0) {
-      T sg = 0, lg = 0;
-      for (int a = 0; a < N; ++a) {
-        sg += w[a] * w[a];
-        lg += log(L[a * N + a]);
-      }
-      sigma_out[(size_t)b * k + t] = sg;
-      detf_out[(size_t)b * k + t] = T(2) * lg;
-    }
-    __syncthreads();
-    // P -= (K' F)' K'
-    for (int idx = tid; idx < S * S; idx += nt) {
-      const int i = idx / S, j = idx - (idx / S) * S;
-      T acc = 0;
-      for (int c = 0; c < N; ++c) acc += Hm[i * N + c] * KT[c * S + j];
-      P[idx] = P[idx] - acc;
-    }
-    __syncthreads();
-    store_filtered(t);
-  }
-  __syncthreads();
+  jointk::filter_block<T, kMode>(smem_raw, phi, q, z, r, mean0, cov0, y,
+                                 mask, sigma_out, detf_out, x0, x1, x2, x3,
+                                 b, b, k, N, S, seg);
   if (kMode == kStore) return;  // the last stored step is the carry
-  for (int i = tid; i < S * S; i += nt) cov_out[(size_t)b * S * S + i] = P[i];
-  for (int i = tid; i < S; i += nt) mean_out[(size_t)b * S + i] = m[i];
+  const jointk::Smem<T> s = jointk::carve<T>(smem_raw, N, S);
+  for (int i = tid; i < S * S; i += nt)
+    cov_out[(size_t)b * S * S + i] = s.P[i];
+  for (int i = tid; i < S; i += nt) mean_out[(size_t)b * S + i] = s.m[i];
 }
 
 template <typename T>
 size_t joint_filter_smem(int N, int S) {
-  return sizeof(T) * ((size_t)S * S + 2 * (size_t)N * S + 2 * (size_t)N * N +
-                      (size_t)S * N + 2 * (size_t)S + 3 * (size_t)N);
+  return sizeof(T) * jointk::smem_elems<T>(N, S);
 }
 
 template <typename T, int kMode>

@@ -1,6 +1,7 @@
-"""Online serving: posterior states, registry, batcher, the service with
-its reliability layer, observation gate, robust updates, streaming
-detection, steady-state (frozen-gain) serving and fixed-lag smoothing."""
+"""Online serving: posterior states, registry (dict or device-resident
+state arena), batcher, the service with its reliability layer,
+observation gate, robust updates, streaming detection, steady-state
+(frozen-gain) serving and fixed-lag smoothing."""
 
 from .batching import MicroBatcher, Request
 from .engine import (
@@ -9,6 +10,9 @@ from .engine import (
     GateSpec,
     RobustSpec,
     SteadySpec,
+    make_arena_forecast_fn,
+    make_arena_steady_update_fn,
+    make_arena_update_fn,
     make_forecast_fn,
     make_steady_update_fn,
     make_update_fn,
@@ -19,17 +23,22 @@ from .engine import (
 )
 from .monitoring import Alert, AlertBoard, DetectorMirror
 from .registry import ModelRegistry
-from .service import Forecast, MetranService
+from .service import ArenaUpdateAck, Forecast, MetranService
 from .smoothing import FixedLagTracker, SmoothedWindow
 from .state import (
     STATE_FORMAT_VERSION,
+    ArenaLostError,
+    ModelMeta,
     PosteriorState,
+    StateArena,
     posterior_state_from_metran,
 )
 
 __all__ = [
     "Alert",
     "AlertBoard",
+    "ArenaLostError",
+    "ArenaUpdateAck",
     "BucketBatch",
     "DetectSpec",
     "DetectorMirror",
@@ -38,13 +47,18 @@ __all__ = [
     "GateSpec",
     "MetranService",
     "MicroBatcher",
+    "ModelMeta",
     "ModelRegistry",
     "PosteriorState",
     "Request",
     "RobustSpec",
     "STATE_FORMAT_VERSION",
     "SmoothedWindow",
+    "StateArena",
     "SteadySpec",
+    "make_arena_forecast_fn",
+    "make_arena_steady_update_fn",
+    "make_arena_update_fn",
     "make_forecast_fn",
     "make_steady_update_fn",
     "make_update_fn",

@@ -23,6 +23,15 @@ never touches the gain, the likelihood terms or the real slots; a
 padded state slot starts at the filter's ``N(0, 1)`` init with zero
 cross-covariance and stays decoupled.
 
+The arena half (:func:`make_arena_update_fn`,
+:func:`make_arena_steady_update_fn`, :func:`make_arena_forecast_fn`)
+serves a :class:`~metran_tpu_torch.serve.state.StateArena`'s resident
+leaves in place: one launch of K16 (the exact update fused with the
+integrity gate, the detection tail and the masked scatter), K17 (the
+frozen-gain update) or K18 (the forecast) per dispatch, through
+:mod:`metran_tpu_torch.kernels.arena` (its plain versions on CPU
+leaves).
+
 The fused horizon pass (the read path) and the parallel-in-time engine
 come in later slices; asking for them raises with the ROADMAP item.
 """
@@ -35,6 +44,13 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, serve_defaults
+from ..kernels.arena import (
+    NEVER_ARMED,
+    ArenaRobust,
+    arena_forecast,
+    arena_steady_update,
+    arena_update,
+)
 from ..ops import (
     GATE_POLICIES,
     detect_append,
@@ -745,5 +761,251 @@ def make_steady_update_fn(gate: Optional[GateSpec] = None,
         def fn(ss, mean, kgain, fdiag, real, y_new, mask_new):
             return core(ss, mean, kgain, fdiag, real, y_new, mask_new,
                         False)[0]
+
+    return fn
+
+
+# ----------------------------------------------------------------------
+# arena-native kernels: gather -> update -> gate -> scatter, in place
+# ----------------------------------------------------------------------
+def make_arena_update_fn(engine: str = "joint",
+                         gate: Optional[GateSpec] = None,
+                         validate: bool = True, horizons=None,
+                         steady_tol: float = 0.0,
+                         detect: Optional[DetectSpec] = None,
+                         robust: Optional[RobustSpec] = None):
+    """The **arena** assimilation function (in place, one K16 launch).
+
+    ``fn(dynamic, static, rows, y, mask[, min_seen]) -> (dynamic, ok,
+    sigma, detf[, zscore, verdict])`` where ``dynamic``/``static`` are a
+    :class:`~metran_tpu_torch.serve.state.StateArena`'s leaf tuples
+    (``(mean, fac, t_seen, version)``, ``(phi, q, z, r)``), ``rows`` the
+    (G,) row of each request's model (DISTINCT within one call — the
+    service's per-model rounds guarantee it; a repeat raises) and
+    ``y``/``mask`` (G, k, N).  The dynamic leaves are updated in place:
+    the kernel gathers the G rows, runs the engine's step body (K1 on
+    the joint engine ungated, K12 on the sequential engine and for every
+    gated, detecting or robust covariance registry, K9 on the square-root
+    engine), the on-device integrity gate (JAX's ``_arena_posterior_ok``;
+    plain form :func:`~metran_tpu_torch.kernels.arena.posterior_ok_plain`,
+    skipped when ``validate`` is off) and writes back only the rows that
+    passed, advancing their ``t_seen``/``version`` by ``k``/1 — a
+    rejected row stays exactly as it was.
+
+    With an enabled ``gate`` the per-row ``armed`` flag comes from the
+    resident ``t_seen`` against ``min_seen`` on the device, and the
+    z-scores and int8 verdicts (G, k, N) follow ``detf``.  With ``steady_
+    tol > 0`` a trailing ``real`` ((G, N) true-slot flags) argument
+    joins the signature and a (G,) ``conv`` flag
+    (:func:`metran_tpu_torch.ops.steady_converged` on the device) rides
+    last.  With an enabled ``detect`` the signature is ``fn(dynamic,
+    static, det, rows, y, mask, min_seen, real, det_min_seen)`` with the
+    (B, 6, N) detector leaf advanced in place and ``(det_counts,
+    det_stats)`` appended last, the detector leaf returned second; a row
+    the integrity gate rejects keeps its detector state bit for bit and
+    books zero counts.  With an enabled ``robust`` (exclusive with the
+    gate) four (G, N) per-slot parameter arrays ``rail_lo, rail_hi,
+    quantum, scale`` follow ``min_seen`` and ``(zscore, verdict, iters)``
+    follow ``detf``.  Signatures and output order are the JAX
+    package's; ``horizons`` raises :class:`~metran_tpu_torch.ops.kalman.
+    NotPortedError` (ROADMAP A4.5).
+    """
+    if engine == "sqrt_parallel":
+        raise _not_ported("sqrt_parallel")
+    if engine not in ("joint", "sequential", "sqrt"):
+        raise ValueError(f"unknown serve engine {engine!r}")
+    if horizons:
+        raise _not_ported("horizons")
+    sqrt_engine = engine == "sqrt"
+    gated = gate is not None and gate.enabled
+    det_on = detect is not None and detect.enabled
+    robust_on = robust is not None and robust.enabled
+    if det_on:
+        detect.validate()
+    if robust_on:
+        robust.validate()
+        if gated:
+            raise ValueError(
+                "gate and robust are mutually exclusive on one arena "
+                "update kernel; arm one of them")
+    if gated:
+        gate.validate()
+    steady_tol = float(steady_tol)
+    # the step body: K9's on the square-root engine; K1's only for a
+    # joint registry with nothing armed (an armed gate, detection or a
+    # robust likelihood run the sequential body, as in the JAX package)
+    if sqrt_engine:
+        body = "sqrt"
+    elif engine == "joint" and not (gated or det_on or robust_on):
+        body = "joint"
+    else:
+        body = "gated"
+    gaussian = robust_on and robust.likelihood == "gaussian"
+    map_robust = robust_on and not gaussian
+    thresh = 16.0
+    if gated:
+        mode, thresh = gate.policy, float(gate.nsigma) ** 2
+    elif det_on or gaussian:
+        # z-scores from the gated body with the gate never armed: the
+        # plain update's posterior, bit for bit
+        mode = "reject"
+    else:
+        mode = "off"
+    never_armed = (det_on and not gated and not robust_on) or gaussian
+    dpar = detect.kernel_params if det_on else None
+
+    def run(dyn, static, det_a, rows, y, mask, min_seen, rob_args, real,
+            det_min_seen):
+        mean, fac, t_seen, version = dyn
+        phi, q, z, r = static
+        rob = None
+        if map_robust:
+            rob = ArenaRobust(robust.likelihood, float(robust.nu), *(
+                torch.as_tensor(a, dtype=mean.dtype, device=mean.device)
+                for a in rob_args))
+        floor = NEVER_ARMED if never_armed else int(min_seen or 0)
+        out = arena_update(
+            mean, fac, t_seen, version, phi, q, z, r, rows, y, mask,
+            body=body, mode=mode, thresh=thresh, min_seen=floor,
+            robust=rob, validate=validate, steady_tol=steady_tol,
+            real=real, det=det_a,
+            det_min_seen=int(det_min_seen or 0), det_params=dpar)
+        rest = (out.ok, out.sigma, out.detf)
+        if robust_on:
+            iters = (out.iters if map_robust else torch.zeros(
+                out.zscore.shape, dtype=torch.int32,
+                device=out.zscore.device))
+            rest += (out.zscore, out.verdict, iters)
+        elif gated:
+            rest += (out.zscore, out.verdict)
+        if steady_tol > 0.0:
+            rest += (out.conv,)
+        if det_on:
+            return (dyn, det_a) + rest + (out.det_counts, out.det_stats)
+        return (dyn,) + rest
+
+    if det_on and robust_on:
+        def fn(dyn, static, det_a, rows, y, mask, min_seen, rail_lo,
+               rail_hi, quantum, scale, real, det_min_seen):
+            return run(dyn, static, det_a, rows, y, mask, min_seen,
+                       (rail_lo, rail_hi, quantum, scale), real,
+                       det_min_seen)
+    elif det_on:
+        def fn(dyn, static, det_a, rows, y, mask, min_seen, real,
+               det_min_seen):
+            return run(dyn, static, det_a, rows, y, mask, min_seen, None,
+                       real, det_min_seen)
+    elif robust_on and steady_tol > 0.0:
+        def fn(dyn, static, rows, y, mask, min_seen, rail_lo, rail_hi,
+               quantum, scale, real):
+            return run(dyn, static, None, rows, y, mask, min_seen,
+                       (rail_lo, rail_hi, quantum, scale), real, None)
+    elif robust_on:
+        def fn(dyn, static, rows, y, mask, min_seen, rail_lo, rail_hi,
+               quantum, scale):
+            return run(dyn, static, None, rows, y, mask, min_seen,
+                       (rail_lo, rail_hi, quantum, scale), None, None)
+    elif gated and steady_tol > 0.0:
+        def fn(dyn, static, rows, y, mask, min_seen, real):
+            return run(dyn, static, None, rows, y, mask, min_seen, None,
+                       real, None)
+    elif gated:
+        def fn(dyn, static, rows, y, mask, min_seen):
+            return run(dyn, static, None, rows, y, mask, min_seen, None,
+                       None, None)
+    elif steady_tol > 0.0:
+        def fn(dyn, static, rows, y, mask, real):
+            return run(dyn, static, None, rows, y, mask, None, None, real,
+                       None)
+    else:
+        def fn(dyn, static, rows, y, mask):
+            return run(dyn, static, None, rows, y, mask, None, None, None,
+                       None)
+    return fn
+
+
+def make_arena_steady_update_fn(gate: Optional[GateSpec] = None,
+                                horizons=None,
+                                sequential_gate: bool = False,
+                                detect: Optional[DetectSpec] = None):
+    """The **arena steady** (frozen-gain) update (in place, one K17
+    launch).
+
+    ``fn(dynamic, static, steady_leaves, rows, real, y, mask[, min_seen])
+    -> (dynamic, applied, sigma, detf[, zscore, verdict])`` where
+    ``steady_leaves`` is the arena's ``(steady, kgain, fdiag)``: per row
+    the mean-only append through the resident frozen gain (K14's body);
+    a row is ``applied`` only when its resident ``steady`` flag is set
+    AND nothing broke time-invariance (a missing slot, a ``reject``/
+    ``inflate`` hit, a non-finite mean).  Applied rows write their mean
+    and advance ``t_seen``/``version``; the rest stay bit for bit as they
+    were and the service replays them through the exact update.  The
+    factor leaf is never touched.  With an enabled ``detect`` the
+    signature is ``fn(dynamic, static, steady_leaves, det, rows, real,
+    y, mask, min_seen, det_min_seen)`` with the detector leaf returned
+    second and ``(det_counts, det_stats)`` last (unapplied rows carry
+    their state and book zero counts).  ``horizons`` raises
+    :class:`~metran_tpu_torch.ops.kalman.NotPortedError` (A4.5).
+    """
+    if horizons:
+        raise _not_ported("horizons")
+    gated = gate is not None and gate.enabled
+    det_on = detect is not None and detect.enabled
+    if det_on:
+        detect.validate()
+    if gated:
+        gate.validate()
+        mode, thresh = gate.policy, float(gate.nsigma) ** 2
+    else:
+        mode, thresh = "off", 16.0
+    seq = bool(sequential_gate) and gated
+    dpar = detect.kernel_params if det_on else None
+
+    def run(dyn, static, steady_leaves, det_a, rows, real, y, mask,
+            min_seen, det_min_seen):
+        mean, _fac, t_seen, version = dyn
+        phi, _q, z, _r = static
+        steady, kgain, fdiag = steady_leaves
+        out = arena_steady_update(
+            mean, t_seen, version, phi, z, steady, kgain, fdiag, rows,
+            real, y, mask, mode=mode, thresh=thresh, sequential=seq,
+            min_seen=int(min_seen or 0), det=det_a,
+            det_min_seen=int(det_min_seen or 0), det_params=dpar)
+        rest = (out.applied, out.sigma, out.detf)
+        if gated:
+            rest += (out.zscore, out.verdict)
+        if det_on:
+            return (dyn, det_a) + rest + (out.det_counts, out.det_stats)
+        return (dyn,) + rest
+
+    if det_on:
+        def fn(dyn, static, steady_leaves, det_a, rows, real, y, mask,
+               min_seen, det_min_seen):
+            return run(dyn, static, steady_leaves, det_a, rows, real, y,
+                       mask, min_seen, det_min_seen)
+    elif gated:
+        def fn(dyn, static, steady_leaves, rows, real, y, mask, min_seen):
+            return run(dyn, static, steady_leaves, None, rows, real, y,
+                       mask, min_seen, None)
+    else:
+        def fn(dyn, static, steady_leaves, rows, real, y, mask):
+            return run(dyn, static, steady_leaves, None, rows, real, y,
+                       mask, None, None)
+    return fn
+
+
+def make_arena_forecast_fn(steps: int, sqrt: bool = False):
+    """The **arena** forecast (read-only, one K18 launch): ``fn(mean, fac,
+    static, rows) -> (means, variances)`` of shape (G, steps, N),
+    standardized units — the rows gathered, covariances reconstituted
+    from the factors on a square-root arena, and the closed-form horizon
+    moments of :func:`make_forecast_fn`."""
+    steps = int(steps)
+
+    def fn(mean_a, fac_a, static, rows):
+        horizons = torch.arange(1, steps + 1, device=mean_a.device).to(
+            mean_a.dtype)
+        return arena_forecast(mean_a, fac_a, *static, rows, horizons,
+                              sqrt=bool(sqrt))
 
     return fn

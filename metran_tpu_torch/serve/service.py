@@ -74,10 +74,20 @@ Port of the dict-registry core of the JAX package's
   :class:`~metran_tpu_torch.serve.smoothing.FixedLagTracker` observes
   every commit; :meth:`MetranService.smoothed` answers the trailing
   window (K9 ``store`` from the anchor, then K10).
+- **The state arena** (``ModelRegistry(arena=True)``): each bucket's
+  posteriors stay resident on the device and a dispatch sends up only
+  row indices and the new observations.  An update is one in-place
+  launch of K16 (gather, the engine's step, the integrity gate,
+  detection, the masked scatter), frozen rows one of K17 first; a
+  forecast one of K18.  Updates resolve to :class:`ArenaUpdateAck`\\ s
+  (the posterior stays on the device; ``registry.get`` reads it back);
+  ``update_batch``/``forecast_batch`` serve whole fleet ticks with
+  vectorized host work; durability is the spill on ``close()``.
 
-The dispatch runs on the service's device (default: the CUDA card).
-The read path, refit, the arena, durability, the cluster and the
-observability layers come in later slices: asking for them raises
+The dispatch runs on the service's device (default: the CUDA card; an
+arena dispatch on its arena's device).  The read path, refit,
+durability, the cluster and the observability layers come in later
+slices: asking for them raises
 :class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming the
 ROADMAP item (A4, A7).
 """
@@ -269,6 +279,18 @@ class _SteadyInfo(NamedTuple):
     loadings_ref: object
 
 
+class ArenaUpdateAck(NamedTuple):
+    """What an **arena** update resolves to: the commit acknowledgement
+    — the bumped ``version`` and ``t_seen``, the tokens a
+    :class:`PosteriorState` result carried — instead of a materialized
+    state (the posterior stays on the device; ``service.registry.
+    get(model_id)`` reads it back when needed)."""
+
+    model_id: str
+    version: int
+    t_seen: int
+
+
 class Forecast(NamedTuple):
     """Forecast of one model, data units: ``means``/``variances`` are
     (steps, n_series); ``version`` the posterior version served."""
@@ -450,8 +472,10 @@ class MetranService:
         the per-model gate window (:meth:`~metran_tpu_torch.reliability.
         HealthMonitor.snapshot`), batcher liveness and depth, open
         breakers, lifetime error counters, the registry's integrity
-        events and, with the gate, robust updates, steady-state serving,
-        fixed-lag smoothing or detection armed, their tallies."""
+        events, on an arena registry its occupancy and the spill-mode
+        durability lag and, with the gate, robust updates, steady-state
+        serving, fixed-lag smoothing or detection armed, their
+        tallies."""
         alive = self.batcher.worker_alive() and not self.batcher.closed
         extra = {
             "ready": self._ready(),
@@ -468,6 +492,14 @@ class MetranService:
             "errors": self.stats,
             "integrity": self.registry.integrity_stats,
         }
+        if self.registry.arena_enabled:
+            extra["arena"] = self.registry.arena_stats
+            age = self.registry.last_spill_age()
+            extra["durability"] = {
+                "mode": "spill",
+                "last_spill_age_s": None if age is None else round(age, 4),
+                "unsynced_commits": None,  # unbounded: no WAL armed
+            }
         if self.gate.enabled:
             extra["gate_verdicts"] = self.gate_verdicts.snapshot()
         if self.robust.enabled:
@@ -505,8 +537,22 @@ class MetranService:
         the stream position of the last alarm and the flagged slots."""
         self._require_detect()
         if model_id is not None:
-            self.registry.get(model_id)  # unknown ids raise KeyError
-        return self.detector.snapshot(model_id)
+            self.registry.meta(model_id)  # unknown ids raise KeyError
+        snap = self.detector.snapshot(model_id)
+        if self.registry.arena_enabled:
+            # arena rows keep their accumulators on the device: live
+            # statistics from one read of each arena's detector leaf
+            live = self.registry.arena_detect_stats(model_id)
+            for mid, (stats, _n, version, t_seen) in live.items():
+                entry = snap.setdefault(mid, {
+                    "anomalies": 0, "cusum_alarms": 0, "lb_alarms": 0,
+                    "last_alarm_t_seen": None, "slots_flagged": {},
+                })
+                entry.update(version=version, t_seen=t_seen,
+                             cusum_pos=stats[0].tolist(),
+                             cusum_neg=stats[1].tolist(),
+                             lb_q=stats[2].tolist())
+        return snap
 
     def alerts(self, model_id: Optional[str] = None,
                active_only: bool = True) -> list:
@@ -520,6 +566,8 @@ class MetranService:
     # ------------------------------------------------------------------
     def _steady_count(self) -> int:
         """Models currently frozen."""
+        if self.registry.arena_enabled:
+            return self.registry.steady_rows_count()
         return len(self._steady_info)
 
     def _book_steady(self, kind: str, model_id: str, **detail) -> None:
@@ -621,7 +669,7 @@ class MetranService:
                 "fixed-lag smoothing is disabled; construct the service "
                 "with fixed_lag=L or set METRAN_TPU_SERVE_FIXED_LAG"
             )
-        self.registry.get(model_id)  # unknown ids raise KeyError here
+        self.registry.meta(model_id)  # unknown ids raise KeyError here
         return self.smoother.smooth(model_id, lag)
 
     def _observe_smoother(self, model_id: str, y_std, mask,
@@ -672,12 +720,15 @@ class MetranService:
         self._observe(fut, "forecast", breaker, token)
         return fut
 
-    def _known_state(self, kind: str, model_id: str) -> PosteriorState:
-        """The registry's state of a known model; a model whose stored
-        state is bad books a failure against its breaker (unknown ids
-        earn no breaker state)."""
+    def _known_state(self, kind: str, model_id: str):
+        """The submit-path view of a known model (``registry.meta``: the
+        state on a dict registry, the host-side :class:`~metran_tpu_torch.
+        serve.state.ModelMeta` on an arena one, which also makes the
+        model resident); a model whose stored state is bad books a
+        failure against its breaker (unknown ids earn no breaker
+        state)."""
         try:
-            return self.registry.get(model_id)
+            return self.registry.meta(model_id)
         except StateIntegrityError:
             self.breakers.get(model_id).record_failure()
             self.monitor.record(False)
@@ -960,11 +1011,19 @@ class MetranService:
                 return total
 
     # ------------------------------------------------------------------
-    # bulk API (per-request path on a dict registry)
+    # bulk API (the arena's native path; per-request on a dict registry)
     # ------------------------------------------------------------------
     def update_batch(self, model_ids, new_obs) -> list:
-        """One fleet tick: ``k`` rows for G distinct models.  Returns one
-        :class:`PosteriorState` or exception per model, in order."""
+        """One fleet tick: ``k`` rows for G distinct models, ``new_obs``
+        (G, k, n) or a sequence of (k, n_i) arrays (data units, NaN =
+        missing).  Returns one entry per model, in order: an
+        :class:`ArenaUpdateAck` on an arena registry (one dispatch per
+        bucket, validation and standardization vectorized against the
+        arena's host mirrors), a :class:`PosteriorState` on a dict
+        registry (the per-request path), or the exception that failed
+        that model alone.  Per-model ordering against concurrently
+        in-flight async updates of the same model is not chained here —
+        a fleet feed owns its tick ordering."""
         ids = [str(m) for m in model_ids]
         if len(set(ids)) != len(ids):
             raise ValueError(
@@ -987,18 +1046,23 @@ class MetranService:
                 "all observation blocks in one tick must append the "
                 f"same k rows; got {sorted(ks)}"
             )
+        if self.registry.arena_enabled:
+            return self._update_batch_arena(ids, obs_list)
         return self._batch_via_requests(
             ids, [("update", o) for o in obs_list]
         )
 
     def forecast_batch(self, model_ids, steps: int) -> list:
         """Forecast G models ``steps`` periods ahead; one
-        :class:`Forecast` or exception per model, in order."""
+        :class:`Forecast` or exception per model, in order (one K18
+        launch per bucket on an arena registry)."""
         ids = [str(m) for m in model_ids]
         steps = int(steps)
         if steps < 1:
             self._count("validation_errors")
             raise ValueError(f"forecast steps must be >= 1, got {steps}")
+        if self.registry.arena_enabled:
+            return self._forecast_batch_arena(ids, steps)
         return self._batch_via_requests(ids, [("forecast", steps)] * len(ids))
 
     def _batch_via_requests(self, ids, specs) -> list:
@@ -1025,8 +1089,18 @@ class MetranService:
         return out
 
     def close(self) -> None:
-        """Drain everything pending, then refuse new submissions."""
+        """Drain everything pending, then refuse new submissions.  On an
+        arena registry (with ``persist_updates``) the dirty rows then
+        spill to disk, so the next process warm-starts from them."""
         self.batcher.close()
+        if self.registry.arena_enabled and self.persist_updates:
+            try:
+                self.registry.spill(dirty_only=True)
+            except Exception:  # pragma: no cover - disk trouble
+                # counted, not swallowed: a failed close-time spill IS
+                # lost durability
+                self._count("spill_failures")
+                logger.exception("arena spill on close failed")
 
     def __enter__(self) -> "MetranService":
         return self
@@ -1113,6 +1187,8 @@ class MetranService:
     def _run_forecast(self, bucket, steps: int, requests):
         """One batched forecast (one K2 launch); a slot whose moments
         come out non-finite fails alone."""
+        if self.registry.arena_enabled:
+            return self._run_forecast_arena(bucket, steps, requests)
         results: list = [None] * len(requests)
         states, live = self._lookup_states(requests, results)
         if not live:
@@ -1152,7 +1228,10 @@ class MetranService:
         under the frozen gain, or that is an armed robust model thaw and
         replay through the exact update in this same dispatch, and the
         exact slots that converged freeze after it
-        (:meth:`_run_update_dict`)."""
+        (:meth:`_run_update_dict`).  An arena registry runs
+        :meth:`_run_update_arena`."""
+        if self.registry.arena_enabled:
+            return self._run_update_arena(bucket, k, requests)
         if not self.steady.enabled:
             return self._run_update_dict(bucket, k, requests)
         results: list = [None] * len(requests)
@@ -1509,6 +1588,573 @@ class MetranService:
             self._freeze(candidates, bucket)
         return results
 
+    # ------------------------------------------------------------------
+    # the state arena: rows in, acks out — the posterior stays on device
+    # ------------------------------------------------------------------
+    def _lookup_rows(self, requests, results):
+        """Per-request row resolution on an arena registry: make each
+        model resident and collect its row and metadata, every resolved
+        row PINNED (``registry.rows_for(pin=True)``) so neither a colder
+        model later in the batch nor a concurrent load can reassign it.
+        A model that cannot be made resident fails its own slot.  Callers
+        ``registry.release_rows`` the returned ``pinned`` list in a
+        ``finally``."""
+        ids = [req.model_id for req in requests]
+        hits, errs = self.registry.rows_for(ids, pin=True)
+        rows, metas, live, pinned = [], [], [], []
+        for j, (hit, err) in enumerate(zip(hits, errs)):
+            if err is None:
+                rows.append(hit[1])
+                metas.append(self.registry.meta(ids[j]))
+                live.append(j)
+                pinned.append(ids[j])
+            else:
+                self._count("lookup_failures")
+                results[j] = err
+        return rows, metas, live, pinned
+
+    def _arena_forecasts(self, metas, means, variances, versions):
+        """The de-standardized :class:`Forecast` (or the integrity error)
+        of each queried row."""
+        validate = self.reliability.validate_updates
+        out = []
+        for i, meta in enumerate(metas):
+            n = meta.n_series
+            m = means[i, :, :n]
+            v = variances[i, :, :n]
+            if validate and not (np.all(np.isfinite(m))
+                                 and np.all(np.isfinite(v))):
+                self._count("poisoned_forecasts")
+                out.append(StateIntegrityError(
+                    f"forecast for model {meta.model_id!r} produced "
+                    "non-finite moments (poisoned posterior state)"))
+                continue
+            out.append(Forecast(
+                means=m * meta.scaler_std + meta.scaler_mean,
+                variances=v * meta.scaler_std**2, names=meta.names,
+                version=int(versions[i])))
+        return out
+
+    def _arena_query(self, bucket, rows, steps: int):
+        """One bucket's forecast query on pinned rows (one K18 launch):
+        ``(means, variances, versions)`` on the host, the versions
+        snapshotted under the arena lock with the moments."""
+        arena = self.registry.arena_of(bucket)
+        fn = self.registry.arena_forecast_fn(bucket, steps)
+        rows_arr = np.asarray(rows, np.int32)
+        with arena.lock:
+            out = arena.query(fn, rows_arr)
+            versions = arena.version_host[rows_arr].copy()
+        return out[0].cpu().numpy(), out[1].cpu().numpy(), versions
+
+    def _run_forecast_arena(self, bucket, steps: int, requests):
+        """One batched arena forecast: a row gather and the closed-form
+        horizon moments on the device (K18) — no stacking, no (B, S, S)
+        transfer.  A slot whose moments come out non-finite fails
+        alone."""
+        results: list = [None] * len(requests)
+        rows, metas, live, pinned = self._lookup_rows(requests, results)
+        try:
+            if not live:
+                return results
+            means, variances, versions = self._arena_query(bucket, rows,
+                                                           steps)
+        finally:
+            self.registry.release_rows(pinned)
+        for j, res in zip(live, self._arena_forecasts(metas, means,
+                                                      variances, versions)):
+            results[j] = res
+        return results
+
+    def _run_update_arena(self, bucket, k: int, requests):
+        """One batched arena assimilation, in place: the requests' rows
+        through the steady (K17) and exact (K16) kernels
+        (:meth:`_arena_dispatch_rows`); a row the on-device integrity
+        gate rejects is masked out of the scatter and its caller gets
+        :class:`StateIntegrityError` with the row unchanged, while the
+        others commit and resolve to :class:`ArenaUpdateAck`\\ s.  Runs
+        under ``_update_lock``; a kernel failure marks the arena lost
+        (the registry rebuilds it from last-good states on next
+        touch)."""
+        results: list = [None] * len(requests)
+        rows, metas, live, pinned = self._lookup_rows(requests, results)
+        try:
+            if not live:
+                return results
+            arena = self.registry.arena_of(bucket)
+            n_pad = bucket[0]
+            y = np.zeros((len(live), k, n_pad), arena.dtype)
+            m = np.zeros((len(live), k, n_pad), bool)
+            for i, meta in enumerate(metas):
+                y_std, mask = requests[live[i]].payload
+                y[i, :, : meta.n_series] = y_std
+                m[i, :, : meta.n_series] = mask
+            ok, versions, t_seens, _zs, verdicts, _dc = (
+                self._arena_dispatch_rows(
+                    bucket, arena, np.asarray(rows, np.int32), y, m, k,
+                    [mt.model_id for mt in metas], metas))
+        finally:
+            self.registry.release_rows(pinned)
+        for i, (meta, j) in enumerate(zip(metas, live)):
+            results[j] = self._arena_result(meta, ok[i], versions[i],
+                                            t_seens[i], y[i], m[i],
+                                            verdicts, i)
+        return results
+
+    def _arena_result(self, meta, ok: bool, version, t_seen, y, m,
+                      verdicts, i: int):
+        """One dispatched row's outcome: its ack (fixed-lag tracking fed
+        from the materialized row), or the integrity error of a row the
+        gate rejected."""
+        if not ok:
+            self._count("poisoned_updates")
+            logger.error("rejecting arena update for model %r (row masked "
+                         "out of the scatter)", meta.model_id)
+            return StateIntegrityError(
+                f"update for model {meta.model_id!r} produced an invalid "
+                "posterior; the request was not applied and the arena row "
+                "is unchanged")
+        n = meta.n_series
+        self._observe_smoother(
+            meta.model_id, y[:, :n], m[:, :n], int(t_seen),
+            lambda mid=meta.model_id: self.registry.get(mid),
+            verdicts=None if verdicts is None else verdicts[i, :, :n])
+        if not m.any():
+            self._count("empty_updates")
+        return ArenaUpdateAck(meta.model_id, int(version), int(t_seen))
+
+    def _robust_slot_params(self, rob: RobustSpec, arena, rows, real):
+        """The (G, N) ``rail_lo, rail_hi, quantum, scale`` of an arena
+        dispatch, standardized per row through the arena's scaler
+        mirrors (the rows are pinned, so the mirrors cannot move) as
+        :meth:`_robust_params` forms them: padded slots (-inf, +inf,
+        1)."""
+        sm = arena.scaler_mean[rows]
+        sd = arena.scaler_std[rows]
+        dt = arena.dtype
+        return (
+            np.where(real, (rob.rail_lo - sm) / sd, -np.inf).astype(dt),
+            np.where(real, (rob.rail_hi - sm) / sd, np.inf).astype(dt),
+            np.where(real & (rob.quantum > 0.0), np.divide(rob.quantum, sd),
+                     1.0).astype(dt),
+            np.full(sd.shape, rob.scale, dt),
+        )
+
+    def _freeze_arena_rows(self, arena, bucket, rows, metas) -> None:
+        """Freeze newly converged arena rows: their DARE solves and frozen
+        gains (:meth:`_compute_steady`, K15), written into the steady
+        leaves in one batch, and the transitions booked.  Runs after the
+        rows' updates committed, so a failure is logged, never raised
+        (serving just stays exact)."""
+        try:
+            frozen = self._compute_steady(metas, bucket)
+        except Exception:
+            logger.exception("steady freeze failed for models %s (serving "
+                             "stays exact)", [mt.model_id for mt in metas])
+            return
+        arena.freeze_rows(
+            rows, np.stack([frozen[mt.model_id][0] for mt in metas]),
+            np.stack([frozen[mt.model_id][1] for mt in metas]))
+        for mt in metas:
+            self._book_steady("freeze", mt.model_id, tol=self.steady.tol)
+
+    def _arena_dispatch_rows(self, bucket, arena, rows_arr, y, m, k, ids,
+                             metas):
+        """One bucket group's rows through the steady and exact arena
+        kernels — the dispatch engine of the per-request and bulk paths.
+        Rows whose resident steady flag is set ride K17; any of them that
+        broke time-invariance thaw and replay through K16 in this same
+        call, and newly converged exact rows freeze afterward.  Each
+        kernel's lock region spans the launch and the host-mirror commit;
+        gate verdicts, robust outcomes and detection alarms are booked
+        here for both paths.
+
+        Returns ``(ok, versions, t_seens, zs, verdicts, det_counts)``
+        over the G rows (``zs``/``verdicts`` ``None`` when neither the
+        gate nor a robust likelihood is armed, ``det_counts`` ``None``
+        without detection)."""
+        gate = self.gate
+        gated = gate.enabled
+        rob = self.robust if self.robust.enabled else None
+        scored = gated or rob is not None
+        validate = self.reliability.validate_updates
+        det = self.detect if self.detect.enabled else None
+        steady = self.steady if self.steady.enabled else None
+        g = len(rows_arr)
+        n_pad = bucket[0]
+        ok = np.zeros(g, bool)
+        versions = np.zeros(g, np.int64)
+        t_seens = np.zeros(g, np.int64)
+        zs = np.full((g, k, n_pad), np.nan) if scored else None
+        verdicts = np.zeros((g, k, n_pad), np.int8) if scored else None
+        iters = np.zeros((g, k, n_pad), np.int32) if rob is not None \
+            else None
+        armed_rb = (arena.t_seen_host[rows_arr] >= rob.min_seen
+                    if rob is not None else None)
+        det_counts = np.zeros((g, 3, n_pad), np.int64) if det else None
+        det_stats = np.zeros((g, 3, n_pad)) if det else None
+        n_sl = arena.n_series_host[rows_arr]
+        real_all = np.arange(n_pad)[None, :] < n_sl[:, None]
+        sel = np.zeros(g, bool)
+        if steady is not None:
+            sel = arena.steady_host[rows_arr].copy()
+            if rob is not None and rob.time_varying and sel.any():
+                # an armed robust row is time-varying by contract: thaw it
+                # before the frozen kernel can serve it
+                pos = np.flatnonzero(sel & armed_rb)
+                if pos.size:
+                    arena.thaw_rows(rows_arr[pos])
+                    for gi in pos:
+                        self._book_steady("thaw", ids[gi],
+                                          reason="robust_armed")
+                    sel[pos] = False
+        exact_pos = np.flatnonzero(~sel)
+        if sel.any():
+            s_pos = np.flatnonzero(sel)
+            rows_s = rows_arr[s_pos]
+            fn = self.registry.arena_steady_update_fn(
+                bucket, k, gate=gate if gated else None, detect=det)
+            args = (rows_s, real_all[s_pos], y[s_pos], m[s_pos])
+            with arena.lock:
+                if det is not None:
+                    outs = arena.apply_steady_det(
+                        fn, *args, np.int32(gate.min_seen if gated else 0),
+                        np.int32(det.min_seen))
+                    outs, dc, dst = outs[:-2], outs[-2], outs[-1]
+                elif gated:
+                    outs = arena.apply_steady(fn, *args,
+                                              np.int32(gate.min_seen))
+                else:
+                    outs = arena.apply_steady(fn, *args)
+                applied = outs[0].cpu().numpy()
+                vers, ts = arena.commit_rows(rows_s, applied, k)
+            ok[s_pos] = applied
+            versions[s_pos] = vers
+            t_seens[s_pos] = ts
+            if det is not None:
+                det_counts[s_pos] = dc.cpu().numpy()
+                det_stats[s_pos] = dst.cpu().numpy()
+            if gated:
+                zs[s_pos] = outs[3].cpu().numpy()
+                verdicts[s_pos] = outs[4].cpu().numpy()
+            broke_pos = s_pos[~applied]
+            if broke_pos.size:
+                # the steady kernel refused these rows: thaw, and replay
+                # them through the exact kernel from their unchanged rows
+                arena.thaw_rows(rows_arr[broke_pos])
+                for gi in broke_pos:
+                    self._book_steady("thaw", ids[gi],
+                                      reason="time_invariance_broken")
+                exact_pos = np.sort(np.concatenate([exact_pos, broke_pos]))
+        if exact_pos.size:
+            e_pos = exact_pos
+            rows_e = rows_arr[e_pos]
+            real_e = real_all[e_pos]
+            fn = self.registry.arena_update_fn(
+                bucket, k, gate=gate if gated else None, validate=validate,
+                steady_tol=steady.tol if steady is not None else 0.0,
+                detect=det, robust=rob)
+            base = (rows_e, y[e_pos], m[e_pos])
+            with arena.lock:
+                if rob is not None:
+                    rob_args = self._robust_slot_params(rob, arena, rows_e,
+                                                        real_e)
+                    if det is not None:
+                        outs = arena.apply_det(
+                            fn, *base, np.int32(rob.min_seen), *rob_args,
+                            real_e, np.int32(det.min_seen))
+                    elif steady is not None:
+                        outs = arena.apply(fn, *base, np.int32(rob.min_seen),
+                                           *rob_args, real_e)
+                    else:
+                        outs = arena.apply(fn, *base, np.int32(rob.min_seen),
+                                           *rob_args)
+                elif det is not None:
+                    outs = arena.apply_det(
+                        fn, *base, np.int32(gate.min_seen if gated else 0),
+                        real_e, np.int32(det.min_seen))
+                elif gated and steady is not None:
+                    outs = arena.apply(fn, *base, np.int32(gate.min_seen),
+                                       real_e)
+                elif gated:
+                    outs = arena.apply(fn, *base, np.int32(gate.min_seen))
+                elif steady is not None:
+                    outs = arena.apply(fn, *base, real_e)
+                else:
+                    outs = arena.apply(fn, *base)
+                if det is not None:
+                    outs, dc, dst = outs[:-2], outs[-2], outs[-1]
+                conv = None
+                if steady is not None:
+                    outs, conv = outs[:-1], outs[-1].cpu().numpy()
+                ok_e = outs[0].cpu().numpy()
+                vers, ts = arena.commit_rows(rows_e, ok_e, k)
+            ok[e_pos] = ok_e
+            versions[e_pos] = vers
+            t_seens[e_pos] = ts
+            if det is not None:
+                det_counts[e_pos] = dc.cpu().numpy()
+                det_stats[e_pos] = dst.cpu().numpy()
+            if scored:
+                zs[e_pos] = outs[3].cpu().numpy()
+                verdicts[e_pos] = outs[4].cpu().numpy()
+            if rob is not None:
+                iters[e_pos] = outs[5].cpu().numpy()
+            if conv is not None:
+                # freeze detection: the device's conv flag (a rejected
+                # row's delta is 0, hence the AND with ok) and the host
+                # conditions
+                cand = conv & ok_e & (t_seens[e_pos] >= steady.min_seen)
+                if gated:
+                    cand &= (verdicts[e_pos] == 0).all(axis=(1, 2))
+                if rob is not None and rob.time_varying:
+                    cand &= ~(t_seens[e_pos] >= rob.min_seen)
+                cand &= ~arena.steady_host[rows_e]
+                if cand.any():
+                    cand &= np.array([self._steady_freezable(ids[gi])
+                                      for gi in e_pos])
+                if cand.any():
+                    self._freeze_arena_rows(
+                        arena, bucket, rows_e[cand],
+                        [metas[gi] for gi in e_pos[cand]])
+        if gated:
+            self._book_gate_verdicts_bulk(ids, zs, verdicts, n_sl)
+        if rob is not None and g:
+            self._book_robust_rows(ids, metas, armed_rb, zs, verdicts,
+                                   iters, n_sl)
+        if det is not None and det_counts.any():
+            self._book_detect_rows(ids, metas, rows_arr, ok, versions,
+                                   t_seens, det_counts, det_stats, arena)
+        return ok, versions, t_seens, zs, verdicts, det_counts
+
+    def _book_gate_verdicts_bulk(self, ids, zs, verdicts, n_sl) -> None:
+        """Vectorized gate-outcome booking of one arena dispatch (the
+        bulk twin of :meth:`_book_gate_verdicts`): the verdict counts,
+        the per-model rejection windows in one lock acquisition, and a
+        log line per model the gate acted on."""
+        n_pad = zs.shape[2]
+        real = np.arange(n_pad)[None, None, :] < n_sl[:, None, None]
+        obs = np.isfinite(zs) & real
+        rej = (verdicts == GATE_REJECTED) & real
+        dw = (verdicts == GATE_DOWNWEIGHTED) & real
+        n_rej_m = rej.sum(axis=(1, 2))
+        n_dw_m = dw.sum(axis=(1, 2))
+        n_obs_m = obs.sum(axis=(1, 2))
+        self.monitor.record_gate_many(
+            (mid, int(n_obs_m[i]), int(n_rej_m[i] + n_dw_m[i]))
+            for i, mid in enumerate(ids))
+        n_rej, n_dw = int(n_rej_m.sum()), int(n_dw_m.sum())
+        if n_rej:
+            self.gate_verdicts.increment("rejected", n_rej)
+        if n_dw:
+            self.gate_verdicts.increment("downweighted", n_dw)
+        for i in np.flatnonzero(n_rej_m + n_dw_m):
+            logger.info("gate %s: model %r rejected %d, downweighted %d "
+                        "observation(s)", self.gate.policy, ids[i],
+                        int(n_rej_m[i]), int(n_dw_m[i]))
+
+    def _book_robust_rows(self, ids, metas, armed_rb, zs, verdicts, iters,
+                          n_sl) -> None:
+        """Vectorized robust booking of one arena dispatch (the bulk twin
+        of :meth:`_book_robust`: the same counters, windows, iteration
+        tally and log lines)."""
+        n_pad = zs.shape[2]
+        real = np.arange(n_pad)[None, None, :] < n_sl[:, None, None]
+        obs = np.isfinite(zs) & real
+        flagged = (verdicts != 0) & real & armed_rb[:, None, None]
+        nonconv = (verdicts == ROBUST_NONCONV) & real
+        n_obs_m = obs.sum(axis=(1, 2))
+        n_map_m = flagged.sum(axis=(1, 2))
+        n_nc_m = nonconv.sum(axis=(1, 2))
+        self.monitor.record_gate_many(
+            (mid, int(n_obs_m[i]), int(n_nc_m[i]))
+            for i, mid in enumerate(ids))
+        n_fb = int(np.count_nonzero(armed_rb & (n_map_m == 0)))
+        if n_fb:
+            self.robust_total.increment("fallback_updates", n_fb)
+        n_map = int(n_map_m.sum())
+        if not n_map:
+            return
+        self.robust_total.increment("map_updates",
+                                    int(np.count_nonzero(n_map_m)))
+        self.robust_total.increment("map_slots", n_map)
+        steps, counts = np.unique(iters[flagged], return_counts=True)
+        for n_steps, count in zip(steps, counts):
+            self.robust_iters.increment(int(n_steps), int(count))
+        n_nc = int((n_nc_m * armed_rb).sum())
+        if n_nc:
+            self.robust_total.increment("nonconverged", n_nc)
+        lik = self.robust.likelihood
+        for i in np.flatnonzero(n_map_m):
+            names = metas[i].names
+            if self.robust.flags_selectively:
+                slots = sorted({names[int(c)]
+                                for c in np.nonzero(flagged[i])[1]})
+                logger.info("robust %s: model %r conditioned %d "
+                            "observation(s) by MAP (slots %s)", lik, ids[i],
+                            int(n_map_m[i]), slots)
+            if n_nc_m[i]:
+                slots = sorted({names[int(c)]
+                                for c in np.nonzero(nonconv[i])[1]})
+                logger.warning("robust %s: model %r: %d inner solve(s) "
+                               "missed the residual bar (slots %s)", lik,
+                               ids[i], int(n_nc_m[i]), slots)
+
+    def _book_detect_rows(self, ids, metas, rows_arr, ok, versions,
+                          t_seens, counts, stats, arena) -> None:
+        """Arena detection booking — reached only when a dispatch
+        ALARMED: the alarming rows' stats land in the arena's last-alarm
+        host mirror and only those rows pay per-model booking (their
+        accumulators stay in the device leaf)."""
+        alarming = np.flatnonzero((counts.sum(axis=(1, 2)) > 0) & ok)
+        with arena.lock:
+            arena.det_stats_host[rows_arr[alarming]] = stats[alarming]
+        for gi in alarming:
+            n_i = metas[gi].n_series
+            try:
+                self._book_detect(
+                    ids[gi], counts[gi][:, :n_i], stats[gi][:, :n_i],
+                    int(versions[gi]), int(t_seens[gi]), metas[gi].names,
+                    n_i, state=None, reset_on_gap=False)
+            except Exception:  # pragma: no cover - monitoring only
+                logger.exception("detection booking failed for model %r",
+                                 ids[gi])
+
+    def _update_batch_arena(self, ids, obs_list) -> list:
+        """The arena fleet tick: rows resolved and pinned for the whole
+        tick, one dispatch per bucket (:meth:`_update_batch_buckets`),
+        one health booking for the tick."""
+        results: list = [None] * len(ids)
+        with self._update_lock:
+            hits, errs = self.registry.rows_for(ids, pin=True)
+            live, pinned = [], []
+            for i, err in enumerate(errs):
+                if err is None:
+                    live.append(i)
+                    pinned.append(ids[i])
+                else:
+                    self._count("lookup_failures")
+                    results[i] = err
+            try:
+                self._update_batch_buckets(ids, obs_list, hits, live,
+                                           results)
+            finally:
+                self.registry.release_rows(pinned)
+        n_err = sum(isinstance(r, BaseException) for r in results)
+        self.monitor.record_many(len(ids) - n_err, n_err)
+        if n_err:
+            self._count("update_errors", n_err)
+        return results
+
+    @staticmethod
+    def _bucket_groups(hits, live):
+        """Live batch indices grouped by shape bucket."""
+        groups: dict = {}
+        for i in live:
+            groups.setdefault(hits[i][0], []).append(i)
+        return groups
+
+    def _update_batch_buckets(self, ids, obs_list, hits, live, results):
+        """Per-bucket dispatch of :meth:`_update_batch_arena`: vectorized
+        validation and standardization against the arena's host mirrors,
+        then :meth:`_arena_dispatch_rows`."""
+        for bucket, idxs in self._bucket_groups(hits, live).items():
+            try:
+                arena = self.registry.arena_of(bucket)
+            except Exception as exc:  # noqa: BLE001 - per-bucket
+                for i in idxs:
+                    results[i] = exc
+                continue
+            n_pad = bucket[0]
+            k = obs_list[idxs[0]].shape[0]
+            rows_arr = np.asarray([hits[i][1] for i in idxs], np.int32)
+            y_raw = np.zeros((len(idxs), k, n_pad))
+            n_expect = arena.n_series_host[rows_arr]
+            good: list = []
+            for gi, i in enumerate(idxs):
+                obs = obs_list[i]
+                n_i = obs.shape[1]
+                if n_i != n_expect[gi]:
+                    self._count("validation_errors")
+                    results[i] = ValueError(
+                        f"new_obs has {n_i} series, model {ids[i]!r} has "
+                        f"{int(n_expect[gi])}")
+                    continue
+                if np.isinf(obs).any():
+                    self._count("validation_errors")
+                    results[i] = ValueError(
+                        f"new_obs for model {ids[i]!r} contains infinite "
+                        "values; use NaN to mark missing observations")
+                    continue
+                y_raw[gi, :, :n_i] = np.where(np.isfinite(obs), obs, np.nan)
+                good.append(gi)
+            if not good:
+                continue
+            if len(good) < len(idxs):
+                sel = np.asarray(good)
+                y_raw, rows_arr = y_raw[sel], rows_arr[sel]
+                idxs = [idxs[gi] for gi in good]
+            # padded columns (zeros) are masked off through each row's
+            # true series count; only real-slot NaNs count as masked
+            n_sl = arena.n_series_host[rows_arr]
+            real = np.arange(n_pad)[None, None, :] < n_sl[:, None, None]
+            mask = np.isfinite(y_raw)
+            n_masked = int(np.count_nonzero(real & ~mask))
+            if n_masked:
+                self._count("masked_values", n_masked)
+            sm = arena.scaler_mean[rows_arr][:, None, :]
+            sd = arena.scaler_std[rows_arr][:, None, :]
+            # standardized in float64 like the per-request path, then
+            # cast to the arena's dtype
+            y = np.where(mask, (y_raw - sm) / sd, 0.0).astype(arena.dtype)
+            m = mask & real
+            metas = [self.registry.meta(ids[i]) for i in idxs]
+            ok, versions, t_seens, _zs, verdicts, _dc = (
+                self._arena_dispatch_rows(bucket, arena, rows_arr, y, m, k,
+                                          [ids[i] for i in idxs], metas))
+            for gi, i in enumerate(idxs):
+                results[i] = self._arena_result(
+                    metas[gi], ok[gi], versions[gi], t_seens[gi], y[gi],
+                    m[gi], verdicts, gi)
+
+    def _forecast_batch_arena(self, ids, steps: int) -> list:
+        """The arena forecast tick: rows resolved and pinned, one K18
+        launch per bucket, per-slot failure isolation."""
+        results: list = [None] * len(ids)
+        hits, errs = self.registry.rows_for(ids, pin=True)
+        live, pinned = [], []
+        for i, err in enumerate(errs):
+            if err is None:
+                live.append(i)
+                pinned.append(ids[i])
+            else:
+                self._count("lookup_failures")
+                results[i] = err
+        groups = []
+        try:
+            for bucket, idxs in self._bucket_groups(hits, live).items():
+                try:
+                    queried = self._arena_query(
+                        bucket, [hits[i][1] for i in idxs], steps)
+                except Exception as exc:  # noqa: BLE001 - per-bucket
+                    queried = exc
+                groups.append((idxs, queried))
+        finally:
+            self.registry.release_rows(pinned)
+        for idxs, queried in groups:
+            if isinstance(queried, BaseException):
+                for i in idxs:
+                    results[i] = queried
+                continue
+            metas = [self.registry.meta(ids[i]) for i in idxs]
+            for i, res in zip(idxs, self._arena_forecasts(metas, *queried)):
+                results[i] = res
+        n_err = sum(isinstance(r, BaseException) for r in results)
+        self.monitor.record_many(len(ids) - n_err, n_err)
+        if n_err:
+            self._count("forecast_errors", n_err)
+        return results
+
     def _book_gate_verdicts(self, st, zs, verdicts) -> None:
         """Book one slot's gate outcome (``zs``/``verdicts`` its
         real-series (k, n_series) slices, ``zs`` NaN where unobserved):
@@ -1601,16 +2247,19 @@ class MetranService:
                            n_nonconv, slots)
 
     def _book_detect(self, model_id: str, counts, stats, version: int,
-                     t_seen: int, names, n_series: int, state) -> None:
+                     t_seen: int, names, n_series: int, state,
+                     reset_on_gap: bool = True) -> None:
         """Book one committed slot's detection outcome: the mirror
-        (stats, cumulative counts, the advanced state), the counters, the
-        health monitor's changepoint flag and the alert board."""
+        (stats, cumulative counts, the advanced state — ``None`` for an
+        arena row, whose state stays in the device leaf), the counters,
+        the health monitor's changepoint flag and the alert board."""
         per_kind = np.asarray(counts).sum(axis=1)
         n_an, n_cp, n_lb = (int(x) for x in per_kind)
         flagged = np.flatnonzero(np.asarray(counts).sum(axis=0) > 0)
         slots = tuple(names[int(j)] for j in flagged)
         self.detector.commit(model_id, version, t_seen, n_series, stats,
-                             per_kind, state=state, slots=slots)
+                             per_kind, state=state, slots=slots,
+                             reset_on_gap=reset_on_gap)
         if n_an:
             self.detect_total.increment("anomaly", n_an)
             self.alert_board.note(model_id, "anomaly", n_an, slots)
@@ -1626,4 +2275,4 @@ class MetranService:
                                   slots)
 
 
-__all__ = ["Forecast", "MetranService"]
+__all__ = ["ArenaUpdateAck", "Forecast", "MetranService"]

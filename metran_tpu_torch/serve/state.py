@@ -1,7 +1,8 @@
 """Versioned posterior serving state: the warm handle on a fitted model.
 
-Port of ``metran_tpu/serve/state.py`` (``PosteriorState`` and
-``posterior_state_from_metran``).  A
+Port of ``metran_tpu/serve/state.py`` (``PosteriorState``,
+``posterior_state_from_metran`` and the device-resident
+:class:`StateArena` with its :class:`ModelMeta`).  A
 fitted DFM's serving answer needs the filtered posterior
 ``N(mean, cov)`` at the last assimilated timestep plus the static model
 parameters and scaler constants — not the observation history.
@@ -13,14 +14,19 @@ written by either package load in the other bit for bit.
 
 from __future__ import annotations
 
+import functools
+import threading
 import zlib
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..config import default_dtype, resolve_device
 from ..io import atomic_savez
-from ..ops import dfm_statespace
+from ..ops import DETECT_STATE_ROWS, dfm_statespace
+from ..ops.kalman import NotPortedError
 from ..reliability.policy import StateIntegrityError
 
 # v1 files (no checksum) still load; v2 embeds a CRC-32 content checksum
@@ -251,3 +257,511 @@ def posterior_state_from_metran(mt, model_id: Optional[str] = None,
         names=tuple(mt.snames),
         chol=None if sq is None else sq.chol_f[-1].double().cpu().numpy(),
     )
+
+
+# ----------------------------------------------------------------------
+# device-resident state arena
+# ----------------------------------------------------------------------
+#
+# The dict registry pays host<->device transfer and per-model host work
+# on every dispatch: stack_bucket pads B covariances on the host, ships
+# them up, and the results come back down to be re-packed.  The arena
+# inverts that: each shape bucket owns preallocated (B, ...) stacked
+# leaves that live on the device, only row indices and the new
+# observations cross the host boundary, and the update kernels (K16,
+# K17) write the dispatched rows in place.
+
+
+class ModelMeta(NamedTuple):
+    """The immutable half of one arena-resident model's state.
+
+    Everything in a :class:`PosteriorState` except the filtered
+    posterior moments and the version counters: the host keeps these
+    (they never change between re-fits) so submit-path validation,
+    standardization and forecast de-standardization need no device
+    read, while ``mean``/``chol|cov``/``t_seen``/``version`` live in the
+    :class:`StateArena`.  Shares the shape accessors with
+    :class:`PosteriorState`, so ``ModelRegistry.bucket_of`` and the
+    service's submit paths accept either.
+    """
+
+    model_id: str
+    params: np.ndarray
+    loadings: np.ndarray
+    dt: float
+    scaler_mean: np.ndarray
+    scaler_std: np.ndarray
+    names: Tuple[str, ...]
+    dtype: np.dtype
+
+    @property
+    def n_series(self) -> int:
+        return int(self.loadings.shape[0])
+
+    @property
+    def n_factors(self) -> int:
+        return int(self.loadings.shape[1])
+
+    @classmethod
+    def of(cls, state: PosteriorState) -> "ModelMeta":
+        return cls(
+            model_id=state.model_id,
+            params=np.asarray(state.params),
+            loadings=np.asarray(state.loadings),
+            dt=float(state.dt),
+            scaler_mean=np.asarray(state.scaler_mean),
+            scaler_std=np.asarray(state.scaler_std),
+            names=tuple(state.names),
+            dtype=np.dtype(state.dtype),
+        )
+
+
+@functools.lru_cache(maxsize=32)
+def _identity_row_ss(bucket: Tuple[int, int], dtype_str: str):
+    """The built state-space leaves of a FREE arena row (padded-slot
+    identity model: alpha 1, zero loadings), host-side, cached per
+    bucket shape — what :meth:`StateArena.clear_row` scatters back."""
+    n_pad, s_pad = bucket
+    dt = np.dtype(dtype_str)
+    ss = dfm_statespace(
+        np.ones(n_pad, dt), np.ones(s_pad - n_pad, dt),
+        np.zeros((n_pad, s_pad - n_pad), dt), 1.0, device="cpu",
+    )
+    return tuple(leaf.numpy() for leaf in ss)
+
+
+class ArenaLostError(StateIntegrityError):
+    """The arena's device leaves can no longer be trusted (an in-place
+    kernel failed part-way, so some of its rows may have been written).
+    Rows must be re-packed from the last-good host/disk states;
+    :class:`~metran_tpu_torch.serve.registry.ModelRegistry` does that
+    automatically on the next touch."""
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+
+
+class StateArena:
+    """One shape bucket's models as device-resident stacked tensors.
+
+    Layout (``B`` = ``capacity`` rows, bucket = padded ``(N, S)``):
+
+    - dynamic leaves, written in place by the update kernels (K16, K17):
+      ``mean (B, S)``, ``fac (B, S, S)`` (Cholesky factors under the
+      square-root engine, covariances otherwise), ``t_seen (B,)`` and
+      ``version (B,)`` (int32);
+    - static leaves, written only when a row is (re)packed: the **built**
+      state-space matrices ``phi (B, S)``, ``q (B, S, S)``, ``z (B, N,
+      S)``, ``r (B, N)`` — built once per row at pack time
+      (``dfm_statespace`` on the device), so dispatches read ready
+      matrices instead of re-deriving them from parameters every call;
+    - the steady leaves ``steady (B,)``, ``kgain (B, S, N)``, ``fdiag (B,
+      N)`` (written at freeze/thaw) and the detector leaf ``det (B, 6,
+      N)`` (advanced in place by the detecting kernels); every (re)pack
+      resets both.
+
+    The host mirrors each row's ``t_seen``/``version`` (advanced from
+    each dispatch's ok flags, so answers never need a device read), its
+    steady flag, its standardization constants and true series count
+    (vectorized bulk validation and (de)standardization), its spill
+    dirtiness and its detection display statistics at the last alarm.
+
+    A free row holds the padded-slot identity values (mean 0, factor
+    ``I``, alpha 1, zero loadings) — a valid kernel input.  One extra
+    scratch row is never allocated (the JAX arena pads dispatch widths
+    with it; here it keeps ``capacity`` and :attr:`row_nbytes` equal to
+    the JAX arena's — eager PyTorch compiles nothing per width, so no
+    dispatch is padded).
+
+    **In-place contract.**  All device access goes through :meth:`apply`
+    and its steady/detect variants (in-place updates) and :meth:`query`
+    (read-only kernels), serialized under ``self.lock``.  If an update
+    raises, the arena marks itself **lost** (an in-place kernel may have
+    written some of its rows) and every later access raises
+    :class:`ArenaLostError`; the registry then rebuilds the arena from
+    last-good states.  Leaves live on ``device`` (default: the CUDA
+    card; without one construction raises — pass ``device="cpu"``).
+    Knobs: ``METRAN_TPU_SERVE_ARENA{,_ROWS,_MESH}``
+    (:func:`metran_tpu_torch.config.serve_defaults`).
+    """
+
+    def __init__(self, bucket: Tuple[int, int], capacity: int, dtype=None,
+                 sqrt: bool = False, mesh=None, device=None):
+        if mesh is not None:
+            raise NotPortedError(
+                "a sharded arena (mesh) is not ported yet: ROADMAP A6 "
+                "(parallel/mesh.py)")
+        n_pad, s_pad = int(bucket[0]), int(bucket[1])
+        self.bucket = (n_pad, s_pad)
+        self.sqrt = bool(sqrt)
+        self.mesh = None
+        self.device = resolve_device(device)
+        if dtype is None:
+            dtype = default_dtype(self.device)
+        if isinstance(dtype, torch.dtype):
+            dtype = str(dtype).replace("torch.", "")
+        self.dtype = np.dtype(dtype)
+        self._tdtype = _torch_dtype(self.dtype)
+        capacity = int(capacity) + 1  # the scratch row
+        self.capacity = capacity
+        self.scratch_row = capacity - 1
+        self.lock = threading.RLock()
+        self._lost = False
+        self.t_seen_host = np.zeros(capacity, np.int64)
+        self.version_host = np.zeros(capacity, np.int64)
+        #: rows updated since their last spill (durability frontier)
+        self.dirty = np.zeros(capacity, bool)
+        self.scaler_mean = np.zeros((capacity, n_pad))
+        self.scaler_std = np.ones((capacity, n_pad))
+        #: each row's true series count (0 = free row)
+        self.n_series_host = np.zeros(capacity, np.int64)
+        self._free: List[int] = list(range(capacity - 2, -1, -1))
+        new = dict(dtype=self._tdtype, device=self.device)
+        phi0, q0, z0, r0 = (torch.from_numpy(a).to(**new) for a in
+                            _identity_row_ss(self.bucket, self.dtype.str))
+        self._mean = torch.zeros((capacity, s_pad), **new)
+        self._fac = torch.eye(s_pad, **new).repeat(capacity, 1, 1)
+        self._t_seen = torch.zeros(capacity, dtype=torch.int32,
+                                   device=self.device)
+        self._version = torch.zeros(capacity, dtype=torch.int32,
+                                    device=self.device)
+        self._phi = phi0.repeat(capacity, 1)
+        self._q = q0.repeat(capacity, 1, 1)
+        self._z = z0.repeat(capacity, 1, 1)
+        self._r = r0.repeat(capacity, 1)
+        self._steady = torch.zeros(capacity, dtype=torch.bool,
+                                   device=self.device)
+        self._kgain = torch.zeros((capacity, s_pad, n_pad), **new)
+        self._fdiag = torch.ones((capacity, n_pad), **new)
+        #: host mirror of the device steady flags (the dispatch-time row
+        #: partition reads this, never the device)
+        self.steady_host = np.zeros(capacity, bool)
+        self._det = torch.zeros((capacity, DETECT_STATE_ROWS, n_pad), **new)
+        #: each row's detection display statistics ([C+, C-, LB-Q] per
+        #: slot) at its last alarm; live values: registry.arena_detect_stats
+        self.det_stats_host = np.zeros((capacity, 3, n_pad))
+
+    # -- row bookkeeping ------------------------------------------------
+    @property
+    def row_nbytes(self) -> int:
+        """Device bytes one row pins across every leaf: posterior, the
+        counters, the resident built state space, the steady leaves and
+        the detector leaf (``ModelRegistry.arena_bytes_by_model``)."""
+        n_pad, s_pad = self.bucket
+        per_row_floats = (
+            s_pad + s_pad * s_pad + s_pad + s_pad * s_pad + n_pad * s_pad
+            + n_pad + s_pad * n_pad + n_pad + DETECT_STATE_ROWS * n_pad
+        )
+        return per_row_floats * self.dtype.itemsize + 2 * 4 + 1
+
+    @property
+    def free_rows(self) -> int:
+        with self.lock:
+            return len(self._free)
+
+    @property
+    def occupied_rows(self) -> int:
+        with self.lock:  # the scratch row is neither free nor occupied
+            return self.capacity - 1 - len(self._free)
+
+    @property
+    def lost(self) -> bool:
+        return self._lost
+
+    def alloc(self) -> Optional[int]:
+        """Take a free row (``None`` when the arena is full — the caller
+        evicts and retries)."""
+        with self.lock:
+            return self._free.pop() if self._free else None
+
+    def _check(self) -> None:
+        if self._lost:
+            raise ArenaLostError(
+                f"arena {self.bucket} lost its device leaves (an in-place "
+                "update failed mid-flight); rows must be re-packed from "
+                "last-good states"
+            )
+
+    # -- device access (the in-place discipline lives HERE) -------------
+    def _dynamic(self):
+        return (self._mean, self._fac, self._t_seen, self._version)
+
+    def _static(self):
+        return (self._phi, self._q, self._z, self._r)
+
+    def _steady_leaves(self):
+        return (self._steady, self._kgain, self._fdiag)
+
+    def _run(self, fn, *args):
+        """Call ``fn`` under the lock; any failure marks the arena lost
+        (its kernel may have written some rows in place)."""
+        with self.lock:
+            self._check()
+            try:
+                return fn(*args)
+            except BaseException:
+                self._lost = True
+                raise
+
+    def apply(self, fn, *args):
+        """Run an in-place update ``fn(dynamic, static, *args)`` (from
+        :func:`~metran_tpu_torch.serve.engine.make_arena_update_fn`),
+        whose first output is the (updated) dynamic leaves; returns the
+        rest."""
+        return self._run(fn, self._dynamic(), self._static(), *args)[1:]
+
+    def apply_steady(self, fn, *args):
+        """Run the in-place **steady** update ``fn(dynamic, static,
+        steady_leaves, *args)`` under the same contract as
+        :meth:`apply`."""
+        return self._run(fn, self._dynamic(), self._static(),
+                         self._steady_leaves(), *args)[1:]
+
+    def apply_det(self, fn, *args):
+        """Run an in-place **detect** update ``fn(dynamic, static, det,
+        *args)``, whose first two outputs are the updated dynamic and
+        detector leaves; returns the rest."""
+        return self._run(fn, self._dynamic(), self._static(), self._det,
+                         *args)[2:]
+
+    def apply_steady_det(self, fn, *args):
+        """Run the in-place **steady detect** update ``fn(dynamic,
+        static, steady_leaves, det, *args)`` (:meth:`apply_steady` with
+        the detector leaf)."""
+        return self._run(fn, self._dynamic(), self._static(),
+                         self._steady_leaves(), self._det, *args)[2:]
+
+    def read_det_row(self, row: int) -> np.ndarray:
+        """One row's detector accumulators back on the host ((6, N))."""
+        with self.lock:
+            self._check()
+            return self._det[int(row)].cpu().numpy()
+
+    def read_det_rows(self, rows) -> np.ndarray:
+        """Several rows' detector accumulators ((R, 6, N), one
+        transfer) — the ``service.anomalies()`` query path."""
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        with self.lock:
+            self._check()
+            return self._det[idx].cpu().numpy()
+
+    def write_det_rows(self, rows, states) -> None:
+        """Scatter detector accumulators back into the leaf ((R, 6, N)):
+        the recovery path's inverse of :meth:`read_det_rows` (a re-packed
+        row resets its detector state by design, so a restore runs AFTER
+        its rows are resident)."""
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        vals = torch.as_tensor(np.asarray(states), dtype=self._tdtype,
+                               device=self.device)
+
+        def write():
+            self._det[idx] = vals
+
+        self._run(write)
+
+    def query(self, fn, *args):
+        """Run a read-only kernel ``fn(mean, fac, static, *args)`` under
+        the arena lock (so it never races an in-place update)."""
+        with self.lock:
+            self._check()
+            return fn(self._mean, self._fac, self._static(), *args)
+
+    def commit_rows(self, rows, ok, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Advance the host mirrors for the rows a dispatch committed
+        (``ok`` the kernel's per-row flags); returns the post-commit
+        ``(versions, t_seen)`` of ALL the dispatched rows, snapshotted
+        under the arena lock."""
+        rows = np.asarray(rows, np.int64)
+        good = rows[np.asarray(ok, bool)]
+        with self.lock:
+            self.t_seen_host[good] += int(k)
+            self.version_host[good] += 1
+            self.dirty[good] = True
+            return (
+                self.version_host[rows].copy(),
+                self.t_seen_host[rows].copy(),
+            )
+
+    # -- steady (frozen-gain) rows ---------------------------------------
+    def freeze_rows(self, rows, kgains, fdiags) -> None:
+        """Mark ``rows`` steady, writing their frozen gains and innovation
+        variances (bucket-padded (S, N)/(N,) per row) into the steady
+        leaves; the steady update (K17) serves them mean-only from the
+        next dispatch on."""
+        rows = np.asarray(rows, np.int64)
+        idx = torch.as_tensor(rows, device=self.device)
+        kg = torch.as_tensor(np.asarray(kgains), dtype=self._tdtype,
+                             device=self.device)
+        fd = torch.as_tensor(np.asarray(fdiags), dtype=self._tdtype,
+                             device=self.device)
+
+        def write():
+            self._steady[idx] = True
+            self._kgain[idx] = kg
+            self._fdiag[idx] = fd
+            self.steady_host[rows] = True
+
+        self._run(write)
+
+    def thaw_rows(self, rows) -> None:
+        """Clear ``rows``' steady flags (their gains reset); the exact
+        update serves them again from the next dispatch on."""
+        rows = np.asarray(rows, np.int64)
+        idx = torch.as_tensor(rows, device=self.device)
+
+        def write():
+            self._steady[idx] = False
+            self._kgain[idx] = 0.0
+            self._fdiag[idx] = 1.0
+            self.steady_host[rows] = False
+
+        self._run(write)
+
+    @property
+    def steady_rows(self) -> int:
+        """Currently frozen rows (the steady-rows gauge's source)."""
+        with self.lock:
+            return int(np.count_nonzero(self.steady_host))
+
+    # -- pack / unpack ---------------------------------------------------
+    def _write_leaves(self, row: int, vals) -> None:
+        leaves = (self._mean, self._fac, self._t_seen, self._version,
+                  self._phi, self._q, self._z, self._r, self._steady,
+                  self._kgain, self._fdiag, self._det)
+
+        def write():
+            for leaf, val in zip(leaves, vals):
+                leaf[row] = torch.as_tensor(val, dtype=leaf.dtype).to(
+                    leaf.device)
+
+        self._run(write)
+
+    def write_row(self, row: int, state: PosteriorState) -> None:
+        """(Re)pack one model's state into ``row`` — padded exactly like
+        ``stack_bucket`` pads a dict-registry dispatch, the state-space
+        matrices built once here on the device (the same
+        ``dfm_statespace`` the dict path runs per dispatch, so both paths
+        serve from identical matrices).  Every (re)pack thaws the row and
+        resets its detector accumulators: a ``put`` that replaced the
+        posterior must never leave a stale frozen gain or evidence
+        gathered against the old parameters."""
+        from .engine import pad_state_arrays
+
+        row = int(row)
+        a_sdf, a_cdf, lds, mean, cov, chol = pad_state_arrays(
+            state, self.bucket, self.dtype, sqrt=self.sqrt)
+        fac = chol if self.sqrt else cov
+        new = dict(dtype=self._tdtype, device=self.device)
+        ss = dfm_statespace(
+            torch.from_numpy(a_sdf[None]).to(**new),
+            torch.from_numpy(a_cdf[None]).to(**new),
+            torch.from_numpy(lds[None]).to(**new),
+            torch.tensor([state.dt], **new), device=self.device)
+        n_pad, s_pad = self.bucket
+        vals = (
+            mean, fac, int(state.t_seen), int(state.version),
+            ss.phi[0], ss.q[0], ss.z[0], ss.r[0],
+            False, np.zeros((s_pad, n_pad), self.dtype),
+            np.ones(n_pad, self.dtype),
+            np.zeros((DETECT_STATE_ROWS, n_pad), self.dtype),
+        )
+        with self.lock:
+            self._write_leaves(row, vals)
+            self.steady_host[row] = False
+            self.det_stats_host[row] = 0.0
+            self.t_seen_host[row] = int(state.t_seen)
+            self.version_host[row] = int(state.version)
+            self.dirty[row] = False
+            n = state.n_series
+            self.scaler_mean[row, :] = 0.0
+            self.scaler_std[row, :] = 1.0
+            self.scaler_mean[row, :n] = np.asarray(state.scaler_mean)
+            self.scaler_std[row, :n] = np.asarray(state.scaler_std)
+            self.n_series_host[row] = n
+
+    def read_row(self, row: int) -> Tuple[np.ndarray, np.ndarray, int, int]:
+        """One row's dynamic values back on the host: ``(mean (S,), fac
+        (S, S), t_seen, version)`` — the cold path (eviction, spill,
+        ``registry.get``)."""
+        row = int(row)
+        with self.lock:
+            self._check()
+            return (
+                self._mean[row].cpu().numpy(), self._fac[row].cpu().numpy(),
+                int(self.t_seen_host[row]), int(self.version_host[row]),
+            )
+
+    def read_rows(self, rows) -> Tuple[np.ndarray, np.ndarray]:
+        """Several rows' ``(mean, fac)`` back on the host in one transfer
+        per leaf — the spill path at fleet size."""
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        with self.lock:
+            self._check()
+            return self._mean[idx].cpu().numpy(), self._fac[idx].cpu().numpy()
+
+    def materialize_values(self, mean: np.ndarray, fac: np.ndarray, row: int,
+                           meta: ModelMeta) -> PosteriorState:
+        """Assemble one row's :class:`PosteriorState` from already-fetched
+        padded values plus the host mirrors and metadata (the true slots
+        sliced out of the padded layout)."""
+        from .engine import state_slot_index
+
+        idx = state_slot_index(meta.n_series, meta.n_factors, self.bucket[0])
+        sub = fac[np.ix_(idx, idx)]
+        if self.sqrt:
+            chol = sub
+            cov = chol @ chol.T
+        else:
+            chol = None
+            cov = sub
+        with self.lock:
+            t_seen = int(self.t_seen_host[row])
+            version = int(self.version_host[row])
+        return PosteriorState(
+            model_id=meta.model_id, version=version, t_seen=t_seen,
+            mean=mean[idx], cov=cov, params=meta.params,
+            loadings=meta.loadings, dt=meta.dt,
+            scaler_mean=meta.scaler_mean, scaler_std=meta.scaler_std,
+            names=meta.names, chol=chol,
+        )
+
+    def materialize(self, row: int, meta: ModelMeta) -> PosteriorState:
+        """The full :class:`PosteriorState` of the model in ``row``."""
+        mean, fac, _, _ = self.read_row(row)
+        return self.materialize_values(mean, fac, row, meta)
+
+    def clear_row(self, row: int) -> None:
+        """Reset ``row`` to the padded-slot identity values and return it
+        to the free list (eviction's last step)."""
+        row = int(row)
+        n_pad, s_pad = self.bucket
+        dt = self.dtype
+        phi0, q0, z0, r0 = _identity_row_ss(self.bucket, dt.str)
+        vals = (
+            np.zeros(s_pad, dt), np.eye(s_pad, dtype=dt), 0, 0,
+            phi0, q0, z0, r0,
+            False, np.zeros((s_pad, n_pad), dt), np.ones(n_pad, dt),
+            np.zeros((DETECT_STATE_ROWS, n_pad), dt),
+        )
+        with self.lock:
+            self._write_leaves(row, vals)
+            self.steady_host[row] = False
+            self.det_stats_host[row] = 0.0
+            self.t_seen_host[row] = 0
+            self.version_host[row] = 0
+            self.dirty[row] = False
+            self.scaler_mean[row, :] = 0.0
+            self.scaler_std[row, :] = 1.0
+            self.n_series_host[row] = 0
+            self._free.append(row)
+
+
+__all__ = [
+    "STATE_FORMAT_VERSION",
+    "ArenaLostError",
+    "ModelMeta",
+    "PosteriorState",
+    "StateArena",
+    "posterior_state_from_metran",
+]

@@ -702,3 +702,190 @@ def test_sqrt_store_from_a_carry_matches_plain_and_continues(card, dtype):
         assert _rel(_outer(got[i]), _outer(want[i])) <= bar
     for g, f in zip(got, full):
         assert torch.equal(g, f[:, cut:])
+
+
+# ----------------------------------------------------------------------
+# K16, K17, K18: the state arena's in-place kernels
+# ----------------------------------------------------------------------
+ARENA_MODES = [("joint", "off", None), ("gated", "off", None),
+               ("gated", "reject", None), ("gated", "huber", None),
+               ("gated", "off", "censored"), ("sqrt", "off", None),
+               ("sqrt", "inflate", None), ("sqrt", "off", "quantized")]
+DET_PARAMS = dict(cusum_k=0.5, cusum_h=3.0, lb_window=8, lb_thresh=2.0,
+                  nsigma=2.0)
+
+
+def _arena(card, dtype, sqrt, b=12, n=5, kf=2, n_pad=8, s_pad=16):
+    """Arena leaves of ``b`` rows packed from random fitted-looking
+    models (padded to the bucket), a NaN row 2 and, on a covariance
+    arena, a non-PSD row 4; ``t_seen`` straddles the floors."""
+    from metran_tpu_torch.serve.state import StateArena
+
+    rng = np.random.default_rng(3)
+    arena = StateArena((n_pad, s_pad), b, dtype=dtype, sqrt=sqrt,
+                       device=card)
+    a = rng.normal(size=(b + 1, s_pad, s_pad))
+    cov = a @ a.transpose(0, 2, 1) / s_pad + 0.1 * np.eye(s_pad)
+    fac = np.linalg.cholesky(cov) if sqrt else cov
+    arena._fac.copy_(torch.as_tensor(fac, dtype=dtype))
+    arena._mean.copy_(torch.as_tensor(rng.normal(size=(b + 1, s_pad)),
+                                      dtype=dtype))
+    arena._t_seen.copy_(torch.as_tensor(rng.integers(0, 60, b + 1),
+                                        dtype=torch.int32))
+    ss = dfm_statespace(rng.uniform(5, 40, (b + 1, n_pad)),
+                        rng.uniform(10, 60, (b + 1, s_pad - n_pad)),
+                        rng.uniform(0.1, 0.5, (b + 1, n_pad, s_pad - n_pad)),
+                        1.0, device=card, dtype=dtype)
+    for leaf, val in zip(arena._static(), ss):
+        leaf.copy_(val)
+    arena._mean[2, 1] = float("nan")
+    if not sqrt:
+        arena._fac[4] -= 50 * torch.eye(s_pad, dtype=dtype, device=card)
+    arena._det.copy_(torch.as_tensor(
+        np.abs(rng.normal(size=(b + 1, 6, n_pad))), dtype=dtype))
+    return arena
+
+
+def _dispatch(card, dtype, g, k, n_pad, seed=5):
+    rng = np.random.default_rng(seed)
+    y = torch.as_tensor(rng.normal(size=(g, k, n_pad)), dtype=dtype,
+                        device=card)
+    y[1, 0, 2] = 30.0
+    mask = torch.as_tensor(rng.uniform(size=(g, k, n_pad)) > 0.1,
+                           device=card)
+    mask[3] = False
+    real = torch.ones((g, n_pad), dtype=torch.bool, device=card)
+    return y, mask, real
+
+
+def _rel_nan(got, want):
+    """:func:`_rel` NaN-strict: the NaN patterns must match (the gate-off
+    sequential body's z-scores are NaN everywhere)."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if not torch.isfinite(want).any():
+        return 0.0
+    return _rel(got, want)
+
+
+def _same_rows(a, b, rows):
+    return all(torch.equal(a[r].nan_to_num(7.0), b[r].nan_to_num(7.0))
+               for r in rows)
+
+
+@pytest.mark.parametrize("body,mode,lik", ARENA_MODES)
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_arena_update_kernel_matches_plain(card, dtype, bar, body, mode,
+                                           lik):
+    """K16 against its plain version: every output and every written
+    leaf; a rejected row and the rows not named stay bit-identical."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    sqrt = body == "sqrt"
+    rows = [3, 2, 4, 1, 5, 7, 8, 10]
+    g, k = len(rows), 2
+    y, mask, real = _dispatch(card, dtype, g, k, 8)
+    rob = None
+    if lik is not None:
+        rob = karena.ArenaRobust(lik, 4.0, *(
+            torch.full((g, 8), v, dtype=dtype, device=card)
+            for v in (-0.5, 0.8, 0.3, 0.05)))
+    det = body != "joint" and (mode != "off" or lik is not None)
+    kw = dict(body=body, mode=mode, min_seen=20, robust=rob,
+              steady_tol=1e-2, real=real, det_min_seen=10,
+              det_params=DET_PARAMS)
+    outs, arenas = [], []
+    for fn in (karena.arena_update_kernel, karena.arena_update_plain):
+        arena = _arena(card, dtype, sqrt)
+        outs.append(fn(*arena._dynamic(), *arena._static(), rows, y, mask,
+                       det=arena._det if det else None, **kw))
+        arenas.append(arena)
+    torch.cuda.synchronize()
+    got, want = outs
+    assert torch.equal(got.ok, want.ok)
+    assert not got.ok[1] and (sqrt or not got.ok[2])
+    for field in ("sigma", "detf", "zscore", "iters", "det_stats"):
+        g_, w_ = getattr(got, field), getattr(want, field)
+        if w_ is not None:
+            assert _rel_nan(g_[want.ok], w_[want.ok]) <= bar, field
+    for field in ("verdict", "det_counts", "conv"):
+        if getattr(want, field) is not None:
+            assert torch.equal(getattr(got, field), getattr(want, field))
+    ka, pa = arenas
+    fk, fp = ka._fac, pa._fac
+    if sqrt:
+        fk, fp = fk @ fk.mT, fp @ fp.mT
+    assert _rel(ka._mean, pa._mean) <= bar and _rel(fk, fp) <= bar
+    assert torch.equal(ka._t_seen, pa._t_seen)
+    assert torch.equal(ka._version, pa._version)
+    fresh = _arena(card, dtype, sqrt)
+    untouched = [0, 6, 9, 11, 12] + [rows[i] for i in
+                                     torch.nonzero(~got.ok).flatten()]
+    for leaf, ref in zip(ka._dynamic() + (ka._det,),
+                         fresh._dynamic() + (fresh._det,)):
+        assert _same_rows(leaf, ref, untouched)
+
+
+@pytest.mark.parametrize("mode,seq", [("off", False), ("reject", True),
+                                      ("huber", False)])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_arena_steady_kernel_matches_plain(card, dtype, bar, mode, seq):
+    """K17 against its plain version, frozen rows beside broken ones."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    rng = np.random.default_rng(9)
+    rows = [3, 2, 4, 1, 5, 7, 8, 10]
+    g, k = len(rows), 2
+    y, mask, real = _dispatch(card, dtype, g, k, 8, seed=7)
+    mask[:] = True
+    mask[5, 1, 0] = False  # breaks time-invariance
+    steady = torch.as_tensor(rng.uniform(size=13) > 0.3, device=card)
+    kgain = torch.as_tensor(rng.normal(size=(13, 16, 8)) * 0.1,
+                            dtype=dtype, device=card)
+    fdiag = torch.as_tensor(rng.uniform(0.5, 2.0, (13, 8)), dtype=dtype,
+                            device=card)
+    outs, arenas = [], []
+    for fn in (karena.arena_steady_update_kernel,
+               karena.arena_steady_update_plain):
+        arena = _arena(card, dtype, False)
+        arena._mean[2, 1] = 0.5
+        outs.append(fn(arena._mean, arena._t_seen, arena._version,
+                       arena._phi, arena._z, steady, kgain, fdiag, rows,
+                       real, y, mask, mode=mode, sequential=seq,
+                       min_seen=20, det=arena._det, det_min_seen=10,
+                       det_params=DET_PARAMS))
+        arenas.append(arena)
+    torch.cuda.synchronize()
+    got, want = outs
+    assert torch.equal(got.applied, want.applied)
+    assert got.applied.any() and not got.applied.all()
+    for field in ("sigma", "detf", "zscore", "det_stats"):
+        assert _rel_nan(getattr(got, field), getattr(want, field)) <= bar
+    assert torch.equal(got.verdict, want.verdict)
+    assert torch.equal(got.det_counts, want.det_counts)
+    ka, pa = arenas
+    assert _rel(ka._mean, pa._mean) <= bar
+    assert torch.equal(ka._t_seen, pa._t_seen)
+    assert torch.equal(ka._fac, pa._fac)  # never touched
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_arena_forecast_kernel_matches_plain(card, dtype, bar, sqrt):
+    """K18 against its plain version."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    arena = _arena(card, dtype, sqrt)
+    arena._mean[2, 1] = 0.5
+    arena._fac[4] += 60 * torch.eye(16, dtype=dtype, device=card)
+    rows = [3, 2, 4, 1, 5]
+    hz = torch.arange(1, 13, device=card).to(dtype)
+    got = karena.arena_forecast_kernel(arena._mean, arena._fac,
+                                       *arena._static(), rows, hz, sqrt)
+    want = karena.arena_forecast_plain(arena._mean, arena._fac,
+                                       *arena._static(), rows, hz, sqrt)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= bar

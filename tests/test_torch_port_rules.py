@@ -14,7 +14,9 @@
   their robust modes and the detector K13 included), and the robust
   modes count under names of their own;
 - robust updates are ported: no not-ported message names their item
-  (A4.3);
+  (A4.3); nor does one name the state arena's (A4.8), whose registry,
+  factories and kernels K16-K18 take the CPU when asked and refuse it
+  in their launchers;
 - the score that needs a plain version (``score="autodiff"``) refuses
   CUDA tensors, so no plain version runs on the card's path.
 """
@@ -487,6 +489,7 @@ def test_plain_path_counts_no_launch_and_counters_reset():
     for policy, seq in (("off", False), ("reject", False), ("huber", True)):
         kernels.steady_filter(*_k14_args(), policy, 16.0, seq)
     kernels.dare_gains(*args[:4])
+    _arena_plain_calls()
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "joint_filter_store": 0,
                                   "forecast_moments": 0,
@@ -498,7 +501,11 @@ def test_plain_path_counts_no_launch_and_counters_reset():
                                   "gated_filter": 0, "detect": 0,
                                   "gated_filter_robust": 0,
                                   "sqrt_filter_robust": 0,
-                                  "steady_filter": 0, "dare": 0}
+                                  "steady_filter": 0, "dare": 0,
+                                  "arena_update": 0,
+                                  "arena_update_sqrt": 0,
+                                  "arena_steady_update": 0,
+                                  "arena_forecast": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -522,7 +529,9 @@ def test_library_name_follows_the_sources():
         "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
         "lanes_sample.cu", "rts_smoother.cu", "sqrt_filter.cu",
         "sqrt_smoother.cu", "joint_adjoint.cu", "gated_filter.cu",
-        "detect.cu", "steady_filter.cu", "dare.cu"}
+        "detect.cu", "steady_filter.cu", "dare.cu", "arena_joint.cu",
+        "arena_gated.cu", "arena_sqrt.cu", "arena_steady.cu",
+        "arena_forecast.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 
@@ -621,3 +630,80 @@ def test_steady_and_fixed_lag_are_ported_and_named_by_no_message():
     assert svc.steady.enabled and svc.smoother.lag == 8
     svc.close()
     assert {"steady_filter", "dare"} <= set(kernels.launches())
+
+
+def _arena_leaves(sqrt=False):
+    """A CPU arena's leaves with two packed fleet models."""
+    from metran_tpu_torch.serve.state import StateArena
+
+    reg = ModelRegistry(arena=True, arena_rows=3, device="cpu",
+                        engine="sqrt" if sqrt else "joint")
+    arena = StateArena((8, 16), 3, dtype=np.float64, sqrt=sqrt,
+                       device="cpu")
+    return arena, reg
+
+
+def _arena_plain_calls():
+    """Every arena wrapper's plain path once (counts no launch)."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    for sqrt in (False, True):
+        arena, _ = _arena_leaves(sqrt)
+        leaves = arena._dynamic() + arena._static()
+        y = torch.zeros((2, 1, 8), dtype=torch.float64)
+        mask = torch.ones((2, 1, 8), dtype=torch.bool)
+        for body in (("sqrt",) if sqrt else ("joint", "gated")):
+            karena.arena_update(*leaves, [0, 1], y, mask, body=body)
+        karena.arena_forecast(arena._mean, arena._fac, *arena._static(),
+                              [0, 1], torch.ones(2, dtype=torch.float64),
+                              sqrt=sqrt)
+    karena.arena_steady_update(
+        arena._mean, arena._t_seen, arena._version, arena._phi, arena._z,
+        *arena._steady_leaves(), [0, 2], torch.ones((2, 8), dtype=torch.bool),
+        y, mask)
+
+
+def test_arena_is_ported_and_named_by_no_message(monkeypatch):
+    """The state arena (A4.8, kernels K16-K18) is ported: no not-ported
+    message names it; ``ModelRegistry(arena=True)`` defaults to the card
+    and raises without one unless asked for the CPU; the launchers refuse
+    CPU leaves; a sharded arena (more than one device) names A6 and the
+    fused horizon pass names A4.5."""
+    from metran_tpu_torch.kernels import arena as karena
+    from metran_tpu_torch.ops.kalman import NotPortedError
+    from metran_tpu_torch.serve import engine as peng
+
+    for path in sorted((REPO / "metran_tpu_torch").rglob("*.py")):
+        for m in ITEM.finditer(path.read_text()):
+            assert "A4.8" not in m.group(1), (path.name, m.group(0))
+    assert {"arena_update", "arena_update_sqrt", "arena_steady_update",
+            "arena_forecast"} <= set(kernels.launches())
+    reg = ModelRegistry(arena=True, arena_mesh=-1, device="cpu")
+    assert reg.arena_enabled and reg.arena_stats["arenas"] == 0
+    with pytest.raises(NotPortedError, match="A6"):
+        ModelRegistry(arena=True, arena_mesh=4, device="cpu")
+    for make in (peng.make_arena_update_fn,
+                 peng.make_arena_steady_update_fn):
+        with pytest.raises(NotPortedError, match="A4.5"):
+            make(horizons=(1, 2))
+    with pytest.raises(NotPortedError, match="A4.5"):
+        MetranService(reg, flush_deadline=None, readpath=True,
+                      device="cpu")
+    arena, _ = _arena_leaves()
+    leaves = arena._dynamic() + arena._static()
+    y = torch.zeros((1, 1, 8), dtype=torch.float64)
+    mask = torch.ones((1, 1, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA leaves"):
+        karena.arena_update_kernel(*leaves, [0], y, mask)
+    with pytest.raises(ValueError, match="CUDA leaves"):
+        karena.arena_steady_update_kernel(
+            arena._mean, arena._t_seen, arena._version, arena._phi,
+            arena._z, *arena._steady_leaves(), [0],
+            torch.ones((1, 8), dtype=torch.bool), y, mask)
+    with pytest.raises(ValueError, match="CUDA leaves"):
+        karena.arena_forecast_kernel(arena._mean, arena._fac,
+                                     *arena._static(), [0],
+                                     torch.ones(1, dtype=torch.float64))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        ModelRegistry(arena=True)

@@ -5597,6 +5597,57 @@ def arena_tail_cost(b, n, s, k, itemsize, det):
     return nbytes, ops
 
 
+def record_rows(checks, kernel, case, dtype, names, got, want, bar,
+                exact=()):
+    """One kernel-vs-plain check into ``checks``: each compared tensor held
+    row by row (:func:`row_rel_err`), the ``exact`` pairs equal; the
+    largest absolute error is reported with its field, row and that row's
+    scale."""
+    import torch
+
+    errs = [row_rel_err(g, w) for g, w in zip(got, want)]
+    same = [bool(torch.equal(a, b)) for a, b in exact]
+    absd = [abs_err(g, w) for g, w in zip(got, want)]
+    at = max(range(len(absd)), key=absd.__getitem__)
+    g, w = got[at].double(), want[at].double()
+    diff = torch.where(torch.isfinite(w), g - w,
+                       torch.zeros_like(w)).abs()
+    row = int(diff.reshape(diff.shape[0], -1).amax(1).argmax())
+    wr = w[row][torch.isfinite(w[row])]
+    checks.append({
+        "kernel": kernel, "case": case, "dtype": str(dtype)[6:],
+        "fields": names, "rel_err": errs, "norm": "per row",
+        "bar": bar, "exact_equal": same, "max_abs_err": absd[at],
+        "max_abs_err_at": {
+            "field": names[at], "row": row,
+            "row_scale": float(wr.abs().max()) if wr.numel() else 0.0},
+        "ok": within(errs, bar) and all(same)})
+
+
+def k16_cost(body, arena, rows, mask, det):
+    """Bytes and least operations of one K16 launch over the dispatched
+    ``rows``: its step body's (K1, K12 or K9 from a given carry), the
+    arena tail's and the integrity gate's."""
+    import torch
+
+    dev = arena._mean.device
+    itemsize = arena._mean.element_size()
+    idx = torch.as_tensor(rows, device=dev).long()
+    z_g, q_g = arena._z[idx], arena._q[idx]
+    if body == "sqrt":
+        cost = k9_cost(z_g.permute(1, 2, 0), mask,
+                       torch.arange(len(rows), device=dev), False, True,
+                       itemsize)
+    elif body == "joint":
+        cost = k1_cost(z_g, q_g, mask, itemsize)
+    else:
+        cost = k12_cost(z_g, q_g, mask, itemsize)
+    extra = arena_tail_cost(len(rows), BUCKET[0], BUCKET[1], mask.shape[1],
+                            itemsize, det)
+    return (cost[0] + extra[0], cost[1] + extra[1]
+            + gate_cost(len(rows), BUCKET[1], body == "sqrt"))
+
+
 def _arena_leaves(dtype, dev, sqrt, rng):
     """An arena of ARENA_ROWS flagship rows (bucket (24, 32)) holding
     real posteriors (ARENA_HIST steps of the rows' own data through the
@@ -5692,27 +5743,8 @@ def phase_arena_kernels():
     thresh = GATE_NSIGMA ** 2
     checks, times = [], {}
 
-    def record(kernel, case, dtype, names, got, want, bar, exact=()):
-        """Each compared tensor held row by row (:func:`row_rel_err`);
-        the largest absolute error is reported with its field, row and
-        that row's scale."""
-        errs = [row_rel_err(g, w) for g, w in zip(got, want)]
-        same = [bool(torch.equal(a, b)) for a, b in exact]
-        absd = [abs_err(g, w) for g, w in zip(got, want)]
-        at = max(range(len(absd)), key=absd.__getitem__)
-        g, w = got[at].double(), want[at].double()
-        diff = torch.where(torch.isfinite(w), g - w,
-                           torch.zeros_like(w)).abs()
-        row = int(diff.reshape(diff.shape[0], -1).amax(1).argmax())
-        wr = w[row][torch.isfinite(w[row])]
-        checks.append({
-            "kernel": kernel, "case": case, "dtype": str(dtype)[6:],
-            "fields": names, "rel_err": errs, "norm": "per row",
-            "bar": bar, "exact_equal": same, "max_abs_err": absd[at],
-            "max_abs_err_at": {
-                "field": names[at], "row": row,
-                "row_scale": float(wr.abs().max()) if wr.numel() else 0.0},
-            "ok": within(errs, bar) and all(same)})
+    def record(*args, **kw):
+        record_rows(checks, *args, **kw)
 
     def rows_same(leaves, ref, rows):
         idx = torch.as_tensor(rows, device=dev).long()
@@ -5874,20 +5906,7 @@ def phase_arena_kernels():
             *leaves, rows, y, mask, **kw))
         plain_ms, _ = cuda_ms(lambda: karena.arena_update_plain(
             *leaves, rows, y, mask, **kw), reps=3, warm=1)
-        idx = torch.as_tensor(rows, device=dev).long()
-        z_g, q_g = arena._z[idx], arena._q[idx]
-        if sqrt:
-            zl = z_g.permute(1, 2, 0)
-            cost = k9_cost(zl, mask, torch.arange(len(rows), device=dev),
-                           False, True, 4)
-        elif body == "joint":
-            cost = k1_cost(z_g, q_g, mask, 4)
-        else:
-            cost = k12_cost(z_g, q_g, mask, 4)
-        extra = arena_tail_cost(len(rows), BUCKET[0], BUCKET[1], 1, 4, det)
-        bms, bby = bound_ms(cost[0] + extra[0],
-                            cost[1] + extra[1]
-                            + gate_cost(len(rows), BUCKET[1], sqrt),
+        bms, bby = bound_ms(*k16_cost(body, arena, rows, mask, det),
                             "float32")
         times[key] = {
             "shape": f"{body} {mode}{' + detect' if det else ''} + conv, "
@@ -5952,10 +5971,12 @@ def phase_arena_kernels():
     return checks, times
 
 
-def _fleet_states(engine, rng, t_hist, missing, poison=None):
+def _fleet_states(engine, rng, t_hist, missing, poison=None, batch=FLEET,
+                  npd=None):
     """The flagship fleet's posteriors after a history pass of ``t_hist``
-    steps (f32, K1 or K9), as serving states, and each model's next
-    ARENA_STEADY_ROUNDS rows of its own data."""
+    steps (f32 unless ``npd``; K1 or K9), as serving states of ``batch``
+    models, and each model's next ARENA_STEADY_ROUNDS rows of its own
+    data."""
     import numpy as np
     import torch
 
@@ -5968,9 +5989,9 @@ def _fleet_states(engine, rng, t_hist, missing, poison=None):
     from metran_tpu_torch.serve import PosteriorState
 
     dev = torch.device(DEVICE)
-    f32 = np.float32
+    f32 = np.float32 if npd is None else npd
     y, mask, lds, a_s, a_c = make_workload(
-        rng, FLEET, t=t_hist + ARENA_STEADY_ROUNDS, missing=missing)
+        rng, batch, t=t_hist + ARENA_STEADY_ROUNDS, missing=missing)
     ss = dfm_statespace(a_s.astype(f32), a_c.astype(f32), lds.astype(f32),
                         1.0, device=dev)
     yh, mh = y[:, :t_hist].astype(f32), mask[:, :t_hist]
@@ -5980,7 +6001,7 @@ def _fleet_states(engine, rng, t_hist, missing, poison=None):
         covs = chol_outer(res.chol_f).cpu().numpy()
     else:
         res = kalman_filter(ss, yh, mh, engine="joint", store=False)
-        covs, chols = res.cov_f.cpu().numpy(), [None] * FLEET
+        covs, chols = res.cov_f.cpu().numpy(), [None] * batch
     means = res.mean_f.cpu().numpy()
     if poison is not None:
         means[poison] = np.nan
@@ -5991,7 +6012,7 @@ def _fleet_states(engine, rng, t_hist, missing, poison=None):
         loadings=lds[i].astype(f32), dt=1.0,
         scaler_mean=np.zeros(N_SERIES, f32),
         scaler_std=np.ones(N_SERIES, f32), names=names, chol=chols[i])
-        for i in range(FLEET)]
+        for i in range(batch)]
     return states, y[:, t_hist:]
 
 
@@ -6309,6 +6330,524 @@ def phase_arena_serving():
     return total, runs
 
 
+READPATH_HORIZONS = "1-30"  # the service's default set (SERVE_HORIZONS)
+READPATH_SETS = ("1-30", "1,7,30")  # contiguous, and values that are not
+#                                     1..H (the kernels read h as a value)
+# K16 horizons checks: (body, mode, robust likelihood, detection, steady_tol)
+READPATH_K16_MODES = (
+    ("joint", "off", None, False, 1e-4),
+    ("gated", "reject", None, True, 1e-4),
+    ("gated", "off", "censored", True, 0.0),
+    ("sqrt", "off", None, False, 1e-4),
+    ("sqrt", "reject", None, True, 0.0),
+)
+READPATH_K17_MODES = (("off", False, False), ("reject", True, True))
+READPATH_K14_FORMS = (("off", False), ("reject", True))
+READPATH_ROUNDS = 6  # paired update rounds of the f32 read-path run
+READPATH_REPS = 5  # paired forecast repetitions, hit against compute
+READPATH_F64 = 64  # models of the f64 runs (sqrt arena; frozen rows)
+READPATH_F64_ROUNDS = 4  # their update rounds (tests/test_steady.py:393)
+
+
+def horizon_cost(z, q, h, itemsize, means_only, sqrt=False):
+    """Bytes and least operations a horizons tail adds to its update
+    launch over the rows of ``z`` (G, N, S): the (G, H, N) means (and
+    variances) written once; per (row, horizon) the means' ``phi^h o m``
+    and ``Z m_h`` on Z's nonzeros, and the variances' K2 operations
+    (:func:`k2_cost`; its input bytes are the update's own) with, on a
+    factor row, ``F F'`` (S^3 / 3, as K18's bound counts it)."""
+    g, n, s = z.shape
+    nbytes = (1 if means_only else 2) * g * h * n * itemsize
+    if means_only:
+        nnz = float((z != 0).double().sum())
+        return nbytes, h * (2.0 * g * s + 2.0 * nnz)
+    ops = k2_cost(z, q, h, itemsize)[1]
+    if sqrt:
+        ops += g * s ** 3 / 3.0
+    return nbytes, ops
+
+
+def phase_readpath_kernels():
+    """The read path's kernels (B13's commit-time horizon pass): the
+    ``horizons`` modes of K16, K17 and K14 against their plain versions
+    on the card at the flagship width — an arena of ARENA_ROWS rows of
+    the (24, 32) bucket, FLEET of them dispatched, k = 1 (K14: FLEET
+    models) — f64 and f32 (1e-9 / 1e-3, every row of the forecast means
+    and variances against its own scale, NaN-strict: the rejected NaN
+    row's moments are its prior's), at the horizon sets "1-30" and
+    "1,7,30".  Then the contract the read path rests on: every K16 and
+    K17 snapshot equals K18's read of the written arena bit for bit at
+    f64 (f32 reported).  Then each mode timed at f32, H = 30, beside the
+    same launch without it (alternating, in this call), its bound and
+    its plain version."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import arena as karena
+    from metran_tpu_torch.kernels import steady_filter, steady_filter_plain
+    from metran_tpu_torch.serve.readpath import parse_horizons
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    thresh = GATE_NSIGMA ** 2
+    checks, times, vs_k18 = [], {}, []
+
+    def hset(spec, dtype):
+        return torch.tensor(parse_horizons(spec), dtype=dtype, device=dev)
+
+    def k16_kw(body, mode, lik, det, tol, arena, rows, real, hz):
+        rob = None
+        if lik is not None:
+            rob = karena.ArenaRobust(lik, 4.0, *(
+                torch.full((len(rows), BUCKET[0]), v,
+                           dtype=arena._mean.dtype, device=dev)
+                for v in (-1.2, 1.2, 0.1, ROBUST_SCALE)))
+        return dict(body=body, mode=mode, thresh=thresh, min_seen=32,
+                    robust=rob, steady_tol=tol, real=real,
+                    det=arena._det if det else None, det_min_seen=16,
+                    det_params=ARENA_DET, horizons=hz)
+
+    def k16_run(fn, dtype, body, mode, lik, det, tol, hz):
+        rng = np.random.default_rng(SEED + 140)
+        arena, y_next, m_next = _arena_leaves(dtype, dev, body == "sqrt",
+                                              rng)
+        rows = _arena_rows(np.random.default_rng(SEED + 121))
+        y, mask, real = _arena_dispatch(arena, rows, y_next, m_next, rng)
+        out = fn(*arena._dynamic(), *arena._static(), rows, y, mask,
+                 **k16_kw(body, mode, lik, det, tol, arena, rows, real, hz))
+        torch.cuda.synchronize()
+        return out, arena, rows, mask
+
+    def steady_arena(dtype):
+        rng = np.random.default_rng(SEED + 141)
+        arena, y_next, m_next = _arena_leaves(dtype, dev, False, rng)
+        arena._mean[2, 1] = 0.0
+        srng = np.random.default_rng(SEED + 123)
+        arena._steady.copy_(torch.as_tensor(
+            srng.uniform(size=ARENA_ROWS + 1) > 0.2))
+        arena._kgain.copy_(torch.as_tensor(
+            srng.normal(size=arena._kgain.shape) * 0.05))
+        arena._fdiag.copy_(torch.as_tensor(
+            srng.uniform(0.5, 2.0, arena._fdiag.shape)))
+        rows = _arena_rows(np.random.default_rng(SEED + 121))
+        y, mask, real = _arena_dispatch(arena, rows, y_next, m_next, rng)
+        mask[:, :, :N_SERIES] = True
+        mask[::7, 0, 5] = False  # broken rows
+        return arena, rows, y, mask, real
+
+    def against_k18(kernel, case, dtype, arena, rows, hz, sqrt, fm, fv):
+        """The snapshot against K18's read of the arena as written."""
+        km, kv = karena.arena_forecast_kernel(
+            arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+        torch.cuda.synchronize()
+        pairs = [(fm, km)] + ([(fv, kv)] if fv is not None else [])
+        vs_k18.append({
+            "kernel": kernel, "case": case, "dtype": str(dtype)[6:],
+            "bitwise": all(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+                           for a, b in pairs),
+            "max_abs_err": max(abs_err(a, b) for a, b in pairs)})
+
+    for dtype in (torch.float64, torch.float32):
+        bar = 1e-9 if dtype == torch.float64 else 1e-3
+        for spec in READPATH_SETS:
+            hz = hset(spec, dtype)
+            for body, mode, lik, det, tol in READPATH_K16_MODES:
+                sqrt = body == "sqrt"
+                got, ka, rows, _ = k16_run(karena.arena_update_kernel, dtype,
+                                           body, mode, lik, det, tol, hz)
+                want = k16_run(karena.arena_update_plain, dtype, body, mode,
+                               lik, det, tol, hz)[0]
+                name = "arena_update_sqrt" if sqrt else "arena_update"
+                case = (f"horizons {spec}: {body} {mode}"
+                        f"{' ' + lik if lik else ''}"
+                        f"{' + detect' if det else ''}"
+                        f"{' + conv' if tol else ''}, B={ARENA_ROWS} "
+                        f"G={FLEET} k=1 (24, 32)")
+                record_rows(checks, name, case, dtype, ["fmeans", "fvars"],
+                            [got.fmeans, got.fvars],
+                            [want.fmeans, want.fvars], bar,
+                            exact=[(got.ok, want.ok)])
+                require(not bool(got.ok[1]),
+                        f"K16 {case}: the NaN row passed the gate")
+                against_k18(name, case, dtype, ka, rows, hz, sqrt,
+                            got.fmeans, got.fvars)
+            for mode, seq, det in READPATH_K17_MODES:
+                outs = []
+                for fn in (karena.arena_steady_update_kernel,
+                           karena.arena_steady_update_plain):
+                    arena, rows, y, mask, real = steady_arena(dtype)
+                    outs.append((fn(
+                        arena._mean, arena._t_seen, arena._version,
+                        arena._phi, arena._z, *arena._steady_leaves(), rows,
+                        real, y, mask, mode=mode, thresh=thresh,
+                        sequential=seq, min_seen=32,
+                        det=arena._det if det else None, det_min_seen=16,
+                        det_params=ARENA_DET, horizons=hz), arena))
+                    torch.cuda.synchronize()
+                (got, ka), (want, _) = outs
+                case = (f"horizons {spec}: {mode} "
+                        f"{'per-slot' if seq else 'vector'}"
+                        f"{' + detect' if det else ''}, B={ARENA_ROWS} "
+                        f"G={FLEET} k=1 (24, 32)")
+                record_rows(checks, "arena_steady_update", case, dtype,
+                            ["fmeans"], [got.fmeans], [want.fmeans], bar,
+                            exact=[(got.applied, want.applied)])
+                require(bool(got.applied.any())
+                        and not bool(got.applied.all()),
+                        f"K17 {case}: no frozen row beside broken ones")
+                against_k18("arena_steady_update", case, dtype, ka, rows,
+                            hz, False, got.fmeans, None)
+            for policy, seq in READPATH_K14_FORMS:
+                phi, z, gains, real, mean, y, mask, armed = \
+                    _steady_bucket_case(np.random.default_rng(SEED + 142),
+                                        dtype, dev)
+                kg, fd = (gains[2], gains[3]) if seq else (gains[0], gains[1])
+                args = (phi, z, kg, fd, real, mean, y, mask, armed, policy,
+                        thresh, seq)
+                got = steady_filter(*args, horizons=hz)
+                want = steady_filter_plain(*args, horizons=hz)
+                torch.cuda.synchronize()
+                record_rows(
+                    checks, "steady_filter",
+                    f"horizons {spec}: {policy} "
+                    f"{'per-slot' if seq else 'vector'}, B={FLEET} k=1 "
+                    "(24, 32)", dtype, ["fmeans", "mean"],
+                    [got[6], got[0]], [want[6], want[0]], bar,
+                    exact=[(got[3], want[3])])
+    for c in checks:
+        emit({"phase": "kernel_check", **c})
+    emit({"phase": "readpath_vs_k18", "checks": vs_k18})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+    bad = [c for c in vs_k18 if c["dtype"] == "float64" and not c["bitwise"]]
+    require(not bad, f"a snapshot differs from K18's read at f64: {bad}")
+
+    # the main path's shapes, f32, H = 30: each mode beside the same
+    # launch without it, alternating (off, on, on, off)
+    dtype = torch.float32
+    hz = hset(READPATH_HORIZONS, dtype)
+    h = hz.shape[0]
+
+    def paired(fn_off, fn_on):
+        a, _ = cuda_ms(fn_off)
+        b, _ = cuda_ms(fn_on)
+        c, _ = cuda_ms(fn_on)
+        d, _ = cuda_ms(fn_off)
+        return (b + c) / 2.0, (a + d) / 2.0
+
+    timed = {"arena_update_horizons": ("joint", "off", None, False, 1e-4),
+             "arena_update_gated_horizons": ("gated", "reject", None, True,
+                                             1e-4),
+             "arena_update_sqrt_horizons": ("sqrt", "off", None, False,
+                                            1e-4)}
+    for key, (body, mode, lik, det, tol) in timed.items():
+        sqrt = body == "sqrt"
+        rng = np.random.default_rng(SEED + 143)
+        arena, y_next, m_next = _arena_leaves(dtype, dev, sqrt, rng)
+        rows = _arena_rows(np.random.default_rng(SEED + 121))
+        y, mask, real = _arena_dispatch(arena, rows, y_next, m_next, rng)
+        kw = k16_kw(body, mode, lik, det, tol, arena, rows, real, hz)
+        off = dict(kw, horizons=None)
+        leaves = arena._dynamic() + arena._static()
+        ms, ms_off = paired(
+            lambda: karena.arena_update_kernel(*leaves, rows, y, mask, **off),
+            lambda: karena.arena_update_kernel(*leaves, rows, y, mask, **kw))
+        plain_ms, _ = cuda_ms(lambda: karena.arena_update_plain(
+            *leaves, rows, y, mask, **kw), reps=3, warm=1)
+        idx = torch.as_tensor(rows, device=dev).long()
+        base = k16_cost(body, arena, rows, mask, det)
+        tail = horizon_cost(arena._z[idx], arena._q[idx], h, 4, False, sqrt)
+        bms, bby = bound_ms(base[0] + tail[0], base[1] + tail[1], "float32")
+        tbms, tbby = bound_ms(*tail, "float32")
+        times[key] = {
+            "shape": f"{body} {mode}{' + detect' if det else ''} + conv + "
+                     f"horizons 1-30, B={ARENA_ROWS} G={FLEET} k=1 (24, 32) "
+                     "f32 (one arena update dispatch)",
+            "ms": ms, "ms_without_horizons": ms_off,
+            "horizons_added_ms": ms - ms_off, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bby, "horizons_bound_ms": tbms,
+            "horizons_bound_by": tbby}
+    arena, rows, y, mask, real = steady_arena(dtype)
+    arena._steady.fill_(True)
+    mask[:, :, :N_SERIES] = True
+    sargs = (arena._mean, arena._t_seen, arena._version, arena._phi,
+             arena._z, *arena._steady_leaves(), rows, real, y, mask)
+    skw = dict(mode="reject", thresh=thresh, sequential=True, min_seen=32,
+               det=arena._det, det_min_seen=16, det_params=ARENA_DET,
+               horizons=hz)
+    ms, ms_off = paired(
+        lambda: karena.arena_steady_update_kernel(
+            *sargs, **dict(skw, horizons=None)),
+        lambda: karena.arena_steady_update_kernel(*sargs, **skw))
+    plain_ms, _ = cuda_ms(lambda: karena.arena_steady_update_plain(
+        *sargs, **skw), reps=3, warm=1)
+    idx = torch.as_tensor(rows, device=dev).long()
+    base = k14_cost(arena._z[idx], arena._kgain[idx], mask, 4)
+    extra = arena_tail_cost(len(rows), BUCKET[0], BUCKET[1], 1, 4, True)
+    tail = horizon_cost(arena._z[idx], None, h, 4, True)
+    bms, bby = bound_ms(base[0] + extra[0] + tail[0],
+                        base[1] + extra[1] + tail[1], "float32")
+    times["arena_steady_update_horizons"] = {
+        "shape": f"reject per-slot + detect + horizons 1-30, B={ARENA_ROWS} "
+                 f"G={FLEET} k=1 (24, 32) f32 (one steady arena dispatch)",
+        "ms": ms, "ms_without_horizons": ms_off,
+        "horizons_added_ms": ms - ms_off, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": bby}
+    phi, z, gains, real, mean, y, mask, armed = _steady_bucket_case(
+        np.random.default_rng(SEED + 144), dtype, dev)
+    args = (phi, z, gains[2], gains[3], real, mean, y, mask, armed,
+            "reject", thresh, True)
+    ms, ms_off = paired(lambda: steady_filter(*args),
+                        lambda: steady_filter(*args, horizons=hz))
+    plain_ms, _ = cuda_ms(lambda: steady_filter_plain(*args, horizons=hz),
+                          reps=3, warm=1)
+    base = k14_cost(z, gains[2], mask, 4)
+    tail = horizon_cost(z, None, h, 4, True)
+    bms, bby = bound_ms(base[0] + tail[0], base[1] + tail[1], "float32")
+    times["steady_filter_horizons"] = {
+        "shape": f"reject per-slot + horizons 1-30, B={FLEET} k=1 (24, 32) "
+                 "f32 (one dict steady dispatch)",
+        "ms": ms, "ms_without_horizons": ms_off,
+        "horizons_added_ms": ms - ms_off, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": bby}
+    emit({"phase": "readpath_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "fields", "rel_err",
+                           "norm", "bar", "max_abs_err_at", "ok")}
+        for c in checks], "times": times,
+        "seconds": time.perf_counter() - t_phase})
+    return checks, times
+
+
+def phase_readpath():
+    """The materialized read path (ROADMAP A4.5) on the flagship fleet:
+    FLEET = 512 models of the (24, 32) bucket after a history pass (f32,
+    joint), horizons "1-30" (the JAX default), on four services with the
+    same states and traffic — an arena registry with the read path and
+    one without (bulk ``update_batch``), a dict registry with it and one
+    without (per request) — READPATH_ROUNDS update rounds paired and
+    rotated; equal acks.  Then: a warm ``forecast_batch`` of all 512
+    models launches no kernel (the launch counters' delta) on either
+    read-path service; each hit equals the compute path (K18 on the
+    arena, K2 on the dict registry; f32 within rtol 2e-5 / atol 1e-6,
+    bit-identical counted); the 512-request forecast timed hit against
+    compute, per request and in bulk, rotated pairs.  Then f64: a
+    square-root arena of READPATH_F64 models whose hits equal K18's
+    compute path bit for bit, and frozen rows (``SteadySpec(tol=1e-9)``,
+    arena K17 and dict K14) whose hits agree with the exact twins'
+    compute path within 1e-8 (``tests/test_steady.py:393``) and whose
+    means equal their own compute path bit for bit.  Returns the
+    read-path services' launch counts (their dispatches and forecasts)."""
+    import numpy as np
+
+    from metran_tpu_torch.kernels import launches
+    from metran_tpu_torch.serve import (
+        ArenaUpdateAck,
+        MetranService,
+        ModelRegistry,
+        SteadySpec,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 150)
+    counts = {key: 0 for key in launches()}
+
+    def counted(fn):
+        before = launches()
+        out = fn()
+        for key, v in launches().items():
+            counts[key] += v - before[key]
+        return out
+
+    def services(engine, states, kinds, **kw):
+        out = {}
+        for kind in kinds:
+            reg = ModelRegistry(engine=engine, arena=kind.startswith("arena"),
+                                arena_rows=ARENA_ROWS, device=DEVICE)
+            for st in states:
+                reg.put(st, persist=False)
+            rp = kind.endswith("_rp")
+            out[kind] = MetranService(
+                reg, flush_deadline=None, max_batch=4096,
+                persist_updates=False, device=DEVICE, readpath=rp,
+                horizons=READPATH_HORIZONS, **(kw if rp else {}))
+        return out
+
+    def update(svc, ids, obs):
+        if svc.registry.arena_enabled:
+            return svc.update_batch(ids, obs)
+        futs = [svc.update_async(m, obs[i]) for i, m in enumerate(ids)]
+        svc.flush()
+        return [f.result() for f in futs]
+
+    def per_request(svc, ids, steps):
+        futs = [svc.forecast_async(m, steps) for m in ids]
+        svc.flush()
+        return [f.result() for f in futs]
+
+    def compute(svc, ids, steps):
+        """The compute path of a read-path service, past its cache."""
+        return svc._forecast_batch_compute(ids, steps)
+
+    def ms(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    # f32, joint, 512 models
+    states, rows = _fleet_states("joint", rng, T_STEPS, MISSING)
+    ids = [st.model_id for st in states]
+    svcs = services("joint", states, ("arena_rp", "arena", "dict_rp",
+                                      "dict"))
+    order = tuple(svcs)
+    walls = {k: [] for k in order}
+    for r in range(READPATH_ROUNDS):
+        obs = np.array(rows[:, r:r + 1], dtype=float)
+        acks = {}
+        for kind in order[r % 4:] + order[:r % 4]:
+            svc = svcs[kind]
+            t0 = time.perf_counter()
+            if kind.endswith("_rp"):
+                acks[kind] = counted(lambda: update(svc, ids, obs))
+            else:
+                acks[kind] = update(svc, ids, obs)
+            walls[kind].append(ms(t0))
+        for i in range(len(ids)):
+            a, d = acks["arena_rp"][i], acks["dict_rp"][i]
+            require(isinstance(a, ArenaUpdateAck) and a == acks["arena"][i]
+                    and (a.version, a.t_seen) == (d.version, d.t_seen)
+                    == (acks["dict"][i].version, acks["dict"][i].t_seen),
+                    ("readpath acks", ids[i], r, a, d))
+    steps = FORECAST_STEPS
+    warm_launches, bitwise = {}, {}
+    for kind in ("arena_rp", "dict_rp"):
+        svc = svcs[kind]
+        h0 = svc.readpath.hits
+        before = launches()
+        warm = svc.forecast_batch(ids, steps)
+        delta = {k: v - before[k] for k, v in launches().items()
+                 if v != before[k]}
+        require(not delta and svc.readpath.hits - h0 == len(ids),
+                (kind, "a warm forecast_batch launched", delta))
+        warm_launches[kind] = delta
+        want = counted(lambda: compute(svc, ids, steps))
+        twin = svcs[kind[:-3]].forecast_batch(ids, steps)
+        same = 0
+        for w, c, t in zip(warm, want, twin):
+            require(w.version == c.version == t.version,
+                    (kind, w.version, c.version, t.version))
+            for ref in (c, t):
+                np.testing.assert_allclose(w.means, ref.means, rtol=2e-5,
+                                           atol=1e-6)
+                np.testing.assert_allclose(w.variances, ref.variances,
+                                           rtol=2e-5, atol=1e-6)
+            same += bool(np.array_equal(w.means, c.means)
+                         and np.array_equal(w.variances, c.variances))
+        bitwise[kind] = same
+    fc = {k: [] for k in ("arena_bulk_hit", "arena_bulk_compute",
+                          "arena_request_hit", "arena_request_compute",
+                          "dict_request_hit", "dict_request_compute")}
+    jobs = (("arena_bulk_hit", lambda: svcs["arena_rp"].forecast_batch(
+                ids, steps)),
+            ("arena_bulk_compute", lambda: svcs["arena"].forecast_batch(
+                ids, steps)),
+            ("arena_request_hit", lambda: per_request(svcs["arena_rp"], ids,
+                                                      steps)),
+            ("arena_request_compute", lambda: per_request(svcs["arena"], ids,
+                                                          steps)),
+            ("dict_request_hit", lambda: per_request(svcs["dict_rp"], ids,
+                                                     steps)),
+            ("dict_request_compute", lambda: per_request(svcs["dict"], ids,
+                                                         steps)))
+    for r in range(READPATH_REPS):
+        for key, job in jobs[r % len(jobs):] + jobs[:r % len(jobs)]:
+            t0 = time.perf_counter()
+            if key.endswith("_hit"):
+                counted(job)
+            else:
+                job()
+            fc[key].append(ms(t0))
+    require(all(svcs[k].readpath.stale == 0 for k in ("arena_rp",
+                                                      "dict_rp")),
+            "a read-path entry went stale without an external put")
+    stats = {k: svcs[k].readpath.stats() for k in ("arena_rp", "dict_rp")}
+    for svc in svcs.values():
+        svc.close()
+
+    def med(xs):
+        return float(np.median(xs))
+
+    # f64: a square-root arena (K16's factor rows), bit for bit
+    states, rows = _fleet_states("sqrt", rng, ARENA_HIST, MISSING,
+                                 batch=READPATH_F64, npd=np.float64)
+    ids64 = [st.model_id for st in states]
+    svcs = services("sqrt", states, ("arena_rp", "arena"))
+    for r in range(READPATH_F64_ROUNDS):
+        obs = np.array(rows[:, r:r + 1], dtype=float)
+        counted(lambda: update(svcs["arena_rp"], ids64, obs))
+        update(svcs["arena"], ids64, obs)
+    hits = svcs["arena_rp"].forecast_batch(ids64, steps)
+    own = counted(lambda: compute(svcs["arena_rp"], ids64, steps))
+    twin = svcs["arena"].forecast_batch(ids64, steps)
+    for w, c, t in zip(hits, own, twin):
+        require(w.version == c.version == t.version
+                and all(np.array_equal(getattr(w, f), getattr(ref, f))
+                        for f in ("means", "variances") for ref in (c, t)),
+                ("f64 sqrt arena: a hit differs from the compute path",
+                 w.version))
+    for svc in svcs.values():
+        svc.close()
+
+    # f64 frozen rows: K17 (arena) and K14 (dict) with their cached
+    # variances, against exact twins
+    states, rows = _fleet_states("joint", rng, STEADY_HIST, 0.0,
+                                 batch=READPATH_F64, npd=np.float64)
+    steady = SteadySpec(tol=STEADY_TOL["float64"], min_seen=STEADY_MIN_SEEN)
+    svcs = services("joint", states, ("arena_rp", "arena", "dict_rp",
+                                      "dict"), steady=steady)
+    for r in range(READPATH_F64_ROUNDS):
+        obs = np.array(rows[:, r:r + 1], dtype=float)
+        for kind, svc in svcs.items():
+            if kind.endswith("_rp"):
+                counted(lambda: update(svc, ids64, obs))
+            else:
+                update(svc, ids64, obs)
+    frozen_dev = {}
+    for kind in ("arena_rp", "dict_rp"):
+        svc = svcs[kind]
+        require(svc._steady_count() == READPATH_F64,
+                (kind, "froze", svc._steady_count()))
+        hits = svc.forecast_batch(ids64, steps)
+        own = counted(lambda: compute(svc, ids64, steps))
+        twin = svcs[kind[:-3]].forecast_batch(ids64, steps)
+        dev_max = 0.0
+        for w, c, t in zip(hits, own, twin):
+            require(w.version == c.version == t.version
+                    and np.array_equal(w.means, c.means),
+                    (kind, "a frozen hit's means differ from its own "
+                     "compute path"))
+            dev_max = max(dev_max, float(np.abs(w.means - t.means).max()),
+                          float(np.abs(w.variances - t.variances).max()))
+        require(dev_max < STEADY_DEV["float64"],
+                (kind, "frozen hits vs the exact twin", dev_max))
+        frozen_dev[kind] = dev_max
+    for svc in svcs.values():
+        svc.close()
+    for key in ("arena_update", "arena_update_sqrt", "arena_steady_update",
+                "steady_filter", "forecast_moments"):
+        require(counts[key] > 0, f"the read path never launched {key}")
+    emit({"phase": "readpath",
+          "fleet": FLEET, "horizons": READPATH_HORIZONS,
+          "forecast_steps": steps,
+          "update_dispatch_ms": {k: med(v) for k, v in walls.items()},
+          "update_dispatch_ms_by_round": walls,
+          "forecast_512_ms": {k: med(v) for k, v in fc.items()},
+          "forecast_512_ms_by_rep": fc,
+          "warm_forecast_batch_launches": warm_launches,
+          "hits_bitwise_own_compute_f32": bitwise, "cache": stats,
+          "frozen_vs_exact_max_abs": frozen_dev,
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 KERNELS = {
     "joint_filter_append": {
         "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
@@ -6433,7 +6972,7 @@ def main() -> int:
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
                   phase_robust_kernels, phase_steady_kernels,
-                  phase_arena_kernels):
+                  phase_arena_kernels, phase_readpath_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
@@ -6464,6 +7003,7 @@ def main() -> int:
     paths["fixed_lag"] = phase_fixed_lag()
     emit({"phase": "steady_engines", "dispatch_ms": steady})
     paths["arena_serving"], _ = phase_arena_serving()
+    paths["readpath"] = phase_readpath()
     # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
     # fleet stderr's run through phases 6 and 7, checked last)
     with ProcessPoolExecutor(

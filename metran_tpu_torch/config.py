@@ -36,6 +36,11 @@ SERVE_ARENA = 0  # 1 = serve from device-resident state arenas
 SERVE_ARENA_ROWS = 1024  # per-bucket arena capacity (rows preallocated)
 SERVE_ARENA_MESH = 0  # devices to shard each arena across (0 = single
 #                       device; -1 = every visible device)
+# materialized forecast read path: OFF by default, the cache trades one
+# fused horizon pass per commit for reads that dispatch nothing
+SERVE_READPATH = 0  # 1 = serve forecasts from commit-time snapshots
+SERVE_HORIZONS = "1-30"  # horizon set precomputed at commit time
+#                          ("1-30", "1,7,30", "1-14,30" all parse)
 # reliability (reliability.policy wired into MetranService)
 SERVE_REQUEST_DEADLINE_S = 30.0  # hard cap on any sync service call
 SERVE_RETRY_ATTEMPTS = 2  # total attempts for transient failures
@@ -121,6 +126,12 @@ def serve_defaults() -> dict:
         ),
         "arena_mesh": _env(
             "METRAN_TPU_SERVE_ARENA_MESH", int, SERVE_ARENA_MESH
+        ),
+        "readpath": _env(
+            "METRAN_TPU_SERVE_READPATH", int, SERVE_READPATH
+        ),
+        "horizons": _env(
+            "METRAN_TPU_SERVE_HORIZONS", str, SERVE_HORIZONS
         ),
         "request_deadline_s": _env(
             "METRAN_TPU_SERVE_DEADLINE_S", float, SERVE_REQUEST_DEADLINE_S

@@ -19,11 +19,16 @@ PLACE:
   written back, with ``t_seen += k`` and ``version += 1``, only when it
   passed the gate.  Returns ``ok``, ``sigma``/``detf`` (G, k) and, as the
   mode produces them, z-scores, verdicts, Newton iterations, detector
-  counts and stats and ``conv``;
+  counts and stats and ``conv``; in the ``horizons`` mode also the
+  commit-time forecast pass of the read path: the (G, H, N) observation
+  means and variances of each row AS WRITTEN (a rejected row's prior) at
+  the given horizon set, K18's operations on K18's inputs;
 - :func:`arena_steady_update` (K17): per row, K14's mean-only frozen-gain
   body; a row is ``applied`` when its steady flag is set and nothing
   broke time-invariance, and only applied rows write their mean and bump
-  their counters (the factor leaf is never touched);
+  their counters (the factor leaf is never touched); in the ``horizons``
+  mode also the mean half of the forecast pass, ``Z (phi^h o m)`` (G, H,
+  N) of the written mean (the variance half is frozen with the gain);
 - :func:`arena_forecast` (K18): per row, read-only, K2's closed-form
   horizon moments from the row (``F F'`` first on a square-root arena).
 
@@ -46,8 +51,9 @@ oracle the kernels are held against on the card.  Launch counters:
 
 Replaces ``metran_tpu/serve/engine.py::make_arena_update_fn`` (:1042,
 with ``_arena_posterior_ok`` :996), ``make_arena_steady_update_fn``
-(:1337) and ``make_arena_forecast_fn`` (:1473) — B13, without its fused
-horizon pass (the read path).
+(:1337) and ``make_arena_forecast_fn`` (:1473) — B13, with its fused
+horizon pass (``_horizon_pass`` :673, ``_steady_horizon_means`` :856)
+as the ``horizons`` modes of K16 and K17.
 """
 
 from __future__ import annotations
@@ -62,7 +68,11 @@ from ..ops.kalman import steady_converged
 from . import build
 from . import implicit_map as im
 from .detect import DETECT_STATE_ROWS, detect_constants, detect_scan_plain
-from .forecast import forecast_moments_plain
+from .forecast import (
+    forecast_means_plain,
+    forecast_moments_plain,
+    horizon_set,
+)
 from .gated_filter import (
     gated_filter_append_plain,
     policy_code,
@@ -105,6 +115,8 @@ class ArenaUpdateOut(NamedTuple):
     det_counts: Optional[torch.Tensor]  # (G, 3, N) int32
     det_stats: Optional[torch.Tensor]   # (G, 3, N)
     conv: Optional[torch.Tensor]        # (G,) bool
+    fmeans: Optional[torch.Tensor] = None  # (G, H, N), horizons mode
+    fvars: Optional[torch.Tensor] = None   # (G, H, N), horizons mode
 
 
 class ArenaSteadyOut(NamedTuple):
@@ -117,6 +129,7 @@ class ArenaSteadyOut(NamedTuple):
     verdict: torch.Tensor       # (G, k, N) int8
     det_counts: Optional[torch.Tensor]  # (G, 3, N) int32
     det_stats: Optional[torch.Tensor]   # (G, 3, N)
+    fmeans: Optional[torch.Tensor] = None  # (G, H, N), horizons mode
 
 
 class ArenaRobust(NamedTuple):
@@ -275,9 +288,12 @@ def arena_update_plain(mean, fac, t_seen, version, phi, q, z, r, rows, y,
                        robust: Optional[ArenaRobust] = None,
                        validate: bool = True, steady_tol: float = 0.0,
                        real=None, det=None, det_min_seen: int = 0,
-                       det_params: Optional[dict] = None) -> ArenaUpdateOut:
+                       det_params: Optional[dict] = None,
+                       horizons=None) -> ArenaUpdateOut:
     """K16's function in torch ops: gather, the engine's plain step
-    function, :func:`posterior_ok_plain`, ``torch.where`` scatter."""
+    function, :func:`posterior_ok_plain`, ``torch.where`` scatter and, in
+    the horizons mode, :func:`arena_forecast_plain`'s operations on the
+    written rows."""
     b, n, s = _check_leaves(mean, fac, t_seen, version, phi, q, z, r, det)
     _mode_code(body, mode, robust)
     rows = rows_tensor(rows, b, mean.device)
@@ -337,13 +353,19 @@ def arena_update_plain(mean, fac, t_seen, version, phi, q, z, r, rows, y,
     if det is not None:
         det_counts, det_stats = _detect_tail_plain(
             det, idx, zs, mask, t_g >= int(det_min_seen), ok, det_params)
+    fm = fv = None
+    h = horizon_set(horizons, mean)
+    if h is not None:
+        cov_w = fac_w @ fac_w.transpose(-1, -2) if body == "sqrt" else fac_w
+        fm, fv = forecast_moments_plain(phi_g, q_g, z_g, r_g, mean_w, cov_w,
+                                        h)
     bump = ok.to(torch.int32)
     mean[idx] = mean_w
     fac[idx] = fac_w
     t_seen[idx] = t_g + bump * k
     version[idx] = version[idx] + bump
     return ArenaUpdateOut(ok, sigma, detf, zs, verdict, iters, det_counts,
-                          det_stats, conv)
+                          det_stats, conv, fm, fv)
 
 
 def arena_steady_update_plain(mean, t_seen, version, phi, z, steady, kgain,
@@ -351,11 +373,12 @@ def arena_steady_update_plain(mean, t_seen, version, phi, z, steady, kgain,
                               mode: str = "off", thresh: float = 16.0,
                               sequential: bool = False, min_seen: int = 0,
                               det=None, det_min_seen: int = 0,
-                              det_params: Optional[dict] = None
-                              ) -> ArenaSteadyOut:
+                              det_params: Optional[dict] = None,
+                              horizons=None) -> ArenaSteadyOut:
     """K17's function in torch ops: gather, :func:`~.steady_filter.
-    steady_filter_plain`, the applied selection, ``torch.where``
-    scatter."""
+    steady_filter_plain`, the applied selection, ``torch.where`` scatter
+    and, in the horizons mode, :func:`~.forecast.forecast_means_plain` of
+    the written means."""
     b, n, s = _check_steady(mean, t_seen, version, phi, z, steady, kgain,
                             fdiag, det)
     policy_code(mode)
@@ -377,11 +400,16 @@ def arena_steady_update_plain(mean, t_seen, version, phi, z, steady, kgain,
             det, idx, zs, mask, t_g >= int(det_min_seen), applied,
             det_params)
     bump = applied.to(torch.int32)
-    mean[idx] = torch.where(applied[:, None], mean_n, mean_g)
+    mean_w = torch.where(applied[:, None], mean_n, mean_g)
+    fm = None
+    h = horizon_set(horizons, mean)
+    if h is not None:
+        fm = forecast_means_plain(phi[idx], z[idx], mean_w, h)
+    mean[idx] = mean_w
     t_seen[idx] = t_g + bump * k
     version[idx] = version[idx] + bump
     return ArenaSteadyOut(applied, sigma, detf, zs, verdict, det_counts,
-                          det_stats)
+                          det_stats, fm)
 
 
 def arena_forecast_plain(mean, fac, phi, q, z, r, rows, horizons,
@@ -448,21 +476,28 @@ def _det_consts(det_params, dtype):
 
 
 def update_smem_bytes(body: str, n_obs: int, n_state: int,
-                      dtype: torch.dtype) -> int:
+                      dtype: torch.dtype, horizons: bool = False) -> int:
     """Dynamic shared memory one K16 block needs (mirrors the sources:
-    the body's layout, aligned to 16 bytes, then the commit's scratch)."""
+    the body's layout, aligned to 16 bytes, then the commit's scratch —
+    or, in the horizons mode, the tail's where that is larger: K2's
+    scratch and, on a factor row, the reconstituted covariance)."""
     item = torch.finfo(dtype).bits // 8
     base = {"joint": joint_smem_bytes, "gated": gated_smem_bytes,
             "sqrt": sqrt_smem_bytes}[body](n_obs, n_state, dtype)
     base = (base + 15) // 16 * 16
-    return base + item * (n_state * n_state + 2 * _THREADS[body])
+    after = n_state * n_state + 2 * _THREADS[body]
+    if horizons:
+        tail = forecast_smem_bytes(n_obs, n_state, dtype,
+                                   body == "sqrt") // item
+        after = max(after, tail)
+    return base + item * after
 
 
 def call_update(fn, out: ArenaUpdateOut, leaves, det, rows, y, mask, real,
                 robust: Optional[ArenaRobust], *, mode_code: int,
                 thresh: float, min_seen: int, validate: bool,
                 steady_tol: float, det_min_seen: int, det_params,
-                stream) -> int:
+                horizons, stream) -> int:
     """Marshal one K16 launch (``fn`` a library entry point of the
     ``metran_arena_*`` signature); returns the CUDA error code."""
     mean, fac, t_seen, version, phi, q, z, r = leaves
@@ -475,19 +510,25 @@ def call_update(fn, out: ArenaUpdateOut, leaves, det, rows, y, mask, real,
     return fn(*[_ptr(t) for t in (mean, fac, t_seen, version, phi, q, z, r,
                                   det, rows, y, mask, real, rob.rail_lo,
                                   rob.rail_hi, rob.quantum, rob.scale)],
-              *[_ptr(t) for t in out], float(thresh), float(rob.nu), tol,
+              *[_ptr(t) for t in out[:9]], _ptr(horizons), _ptr(out.fmeans),
+              _ptr(out.fvars), float(thresh), float(rob.nu), tol,
               nonconv_tol, im.c_floor(dtype),
               float(torch.finfo(dtype).eps), float(steady_tol),
               *_det_consts(det_params, dtype), int(min_seen),
               int(det_min_seen), int(bool(validate)), int(mode_code), g, k,
-              n, s, stream)
+              n, s, 0 if horizons is None else horizons.shape[0], stream)
 
 
 def alloc_update(body: str, g: int, k: int, n: int, like, scored: bool,
-                 robust: bool, det: bool, conv: bool) -> ArenaUpdateOut:
-    """The output buffers of one K16 launch."""
+                 robust: bool, det: bool, conv: bool,
+                 n_horizons: int = 0) -> ArenaUpdateOut:
+    """The output buffers of one K16 launch; the horizons mode's means
+    and variances are the two halves of one (2, G, H, N) buffer, which
+    the service brings to the host in one copy."""
     new = dict(dtype=like.dtype, device=like.device)
     dev = like.device
+    hz = (torch.empty((2, g, n_horizons, n), **new) if n_horizons
+          else (None, None))
     return ArenaUpdateOut(
         torch.empty((g,), dtype=torch.bool, device=dev),
         torch.empty((g, k), **new), torch.empty((g, k), **new),
@@ -499,7 +540,8 @@ def alloc_update(body: str, g: int, k: int, n: int, like, scored: bool,
         torch.empty((g, 3, n), dtype=torch.int32, device=dev)
         if det else None,
         torch.empty((g, 3, n), **new) if det else None,
-        torch.empty((g,), dtype=torch.bool, device=dev) if conv else None)
+        torch.empty((g,), dtype=torch.bool, device=dev) if conv else None,
+        hz[0], hz[1])
 
 
 def arena_update_kernel(mean, fac, t_seen, version, phi, q, z, r, rows, y,
@@ -508,8 +550,8 @@ def arena_update_kernel(mean, fac, t_seen, version, phi, q, z, r, rows, y,
                         robust: Optional[ArenaRobust] = None,
                         validate: bool = True, steady_tol: float = 0.0,
                         real=None, det=None, det_min_seen: int = 0,
-                        det_params: Optional[dict] = None
-                        ) -> ArenaUpdateOut:
+                        det_params: Optional[dict] = None,
+                        horizons=None) -> ArenaUpdateOut:
     """Launch K16 (CUDA leaves only; raises otherwise, and when the kernel
     cannot build, take the bucket or launch)."""
     b, n, s = _check_leaves(mean, fac, t_seen, version, phi, q, z, r, det)
@@ -520,7 +562,8 @@ def arena_update_kernel(mean, fac, t_seen, version, phi, q, z, r, rows, y,
     if det is not None and code == 0:
         raise ValueError("detection reads real z-scores: run mode 'reject' "
                          "with min_seen NEVER_ARMED on an ungated registry")
-    smem = update_smem_bytes(body, n, s, mean.dtype)
+    h = horizon_set(horizons, mean)
+    smem = update_smem_bytes(body, n, s, mean.dtype, h is not None)
     if smem > MAX_SMEM:
         raise ValueError(
             f"bucket (N={n}, S={s}) at {mean.dtype} needs {smem} bytes of "
@@ -541,7 +584,7 @@ def arena_update_kernel(mean, fac, t_seen, version, phi, q, z, r, rows, y,
             for name in ("rail_lo", "rail_hi", "quantum", "scale")})
     out = alloc_update(body, g, k, n, mean, scored(body, mode, robust),
                        robust is not None, det is not None,
-                       steady_tol > 0.0)
+                       steady_tol > 0.0, 0 if h is None else h.shape[0])
     lib = build.load_library(f"arena_{body}")
     fn = getattr(lib, f"metran_arena_{body}_"
                       f"{'f64' if mean.dtype == torch.float64 else 'f32'}")
@@ -551,7 +594,7 @@ def arena_update_kernel(mean, fac, t_seen, version, phi, q, z, r, rows, y,
                           mode_code=code, thresh=thresh, min_seen=min_seen,
                           validate=validate, steady_tol=steady_tol,
                           det_min_seen=det_min_seen, det_params=det_params,
-                          stream=_stream(mean))
+                          horizons=h, stream=_stream(mean))
     build.check(lib, err, f"arena_update ({body})")
     if g:
         build.count_launch("arena_update_sqrt" if body == "sqrt"
@@ -570,20 +613,22 @@ def arena_update(mean, fac, t_seen, version, phi, q, z, r, rows, y, mask,
 
 def call_steady(fn, out: ArenaSteadyOut, leaves, det, rows, real, y, mask,
                 *, mode: str, thresh: float, sequential: bool, min_seen: int,
-                det_min_seen: int, det_params, stream) -> int:
+                det_min_seen: int, det_params, horizons, stream) -> int:
     """Marshal one K17 launch; returns the CUDA error code."""
     mean, t_seen, version, phi, z, steady, kgain, fdiag = leaves
     g, k, n = y.shape
     return fn(*[_ptr(t) for t in (mean, t_seen, version, phi, z, steady,
                                   kgain, fdiag, det, rows, real, y, mask)],
-              *[_ptr(t) for t in out], float(thresh),
-              *_det_consts(det_params, mean.dtype), int(min_seen),
-              int(det_min_seen), policy_code(mode),
+              *[_ptr(t) for t in out[:7]], _ptr(horizons), _ptr(out.fmeans),
+              float(thresh), *_det_consts(det_params, mean.dtype),
+              int(min_seen), int(det_min_seen), policy_code(mode),
               int(bool(sequential) and mode != "off"), g, k, n,
-              mean.shape[1], stream)
+              mean.shape[1], 0 if horizons is None else horizons.shape[0],
+              stream)
 
 
-def alloc_steady(g: int, k: int, n: int, like, det: bool) -> ArenaSteadyOut:
+def alloc_steady(g: int, k: int, n: int, like, det: bool,
+                 n_horizons: int = 0) -> ArenaSteadyOut:
     """The output buffers of one K17 launch."""
     new = dict(dtype=like.dtype, device=like.device)
     dev = like.device
@@ -594,7 +639,8 @@ def alloc_steady(g: int, k: int, n: int, like, det: bool) -> ArenaSteadyOut:
         torch.empty((g, k, n), dtype=torch.int8, device=dev),
         torch.empty((g, 3, n), dtype=torch.int32, device=dev)
         if det else None,
-        torch.empty((g, 3, n), **new) if det else None)
+        torch.empty((g, 3, n), **new) if det else None,
+        torch.empty((g, n_horizons, n), **new) if n_horizons else None)
 
 
 def arena_steady_update_kernel(mean, t_seen, version, phi, z, steady, kgain,
@@ -602,8 +648,8 @@ def arena_steady_update_kernel(mean, t_seen, version, phi, z, steady, kgain,
                                mode: str = "off", thresh: float = 16.0,
                                sequential: bool = False, min_seen: int = 0,
                                det=None, det_min_seen: int = 0,
-                               det_params: Optional[dict] = None
-                               ) -> ArenaSteadyOut:
+                               det_params: Optional[dict] = None,
+                               horizons=None) -> ArenaSteadyOut:
     """Launch K17 (CUDA leaves only; raises otherwise)."""
     b, n, s = _check_steady(mean, t_seen, version, phi, z, steady, kgain,
                             fdiag, det)
@@ -611,7 +657,8 @@ def arena_steady_update_kernel(mean, t_seen, version, phi, z, steady, kgain,
     if mean.device.type != "cuda":
         raise ValueError(f"the arena steady kernel runs on CUDA leaves, got "
                          f"{mean.device}")
-    smem = steady_smem_bytes(n, s, mean.dtype)
+    h = horizon_set(horizons, mean)
+    smem = steady_smem_bytes(n, s, mean.dtype, h is not None)
     if smem > MAX_SMEM:
         raise ValueError(
             f"bucket (N={n}, S={s}) at {mean.dtype} needs {smem} bytes of "
@@ -620,7 +667,8 @@ def arena_steady_update_kernel(mean, t_seen, version, phi, z, steady, kgain,
     g = rows.shape[0]
     y, mask = _dispatch_data(y, mask, g, n, mean)
     real = _slot_mask(real, g, n, mean)
-    out = alloc_steady(g, y.shape[1], n, mean, det is not None)
+    out = alloc_steady(g, y.shape[1], n, mean, det is not None,
+                       0 if h is None else h.shape[0])
     lib = build.load_library("arena_steady")
     fn = (lib.metran_arena_steady_f64 if mean.dtype == torch.float64
           else lib.metran_arena_steady_f32)
@@ -629,7 +677,8 @@ def arena_steady_update_kernel(mean, t_seen, version, phi, z, steady, kgain,
                                     kgain, fdiag), det, rows, real, y, mask,
                           mode=mode, thresh=thresh, sequential=sequential,
                           min_seen=min_seen, det_min_seen=det_min_seen,
-                          det_params=det_params, stream=_stream(mean))
+                          det_params=det_params, horizons=h,
+                          stream=_stream(mean))
     build.check(lib, err, "arena_steady_update")
     if g:
         build.count_launch("arena_steady_update")

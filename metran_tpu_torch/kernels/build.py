@@ -213,10 +213,10 @@ _SIGNATURES = {
     "sqrt_smoother": ("metran_sqrt_smoother",
                       [_PTR] * 8 + [_INT] * 3 + [_PTR]),
     # phi, z, kgain, fdiag, real, mean0, y, mask, armed, thresh, mean,
-    # sigma, detf, broke, zscore, verdict, B, k, N, S, policy, sequential,
-    # stream
+    # sigma, detf, broke, zscore, verdict, horizons, fmeans, H, B, k, N,
+    # S, policy, sequential, stream
     "steady_filter": ("metran_steady_filter",
-                      [_PTR] * 9 + [_DBL] + [_PTR] * 6 + [_INT] * 6
+                      [_PTR] * 9 + [_DBL] + [_PTR] * 8 + [_INT] * 7
                       + [_PTR]),
     # phi, q, z, r, p_given, p_pred, p_filt, kgain, fdiag, kgain_seq,
     # fdiag_seq, B, N, S, newton, doubling, stream
@@ -224,19 +224,20 @@ _SIGNATURES = {
     # the K16 families (one signature): mean, fac, t_seen, version, phi,
     # q, z, r, det, rows, y, mask, real, rail_lo, rail_hi, quantum,
     # scale, ok, sigma, detf, zscore, verdict, iters, det_counts,
-    # det_stats, conv, thresh, nu, tol, nonconv_tol, c_floor, eps,
-    # steady_tol, cusum_k, cusum_h, lam, warm, lb_thresh, nsigma^2, tiny,
-    # min_seen, det_min_seen, validate, mode, G, k, N, S, stream
+    # det_stats, conv, horizons, fmeans, fvars, thresh, nu, tol,
+    # nonconv_tol, c_floor, eps, steady_tol, cusum_k, cusum_h, lam, warm,
+    # lb_thresh, nsigma^2, tiny, min_seen, det_min_seen, validate, mode,
+    # G, k, N, S, H, stream
     **{f"arena_{body}": (f"metran_arena_{body}",
-                         [_PTR] * 26 + [_DBL] * 14 + [_INT] * 8 + [_PTR])
+                         [_PTR] * 29 + [_DBL] * 14 + [_INT] * 9 + [_PTR])
        for body in ("joint", "gated", "sqrt")},
     # mean, t_seen, version, phi, z, steady, kgain, fdiag, det, rows,
     # real, y, mask, applied, sigma, detf, zscore, verdict, det_counts,
-    # det_stats, thresh, cusum_k, cusum_h, lam, warm, lb_thresh,
-    # nsigma^2, tiny, min_seen, det_min_seen, policy, sequential, G, k, N,
-    # S, stream
+    # det_stats, horizons, fmeans, thresh, cusum_k, cusum_h, lam, warm,
+    # lb_thresh, nsigma^2, tiny, min_seen, det_min_seen, policy,
+    # sequential, G, k, N, S, H, stream
     "arena_steady": ("metran_arena_steady",
-                     [_PTR] * 20 + [_DBL] * 8 + [_INT] * 8 + [_PTR]),
+                     [_PTR] * 22 + [_DBL] * 8 + [_INT] * 9 + [_PTR]),
     # mean, fac, phi, q, z, r, rows, horizons, means, variances, G, H, N,
     # S, sqrt, stream
     "arena_forecast": ("metran_arena_forecast",

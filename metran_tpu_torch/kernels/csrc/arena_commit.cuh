@@ -1,7 +1,8 @@
 // The commit half of the exact arena update K16, shared by its three
 // engine families (arena_joint.cu, arena_gated.cu, arena_sqrt.cu): the
-// on-device integrity gate, the convergence flag, the detection tail and
-// the masked in-place scatter of one block's row.
+// on-device integrity gate, the convergence flag, the detection tail,
+// the masked in-place scatter of one block's row and, in the horizons
+// mode, the commit-time forecast pass of the row as written.
 //
 // Replaces the tail of the JAX package's B13,
 // metran_tpu/serve/engine.py::make_arena_update_fn (:1042) with
@@ -21,7 +22,16 @@
 //           its state bit for bit and books zero counts; the stats are
 //           [C+, C-, LB Q] of the written state;
 //   write = mean and F into the row only when ok, then t_seen += k and
-//           version += 1 (thread 0).
+//           version += 1 (thread 0);
+//   hz    = (horizons mode, a template parameter of the families) the
+//           (H, N) observation means and variances of the WRITTEN row
+//           (a rejected row's prior) at each horizon of the set: the
+//           JAX _horizon_pass (:673) of mean_w, fac_w, as K18 computes
+//           them (forecastk::gram_block on a factor row, then
+//           forecastk::horizons_block) — the posterior from shared
+//           memory on a committed row (the very values scattered), from
+//           the untouched arena row on a rejected one.  Its scratch
+//           reuses the commit's after the scatter (tail_smem).
 // Rows of one launch are distinct (the wrapper refuses repeats), so a
 // block owns its row: no other block reads or writes it.
 
@@ -32,6 +42,7 @@
 #include <stdint.h>
 
 #include "detect_step.cuh"
+#include "forecast_step.cuh"
 
 namespace arenak {
 
@@ -57,9 +68,11 @@ struct UpdateArgs {
   int32_t* det_counts;   // (G, 3, N)
   T* det_stats;          // (G, 3, N)
   uint8_t* conv;         // (G,), or null: steady_tol == 0
+  const T* horizons;     // (H,), read in the horizons mode
+  T *fmeans, *fvars;     // (G, H, N), or null: the horizons mode is off
   double thresh, nu, tol, nonconv_tol, c_floor, eps, steady_tol;
   detectk::Params dp;
-  int min_seen, det_min_seen, validate, k, N, S;
+  int min_seen, det_min_seen, validate, k, N, S, H;
 };
 
 // the integrity verdict of the block's posterior (m (S), F (S, S));
@@ -145,9 +158,10 @@ __device__ bool posterior_ok(const T* m, const T* F, const T* sig,
 
 // gate, convergence flag, detection tail and scatter of block b's row
 // (its appended posterior m, F in shared memory; t_row the row's t_seen
-// before the append); W, red: scratch as posterior_ok's
+// before the append); W, red: scratch as posterior_ok's.  Returns the
+// block-uniform ok verdict.
 template <typename T, bool kSqrt>
-__device__ void commit_block(const UpdateArgs<T>& a, const T* m, const T* F,
+__device__ bool commit_block(const UpdateArgs<T>& a, const T* m, const T* F,
                              int b, int row, int t_row, T* W, T* red) {
   __shared__ int conv_s;
   const int tid = threadIdx.x;
@@ -191,12 +205,58 @@ __device__ void commit_block(const UpdateArgs<T>& a, const T* m, const T* F,
       a.version[row] = a.version[row] + 1;
     }
   }
+  return ok;
+}
+
+// the horizons mode's tail after commit_block: the forecast moments of
+// block b's row as written — (m, F) from shared memory when the row
+// committed, the untouched arena row when it was rejected (this launch
+// never writes it, so the read-only loads are safe).  scratch: the
+// commit's, tail_smem elements.
+template <typename T, bool kSqrt>
+__device__ void horizons_tail(const UpdateArgs<T>& a, const T* m,
+                              const T* F, bool ok, int b, int row,
+                              unsigned char* scratch) {
+  const int N = a.N, S = a.S;
+  const size_t nss = (size_t)S * S;
+  __syncthreads();  // every use of the commit scratch is over
+  const T* meanb = ok ? m : a.mean + (size_t)row * S;
+  const T* covb = ok ? F : a.fac + (size_t)row * nss;
+  if (kSqrt) {
+    T* C = reinterpret_cast<T*>(scratch) + forecastk::smem_elems<T>(N, S);
+    forecastk::gram_block<T>(covb, C, S);
+    __syncthreads();
+    covb = C;
+  }
+  forecastk::horizons_block<T>(scratch, a.phi + (size_t)row * S,
+                               a.q + (size_t)row * nss,
+                               a.z + (size_t)row * N * S,
+                               a.r + (size_t)row * N, meanb, covb,
+                               a.horizons, a.H, a.fmeans, a.fvars, b, N, S);
 }
 
 // the scratch the commit needs after a body's shared memory (bytes)
 template <typename T>
 __host__ __device__ inline size_t commit_smem(int S, int threads) {
   return sizeof(T) * ((size_t)S * S + 2 * (size_t)threads);
+}
+
+// the scratch the horizons tail needs in the same place (bytes):
+// moments_block's, and the reconstituted covariance of a factor row
+template <typename T>
+__host__ __device__ inline size_t tail_smem(int N, int S, bool sqrt_rows) {
+  return sizeof(T) * (forecastk::smem_elems<T>(N, S) +
+                      (sqrt_rows ? (size_t)S * S : 0));
+}
+
+// the scratch after a body's shared memory: the commit's, or the
+// horizons tail's where that is larger
+template <typename T>
+__host__ __device__ inline size_t after_body_smem(int N, int S, int threads,
+                                                  bool hz, bool sqrt_rows) {
+  const size_t c = commit_smem<T>(S, threads);
+  const size_t t = hz ? tail_smem<T>(N, S, sqrt_rows) : 0;
+  return c > t ? c : t;
 }
 
 // `off` rounded up to 16 bytes: where the commit scratch starts
@@ -213,12 +273,13 @@ UpdateArgs<T> make_args(void* mean, void* fac, void* t_seen, void* version,
                         const void* quantum, const void* scale, void* ok,
                         void* sigma, void* detf, void* zscore, void* verdict,
                         void* iters, void* det_counts, void* det_stats,
-                        void* conv, double thresh, double nu, double tol,
+                        void* conv, const void* horizons, void* fmeans,
+                        void* fvars, double thresh, double nu, double tol,
                         double nonconv_tol, double c_floor, double eps,
                         double steady_tol, double ck, double ch, double lam,
                         double warm, double qbar, double abar, double tiny,
                         int min_seen, int det_min_seen, int validate, int k,
-                        int N, int S) {
+                        int N, int S, int H) {
   UpdateArgs<T> a;
   a.mean = (T*)mean;
   a.fac = (T*)fac;
@@ -246,6 +307,9 @@ UpdateArgs<T> make_args(void* mean, void* fac, void* t_seen, void* version,
   a.det_counts = (int32_t*)det_counts;
   a.det_stats = (T*)det_stats;
   a.conv = (uint8_t*)conv;
+  a.horizons = (const T*)horizons;
+  a.fmeans = (T*)fmeans;
+  a.fvars = (T*)fvars;
   a.thresh = thresh;
   a.nu = nu;
   a.tol = tol;
@@ -260,6 +324,7 @@ UpdateArgs<T> make_args(void* mean, void* fac, void* t_seen, void* version,
   a.k = k;
   a.N = N;
   a.S = S;
+  a.H = H;
   return a;
 }
 
@@ -280,7 +345,8 @@ int launch_rows(Kernel kernel, const UpdateArgs<T>& a, int G, int threads,
 }  // namespace arenak
 
 // the C signature of every K16 entry point: the arena leaves, the
-// dispatch's inputs, its outputs (null where a mode is off), the knobs
+// dispatch's inputs, its outputs (null where a mode is off: fmeans null
+// turns the horizons mode off), the knobs
 #define METRAN_ARENA_UPDATE_PARAMS                                           \
   void *mean, void *fac, void *t_seen, void *version, const void *phi,      \
       const void *q, const void *z, const void *r, void *det,               \
@@ -288,15 +354,17 @@ int launch_rows(Kernel kernel, const UpdateArgs<T>& a, int G, int threads,
       const void *rail_lo, const void *rail_hi, const void *quantum,        \
       const void *scale, void *ok, void *sigma, void *detf, void *zscore,   \
       void *verdict, void *iters, void *det_counts, void *det_stats,        \
-      void *conv, double thresh, double nu, double tol, double nonconv_tol, \
+      void *conv, const void *horizons, void *fmeans, void *fvars,          \
+      double thresh, double nu, double tol, double nonconv_tol,             \
       double c_floor, double eps, double steady_tol, double ck, double ch,  \
       double lam, double warm, double qbar, double abar, double tiny,       \
       int min_seen, int det_min_seen, int validate, int mode, int G, int k, \
-      int N, int S, void *stream
+      int N, int S, int H, void *stream
 #define METRAN_ARENA_UPDATE_ARGS(T)                                          \
   arenak::make_args<T>(mean, fac, t_seen, version, phi, q, z, r, det, rows, \
                        y, mask, real, rail_lo, rail_hi, quantum, scale, ok, \
                        sigma, detf, zscore, verdict, iters, det_counts,     \
-                       det_stats, conv, thresh, nu, tol, nonconv_tol,       \
-                       c_floor, eps, steady_tol, ck, ch, lam, warm, qbar,   \
-                       abar, tiny, min_seen, det_min_seen, validate, k, N, S)
+                       det_stats, conv, horizons, fmeans, fvars, thresh,    \
+                       nu, tol, nonconv_tol, c_floor, eps, steady_tol, ck,  \
+                       ch, lam, warm, qbar, abar, tiny, min_seen,           \
+                       det_min_seen, validate, k, N, S, H)

@@ -5,10 +5,12 @@
 // Replaces the JAX package's B13 read kernel, metran_tpu/serve/
 // engine.py::make_arena_forecast_fn (:1473).  Block b reads rows[b],
 // reconstitutes the covariance C = F F' of a factor row in shared memory
-// (a covariance row is read as it is), and runs
+// (forecastk::gram_block; a covariance row is read as it is), and runs
 // forecastk::moments_block (forecast_step.cuh: K2's body, the same
 // operations in the same order) once per horizon from the row's mean,
-// phi, q, z and r.  Nothing in the arena is written.
+// phi, q, z and r (forecastk::horizons_block).  Nothing in the arena is
+// written.  K16's horizons mode calls the same two functions on the row
+// it writes, so its snapshot equals this kernel's read bit for bit.
 //
 // What bounds it on an H100: latency, as K2 — a few block barriers per
 // horizon over a few KB of the row's leaves; the F F' of a sqrt row adds
@@ -35,27 +37,18 @@ arena_forecast_kernel(const T* __restrict__ mean, const T* __restrict__ fac,
                       int H, int N, int S, int sqrt_rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
   const size_t row = (size_t)rows[b];
   const T* covb = fac + row * S * S;
   if (sqrt_rows) {  // C = F F' of the row's factor
     T* C = reinterpret_cast<T*>(smem_raw) + forecastk::smem_elems<T>(N, S);
-    for (int idx = tid; idx < S * S; idx += kThreads) {
-      const int i = idx / S, j = idx - (idx / S) * S;
-      T acc = 0;
-      for (int c = 0; c < S; ++c) acc += covb[i * S + c] * covb[j * S + c];
-      C[idx] = acc;
-    }
+    forecastk::gram_block<T>(covb, C, S);
     __syncthreads();
     covb = C;
   }
-  for (int hi = 0; hi < H; ++hi) {
-    forecastk::moments_block<T>(
-        smem_raw, phi + row * S, q + row * S * S, z + row * N * S,
-        r + row * N, mean + row * S, covb, horizons[hi], means_out, vars_out,
-        ((size_t)b * H + hi) * N, N, S);
-    __syncthreads();
-  }
+  forecastk::horizons_block<T>(smem_raw, phi + row * S, q + row * S * S,
+                               z + row * N * S, r + row * N, mean + row * S,
+                               covb, horizons, H, means_out, vars_out, b, N,
+                               S);
 }
 
 template <typename T>

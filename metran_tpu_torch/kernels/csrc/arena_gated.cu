@@ -16,7 +16,8 @@
 // body, the same operations in the same order) straight from the row's
 // leaves; arenak::commit_block (arena_commit.cuh) then gates, flags
 // convergence, runs K13's recursion over the z-scores when det is given,
-// and scatters.
+// and scatters; in the horizons mode (fmeans given) arenak::horizons_tail
+// then writes the row's forecast moments at the horizon set.
 //
 // What bounds it on an H100: latency, as K12 — N dependent rank-1
 // updates of four block barriers each per step, the robust modes' serial
@@ -35,7 +36,7 @@ namespace {
 
 using gatedk::kThreads;
 
-template <typename T, int kPolicy>
+template <typename T, int kPolicy, bool kHz>
 __global__ void __launch_bounds__(kThreads)
 arena_gated_kernel(arenak::UpdateArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -53,8 +54,11 @@ arena_gated_kernel(arenak::UpdateArgs<T> a) {
   const gatedk::Smem<T> s = gatedk::carve<T>(smem_raw, a.N, a.S);
   T* W = reinterpret_cast<T*>(
       smem_raw + arenak::align16(sizeof(T) * gatedk::smem_elems<T>(a.N, a.S)));
-  arenak::commit_block<T, false>(a, s.m, s.P, b, row, t_row, W,
-                                 W + (size_t)a.S * a.S);
+  const bool ok = arenak::commit_block<T, false>(a, s.m, s.P, b, row, t_row,
+                                                 W, W + (size_t)a.S * a.S);
+  if (kHz)
+    arenak::horizons_tail<T, false>(a, s.m, s.P, ok, b, row,
+                                    reinterpret_cast<unsigned char*>(W));
 }
 
 template <typename T>
@@ -63,12 +67,15 @@ int launch_arena_gated(const arenak::UpdateArgs<T>& a, int mode, int G,
   // the detection tail reads real z-scores: an ungated registry runs
   // mode 1 with the gate never armed
   if (mode == 0 && a.det != nullptr) return (int)cudaErrorInvalidValue;
+  const bool hz = a.fmeans != nullptr;
   const size_t smem =
       arenak::align16(sizeof(T) * gatedk::smem_elems<T>(a.N, a.S)) +
-      arenak::commit_smem<T>(a.S, kThreads);
-#define METRAN_ARENA_GATED(P)                                            \
-  return arenak::launch_rows<T>(arena_gated_kernel<T, P>, a, G, kThreads, \
-                                smem, stream)
+      arenak::after_body_smem<T>(a.N, a.S, kThreads, hz, false);
+#define METRAN_ARENA_GATED(P)                                              \
+  return hz ? arenak::launch_rows<T>(arena_gated_kernel<T, P, true>, a, G, \
+                                     kThreads, smem, stream)               \
+            : arenak::launch_rows<T>(arena_gated_kernel<T, P, false>, a,   \
+                                     G, kThreads, smem, stream)
   switch (mode) {
     case gatedk::kOff: METRAN_ARENA_GATED(gatedk::kOff);
     case gatedk::kReject: METRAN_ARENA_GATED(gatedk::kReject);

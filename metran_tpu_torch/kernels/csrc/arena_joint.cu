@@ -12,7 +12,9 @@
 // leaves — mean, covariance, phi, q, z, r — with the dispatch's (k, N)
 // observations; arenak::commit_block (arena_commit.cuh) then gates the
 // posterior, writes the conv flag when steady_tol > 0, and writes the row
-// back only when it passed, bumping t_seen by k and version by 1.
+// back only when it passed, bumping t_seen by k and version by 1; in
+// the horizons mode (fmeans given; a template parameter) it then writes
+// the row's forecast moments at the horizon set (arenak::horizons_tail).
 //
 // What bounds it on an H100: latency, as K1 — a chain of block barriers
 // per step — plus the gate's S-column Cholesky (S barriers).  Device
@@ -30,7 +32,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T>
+template <typename T, bool kHz>
 __global__ void __launch_bounds__(kThreads)
 arena_joint_kernel(arenak::UpdateArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -43,19 +45,26 @@ arena_joint_kernel(arenak::UpdateArgs<T> a) {
   const jointk::Smem<T> s = jointk::carve<T>(smem_raw, a.N, a.S);
   T* W = reinterpret_cast<T*>(
       smem_raw + arenak::align16(sizeof(T) * jointk::smem_elems<T>(a.N, a.S)));
-  arenak::commit_block<T, false>(a, s.m, s.P, b, row, t_row, W,
-                                 W + (size_t)a.S * a.S);
+  const bool ok = arenak::commit_block<T, false>(a, s.m, s.P, b, row, t_row,
+                                                 W, W + (size_t)a.S * a.S);
+  if (kHz)
+    arenak::horizons_tail<T, false>(a, s.m, s.P, ok, b, row,
+                                    reinterpret_cast<unsigned char*>(W));
 }
 
 template <typename T>
 int launch_arena_joint(const arenak::UpdateArgs<T>& a, int mode, int G,
                        void* stream) {
   if (mode != 0 || a.det != nullptr) return (int)cudaErrorInvalidValue;
+  const bool hz = a.fmeans != nullptr;
   const size_t smem =
       arenak::align16(sizeof(T) * jointk::smem_elems<T>(a.N, a.S)) +
-      arenak::commit_smem<T>(a.S, kThreads);
-  return arenak::launch_rows<T>(arena_joint_kernel<T>, a, G, kThreads, smem,
-                                stream);
+      arenak::after_body_smem<T>(a.N, a.S, kThreads, hz, false);
+  if (hz)
+    return arenak::launch_rows<T>(arena_joint_kernel<T, true>, a, G,
+                                  kThreads, smem, stream);
+  return arenak::launch_rows<T>(arena_joint_kernel<T, false>, a, G, kThreads,
+                                smem, stream);
 }
 
 }  // namespace

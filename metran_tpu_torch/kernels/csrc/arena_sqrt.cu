@@ -15,7 +15,9 @@
 // (sqrt_step.cuh: K9's time loop, the same operations in the same
 // order); arenak::commit_block (arena_commit.cuh) then gates (a finite
 // factor with a finite F F'), flags convergence, runs K13's recursion
-// when det is given, and scatters.
+// when det is given, and scatters; in the horizons mode (fmeans given)
+// arenak::horizons_tail then forms F F' of the written factor and writes
+// the row's forecast moments at the horizon set.
 //
 // What bounds it on an H100: latency, as K9 — n + (m_o + n) Householder
 // stages of one barrier each per step.  Only the row's leaves, the
@@ -32,7 +34,7 @@ namespace {
 
 using sqrtk::kThreads;
 
-template <typename T, int kGate>
+template <typename T, int kGate, bool kHz>
 __global__ void __launch_bounds__(kThreads)
 arena_sqrt_kernel(arenak::UpdateArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -67,8 +69,11 @@ arena_sqrt_kernel(arenak::UpdateArgs<T> a) {
       a.thresh, nullptr, nullptr, nullptr, nullptr, a.sigma, a.detf, nullptr,
       nullptr, a.zscore, a.verdict, rob, b, a.k, N, n, 1);
   T* W = reinterpret_cast<T*>(smem_raw + arenak::align16(used));
-  arenak::commit_block<T, true>(a, s.m, s.S, b, row, t_row, W,
-                                W + (size_t)nn);
+  const bool ok = arenak::commit_block<T, true>(a, s.m, s.S, b, row, t_row,
+                                                W, W + (size_t)nn);
+  if (kHz)
+    arenak::horizons_tail<T, true>(a, s.m, s.S, ok, b, row,
+                                   reinterpret_cast<unsigned char*>(W));
 }
 
 template <typename T>
@@ -77,12 +82,15 @@ int launch_arena_sqrt(const arenak::UpdateArgs<T>& a, int mode, int G,
   // the detection tail reads real z-scores: an ungated registry runs
   // mode 1 with the gate never armed
   if (mode == 0 && a.det != nullptr) return (int)cudaErrorInvalidValue;
+  const bool hz = a.fmeans != nullptr;
   const size_t smem =
       arenak::align16(sqrtk::carve<T>(nullptr, a.N, a.S, nullptr)) +
-      arenak::commit_smem<T>(a.S, kThreads);
-#define METRAN_ARENA_SQRT(G_)                                             \
-  return arenak::launch_rows<T>(arena_sqrt_kernel<T, G_>, a, G, kThreads, \
-                                smem, stream)
+      arenak::after_body_smem<T>(a.N, a.S, kThreads, hz, true);
+#define METRAN_ARENA_SQRT(G_)                                               \
+  return hz ? arenak::launch_rows<T>(arena_sqrt_kernel<T, G_, true>, a, G,  \
+                                     kThreads, smem, stream)                \
+            : arenak::launch_rows<T>(arena_sqrt_kernel<T, G_, false>, a, G, \
+                                     kThreads, smem, stream)
   switch (mode) {
     case sqrtk::kNoGate: METRAN_ARENA_SQRT(sqrtk::kNoGate);
     case sqrtk::kReject: METRAN_ARENA_SQRT(sqrtk::kReject);

@@ -15,6 +15,12 @@
 // given, K13's recursion runs over the z-scores for the applied rows;
 // the others keep their detector state bit for bit and book zero counts
 // (they replay through the exact update, which accumulates them once).
+// In the horizons mode (fmeans given; a template parameter) the warp
+// then writes the mean half of the row's commit-time horizon pass from
+// the written mean (an unapplied row's prior), horizonk::means_warp
+// (horizon_step.cuh, shared with K14), as the JAX
+// make_arena_steady_update_fn (:1420) appends it; the variance half is
+// the constant the service caches at freeze.
 //
 // What bounds it on an H100: bytes, as K14 — Z and the gain (2 S N
 // words) per row, a few dependent dot products per step.
@@ -24,6 +30,7 @@
 #include <stdint.h>
 
 #include "detect_step.cuh"
+#include "horizon_step.cuh"
 #include "steady_step.cuh"
 
 namespace {
@@ -49,12 +56,14 @@ struct SteadyArgs {
   int8_t* verdict;        // (G, k, N)
   int32_t* det_counts;    // (G, 3, N)
   T* det_stats;           // (G, 3, N)
+  const T* horizons;      // (H,), read in the horizons mode
+  T* fmeans;              // (G, H, N), or null: the horizons mode is off
   double thresh;
   detectk::Params dp;
-  int min_seen, det_min_seen, k, N, S;
+  int min_seen, det_min_seen, k, N, S, H;
 };
 
-template <typename T, int kPolicy, bool kSeq>
+template <typename T, int kPolicy, bool kSeq, bool kHz>
 __global__ void __launch_bounds__(kWarp)
 arena_steady_kernel(SteadyArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -72,10 +81,9 @@ arena_steady_kernel(SteadyArgs<T> a) {
     detectk::arena_row<T>(a.det, row, b, a.zscore, a.mask, a.det_counts,
                           a.det_stats, k, N, t_row >= a.det_min_seen,
                           applied, a.dp, lane, kWarp);
-  if (applied) {
-    const T* sm = steadyk::smem_mean<T>(smem_raw, N, S);
+  const T* sm = steadyk::smem_mean<T>(smem_raw, N, S);
+  if (applied)
     for (int s = lane; s < S; s += kWarp) a.mean[(size_t)row * S + s] = sm[s];
-  }
   if (lane == 0) {
     a.sigma[b] = res.sigma;
     a.detf[b] = res.detf;
@@ -85,21 +93,36 @@ arena_steady_kernel(SteadyArgs<T> a) {
       a.version[row] = a.version[row] + 1;
     }
   }
+  if (kHz)  // an unapplied row's mean is the untouched arena row
+    horizonk::means_warp<T>(
+        a.phi + (size_t)row * S, applied ? sm : a.mean + (size_t)row * S,
+        reinterpret_cast<const T*>(smem_raw), a.horizons, a.H,
+        reinterpret_cast<T*>(smem_raw) + steadyk::steady_smem<T>(N, S) /
+                                             sizeof(T),
+        a.fmeans, b, N, S);
 }
 
-template <typename T, int kPolicy, bool kSeq>
-int launch(const SteadyArgs<T>& a, int G, void* stream) {
-  const size_t smem = steadyk::steady_smem<T>(a.N, a.S);
+template <typename T, int kPolicy, bool kSeq, bool kHz>
+int launch_mode(const SteadyArgs<T>& a, int G, void* stream) {
+  const size_t smem = steadyk::steady_smem<T>(a.N, a.S) +
+                      (kHz ? sizeof(T) * horizonk::smem_elems(a.S) : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        arena_steady_kernel<T, kPolicy, kSeq>,
+        arena_steady_kernel<T, kPolicy, kSeq, kHz>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   if (G == 0) return 0;
-  arena_steady_kernel<T, kPolicy, kSeq>
+  arena_steady_kernel<T, kPolicy, kSeq, kHz>
       <<<G, kWarp, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int kPolicy, bool kSeq>
+int launch(const SteadyArgs<T>& a, int G, void* stream) {
+  if (a.fmeans != nullptr)
+    return launch_mode<T, kPolicy, kSeq, true>(a, G, stream);
+  return launch_mode<T, kPolicy, kSeq, false>(a, G, stream);
 }
 
 template <typename T>
@@ -109,10 +132,11 @@ int dispatch(void* mean, void* t_seen, void* version, const void* phi,
              const void* real, const void* y, const void* mask,
              void* applied, void* sigma, void* detf, void* zscore,
              void* verdict, void* det_counts, void* det_stats,
-             double thresh, double ck, double ch, double lam, double warm,
-             double qbar, double abar, double tiny, int min_seen,
-             int det_min_seen, int policy, int sequential, int G, int k,
-             int N, int S, void* stream) {
+             const void* horizons, void* fmeans, double thresh, double ck,
+             double ch, double lam, double warm, double qbar, double abar,
+             double tiny, int min_seen, int det_min_seen, int policy,
+             int sequential, int G, int k, int N, int S, int H,
+             void* stream) {
   SteadyArgs<T> a;
   a.mean = (T*)mean;
   a.t_seen = (int32_t*)t_seen;
@@ -134,6 +158,8 @@ int dispatch(void* mean, void* t_seen, void* version, const void* phi,
   a.verdict = (int8_t*)verdict;
   a.det_counts = (int32_t*)det_counts;
   a.det_stats = (T*)det_stats;
+  a.horizons = (const T*)horizons;
+  a.fmeans = (T*)fmeans;
   a.thresh = thresh;
   a.dp = detectk::Params{ck, ch, lam, warm, qbar, abar, tiny};
   a.min_seen = min_seen;
@@ -141,6 +167,7 @@ int dispatch(void* mean, void* t_seen, void* version, const void* phi,
   a.k = k;
   a.N = N;
   a.S = S;
+  a.H = H;
 #define METRAN_ARENA_STEADY(P, Q) return launch<T, P, Q>(a, G, stream)
   if (sequential && policy != steadyk::kOff) {
     switch (policy) {
@@ -167,7 +194,8 @@ extern "C" {
 // the arena leaves mean, t_seen, version, phi, z, steady, kgain, fdiag,
 // det (null: detection off); rows (G,) int32, real (G, N) uint8, y, mask
 // (G, k, N); applied (G,) uint8, sigma, detf (G,), zscore, verdict
-// (G, k, N), det_counts, det_stats (G, 3, N); thresh = nsigma^2, the
+// (G, k, N), det_counts, det_stats (G, 3, N); horizons (H,) and fmeans
+// (G, H, N), fmeans null: the horizons mode off; thresh = nsigma^2, the
 // detector's constants; policy 0 off, 1 reject, 2 huber, 3 inflate;
 // sequential: the per-slot form (gated policies only)
 int metran_arena_steady_f32(
@@ -175,16 +203,17 @@ int metran_arena_steady_f32(
     const void* steady, const void* kgain, const void* fdiag, void* det,
     const void* rows, const void* real, const void* y, const void* mask,
     void* applied, void* sigma, void* detf, void* zscore, void* verdict,
-    void* det_counts, void* det_stats, double thresh, double ck, double ch,
-    double lam, double warm, double qbar, double abar, double tiny,
-    int min_seen, int det_min_seen, int policy, int sequential, int G, int k,
-    int N, int S, void* stream) {
+    void* det_counts, void* det_stats, const void* horizons, void* fmeans,
+    double thresh, double ck, double ch, double lam, double warm,
+    double qbar, double abar, double tiny, int min_seen, int det_min_seen,
+    int policy, int sequential, int G, int k, int N, int S, int H,
+    void* stream) {
   return dispatch<float>(mean, t_seen, version, phi, z, steady, kgain, fdiag,
                          det, rows, real, y, mask, applied, sigma, detf,
-                         zscore, verdict, det_counts, det_stats, thresh, ck,
-                         ch, lam, warm, qbar, abar, tiny, min_seen,
-                         det_min_seen, policy, sequential, G, k, N, S,
-                         stream);
+                         zscore, verdict, det_counts, det_stats, horizons,
+                         fmeans, thresh, ck, ch, lam, warm, qbar, abar, tiny,
+                         min_seen, det_min_seen, policy, sequential, G, k, N,
+                         S, H, stream);
 }
 
 int metran_arena_steady_f64(
@@ -192,16 +221,17 @@ int metran_arena_steady_f64(
     const void* steady, const void* kgain, const void* fdiag, void* det,
     const void* rows, const void* real, const void* y, const void* mask,
     void* applied, void* sigma, void* detf, void* zscore, void* verdict,
-    void* det_counts, void* det_stats, double thresh, double ck, double ch,
-    double lam, double warm, double qbar, double abar, double tiny,
-    int min_seen, int det_min_seen, int policy, int sequential, int G, int k,
-    int N, int S, void* stream) {
+    void* det_counts, void* det_stats, const void* horizons, void* fmeans,
+    double thresh, double ck, double ch, double lam, double warm,
+    double qbar, double abar, double tiny, int min_seen, int det_min_seen,
+    int policy, int sequential, int G, int k, int N, int S, int H,
+    void* stream) {
   return dispatch<double>(mean, t_seen, version, phi, z, steady, kgain,
                           fdiag, det, rows, real, y, mask, applied, sigma,
                           detf, zscore, verdict, det_counts, det_stats,
-                          thresh, ck, ch, lam, warm, qbar, abar, tiny,
-                          min_seen, det_min_seen, policy, sequential, G, k,
-                          N, S, stream);
+                          horizons, fmeans, thresh, ck, ch, lam, warm, qbar,
+                          abar, tiny, min_seen, det_min_seen, policy,
+                          sequential, G, k, N, S, H, stream);
 }
 
 const char* metran_error_string(int err) {

@@ -1,11 +1,16 @@
 // The closed-form forecast moments of one (model, horizon), one block,
-// shared by K2 (forecast.cu) and the arena forecast K18
-// (arena_forecast.cu).
+// shared by K2 (forecast.cu), the arena forecast K18 (arena_forecast.cu)
+// and the horizons mode of the exact arena update K16
+// (arena_commit.cuh).
 //
 // moments_block reads one model's phi (S), q (S, S), z (N, S), r (N),
 // mean (S) and covariance (S, S) (forecast.cu documents the closed form)
 // and writes the N observation means and variances of horizon h at
-// means_out[o0 + a] and vars_out[o0 + a].
+// means_out[o0 + a] and vars_out[o0 + a].  horizons_block runs it for
+// every horizon of a set, and gram_block reconstitutes a covariance
+// F F' from a square-root factor: K18 and K16 call the same two
+// functions on the same row values, so a read-path snapshot and a
+// compute-path read of one row agree bit for bit.
 
 #pragma once
 
@@ -64,6 +69,39 @@ __device__ void moments_block(unsigned char* smem_raw,
     }
     means_out[o0 + a] = mu;
     vars_out[o0 + a] = (var > T(0) ? var : T(0)) + rb[a];
+  }
+}
+
+// C = F F' of one (S, S) row-major factor, one entry per thread
+template <typename T>
+__device__ void gram_block(const T* __restrict__ F, T* __restrict__ C,
+                           int S) {
+  for (int idx = threadIdx.x; idx < S * S; idx += blockDim.x) {
+    const int i = idx / S, j = idx - (idx / S) * S;
+    T acc = 0;
+    for (int c = 0; c < S; ++c) acc += F[i * S + c] * F[j * S + c];
+    C[idx] = acc;
+  }
+}
+
+// moments_block for each of the H horizons, writing rows (b, hi) of the
+// (G, H, N) outputs; smem_raw holds smem_elems(N, S) scratch elements
+template <typename T>
+__device__ void horizons_block(unsigned char* smem_raw,
+                               const T* __restrict__ phib,
+                               const T* __restrict__ qb,
+                               const T* __restrict__ zb,
+                               const T* __restrict__ rb,
+                               const T* __restrict__ meanb,
+                               const T* __restrict__ covb,
+                               const T* __restrict__ horizons, int H,
+                               T* __restrict__ means_out,
+                               T* __restrict__ vars_out, int b, int N,
+                               int S) {
+  for (int hi = 0; hi < H; ++hi) {
+    moments_block<T>(smem_raw, phib, qb, zb, rb, meanb, covb, horizons[hi],
+                     means_out, vars_out, ((size_t)b * H + hi) * N, N, S);
+    __syncthreads();
   }
 }
 

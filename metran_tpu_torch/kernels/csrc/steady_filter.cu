@@ -28,7 +28,10 @@
 //
 // The policy and the form are template parameters (as K12's policies
 // and K6's modes are), so an instantiation carries no run-time branch
-// of the others.
+// of the others.  So is the horizons mode (fmeans given): the read
+// path's mean half of the commit-time horizon pass over the final mean,
+// horizonk::means_warp (horizon_step.cuh, shared with K17), as the JAX
+// make_steady_update_fn (:936) appends it.
 //
 // What bounds it on an H100: bytes.  A step is O(S N) operations
 // (Z m_p and K (w v)); with k = 1 each model reads Z and K once
@@ -45,6 +48,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "horizon_step.cuh"
 #include "steady_step.cuh"
 
 namespace {
@@ -59,7 +63,7 @@ using steadyk::steady_smem;
 
 // The step body is steadyk::filter_warp (steady_step.cuh), which the
 // arena steady update shares.
-template <typename T, int kPolicy, bool kSeq>
+template <typename T, int kPolicy, bool kSeq, bool kHz>
 __global__ void __launch_bounds__(kWarp)
 steady_filter_kernel(const T* __restrict__ phi, const T* __restrict__ z,
                      const T* __restrict__ kgain, const T* __restrict__ fdiag,
@@ -70,7 +74,8 @@ steady_filter_kernel(const T* __restrict__ phi, const T* __restrict__ z,
                      T* __restrict__ mean_out, T* __restrict__ sigma_out,
                      T* __restrict__ detf_out, uint8_t* __restrict__ broke_out,
                      T* __restrict__ z_out, int8_t* __restrict__ verdict_out,
-                     int k, int N, int S) {
+                     const T* __restrict__ horizons, T* __restrict__ fmeans,
+                     int H, int k, int N, int S) {
   extern __shared__ unsigned char smem_raw[];
   const int b = blockIdx.x, lane = threadIdx.x;
   const steadyk::Result<T> res = steadyk::filter_warp<T, kPolicy, kSeq>(
@@ -83,6 +88,40 @@ steady_filter_kernel(const T* __restrict__ phi, const T* __restrict__ z,
     detf_out[b] = res.detf;
     broke_out[b] = res.broke ? 1 : 0;
   }
+  if (kHz)
+    horizonk::means_warp<T>(phi + (size_t)b * S, sm,
+                            reinterpret_cast<const T*>(smem_raw), horizons,
+                            H, reinterpret_cast<T*>(smem_raw) +
+                                   steady_smem<T>(N, S) / sizeof(T),
+                            fmeans, b, N, S);
+}
+
+template <typename T, int kPolicy, bool kSeq, bool kHz>
+int launch_mode(const void* phi, const void* z, const void* kgain,
+                const void* fdiag, const void* real, const void* mean0,
+                const void* y, const void* mask, const void* armed,
+                double thresh, void* mean_out, void* sigma_out,
+                void* detf_out, void* broke_out, void* z_out,
+                void* verdict_out, const void* horizons, void* fmeans, int H,
+                int B, int k, int N, int S, void* stream) {
+  const size_t smem =
+      steady_smem<T>(N, S) +
+      (kHz ? sizeof(T) * horizonk::smem_elems(S) : 0);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        steady_filter_kernel<T, kPolicy, kSeq, kHz>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (B == 0) return 0;
+  steady_filter_kernel<T, kPolicy, kSeq, kHz>
+      <<<B, kWarp, smem, (cudaStream_t)stream>>>(
+          (const T*)phi, (const T*)z, (const T*)kgain, (const T*)fdiag,
+          (const uint8_t*)real, (const T*)mean0, (const T*)y,
+          (const uint8_t*)mask, (const uint8_t*)armed, thresh, (T*)mean_out,
+          (T*)sigma_out, (T*)detf_out, (uint8_t*)broke_out, (T*)z_out,
+          (int8_t*)verdict_out, (const T*)horizons, (T*)fmeans, H, k, N, S);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int kPolicy, bool kSeq>
@@ -90,24 +129,17 @@ int launch(const void* phi, const void* z, const void* kgain,
            const void* fdiag, const void* real, const void* mean0,
            const void* y, const void* mask, const void* armed, double thresh,
            void* mean_out, void* sigma_out, void* detf_out, void* broke_out,
-           void* z_out, void* verdict_out, int B, int k, int N, int S,
-           void* stream) {
-  const size_t smem = steady_smem<T>(N, S);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        steady_filter_kernel<T, kPolicy, kSeq>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (B == 0) return 0;
-  steady_filter_kernel<T, kPolicy, kSeq>
-      <<<B, kWarp, smem, (cudaStream_t)stream>>>(
-          (const T*)phi, (const T*)z, (const T*)kgain, (const T*)fdiag,
-          (const uint8_t*)real, (const T*)mean0, (const T*)y,
-          (const uint8_t*)mask, (const uint8_t*)armed, thresh, (T*)mean_out,
-          (T*)sigma_out, (T*)detf_out, (uint8_t*)broke_out, (T*)z_out,
-          (int8_t*)verdict_out, k, N, S);
-  return (int)cudaGetLastError();
+           void* z_out, void* verdict_out, const void* horizons,
+           void* fmeans, int H, int B, int k, int N, int S, void* stream) {
+  if (fmeans != nullptr)
+    return launch_mode<T, kPolicy, kSeq, true>(
+        phi, z, kgain, fdiag, real, mean0, y, mask, armed, thresh, mean_out,
+        sigma_out, detf_out, broke_out, z_out, verdict_out, horizons, fmeans,
+        H, B, k, N, S, stream);
+  return launch_mode<T, kPolicy, kSeq, false>(
+      phi, z, kgain, fdiag, real, mean0, y, mask, armed, thresh, mean_out,
+      sigma_out, detf_out, broke_out, z_out, verdict_out, horizons, fmeans, H,
+      B, k, N, S, stream);
 }
 
 template <typename T>
@@ -115,12 +147,13 @@ int dispatch(const void* phi, const void* z, const void* kgain,
              const void* fdiag, const void* real, const void* mean0,
              const void* y, const void* mask, const void* armed,
              double thresh, void* mean_out, void* sigma_out, void* detf_out,
-             void* broke_out, void* z_out, void* verdict_out, int B, int k,
-             int N, int S, int policy, int sequential, void* stream) {
+             void* broke_out, void* z_out, void* verdict_out,
+             const void* horizons, void* fmeans, int H, int B, int k, int N,
+             int S, int policy, int sequential, void* stream) {
 #define METRAN_STEADY(P, Q)                                                  \
   launch<T, P, Q>(phi, z, kgain, fdiag, real, mean0, y, mask, armed, thresh, \
                   mean_out, sigma_out, detf_out, broke_out, z_out,           \
-                  verdict_out, B, k, N, S, stream)
+                  verdict_out, horizons, fmeans, H, B, k, N, S, stream)
   if (sequential && policy != kOff) {
     switch (policy) {
       case kReject: return METRAN_STEADY(kReject, true);
@@ -146,7 +179,8 @@ extern "C" {
 // phi (B, S), z (B, N, S), kgain (B, S, N), fdiag (B, N), real (B, N)
 // uint8, mean0 (B, S), y (B, k, N), mask (B, k, N) uint8, armed (B,)
 // uint8, thresh = nsigma^2; mean_out (B, S), sigma/detf (B,), broke (B,)
-// uint8, z_out (B, k, N), verdict (B, k, N) int8.  policy: 0 off,
+// uint8, z_out (B, k, N), verdict (B, k, N) int8; horizons (H,) and
+// fmeans (B, H, N), fmeans null: the horizons mode off.  policy: 0 off,
 // 1 reject, 2 huber, 3 inflate; sequential: the per-slot form (gated
 // policies only).
 int metran_steady_filter_f32(const void* phi, const void* z,
@@ -156,12 +190,13 @@ int metran_steady_filter_f32(const void* phi, const void* z,
                              const void* armed, double thresh, void* mean_out,
                              void* sigma_out, void* detf_out,
                              void* broke_out, void* z_out, void* verdict_out,
+                             const void* horizons, void* fmeans, int H,
                              int B, int k, int N, int S, int policy,
                              int sequential, void* stream) {
   return dispatch<float>(phi, z, kgain, fdiag, real, mean0, y, mask, armed,
                          thresh, mean_out, sigma_out, detf_out, broke_out,
-                         z_out, verdict_out, B, k, N, S, policy, sequential,
-                         stream);
+                         z_out, verdict_out, horizons, fmeans, H, B, k, N, S,
+                         policy, sequential, stream);
 }
 
 int metran_steady_filter_f64(const void* phi, const void* z,
@@ -171,12 +206,13 @@ int metran_steady_filter_f64(const void* phi, const void* z,
                              const void* armed, double thresh, void* mean_out,
                              void* sigma_out, void* detf_out,
                              void* broke_out, void* z_out, void* verdict_out,
+                             const void* horizons, void* fmeans, int H,
                              int B, int k, int N, int S, int policy,
                              int sequential, void* stream) {
   return dispatch<double>(phi, z, kgain, fdiag, real, mean0, y, mask, armed,
                           thresh, mean_out, sigma_out, detf_out, broke_out,
-                          z_out, verdict_out, B, k, N, S, policy, sequential,
-                          stream);
+                          z_out, verdict_out, horizons, fmeans, H, B, k, N, S,
+                          policy, sequential, stream);
 }
 
 const char* metran_error_string(int err) {

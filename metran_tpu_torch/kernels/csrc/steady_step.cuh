@@ -31,7 +31,7 @@ __device__ inline T warp_sum(T x) {
 }
 
 template <typename T>
-size_t steady_smem(int N, int S) {
+__host__ __device__ inline size_t steady_smem(int N, int S) {
   return sizeof(T) * (2 * (size_t)N * S + S + 3 * (size_t)N);
 }
 

@@ -13,7 +13,7 @@ Replaces ``metran_tpu/ops/forecast.py::forecast_observation_moments``
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -76,8 +76,10 @@ def forecast_moments_kernel(phi, q, z, r, mean, cov, horizons
             f"the forecast kernel runs on CUDA tensors, got {phi.device}"
         )
     args = [t.contiguous() for t in (phi, q, z, r, mean, cov, horizons)]
-    means = torch.empty((b, h, n), dtype=phi.dtype, device=phi.device)
-    variances = torch.empty_like(means)
+    # the two halves of one buffer: a caller brings both to the host in
+    # one copy (the read path's commit-time pass)
+    means, variances = torch.empty((2, b, h, n), dtype=phi.dtype,
+                                   device=phi.device)
     lib = build.load_library("forecast")
     fn = (lib.metran_forecast_moments_f64 if phi.dtype == torch.float64
           else lib.metran_forecast_moments_f32)
@@ -116,11 +118,41 @@ def forecast_state_moments_plain(phi, q, mean, cov, horizons
     return mean_h, cov_h
 
 
+def horizon_set(horizons, like) -> Optional[torch.Tensor]:
+    """A horizon set as a non-empty (H,) tensor of ``like``'s dtype and
+    device (``None`` stays ``None``: a horizons mode off).  Horizons are
+    values: any set, not only ``1..H``."""
+    if horizons is None:
+        return None
+    h = torch.as_tensor(horizons, dtype=like.dtype, device=like.device)
+    if h.dim() != 1 or h.shape[0] == 0:
+        raise ValueError(f"horizons must be a non-empty (H,) set, got "
+                         f"{tuple(h.shape)}")
+    return h.contiguous()
+
+
+def _project_means(mean_h, z) -> torch.Tensor:
+    """``Z m_h`` (B, H, N) of state means (B, H, S) as an elementwise
+    product summed over the states: a reduction of each (horizon, slot)
+    on its own, so a horizon's row does not depend on how many horizons
+    ride along (a matmul's blocking does), and the read path's
+    commit-time rows equal a compute-path call's bit for bit."""
+    return torch.sum(mean_h[:, :, None, :] * z[:, None], dim=-1)
+
+
+def forecast_means_plain(phi, z, mean, horizons) -> torch.Tensor:
+    """The mean half alone, ``Z (phi^h o m)`` (B, H, N): the same
+    operations as :func:`forecast_moments_plain`'s means (the frozen
+    rows' commit-time pass, whose variances are cached at freeze)."""
+    mean_h = phi[:, None, :] ** horizons[None, :, None] * mean[:, None, :]
+    return _project_means(mean_h, z)
+
+
 def forecast_moments_plain(phi, q, z, r, mean, cov, horizons
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same function as :func:`forecast_moments` in PyTorch ops."""
     mean_h, cov_h = forecast_state_moments_plain(phi, q, mean, cov, horizons)
-    means = mean_h @ z.transpose(-1, -2)  # (B, H, N)
+    means = _project_means(mean_h, z)  # (B, H, N)
     zp = z[:, None] @ cov_h  # (B, H, N, S)
     variances = torch.sum(zp * z[:, None], dim=-1)
     return means, torch.clamp(variances, min=0.0) + r[:, None, :]

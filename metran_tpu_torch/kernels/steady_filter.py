@@ -19,6 +19,11 @@ over the steps from the frozen variances, ``broke`` sticky — a step
 whose mask differs from the ``real`` slot pattern, a reject/inflate
 hit, or a non-finite mean — telling the caller to discard the row and
 replay it through the exact kernel; z-scores NaN where unobserved.
+With ``horizons`` (an (H,) set of horizons, any values) a seventh
+output follows: the mean half of the read path's commit-time forecast
+pass, ``Z (phi^h o m_T)`` (B, H, N) — the kernel's ``horizons`` mode
+(``csrc/horizon_step.cuh``, shared with the arena's K17), the plain
+version's :func:`~.forecast.forecast_means_plain`.
 
 On CUDA tensors it launches the hand-written kernel
 (``csrc/steady_filter.cu``, one warp per model) and raises if that
@@ -27,7 +32,8 @@ cannot build or launch; on CPU tensors it runs
 PyTorch ops — the oracle the kernel is held against on the card.
 
 Replaces ``metran_tpu/ops/kalman.py::_steady_filter_append`` (B9b
-steady).
+steady) and, in the horizons mode, ``metran_tpu/serve/engine.py::
+_steady_horizon_means`` (:856, B13's frozen half).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Tuple
 import torch
 
 from . import build
+from .forecast import forecast_means_plain, horizon_set
 from .gated_filter import (
     GATE_DOWNWEIGHTED,
     GATE_PASS,
@@ -47,12 +54,15 @@ from .joint_filter import MAX_SMEM
 from .lanes import _stream
 
 
-def smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype) -> int:
+def smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype,
+               horizons: bool = False) -> int:
     """Dynamic shared memory one warp (block) needs: Z, the gain, the
-    mean and three slot vectors (mirrors ``steady_smem`` in the
-    source)."""
+    mean and three slot vectors (mirrors ``steady_smem`` in the source),
+    and in the horizons mode one state vector more (``phi^h o m``)."""
     item = torch.finfo(dtype).bits // 8
-    return item * (2 * n_obs * n_state + n_state + 3 * n_obs)
+    return item * (2 * n_obs * n_state + n_state + 3 * n_obs
+                   + (n_state if horizons else 0))
+
 
 
 def _check(phi, z, kgain, fdiag, real, mean, y, mask, armed, policy,
@@ -95,19 +105,20 @@ def _check(phi, z, kgain, fdiag, real, mean, y, mask, armed, policy,
 
 def steady_filter(phi, z, kgain, fdiag, real, mean, y, mask, armed,
                   policy: str = "off", thresh: float = 16.0,
-                  sequential: bool = False) -> Tuple[torch.Tensor, ...]:
+                  sequential: bool = False,
+                  horizons=None) -> Tuple[torch.Tensor, ...]:
     """The frozen-gain append of every model (see the module doc)."""
     _check(phi, z, kgain, fdiag, real, mean, y, mask, armed, policy,
            sequential)
     fn = steady_filter_plain if phi.device.type == "cpu" else \
         steady_filter_kernel
     return fn(phi, z, kgain, fdiag, real, mean, y, mask, armed, policy,
-              thresh, sequential)
+              thresh, sequential, horizons)
 
 
 def steady_filter_kernel(phi, z, kgain, fdiag, real, mean, y, mask, armed,
                          policy: str = "off", thresh: float = 16.0,
-                         sequential: bool = False):
+                         sequential: bool = False, horizons=None):
     """Launch K14 (CUDA tensors only; raises otherwise, and when the
     kernel cannot build, take the shape or launch)."""
     b, k, n, s = _check(phi, z, kgain, fdiag, real, mean, y, mask, armed,
@@ -116,7 +127,8 @@ def steady_filter_kernel(phi, z, kgain, fdiag, real, mean, y, mask, armed,
         raise ValueError(
             f"the steady filter kernel runs on CUDA tensors, got "
             f"{phi.device}")
-    smem = smem_bytes(n, s, phi.dtype)
+    h = horizon_set(horizons, phi)
+    smem = smem_bytes(n, s, phi.dtype, h is not None)
     if smem > MAX_SMEM:
         raise ValueError(
             f"bucket (N={n}, S={s}) at {phi.dtype} needs {smem} bytes of "
@@ -130,6 +142,8 @@ def steady_filter_kernel(phi, z, kgain, fdiag, real, mean, y, mask, armed,
     broke = torch.empty((b,), dtype=torch.bool, device=phi.device)
     zscore = torch.empty((b, k, n), **new)
     verdict = torch.empty((b, k, n), dtype=torch.int8, device=phi.device)
+    fmeans = (None if h is None
+              else torch.empty((b, h.shape[0], n), **new))
     lib = build.load_library("steady_filter")
     fn = (lib.metran_steady_filter_f64 if phi.dtype == torch.float64
           else lib.metran_steady_filter_f32)
@@ -137,19 +151,24 @@ def steady_filter_kernel(phi, z, kgain, fdiag, real, mean, y, mask, armed,
         err = fn(*[t.data_ptr() for t in args], float(thresh),
                  mean_out.data_ptr(), sigma.data_ptr(), detf.data_ptr(),
                  broke.data_ptr(), zscore.data_ptr(), verdict.data_ptr(),
-                 b, k, n, s, policy_code(policy), int(bool(sequential)),
-                 _stream(phi))
+                 None if h is None else h.data_ptr(),
+                 None if fmeans is None else fmeans.data_ptr(),
+                 0 if h is None else h.shape[0], b, k, n, s,
+                 policy_code(policy), int(bool(sequential)), _stream(phi))
     build.check(lib, err, "steady_filter")
     if b:
         build.count_launch("steady_filter")
-    return mean_out, sigma, detf, broke, zscore, verdict
+    out = (mean_out, sigma, detf, broke, zscore, verdict)
+    return out if fmeans is None else out + (fmeans,)
 
 
 def steady_filter_plain(phi, z, kgain, fdiag, real, mean, y, mask, armed,
                         policy: str = "off", thresh: float = 16.0,
-                        sequential: bool = False):
+                        sequential: bool = False, horizons=None):
     """The same recursion in PyTorch ops: the JAX scan step by step (and,
-    in the per-slot form, slot by slot), batched over the models."""
+    in the per-slot form, slot by slot), batched over the models; in the
+    horizons mode :func:`~.forecast.forecast_means_plain` of the final
+    mean."""
     b, k, n, s = _check(phi, z, kgain, fdiag, real, mean, y, mask, armed,
                         policy, sequential)
     dtype, dev = phi.dtype, phi.device
@@ -230,7 +249,9 @@ def steady_filter_plain(phi, z, kgain, fdiag, real, mean, y, mask, armed,
     else:
         zscore = torch.zeros((b, 0, n), dtype=dtype, device=dev)
         verdict = torch.zeros((b, 0, n), dtype=torch.int8, device=dev)
-    return m, sigma, detf, broke, zscore, verdict
+    out = (m, sigma, detf, broke, zscore, verdict)
+    h = horizon_set(horizons, phi)
+    return out if h is None else out + (forecast_means_plain(phi, z, m, h),)
 
 
 __all__ = [

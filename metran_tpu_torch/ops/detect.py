@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from ..config import as_tensor, resolve_device
+from ..config import as_tensor, default_dtype, resolve_device
 from ..kernels.detect import DETECT_STATE_ROWS, detect_scan
 
 __all__ = [
@@ -37,12 +37,17 @@ __all__ = [
 ]
 
 
-def detect_init(n_obs: int, dtype=torch.float64, device=None
-                ) -> torch.Tensor:
+def detect_init(n_obs: int, dtype=None, device=None) -> torch.Tensor:
     """A fresh (:data:`DETECT_STATE_ROWS`, ``n_obs``) detector state:
-    all zeros (no evidence, no window)."""
+    all zeros (no evidence, no window).  ``dtype`` defaults to the
+    precision policy of ``device`` (:func:`metran_tpu_torch.config.
+    default_dtype`: float64 on the CPU, float32 on the card unless
+    ``METRAN_TPU_X64``)."""
+    device = resolve_device(device)
+    if dtype is None:
+        dtype = default_dtype(device)
     return torch.zeros((DETECT_STATE_ROWS, int(n_obs)), dtype=dtype,
-                       device=resolve_device(device))
+                       device=device)
 
 
 def detect_stats(state) -> torch.Tensor:

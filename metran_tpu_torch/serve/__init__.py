@@ -1,7 +1,8 @@
 """Online serving: posterior states, registry (dict or device-resident
 state arena), batcher, the service with its reliability layer,
 observation gate, robust updates, streaming detection, steady-state
-(frozen-gain) serving and fixed-lag smoothing."""
+(frozen-gain) serving, fixed-lag smoothing and the materialized read
+path (commit-time forecast snapshots)."""
 
 from .batching import MicroBatcher, Request
 from .engine import (
@@ -22,6 +23,12 @@ from .engine import (
     state_slot_index,
 )
 from .monitoring import Alert, AlertBoard, DetectorMirror
+from .readpath import (
+    ForecastSnapshot,
+    SnapshotEntry,
+    SnapshotStore,
+    parse_horizons,
+)
 from .registry import ModelRegistry
 from .service import ArenaUpdateAck, Forecast, MetranService
 from .smoothing import FixedLagTracker, SmoothedWindow
@@ -44,6 +51,7 @@ __all__ = [
     "DetectorMirror",
     "FixedLagTracker",
     "Forecast",
+    "ForecastSnapshot",
     "GateSpec",
     "MetranService",
     "MicroBatcher",
@@ -54,6 +62,8 @@ __all__ = [
     "RobustSpec",
     "STATE_FORMAT_VERSION",
     "SmoothedWindow",
+    "SnapshotEntry",
+    "SnapshotStore",
     "StateArena",
     "SteadySpec",
     "make_arena_forecast_fn",
@@ -63,6 +73,7 @@ __all__ = [
     "make_steady_update_fn",
     "make_update_fn",
     "pad_state_arrays",
+    "parse_horizons",
     "posterior_fault",
     "posterior_state_from_metran",
     "stack_bucket",

@@ -32,8 +32,15 @@ frozen-gain update) or K18 (the forecast) per dispatch, through
 :mod:`metran_tpu_torch.kernels.arena` (its plain versions on CPU
 leaves).
 
-The fused horizon pass (the read path) and the parallel-in-time engine
-come in later slices; asking for them raises with the ROADMAP item.
+With a ``horizons`` set (the materialized read path,
+:mod:`metran_tpu_torch.serve.readpath`) every update function also
+returns the commit-time forecast pass of the committed posteriors,
+standardized (B, H, N) means and variances in the JAX functions' output
+order: the ``horizons`` modes of K16 (exact arena), K17 and K14 (frozen
+rows: means only, the variances are cached at freeze), and on the dict
+path's exact update one K2 launch on the committed moments, on the same
+stream (:func:`_horizon_pass`).  The parallel-in-time engine comes in a
+later slice; asking for it raises with the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,26 +58,27 @@ from ..kernels.arena import (
     arena_steady_update,
     arena_update,
 )
+from ..kernels.forecast import horizon_set
+from ..kernels.steady_filter import steady_filter
 from ..ops import (
     GATE_POLICIES,
     detect_append,
     detect_stats,
     dfm_statespace,
     filter_append,
+    forecast_horizons,
     forecast_observation_moments,
     gated_filter_append,
     gated_sqrt_filter_append,
     implicit_map_filter_append,
     implicit_map_sqrt_filter_append,
     sqrt_filter_append,
-    steady_filter_append,
 )
 from ..ops.implicit_map import ROBUST_LIKELIHOODS
 from ..ops.kalman import NotPortedError
 from ..ops.statespace import StateSpace
 
 _LATER = {
-    "horizons": "ROADMAP A4.5 (serving features: read path)",
     "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
 }
 
@@ -571,6 +579,21 @@ def _robust_core(sqrt_engine: bool, robust: RobustSpec):
     return core
 
 
+def _horizon_pass(ss, mean_t, fac_t, horizons, sqrt_engine: bool):
+    """The fused commit-time forecast pass of the dict path's exact
+    update: :func:`~metran_tpu_torch.ops.forecast_horizons` of the
+    just-committed posteriors, batched — (B, H, N) standardized means and
+    variances.  One K2 launch on CUDA tensors, on the update's stream
+    with no host sync between (a factor bucket forms ``fac fac'`` by
+    ``torch.matmul`` first, as the JAX function's own matmul); the plain
+    version on CPU tensors.  The means-only pass of frozen rows (JAX's
+    ``_steady_horizon_means``) is K14's and K17's horizons mode, whose
+    plain version is :func:`~metran_tpu_torch.kernels.forecast.
+    forecast_means_plain`."""
+    hz = horizon_set(horizons, mean_t)
+    return forecast_horizons(ss, mean_t, fac_t, hz, sqrt=sqrt_engine)
+
+
 def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
                    horizons=None, detect: Optional[DetectSpec] = None,
                    robust: Optional[RobustSpec] = None):
@@ -613,8 +636,13 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
     det_counts, det_stats)`` ((B, 6, N), (B, 3, N) int32, (B, 3, N)).
     An ungated registry arming detection serves through the gated
     update with the gate disarmed (real z-scores; the service then
-    books no gate verdicts).  ``horizons`` raises
-    :class:`~metran_tpu_torch.ops.kalman.NotPortedError`.
+    books no gate verdicts).
+
+    With a non-empty ``horizons`` set (the read path) it appends ``(fm,
+    fv)``, the (B, H, N) standardized forecast moments of the NEW
+    posteriors at those horizons (:func:`_horizon_pass`: one K2 launch
+    after the update), after every other output and before the
+    detector's, as the JAX function orders them.
     """
     if engine == "sqrt_parallel":
         raise _not_ported("sqrt_parallel")
@@ -630,8 +658,7 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
             "kernel (the robust likelihood IS the outlier treatment); "
             "arm one of them"
         )
-    if horizons:
-        raise _not_ported("horizons")
+    hz = tuple(int(h) for h in horizons) if horizons else ()
     gated_append = (gated_sqrt_filter_append if sqrt_engine
                     else gated_filter_append)
     if robust_on:
@@ -659,7 +686,15 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
                                  engine=engine)
 
     if not det_on:
-        return core
+        if not hz:
+            return core
+
+        def with_horizons(ss, mean, fac, y_new, mask_new, *extra):
+            out = tuple(core(ss, mean, fac, y_new, mask_new, *extra))
+            return out + tuple(_horizon_pass(ss, out[0], out[1], hz,
+                                             sqrt_engine))
+
+        return with_horizons
     detect.validate()
     dpar = detect.kernel_params
 
@@ -669,6 +704,8 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
         # gated and robust updates keep their per-slot outputs (robust:
         # with the iterations); the detect-only path strips them
         res = tuple(out) if (gated or robust_on) else tuple(out[:4])
+        if hz:
+            res += tuple(_horizon_pass(ss, out[0], out[1], hz, sqrt_engine))
         det_new, det_counts = detect_append(det_state, out[4], mask_new,
                                             det_armed, **dpar)
         return res + (det_new, det_counts, detect_stats(det_new))
@@ -699,8 +736,8 @@ def make_steady_update_fn(gate: Optional[GateSpec] = None,
     ``fn(ss, mean, kgain, fdiag, real, y_new, mask_new[, armed]) ->
     (mean_T, sigma, detf, broke[, zscore, verdict])``, every argument
     batch-leading: one K14 launch of
-    :func:`~metran_tpu_torch.ops.steady_filter_append` — a mean-only
-    recursion through the frozen gain, no covariance in or out.
+    :func:`~metran_tpu_torch.ops.steady_filter_append`'s kernel — a
+    mean-only recursion through the frozen gain, no covariance in or out.
     Engine-agnostic (the frozen gain IS the engine).  ``broke`` is the
     per-row thaw verdict: a True row's result must be discarded and its
     rows replayed through the exact update.  ``real`` is the (B, N)
@@ -717,11 +754,15 @@ def make_steady_update_fn(gate: Optional[GateSpec] = None,
     ``(det_state', det_counts, det_stats)`` ride as the last outputs,
     one K13 launch after K14 armed with ``det_armed & ~broke``: a broken
     row's detector state carries unchanged (its rows replay through the
-    exact update, which accumulates them exactly once).  ``horizons``
-    raises :class:`~metran_tpu_torch.ops.kalman.NotPortedError`.
+    exact update, which accumulates them exactly once).
+
+    With a non-empty ``horizons`` set the update is K14's ``horizons``
+    mode and appends ``fm``, the (B, H, N) standardized means of the
+    commit-time forecast pass (JAX's ``_steady_horizon_means``, in the
+    same launch), after the gate's outputs and before the detector's; the
+    variance half is the constant the service cached at freeze.
     """
-    if horizons:
-        raise _not_ported("horizons")
+    hz = tuple(int(h) for h in horizons) if horizons else ()
     gated = gate is not None and gate.enabled
     det_on = detect is not None and detect.enabled
     if gated:
@@ -732,10 +773,19 @@ def make_steady_update_fn(gate: Optional[GateSpec] = None,
     seq = bool(sequential_gate) and gated
 
     def core(ss, mean, kgain, fdiag, real, y_new, mask_new, armed):
-        out = steady_filter_append(
-            ss, mean, kgain, fdiag, y_new, mask_new, armed=armed,
-            policy=policy, nsigma=nsigma, real=real, sequential_gate=seq)
-        res = tuple(out[:4]) + (tuple(out[4:]) if gated else ())
+        # the dispatch's batch-leading tensors straight to the K14 wrapper
+        # (steady_filter_append's own call, with the horizons mode)
+        if not isinstance(armed, torch.Tensor):
+            armed = torch.full((mean.shape[0],), bool(armed),
+                               dtype=torch.bool, device=mean.device)
+        out = steady_filter(
+            ss.phi, ss.z, kgain, fdiag, real.contiguous(), mean,
+            y_new.contiguous(), mask_new.contiguous(), armed, policy,
+            nsigma * nsigma, seq, horizons=horizon_set(hz, mean) if hz
+            else None)
+        res = tuple(out[:4]) + (tuple(out[4:6]) if gated else ())
+        if hz:
+            res += (out[6],)
         return res, out[4], out[3]
 
     if det_on:
@@ -806,16 +856,17 @@ def make_arena_update_fn(engine: str = "joint",
     books zero counts.  With an enabled ``robust`` (exclusive with the
     gate) four (G, N) per-slot parameter arrays ``rail_lo, rail_hi,
     quantum, scale`` follow ``min_seen`` and ``(zscore, verdict, iters)``
-    follow ``detf``.  Signatures and output order are the JAX
-    package's; ``horizons`` raises :class:`~metran_tpu_torch.ops.kalman.
-    NotPortedError` (ROADMAP A4.5).
+    follow ``detf``.  With a non-empty ``horizons`` set K16 runs its
+    horizons mode and ``(fmeans, fvars)`` ((G, H, N), standardized) of
+    each row AS WRITTEN (a rejected row's prior) follow every other
+    output of the update, before ``conv`` and the detector's.  Signatures
+    and output order are the JAX package's.
     """
     if engine == "sqrt_parallel":
         raise _not_ported("sqrt_parallel")
     if engine not in ("joint", "sequential", "sqrt"):
         raise ValueError(f"unknown serve engine {engine!r}")
-    if horizons:
-        raise _not_ported("horizons")
+    hz = tuple(int(h) for h in horizons) if horizons else ()
     sqrt_engine = engine == "sqrt"
     gated = gate is not None and gate.enabled
     det_on = detect is not None and detect.enabled
@@ -869,7 +920,8 @@ def make_arena_update_fn(engine: str = "joint",
             body=body, mode=mode, thresh=thresh, min_seen=floor,
             robust=rob, validate=validate, steady_tol=steady_tol,
             real=real, det=det_a,
-            det_min_seen=int(det_min_seen or 0), det_params=dpar)
+            det_min_seen=int(det_min_seen or 0), det_params=dpar,
+            horizons=horizon_set(hz, mean) if hz else None)
         rest = (out.ok, out.sigma, out.detf)
         if robust_on:
             iters = (out.iters if map_robust else torch.zeros(
@@ -878,6 +930,8 @@ def make_arena_update_fn(engine: str = "joint",
             rest += (out.zscore, out.verdict, iters)
         elif gated:
             rest += (out.zscore, out.verdict)
+        if hz:
+            rest += (out.fmeans, out.fvars)
         if steady_tol > 0.0:
             rest += (out.conv,)
         if det_on:
@@ -944,11 +998,12 @@ def make_arena_steady_update_fn(gate: Optional[GateSpec] = None,
     signature is ``fn(dynamic, static, steady_leaves, det, rows, real,
     y, mask, min_seen, det_min_seen)`` with the detector leaf returned
     second and ``(det_counts, det_stats)`` last (unapplied rows carry
-    their state and book zero counts).  ``horizons`` raises
-    :class:`~metran_tpu_torch.ops.kalman.NotPortedError` (A4.5).
+    their state and book zero counts).  With a non-empty ``horizons`` set
+    K17 runs its horizons mode and ``fmeans`` ((G, H, N), standardized:
+    ``Z (phi^h o m)`` of each row's written mean) follows the gate's
+    outputs; the variance half is cached at freeze.
     """
-    if horizons:
-        raise _not_ported("horizons")
+    hz = tuple(int(h) for h in horizons) if horizons else ()
     gated = gate is not None and gate.enabled
     det_on = detect is not None and detect.enabled
     if det_on:
@@ -970,10 +1025,13 @@ def make_arena_steady_update_fn(gate: Optional[GateSpec] = None,
             mean, t_seen, version, phi, z, steady, kgain, fdiag, rows,
             real, y, mask, mode=mode, thresh=thresh, sequential=seq,
             min_seen=int(min_seen or 0), det=det_a,
-            det_min_seen=int(det_min_seen or 0), det_params=dpar)
+            det_min_seen=int(det_min_seen or 0), det_params=dpar,
+            horizons=horizon_set(hz, mean) if hz else None)
         rest = (out.applied, out.sigma, out.detf)
         if gated:
             rest += (out.zscore, out.verdict)
+        if hz:
+            rest += (out.fmeans,)
         if det_on:
             return (dyn, det_a) + rest + (out.det_counts, out.det_stats)
         return (dyn,) + rest

@@ -17,9 +17,11 @@ durability moves from write-through to spills (:meth:`ModelRegistry.
 spill`, :meth:`ModelRegistry.evict`, ``MetranService.close``).
 
 PyTorch runs eagerly, so there is nothing to compile per bucket: the
-``*_fn`` accessors return the bound serving functions.  The JAX
-registry's commit hooks (ROADMAP A4.5/A7) and its compiled-function
-ledger and metrics (A7) come in later slices.
+``*_fn`` accessors return the bound serving functions.  Commit hooks
+(:meth:`ModelRegistry.on_commit`) observe every :meth:`ModelRegistry.
+put`; the read path's snapshot store invalidates through them.  The JAX
+registry's compiled-function ledger and metrics (ROADMAP A7) come in a
+later slice.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import time
 from collections import Counter, OrderedDict
 from logging import getLogger
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,6 +160,8 @@ class ModelRegistry:
         self.arena_events: Counter = Counter()
         #: monotonic instant of the last completed spill()
         self._last_spill_at: Optional[float] = None
+        #: ``(model_id, version)`` observers fired by every put
+        self._commit_hooks: List[Callable[[str, int], None]] = []
 
     # ------------------------------------------------------------------
     # state storage
@@ -182,6 +186,29 @@ class ModelRegistry:
         if self.root is None:
             raise ValueError("in-memory registry has no storage root")
         return self.root / f"{self.check_model_id(model_id)}.npz"
+
+    def on_commit(self, callback: Callable[[str, int], None]) -> None:
+        """Register a ``(model_id, version)`` observer fired on every
+        :meth:`put` once the in-memory or arena state is replaced (before
+        the disk write-through: memory is the committed state).  A failing
+        observer is logged, never raised: cache invalidation must not take
+        down the write path."""
+        self._commit_hooks.append(callback)
+
+    def remove_commit_hook(self, callback) -> None:
+        """Unregister an :meth:`on_commit` observer (idempotent); a
+        service detaches its snapshot store here on close."""
+        try:
+            self._commit_hooks.remove(callback)
+        except ValueError:
+            pass
+
+    def _notify_commit(self, model_id: str, version: int) -> None:
+        for cb in self._commit_hooks:
+            try:
+                cb(model_id, version)
+            except Exception:  # pragma: no cover - observer bug
+                logger.exception("commit observer failed for %r", model_id)
 
     def put(self, state: PosteriorState,
             persist: bool = True) -> PosteriorState:
@@ -210,6 +237,7 @@ class ModelRegistry:
                         arena.clear_row(row)
                         del self._row_map[state.model_id]
                         self._arena_lru.pop(state.model_id, None)
+        self._notify_commit(state.model_id, state.version)
         if persist and self.root is not None:
             state.save(self.path_for(state.model_id))
         return state

@@ -83,13 +83,22 @@ Port of the dict-registry core of the JAX package's
   (the posterior stays on the device; ``registry.get`` reads it back);
   ``update_batch``/``forecast_batch`` serve whole fleet ticks with
   vectorized host work; durability is the spill on ``close()``.
+- **The materialized read path** (``readpath=True``): every committed
+  update also computes the forecast moments of the new posterior at the
+  service's horizon set in the same dispatch (the ``horizons`` modes of
+  K16, K17 and K14; K2 after the dict path's exact update) and publishes
+  them, de-standardized, into a :class:`~metran_tpu_torch.serve.readpath.
+  SnapshotStore` before the callers' futures resolve.  ``forecast``,
+  ``forecast_async`` and ``forecast_batch`` answer a hit from host
+  memory — no batcher, no breaker, no launch — and fall through to the
+  compute path on a miss or a stale entry; the registry's commit hooks
+  make an external ``put`` stale.
 
 The dispatch runs on the service's device (default: the CUDA card; an
-arena dispatch on its arena's device).  The read path, refit,
-durability, the cluster and the observability layers come in later
-slices: asking for them raises
-:class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming the
-ROADMAP item (A4, A7).
+arena dispatch on its arena's device).  Refit, durability, the cluster
+and the observability layers come in later slices: asking for them
+raises :class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming the
+ROADMAP item (A4.9, A7).
 """
 
 from __future__ import annotations
@@ -112,6 +121,7 @@ from ..ops import (
     GATE_REJECTED,
     ROBUST_NONCONV,
     dfm_statespace,
+    forecast_observation_moments,
     steady_converged,
     steady_gains,
 )
@@ -137,6 +147,12 @@ from .engine import (
     state_slot_index,
 )
 from .monitoring import AlertBoard, DetectorMirror
+from .readpath import (
+    ForecastSnapshot,
+    SnapshotEntry,
+    SnapshotStore,
+    parse_horizons,
+)
 from .registry import ModelRegistry
 from .smoothing import FixedLagTracker, SmoothedWindow
 from .state import PosteriorState
@@ -149,7 +165,8 @@ STEADY_REFREEZE_COOLDOWN_S = 30.0
 
 #: the JAX service's layers this port does not have yet, by keyword
 _LATER = {
-    "readpath": "ROADMAP A4.5 (the materialized read path)",
+    "observability": "ROADMAP A7 (observability)",
+    "capacity": "ROADMAP A7 (the capacity plane)",
     "refit": "ROADMAP A4.9 (the refit worker)",
     "durability": "ROADMAP A7 (durability)",
     "cluster": "ROADMAP A7 (the cluster layer)",
@@ -188,6 +205,28 @@ class EventCounters:
     def snapshot(self) -> dict:
         with self._lock:
             return dict(self._counts)
+
+
+def _host(outputs) -> list:
+    """A dispatch's outputs as numpy arrays.  Outputs that are views of
+    one buffer (a horizon pass's means and variances, which the kernels
+    write into the two halves of one (2, ...) tensor) come to the host in
+    one copy."""
+    out, copied = [], {}
+    for t in outputs:
+        base = t._base
+        if (base is not None and base.dim() == t.dim() + 1
+                and tuple(base.shape[1:]) == tuple(t.shape)
+                and base.is_contiguous()):
+            key = base.data_ptr()
+            if key not in copied:
+                copied[key] = base.cpu().numpy()
+            half = (t.storage_offset() - base.storage_offset()) \
+                // base.stride(0)
+            out.append(copied[key][half])
+        else:
+            out.append(t.cpu().numpy())
+    return out
 
 
 def _transfer(src: Future, dst: Future) -> None:
@@ -269,12 +308,17 @@ class _SteadyInfo(NamedTuple):
     ``registry.put`` — a refit hot-swap, a restore, even one that reuses
     the frozen version number — carries fresh arrays and thaws the
     model.  ``kgain``/``fdiag`` are bucket-padded (S_pad, N_pad)/
-    (N_pad,) arrays ready to stack into a steady dispatch.
+    (N_pad,) arrays ready to stack into a steady dispatch; ``hvars`` the
+    (H, n_series) STANDARDIZED horizon variances computed once at freeze
+    (``None`` with the read path off): the frozen covariance never
+    changes, so the variance half of every later snapshot is this one
+    constant.
     """
 
     version: int
     kgain: np.ndarray
     fdiag: np.ndarray
+    hvars: Optional[np.ndarray]
     params_ref: object
     loadings_ref: object
 
@@ -338,10 +382,22 @@ class MetranService:
     fixed_lag : arm fixed-lag smoothed products with this window
         (:meth:`smoothed`); default from ``serve_defaults()``
         (``METRAN_TPU_SERVE_FIXED_LAG``, shipped 0 = off).
-    readpath, refit, durability, cluster, replication : the JAX
-        service's other layers; not ported yet — asking for one raises
-        :class:`~metran_tpu_torch.ops.kalman.NotPortedError` naming its
-        ROADMAP item.
+    readpath : serve forecasts from the materialized read path
+        (:mod:`metran_tpu_torch.serve.readpath`); default from
+        ``serve_defaults()`` (``METRAN_TPU_SERVE_READPATH``, shipped
+        off).  Every committed update then runs the commit-time horizon
+        pass in its own dispatch and publishes the de-standardized
+        moments; ``forecast``/``forecast_async``/``forecast_batch``
+        consult the store first, and a hit dispatches nothing and takes
+        no breaker — bit for bit the compute path's answer at f64.
+    horizons : the horizon set precomputed at commit time (ints or a
+        spec string, :func:`~metran_tpu_torch.serve.readpath.
+        parse_horizons`; default ``METRAN_TPU_SERVE_HORIZONS``, "1-30").
+        ``forecast(steps=s)`` is cacheable iff the set holds ``1..s``.
+    observability, capacity, refit, durability, cluster, replication :
+        the JAX service's other layers; not ported yet — asking for one
+        raises :class:`~metran_tpu_torch.ops.kalman.NotPortedError`
+        naming its ROADMAP item.
     device : where the kernels run (default: the CUDA card; without one
         construction raises — pass ``device="cpu"`` for the CPU).
     """
@@ -351,13 +407,15 @@ class MetranService:
                  max_batch: Optional[int] = None,
                  persist_updates: bool = True,
                  reliability: Optional[ReliabilityPolicy] = None,
+                 observability=None,
                  gate: Optional[GateSpec] = None,
-                 robust=None, readpath=None,
+                 robust: Optional[RobustSpec] = None,
+                 readpath="default", horizons=None,
                  steady: Optional[SteadySpec] = None,
                  fixed_lag: Optional[int] = None,
                  refit=None, detect: Optional[DetectSpec] = None,
-                 durability=None, cluster=None, replication=None,
-                 device=None):
+                 capacity=None, durability=None, cluster=None,
+                 replication=None, device=None):
         self.gate = (gate.validate() if gate is not None
                      else GateSpec.from_defaults())
         # the exclusion first: it holds whatever the robust spec is
@@ -367,7 +425,8 @@ class MetranService:
                        else RobustSpec.from_defaults())
         if self.robust.enabled and self.gate.enabled:  # both from defaults
             raise _gate_robust_clash()
-        for name, spec in (("readpath", readpath),
+        for name, spec in (("observability", observability),
+                           ("capacity", capacity),
                            ("refit", refit), ("durability", durability),
                            ("cluster", cluster),
                            ("replication", replication)):
@@ -381,6 +440,11 @@ class MetranService:
             flush_deadline = defaults["flush_deadline_s"]
         if max_batch is None:
             max_batch = defaults["max_batch"]
+        if readpath == "default":
+            readpath = bool(defaults["readpath"])
+        if horizons is None:
+            horizons = defaults["horizons"]
+        self.horizons = parse_horizons(horizons)
         self.registry = registry
         self.persist_updates = persist_updates
         self.reliability = (reliability if reliability is not None
@@ -427,6 +491,10 @@ class MetranService:
         self.steady_transitions = EventCounters()
         #: frozen models (model_id -> _SteadyInfo)
         self._steady_info: dict = {}
+        #: the arena's frozen rows' standardized horizon variances
+        #: (model_id -> (H, n_series)), the variance half of their
+        #: snapshots (dict mode keeps them in _SteadyInfo)
+        self._steady_hvars: dict = {}
         #: model_id -> monotonic time of its last thaw (the refreeze
         #: cooldown)
         self._steady_thawed_at: dict = {}
@@ -447,6 +515,14 @@ class MetranService:
             self._dispatch, flush_deadline=flush_deadline,
             max_batch=max_batch,
         )
+        #: the materialized read path's snapshot store (``None``: off)
+        self.readpath: Optional[SnapshotStore] = (
+            SnapshotStore(self.horizons)
+            if readpath and self.horizons else None)
+        if self.readpath is not None:
+            # invalidation: ANY registry.put (a served dict update, a
+            # refit hot-swap, an operator restore) marks the entry stale
+            self.registry.on_commit(self.readpath.note_commit)
 
     # ------------------------------------------------------------------
     def _count(self, kind: str, n: int = 1) -> None:
@@ -492,6 +568,8 @@ class MetranService:
             "errors": self.stats,
             "integrity": self.registry.integrity_stats,
         }
+        if self.readpath is not None:
+            extra["readpath"] = self.readpath.stats()
         if self.registry.arena_enabled:
             extra["arena"] = self.registry.arena_stats
             age = self.registry.last_spill_age()
@@ -587,7 +665,7 @@ class MetranService:
 
     def _compute_steady(self, states, bucket) -> dict:
         """The frozen serving summaries of freeze candidates,
-        bucket-padded: ``{model_id: (kgain, fdiag)}``.
+        bucket-padded: ``{model_id: (kgain, fdiag, hvars)}``.
 
         Each group of candidates that share their true dimensions
         ``(n_series, n_factors)`` solves its DARE and gains in ONE K15
@@ -598,7 +676,12 @@ class MetranService:
         (their exact update gates per slot), square-root and ungated
         registries the joint gain and marginal variances
         (:meth:`ModelRegistry.steady_sequential_gate`); the frozen pair
-        is scattered into the bucket layout.
+        is scattered into the bucket layout.  With the read path armed
+        ``hvars`` are the (H, n_series) STANDARDIZED horizon variances of
+        the steady filtered covariance (one K2 launch per group, on the
+        service's device; the JAX service's ``forecast_observation_
+        moments`` of ``p_filt``), the constant every later snapshot of
+        the frozen model reuses; ``None`` otherwise.
         """
         seq = self.registry.steady_sequential_gate(self.gate)
         n_pad, s_pad = bucket
@@ -616,13 +699,22 @@ class MetranService:
             gains = steady_gains(ss)
             kgain = (gains.kgain_seq if seq else gains.kgain).cpu().numpy()
             fdiag = (gains.fdiag_seq if seq else gains.fdiag).cpu().numpy()
+            hvars = None
+            if self.readpath is not None:
+                _, hv = forecast_observation_moments(
+                    ss, torch.zeros_like(gains.p_filt[..., 0]),
+                    gains.p_filt,
+                    torch.tensor(self.horizons, dtype=torch.float64,
+                                 device=self.device))
+                hvars = hv.cpu().numpy()  # (G, H, n) standardized
             idx = state_slot_index(n, kf, n_pad)
             for i, st in enumerate(grp):
                 kg = np.zeros((s_pad, n_pad), st.dtype)
                 kg[np.ix_(idx, np.arange(n))] = kgain[i]
                 fd = np.ones(n_pad, st.dtype)
                 fd[:n] = fdiag[i]
-                out[st.model_id] = (kg, fd)
+                out[st.model_id] = (kg, fd,
+                                    None if hvars is None else hvars[i])
         return out
 
     def _freeze(self, candidates, bucket) -> None:
@@ -639,9 +731,9 @@ class MetranService:
                              [st.model_id for st, _ in candidates])
             return
         for st, delta in candidates:
-            kg, fd = frozen[st.model_id]
+            kg, fd, hvars = frozen[st.model_id]
             self._steady_info[st.model_id] = _SteadyInfo(
-                version=st.version, kgain=kg, fdiag=fd,
+                version=st.version, kgain=kg, fdiag=fd, hvars=hvars,
                 params_ref=st.params, loadings_ref=st.loadings)
             self._book_steady("freeze", st.model_id, delta=delta,
                               tol=self.steady.tol, version=st.version)
@@ -696,14 +788,50 @@ class MetranService:
     def forecast(self, model_id: str, steps: int,
                  deadline: Optional[float] = "default") -> Forecast:
         """Predictive means/variances ``steps`` grid periods ahead,
-        bounded by ``deadline`` seconds."""
+        bounded by ``deadline`` seconds.
+
+        With the read path armed a snapshot hit is returned here, before
+        the breaker, the batcher or any launch: version-checked (bit for
+        bit the compute answer at f64) and booked in the cache counters.
+        A hit bypasses the breaker on purpose — a breaker protects
+        compute, and a model whose breaker is open still serves its last
+        committed forecast."""
+        if self.readpath is not None and type(steps) is int:
+            entry = self.readpath.read(model_id, steps)
+            if entry is not None:
+                return self._cached_forecast(entry, steps)
+        # the compute half: the cache was consulted once above, and a
+        # miss must not be counted twice
         return self._call(
             "forecast", model_id,
-            lambda: self.forecast_async(model_id, steps), deadline,
+            lambda: self._forecast_async_compute(model_id, steps), deadline,
         )
+
+    @staticmethod
+    def _cached_forecast(entry: SnapshotEntry, steps: int) -> Forecast:
+        """A snapshot hit as a :class:`Forecast`: two read-only views (the
+        entry's rows are horizons ``1..steps``, data units) and the
+        version the moments were computed from."""
+        return Forecast(means=entry.means[:steps],
+                        variances=entry.variances[:steps],
+                        names=entry.names, version=entry.version)
 
     def forecast_async(self, model_id: str,
                        steps: int) -> "Future[Forecast]":
+        """The asynchronous forecast; a read-path hit resolves at once,
+        with no breaker admission and no batcher hop."""
+        if self.readpath is not None and type(steps) is int:
+            entry = self.readpath.read(model_id, steps)
+            if entry is not None:
+                fut: "Future[Forecast]" = Future()
+                fut.set_result(self._cached_forecast(entry, steps))
+                return fut
+        return self._forecast_async_compute(model_id, steps)
+
+    def _forecast_async_compute(self, model_id: str,
+                                steps: int) -> "Future[Forecast]":
+        """The dispatching half of :meth:`forecast_async` (cache misses,
+        or the read path off)."""
         steps = int(steps)
         if steps < 1:
             self._count("validation_errors")
@@ -1055,12 +1183,36 @@ class MetranService:
     def forecast_batch(self, model_ids, steps: int) -> list:
         """Forecast G models ``steps`` periods ahead; one
         :class:`Forecast` or exception per model, in order (one K18
-        launch per bucket on an arena registry)."""
+        launch per bucket on an arena registry).  With the read path
+        armed the snapshot pass comes first: hits are answered from host
+        memory and only the misses dispatch, so a warm fleet tick
+        launches nothing."""
         ids = [str(m) for m in model_ids]
         steps = int(steps)
         if steps < 1:
             self._count("validation_errors")
             raise ValueError(f"forecast steps must be >= 1, got {steps}")
+        rp = self.readpath
+        if rp is None:
+            return self._forecast_batch_compute(ids, steps)
+        results: list = [None] * len(ids)
+        miss = []
+        for i, mid in enumerate(ids):
+            entry = rp.read(mid, steps)
+            if entry is not None:
+                results[i] = self._cached_forecast(entry, steps)
+            else:
+                miss.append(i)
+        if miss:
+            computed = self._forecast_batch_compute([ids[i] for i in miss],
+                                                    steps)
+            for i, res in zip(miss, computed):
+                results[i] = res
+        return results
+
+    def _forecast_batch_compute(self, ids, steps: int) -> list:
+        """The dispatching half of :meth:`forecast_batch` (its misses, or
+        the whole batch with the read path off)."""
         if self.registry.arena_enabled:
             return self._forecast_batch_arena(ids, steps)
         return self._batch_via_requests(ids, [("forecast", steps)] * len(ids))
@@ -1072,7 +1224,7 @@ class MetranService:
                 if spec[0] == "update":
                     futs.append(self.update_async(mid, spec[1]))
                 else:
-                    futs.append(self.forecast_async(mid, spec[1]))
+                    futs.append(self._forecast_async_compute(mid, spec[1]))
             except Exception as exc:  # noqa: BLE001 - per-slot channel
                 futs.append(exc)
         if self.batcher.flush_deadline is None:
@@ -1093,6 +1245,10 @@ class MetranService:
         arena registry (with ``persist_updates``) the dirty rows then
         spill to disk, so the next process warm-starts from them."""
         self.batcher.close()
+        if self.readpath is not None:
+            # detach the store's invalidation hook: a registry that
+            # outlives this service must not call into it after close
+            self.registry.remove_commit_hook(self.readpath.note_commit)
         if self.registry.arena_enabled and self.persist_updates:
             try:
                 self.registry.spill(dirty_only=True)
@@ -1313,8 +1469,10 @@ class MetranService:
                 < np.array([st.n_series for st in kstates])[:, None])
         gated = self.gate.enabled
         det = self.detect if self.detect.enabled else None
+        rp = self.readpath
         fn = self.registry.steady_update_fn(
-            bucket, k, gate=self.gate if gated else None, detect=det)
+            bucket, k, gate=self.gate if gated else None,
+            horizons=self.horizons if rp is not None else None, detect=det)
 
         def dev(a):
             return torch.from_numpy(a).to(self.device)
@@ -1337,10 +1495,14 @@ class MetranService:
                      dev(det_state), flags(det.min_seen))
         elif gated:
             args += (flags(self.gate.min_seen),)
-        outs = [t.cpu().numpy() for t in fn(*args)]
+        outs = _host(fn(*args))
         if det is not None:
             det_new, det_counts, det_stats = outs[-3:]
             outs = outs[:-3]
+        fm_t = None
+        if rp is not None:
+            fm_t, outs = outs[-1], outs[:-1]
+        snap_entries: list = []
         mean_t, broke = outs[0], outs[3]
         for i, (si, j, info) in enumerate(keep):
             st = states[si]
@@ -1393,6 +1555,11 @@ class MetranService:
                 except Exception:
                     logger.exception("detection booking failed for model "
                                      "%r", st.model_id)
+            if rp is not None and info.hvars is not None:
+                # the means of this commit; the variances frozen at freeze
+                snap_entries.append(self._snapshot_entry(
+                    new_state, fm_t[i][:, :n], info.hvars))
+        self._publish_entries(snap_entries)
         return thawed
 
     def _run_update_dict(self, bucket, k: int, requests):
@@ -1431,9 +1598,14 @@ class MetranService:
         gated = self.gate.enabled
         rob = self.robust if self.robust.enabled else None
         det = self.detect if self.detect.enabled else None
-        fn = self.registry.update_fn(bucket, k,
-                                     gate=self.gate if gated else None,
-                                     detect=det, robust=rob)
+        rp = self.readpath
+        # a horizons set selects the commit-time forecast pass: the update
+        # appends the (B, H, N) moments of the NEW posteriors (one K2 launch
+        # after it on the same stream)
+        fn = self.registry.update_fn(
+            bucket, k, gate=self.gate if gated else None,
+            horizons=self.horizons if rp is not None else None,
+            detect=det, robust=rob)
 
         def flags(floor):
             # per model: armed once it has assimilated `floor` steps (a
@@ -1459,13 +1631,18 @@ class MetranService:
                 dtype)
             extra += (torch.from_numpy(det_state).to(self.device),
                       flags(det.min_seen))
-        outs = [t.cpu().numpy() for t in fn(
+        outs = _host(fn(
             batch.ss, batch.mean, batch.chol if sqrt_engine else batch.cov,
             torch.from_numpy(y).to(self.device),
-            torch.from_numpy(m).to(self.device), *extra)]
+            torch.from_numpy(m).to(self.device), *extra))
         if det is not None:
             det_new, det_counts, det_stats = outs[-3:]
             outs = outs[:-3]
+        fm_t = fv_t = None
+        if rp is not None:
+            fm_t, fv_t = outs[-2:]
+            outs = outs[:-2]
+        snap_entries: list = []
         mean_t, fac_t, sigma_t, detf_t = outs[:4]
         verdict_t = outs[5] if (gated or rob is not None) else None
         validate = self.reliability.validate_updates
@@ -1584,9 +1761,36 @@ class MetranService:
                         and self._steady_freezable(st.model_id)):
                     delta = float(np.max(np.abs(fac_t[i] - fac_before[i])))
                     candidates.append((new_state, delta))
+            if rp is not None:
+                snap_entries.append(self._snapshot_entry(
+                    new_state, fm_t[i][:, :n], fv_t[i][:, :n]))
         if candidates:
             self._freeze(candidates, bucket)
+        # published after the commits and before the callers' futures
+        # resolve: read-your-writes for acknowledged updates
+        self._publish_entries(snap_entries)
         return results
+
+    @staticmethod
+    def _snapshot_entry(state, fm, fv) -> SnapshotEntry:
+        """One committed dict-path slot's snapshot entry: its (H, n)
+        standardized moments de-standardized exactly as the compute path
+        does (:meth:`_run_forecast`)."""
+        return SnapshotEntry(
+            model_id=state.model_id, version=state.version,
+            means=fm * state.scaler_std + state.scaler_mean,
+            variances=fv * state.scaler_std**2, names=state.names,
+            published_at=0.0)  # stamped at publish
+
+    def _publish_entries(self, entries) -> None:
+        """Publish a dispatch's entries.  Cache only: the updates are
+        applied, so a failure here is logged, never raised."""
+        if not entries:
+            return
+        try:
+            self.readpath.publish_entries(entries)
+        except Exception:  # pragma: no cover - cache only
+            logger.exception("snapshot publish failed (cache only)")
 
     # ------------------------------------------------------------------
     # the state arena: rows in, acks out — the posterior stays on device
@@ -1743,9 +1947,10 @@ class MetranService:
     def _freeze_arena_rows(self, arena, bucket, rows, metas) -> None:
         """Freeze newly converged arena rows: their DARE solves and frozen
         gains (:meth:`_compute_steady`, K15), written into the steady
-        leaves in one batch, and the transitions booked.  Runs after the
-        rows' updates committed, so a failure is logged, never raised
-        (serving just stays exact)."""
+        leaves in one batch, their frozen horizon variances cached (read
+        path), and the transitions booked.  Runs after the rows' updates
+        committed, so a failure is logged, never raised (serving just
+        stays exact)."""
         try:
             frozen = self._compute_steady(metas, bucket)
         except Exception:
@@ -1756,6 +1961,8 @@ class MetranService:
             rows, np.stack([frozen[mt.model_id][0] for mt in metas]),
             np.stack([frozen[mt.model_id][1] for mt in metas]))
         for mt in metas:
+            if frozen[mt.model_id][2] is not None:
+                self._steady_hvars[mt.model_id] = frozen[mt.model_id][2]
             self._book_steady("freeze", mt.model_id, tol=self.steady.tol)
 
     def _arena_dispatch_rows(self, bucket, arena, rows_arr, y, m, k, ids,
@@ -1769,6 +1976,12 @@ class MetranService:
         gate verdicts, robust outcomes and detection alarms are booked
         here for both paths.
 
+        With the read path armed both kernels run their horizons modes,
+        and the dispatch's snapshot is published after the commits and
+        before the callers' futures resolve, while the pins still hold
+        the rows (:meth:`_publish_arena_snapshot`); a frozen row rides
+        K17 only while its frozen horizon variances are cached.
+
         Returns ``(ok, versions, t_seens, zs, verdicts, det_counts)``
         over the G rows (``zs``/``verdicts`` ``None`` when neither the
         gate nor a robust likelihood is armed, ``det_counts`` ``None``
@@ -1780,6 +1993,8 @@ class MetranService:
         validate = self.reliability.validate_updates
         det = self.detect if self.detect.enabled else None
         steady = self.steady if self.steady.enabled else None
+        rp = self.readpath
+        hz = self.horizons if rp is not None else None
         g = len(rows_arr)
         n_pad = bucket[0]
         ok = np.zeros(g, bool)
@@ -1793,6 +2008,9 @@ class MetranService:
                     if rob is not None else None)
         det_counts = np.zeros((g, 3, n_pad), np.int64) if det else None
         det_stats = np.zeros((g, 3, n_pad)) if det else None
+        if rp is not None:
+            fm = np.zeros((g, len(self.horizons), n_pad), arena.dtype)
+            fv = np.zeros_like(fm)
         n_sl = arena.n_series_host[rows_arr]
         real_all = np.arange(n_pad)[None, :] < n_sl[:, None]
         sel = np.zeros(g, bool)
@@ -1805,15 +2023,21 @@ class MetranService:
                 if pos.size:
                     arena.thaw_rows(rows_arr[pos])
                     for gi in pos:
+                        self._steady_hvars.pop(ids[gi], None)
                         self._book_steady("thaw", ids[gi],
                                           reason="robust_armed")
                     sel[pos] = False
+            if rp is not None and sel.any():
+                # a frozen row rides the frozen-gain path only while the
+                # variance half of its snapshot is cached
+                sel &= np.array([mid in self._steady_hvars for mid in ids])
         exact_pos = np.flatnonzero(~sel)
         if sel.any():
             s_pos = np.flatnonzero(sel)
             rows_s = rows_arr[s_pos]
             fn = self.registry.arena_steady_update_fn(
-                bucket, k, gate=gate if gated else None, detect=det)
+                bucket, k, gate=gate if gated else None, horizons=hz,
+                detect=det)
             args = (rows_s, real_all[s_pos], y[s_pos], m[s_pos])
             with arena.lock:
                 if det is not None:
@@ -1826,11 +2050,17 @@ class MetranService:
                                               np.int32(gate.min_seen))
                 else:
                     outs = arena.apply_steady(fn, *args)
+                if rp is not None:
+                    outs, fm_s = outs[:-1], outs[-1]
                 applied = outs[0].cpu().numpy()
                 vers, ts = arena.commit_rows(rows_s, applied, k)
             ok[s_pos] = applied
             versions[s_pos] = vers
             t_seens[s_pos] = ts
+            if rp is not None:
+                fm[s_pos] = fm_s.cpu().numpy()
+                for gi in s_pos:
+                    fv[gi, :, :n_sl[gi]] = self._steady_hvars[ids[gi]]
             if det is not None:
                 det_counts[s_pos] = dc.cpu().numpy()
                 det_stats[s_pos] = dst.cpu().numpy()
@@ -1843,6 +2073,7 @@ class MetranService:
                 # them through the exact kernel from their unchanged rows
                 arena.thaw_rows(rows_arr[broke_pos])
                 for gi in broke_pos:
+                    self._steady_hvars.pop(ids[gi], None)
                     self._book_steady("thaw", ids[gi],
                                       reason="time_invariance_broken")
                 exact_pos = np.sort(np.concatenate([exact_pos, broke_pos]))
@@ -1852,6 +2083,7 @@ class MetranService:
             real_e = real_all[e_pos]
             fn = self.registry.arena_update_fn(
                 bucket, k, gate=gate if gated else None, validate=validate,
+                horizons=hz,
                 steady_tol=steady.tol if steady is not None else 0.0,
                 detect=det, robust=rob)
             base = (rows_e, y[e_pos], m[e_pos])
@@ -1887,11 +2119,15 @@ class MetranService:
                 conv = None
                 if steady is not None:
                     outs, conv = outs[:-1], outs[-1].cpu().numpy()
+                if rp is not None:
+                    outs, hz_e = outs[:-2], outs[-2:]
                 ok_e = outs[0].cpu().numpy()
                 vers, ts = arena.commit_rows(rows_e, ok_e, k)
             ok[e_pos] = ok_e
             versions[e_pos] = vers
             t_seens[e_pos] = ts
+            if rp is not None:
+                fm[e_pos], fv[e_pos] = _host(hz_e)
             if det is not None:
                 det_counts[e_pos] = dc.cpu().numpy()
                 det_stats[e_pos] = dst.cpu().numpy()
@@ -1917,6 +2153,9 @@ class MetranService:
                     self._freeze_arena_rows(
                         arena, bucket, rows_e[cand],
                         [metas[gi] for gi in e_pos[cand]])
+        if rp is not None:
+            self._publish_arena_snapshot(bucket, arena, rows_arr, versions,
+                                         fm, fv, ids, metas)
         if gated:
             self._book_gate_verdicts_bulk(ids, zs, verdicts, n_sl)
         if rob is not None and g:
@@ -1926,6 +2165,30 @@ class MetranService:
             self._book_detect_rows(ids, metas, rows_arr, ok, versions,
                                    t_seens, det_counts, det_stats, arena)
         return ok, versions, t_seens, zs, verdicts, det_counts
+
+    def _publish_arena_snapshot(self, bucket, arena, rows_arr, versions,
+                                fm, fv, ids, metas) -> None:
+        """Publish one arena dispatch's commit-time moments as a
+        per-bucket :class:`~metran_tpu_torch.serve.readpath.
+        ForecastSnapshot`: ``fm``/``fv`` (G, H, n_pad) standardized, of
+        each row as written, de-standardized in one vectorized pass off
+        the arena's host scaler mirrors (in the precision the compute
+        path's per-row pass promotes to, so a hit equals it bit for bit;
+        the rows are pinned, so no re-pack moves the mirrors).  Cache
+        only: a failure is logged, never raised — the updates are
+        committed."""
+        try:
+            dt = np.result_type(arena.dtype,
+                                *{mt.scaler_std.dtype for mt in metas})
+            sm = arena.scaler_mean[rows_arr].astype(dt)[:, None, :]
+            sd = arena.scaler_std[rows_arr].astype(dt)[:, None, :]
+            self.readpath.publish(ForecastSnapshot(
+                bucket=bucket, model_ids=tuple(ids), versions=versions,
+                means=fm * sd + sm, variances=fv * sd**2,
+                n_series=arena.n_series_host[rows_arr].copy(),
+                names=tuple(mt.names for mt in metas)))
+        except Exception:  # pragma: no cover - cache only
+            logger.exception("snapshot publish failed (cache only)")
 
     def _book_gate_verdicts_bulk(self, ids, zs, verdicts, n_sl) -> None:
         """Vectorized gate-outcome booking of one arena dispatch (the

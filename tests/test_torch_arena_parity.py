@@ -14,7 +14,10 @@ masked cell, a fully masked row, a NaN-poisoned row and (covariance
 arenas) a non-PSD row; rows not named in the dispatch must come back
 bit-identical.  A rejected row's per-step terms come from its NaN or
 non-PSD prior, so for it only the verdict and the unchanged leaves are
-held.
+held.  The ``horizons`` modes (the read path's commit-time forecast
+pass, at a non-contiguous horizon set) are held the same way: K16's
+means and variances of every row as written (NaN where the written row
+is the poisoned prior), K17's means.
 """
 
 import jax.numpy as jnp
@@ -38,6 +41,7 @@ BUCKET = (8, 16)
 ROWS = np.array([4, 1, 2, 0, 5], np.int32)  # row 3 and 6 stay unnamed
 DET = DetectSpec(enabled=True, cusum_k=0.5, cusum_h=3.0, lb_window=8,
                  lb_thresh=2.0, nsigma=2.0, min_seen=30)
+HORIZONS = (1, 3, 7)  # a set whose horizons are not 1..H
 
 
 def _leaves(seed, sqrt, poison=True):
@@ -110,6 +114,19 @@ def _unnamed_untouched(leaves, ref):
     "joint_off", "sqrt_reject_detect", "sequential_robust_censored",
     "joint_gated_steady_tol"])
 def test_arena_update_matches_jax(case):
+    _check_arena_update(case)
+
+
+@pytest.mark.parametrize("case", [
+    "joint_off", "sqrt_reject_detect", "sequential_robust_censored",
+    "joint_gated_steady_tol"])
+def test_arena_update_horizons_match_jax(case):
+    """K16's horizons mode (plain version) against the JAX kernel's fused
+    horizon pass, in the JAX output order."""
+    _check_arena_update(case, HORIZONS)
+
+
+def _check_arena_update(case, horizons=None):
     seed = 11
     engine = {"joint_off": "joint", "sqrt_reject_detect": "sqrt",
               "sequential_robust_censored": "sequential",
@@ -134,8 +151,8 @@ def test_arena_update_matches_jax(case):
         jkw["detect"] = jeng.DetectSpec(*kw["detect"])
     if "robust" in jkw:
         jkw["robust"] = jeng.RobustSpec(*kw["robust"])
-    jfn = jeng.make_arena_update_fn(engine=engine, **jkw)
-    pfn = peng.make_arena_update_fn(engine=engine, **kw)
+    jfn = jeng.make_arena_update_fn(engine=engine, horizons=horizons, **jkw)
+    pfn = peng.make_arena_update_fn(engine=engine, horizons=horizons, **kw)
     if case == "sqrt_reject_detect":
         tail = (np.int32(20), real, np.int32(DET.min_seen))
     elif case == "sequential_robust_censored":
@@ -169,6 +186,16 @@ def test_arena_update_matches_jax(case):
     # its verdict and its unchanged leaves are well posed)
     for got, want in zip(prest[1:], jrest[1:]):
         _close(got[ok], np.asarray(want)[ok])
+    if horizons is not None:
+        # (fm, fv) come after the update's outputs, before conv and the
+        # detector's; the pass reads the rows as written, so a rejected
+        # row's moments are its prior's (NaN on the poisoned row)
+        pos = len(prest) - 2 - ("steady_tol" in kw) - 2 * ("detect" in kw)
+        fm, fv = prest[pos], prest[pos + 1]
+        assert tuple(fm.shape) == (len(ROWS), len(horizons), BUCKET[0])
+        _close(fm, jrest[pos])
+        _close(fv, jrest[pos + 1])
+        assert np.isnan(fm.numpy()[2]).any()
     for i, (got, want) in enumerate(zip(p_dyn, j_new_dyn)):
         _close(got, want, sqrt_fac=sqrt and i == 1)
     # a rejected row and the unnamed rows are bit-identical
@@ -180,6 +207,17 @@ def test_arena_update_matches_jax(case):
 
 @pytest.mark.parametrize("detect", [False, True])
 def test_arena_steady_update_matches_jax(detect):
+    _check_arena_steady_update(detect)
+
+
+@pytest.mark.parametrize("detect", [False, True])
+def test_arena_steady_update_horizons_match_jax(detect):
+    """K17's horizons mode (plain version): the frozen rows' commit-time
+    means, ``Z (phi^h o m)`` of each written mean, against JAX's."""
+    _check_arena_steady_update(detect, HORIZONS)
+
+
+def _check_arena_steady_update(detect, horizons=None):
     seed = 5
     rng = np.random.default_rng(seed)
     dyn, static, det = _leaves(seed, False, poison=False)
@@ -191,10 +229,11 @@ def test_arena_steady_update_matches_jax(detect):
     steady_leaves = (steady, kgain, fdiag)
     gate = GateSpec("reject", 4.0, 20)
     jfn = jeng.make_arena_steady_update_fn(
-        gate=jeng.GateSpec(*gate), sequential_gate=True,
+        gate=jeng.GateSpec(*gate), horizons=horizons, sequential_gate=True,
         detect=jeng.DetectSpec(*DET) if detect else None)
     pfn = peng.make_arena_steady_update_fn(
-        gate=gate, sequential_gate=True, detect=DET if detect else None)
+        gate=gate, horizons=horizons, sequential_gate=True,
+        detect=DET if detect else None)
     args = (ROWS, real, y, mask, np.int32(20))
     p_dyn, p_static = _torch(dyn), _torch(static)
     p_det = torch.from_numpy(det.copy())
@@ -212,8 +251,12 @@ def test_arena_steady_update_matches_jax(detect):
     applied = np.asarray(jrest[0])
     np.testing.assert_array_equal(prest[0].numpy(), applied)
     assert applied.any() and not applied.all()
+    assert len(prest) == len(jrest)
     for got, want in zip(prest[1:], jrest[1:]):
         _close(got, want)
+    if horizons is not None:
+        fm = prest[5]
+        assert tuple(fm.shape) == (len(ROWS), len(horizons), BUCKET[0])
     for got, want in zip(p_dyn, j_new_dyn):
         _close(got, want)
     # the factor leaf is never touched, and unapplied rows stay as they were

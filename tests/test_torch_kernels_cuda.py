@@ -889,3 +889,95 @@ def test_arena_forecast_kernel_matches_plain(card, dtype, bar, sqrt):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert _rel(g, w) <= bar
+
+
+HORIZON_SETS = [(1, 2, 3, 4, 5), (1, 7, 30)]
+
+
+@pytest.mark.parametrize("horizons", HORIZON_SETS)
+@pytest.mark.parametrize("body,mode,lik", [("joint", "off", None),
+                                           ("gated", "reject", None),
+                                           ("sqrt", "off", None),
+                                           ("sqrt", "inflate", None)])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_arena_update_horizons_kernel_matches_plain(card, dtype, bar, body,
+                                                    mode, lik, horizons):
+    """K16's horizons mode against its plain version (NaN-strict: the
+    poisoned row's moments are its prior's), and at f64 the snapshot of
+    every written row equals K18's read of it bit for bit."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    sqrt = body == "sqrt"
+    rows = [3, 2, 4, 1, 5, 7, 8, 10]
+    g, k = len(rows), 1
+    y, mask, real = _dispatch(card, dtype, g, k, 8)
+    hz = torch.tensor(horizons, dtype=dtype, device=card)
+    kw = dict(body=body, mode=mode, min_seen=20, horizons=hz)
+    outs, arenas = [], []
+    for fn in (karena.arena_update_kernel, karena.arena_update_plain):
+        arena = _arena(card, dtype, sqrt)
+        outs.append(fn(*arena._dynamic(), *arena._static(), rows, y, mask,
+                       **kw))
+        arenas.append(arena)
+    torch.cuda.synchronize()
+    got, want = outs
+    assert torch.equal(got.ok, want.ok)
+    assert tuple(got.fmeans.shape) == (g, len(horizons), 8)
+    for field in ("fmeans", "fvars"):
+        assert _rel_nan(getattr(got, field), getattr(want, field)) <= bar
+    ka = arenas[0]
+    fm, fv = karena.arena_forecast_kernel(ka._mean, ka._fac, *ka._static(),
+                                          rows, hz, sqrt)
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        assert torch.equal(got.fmeans.nan_to_num(7.0), fm.nan_to_num(7.0))
+        assert torch.equal(got.fvars.nan_to_num(7.0), fv.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("horizons", HORIZON_SETS)
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_steady_horizons_kernels_match_plain(card, dtype, bar, horizons):
+    """K14's and K17's horizons modes against their plain versions; at f64
+    K17's means of an applied row equal K18's read of it bit for bit."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    hz = torch.tensor(horizons, dtype=dtype, device=card)
+    phi, z, gains, real, mean, y, mask, armed = _steady_case(card, dtype)
+    got = kernels.steady_filter(phi, z, gains[2], gains[3], real, mean, y,
+                                mask, armed, "huber", 16.0, False,
+                                horizons=hz)
+    want = kernels.steady_filter_plain(phi, z, gains[2], gains[3], real,
+                                       mean, y, mask, armed, "huber", 16.0,
+                                       False, horizons=hz)
+    torch.cuda.synchronize()
+    assert len(got) == 7 and _rel(got[6], want[6]) <= bar
+    rng = np.random.default_rng(9)
+    rows = [3, 2, 4, 1, 5, 7, 8, 10]
+    yd, md, rd = _dispatch(card, dtype, len(rows), 1, 8, seed=7)
+    md[:] = True
+    md[5, 0, 0] = False
+    steady = torch.as_tensor(rng.uniform(size=13) > 0.3, device=card)
+    kgain = torch.as_tensor(rng.normal(size=(13, 16, 8)) * 0.1,
+                            dtype=dtype, device=card)
+    fdiag = torch.as_tensor(rng.uniform(0.5, 2.0, (13, 8)), dtype=dtype,
+                            device=card)
+    outs, arenas = [], []
+    for fn in (karena.arena_steady_update_kernel,
+               karena.arena_steady_update_plain):
+        arena = _arena(card, dtype, False)
+        arena._mean[2, 1] = 0.5
+        outs.append(fn(arena._mean, arena._t_seen, arena._version,
+                       arena._phi, arena._z, steady, kgain, fdiag, rows, rd,
+                       yd, md, horizons=hz))
+        arenas.append(arena)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].applied, outs[1].applied)
+    assert _rel(outs[0].fmeans, outs[1].fmeans) <= bar
+    ka = arenas[0]
+    fm, _ = karena.arena_forecast_kernel(ka._mean, ka._fac, *ka._static(),
+                                         rows, hz, False)
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        assert torch.equal(outs[0].fmeans, fm)

@@ -667,8 +667,9 @@ def test_arena_is_ported_and_named_by_no_message(monkeypatch):
     """The state arena (A4.8, kernels K16-K18) is ported: no not-ported
     message names it; ``ModelRegistry(arena=True)`` defaults to the card
     and raises without one unless asked for the CPU; the launchers refuse
-    CPU leaves; a sharded arena (more than one device) names A6 and the
-    fused horizon pass names A4.5."""
+    CPU leaves; a sharded arena (more than one device) names A6; the
+    fused horizon pass (A4.5) runs in the arena factories and the service
+    arms the read path."""
     from metran_tpu_torch.kernels import arena as karena
     from metran_tpu_torch.ops.kalman import NotPortedError
     from metran_tpu_torch.serve import engine as peng
@@ -684,11 +685,12 @@ def test_arena_is_ported_and_named_by_no_message(monkeypatch):
         ModelRegistry(arena=True, arena_mesh=4, device="cpu")
     for make in (peng.make_arena_update_fn,
                  peng.make_arena_steady_update_fn):
-        with pytest.raises(NotPortedError, match="A4.5"):
-            make(horizons=(1, 2))
-    with pytest.raises(NotPortedError, match="A4.5"):
-        MetranService(reg, flush_deadline=None, readpath=True,
-                      device="cpu")
+        assert callable(make(horizons=(1, 2)))
+    svc = MetranService(reg, flush_deadline=None, readpath=True,
+                        device="cpu")
+    assert svc.readpath is not None and svc.readpath.horizons == tuple(
+        range(1, 31))
+    svc.close()
     arena, _ = _arena_leaves()
     leaves = arena._dynamic() + arena._static()
     y = torch.zeros((1, 1, 8), dtype=torch.float64)
@@ -707,3 +709,75 @@ def test_arena_is_ported_and_named_by_no_message(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device required"):
         ModelRegistry(arena=True)
+
+
+def test_read_path_is_ported_and_named_by_no_message():
+    """The materialized read path (A4.5) is ported: no not-ported message
+    names it, every update factory takes ``horizons`` and the service arms
+    a snapshot store; K16, K17 and K14 keep their launch counters."""
+    from metran_tpu_torch.serve import engine as peng
+
+    for path in sorted((REPO / "metran_tpu_torch").rglob("*.py")):
+        for m in ITEM.finditer(path.read_text()):
+            assert "A4.5" not in m.group(1), (path.name, m.group(0))
+    for make in (peng.make_update_fn, peng.make_steady_update_fn,
+                 peng.make_arena_update_fn,
+                 peng.make_arena_steady_update_fn):
+        assert callable(make(horizons=(1, 7, 30)))
+    assert {"arena_update", "arena_update_sqrt", "arena_steady_update",
+            "steady_filter", "forecast_moments"} <= set(kernels.launches())
+
+
+def test_c3_detect_init_follows_the_precision_policy():
+    """C3: ``detect_init``'s dtype defaults to None, the precision policy
+    of its device (float64 on the CPU, as JAX's default call under the
+    suite's x64), like the JAX function's."""
+    import inspect
+
+    from metran_tpu.ops import detect as jdet
+    from metran_tpu_torch.ops import detect as pdet
+
+    assert inspect.signature(pdet.detect_init).parameters[
+        "dtype"].default is None
+    assert inspect.signature(jdet.detect_init).parameters[
+        "dtype"].default is None
+    got = pdet.detect_init(5, device="cpu")
+    want = np.asarray(jdet.detect_init(5))
+    assert got.dtype == torch.float64 and want.dtype == np.float64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_c4_service_keywords_and_defaults_are_the_jax_services(monkeypatch):
+    """C4: ``MetranService.__init__`` takes the JAX service's keywords in
+    its order and with its defaults (the port's ``device`` last);
+    ``METRAN_TPU_SERVE_READPATH=1`` arms the read path through the
+    ``"default"`` readpath and ``METRAN_TPU_SERVE_HORIZONS`` sets its
+    horizons; an armed ``observability`` or ``capacity`` names A7."""
+    import inspect
+
+    from metran_tpu.serve import MetranService as JaxService
+    from metran_tpu_torch.ops.kalman import NotPortedError
+
+    jpar = inspect.signature(JaxService.__init__).parameters
+    ppar = inspect.signature(MetranService.__init__).parameters
+    assert list(ppar) == list(jpar) + ["device"]
+    for name, par in jpar.items():
+        assert ppar[name].default == par.default, name
+    assert ppar["readpath"].default == "default"
+    reg = ModelRegistry(root=None)
+    svc = MetranService(reg, flush_deadline=None, device="cpu")
+    assert svc.readpath is None and svc.horizons == tuple(range(1, 31))
+    svc.close()
+    monkeypatch.setenv("METRAN_TPU_SERVE_READPATH", "1")
+    monkeypatch.setenv("METRAN_TPU_SERVE_HORIZONS", "1,7,30")
+    svc = MetranService(reg, flush_deadline=None, device="cpu")
+    assert svc.readpath is not None
+    assert svc.readpath.horizons == (1, 7, 30) and svc.readpath.prefix == 1
+    assert reg._commit_hooks == [svc.readpath.note_commit]
+    svc.close()
+    assert reg._commit_hooks == []
+    monkeypatch.delenv("METRAN_TPU_SERVE_READPATH")
+    for name in ("observability", "capacity"):
+        with pytest.raises(NotPortedError, match="ROADMAP A7"):
+            MetranService(reg, flush_deadline=None, device="cpu",
+                          **{name: type("On", (), {"enabled": True})()})

@@ -236,10 +236,15 @@ def test_retries_deadline_specs_and_unported_layers():
     health = svc.health()
     assert health["ready"] and health["breakers"]["open"] == []
     svc.close()
-    for kwargs in (dict(readpath=True),
-                   dict(refit=type("R", (), {"enabled": True})())):
-        with pytest.raises(NotPortedError, match="ROADMAP A4"):
-            MetranService(reg, flush_deadline=None, device="cpu", **kwargs)
+    # the read path is ported (A4.5): readpath=True arms the store; the
+    # refit worker still names its item
+    svc_rp = MetranService(reg, flush_deadline=None, device="cpu",
+                           readpath=True)
+    assert svc_rp.readpath is not None
+    svc_rp.close()
+    with pytest.raises(NotPortedError, match="ROADMAP A4.9"):
+        MetranService(reg, flush_deadline=None, device="cpu",
+                      refit=type("R", (), {"enabled": True})())
     with pytest.raises(ValueError, match="mutually exclusive"):
         MetranService(reg, flush_deadline=None, device="cpu",
                       gate=GateSpec(policy="reject"),

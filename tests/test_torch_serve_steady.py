@@ -31,7 +31,6 @@ from metran_tpu.serve import PosteriorState as JaxState
 from metran_tpu.serve import SteadySpec as JaxSteady
 from metran_tpu.serve.engine import DetectSpec as JaxDetect
 from metran_tpu.serve.engine import make_steady_update_fn as jax_steady_fn
-from metran_tpu_torch.ops.kalman import NotPortedError
 from metran_tpu_torch.serve import (
     DetectSpec,
     GateSpec,
@@ -453,5 +452,21 @@ def test_steady_update_fn_matches_jax_with_detection():
     broke = got[3].numpy()
     assert broke[1]  # the masked slot
     assert np.array_equal(got[6][1].numpy(), det_state[1])
-    with pytest.raises(NotPortedError, match="A4.5"):
-        make_steady_update_fn(horizons=(1, 2))
+    # the read path's frozen half (K14's horizons mode): the means of the
+    # commit-time forecast pass ride after the gate's outputs, before the
+    # detector's, as in the JAX function
+    fn = make_steady_update_fn(GateSpec(**gate), horizons=(1, 2, 5),
+                               sequential_gate=True,
+                               detect=DetectSpec(**det))
+    jfn = jax_steady_fn(JaxGate(**gate), horizons=(1, 2, 5),
+                        sequential_gate=True, detect=JaxDetect(**det))
+    got = fn(batch.ss, batch.mean, t(kg), t(fd), t(real), t(y), t(mask),
+             t(armed), t(det_state), t(det_armed))
+    want = jfn(jss, jnp.asarray(batch.mean.numpy()), kg, fd, real, y, mask,
+               armed, det_state, det_armed)
+    assert len(got) == len(want) == 10 and got[6].shape == (3, 3, 8)
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        fin = np.isfinite(w)
+        assert np.array_equal(np.isnan(g), np.isnan(w))
+        assert np.abs(g[fin].astype(float) - w[fin]).max() <= 1e-12

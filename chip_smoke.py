@@ -84,7 +84,18 @@ non-zero):
    row rejected with their rows bit-identical, unnamed rows
    bit-identical, armed and unarmed rows, a masked cell and a fully
    masked row, K17's frozen rows beside broken ones; each family timed
-   in f32 beside its bound and its plain version;
+   in f32 beside its bound and its plain version; then the
+   associative-scan engines (``pkalman_kernels``): K19/K20 (covariance
+   filter and smoother) and K21/K22 (square-root) against their plain
+   versions on the same chunks, 16 flagship models over 400 steps in
+   chunks of 64 (a ragged tail), two all-missing steps, the last model
+   observing a slot with r < 0 (+inf terms on both sides), with and
+   without the stored moments, f64 and f32 (factors through S S'); each
+   timed in f32 at the automatic chunk length beside its sequential
+   twin on the same inputs (K1 ``store`` + K8, K9 ``store`` + K10) at
+   one flagship model, 512 flagship models and the long-context model
+   (8 series, 1 factor, T = 32,768), the timed launches' outputs held to
+   the plain version on the same inputs (models 0-15 of the 512);
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -206,6 +217,17 @@ non-zero):
    the card's fitted tables (worker processes, ≤ 1e-3; the deviance
    ≤ 1e-4); the launch counters must show K3, K4, K6, K7, K8, K9, K10
    and K2;
+7b. parallel path — the associative-scan engines through ``Metran``:
+   the example in f64 on ``engine="parallel"`` and ``"sqrt_parallel"``
+   at phase 7's fitted f64 table (the golden rows, and phase 7's
+   sequential products within 1e-9), one flagship model in f32 on each,
+   solved by ``LanesSolve``, every product held to CPU f64 recomputes
+   (1e-3; the fit's and the engine's own deviance 1e-4); then a
+   ``MetranService`` on ``ModelRegistry(engine="sqrt_parallel")``
+   serving four copies of the ``sqrt_parallel`` model's state for four
+   update rounds and a 14-step forecast, bit for bit an ``engine="sqrt"``
+   registry's; the counters must show K19/K20 and K21/K22, the draws on
+   K1 ``store`` + K8 and K9 + K10;
 8. the JAX defaults the port now shares (``c2_defaults``), on the f64
    example: ``innovations`` (K1 ``store``), ``sample_states`` (K7, K1
    ``store``, K8) and ``filter_append`` (K12 ``off``), each held to the
@@ -3702,6 +3724,11 @@ TIMED_KERNELS = (
     ("metran_tpu_torch.kernels.smoother", "rts_smooth_kernel"),
     ("metran_tpu_torch.kernels.sqrt_filter", "sqrt_filter_kernel"),
     ("metran_tpu_torch.kernels.sqrt_smoother", "sqrt_smooth_kernel"),
+    ("metran_tpu_torch.kernels.joint_filter", "joint_filter_store_kernel"),
+    ("metran_tpu_torch.kernels.pkalman", "parallel_filter_kernel"),
+    ("metran_tpu_torch.kernels.pkalman", "parallel_smooth_kernel"),
+    ("metran_tpu_torch.kernels.pkalman", "sqrt_parallel_filter_kernel"),
+    ("metran_tpu_torch.kernels.pkalman", "sqrt_parallel_smooth_kernel"),
 )
 
 
@@ -4525,13 +4552,27 @@ def cpu_metran(kind, optimal, name, normals, engine):
     kf = mt.kf
     draws = _sample_states_given(kf.ss, kf.y, kf.mask, *normals,
                                  sm_data=kf.run_smoother().mean_s,
-                                 engine=engine)
+                                 engine=kf.draw_engine)
     col = list(mt.oseries.columns).index(name)
     z = mt.get_scaled_observation_matrix()[col]
     res["sample"] = (draws.numpy() @ z + mt.oseries_mean[col]).T
     # the deviance from the stored filter's terms (Metran.get_mle's value)
     res["deviance"] = kf.get_mle(mt.settings["warmup"])
     return res
+
+
+def card_normals(mt, dev):
+    """The first CPU_DRAWS standard normals of the card model's
+    ``sample_simulation`` (its generator seed, its order), as f64
+    numpy."""
+    import torch
+
+    from metran_tpu_torch.ops.kalman import _draw_normals
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    normals = _draw_normals(METRAN_DRAWS, len(mt.oseries), mt.nstate,
+                            mt.nseries, gen, mt.dtype, dev)
+    return [a[:CPU_DRAWS].double().cpu().numpy() for a in normals]
 
 
 def phase_metran_path(pool):
@@ -4555,21 +4596,11 @@ def phase_metran_path(pool):
     from metran_tpu_torch import LanesSolve, Metran
     from metran_tpu_torch.kernels import launches, reset_launches
     from metran_tpu_torch.serve.engine import posterior_fault
-    from metran_tpu_torch.ops.kalman import _draw_normals
 
     golden = json.loads(GOLDEN.read_text())
     dev = torch.device(DEVICE)
     series = example_series()
     name_ex, name_f = f"{EXAMPLE}005", "s03"
-
-    def card_normals(mt):
-        """The standard normals the card's sample_simulation draws (the
-        same generator seed, the same order), first CPU_DRAWS draws as
-        f64 numpy."""
-        gen = torch.Generator(dev).manual_seed(SEED)
-        normals = _draw_normals(METRAN_DRAWS, len(mt.oseries), mt.nstate,
-                                mt.nseries, gen, mt.dtype, dev)
-        return [a[:CPU_DRAWS].double().cpu().numpy() for a in normals]
 
     def solve(mt):
         torch.cuda.synchronize()
@@ -4701,7 +4732,7 @@ def phase_metran_path(pool):
         require(obj32_rel <= 1e-3, f"f32 obj_func {mt32.fit.obj_func}")
         cpu_jobs = {"example_f32": (mt32, pool.submit(
             cpu_metran, "example", mt32.parameters["optimal"], name_ex,
-            card_normals(mt32), mt32._engine))}
+            card_normals(mt32, dev), mt32._engine))}
         out32, stats32 = metran_products(mt32, name_ex, timer)
         through32 = checks_common(mt32, out32, name_ex)
 
@@ -4711,7 +4742,7 @@ def phase_metran_path(pool):
         fitf = solve(mtf)
         cpu_jobs["flagship_f32"] = (mtf, pool.submit(
             cpu_metran, "flagship", mtf.parameters["optimal"], name_f,
-            card_normals(mtf), mtf._engine))
+            card_normals(mtf, dev), mtf._engine))
         outf, statsf = metran_products(mtf, name_f, timer)
         throughf = checks_common(mtf, outf, name_f)
         counts = launches()
@@ -4763,7 +4794,7 @@ def phase_metran_path(pool):
                          "sample_through_observed_rel": throughf},
         "cpu_f64_rel_err": cpu_err, "cpu_wait_s": cpu_wait,
     })
-    return counts, mt64
+    return counts, mt64, out64
 
 
 # ----------------------------------------------------------------------
@@ -6848,6 +6879,481 @@ def phase_readpath():
     return counts
 
 
+# ----------------------------------------------------------------------
+# slice 12: the associative-scan engines (K19-K22) and their paths
+# ----------------------------------------------------------------------
+PK_MODELS = 16  # flagship models of the kernel-vs-plain comparison
+PK_T_CMP = 400  # its steps
+PK_CHUNK = 64  # its chunk length: 6 chunks and a ragged 16-step tail
+PK_LONG = (8, 1, 32_768)  # examples/long_context_example.py:55 (n, k, T)
+PK_NAMES = ("parallel_filter", "parallel_smooth", "sqrt_parallel_filter",
+            "sqrt_parallel_smooth")
+
+
+def _tria_ops(rows, n):
+    """The QR of a dense ``rows`` x ``n`` stack (``rows`` >= ``n``)."""
+    return sum(_house_ops(rows - 1 - j, n - 1 - j) for j in range(n))
+
+
+def _pk_step_ops(kind, n, o):
+    """Operations of one step's element, full combine, reduced combine and
+    tails (``kind`` "cov"/"sqrt" filter, "cov_s"/"sqrt_s" smoother) with
+    ``o`` observed slots; products counted dense (2 flops per
+    multiply-add), factorizations at their textbook counts, QRs by
+    :func:`_house_ops` over the rows a reflector must touch."""
+    n2, n3 = n * n, n**3
+    if kind == "cov":
+        elem = (2 * o * n2 + 2 * o * o * n + o**3 / 3
+                + 2 * o * o * (2 * n + 1) + 4 * n2 * o + 4 * o * n + 2 * n3)
+        full = 14 * n3 + 4 * n3 / 3 + 2 * n2 * (3 * n + 2) + 10 * n2
+        red = 6 * n3 + 2 * n3 / 3 + 2 * n2 * (n + 1) + 4 * n2
+        tails = 2 * n2 + 2 * o * n2 + 2 * o * o * n + 2 * o * n + o**3 / 3 \
+            + o * o + 3 * o
+    elif kind == "sqrt":
+        qr = (sum(_house_ops(n, o + n - 1 - c) for c in range(o))
+              + sum(_house_ops(n - 1 - j, n - 1 - j) for j in range(n)))
+        elem = qr + o * o * (n + 1) + 4 * n2 * o + 4 * o * n
+        tria = _tria_ops(2 * n, n)
+        full = 24 * n3 + n3 / 3 + 2 * n2 * (2 * n + 2) + 14 * n2 + tria
+        red = 7 * n3 + n3 / 3 + 8 * n2 + tria
+        tails = (sum(_house_ops(j + 1, n - 1 - j) for j in range(n))
+                 + o * n2 + (_tria_ops(n + o, o) if o else 0) + 2 * o * n
+                 + o * o + 3 * o)
+    elif kind == "cov_s":
+        elem = n3 / 3 + 6 * n3 + 2 * n2
+        full, red, tails = 6 * n3 + 2 * n2, 4 * n3 + 2 * n2, 0
+    else:  # sqrt_s
+        tria = _tria_ops(2 * n, n)
+        elem = 5 * n3 + 3 * n2 + tria
+        full, red, tails = 4 * n3 + 2 * n2 + tria, 2 * n3 + 2 * n2 + tria, 0
+    return elem, full, red, tails
+
+
+def pk_cost(kind, batch, t_steps, big_n, n, chunk, obs, itemsize):
+    """Bytes K19-K22 must move (the model and data, or the stored filter,
+    read once; the per-step outputs written once) and the operations of
+    this run's decomposition: every step's element and tails once, the
+    up-sweep's full combines over all chunks but the last, the carry's and
+    the down-sweep's reduced combines; ``obs`` (B, T) the observed count
+    of each step (a filter's elements and tails scale with it).  The
+    kernels form each up-swept step's element a second time in the
+    down-sweep; that is their choice, not the function's work, and is not
+    counted."""
+    import collections
+
+    c = -(-t_steps // chunk)
+    if kind in ("cov", "sqrt"):
+        q_el = n * n if kind == "cov" else n
+        nbytes = (batch * (n + q_el + big_n * n + big_n) * itemsize
+                  + batch * t_steps * big_n * (itemsize + 1)
+                  + batch * t_steps * (2 * n + 2 * n * n + 2) * itemsize)
+        counts = collections.Counter(obs.flatten().tolist())
+        per_step = sum(cnt * (_pk_step_ops(kind, n, o)[0]
+                              + _pk_step_ops(kind, n, o)[3])
+                       for o, cnt in counts.items())
+    else:
+        q_el = 0 if kind == "cov_s" else n
+        nbytes = (batch * (n + q_el) * itemsize
+                  + batch * t_steps * (3 * n + 3 * n * n) * itemsize)
+        per_step = batch * t_steps * _pk_step_ops(kind, n, 0)[0]
+    _, full, red, _ = _pk_step_ops(kind, n, 0)
+    ops = (per_step + batch * (c - 1) * (chunk - 1) * full
+           + batch * (max(c - 2, 0) + t_steps - 1) * red)
+    return nbytes, ops
+
+
+def _pk_case(rng, batch, t, dtype, dev, shape=(N_SERIES, N_FACTORS),
+             stress=False):
+    """``(phi, q, z, r, y, mask)`` batch-major from the flagship recipe (or
+    ``shape`` = (series, factors)); ``stress`` masks two whole steps and
+    gives the last model an observed slot with r < 0."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import dfm_statespace
+
+    n_obs, k = shape
+    y, mask, lds, a_s, a_c = make_workload(rng, batch, n=n_obs, k=k, t=t)
+    if stress:
+        mask[:, 50:52] = False
+        mask[-1, 60:, 3] = True
+    ss = dfm_statespace(a_s, a_c, lds, np.ones(batch), device=dev,
+                        dtype=dtype)
+    r = ss.r.clone()
+    if stress:
+        r[-1, 3] = -2.0
+    new = dict(dtype=dtype, device=dev)
+    return (ss.phi.contiguous(), ss.q.contiguous(), ss.z.contiguous(),
+            r.contiguous(), torch.as_tensor(y, **new),
+            torch.as_tensor(mask, device=dev))
+
+
+def _pk_outputs(name, out):
+    """Outputs as compared: square-root factors (the square matrices; no
+    mean is square at these T) through ``S S'``."""
+    from metran_tpu_torch.ops import chol_outer
+
+    if not name.startswith("sqrt"):
+        return list(out)
+    return [chol_outer(o) if o.dim() >= 3 and o.shape[-1] == o.shape[-2]
+            else o for o in out]
+
+
+def phase_pkalman_kernels():
+    """K19-K22 (the associative-scan filter and smoother, covariance and
+    square-root) against their plain versions on the card on the same
+    chunks, f64 (1e-9) and f32 (1e-3), NaN- and inf-strict, factors
+    through S S': PK_MODELS flagship models over PK_T_CMP steps in chunks
+    of PK_CHUNK (a ragged tail), two all-missing steps, the last model
+    observing a slot with r < 0 (its terms +inf on both sides), with and
+    without the stored moments.  Then each kernel timed in f32 beside its
+    sequential twin on the same inputs (K1 ``store`` + K8 for the
+    covariance pair, K9 ``store`` + K10 for the square-root pair) at (a)
+    one flagship model, (b) FLEET flagship models, (c) the long-context
+    model (8 series, 1 factor, T = 32,768), each at the automatic chunk
+    length; each timed launch's outputs are held to the plain version run
+    on the card on the same inputs and chunks (the first PK_MODELS models
+    of the fleet), at the f32 bar."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import pkalman as kpk
+    from metran_tpu_torch.kernels.joint_filter import joint_filter_store
+    from metran_tpu_torch.kernels.smoother import rts_smooth
+    from metran_tpu_torch.kernels.sqrt_filter import sqrt_filter
+    from metran_tpu_torch.kernels.sqrt_smoother import sqrt_smooth
+
+    dev = torch.device(DEVICE)
+    checks = []
+
+    def pair(name, got, want, dtype, bar, case):
+        checks.append(check_entry(name, case, dtype, _pk_outputs(name, got),
+                                  _pk_outputs(name, want), bar))
+
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        phi, q, z, r, y, mask = _pk_case(np.random.default_rng(SEED + 120),
+                                         PK_MODELS, PK_T_CMP, dtype, dev,
+                                         stress=True)
+        qd = torch.diagonal(q, 0, -2, -1).contiguous()
+        case = (f"{PK_MODELS} flagship models, T={PK_T_CMP}, chunk "
+                f"{PK_CHUNK}, masked steps, r < 0 in the last")
+        for sqrt in (False, True):
+            fname = "sqrt_parallel_filter" if sqrt else "parallel_filter"
+            fk = kpk.sqrt_parallel_filter if sqrt else kpk.parallel_filter
+            fp = (kpk.sqrt_parallel_filter_plain if sqrt
+                  else kpk.parallel_filter_plain)
+            qq = qd if sqrt else q
+            for store in (True, False):
+                got = fk(phi, qq, z, r, y, mask, PK_CHUNK, store)
+                want = fp(phi, qq, z, r, y, mask, PK_CHUNK, store)
+                torch.cuda.synchronize()
+                pair(fname, got, want, dtype, bar,
+                     f"{case}, {'store' if store else 'terms only'}")
+                require(bool(torch.isinf(got[-1][-1]).any())
+                        and bool(torch.isinf(want[-1][-1]).any()),
+                        f"{fname}: the r < 0 model booked no +inf")
+                require(bool(torch.isfinite(got[-1][:-1]).all()),
+                        f"{fname}: a non-finite term off the r < 0 model")
+            sname = "sqrt_parallel_smooth" if sqrt else "parallel_smooth"
+            sk = kpk.sqrt_parallel_smooth if sqrt else kpk.parallel_smooth
+            sp = (kpk.sqrt_parallel_smooth_plain if sqrt
+                  else kpk.parallel_smooth_plain)
+            full = fp(phi, qq, z, r, y, mask, PK_CHUNK)
+            sargs = ((phi, qd) if sqrt else (phi,)) + (
+                full[2], full[3], full[0], full[1])
+            got = sk(*sargs, PK_CHUNK)
+            want = sp(*sargs, PK_CHUNK)
+            torch.cuda.synchronize()
+            pair(sname, got, want, dtype, bar, case)
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"K19-K22 disagree with their plain versions: {bad}")
+
+    # timing, f32, automatic chunks, beside the sequential twins
+    dtype = torch.float32
+    times = {}
+    rng = np.random.default_rng(SEED + 121)
+    shapes = (("one", 1, T_STEPS, (N_SERIES, N_FACTORS)),
+              ("fleet", FLEET, T_STEPS, (N_SERIES, N_FACTORS)),
+              ("long", 1, PK_LONG[2], PK_LONG[:2]))
+    plain_shape = "1 flagship model, T=400, auto chunk, once"
+    pl = _pk_case(np.random.default_rng(SEED + 122), 1, PK_T_CMP, dtype,
+                  dev)
+    pl_qd = torch.diagonal(pl[1], 0, -2, -1).contiguous()
+    pl_chunk = kpk.auto_chunk(PK_T_CMP, 1)
+    plain_ms = {}
+    plain_ms["parallel_filter"], pl_f = cuda_ms(
+        lambda: kpk.parallel_filter_plain(*pl, pl_chunk), reps=1, warm=0)
+    plain_ms["parallel_smooth"], _ = cuda_ms(
+        lambda: kpk.parallel_smooth_plain(pl[0], pl_f[2], pl_f[3], pl_f[0],
+                                          pl_f[1], pl_chunk), reps=1, warm=0)
+    plain_ms["sqrt_parallel_filter"], pl_s = cuda_ms(
+        lambda: kpk.sqrt_parallel_filter_plain(pl[0], pl_qd, *pl[2:],
+                                               pl_chunk), reps=1, warm=0)
+    plain_ms["sqrt_parallel_smooth"], _ = cuda_ms(
+        lambda: kpk.sqrt_parallel_smooth_plain(pl[0], pl_qd, pl_s[2],
+                                               pl_s[3], pl_s[0], pl_s[1],
+                                               pl_chunk), reps=1, warm=0)
+    for key, batch, t, shape in shapes:
+        phi, q, z, r, y, mask = _pk_case(rng, batch, t, dtype, dev,
+                                         shape=shape)
+        qd = torch.diagonal(q, 0, -2, -1).contiguous()
+        big_n, n = z.shape[1], z.shape[2]
+        chunk = kpk.auto_chunk(t, batch)
+        obs = mask.sum(-1).cpu()
+        reps = 2 if batch == 1 else 1  # the fleet's launches take 0.2-2 s
+        label = (f"{batch} model{'s' if batch > 1 else ''} ({big_n} series, "
+                 f"{n - big_n} factor), T={t}, chunk {chunk} "
+                 f"({kpk.n_chunks(t, chunk)} chunks), f32")
+        mean0 = torch.zeros(batch, n, dtype=dtype, device=dev)
+        cov0 = torch.eye(n, dtype=dtype, device=dev).expand(
+            batch, n, n).contiguous()
+        lanes = (phi.T.contiguous(), qd.T.contiguous(),
+                 z.permute(1, 2, 0).contiguous(), r.T.contiguous())
+        # the timed launches' outputs against the plain version on the
+        # same inputs and chunks: every model, or the first PK_MODELS of
+        # the fleet
+        sub = slice(0, min(batch, PK_MODELS))
+        case = f"{label}, model{'s 0-' if batch > 1 else ' '}{sub.stop - 1}"
+        cmp_ms = {}
+
+        def held(name, got, plain, *args):
+            cmp_ms[name], want = cuda_ms(
+                lambda: plain(*(a[sub] for a in args), chunk), reps=1,
+                warm=0)
+            pair(name, [g[sub] for g in got], want, dtype, 1e-3, case)
+
+        row = {}
+        # the covariance pair and its twin (K1 store + K8)
+        ms, f = cuda_ms(lambda: kpk.parallel_filter(phi, q, z, r, y, mask,
+                                                    chunk), reps=reps,
+                        warm=1)
+        held("parallel_filter", f, kpk.parallel_filter_plain, phi, q, z, r,
+             y, mask)
+        tw, st = cuda_ms(lambda: joint_filter_store(phi, q, z, r, mean0,
+                                                    cov0, y, mask),
+                         reps=reps, warm=1)
+        row["parallel_filter"] = (ms, tw, "K1 store", pk_cost(
+            "cov", batch, t, big_n, n, chunk, obs, 4))
+        ms, sm = cuda_ms(lambda: kpk.parallel_smooth(phi, f[2], f[3], f[0],
+                                                     f[1], chunk),
+                         reps=reps, warm=1)
+        held("parallel_smooth", sm, kpk.parallel_smooth_plain, phi, f[2],
+             f[3], f[0], f[1])
+        tw, _ = cuda_ms(lambda: rts_smooth(phi, st[2], st[3], st[0], st[1]),
+                        reps=reps, warm=1)
+        row["parallel_smooth"] = (ms, tw, "K8", pk_cost(
+            "cov_s", batch, t, big_n, n, chunk, obs, 4))
+        del f, st, sm
+        # the square-root pair and its twin (K9 store + K10)
+        ms, f = cuda_ms(lambda: kpk.sqrt_parallel_filter(
+            phi, qd, z, r, y, mask, chunk), reps=reps, warm=1)
+        held("sqrt_parallel_filter", f, kpk.sqrt_parallel_filter_plain, phi,
+             qd, z, r, y, mask)
+        tw, st = cuda_ms(lambda: sqrt_filter(*lanes, y, mask, store=True),
+                         reps=reps, warm=1)
+        row["sqrt_parallel_filter"] = (ms, tw, "K9 store", pk_cost(
+            "sqrt", batch, t, big_n, n, chunk, obs, 4))
+        ms, sm = cuda_ms(lambda: kpk.sqrt_parallel_smooth(
+            phi, qd, f[2], f[3], f[0], f[1], chunk), reps=reps, warm=1)
+        held("sqrt_parallel_smooth", sm, kpk.sqrt_parallel_smooth_plain,
+             phi, qd, f[2], f[3], f[0], f[1])
+        tw, _ = cuda_ms(lambda: sqrt_smooth(phi, qd, st[2], st[3], st[0],
+                                            st[1]), reps=reps, warm=1)
+        row["sqrt_parallel_smooth"] = (ms, tw, "K10", pk_cost(
+            "sqrt_s", batch, t, big_n, n, chunk, obs, 4))
+        del f, st, sm
+        torch.cuda.empty_cache()
+        for name, (ms, tw, twin, cost) in row.items():
+            bms, bby = bound_ms(*cost, "float32")
+            entry = {"shape": label, "ms": ms, "plain_ms": plain_ms[name],
+                     "plain_shape": plain_shape, "bound_ms": bms,
+                     "bound_by": bby, "sequential_twin": twin,
+                     "sequential_ms": tw, "speedup_vs_sequential": tw / ms,
+                     "plain_cmp_ms": cmp_ms[name], "plain_cmp_case": case}
+            times[name if key == "one" else f"{name}_{key}"] = entry
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"K19-K22's timed launches disagree with their plain "
+            f"versions: {bad}")
+    emit({"phase": "pkalman_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks], "times": times})
+    return checks, times
+
+
+PK_SERVE_MODELS = 4  # flagship models the sqrt_parallel registry serves
+PK_SERVE_ROUNDS = 4  # their update rounds (k = 1)
+
+
+def phase_parallel_path(pool, mt64, out64):
+    """The associative-scan engines through ``Metran`` on the card: the
+    example in f64 on ``engine="parallel"`` and ``"sqrt_parallel"`` at
+    the fitted table of the f64 sequential run (``mt64``), held to the
+    golden rows and to that run's products (``out64``) within 1e-9; one
+    flagship model in f32 on each engine, solved by LanesSolve and held
+    (every product) to CPU f64 recomputes of the port in ``pool``'s
+    workers (1e-3; deviances 1e-4, the engine's own from K19/K21's
+    terms included); then a ``MetranService`` on ``ModelRegistry(engine=
+    "sqrt_parallel")`` serving PK_SERVE_MODELS copies of the
+    ``sqrt_parallel`` model's state (its K21 factor) for PK_SERVE_ROUNDS
+    update rounds and a forecast, equal bit for bit to an
+    ``engine="sqrt"`` registry fed the same states.  The launch counters
+    are reset before and read after: K19/K20 and K21/K22 must have run,
+    the draws on K1 ``store`` + K8 and K9 + K10."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch import Metran
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.serve import MetranService, ModelRegistry
+    from metran_tpu_torch.serve.state import posterior_state_from_metran
+
+    golden = json.loads(GOLDEN.read_text())
+    dev = torch.device(DEVICE)
+    series = example_series()
+    name_ex, name_f = f"{EXAMPLE}005", "s03"
+    rows = golden["state_means_rows_idx"]
+    out = {"phase": "parallel_path"}
+    jobs, card = {}, {}
+    reset_launches()
+    with _KernelTimer() as timer:
+        for engine in ("parallel", "sqrt_parallel"):
+            before = launches()
+            # the example in f64 at the sequential run's fitted table
+            os.environ["METRAN_TPU_X64"] = "1"
+            try:
+                mt = Metran(series, name=EXAMPLE, engine=engine)
+            finally:
+                del os.environ["METRAN_TPU_X64"]
+            require(mt.dtype == torch.float64 and mt._engine == engine,
+                    (mt.dtype, mt._engine))
+            mt.get_factors(mt.oseries)
+            mt.set_init_parameters()
+            require(np.array_equal(mt.factors, mt64.factors),
+                    f"{engine}: other factors than the f64 run")
+            mt.parameters["optimal"] = mt64.parameters["optimal"]
+            prods, stats = metran_products(mt, name_ex, timer)
+            frames = {**prods,
+                      "decompose": mt.decompose_simulation(f"{EXAMPLE}001")}
+            golden_err = {}
+            for key, (gkey, bar) in GOLDEN_ROWS.items():
+                err = float(np.abs(frames[key].iloc[rows].values
+                                   - np.asarray(golden[gkey])).max())
+                golden_err[key] = err
+                require(err <= bar, f"f64 {engine} {key} rows off golden "
+                                    f"by {err}")
+            vs_seq = {key: rel_err(
+                torch.as_tensor(np.array(prods[key].values, float)),
+                torch.as_tensor(np.array(out64[key].values, float)))
+                for key in (*METRAN_COMPARED, "sample")}
+            require(within(list(vs_seq.values()), 1e-9),
+                    f"f64 {engine} vs sequential products: {vs_seq}")
+            # one flagship model in f32, solved on the card's LanesSolve
+            mtf = Metran(flagship_series(SEED + 70), name="flagship",
+                         engine=engine)
+            require(mtf.dtype == torch.float32, mtf.dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mtf.solve(report=False)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+            jobs[engine] = pool.submit(
+                cpu_metran, "flagship", mtf.parameters["optimal"], name_f,
+                card_normals(mtf, dev), engine)
+            prods_f, stats_f = metran_products(mtf, name_f, timer)
+            require(all(np.isfinite(prods_f[k].values).all() for k in (
+                "state_means", "state_variances", "simulated_means",
+                "simulated_variances", "decompose", "forecast", "sample")),
+                    f"{engine}: a non-finite flagship product")
+            after = launches()
+            card[engine] = (mtf, prods_f)
+            out[engine] = {
+                "example_f64": {"golden_abs_err": golden_err,
+                                "rel_err_vs_sequential": vs_seq,
+                                "products": stats},
+                "flagship_f32": {"solve_s": solve_s,
+                                 "obj_func": mtf.fit.obj_func,
+                                 "iterations": int(
+                                     mtf.fit.fleet_fit.iterations[0]),
+                                 "products": stats_f},
+                "launches": {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}}
+        # the sqrt_parallel registry against the sqrt one, bit for bit
+        mtf = card["sqrt_parallel"][0]
+        st = posterior_state_from_metran(mtf, model_id="m0")
+        require(st.chol is not None, "sqrt_parallel state without a factor")
+        states = [st._replace(model_id=f"m{i}")
+                  for i in range(PK_SERVE_MODELS)]
+        ids = [s.model_id for s in states]
+        results = {}
+        rng = np.random.default_rng(SEED + 123)
+        obs = rng.normal(size=(PK_SERVE_ROUNDS, PK_SERVE_MODELS, 1,
+                               N_SERIES))
+        obs[rng.uniform(size=obs.shape) < 0.3] = np.nan
+        for engine in ("sqrt_parallel", "sqrt"):
+            reg = ModelRegistry(root=None, engine=engine)
+            for s in states:
+                reg.put(s, persist=False)
+            svc = MetranService(reg, flush_deadline=None,
+                                persist_updates=False)
+            got = []
+            for k in range(PK_SERVE_ROUNDS):
+                futs = [svc.update_async(m, obs[k, i])
+                        for i, m in enumerate(ids)]
+                svc.flush()
+                got += [f.result() for f in futs]
+            got += svc.forecast_batch(ids, FORECAST_STEPS)
+            svc.close()
+            results[engine] = got
+        same = all(
+            type(a) is type(b) and all(
+                np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("mean", "cov", "chol", "means", "variances")
+                if hasattr(a, f))
+            for a, b in zip(results["sqrt_parallel"], results["sqrt"]))
+        require(same and len(results["sqrt"]) == len(results["sqrt_parallel"]),
+                "the sqrt_parallel registry differs from the sqrt one")
+        counts = launches()
+    for engine, kerns in (("parallel", ("parallel_filter", "parallel_smooth",
+                                        "joint_filter_store", "rts_smooth",
+                                        "lanes_sample", "forecast_moments",
+                                        "lanes_filter", "lanes_adjoint")),
+                          ("sqrt_parallel", ("sqrt_parallel_filter",
+                                             "sqrt_parallel_smooth",
+                                             "sqrt_filter", "sqrt_smooth"))):
+        for kern in kerns:
+            require(out[engine]["launches"].get(kern, 0) > 0,
+                    f"{engine} path never launched {kern}")
+    # the card's f32 flagship products against the CPU f64 recomputes
+    cpu_err = {}
+    for engine, (mtf, prods_f) in card.items():
+        cpu = jobs[engine].result()
+        errs = {key: rel_err(torch.as_tensor(np.array(prods_f[key].values,
+                                                      float)),
+                             torch.as_tensor(cpu[key]))
+                for key in METRAN_COMPARED}
+        errs["sample"] = rel_err(
+            torch.as_tensor(np.array(prods_f["sample"].values[:, :CPU_DRAWS])),
+            torch.as_tensor(cpu["sample"]))
+        errs["deviance"] = abs(mtf.fit.obj_func - cpu["deviance"]) / abs(
+            cpu["deviance"])
+        engine_dev = mtf.kf.get_mle(mtf.settings["warmup"])
+        errs["engine_deviance"] = abs(engine_dev - cpu["deviance"]) / abs(
+            cpu["deviance"])
+        cpu_err[engine] = errs
+        require(within([errs[k] for k in (*METRAN_COMPARED, "sample")],
+                       1e-3), f"{engine}: card f32 vs CPU f64 {errs}")
+        require(errs["deviance"] <= 1e-4 and errs["engine_deviance"] <= 1e-4,
+                f"{engine}: card f32 deviance vs CPU f64 {errs}")
+    out.update({"launches": counts, "cpu_f64_rel_err": cpu_err,
+                "registry_bitwise_vs_sqrt": same,
+                "registry_results": len(results["sqrt"])})
+    emit(out)
+    return counts
+
+
 KERNELS = {
     "joint_filter_append": {
         "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
@@ -6944,6 +7450,22 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/arena_forecast.cu",
         "replaces": "metran_tpu/serve/engine.py:1473",
     },
+    "parallel_filter": {
+        "source": "metran_tpu_torch/kernels/csrc/pkalman_filter.cu",
+        "replaces": "metran_tpu/ops/pkalman.py:317",
+    },
+    "parallel_smooth": {
+        "source": "metran_tpu_torch/kernels/csrc/pkalman_smoother.cu",
+        "replaces": "metran_tpu/ops/pkalman.py:401",
+    },
+    "sqrt_parallel_filter": {
+        "source": "metran_tpu_torch/kernels/csrc/sqrt_pkalman_filter.cu",
+        "replaces": "metran_tpu/ops/pkalman.py:613",
+    },
+    "sqrt_parallel_smooth": {
+        "source": "metran_tpu_torch/kernels/csrc/sqrt_pkalman_smoother.cu",
+        "replaces": "metran_tpu/ops/pkalman.py:704",
+    },
 }
 
 
@@ -6972,7 +7494,8 @@ def main() -> int:
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
                   phase_robust_kernels, phase_steady_kernels,
-                  phase_arena_kernels, phase_readpath_kernels):
+                  phase_arena_kernels, phase_readpath_kernels,
+                  phase_pkalman_kernels):
         more_checks, more_times = phase()
         checks += more_checks
         times.update(more_times)
@@ -7013,7 +7536,8 @@ def main() -> int:
         paths["fit"] = fit["counts"]
         paths["batch_fit"] = phase_batch_fit(pool, fit)
         paths["products"] = phase_products_path(fit)
-        paths["metran"], mt64 = phase_metran_path(pool)
+        paths["metran"], mt64, out64 = phase_metran_path(pool)
+        paths["parallel"] = phase_parallel_path(pool, mt64, out64)
         check_stderr(fit)
     paths["c2_defaults"] = phase_c2_defaults(mt64)
 

@@ -35,6 +35,8 @@
   and square-root families), K17, the frozen-gain update, and K18, the
   forecast (imported as ``metran_tpu_torch.kernels.arena``: its plain
   versions use the ops' detector statistics and convergence test);
+- :mod:`.pkalman` — K19-K22, the associative-scan (parallel-in-time)
+  filter and smoother in covariance and in square-root form;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
@@ -45,7 +47,8 @@ Each wrapper (``joint_filter_append``, ``joint_filter_store``,
 ``sqrt_filter_robust``, ``sqrt_smooth``, ``joint_adjoint``,
 ``gated_filter_append``, ``robust_filter_append``, ``detect_scan``,
 ``steady_filter``, ``dare_gains``, ``arena_update``,
-``arena_steady_update``, ``arena_forecast``)
+``arena_steady_update``, ``arena_forecast``, ``parallel_filter``,
+``parallel_smooth``, ``sqrt_parallel_filter``, ``sqrt_parallel_smooth``)
 launches its kernel (``*_kernel``, which takes CUDA tensors only and
 raises if it cannot build or launch) on CUDA tensors and runs the plain
 version (``*_plain``) on CPU tensors; there is no fallback between
@@ -103,6 +106,20 @@ from .lanes_products import (
     lanes_smooth_bwd,
     lanes_smooth_bwd_kernel,
     lanes_smooth_bwd_plain,
+)
+from .pkalman import (
+    parallel_filter,
+    parallel_filter_kernel,
+    parallel_filter_plain,
+    parallel_smooth,
+    parallel_smooth_kernel,
+    parallel_smooth_plain,
+    sqrt_parallel_filter,
+    sqrt_parallel_filter_kernel,
+    sqrt_parallel_filter_plain,
+    sqrt_parallel_smooth,
+    sqrt_parallel_smooth_kernel,
+    sqrt_parallel_smooth_plain,
 )
 from .smoother import rts_smooth, rts_smooth_kernel, rts_smooth_plain
 from .sqrt_filter import (
@@ -167,6 +184,12 @@ __all__ = [
     "lanes_smooth_bwd_kernel",
     "lanes_smooth_bwd_plain",
     "launches",
+    "parallel_filter",
+    "parallel_filter_kernel",
+    "parallel_filter_plain",
+    "parallel_smooth",
+    "parallel_smooth_kernel",
+    "parallel_smooth_plain",
     "reset_launches",
     "robust_filter_append",
     "robust_filter_append_kernel",
@@ -183,6 +206,12 @@ __all__ = [
     "sqrt_filter_robust",
     "sqrt_filter_robust_kernel",
     "sqrt_filter_robust_plain",
+    "sqrt_parallel_filter",
+    "sqrt_parallel_filter_kernel",
+    "sqrt_parallel_filter_plain",
+    "sqrt_parallel_smooth",
+    "sqrt_parallel_smooth_kernel",
+    "sqrt_parallel_smooth_plain",
     "sqrt_smooth",
     "sqrt_smooth_kernel",
     "sqrt_smooth_plain",

@@ -50,7 +50,8 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
             "detect": 0, "gated_filter_robust": 0, "sqrt_filter_robust": 0,
             "steady_filter": 0, "dare": 0, "arena_update": 0,
             "arena_update_sqrt": 0, "arena_steady_update": 0,
-            "arena_forecast": 0}
+            "arena_forecast": 0, "parallel_filter": 0, "parallel_smooth": 0,
+            "sqrt_parallel_filter": 0, "sqrt_parallel_smooth": 0}
 
 
 def count_launch(name: str) -> None:
@@ -242,6 +243,17 @@ _SIGNATURES = {
     # S, sqrt, stream
     "arena_forecast": ("metran_arena_forecast",
                        [_PTR] * 10 + [_INT] * 5 + [_PTR]),
+    # phi, q, z, r, y, mask, mean_p, cov_p (or chol_p), mean_f, cov_f,
+    # sigma, detf, scratch, B, T, N, n, chunk, store, stream (K19, K21)
+    **{f"{pre}pkalman_filter": (f"metran_{pre}pkalman_filter",
+                                [_PTR] * 13 + [_INT] * 6 + [_PTR])
+       for pre in ("", "sqrt_")},
+    # phi, mean_f, cov_f, mean_p, cov_p, mean_s, cov_s, scratch, B, T, n,
+    # chunk, stream (K20); K22 takes q (the diagonal of Q) after phi
+    "pkalman_smoother": ("metran_pkalman_smoother",
+                         [_PTR] * 8 + [_INT] * 4 + [_PTR]),
+    "sqrt_pkalman_smoother": ("metran_sqrt_pkalman_smoother",
+                              [_PTR] * 9 + [_INT] * 4 + [_PTR]),
 }
 
 

@@ -9,11 +9,15 @@ filter is the stored sequential filter (kernel K6 in its ``store``
 mode), the smoother kernel K8 and the path draws K7 + K6 + K8; on
 ``engine="sqrt"`` the filter is the stored square-root filter (K9),
 whose factors are cached and smoothed in factored form (K10), and the
-path draws are K7 + K9 + K10; the forecasts are K2 either way.
-Accessors return numpy arrays.
+path draws are K7 + K9 + K10; on the associative-scan engines the filter
+and smoother are K19 and K20 (``"parallel"``) or K21 and K22
+(``"sqrt_parallel"``, factors cached as on ``"sqrt"``), and the path
+draws run their sequential twins, as in the JAX package (``"joint"``:
+K7 + K1 ``store`` + K8; ``"sqrt"``: K7 + K9 + K10); the forecasts are K2
+on every engine.  Accessors return numpy arrays.
 
-The joint-store (ROADMAP A2) and associative-scan (B8, ROADMAP A6)
-engines raise with their ROADMAP item.
+The joint engine (its single-model products, ROADMAP A2) raises with
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,16 +44,22 @@ from ..ops.kalman import (
     sample_states,
     sqrt_kalman_filter,
 )
+from ..ops.pkalman import sqrt_parallel_filter
 from ..ops.statespace import StateSpace
 
 logger = getLogger(__name__)
 
 
+#: the sequential twin that runs the per-draw passes of an
+#: associative-scan engine (the JAX runner's mapping)
+_DRAW_ENGINE = {"parallel": "joint", "sqrt_parallel": "sqrt"}
+
+
 def check_engine(engine: str) -> str:
-    """``engine`` when the runner has it (the sequential or the
-    square-root one); the JAX engines not ported yet raise
-    ``NotImplementedError`` naming their ROADMAP item."""
-    _require(engine, ("sequential", "sqrt"))
+    """``engine`` when the runner has it (the sequential, square-root and
+    associative-scan ones); the joint engine raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    _require(engine, ("sequential", "sqrt", "parallel", "sqrt_parallel"))
     return engine
 
 
@@ -78,7 +88,7 @@ class KalmanRunner:
     def init_states(self) -> None:
         self.filtered: Optional[FilterResult] = None
         self.smoothed: Optional[SmootherResult] = None
-        # the square-root engine: the factored filter pass is cached so
+        # the square-root engines: the factored filter pass is cached so
         # the smoother consumes factors, not reconstituted covariances
         self._sqrt_filtered = None
 
@@ -97,11 +107,13 @@ class KalmanRunner:
         if self.filtered is None:
             if self.mask_active:
                 logger.info("Running Kalman filter with masked observations.")
-            if self.engine == "sqrt":
-                # one factored pass (K9 store), cached for the smoother;
-                # the accessors read the reconstituted moments
-                sq = sqrt_kalman_filter(self.ss, self.y, self.mask,
-                                        store=True)
+            if self.engine in ("sqrt", "sqrt_parallel"):
+                # one factored pass (K9 store, or K21), cached for the
+                # smoother; the accessors read the reconstituted moments
+                sq = (sqrt_parallel_filter(self.ss, self.y, self.mask)
+                      if self.engine == "sqrt_parallel"
+                      else sqrt_kalman_filter(self.ss, self.y, self.mask,
+                                              store=True))
                 self._sqrt_filtered = sq
                 self.filtered = FilterResult(
                     sq.mean_p, chol_outer(sq.chol_p), sq.mean_f,
@@ -117,7 +129,8 @@ class KalmanRunner:
         if self.smoothed is None:
             filtered = self.run_filter()
             if self._sqrt_filtered is not None:
-                # rts_smoother dispatches on the factored result (K10)
+                # rts_smoother dispatches on the factored result (K10,
+                # or K22 under sqrt_parallel)
                 filtered = self._sqrt_filtered
             self.smoothed = rts_smoother(self.ss, filtered,
                                          engine=self.engine)
@@ -177,12 +190,20 @@ class KalmanRunner:
                       draw_chunk: int = 8):
         """Joint posterior state-path draws (n_draws, T, n), reusing the
         cached smoother pass for the data side; the normals come from a
-        ``torch.Generator`` on the model's device seeded ``seed``."""
+        ``torch.Generator`` on the model's device seeded ``seed``.  The
+        associative-scan engines run the per-draw passes on their
+        sequential twins (the same posterior, without a scan per
+        draw)."""
         gen = torch.Generator(self.device).manual_seed(int(seed))
         return _host(sample_states(
             self.ss, self.y, self.mask, gen, n_draws=int(n_draws),
-            engine=self.engine, sm_data=self.run_smoother().mean_s,
+            engine=self.draw_engine, sm_data=self.run_smoother().mean_s,
             draw_chunk=draw_chunk))
+
+    @property
+    def draw_engine(self) -> str:
+        """The engine of the per-draw passes of :meth:`sample_states`."""
+        return _DRAW_ENGINE.get(self.engine, self.engine)
 
     def decompose(self, observation_matrix, method: str = "smoother"):
         means, _ = self._states(method)

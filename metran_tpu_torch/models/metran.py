@@ -18,8 +18,13 @@ exact gradient the closed-form adjoint K4) on the card's LanesSolve
 whatever the engine, as in the JAX package; ``JaxSolve`` and
 ``ScipySolve`` fit the model's own engine (on ``"sqrt"``: K9 with
 segment boundaries, its gradient the batch-layout adjoint K11).  The
-joint engine (ROADMAP A2) and the associative-scan engines (A6) raise,
-as do ``plots``, ``to_file`` and ``from_file`` (ROADMAP A5).
+associative-scan engines run only when named, as in the JAX package:
+``"parallel"`` filters and smooths on K19/K20, ``"sqrt_parallel"`` on
+K21/K22, their path draws on the sequential twins (``"joint"``: K1
+``store`` + K8; ``"sqrt"``: K9 + K10); a ``JaxSolve``/``ScipySolve`` fit
+on them differentiates the plain version by autodiff (CPU only).  The
+joint engine (ROADMAP A2) raises, as do ``plots``, ``to_file`` and
+``from_file`` (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -75,8 +80,9 @@ def default_engine(device) -> str:
 
 
 def _engine(name: str) -> str:
-    """The canonical engine of ``name``; the engines the port does not
-    have raise ``NotImplementedError`` naming their ROADMAP item."""
+    """The canonical engine of ``name``; the joint engine, which the
+    port's model does not have yet, raises ``NotImplementedError``
+    naming its ROADMAP item."""
     if name not in _ENGINE_ALIASES:
         raise ValueError(f"unknown engine {name!r}")
     return check_engine(_ENGINE_ALIASES[name])
@@ -97,12 +103,15 @@ class Metran:
         Start/end of the analysis period.
     engine : str, optional
         Kalman engine: "sequential" (the reference's sequential
-        processing; "numba"/"numpy" are aliases) or "sqrt" (QR
+        processing; "numba"/"numpy" are aliases), "sqrt" (QR
         square-root filtering and smoothing, covariances PSD by
-        construction — the robust float32 engine).  Default "sqrt" on
-        the CUDA card and "sequential" on the CPU, as the JAX package
-        chooses by accelerator.  "joint", "parallel" and
-        "sqrt_parallel" raise ``NotImplementedError`` (ROADMAP A2, A6).
+        construction — the robust float32 engine), "parallel"
+        (associative-scan filtering and smoothing, the time axis split
+        over the card's blocks) or "sqrt_parallel" (the associative scan
+        over triangular factors).
+        Default "sqrt" on the CUDA card and "sequential" on the CPU, as
+        the JAX package chooses by accelerator.  "joint" raises
+        ``NotImplementedError`` (ROADMAP A2).
     device : str or torch.device, optional
         Where the model runs: the CUDA card by default (raises without
         one); ``"cpu"`` runs the kernels' plain versions in float64.

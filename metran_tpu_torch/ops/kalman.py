@@ -61,8 +61,12 @@ DARE and the frozen gains (kernel K15,
 :func:`fixed_lag_smooth` is K9 ``store`` from a given carry followed by
 K10 over the window.
 
-The associative-scan engines raise with the ROADMAP item that will port
-them.  Every function keeps its JAX twin's defaults.
+The associative-scan engines (``engine="parallel"``/``"sqrt_parallel"``)
+are :mod:`metran_tpu_torch.ops.pkalman`: kernels K19/K20 (covariance
+form) and K21/K22 (square-root form), reached through
+:func:`kalman_filter`, :func:`deviance`, :func:`rts_smoother` and
+:func:`sample_states` as in the JAX package.  Every function keeps its
+JAX twin's defaults.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ import torch
 
 from ..config import as_tensor, float_dtype, resolve_device
 from ..kernels import lanes_products as kp
+from ..kernels import pkalman as kpk
 from ..kernels.gated_filter import (
     GATE_DOWNWEIGHTED,
     GATE_PASS,
@@ -103,8 +108,6 @@ LOG2PI = 1.8378770664093453  # log(2*pi)
 _NOT_PORTED = {
     "joint": "ROADMAP A2 (Metran(engine='joint') and the batch-layout "
              "products)",
-    "parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
-    "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
 }
 
 
@@ -214,8 +217,15 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "sequential",
     ``engine="sqrt"`` runs K9
     (:func:`sqrt_kalman_filter`) and reconstitutes the covariances from
     its factors (``chol_outer``), with or without ``store``.
+    ``engine="parallel"`` is the associative-scan filter (K19,
+    :func:`metran_tpu_torch.ops.pkalman.parallel_filter`),
+    ``"sqrt_parallel"`` its square-root form (K21, covariances
+    reconstituted); with ``store=False`` they keep the JAX return shapes
+    (the final moments and the per-step terms).
     """
-    _require(engine, ("joint", "sequential", "sqrt"))
+    _require(engine, ENGINES)
+    if engine in ("parallel", "sqrt_parallel"):
+        return _parallel_filter(ss, y, mask, engine, store, device)
     if engine == "sqrt":
         res = sqrt_kalman_filter(ss, y, mask, store=store, device=device)
         if not store:
@@ -256,6 +266,26 @@ def kalman_filter(ss: StateSpace, y, mask, engine: str = "sequential",
     if single:
         mean_t, cov_t, sigma, detf = mean_t[0], cov_t[0], sigma[0], detf[0]
     return FilterResult(mean_t, cov_t, mean_t, cov_t, sigma, detf)
+
+
+def _parallel_filter(ss: StateSpace, y, mask, engine: str, store: bool,
+                     device) -> FilterResult:
+    """``kalman_filter`` on an associative-scan engine (the JAX
+    function's shapes: with ``store=False`` the moments hold the last
+    step's, the terms every step's)."""
+    from . import pkalman
+
+    if engine == "parallel":
+        res = pkalman.parallel_filter(ss, y, mask, device=device)
+        cov_p, cov_f = res.cov_p, res.cov_f
+    else:
+        res = pkalman.sqrt_parallel_filter(ss, y, mask, device=device)
+        cov_p, cov_f = chol_outer(res.chol_p), chol_outer(res.chol_f)
+    if store:
+        return FilterResult(res.mean_p, cov_p, res.mean_f, cov_f, res.sigma,
+                            res.detf)
+    mean_t, cov_t = res.mean_f[..., -1, :], cov_f[..., -1, :, :]
+    return FilterResult(mean_t, cov_t, mean_t, cov_t, res.sigma, res.detf)
 
 
 def _check_diagonal_q(q, engine: str = "sequential") -> None:
@@ -601,11 +631,25 @@ def deviance(ss: StateSpace, y, mask, warmup: int = 1,
     the plain filter, CPU tensors only; ``"auto"`` resolves as in the
     JAX package (the adjoint, except autodiff for a float32 square-root
     deviance).  The value is the same either way; a non-finite one is
-    ``+inf``.  The associative-scan engines raise
-    :class:`NotPortedError` (kernel B8).
+    ``+inf``.  The associative-scan engines (``"parallel"``: K19,
+    ``"sqrt_parallel"``: K21, terms only) differentiate by autodiff, on
+    CPU tensors; with ``remat_seg`` they raise ``ValueError`` as in the
+    JAX package.
     """
-    _require(engine, ("sequential", "joint", "sqrt"))
+    _require(engine, ENGINES)
     mode = resolve_grad_engine(grad, engine, dtype=float_dtype(ss.q))
+    if engine in ("parallel", "sqrt_parallel"):
+        if remat_seg:
+            raise ValueError(
+                f"remat_seg is not supported by the {engine!r} "
+                "(associative-scan) engine: it materializes O(T n^2) "
+                "moments regardless, so the O(seg) memory promise "
+                "cannot hold — use engine='sequential'/'joint'/'sqrt'")
+        from . import pkalman
+
+        fn = (pkalman.sqrt_parallel_deviance if engine == "sqrt_parallel"
+              else pkalman.parallel_deviance)
+        return fn(ss, y, mask, warmup=warmup, device=device)
     ss_b, device, dtype, single = _prepare(ss, device)
     y = as_tensor(y, device, dtype)
     mask = as_tensor(mask, device, torch.bool)
@@ -677,13 +721,24 @@ def rts_smoother(ss: StateSpace, filtered, engine: str = "sequential"
     :class:`SqrtFilterResult` is smoothed in factored form instead
     (:func:`sqrt_rts_smoother`, K10) and its covariances reconstituted
     only at return.  ``engine`` names the filter engine that produced
-    ``filtered``; the associative-scan smoothers raise (ROADMAP A6).
+    ``filtered``: ``"parallel"`` smooths by the reverse associative scan
+    (K20), and a factored result under either associative-scan engine by
+    its square-root form (K22); other names run the sequential reverse
+    scan, as in the JAX function.
     """
+    _require(engine, ENGINES)
     if isinstance(filtered, SqrtFilterResult):
-        _require(engine, ("sqrt", "sequential", "joint"))
-        sm = sqrt_rts_smoother(ss, filtered)
+        if engine in ("parallel", "sqrt_parallel"):
+            from .pkalman import sqrt_parallel_smoother
+
+            sm = sqrt_parallel_smoother(ss, filtered)
+        else:
+            sm = sqrt_rts_smoother(ss, filtered)
         return SmootherResult(sm.mean_s, chol_outer(sm.chol_s))
-    _require(engine, ("sequential", "joint", "sqrt"))
+    if engine == "parallel":
+        from .pkalman import parallel_smoother
+
+        return parallel_smoother(ss, filtered)
     phi = as_tensor(ss.phi, filtered.mean_f.device, filtered.mean_f.dtype)
     single = filtered.mean_f.dim() == 2
     args = [filtered.mean_f, filtered.cov_f, filtered.mean_p,
@@ -699,9 +754,11 @@ def rts_smoother(ss: StateSpace, filtered, engine: str = "sequential"
 def _smoothed_means(ss: StateSpace, y, mask, engine: str = "sequential",
                     device=None):
     """Smoothed state means: the stored filter and its smoother — K6 and
-    K8, or on ``engine="sqrt"`` K9 and K10 in its mean-only mode (the
-    mean recursion never reads the smoothed factor)."""
-    if engine == "sqrt":
+    K8, or on ``engine="sqrt"`` (and ``"sqrt_parallel"``, as the JAX
+    function routes it) K9 and K10 in its mean-only mode (the mean
+    recursion never reads the smoothed factor); K19 and K20 on
+    ``"parallel"``."""
+    if engine in ("sqrt", "sqrt_parallel"):
         filt = sqrt_kalman_filter(ss, y, mask, store=True, device=device)
         return _sqrt_smooth(ss, filt, want_cov=False)[0]
     filt = kalman_filter(ss, y, mask, engine=engine, store=True,
@@ -798,8 +855,10 @@ def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
     x0`` and their pseudo-observations ``y* = Z x + sqrt(r) o e``; K6
     ``store`` (K1 ``store`` on ``engine="joint"``) filters ``y*`` on the
     data's missing pattern and K8 smooths it (means only) — on
-    ``engine="sqrt"`` K9 ``store`` and K10 in its mean-only mode."""
-    _require(engine, ("sequential", "joint", "sqrt"))
+    ``engine="sqrt"`` (and ``"sqrt_parallel"``, as the JAX function
+    routes it) K9 ``store`` and K10 in its mean-only mode, on
+    ``"parallel"`` K19 and K20 over the chunk's draws."""
+    _require(engine, ENGINES)
     ss_b, device, dtype, single = _prepare(ss, device)
     if not single:
         raise ValueError("sample_states takes one model (unbatched ss)")
@@ -832,7 +891,15 @@ def _sample_states_given(ss: StateSpace, y, mask, x0, w, e, sm_data=None,
             stored = joint_filter_store(*leaves, mean0, cov0, y_star, mask_l)
             sm_star, _ = rts_smooth(leaves[0], stored[2], stored[3],
                                     stored[0], stored[1], want_cov=False)
-        elif engine == "sqrt":
+        elif engine == "parallel":
+            leaves = [leaf.expand(c, *leaf.shape[1:]).contiguous()
+                      for leaf in ss_b]
+            blk = kpk.auto_chunk(y_star.shape[1], c)
+            stored = kpk.parallel_filter(leaves[0], leaves[1], leaves[2],
+                                         leaves[3], y_star, mask_l, blk)
+            sm_star, _ = kpk.parallel_smooth(leaves[0], stored[2], stored[3],
+                                             stored[0], stored[1], blk)
+        elif engine in ("sqrt", "sqrt_parallel"):
             stored = sqrt_filter(phi_l, q_l, z_l, r_l, y_star, mask_l,
                                  store=True)
             sm_star, _ = sqrt_smooth(phi_l.T.contiguous(),

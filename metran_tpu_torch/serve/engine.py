@@ -75,16 +75,13 @@ from ..ops import (
     sqrt_filter_append,
 )
 from ..ops.implicit_map import ROBUST_LIKELIHOODS
-from ..ops.kalman import NotPortedError
 from ..ops.statespace import StateSpace
 
-_LATER = {
-    "sqrt_parallel": "ROADMAP A6 (associative-scan engine, kernel B8)",
-}
-
-
-def _not_ported(what: str):
-    return NotPortedError(f"{what} is not ported yet: {_LATER[what]}")
+#: the registry engines with a serving update; "sqrt_parallel" updates
+#: exactly as "sqrt" (the JAX package's square-root engines), and
+#: "parallel" has none there either
+SERVE_ENGINES = ("joint", "sequential", "sqrt", "sqrt_parallel")
+SQRT_ENGINES = ("sqrt", "sqrt_parallel")
 
 
 class GateSpec(NamedTuple):
@@ -644,11 +641,9 @@ def make_update_fn(engine: str = "joint", gate: Optional[GateSpec] = None,
     after the update), after every other output and before the
     detector's, as the JAX function orders them.
     """
-    if engine == "sqrt_parallel":
-        raise _not_ported("sqrt_parallel")
-    if engine not in ("joint", "sequential", "sqrt"):
+    if engine not in SERVE_ENGINES:
         raise ValueError(f"unknown serve engine {engine!r}")
-    sqrt_engine = engine == "sqrt"
+    sqrt_engine = engine in SQRT_ENGINES
     gated = gate is not None and gate.enabled
     det_on = detect is not None and detect.enabled
     robust_on = robust is not None and robust.enabled
@@ -862,12 +857,10 @@ def make_arena_update_fn(engine: str = "joint",
     output of the update, before ``conv`` and the detector's.  Signatures
     and output order are the JAX package's.
     """
-    if engine == "sqrt_parallel":
-        raise _not_ported("sqrt_parallel")
-    if engine not in ("joint", "sequential", "sqrt"):
+    if engine not in SERVE_ENGINES:
         raise ValueError(f"unknown serve engine {engine!r}")
     hz = tuple(int(h) for h in horizons) if horizons else ()
-    sqrt_engine = engine == "sqrt"
+    sqrt_engine = engine in SQRT_ENGINES
     gated = gate is not None and gate.enabled
     det_on = detect is not None and detect.enabled
     robust_on = robust is not None and robust.enabled

@@ -43,6 +43,8 @@ from ..ops.kalman import NotPortedError
 from ..parallel.mesh import pad_to_multiple
 from ..reliability.policy import StateIntegrityError
 from .engine import (
+    SERVE_ENGINES,
+    SQRT_ENGINES,
     make_arena_forecast_fn,
     make_arena_steady_update_fn,
     make_arena_update_fn,
@@ -75,10 +77,14 @@ class ModelRegistry:
         compiles nothing per bucket).
     engine : update engine (default ``serve_defaults()["engine"]``):
         ``"joint"`` (covariance form, K1), ``"sequential"`` (covariance
-        form, one slot at a time, K12 with the gate off) or ``"sqrt"``
+        form, one slot at a time, K12 with the gate off), ``"sqrt"``
         (square-root form: updates carry Cholesky factors through K9;
         posteriors are PSD by construction and the integrity gate is a
-        finiteness check — the engine for float32 serving).
+        finiteness check — the engine for float32 serving) or
+        ``"sqrt_parallel"`` (the associative-scan square-root engine's
+        registry: it updates exactly as ``"sqrt"``, as in the JAX
+        package).  ``"parallel"`` has no serving update (nor in the JAX
+        package) and raises.
     validate : run the numerical posterior gate on every disk load
         (default ``serve_defaults()["validate_updates"]``); file
         integrity checks (parse, checksum) always run.
@@ -115,11 +121,10 @@ class ModelRegistry:
             arena_rows = int(defaults["arena_rows"])
         if arena_mesh is None:
             arena_mesh = int(defaults["arena_mesh"])
-        if engine not in ("joint", "sequential", "sqrt"):
+        if engine not in SERVE_ENGINES:
             raise ValueError(
-                f"serve engine {engine!r} is not ported yet (ROADMAP A6 for "
-                "the associative-scan engines); the port serves "
-                "engine='joint', 'sequential' and 'sqrt'"
+                f"serve engine {engine!r} has no serving update; the "
+                f"registry serves engine={' or '.join(map(repr, SERVE_ENGINES))}"
             )
         self.engine = engine
         self.bucket_multiple = int(bucket_multiple)
@@ -362,7 +367,7 @@ class ModelRegistry:
 
     @property
     def _sqrt_engine(self) -> bool:
-        return self.engine == "sqrt"
+        return self.engine in SQRT_ENGINES
 
     # ------------------------------------------------------------------
     # device-resident state arena (indirection, allocation, eviction)

@@ -220,13 +220,14 @@ def posterior_state_from_metran(mt, model_id: Optional[str] = None,
                                 p=None) -> PosteriorState:
     """Extract the serving state from a (fitted) port :class:`Metran`.
 
-    Runs one stored filter pass (K6, or K9 on ``engine="sqrt"``) over
-    the model's current (possibly masked) observations at parameters
-    ``p`` (default: the fitted optimum, falling back to the initial table
-    like every other accessor) and freezes the filtered posterior at the
-    last timestep, as float64 host arrays.  A square-root runner's
-    cached factor is frozen beside the covariance (``chol``), so a
-    ``ModelRegistry(engine="sqrt")`` assimilates in factored form from
+    Runs one stored filter pass (K6, or K9 on ``engine="sqrt"``, K19 on
+    ``"parallel"``, K21 on ``"sqrt_parallel"``) over the model's current
+    (possibly masked) observations at parameters ``p`` (default: the
+    fitted optimum, falling back to the initial table like every other
+    accessor) and freezes the filtered posterior at the last timestep, as
+    float64 host arrays.  A square-root runner's cached factor is frozen
+    beside the covariance (``chol``), so a ``ModelRegistry(engine=
+    "sqrt")`` (or ``"sqrt_parallel"``) assimilates in factored form from
     the first request.  Factor loadings must exist (call ``solve()`` or
     ``get_factors()`` first).
     """

@@ -72,8 +72,14 @@ def test_f32_fit_with_the_stall_stop_reaches_the_f64_optimum():
 
 
 def test_batch_fit_rejects_what_is_not_ported():
-    _, pfleet, _ = _fleets()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        pf.fit_fleet(pfleet, engine="parallel", maxiter=2)
+    _, pfleet, p0 = _fleets()
+    # engine="parallel" is ported (K19; on the CPU autograd through its
+    # plain version): the fit lands on the JAX joint fit's optimum
+    got = pf.fit_fleet(pfleet, p0=torch.as_tensor(p0), engine="parallel",
+                       maxiter=40)
+    want = _jax_fit()
+    np.testing.assert_allclose(got.deviance.numpy(),
+                               np.asarray(want.deviance), rtol=1e-8)
+    assert got.converged.all()
     with pytest.raises(ValueError, match="unknown layout"):
         pf.fit_fleet(pfleet, layout="tiles", maxiter=2)

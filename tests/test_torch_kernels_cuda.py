@@ -981,3 +981,63 @@ def test_steady_horizons_kernels_match_plain(card, dtype, bar, horizons):
     torch.cuda.synchronize()
     if dtype == torch.float64:
         assert torch.equal(outs[0].fmeans, fm)
+
+
+def _scan_inputs(card, dtype, b=3, t=45, n=5, kf=2):
+    """A small fleet for the associative-scan kernels K19-K22: masked
+    cells, an all-missing step, and (third model) an observed slot with
+    r < 0, whose innovation covariance never factors."""
+    rng = np.random.default_rng(2)
+    ss = dfm_statespace(rng.uniform(5, 40, (b, n)),
+                        rng.uniform(10, 60, (b, kf)),
+                        rng.uniform(0.3, 0.8, (b, n, kf)), 1.0, device=card,
+                        dtype=dtype)
+    y = torch.as_tensor(rng.normal(size=(b, t, n)), dtype=dtype, device=card)
+    mask = torch.as_tensor(rng.uniform(size=(b, t, n)) > 0.3, device=card)
+    mask[:, 7] = False
+    r = ss.r.clone()
+    r[2, 1] = -2.0
+    return ss.phi, ss.q, ss.z, r, y, mask
+
+
+def _scan_rel(got, want, factor):
+    if factor:  # square-root factors through S S'
+        got, want = got @ got.mT, want @ want.mT
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    return _rel(got, want)
+
+
+@pytest.mark.parametrize("chunk", [45, 8, 1])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_parallel_scan_kernels_match_plain(card, dtype, bar, chunk):
+    """K19/K20 and K21/K22 against their plain versions on the same
+    chunks (one chunk, a ragged tail, one step per chunk), with and
+    without the stored moments."""
+    from metran_tpu_torch.kernels import pkalman as kpk
+
+    phi, q, z, r, y, mask = _scan_inputs(card, dtype)
+    qd = torch.diagonal(q, 0, -2, -1).contiguous()
+    for sqrt, fk, fp, sk, sp, qq in (
+            (False, kpk.parallel_filter_kernel, kpk.parallel_filter_plain,
+             kpk.parallel_smooth_kernel, kpk.parallel_smooth_plain, q),
+            (True, kpk.sqrt_parallel_filter_kernel,
+             kpk.sqrt_parallel_filter_plain, kpk.sqrt_parallel_smooth_kernel,
+             kpk.sqrt_parallel_smooth_plain, qd)):
+        for store in (True, False):
+            got = fk(phi, qq, z, r, y, mask, chunk, store)
+            want = fp(phi, qq, z, r, y, mask, chunk, store)
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert _scan_rel(g, w, sqrt and g.dim() >= 3
+                                 and g.shape[-1] == g.shape[-2]) <= bar, (
+                    sqrt, store, i)
+            assert bool(torch.isinf(got[-1][2]).any())  # r < 0: +inf
+        full = fp(phi, qq, z, r, y, mask, chunk)
+        sargs = ((phi, qd) if sqrt else (phi,)) + (full[2], full[3],
+                                                   full[0], full[1])
+        got = sk(*sargs, chunk)
+        want = sp(*sargs, chunk)
+        torch.cuda.synchronize()
+        assert _scan_rel(got[0], want[0], False) <= bar
+        assert _scan_rel(got[1], want[1], sqrt) <= bar

@@ -144,13 +144,15 @@ def test_engines_devices_and_unported_features(series_list, mt):
     # are held against JAX in tests/test_torch_metran_sqrt.py
     assert metran_tpu_torch.Metran(series_list, engine="sqrt",
                                    device="cpu")._engine == "sqrt"
-    # the joint engine waits for its store (ROADMAP A2), the
-    # associative-scan engines for kernel B8 (A6)
-    for engine, item in (("joint", "A2"), ("parallel", "A6"),
-                         ("sqrt_parallel", "A6")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            metran_tpu_torch.Metran(series_list, engine=engine,
-                                    device="cpu")
+    # the joint engine waits for its single-model products (ROADMAP
+    # A2); the associative-scan engines are ported (kernels K19-K22, held
+    # against JAX in tests/test_torch_metran_parallel.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        metran_tpu_torch.Metran(series_list, engine="joint", device="cpu")
+    for engine in ("parallel", "sqrt_parallel"):
+        model = metran_tpu_torch.Metran(series_list, engine=engine,
+                                        device="cpu")
+        assert model._engine == engine
     assert metran_tpu_torch.Metran(series_list, engine="numba",
                                    device="cpu")._engine == "sequential"
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):

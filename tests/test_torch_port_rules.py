@@ -228,6 +228,19 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         MetranService(ModelRegistry(root=None, engine="sqrt"),
                       flush_deadline=None,
                       robust=RobustSpec(likelihood="huber_t"))
+    # the associative-scan engines (K19-K22) and their registry
+    from metran_tpu_torch.ops import pkalman
+
+    for fn in (pkalman.parallel_filter, pkalman.sqrt_parallel_filter,
+               pkalman.parallel_deviance, pkalman.sqrt_parallel_deviance):
+        with pytest.raises(RuntimeError, match="CUDA device required"):
+            fn(ss_np, y, mask)
+    for engine in ("parallel", "sqrt_parallel"):
+        with pytest.raises(RuntimeError, match="CUDA device required"):
+            kalman_filter(ss_np, y, mask, engine=engine)
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        MetranService(ModelRegistry(root=None, engine="sqrt_parallel"),
+                      flush_deadline=None)
     import pandas as pd
 
     idx = pd.date_range("2000-01-01", periods=30, freq="D")
@@ -505,7 +518,11 @@ def test_plain_path_counts_no_launch_and_counters_reset():
                                   "arena_update": 0,
                                   "arena_update_sqrt": 0,
                                   "arena_steady_update": 0,
-                                  "arena_forecast": 0}
+                                  "arena_forecast": 0,
+                                  "parallel_filter": 0,
+                                  "parallel_smooth": 0,
+                                  "sqrt_parallel_filter": 0,
+                                  "sqrt_parallel_smooth": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -531,7 +548,8 @@ def test_library_name_follows_the_sources():
         "sqrt_smoother.cu", "joint_adjoint.cu", "gated_filter.cu",
         "detect.cu", "steady_filter.cu", "dare.cu", "arena_joint.cu",
         "arena_gated.cu", "arena_sqrt.cu", "arena_steady.cu",
-        "arena_forecast.cu"}
+        "arena_forecast.cu", "pkalman_filter.cu", "pkalman_smoother.cu",
+        "sqrt_pkalman_filter.cu", "sqrt_pkalman_smoother.cu"}
     assert set(build._SIGNATURES) == {p.stem for p in build.sources()}
 
 

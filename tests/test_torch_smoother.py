@@ -165,8 +165,16 @@ def test_joint_store_and_other_smoothers_raise_naming_the_roadmap():
                                rtol=1e-10, atol=1e-12)
     filt = pk.kalman_filter(pss, y, mask, engine="sequential", store=True,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        pk.rts_smoother(pss, filt, engine="parallel")
+    # engine="parallel" is the reverse associative scan (K20), the JAX
+    # function's parallel_smoother
+    par = pk.rts_smoother(pss, filt, engine="parallel")
+    jpar = jk.rts_smoother(ss, jk.kalman_filter(ss, y, mask,
+                                                engine="sequential"),
+                           engine="parallel")
+    np.testing.assert_allclose(par.mean_s.numpy(), np.asarray(jpar.mean_s),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(par.cov_s.numpy(), np.asarray(jpar.cov_s),
+                               rtol=1e-10, atol=1e-12)
     # engine="sqrt" over a covariance-form result is the covariance
     # smoother (K8), as in the JAX function; a factored result goes to
     # the factored smoother (K10, tests/test_torch_sqrt_kalman.py)

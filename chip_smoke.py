@@ -95,7 +95,13 @@ non-zero):
    twin on the same inputs (K1 ``store`` + K8, K9 ``store`` + K10) at
    one flagship model, 512 flagship models and the long-context model
    (8 series, 1 factor, T = 32,768), the timed launches' outputs held to
-   the plain version on the same inputs (models 0-15 of the 512);
+   the plain version on the same inputs (models 0-15 of the 512, over
+   the filters' first and the smoothers' last 1,000 steps); then
+   K19/K20's sharded modes (``sharded_scan_kernels``): ``total``,
+   ``carry`` and ``prefix`` against their plain versions on 16 flagship
+   models in 4 shards of 100 steps (chunks of 16, a ragged tail), f64 and
+   f32, each timed at a middle shard of the long-context and of one
+   flagship model beside its bound and its plain version;
 4. main path — a 512-model flagship fleet (20 series, 1 factor, 5,000
    steps, 30% missing, f32) filtered by the port's ``kalman_filter`` and
    served by ``MetranService``: forecasts, 10 update rounds, forecasts,
@@ -174,6 +180,15 @@ non-zero):
    ``fleet_stderr(method="lanes-fd")`` of the 512 fitted models (B * 2P
    = 21,504 lanes over one data copy through the lane map), 4 of them
    recomputed in f64 in a worker process (checked after phase 7);
+5a. mesh path (``mesh_path``) — a virtual mesh of 4 devices, all the
+   card: ``sequence_sharded_filter`` (K19/K20 ``total`` -> ``carry`` ->
+   ``prefix``) on the long-context and one flagship model within 1e-5 of
+   the unsharded K19/K20 and timed beside them; ``fit_fleet(layout=
+   "lanes", mesh=)`` on phase 5's fleet and start against phase 5's fit at
+   the JAX bars; a 16-model batch fit with and without the mesh; a gated,
+   detecting ``ModelRegistry(arena=True, arena_mesh=4)`` bit for bit an
+   ``arena_mesh=0`` one over 3 rounds, a bulk tick and forecasts; a real
+   mesh too where the host has more cards; every mode must have run;
 5b. batch fit — the slice's path: ``fit_fleet(fleet, p0=...)`` with the
    JAX defaults (``layout="batch"``, ``engine="joint"``, the gradient
    through K1 ``bounds`` + K11, optax's zoom-line-search L-BFGS) on phase
@@ -233,7 +248,8 @@ non-zero):
    ``store``, K8) and ``filter_append`` (K12 ``off``), each held to the
    sequential engine's within 1e-9.
 
-The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
+Every phase also prints its wall time (``{"phase_wall": ..., "wall_s":
+...}``).  The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -284,6 +300,15 @@ PEAK_FLOPS_S = {"float32": 67e12, "float64": 34e12, "float64_tensor": 67e12}
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(phase, *args, **kw):
+    """Run one phase; print its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kw)
+    emit({"phase_wall": phase.__name__.removeprefix("phase_"),
+          "wall_s": time.perf_counter() - t0})
+    return out
 
 
 def require(cond, what) -> None:
@@ -3961,6 +3986,7 @@ def phase_fit_path(pool):
         "stderr": se_stats,
     })
     return {"counts": counts, "fleet": fleet, "params": fit.params,
+            "p0": p0, "fit": fit, "wall": wall,
             "deviance": dev_fit, "dev_start": dev_start.cpu().numpy(),
             "converged_frac": float(fit.converged.float().mean()),
             "y32": y32, "mask": mask, "lds": lds,
@@ -5655,16 +5681,37 @@ def record_rows(checks, kernel, case, dtype, names, got, want, bar,
         "ok": within(errs, bar) and all(same)})
 
 
+ARENA_LEAVES = ("mean", "fac", "t_seen", "version", "phi", "q", "z", "r",
+                "steady", "kgain", "fdiag", "det")
+
+
+def leaves_of(arena):
+    """An unsharded ``StateArena``'s leaves by name, in the order of its
+    ``_dynamic``, ``_static``, ``_steady_leaves`` and ``_det_leaf``."""
+    import types
+
+    return types.SimpleNamespace(**dict(zip(ARENA_LEAVES, (
+        *arena._dynamic(), *arena._static(), *arena._steady_leaves(),
+        arena._det_leaf()))))
+
+
+def k17_leaves(arena):
+    """The leaves K17 takes ahead of the steady ones: mean, t_seen,
+    version, phi and z."""
+    a = leaves_of(arena)
+    return a.mean, a.t_seen, a.version, a.phi, a.z
+
+
 def k16_cost(body, arena, rows, mask, det):
     """Bytes and least operations of one K16 launch over the dispatched
     ``rows``: its step body's (K1, K12 or K9 from a given carry), the
     arena tail's and the integrity gate's."""
     import torch
 
-    dev = arena._mean.device
-    itemsize = arena._mean.element_size()
+    dev = leaves_of(arena).mean.device
+    itemsize = leaves_of(arena).mean.element_size()
     idx = torch.as_tensor(rows, device=dev).long()
-    z_g, q_g = arena._z[idx], arena._q[idx]
+    z_g, q_g = leaves_of(arena).z[idx], leaves_of(arena).q[idx]
     if body == "sqrt":
         cost = k9_cost(z_g.permute(1, 2, 0), mask,
                        torch.arange(len(rows), device=dev), False, True,
@@ -5701,21 +5748,22 @@ def _arena_leaves(dtype, dev, sqrt, rng):
                        device=dev)
     for leaf, val in zip(arena._static(), ss):
         leaf.copy_(val)
+    leaves = leaves_of(arena)
     if sqrt:
         res = sqrt_kalman_filter(ss, yh, mh, store=False)
-        arena._fac.copy_(res.chol_f)
+        leaves.fac.copy_(res.chol_f)
     else:
         res = kalman_filter(ss, yh, mh, engine="joint", store=False)
-        arena._fac.copy_(res.cov_f)
-    arena._mean.copy_(res.mean_f)
-    arena._t_seen.copy_(torch.as_tensor(rng.integers(0, 80, b),
+        leaves.fac.copy_(res.cov_f)
+    leaves.mean.copy_(res.mean_f)
+    leaves.t_seen.copy_(torch.as_tensor(rng.integers(0, 80, b),
                                         dtype=torch.int32))
-    arena._version.copy_(torch.as_tensor(rng.integers(0, 9, b),
+    leaves.version.copy_(torch.as_tensor(rng.integers(0, 9, b),
                                          dtype=torch.int32))
-    arena._mean[2, 1] = float("nan")
+    leaves.mean[2, 1] = float("nan")
     if not sqrt:
-        arena._fac[4] -= 50 * torch.eye(BUCKET[1], dtype=dtype, device=dev)
-    arena._det.copy_(torch.as_tensor(
+        leaves.fac[4] -= 50 * torch.eye(BUCKET[1], dtype=dtype, device=dev)
+    arena._det_leaf().copy_(torch.as_tensor(
         np.abs(rng.normal(size=(b, 6, BUCKET[0]))), dtype=dtype))
     return arena, y[:, ARENA_HIST:], mask[:, ARENA_HIST:]
 
@@ -5787,14 +5835,15 @@ def phase_arena_kernels():
         g = len(rows)
         rob = None
         if lik is not None:
-            scale = torch.full((g, BUCKET[0]), ROBUST_SCALE,
-                               dtype=arena._mean.dtype, device=dev)
+            dtype = leaves_of(arena).mean.dtype
+            scale = torch.full((g, BUCKET[0]), ROBUST_SCALE, dtype=dtype,
+                               device=dev)
             rob = karena.ArenaRobust(lik, 4.0, *(
-                torch.full((g, BUCKET[0]), v, dtype=arena._mean.dtype,
-                           device=dev) for v in (-1.2, 1.2, 0.1)), scale)
+                torch.full((g, BUCKET[0]), v, dtype=dtype, device=dev)
+                for v in (-1.2, 1.2, 0.1)), scale)
         return dict(body=body, mode=mode, thresh=thresh, min_seen=32,
                     robust=rob, steady_tol=tol, real=real,
-                    det=arena._det if det else None, det_min_seen=16,
+                    det=arena._det_leaf() if det else None, det_min_seen=16,
                     det_params=ARENA_DET)
 
     for dtype in (torch.float64, torch.float32):
@@ -5806,7 +5855,8 @@ def phase_arena_kernels():
             for fn in (karena.arena_update_kernel,
                        karena.arena_update_plain):
                 arena, y_next, m_next = _arena_leaves(dtype, dev, sqrt, rng)
-                ref = [t.clone() for t in arena._dynamic() + (arena._det,)]
+                ref = [t.clone() for t in
+                       arena._dynamic() + (arena._det_leaf(),)]
                 rows = _arena_rows(np.random.default_rng(SEED + 121))
                 y, mask, real = _arena_dispatch(arena, rows, y_next, m_next,
                                                 rng)
@@ -5826,17 +5876,18 @@ def phase_arena_kernels():
             fields = [f for f in ("sigma", "detf", "zscore", "iters",
                                   "det_stats")
                       if getattr(want, f) is not None]
-            fk, fp = ka._fac, pa._fac
+            fk, fp = leaves_of(ka).fac, leaves_of(pa).fac
             if sqrt:
                 fk, fp = fk @ fk.mT, fp @ fp.mT
             record(name, case, dtype, fields + ["mean", "F F'" if sqrt
                                                 else "cov"],
                    [getattr(got, f)[ok].double() for f in fields]
-                   + [ka._mean, fk],
+                   + [leaves_of(ka).mean, fk],
                    [getattr(want, f)[ok].double() for f in fields]
-                   + [pa._mean, fp], bar,
-                   exact=[(got.ok, want.ok), (ka._t_seen, pa._t_seen),
-                          (ka._version, pa._version)]
+                   + [leaves_of(pa).mean, fp], bar,
+                   exact=[(got.ok, want.ok),
+                          (leaves_of(ka).t_seen, leaves_of(pa).t_seen),
+                          (leaves_of(ka).version, leaves_of(pa).version)]
                    + [(getattr(got, f), getattr(want, f))
                       for f in ("verdict", "det_counts", "conv")
                       if getattr(want, f) is not None])
@@ -5846,7 +5897,7 @@ def phase_arena_kernels():
                        if r not in set(rows.tolist())]
             rejected = [int(rows[i]) for i in
                         torch.nonzero(~got.ok).flatten().tolist()]
-            require(rows_same(ka._dynamic() + (ka._det,), kref,
+            require(rows_same(ka._dynamic() + (ka._det_leaf(),), kref,
                               unnamed + rejected),
                     f"K16 {case}: a rejected or unnamed row changed")
         # K17: frozen rows beside broken ones
@@ -5856,25 +5907,26 @@ def phase_arena_kernels():
             for fn in (karena.arena_steady_update_kernel,
                        karena.arena_steady_update_plain):
                 arena, y_next, m_next = _arena_leaves(dtype, dev, False, rng)
-                arena._mean[2, 1] = 0.0
+                leaves_of(arena).mean[2, 1] = 0.0
                 srng = np.random.default_rng(SEED + 123)
-                arena._steady.copy_(torch.as_tensor(
+                leaves_of(arena).steady.copy_(torch.as_tensor(
                     srng.uniform(size=ARENA_ROWS + 1) > 0.2))
-                arena._kgain.copy_(torch.as_tensor(
-                    srng.normal(size=arena._kgain.shape) * 0.05))
-                arena._fdiag.copy_(torch.as_tensor(
-                    srng.uniform(0.5, 2.0, arena._fdiag.shape)))
-                ref = [t.clone() for t in arena._dynamic() + (arena._det,)]
+                leaves_of(arena).kgain.copy_(torch.as_tensor(
+                    srng.normal(size=leaves_of(arena).kgain.shape) * 0.05))
+                leaves_of(arena).fdiag.copy_(torch.as_tensor(
+                    srng.uniform(0.5, 2.0, leaves_of(arena).fdiag.shape)))
+                ref = [t.clone() for t in
+                       arena._dynamic() + (arena._det_leaf(),)]
                 rows = _arena_rows(np.random.default_rng(SEED + 121))
                 y, mask, real = _arena_dispatch(arena, rows, y_next, m_next,
                                                 rng)
                 mask[:, :, :N_SERIES] = True
                 mask[::7, 0, 5] = False  # broken rows
-                out = fn(arena._mean, arena._t_seen, arena._version,
-                         arena._phi, arena._z, *arena._steady_leaves(),
+                out = fn(*k17_leaves(arena), *arena._steady_leaves(),
                          rows, real, y, mask, mode=mode, thresh=thresh,
                          sequential=seq, min_seen=32,
-                         det=arena._det if det else None, det_min_seen=16,
+                         det=arena._det_leaf() if det else None,
+                         det_min_seen=16,
                          det_params=ARENA_DET)
                 torch.cuda.synchronize()
                 pair.append((out, arena, ref, rows))
@@ -5886,11 +5938,14 @@ def phase_arena_kernels():
             fields = [f for f in ("sigma", "detf", "zscore", "det_stats")
                       if getattr(want, f) is not None]
             record("arena_steady_update", case, dtype, fields + ["mean"],
-                   [getattr(got, f).double() for f in fields] + [ka._mean],
-                   [getattr(want, f).double() for f in fields] + [pa._mean],
+                   [getattr(got, f).double() for f in fields]
+                   + [leaves_of(ka).mean],
+                   [getattr(want, f).double() for f in fields]
+                   + [leaves_of(pa).mean],
                    bar, exact=[(got.applied, want.applied),
                                (got.verdict, want.verdict),
-                               (ka._t_seen, pa._t_seen), (ka._fac, kref[1])]
+                               (leaves_of(ka).t_seen, leaves_of(pa).t_seen),
+                               (leaves_of(ka).fac, kref[1])]
                    + ([(got.det_counts, want.det_counts)] if det else []))
             require(bool(got.applied.any()) and not bool(got.applied.all()),
                     f"K17 {case}: no frozen row beside broken ones")
@@ -5898,7 +5953,7 @@ def phase_arena_kernels():
                        if r not in set(rows.tolist())]
             skipped = [int(rows[i]) for i in
                        torch.nonzero(~got.applied).flatten().tolist()]
-            require(rows_same(ka._dynamic() + (ka._det,), kref,
+            require(rows_same(ka._dynamic() + (ka._det_leaf(),), kref,
                               unnamed + skipped),
                     f"K17 {case}: an unapplied or unnamed row changed")
         # K18
@@ -5908,9 +5963,9 @@ def phase_arena_kernels():
             rows = _arena_rows(np.random.default_rng(SEED + 121))[3:]
             hz = torch.arange(1, FORECAST_STEPS + 1, device=dev).to(dtype)
             got = karena.arena_forecast_kernel(
-                arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+                *arena._dynamic()[:2], *arena._static(), rows, hz, sqrt)
             want = karena.arena_forecast_plain(
-                arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+                *arena._dynamic()[:2], *arena._static(), rows, hz, sqrt)
             torch.cuda.synchronize()
             record("arena_forecast", f"{'sqrt' if sqrt else 'covariance'} "
                    f"arena, G={len(rows)} H={FORECAST_STEPS}", dtype,
@@ -5947,23 +6002,23 @@ def phase_arena_kernels():
             "bound_by": bby}
     rng = np.random.default_rng(SEED + 126)
     arena, y_next, m_next = _arena_leaves(dtype, dev, False, rng)
-    arena._mean[2, 1] = 0.0
-    arena._steady.fill_(True)
+    leaves_of(arena).mean[2, 1] = 0.0
+    leaves_of(arena).steady.fill_(True)
     srng = np.random.default_rng(SEED + 123)
-    arena._kgain.copy_(torch.as_tensor(srng.normal(
-        size=arena._kgain.shape) * 0.05))
+    leaves_of(arena).kgain.copy_(torch.as_tensor(srng.normal(
+        size=leaves_of(arena).kgain.shape) * 0.05))
     rows = _arena_rows(np.random.default_rng(SEED + 121))
     y, mask, real = _arena_dispatch(arena, rows, y_next, m_next, rng)
     mask[:, :, :N_SERIES] = True
-    sargs = (arena._mean, arena._t_seen, arena._version, arena._phi,
-             arena._z, *arena._steady_leaves(), rows, real, y, mask)
+    sargs = (*k17_leaves(arena), *arena._steady_leaves(), rows, real, y, mask)
     skw = dict(mode="reject", thresh=thresh, sequential=True, min_seen=32,
-               det=arena._det, det_min_seen=16, det_params=ARENA_DET)
+               det=arena._det_leaf(), det_min_seen=16, det_params=ARENA_DET)
     ms, _ = cuda_ms(lambda: karena.arena_steady_update_kernel(*sargs, **skw))
     plain_ms, _ = cuda_ms(lambda: karena.arena_steady_update_plain(
         *sargs, **skw), reps=3, warm=1)
     idx = torch.as_tensor(rows, device=dev).long()
-    cost = k14_cost(arena._z[idx], arena._kgain[idx], mask, 4)
+    cost = k14_cost(leaves_of(arena).z[idx], leaves_of(arena).kgain[idx],
+                    mask, 4)
     extra = arena_tail_cost(len(rows), BUCKET[0], BUCKET[1], 1, 4, True)
     bms, bby = bound_ms(cost[0] + extra[0], cost[1] + extra[1], "float32")
     times["arena_steady_update"] = {
@@ -5973,16 +6028,18 @@ def phase_arena_kernels():
     for sqrt in (False, True):
         rng = np.random.default_rng(SEED + 127)
         arena, _, _ = _arena_leaves(dtype, dev, sqrt, rng)
-        arena._mean[2, 1] = 0.0
-        arena._fac[4] += 60 * torch.eye(BUCKET[1], dtype=dtype, device=dev)
+        leaves_of(arena).mean[2, 1] = 0.0
+        leaves_of(arena).fac[4] += 60 * torch.eye(BUCKET[1], dtype=dtype,
+                                                  device=dev)
         rows = _arena_rows(np.random.default_rng(SEED + 121))
         hz = torch.arange(1, FORECAST_STEPS + 1, device=dev).to(dtype)
-        fargs = (arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+        fargs = (*arena._dynamic()[:2], *arena._static(), rows, hz, sqrt)
         ms, _ = cuda_ms(lambda: karena.arena_forecast_kernel(*fargs))
         plain_ms, _ = cuda_ms(lambda: karena.arena_forecast_plain(*fargs),
                               reps=5, warm=1)
         idx = torch.as_tensor(rows, device=dev).long()
-        nbytes, ops = k2_cost(arena._z[idx], arena._q[idx], FORECAST_STEPS,
+        nbytes, ops = k2_cost(leaves_of(arena).z[idx],
+                              leaves_of(arena).q[idx], FORECAST_STEPS,
                               4)
         nbytes += 4 * len(rows)
         if sqrt:
@@ -6431,11 +6488,11 @@ def phase_readpath_kernels():
         if lik is not None:
             rob = karena.ArenaRobust(lik, 4.0, *(
                 torch.full((len(rows), BUCKET[0]), v,
-                           dtype=arena._mean.dtype, device=dev)
+                           dtype=leaves_of(arena).mean.dtype, device=dev)
                 for v in (-1.2, 1.2, 0.1, ROBUST_SCALE)))
         return dict(body=body, mode=mode, thresh=thresh, min_seen=32,
                     robust=rob, steady_tol=tol, real=real,
-                    det=arena._det if det else None, det_min_seen=16,
+                    det=arena._det_leaf() if det else None, det_min_seen=16,
                     det_params=ARENA_DET, horizons=hz)
 
     def k16_run(fn, dtype, body, mode, lik, det, tol, hz):
@@ -6452,14 +6509,14 @@ def phase_readpath_kernels():
     def steady_arena(dtype):
         rng = np.random.default_rng(SEED + 141)
         arena, y_next, m_next = _arena_leaves(dtype, dev, False, rng)
-        arena._mean[2, 1] = 0.0
+        leaves_of(arena).mean[2, 1] = 0.0
         srng = np.random.default_rng(SEED + 123)
-        arena._steady.copy_(torch.as_tensor(
+        leaves_of(arena).steady.copy_(torch.as_tensor(
             srng.uniform(size=ARENA_ROWS + 1) > 0.2))
-        arena._kgain.copy_(torch.as_tensor(
-            srng.normal(size=arena._kgain.shape) * 0.05))
-        arena._fdiag.copy_(torch.as_tensor(
-            srng.uniform(0.5, 2.0, arena._fdiag.shape)))
+        leaves_of(arena).kgain.copy_(torch.as_tensor(
+            srng.normal(size=leaves_of(arena).kgain.shape) * 0.05))
+        leaves_of(arena).fdiag.copy_(torch.as_tensor(
+            srng.uniform(0.5, 2.0, leaves_of(arena).fdiag.shape)))
         rows = _arena_rows(np.random.default_rng(SEED + 121))
         y, mask, real = _arena_dispatch(arena, rows, y_next, m_next, rng)
         mask[:, :, :N_SERIES] = True
@@ -6469,7 +6526,7 @@ def phase_readpath_kernels():
     def against_k18(kernel, case, dtype, arena, rows, hz, sqrt, fm, fv):
         """The snapshot against K18's read of the arena as written."""
         km, kv = karena.arena_forecast_kernel(
-            arena._mean, arena._fac, *arena._static(), rows, hz, sqrt)
+            *arena._dynamic()[:2], *arena._static(), rows, hz, sqrt)
         torch.cuda.synchronize()
         pairs = [(fm, km)] + ([(fv, kv)] if fv is not None else [])
         vs_k18.append({
@@ -6508,11 +6565,11 @@ def phase_readpath_kernels():
                            karena.arena_steady_update_plain):
                     arena, rows, y, mask, real = steady_arena(dtype)
                     outs.append((fn(
-                        arena._mean, arena._t_seen, arena._version,
-                        arena._phi, arena._z, *arena._steady_leaves(), rows,
+                        *k17_leaves(arena), *arena._steady_leaves(), rows,
                         real, y, mask, mode=mode, thresh=thresh,
                         sequential=seq, min_seen=32,
-                        det=arena._det if det else None, det_min_seen=16,
+                        det=arena._det_leaf() if det else None,
+                        det_min_seen=16,
                         det_params=ARENA_DET, horizons=hz), arena))
                     torch.cuda.synchronize()
                 (got, ka), (want, _) = outs
@@ -6587,7 +6644,8 @@ def phase_readpath_kernels():
             *leaves, rows, y, mask, **kw), reps=3, warm=1)
         idx = torch.as_tensor(rows, device=dev).long()
         base = k16_cost(body, arena, rows, mask, det)
-        tail = horizon_cost(arena._z[idx], arena._q[idx], h, 4, False, sqrt)
+        tail = horizon_cost(leaves_of(arena).z[idx], leaves_of(arena).q[idx],
+                            h, 4, False, sqrt)
         bms, bby = bound_ms(base[0] + tail[0], base[1] + tail[1], "float32")
         tbms, tbby = bound_ms(*tail, "float32")
         times[key] = {
@@ -6599,12 +6657,11 @@ def phase_readpath_kernels():
             "bound_ms": bms, "bound_by": bby, "horizons_bound_ms": tbms,
             "horizons_bound_by": tbby}
     arena, rows, y, mask, real = steady_arena(dtype)
-    arena._steady.fill_(True)
+    leaves_of(arena).steady.fill_(True)
     mask[:, :, :N_SERIES] = True
-    sargs = (arena._mean, arena._t_seen, arena._version, arena._phi,
-             arena._z, *arena._steady_leaves(), rows, real, y, mask)
+    sargs = (*k17_leaves(arena), *arena._steady_leaves(), rows, real, y, mask)
     skw = dict(mode="reject", thresh=thresh, sequential=True, min_seen=32,
-               det=arena._det, det_min_seen=16, det_params=ARENA_DET,
+               det=arena._det_leaf(), det_min_seen=16, det_params=ARENA_DET,
                horizons=hz)
     ms, ms_off = paired(
         lambda: karena.arena_steady_update_kernel(
@@ -6613,9 +6670,10 @@ def phase_readpath_kernels():
     plain_ms, _ = cuda_ms(lambda: karena.arena_steady_update_plain(
         *sargs, **skw), reps=3, warm=1)
     idx = torch.as_tensor(rows, device=dev).long()
-    base = k14_cost(arena._z[idx], arena._kgain[idx], mask, 4)
+    base = k14_cost(leaves_of(arena).z[idx], leaves_of(arena).kgain[idx],
+                    mask, 4)
     extra = arena_tail_cost(len(rows), BUCKET[0], BUCKET[1], 1, 4, True)
-    tail = horizon_cost(arena._z[idx], None, h, 4, True)
+    tail = horizon_cost(leaves_of(arena).z[idx], None, h, 4, True)
     bms, bby = bound_ms(base[0] + extra[0] + tail[0],
                         base[1] + extra[1] + tail[1], "float32")
     times["arena_steady_update_horizons"] = {
@@ -6886,6 +6944,8 @@ PK_MODELS = 16  # flagship models of the kernel-vs-plain comparison
 PK_T_CMP = 400  # its steps
 PK_CHUNK = 64  # its chunk length: 6 chunks and a ragged 16-step tail
 PK_LONG = (8, 1, 32_768)  # examples/long_context_example.py:55 (n, k, T)
+PK_FLEET_HOLD = 1_000  # steps of the fleet launches' plain hold (one chunk
+#                        a model: the plain scan is 5,000 serial steps)
 PK_NAMES = ("parallel_filter", "parallel_smooth", "sqrt_parallel_filter",
             "sqrt_parallel_smooth")
 
@@ -7013,7 +7073,8 @@ def phase_pkalman_kernels():
     model (8 series, 1 factor, T = 32,768), each at the automatic chunk
     length; each timed launch's outputs are held to the plain version run
     on the card on the same inputs and chunks (the first PK_MODELS models
-    of the fleet), at the f32 bar."""
+    of the fleet, over the filters' first and the smoothers' last
+    PK_FLEET_HOLD steps), at the f32 bar."""
     import numpy as np
     import torch
 
@@ -7111,16 +7172,29 @@ def phase_pkalman_kernels():
                  z.permute(1, 2, 0).contiguous(), r.T.contiguous())
         # the timed launches' outputs against the plain version on the
         # same inputs and chunks: every model, or the first PK_MODELS of
-        # the fleet
+        # the fleet over a window of PK_FLEET_HOLD steps (the fleet runs
+        # one chunk a model, so the scan is sequential: the filters' first
+        # steps depend on nothing later, the smoothers' last on nothing
+        # earlier, and the plain version over the window is the same scan)
         sub = slice(0, min(batch, PK_MODELS))
-        case = f"{label}, model{'s 0-' if batch > 1 else ' '}{sub.stop - 1}"
+        win = min(t, PK_FLEET_HOLD) if key == "fleet" else t
+        case = (f"{label}, model{'s 0-' if batch > 1 else ' '}{sub.stop - 1}"
+                + (f", the filters' first and the smoothers' last {win} "
+                   "steps" if win < t else ""))
         cmp_ms = {}
 
         def held(name, got, plain, *args):
+            steps = (slice(t - win, t) if name.endswith("smooth")
+                     else slice(0, win))
+
+            def cut(a):  # the time axis is the second, of length t
+                return (a[sub][:, steps] if a.dim() >= 2 and a.shape[1] == t
+                        else a[sub])
+
             cmp_ms[name], want = cuda_ms(
-                lambda: plain(*(a[sub] for a in args), chunk), reps=1,
-                warm=0)
-            pair(name, [g[sub] for g in got], want, dtype, 1e-3, case)
+                lambda: plain(*(cut(a) for a in args),
+                              chunk if win == t else win), reps=1, warm=0)
+            pair(name, [cut(g) for g in got], want, dtype, 1e-3, case)
 
         row = {}
         # the covariance pair and its twin (K1 store + K8)
@@ -7178,6 +7252,536 @@ def phase_pkalman_kernels():
         {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
         for c in checks], "times": times})
     return checks, times
+
+
+SHARD_NAMES = tuple(f"{base}_{mode}" for base in ("parallel_filter",
+                                                   "parallel_smooth")
+                    for mode in ("total", "carry", "prefix"))
+MESH_DEVICES = 4  # the mesh path's virtual mesh: four devices, all the card
+SHARD_T_CMP = 400  # steps of the modes' kernel-vs-plain comparison ...
+SHARD_CHUNK = 16  # ... in 4 shards of 100 steps, chunks of 16 (a ragged 4)
+
+
+def pk_mode_cost(kind, mode, batch, t_steps, big_n, n, chunk, obs,
+                 itemsize, shards=MESH_DEVICES, origin=False):
+    """Bytes and operations of one sharded-mode launch of K19 (``kind``
+    "cov") or K20 ("cov_s") over one shard of ``t_steps`` steps: the
+    shard's model and data (or stored filter) read once, the chunk totals
+    and the incoming moment read once where the mode reads them, the
+    outputs written once; operations as :func:`pk_cost` counts them —
+    every step's element (and a filter's tails) once, ``total``'s T - 1
+    full combines (each chunk's up-sweep and the fold of the chunk
+    totals), ``carry``'s S - 2 reduced combines over S totals,
+    ``prefix``'s carry over the chunk totals and a reduced combine per
+    step (the origin's first step seeds)."""
+    import collections
+
+    c = -(-t_steps // chunk)
+    full_n = (3 * n * n + 2 * n) if kind == "cov" else (2 * n * n + n)
+    mom_n = n * n + n
+    _, full, red, _ = _pk_step_ops(kind, n, 0)
+    if mode == "carry":
+        return ((batch * shards * full_n + batch * (shards - 1) * mom_n)
+                * itemsize, batch * max(shards - 2, 0) * red)
+    if kind == "cov":
+        read = (batch * (n + n * n + big_n * n + big_n) * itemsize
+                + batch * t_steps * big_n * (itemsize + 1))
+        counts = collections.Counter(obs.flatten().tolist())
+        per_step = sum(
+            cnt * (_pk_step_ops(kind, n, o)[0]
+                   + (_pk_step_ops(kind, n, o)[3] if mode == "prefix" else 0))
+            for o, cnt in counts.items())
+        out_step = 2 * n + 2 * n * n + 2
+    else:
+        read = (batch * n + batch * t_steps * (2 * n + 2 * n * n)
+                + (0 if origin else batch * mom_n)) * itemsize
+        per_step = batch * t_steps * _pk_step_ops(kind, n, 0)[0]
+        out_step = n + n * n
+    if mode == "total":
+        nbytes = read + batch * (c + 1) * full_n * itemsize
+        return nbytes, per_step + batch * (t_steps - 1) * full
+    nbytes = (read + batch * (max(c - 1, 0) * full_n
+                              + (0 if origin else mom_n)) * itemsize
+              + batch * t_steps * out_step * itemsize)
+    carry = max(c - 1, 0) - (1 if origin and c > 1 else 0)
+    steps = t_steps - (1 if origin else 0)
+    return nbytes, per_step + batch * (carry + steps) * red
+
+
+def _shard_run(kpk, args, shards, chunk, plain=False):
+    """Every sharded mode of K19 then K20 over ``shards`` even shards of
+    ``args`` (phi, q, z, r, y, mask), as ``sequence_sharded_filter`` runs
+    them on one device; ``plain`` runs the plain versions.  Returns each
+    mode's outputs by name: a list over shards (``carry``: one)."""
+    phi, q, z, r, y, mask = args
+    sfx = "_plain" if plain else ""
+    n, tl = phi.shape[-1], y.shape[1] // shards
+    cut = [slice(k * tl, (k + 1) * tl) for k in range(shards)]
+    out = {}
+    fn = getattr(kpk, "parallel_filter_total" + sfx)
+    out["parallel_filter_total"] = [
+        fn(phi, q, z, r, y[:, sl], mask[:, sl], chunk, k == 0)
+        for k, sl in enumerate(cut)]
+    pre = getattr(kpk, "parallel_filter_carry" + sfx)(
+        torch_stack([t[0] for t in out["parallel_filter_total"]]), n)
+    out["parallel_filter_carry"] = [pre]
+    fn = getattr(kpk, "parallel_filter_prefix" + sfx)
+    filt = out["parallel_filter_prefix"] = [
+        fn(phi, q, z, r, y[:, sl], mask[:, sl], chunk,
+           out["parallel_filter_total"][k][1],
+           None if k == 0 else pre[:, k - 1].contiguous())
+        for k, sl in enumerate(cut)]
+    halo = [None if k == shards - 1 else
+            (filt[k + 1][0][:, 0].contiguous(),
+             filt[k + 1][1][:, 0].contiguous()) for k in range(shards)]
+    fn = getattr(kpk, "parallel_smooth_total" + sfx)
+    stot = out["parallel_smooth_total"] = [
+        fn(phi, filt[k][2], filt[k][3], filt[k][0], filt[k][1], chunk,
+           halo[k]) for k in range(shards)]
+    spre = getattr(kpk, "parallel_smooth_carry" + sfx)(
+        torch_stack([stot[k][0] for k in reversed(range(shards))]), n)
+    out["parallel_smooth_carry"] = [spre]
+    fn = getattr(kpk, "parallel_smooth_prefix" + sfx)
+    out["parallel_smooth_prefix"] = [
+        fn(phi, filt[k][2], filt[k][3], filt[k][0], filt[k][1], chunk,
+           stot[k][1],
+           None if k == shards - 1 else
+           spre[:, shards - 2 - k].contiguous(), halo[k])
+        for k in range(shards)]
+    return out
+
+
+def torch_stack(parts):
+    import torch
+
+    return torch.stack(parts, dim=1).contiguous()
+
+
+def _mode_checks(kpk, args, chunk, want, case, dtype, bar):
+    """Each sharded mode's kernel on every shard of ``args`` fed the
+    inputs its plain version had in the plain chain ``want`` (a
+    :func:`_shard_run` with ``plain=True``), held to that version's
+    outputs: a list of :func:`check_entry` results."""
+    import torch
+
+    phi, q, z, r, y, mask = args
+    tl = y.shape[1] // MESH_DEVICES
+    checks = []
+    for name in SHARD_NAMES:
+        for k, w in enumerate(want[name]):
+            sl = slice(k * tl, (k + 1) * tl)
+            if name == "parallel_filter_total":
+                margs = (phi, q, z, r, y[:, sl], mask[:, sl], chunk, k == 0)
+            elif name == "parallel_filter_prefix":
+                margs = (phi, q, z, r, y[:, sl], mask[:, sl], chunk,
+                         want["parallel_filter_total"][k][1],
+                         None if k == 0 else want[
+                             "parallel_filter_carry"][0][:, k - 1]
+                         .contiguous())
+            elif name.endswith("carry"):
+                src = ("parallel_filter_total" if "filter" in name
+                       else "parallel_smooth_total")
+                order = (range(MESH_DEVICES) if "filter" in name
+                         else reversed(range(MESH_DEVICES)))
+                margs = (torch_stack([want[src][j][0] for j in order]),
+                         phi.shape[-1])
+                w = (w,)
+            else:
+                f = want["parallel_filter_prefix"]
+                halo = (None if k == MESH_DEVICES - 1 else
+                        (f[k + 1][0][:, 0].contiguous(),
+                         f[k + 1][1][:, 0].contiguous()))
+                margs = (phi, f[k][2], f[k][3], f[k][0], f[k][1], chunk)
+                if name == "parallel_smooth_total":
+                    margs += (halo,)
+                else:
+                    spre = want["parallel_smooth_carry"][0]
+                    margs += (want["parallel_smooth_total"][k][1],
+                              None if halo is None else
+                              spre[:, MESH_DEVICES - 2 - k].contiguous(),
+                              halo)
+            got = getattr(kpk, name + "_kernel")(*margs)
+            if name.endswith("carry"):
+                got = (got,)
+            torch.cuda.synchronize()
+            checks.append(check_entry(name, f"{case}, shard {k}", dtype,
+                                      list(got), list(w), bar))
+    return checks
+
+
+def phase_sharded_scan_kernels():
+    """K19/K20's sharded modes (``total``, ``carry``, ``prefix``) against
+    their plain versions on the card on the same shards and chunks, f64
+    (1e-9) and f32 (1e-3), normwise and NaN-strict: PK_MODELS flagship
+    models over SHARD_T_CMP steps in MESH_DEVICES shards of 100 steps,
+    chunks of SHARD_CHUNK (a ragged tail), two all-missing steps, the last
+    model observing a slot with r < 0, each mode's kernel fed the same
+    inputs as its plain version (the plain chain's).  Then, in f32 at the
+    mesh path's shapes — the long-context model (T = 32,768 over
+    MESH_DEVICES shards) and one flagship model (T = 5,000), the automatic
+    chunk length of a shard — every mode of every shard held the same way
+    (1e-3), and each mode timed at a middle shard (no origin: an incoming
+    moment and, for K20, a halo) beside its plain version, once, on the
+    same inputs."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import pkalman as kpk
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    checks = []
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        args = _pk_case(np.random.default_rng(SEED + 140), PK_MODELS,
+                        SHARD_T_CMP, dtype, dev, stress=True)
+        case = (f"{PK_MODELS} flagship models, {MESH_DEVICES} shards of "
+                f"{SHARD_T_CMP // MESH_DEVICES} steps, chunk {SHARD_CHUNK}, "
+                "masked steps, r < 0 in the last")
+        want = _shard_run(kpk, args, MESH_DEVICES, SHARD_CHUNK, plain=True)
+        checks += _mode_checks(kpk, args, SHARD_CHUNK, want, case, dtype,
+                               bar)
+    # the mesh path's shapes, f32: every mode of every shard held to its
+    # plain version on the same card, then each mode timed at a middle
+    # shard (no origin: an incoming moment and, for K20, a halo) beside
+    # its plain version on the same inputs
+    dtype = torch.float32
+    times = {}
+    rng = np.random.default_rng(SEED + 141)
+    for key, t, shape in (("long", PK_LONG[2], PK_LONG[:2]),
+                          ("flagship", T_STEPS, (N_SERIES, N_FACTORS))):
+        args = _pk_case(rng, 1, t, dtype, dev, shape=shape)
+        phi, q, z, r, y, mask = args
+        big_n, n = z.shape[1], z.shape[2]
+        tl = t // MESH_DEVICES
+        chunk = kpk.auto_chunk(tl, 1)
+        label = (f"1 model ({big_n} series, {n - big_n} factor), "
+                 f"{MESH_DEVICES} shards of T={t} ({tl} steps, chunk "
+                 f"{chunk}, {kpk.n_chunks(tl, chunk)} chunks), f32")
+        run = _shard_run(kpk, args, MESH_DEVICES, chunk, plain=True)
+        checks += _mode_checks(kpk, args, chunk, run, label, dtype, 1e-3)
+        k = 1
+        sl = slice(k * tl, (k + 1) * tl)
+        ys, ms_ = y[:, sl], mask[:, sl]
+        obs = ms_.sum(-1).cpu()
+        filt = run["parallel_filter_prefix"]
+        halo = (filt[k + 1][0][:, 0].contiguous(),
+                filt[k + 1][1][:, 0].contiguous())
+        sargs = (phi, filt[k][2], filt[k][3], filt[k][0], filt[k][1], chunk)
+        calls = {
+            "parallel_filter_total": (
+                (phi, q, z, r, ys, ms_, chunk, False), "cov", "total"),
+            "parallel_filter_carry": (
+                (torch_stack([x[0] for x in run["parallel_filter_total"]]),
+                 n), "cov", "carry"),
+            "parallel_filter_prefix": (
+                (phi, q, z, r, ys, ms_, chunk,
+                 run["parallel_filter_total"][k][1],
+                 run["parallel_filter_carry"][0][:, k - 1].contiguous()),
+                "cov", "prefix"),
+            "parallel_smooth_total": ((*sargs, halo), "cov_s", "total"),
+            "parallel_smooth_carry": (
+                (torch_stack([x[0] for x in
+                              reversed(run["parallel_smooth_total"])]), n),
+                "cov_s", "carry"),
+            "parallel_smooth_prefix": (
+                (*sargs, run["parallel_smooth_total"][k][1],
+                 run["parallel_smooth_carry"][0][
+                     :, MESH_DEVICES - 2 - k].contiguous(), halo),
+                "cov_s", "prefix"),
+        }
+        for name, (margs, kind, mode) in calls.items():
+            ms, _ = cuda_ms(lambda m=margs, f=getattr(kpk, name): f(*m),
+                            reps=5, warm=1)
+            plain_ms, _ = cuda_ms(
+                lambda m=margs, f=getattr(kpk, name + "_plain"): f(*m),
+                reps=1, warm=0)
+            cost = pk_mode_cost(kind, mode, 1, tl, big_n, n, chunk, obs, 4)
+            bms, bby = bound_ms(*cost, "float32")
+            shape = (f"1 model ({big_n} series, {n - big_n} factor), "
+                     f"{MESH_DEVICES} shard totals, f32" if mode == "carry"
+                     else f"shard {k} of {label}")
+            times[name if key == "long" else f"{name}_{key}"] = {
+                "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": bby}
+        del run
+        torch.cuda.empty_cache()
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"K19/K20's sharded modes disagree with their plain "
+            f"versions: {bad}")
+    emit({"phase": "sharded_scan_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks], "times": times,
+        "wall_s": time.perf_counter() - t_phase})
+    return checks, times
+
+
+MESH_BATCH = 16  # flagship models of the mesh path's batch fit ...
+MESH_BATCH_T = 1_000  # ... over their first 1,000 steps (depth cut)
+MESH_BATCH_FIT = dict(maxiter=20, tol=0.05, stall_tol=1e-3)
+MESH_ARENA_ROWS = 512  # rows of the sharded arena: 129 a shard, so the
+#                        512 models touch every shard
+MESH_ARENA_ROUNDS = 3
+
+
+def _mesh_arena_run(states, rows, mesh, kw):
+    """A per-request arena service on ``ModelRegistry(arena=True,
+    arena_mesh=mesh)`` taking ``rows`` (a list of (B, 1, N) rounds), one
+    bulk tick of the last round, and 14-step forecasts; returns the
+    registry's posteriors, versions, t_seen, the acks and the forecasts."""
+    import numpy as np
+
+    from metran_tpu_torch.serve import MetranService, ModelRegistry
+
+    reg = ModelRegistry(arena=True, arena_rows=MESH_ARENA_ROWS,
+                        arena_mesh=mesh, engine="joint", device=DEVICE)
+    for st in states:
+        reg.put(st, persist=False)
+    svc = MetranService(reg, flush_deadline=None, persist_updates=False,
+                        device=DEVICE, **kw)
+    ids = [st.model_id for st in states]
+    acks = []
+    for obs in rows:
+        futs = [svc.update_async(mid, obs[i]) for i, mid in enumerate(ids)]
+        svc.flush()
+        acks.append([_result(f) for f in futs])
+    acks.append(svc.update_batch(ids, list(rows[-1])))
+    fcs = svc.forecast_batch(ids, FORECAST_STEPS)
+    out = {"acks": [[(a.version, a.t_seen) if hasattr(a, "version")
+                     else type(a).__name__ for a in r] for r in acks],
+           "forecasts": fcs}
+    got = [reg.get(mid) for mid in ids]
+    out.update(mean=np.stack([g.mean for g in got]),
+               cov=np.stack([g.cov for g in got]),
+               version=[g.version for g in got],
+               t_seen=[g.t_seen for g in got])
+    arena = next(iter(reg._arenas.values()))
+    out["shards"] = len(arena.devices)
+    out["touched"] = len({reg._row_map[m][1] // arena.shard_rows
+                          for m in ids})
+    svc.close()
+    return out
+
+
+def _result(fut):
+    try:
+        return fut.result()
+    except Exception as exc:  # noqa: BLE001 - per-slot failures ride along
+        return exc
+
+
+def phase_mesh_path(fit):
+    """The mesh path (A6's mesh half) on a virtual mesh of MESH_DEVICES
+    devices, all the card: ``sequence_sharded_filter`` (K19/K20 ``total``
+    -> ``carry`` -> ``prefix``) on the long-context model (8 series, 1
+    factor, T = 32,768) and on one flagship model (T = 5,000), held to
+    the unsharded K19/K20 on the same card (1e-5 normwise, f32) and timed
+    beside them; ``fit_fleet(layout="lanes", mesh=...)`` on phase 5's 512
+    flagship models from its start, against the unsharded fit run right
+    after it (both uninstrumented, walls back to back) at the JAX bars
+    (deviance rtol 1e-6, parameters rtol 1e-4 / atol 1e-6);
+    a MESH_BATCH-model batch fit (K1 ``bounds`` + K11) with the mesh
+    against the same fit without it (deviances within GAP_BAR); and a
+    gated, detecting ``ModelRegistry(arena=True, arena_mesh=4)`` serving
+    the 512 flagship posteriors for MESH_ARENA_ROUNDS rounds, a bulk tick
+    and a forecast, bit for bit an ``arena_mesh=0`` registry.  With more
+    than one card, ``sequence_sharded_filter`` also runs on a real mesh of
+    the cards.  The launch counts are the sharded calls' own (reset
+    before them, read before any unsharded reference runs): every mode
+    of K19/K20 must have run."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches, reset_launches
+    from metran_tpu_torch.ops import pkalman as pops
+    from metran_tpu_torch.ops.statespace import StateSpace
+    from metran_tpu_torch.parallel import (
+        autocorr_init_params,
+        fit_fleet,
+        make_mesh,
+        pack_fleet,
+    )
+    from metran_tpu_torch.serve import DetectSpec, GateSpec
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    seq_mesh = make_mesh(MESH_DEVICES, ("seq",), devices=[dev] * MESH_DEVICES)
+    batch_mesh = make_mesh(MESH_DEVICES, devices=[dev] * MESH_DEVICES)
+    rng = np.random.default_rng(SEED + 150)
+    cases = {}
+    for key, t, shape in (("long", PK_LONG[2], PK_LONG[:2]),
+                          ("flagship", T_STEPS, (N_SERIES, N_FACTORS))):
+        phi, q, z, r, y, mask = _pk_case(rng, 1, t, torch.float32, dev,
+                                         shape=shape)
+        cases[key] = (StateSpace(phi[0], q[0], z[0], r[0]), y[0], mask[0])
+    # the batch fit's fleet
+    yb, mb, ldb, _, _ = make_workload(rng, MESH_BATCH, t=MESH_BATCH_T)
+    from metran_tpu_torch.data import Panel
+
+    names = [f"s{j}" for j in range(N_SERIES)]
+    bfleet = pack_fleet([Panel(yb[i].astype(np.float32), mb[i], None, names,
+                               np.ones(N_SERIES), np.zeros(N_SERIES), 1.0)
+                         for i in range(MESH_BATCH)], list(ldb),
+                        dtype=torch.float32, device=dev)
+    bp0 = autocorr_init_params(bfleet)
+    # the arena's states and rounds
+    states, arena_rows = _fleet_states("joint", rng, T_STEPS, MISSING)
+    rounds = [np.array(arena_rows[:, j:j + 1], dtype=float)
+              for j in range(MESH_ARENA_ROUNDS)]
+    rounds[1][10:30, 0, 4] += GATE_SPIKE
+    arena_kw = dict(gate=GateSpec("reject", nsigma=GATE_NSIGMA, min_seen=32),
+                    detect=DetectSpec(enabled=True))
+    torch.cuda.synchronize()
+
+    # the sharded path, counted
+    reset_launches()
+    out = {"phase": "mesh_path", "mesh": MESH_DEVICES,
+           "devices": "virtual (all cuda:0)"}
+    seq = {key: pops.sequence_sharded_filter(*case, seq_mesh)
+           for key, case in cases.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = fit_fleet(bfleet, p0=bp0, mesh=batch_mesh, **MESH_BATCH_FIT)
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    virtual = os.environ.get("METRAN_TPU_VIRTUAL_DEVICES")
+    os.environ["METRAN_TPU_VIRTUAL_DEVICES"] = str(MESH_DEVICES)
+    try:
+        t0 = time.perf_counter()
+        sharded_arena = _mesh_arena_run(states, rounds, MESH_DEVICES,
+                                        arena_kw)
+        arena_wall = time.perf_counter() - t0
+    finally:
+        if virtual is None:
+            os.environ.pop("METRAN_TPU_VIRTUAL_DEVICES")
+        else:
+            os.environ["METRAN_TPU_VIRTUAL_DEVICES"] = virtual
+    # the lanes fit last, so that the unsharded fit runs right after it:
+    # two uninstrumented walls back to back
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = fit_fleet(fit["fleet"], p0=fit["p0"], mesh=batch_mesh, **FIT)
+    torch.cuda.synchronize()
+    lanes_wall = time.perf_counter() - t0
+    counts = launches()
+    t0 = time.perf_counter()
+    base = fit_fleet(fit["fleet"], p0=fit["p0"], **FIT)
+    torch.cuda.synchronize()
+    base_wall = time.perf_counter() - t0
+    for name in SHARD_NAMES:
+        require(counts[name] > 0, f"the mesh path never launched {name}")
+    for name in ("lanes_filter", "lanes_adjoint", "joint_filter_append",
+                 "joint_adjoint", "arena_update", "arena_forecast"):
+        require(counts[name] > 0, f"the mesh path never launched {name}")
+    out["launches"] = {k: v for k, v in counts.items() if v}
+
+    # (a) the sharded scan against the unsharded K19/K20, timed beside
+    seq_out = {}
+    fields = ("mean_p", "cov_p", "mean_f", "cov_f", "sigma", "detf",
+              "mean_s", "cov_s")
+    for key, case in cases.items():
+        def unsharded(case=case):
+            f = pops.parallel_filter(*case)
+            return f, pops.parallel_smoother(case[0], f)
+
+        want = unsharded()
+        got = seq[key]
+        torch.cuda.synchronize()
+        errs = {fld: rel_err(g, w) for fld, g, w in
+                zip(fields, (*got[0], *got[1]), (*want[0], *want[1]))}
+        require(within(list(errs.values()), 1e-5),
+                f"{key}: sharded scan vs unsharded K19/K20 {errs}")
+        ms_sh, _ = cuda_ms(lambda case=case: pops.sequence_sharded_filter(
+            *case, seq_mesh), reps=3, warm=1)
+        ms_un, _ = cuda_ms(unsharded, reps=3, warm=1)
+        t_steps, big_n = case[1].shape
+        seq_out[key] = {"t_steps": t_steps, "series": big_n,
+                        "rel_err": errs, "sharded_ms": ms_sh,
+                        "unsharded_ms": ms_un,
+                        "sharded_over_unsharded": ms_sh / ms_un}
+    out["sequence_sharded"] = seq_out
+    if torch.cuda.device_count() > 1:
+        cards = [torch.device("cuda", i)
+                 for i in range(min(torch.cuda.device_count(),
+                                    MESH_DEVICES))]
+        real = make_mesh(len(cards), ("seq",), devices=cards)
+        case = cases["long"]
+        got = pops.sequence_sharded_filter(*case, real)
+        want = pops.sequence_sharded_filter(*case, seq_mesh)
+        errs = [rel_err(g, w.to(g.device)) for g, w in
+                zip((*got[0], *got[1]), (*want[0], *want[1]))]
+        require(within(errs, 1e-5), f"real mesh vs virtual mesh {errs}")
+        out["real_mesh"] = {"cards": len(cards), "rel_err": max(errs)}
+
+    # (b) the lanes fit against the unsharded fit (the JAX bars)
+    d_got, d_want = lanes.deviance.cpu().numpy(), base.deviance.cpu().numpy()
+    p_got, p_want = lanes.params.cpu().numpy(), base.params.cpu().numpy()
+    dev_rel = np.abs(d_got - d_want) / np.abs(d_want)
+    par_ok = np.abs(p_got - p_want) <= 1e-6 + 1e-4 * np.abs(p_want)
+    require(bool((dev_rel <= 1e-6).all()) and bool(par_ok.all()),
+            f"sharded lanes fit vs unsharded: deviance rel "
+            f"{float(dev_rel.max())}, parameters off at "
+            f"{int((~par_ok).sum())} entries")
+    out["lanes_fit"] = {
+        "models": int(d_got.size), "wall_s": lanes_wall,
+        "unsharded_wall_s": base_wall,
+        "unsharded_equals_phase_5": bool(
+            torch.equal(base.params.cpu(), fit["fit"].params.cpu())),
+        "deviance_rel_max": float(dev_rel.max()),
+        "params_abs_max": float(np.abs(p_got - p_want).max()),
+        "bitwise": bool(np.array_equal(d_got, d_want)
+                        and np.array_equal(p_got, p_want)),
+        "iterations_equal": bool(torch.equal(lanes.iterations.cpu(),
+                                             base.iterations.cpu()))}
+
+    # (c) the batch fit with and without the mesh
+    t0 = time.perf_counter()
+    bbase = fit_fleet(bfleet, p0=bp0, **MESH_BATCH_FIT)
+    torch.cuda.synchronize()
+    bbase_wall = time.perf_counter() - t0
+    bd, bw = batch.deviance.cpu().numpy(), bbase.deviance.cpu().numpy()
+    require(np.isfinite(bd).all() and np.isfinite(batch.params.cpu().numpy())
+            .all(), "the sharded batch fit ended non-finite")
+    brel = np.abs(bd - bw) / np.abs(bw)
+    require(within(brel.tolist(), GAP_BAR),
+            f"sharded batch fit vs unsharded: {brel}")
+    out["batch_fit"] = {
+        "models": MESH_BATCH, "t_steps": MESH_BATCH_T,
+        "settings": MESH_BATCH_FIT, "wall_s": batch_wall,
+        "unsharded_wall_s": bbase_wall, "deviance_rel_max": float(brel.max()),
+        "params_rel_max": float(np.max(
+            np.abs(batch.params.cpu().numpy() - bbase.params.cpu().numpy())
+            / np.abs(bbase.params.cpu().numpy()))),
+        "bitwise": bool(np.array_equal(bd, bw))}
+
+    # (d) the sharded arena against the unsharded one, bit for bit
+    t0 = time.perf_counter()
+    one = _mesh_arena_run(states, rounds, 0, arena_kw)
+    one_wall = time.perf_counter() - t0
+    same = (sharded_arena["acks"] == one["acks"]
+            and np.array_equal(sharded_arena["mean"], one["mean"],
+                               equal_nan=True)
+            and np.array_equal(sharded_arena["cov"], one["cov"],
+                               equal_nan=True)
+            and sharded_arena["version"] == one["version"]
+            and sharded_arena["t_seen"] == one["t_seen"]
+            and all(np.array_equal(a.means, b.means)
+                    and np.array_equal(a.variances, b.variances)
+                    and a.version == b.version
+                    for a, b in zip(sharded_arena["forecasts"],
+                                    one["forecasts"])))
+    require(same, "the sharded arena differs from the unsharded one")
+    require(sharded_arena["touched"] == MESH_DEVICES,
+            f"the models touched {sharded_arena['touched']} shards")
+    out["arena"] = {"models": len(states), "rounds": MESH_ARENA_ROUNDS,
+                    "shards": sharded_arena["shards"],
+                    "shards_touched": sharded_arena["touched"],
+                    "bitwise": same, "wall_s": arena_wall,
+                    "unsharded_wall_s": one_wall}
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return counts
 
 
 PK_SERVE_MODELS = 4  # flagship models the sqrt_parallel registry serves
@@ -7466,6 +8070,12 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/sqrt_pkalman_smoother.cu",
         "replaces": "metran_tpu/ops/pkalman.py:704",
     },
+    **{f"{base}_{mode}": {
+        "source": f"metran_tpu_torch/kernels/csrc/{src}.cu",
+        "replaces": f"metran_tpu/ops/pkalman.py:{line}"}
+       for base, src in (("parallel_filter", "pkalman_filter"),
+                         ("parallel_smooth", "pkalman_smoother"))
+       for mode, line in (("total", 784), ("carry", 790), ("prefix", 804))},
 }
 
 
@@ -7487,29 +8097,30 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_device()
-    phase_build()
-    checks, times = phase_kernels()
+    smi = timed(phase_device)
+    timed(phase_build)
+    checks, times = timed(phase_kernels)
     for phase in (phase_lanes_kernels, phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
                   phase_robust_kernels, phase_steady_kernels,
                   phase_arena_kernels, phase_readpath_kernels,
-                  phase_pkalman_kernels):
-        more_checks, more_times = phase()
+                  phase_pkalman_kernels, phase_sharded_scan_kernels):
+        more_checks, more_times = timed(phase)
         checks += more_checks
         times.update(more_times)
-    phase_sqrt_precision()
+    timed(phase_sqrt_precision)
     paths, medians = {}, {}
     for engine, path in (("joint", "serve"), ("sqrt", "serve_sqrt")):
-        paths[path], medians[engine] = phase_main_path(engine)
+        paths[path], medians[engine] = timed(phase_main_path, engine)
     emit({"phase": "serve_engines", "dispatch_medians": medians})
     gated = {}
     for engine in ("joint", "sequential", "sqrt"):
-        paths[f"gated_{engine}"], gated[engine] = phase_gated_serving(engine)
+        paths[f"gated_{engine}"], gated[engine] = timed(
+            phase_gated_serving, engine)
     for policy in ("huber", "inflate"):
-        paths[f"gated_joint_{policy}"], gated[f"joint_{policy}"] = (
-            phase_gated_serving("joint", policy, rounds=6, sync=False))
+        paths[f"gated_joint_{policy}"], gated[f"joint_{policy}"] = timed(
+            phase_gated_serving, "joint", policy, rounds=6, sync=False)
     emit({"phase": "gated_engines", "timings": gated})
     robust = {}
     for engine, likelihood, kw in (
@@ -7518,28 +8129,29 @@ def main() -> int:
             ("joint", "huber_t", dict(rounds=6)),
             ("sqrt", "quantized", dict(rounds=6))):
         key = f"{engine}_{likelihood}"
-        paths[f"robust_{key}"], robust[key] = phase_robust_serving(
-            engine, likelihood, **kw)
+        paths[f"robust_{key}"], robust[key] = timed(
+            phase_robust_serving, engine, likelihood, **kw)
     emit({"phase": "robust_engines", "timings": robust,
           "gated_timings": gated})
-    paths["steady_serving"], steady = phase_steady_serving()
-    paths["fixed_lag"] = phase_fixed_lag()
+    paths["steady_serving"], steady = timed(phase_steady_serving)
+    paths["fixed_lag"] = timed(phase_fixed_lag)
     emit({"phase": "steady_engines", "dispatch_ms": steady})
-    paths["arena_serving"], _ = phase_arena_serving()
-    paths["readpath"] = phase_readpath()
+    paths["arena_serving"], _ = timed(phase_arena_serving)
+    paths["readpath"] = timed(phase_readpath)
     # worker processes for the CPU f64 recomputes of phases 5 and 7 (the
     # fleet stderr's run through phases 6 and 7, checked last)
     with ProcessPoolExecutor(
             max_workers=4,
             mp_context=multiprocessing.get_context("spawn")) as pool:
-        fit = phase_fit_path(pool)
+        fit = timed(phase_fit_path, pool)
         paths["fit"] = fit["counts"]
-        paths["batch_fit"] = phase_batch_fit(pool, fit)
-        paths["products"] = phase_products_path(fit)
-        paths["metran"], mt64, out64 = phase_metran_path(pool)
-        paths["parallel"] = phase_parallel_path(pool, mt64, out64)
-        check_stderr(fit)
-    paths["c2_defaults"] = phase_c2_defaults(mt64)
+        paths["mesh"] = timed(phase_mesh_path, fit)
+        paths["batch_fit"] = timed(phase_batch_fit, pool, fit)
+        paths["products"] = timed(phase_products_path, fit)
+        paths["metran"], mt64, out64 = timed(phase_metran_path, pool)
+        paths["parallel"] = timed(phase_parallel_path, pool, mt64, out64)
+        timed(check_stderr, fit)
+    paths["c2_defaults"] = timed(phase_c2_defaults, mt64)
 
     summary = []
     for name, meta in KERNELS.items():

@@ -259,6 +259,26 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def mesh_devices(device=None) -> list:
+    """The devices a mesh draws from (the port's ``jax.devices()``):
+    every CUDA card for a CUDA ``device`` (default: the card, raising
+    without one), ``[cpu]`` for the CPU.  Each entry is repeated
+    ``METRAN_TPU_VIRTUAL_DEVICES`` times (default 1), the counterpart of
+    XLA's host device count: a virtual mesh whose devices are one device,
+    as the JAX package tests its mesh on 8 virtual CPU devices."""
+    device = default_device() if device is None else torch.device(device)
+    if device.type == "cuda":
+        found = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+    else:
+        found = [torch.device(device.type)]
+    virtual = _env("METRAN_TPU_VIRTUAL_DEVICES", int, 1)
+    if virtual < 1:
+        raise ValueError(
+            f"METRAN_TPU_VIRTUAL_DEVICES must be >= 1, got {virtual}")
+    return [d for d in found for _ in range(virtual)]
+
+
 def default_dtype(device) -> torch.dtype:
     """The working precision of the single-model API on ``device`` (the
     JAX package's rule): float64 on the CPU (reference parity), float32

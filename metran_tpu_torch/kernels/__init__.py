@@ -36,7 +36,9 @@
   forecast (imported as ``metran_tpu_torch.kernels.arena``: its plain
   versions use the ops' detector statistics and convergence test);
 - :mod:`.pkalman` — K19-K22, the associative-scan (parallel-in-time)
-  filter and smoother in covariance and in square-root form;
+  filter and smoother in covariance and in square-root form, and K19/
+  K20's ``total``, ``carry`` and ``prefix`` modes for the time axis
+  sharded over a device mesh;
 - :mod:`.build` — the ``nvcc`` build, the ``ctypes`` binding and the
   launch counters.
 
@@ -48,7 +50,9 @@ Each wrapper (``joint_filter_append``, ``joint_filter_store``,
 ``gated_filter_append``, ``robust_filter_append``, ``detect_scan``,
 ``steady_filter``, ``dare_gains``, ``arena_update``,
 ``arena_steady_update``, ``arena_forecast``, ``parallel_filter``,
-``parallel_smooth``, ``sqrt_parallel_filter``, ``sqrt_parallel_smooth``)
+``parallel_smooth``, ``sqrt_parallel_filter``, ``sqrt_parallel_smooth``,
+``parallel_filter_total``/``_carry``/``_prefix``,
+``parallel_smooth_total``/``_carry``/``_prefix``)
 launches its kernel (``*_kernel``, which takes CUDA tensors only and
 raises if it cannot build or launch) on CUDA tensors and runs the plain
 version (``*_plain``) on CPU tensors; there is no fallback between

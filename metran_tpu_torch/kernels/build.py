@@ -51,7 +51,10 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
             "steady_filter": 0, "dare": 0, "arena_update": 0,
             "arena_update_sqrt": 0, "arena_steady_update": 0,
             "arena_forecast": 0, "parallel_filter": 0, "parallel_smooth": 0,
-            "sqrt_parallel_filter": 0, "sqrt_parallel_smooth": 0}
+            "sqrt_parallel_filter": 0, "sqrt_parallel_smooth": 0,
+            "parallel_filter_total": 0, "parallel_filter_carry": 0,
+            "parallel_filter_prefix": 0, "parallel_smooth_total": 0,
+            "parallel_smooth_carry": 0, "parallel_smooth_prefix": 0}
 
 
 def count_launch(name: str) -> None:
@@ -244,14 +247,37 @@ _SIGNATURES = {
     "arena_forecast": ("metran_arena_forecast",
                        [_PTR] * 10 + [_INT] * 5 + [_PTR]),
     # phi, q, z, r, y, mask, mean_p, cov_p (or chol_p), mean_f, cov_f,
-    # sigma, detf, scratch, B, T, N, n, chunk, store, stream (K19, K21)
-    **{f"{pre}pkalman_filter": (f"metran_{pre}pkalman_filter",
-                                [_PTR] * 13 + [_INT] * 6 + [_PTR])
-       for pre in ("", "sqrt_")},
+    # sigma, detf, scratch, B, T, N, n, chunk, store, stream (K19, K21);
+    # K19's sharded modes: total (phi, q, z, r, y, mask, tot, total, B,
+    # T, N, n, chunk, origin, stream), carry (totals, pre, B, S, n,
+    # stream) and prefix (phi, q, z, r, y, mask, mean_p, cov_p, mean_f,
+    # cov_f, sigma, detf, tot, pre, in_pre, B, T, N, n, chunk, store,
+    # origin, stream)
+    "pkalman_filter": (
+        ("metran_pkalman_filter", [_PTR] * 13 + [_INT] * 6 + [_PTR]),
+        ("metran_pkalman_filter_total", [_PTR] * 8 + [_INT] * 6 + [_PTR]),
+        ("metran_pkalman_filter_carry", [_PTR] * 2 + [_INT] * 3 + [_PTR]),
+        ("metran_pkalman_filter_prefix",
+         [_PTR] * 15 + [_INT] * 7 + [_PTR]),
+    ),
+    "sqrt_pkalman_filter": ("metran_sqrt_pkalman_filter",
+                            [_PTR] * 13 + [_INT] * 6 + [_PTR]),
     # phi, mean_f, cov_f, mean_p, cov_p, mean_s, cov_s, scratch, B, T, n,
-    # chunk, stream (K20); K22 takes q (the diagonal of Q) after phi
-    "pkalman_smoother": ("metran_pkalman_smoother",
-                         [_PTR] * 8 + [_INT] * 4 + [_PTR]),
+    # chunk, stream (K20); K22 takes q (the diagonal of Q) after phi;
+    # K20's sharded modes: total (phi, mean_f, cov_f, mean_p, cov_p,
+    # halo_m, halo_c, tot, total, B, T, n, chunk, origin, stream), carry
+    # (totals, pre, B, S, n, stream) and prefix (phi, mean_f, cov_f,
+    # mean_p, cov_p, halo_m, halo_c, mean_s, cov_s, tot, pre, in_pre, B,
+    # T, n, chunk, origin, stream)
+    "pkalman_smoother": (
+        ("metran_pkalman_smoother", [_PTR] * 8 + [_INT] * 4 + [_PTR]),
+        ("metran_pkalman_smoother_total",
+         [_PTR] * 9 + [_INT] * 5 + [_PTR]),
+        ("metran_pkalman_smoother_carry",
+         [_PTR] * 2 + [_INT] * 3 + [_PTR]),
+        ("metran_pkalman_smoother_prefix",
+         [_PTR] * 12 + [_INT] * 5 + [_PTR]),
+    ),
     "sqrt_pkalman_smoother": ("metran_sqrt_pkalman_smoother",
                               [_PTR] * 9 + [_INT] * 4 + [_PTR]),
 }

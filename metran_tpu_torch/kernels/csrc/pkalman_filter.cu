@@ -31,6 +31,15 @@
 // sides) and the tails.  With store, every step's (m_p, P_p, m_f, P_f)
 // is written; without, only the final (m_f, P_f) and the terms.
 //
+// The sharded modes (the JAX package's _sharded_associative_scan :737
+// behind sequence_sharded_filter :842, the time axis over a device mesh)
+// run one shard of the series per launch: total (its full element (A, b,
+// C, J, eta)), carry (over the S gathered totals, each shard's incoming
+// (b, C)) and prefix (the shard's outputs from its incoming (b, C)).  A
+// shard after the first has no origin: its step 0 takes Q and phi_e =
+// phi like any step, and its tails predict step 0 from the incoming
+// prefix, the previous shard's last filtered moment.
+//
 // Layouts, batch-major: phi (B, n), q (B, n, n), z (B, N, n), r (B, N),
 // y, mask (B, T, N); outputs (B, T, n), (B, T, n, n), (B, T).  Scratch:
 // per model (chunks - 1) totals (A, b, C, J, eta) and prefixes (b, C).
@@ -382,13 +391,14 @@ struct Form {
   static __device__ void tails(const Shared& s, const Args& a, int bm,
                                int t) {
     const size_t st = (size_t)bm * a.t_steps + t;
-    ::tails(s, t == 0, a.N, a.n, a.store ? a.mean_p + st * a.n : (T*)nullptr,
+    ::tails(s, a.first(t), a.N, a.n,
+            a.store ? a.mean_p + st * a.n : (T*)nullptr,
             a.store ? a.cov_p + st * a.n * a.n : (T*)nullptr, a.sigma + st,
             a.detf + st);
   }
   static __device__ void element(const Shared& s, const Args& a, int,
                                  int t) {
-    ::element(s, t == 0, a.N, a.n);
+    ::element(s, a.first(t), a.N, a.n);
   }
   static __device__ void combine(const Shared& s, const Args& a, bool full) {
     if (full)
@@ -428,6 +438,55 @@ int metran_pkalman_filter_f64(const void* phi, const void* q, const void* z,
   return pk::run_filter<Form<double>>(phi, q, z, r, y, mask, mean_p, cov_p,
       mean_f, cov_f, sigma, detf, scratch, B, t_steps, N, n, L, store, stream);
 }
+
+// the sharded modes.  total: scratch B * chunks * (3 n^2 + 2 n) chunk
+// totals (read again by the shard's prefix launch) and total (B, 3 n^2 +
+// 2 n); origin: these steps start the series
+#define PK_FILTER_TOTAL(T, SUF)                                             \
+  int metran_pkalman_filter_total_##SUF(                                    \
+      const void* phi, const void* q, const void* z, const void* r,         \
+      const void* y, const void* mask, void* tot, void* total, int B,       \
+      int t_steps, int N, int n, int L, int origin, void* stream) {         \
+    const pk::FilterArgs<T> a{(const T*)phi, (const T*)q, (const T*)z,      \
+        (const T*)r, (const T*)y, (const uint8_t*)mask, nullptr, nullptr,   \
+        nullptr, nullptr, nullptr, nullptr, t_steps, N, n, 0, origin};      \
+    return pk::run_total<Form<T>>(a, tot, total, B, L, stream);             \
+  }
+PK_FILTER_TOTAL(float, f32)
+PK_FILTER_TOTAL(double, f64)
+
+// carry: totals (B, S, 3 n^2 + 2 n) in time order, pre (B, S - 1, n^2 +
+// n): the incoming (b, C) of shards 1 .. S - 1
+#define PK_FILTER_CARRY(T, SUF)                                             \
+  int metran_pkalman_filter_carry_##SUF(const void* totals, void* pre,      \
+                                         int B, int S, int n,               \
+                                         void* stream) {                    \
+    const pk::FilterArgs<T> a{nullptr, nullptr, nullptr, nullptr, nullptr,  \
+        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,   \
+        0, n, 0, 0};                                                        \
+    return pk::run_carry<Form<T>>(a, totals, pre, B, S, stream);            \
+  }
+PK_FILTER_CARRY(float, f32)
+PK_FILTER_CARRY(double, f64)
+
+// prefix: tot the shard's chunk totals from its total launch, pre
+// scratch B * (chunks - 1) * (n^2 + n), in_pre (B, n^2 + n) the incoming
+// (b, C) (null at the origin); outputs as the unsharded entry's
+#define PK_FILTER_PREFIX(T, SUF)                                            \
+  int metran_pkalman_filter_prefix_##SUF(                                   \
+      const void* phi, const void* q, const void* z, const void* r,         \
+      const void* y, const void* mask, void* mean_p, void* cov_p,           \
+      void* mean_f, void* cov_f, void* sigma, void* detf, const void* tot,  \
+      void* pre, const void* in_pre, int B, int t_steps, int N, int n,      \
+      int L, int store, int origin, void* stream) {                         \
+    const pk::FilterArgs<T> a{(const T*)phi, (const T*)q, (const T*)z,      \
+        (const T*)r, (const T*)y, (const uint8_t*)mask, (T*)mean_p,         \
+        (T*)cov_p, (T*)mean_f, (T*)cov_f, (T*)sigma, (T*)detf, t_steps, N,  \
+        n, store, origin};                                                  \
+    return pk::run_prefix<Form<T>>(a, tot, pre, in_pre, B, L, stream);      \
+  }
+PK_FILTER_PREFIX(float, f32)
+PK_FILTER_PREFIX(double, f64)
 
 const char* metran_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

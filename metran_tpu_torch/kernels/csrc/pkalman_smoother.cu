@@ -21,6 +21,14 @@
 // suffix, and the down-sweep runs the reduced combine ((g, L) only) and
 // writes the smoothed moments.
 //
+// The sharded modes (the JAX package's _sharded_associative_scan :737 in
+// reverse, behind sequence_sharded_filter :842) run one shard per launch:
+// total (its full element (E, g, L)), carry (over the S gathered totals,
+// the latest shard's first: each shard's incoming suffix (g, L)) and
+// prefix (the shard's smoothed moments from its incoming suffix).  Only
+// the series' last step is cut: a shard's last step reads the next
+// shard's first predicted moment (the halo).
+//
 // Layouts, batch-major: phi (B, n); mean_f, mean_p (B, T, n); cov_f,
 // cov_p (B, T, n, n); outputs mean_s (B, T, n), cov_s (B, T, n, n).
 // Scratch: per model (chunks - 1) totals (E, g, L) and suffixes (g, L).
@@ -58,21 +66,26 @@ __host__ __device__ size_t carve(unsigned char* raw, int n, Smem<T>* s) {
 }
 
 
-// the element of step t (bm: the model)
+// the element of step t (bm: the model); the next step's predicted
+// moment is the halo at the last of these steps, which is cut only when
+// it is the series' last (origin)
 template <typename T>
-__device__ void element(const Smem<T>& s, const T* mean_f, const T* cov_f,
-                        const T* mean_p, const T* cov_p, int bm, int t,
-                        int t_steps, int n) {
-  const int nn = n * n;
-  const bool last = t == t_steps - 1;
-  const size_t st = (size_t)bm * t_steps + t;
+__device__ void element(const Smem<T>& s, const pk::SmootherArgs<T>& g,
+                        int bm, int t) {
+  const int n = g.n, nn = n * n;
+  const bool edge = t == g.t_steps - 1;
+  const bool last = edge && g.origin;
+  const size_t st = (size_t)bm * g.t_steps + t;
+  const T* mpn = edge ? g.halo_m + (size_t)bm * n : g.mean_p + (st + 1) * n;
+  const T* ppn = edge ? g.halo_c + (size_t)bm * nn
+                      : g.cov_p + (st + 1) * nn;
   for (int a = threadIdx.x; a < n; a += kThreads) {
-    s.mf[a] = mean_f[st * n + a];
-    if (!last) s.mpn[a] = mean_p[(st + 1) * n + a];
+    s.mf[a] = g.mean_f[st * n + a];
+    if (!last) s.mpn[a] = mpn[a];
   }
   for (int idx = threadIdx.x; idx < nn; idx += kThreads) {
-    s.Pf[idx] = cov_f[st * nn + idx];
-    if (!last) s.Lc[idx] = s.Ppn[idx] = cov_p[(st + 1) * nn + idx];
+    s.Pf[idx] = g.cov_f[st * nn + idx];
+    if (!last) s.Lc[idx] = s.Ppn[idx] = ppn[idx];
   }
   __syncthreads();
   const bool ok = !last && pk::chol(s.Lc, n, n);
@@ -173,7 +186,7 @@ struct Form {
   static __device__ void tails(const Shared&, const Args&, int, int) {}
   static __device__ void element(const Shared& s, const Args& a, int bm,
                                  int t) {
-    ::element(s, a.mean_f, a.cov_f, a.mean_p, a.cov_p, bm, t, a.t_steps, a.n);
+    ::element(s, a, bm, t);
   }
   static __device__ void combine(const Shared& s, const Args& a, bool full) {
     ::combine(s, a.n, full);
@@ -206,6 +219,55 @@ int metran_pkalman_smoother_f64(const void* phi, const void* mean_f,
   return pk::run_smoother<Form<double>>(phi, nullptr, mean_f, cov_f, mean_p,
       cov_p, mean_s, cov_s, scratch, B, t_steps, n, L, stream);
 }
+
+// the sharded modes.  total: halo_m / halo_c (B, n) / (B, n, n) the next
+// shard's first predicted moment (null with origin: these steps end the
+// series), tot scratch B * chunks * (2 n^2 + n), total (B, 2 n^2 + n)
+#define PK_SMOOTH_TOTAL(T, SUF)                                             \
+  int metran_pkalman_smoother_total_##SUF(                                  \
+      const void* phi, const void* mean_f, const void* cov_f,               \
+      const void* mean_p, const void* cov_p, const void* halo_m,            \
+      const void* halo_c, void* tot, void* total, int B, int t_steps,       \
+      int n, int L, int origin, void* stream) {                             \
+    const pk::SmootherArgs<T> a{(const T*)phi, nullptr, (const T*)mean_f,   \
+        (const T*)cov_f, (const T*)mean_p, (const T*)cov_p, nullptr,        \
+        nullptr, t_steps, n, origin, (const T*)halo_m, (const T*)halo_c};   \
+    return pk::run_total<Form<T>>(a, tot, total, B, L, stream);             \
+  }
+PK_SMOOTH_TOTAL(float, f32)
+PK_SMOOTH_TOTAL(double, f64)
+
+// carry: totals (B, S, 2 n^2 + n) in scan order (the latest shard first),
+// pre (B, S - 1, n^2 + n): the incoming (g, L) of the shards after it
+#define PK_SMOOTH_CARRY(T, SUF)                                             \
+  int metran_pkalman_smoother_carry_##SUF(const void* totals, void* pre,    \
+                                           int B, int S, int n,             \
+                                           void* stream) {                  \
+    const pk::SmootherArgs<T> a{nullptr, nullptr, nullptr, nullptr,         \
+        nullptr, nullptr, nullptr, nullptr, 0, n, 0, nullptr, nullptr};     \
+    return pk::run_carry<Form<T>>(a, totals, pre, B, S, stream);            \
+  }
+PK_SMOOTH_CARRY(float, f32)
+PK_SMOOTH_CARRY(double, f64)
+
+// prefix: tot the shard's chunk totals from its total launch, pre
+// scratch B * (chunks - 1) * (n^2 + n), in_pre (B, n^2 + n) the incoming
+// suffix (null with origin)
+#define PK_SMOOTH_PREFIX(T, SUF)                                            \
+  int metran_pkalman_smoother_prefix_##SUF(                                 \
+      const void* phi, const void* mean_f, const void* cov_f,               \
+      const void* mean_p, const void* cov_p, const void* halo_m,            \
+      const void* halo_c, void* mean_s, void* cov_s, const void* tot,       \
+      void* pre, const void* in_pre, int B, int t_steps, int n, int L,      \
+      int origin, void* stream) {                                           \
+    const pk::SmootherArgs<T> a{(const T*)phi, nullptr, (const T*)mean_f,   \
+        (const T*)cov_f, (const T*)mean_p, (const T*)cov_p, (T*)mean_s,     \
+        (T*)cov_s, t_steps, n, origin, (const T*)halo_m,                    \
+        (const T*)halo_c};                                                  \
+    return pk::run_prefix<Form<T>>(a, tot, pre, in_pre, B, L, stream);      \
+  }
+PK_SMOOTH_PREFIX(float, f32)
+PK_SMOOTH_PREFIX(double, f64)
 
 const char* metran_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

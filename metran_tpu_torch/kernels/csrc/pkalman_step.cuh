@@ -16,6 +16,26 @@
 //   down-sweep  each chunk folds its elements again from its prefix and
 //               writes the per-step outputs.
 //
+// The time axis sharded over a device mesh (the JAX package's
+// _sharded_associative_scan, metran_tpu/ops/pkalman.py) runs the same
+// pieces as three modes, one shard of the series per launch:
+//
+//   total       the up-sweep over every chunk, the last included, then one
+//               block per model folds the chunk totals into the shard's
+//               full total (fold);
+//   carry       the carry over the S gathered shard totals: each shard's
+//               exclusive prefix (the chunk carry run once at length S);
+//   prefix      the carry over the shard's chunk totals (left in scratch
+//               by its total launch) from the shard's incoming prefix, and
+//               the down-sweep.
+//
+// A shard that does not hold the series' first step (a reverse scan: its
+// last) has no origin: its first step is an ordinary step, its first
+// chunk starts from the incoming prefix, and a smoother's last step reads
+// the next shard's first predicted moment (the halo).  Only a carry that
+// starts at the origin shard's total may run the reduced combine, so a
+// shard's total is a full element.
+//
 // A prefix that starts at the first step (a reverse scan: that ends at
 // the last step) is a filtered (smoothed) distribution: its part of the
 // combine that the outputs read does not depend on the prefix's other
@@ -295,22 +315,28 @@ constexpr int kMoment0 = 1, kMoment1 = 3;
 
 // the filters' arguments; cov_p / cov_f hold factors in the square-root
 // form, q its diagonal
+// (origin: step 0 of these steps is the series' first)
 template <typename T>
 struct FilterArgs {
   const T *phi, *q, *z, *r, *y;
   const uint8_t* mask;
   T *mean_p, *cov_p, *mean_f, *cov_f, *sigma, *detf;
-  int t_steps, N, n, store;
+  int t_steps, N, n, store, origin;
+  // step t is the series' first: the P1- prior and phi_e = 0
+  __host__ __device__ bool first(int t) const { return origin && t == 0; }
 };
 
 // the smoothers' arguments: the filter's stored moments (factors in the
 // square-root form; q the diagonal of Q there, unused by the covariance
-// form) and the smoothed outputs
+// form) and the smoothed outputs; without origin (the last of these
+// steps is not the series' last), halo_m / halo_c (B, n) / (B, n, n) hold
+// the predicted moment of the step after the last
 template <typename T>
 struct SmootherArgs {
   const T *phi, *q, *mean_f, *cov_f, *mean_p, *cov_p;
   T *mean_s, *cov_s;
-  int t_steps, n;
+  int t_steps, n, origin;
+  const T *halo_m, *halo_c;
 };
 
 // the entries of parts [lo, hi)
@@ -387,20 +413,22 @@ __device__ void smoother_write(const SmootherArgs<T>& a, int bm, int t,
     a.cov_s[at * nn + idx] = c[idx];
 }
 
-// the up-sweep: block (bm, k) folds chunk k < c - 1 into its total
+// the up-sweep: block (bm, k) folds chunk k < nt into its total (the
+// last chunk may be short); totals (B, nt, parts)
 template <class F>
 __global__ void __launch_bounds__(kThreads)
 up_sweep(const typename F::Args a, typename F::Scalar* __restrict__ tot,
-         int L, int c) {
+         int L, int nt) {
   using T = typename F::Scalar;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typename F::Shared s;
   F::carve(smem_raw, a, &s);
   Part<T> pt[kMaxParts];
   const int np = F::parts(s, a.n, pt);
-  const int bm = blockIdx.x / (c - 1), k = blockIdx.x % (c - 1);
+  const int bm = blockIdx.x / nt, k = blockIdx.x % nt;
   F::load(s, a, bm);
-  for (int p = k * L; p < (k + 1) * L; ++p) {
+  const int p1 = min(a.t_steps, (k + 1) * L);
+  for (int p = k * L; p < p1; ++p) {
     const int t = F::kReverse ? a.t_steps - 1 - p : p;
     F::row(s, a, bm, t);
     F::element(s, a, bm, t);
@@ -409,14 +437,41 @@ up_sweep(const typename F::Args a, typename F::Scalar* __restrict__ tot,
     else
       F::combine(s, a, true);
   }
-  pack(tot + ((size_t)bm * (c - 1) + k) * span(pt, 0, np), pt, 0, np);
+  pack(tot + ((size_t)bm * nt + k) * span(pt, 0, np), pt, 0, np);
 }
 
-// the carry: block bm folds the totals into the moment part of every
-// chunk's exclusive prefix
+// the total mode's fold: block bm folds its nt chunk totals, in scan
+// order, into one full element (B, parts)
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+fold(const typename F::Args a, const typename F::Scalar* __restrict__ tot,
+     typename F::Scalar* __restrict__ out, int nt) {
+  using T = typename F::Scalar;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  typename F::Shared s;
+  F::carve(smem_raw, a, &s);
+  Part<T> pt[kMaxParts];
+  const int np = F::parts(s, a.n, pt);
+  const size_t tot_n = span(pt, 0, np);
+  const int bm = blockIdx.x;
+  for (int k = 0; k < nt; ++k) {
+    unpack(pt, 0, np, tot + ((size_t)bm * nt + k) * tot_n, false);
+    if (k == 0)
+      seed(pt, 0, np);
+    else
+      F::combine(s, a, true);
+  }
+  pack(out + (size_t)bm * tot_n, pt, 0, np);
+}
+
+// the carry: block bm folds totals 0 .. c - 2 (tstride apart per model)
+// into the moment part of every chunk's exclusive prefix, from the
+// incoming prefix in_pre (B, moment) when given; prefixes (B, c - 1,
+// moment) of chunks 1 .. c - 1
 template <class F>
 __global__ void __launch_bounds__(kThreads)
 carry(const typename F::Args a, const typename F::Scalar* __restrict__ tot,
+      int tstride, const typename F::Scalar* __restrict__ in_pre,
       typename F::Scalar* __restrict__ pre, int c) {
   using T = typename F::Scalar;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -426,9 +481,11 @@ carry(const typename F::Args a, const typename F::Scalar* __restrict__ tot,
   const int np = F::parts(s, a.n, pt);
   const size_t tot_n = span(pt, 0, np), pre_n = span(pt, kMoment0, kMoment1);
   const int bm = blockIdx.x;
+  if (in_pre)
+    unpack(pt, kMoment0, kMoment1, in_pre + (size_t)bm * pre_n, true);
   for (int k = 1; k < c; ++k) {
-    unpack(pt, 0, np, tot + ((size_t)bm * (c - 1) + k - 1) * tot_n, false);
-    if (k == 1)
+    unpack(pt, 0, np, tot + ((size_t)bm * tstride + k - 1) * tot_n, false);
+    if (k == 1 && !in_pre)
       seed(pt, kMoment0, kMoment1);
     else
       F::combine(s, a, false);
@@ -437,37 +494,66 @@ carry(const typename F::Args a, const typename F::Scalar* __restrict__ tot,
   }
 }
 
-// the down-sweep: block (bm, k) folds chunk k from its prefix and writes
-// every step's outputs
+// the down-sweep: block (bm, k) folds chunk k from its prefix (chunk 0:
+// the incoming prefix, when given) and writes every step's outputs
 template <class F>
 __global__ void __launch_bounds__(kThreads)
 down_sweep(const typename F::Args a,
-           const typename F::Scalar* __restrict__ pre, int L, int c) {
+           const typename F::Scalar* __restrict__ pre,
+           const typename F::Scalar* __restrict__ in_pre, int L, int c) {
   using T = typename F::Scalar;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   typename F::Shared s;
   F::carve(smem_raw, a, &s);
   Part<T> pt[kMaxParts];
   F::parts(s, a.n, pt);
+  const size_t pre_n = span(pt, kMoment0, kMoment1);
   const int bm = blockIdx.x / c, k = blockIdx.x % c;
   F::load(s, a, bm);
   if (k > 0)
     unpack(pt, kMoment0, kMoment1,
-           pre + ((size_t)bm * (c - 1) + k - 1) *
-                     span(pt, kMoment0, kMoment1),
-           true);
+           pre + ((size_t)bm * (c - 1) + k - 1) * pre_n, true);
+  else if (in_pre)
+    unpack(pt, kMoment0, kMoment1, in_pre + (size_t)bm * pre_n, true);
   const int p1 = min(a.t_steps, (k + 1) * L);
   for (int p = k * L; p < p1; ++p) {
     const int t = F::kReverse ? a.t_steps - 1 - p : p;
     F::row(s, a, bm, t);
     F::tails(s, a, bm, t);
     F::element(s, a, bm, t);
-    if (p == 0)
+    if (p == 0 && !in_pre)
       seed(pt, kMoment0, kMoment1);
     else
       F::combine(s, a, false);
     F::write(s, a, bm, t);
   }
+}
+
+// the entries of a full element and of its moment part
+template <class F>
+void part_sizes(const typename F::Args& a, size_t* tot_n, size_t* pre_n) {
+  using T = typename F::Scalar;
+  typename F::Shared s;
+  F::carve(nullptr, a, &s);
+  Part<T> pt[kMaxParts];
+  const int np = F::parts(s, a.n, pt);
+  *tot_n = span(pt, 0, np);
+  *pre_n = span(pt, kMoment0, kMoment1);
+}
+
+// the dynamic shared memory of every launch of F, above the default
+// 48 KB where needed; returns the bytes through smem
+template <class F>
+cudaError_t prepare(const typename F::Args& a, size_t* smem) {
+  typename F::Shared s;
+  *smem = F::carve(nullptr, a, &s);
+  cudaError_t e;
+  if ((e = allow_smem((const void*)up_sweep<F>, *smem)) != cudaSuccess ||
+      (e = allow_smem((const void*)fold<F>, *smem)) != cudaSuccess ||
+      (e = allow_smem((const void*)carry<F>, *smem)) != cudaSuccess ||
+      (e = allow_smem((const void*)down_sweep<F>, *smem)) != cudaSuccess)
+    return e;
+  return cudaSuccess;
 }
 
 // the three launches on the caller's stream over B models in chunks of L
@@ -476,25 +562,73 @@ template <class F>
 int run(const typename F::Args& a, void* scratch, int B, int L,
         void* stream) {
   using T = typename F::Scalar;
-  typename F::Shared s;
-  const size_t smem = F::carve(nullptr, a, &s);
-  Part<T> pt[kMaxParts];
-  const int np = F::parts(s, a.n, pt);
-  cudaError_t e;
-  if ((e = allow_smem((const void*)up_sweep<F>, smem)) != cudaSuccess ||
-      (e = allow_smem((const void*)carry<F>, smem)) != cudaSuccess ||
-      (e = allow_smem((const void*)down_sweep<F>, smem)) != cudaSuccess)
-    return (int)e;
+  size_t smem, tot_n, pre_n;
+  cudaError_t e = prepare<F>(a, &smem);
+  if (e != cudaSuccess) return (int)e;
   if (B == 0 || a.t_steps == 0) return 0;
+  part_sizes<F>(a, &tot_n, &pre_n);
   const int c = n_chunks(a.t_steps, L);
   T* tot = (T*)scratch;
-  T* pre = tot + (size_t)B * (c - 1) * span(pt, 0, np);
+  T* pre = tot + (size_t)B * (c - 1) * tot_n;
   cudaStream_t st = (cudaStream_t)stream;
   if (c > 1) {
-    up_sweep<F><<<B * (c - 1), kThreads, smem, st>>>(a, tot, L, c);
-    carry<F><<<B, kThreads, smem, st>>>(a, tot, pre, c);
+    up_sweep<F><<<B * (c - 1), kThreads, smem, st>>>(a, tot, L, c - 1);
+    carry<F><<<B, kThreads, smem, st>>>(a, tot, c - 1, nullptr, pre, c);
   }
-  down_sweep<F><<<B * c, kThreads, smem, st>>>(a, pre, L, c);
+  down_sweep<F><<<B * c, kThreads, smem, st>>>(a, pre, nullptr, L, c);
+  return (int)cudaGetLastError();
+}
+
+// the total mode: the up-sweep of every chunk into tot (B, chunks,
+// parts), then their fold into total (B, parts)
+template <class F>
+int run_total(const typename F::Args& a, void* tot, void* total, int B,
+              int L, void* stream) {
+  using T = typename F::Scalar;
+  size_t smem;
+  cudaError_t e = prepare<F>(a, &smem);
+  if (e != cudaSuccess) return (int)e;
+  if (B == 0 || a.t_steps == 0) return 0;
+  const int c = n_chunks(a.t_steps, L);
+  cudaStream_t st = (cudaStream_t)stream;
+  up_sweep<F><<<B * c, kThreads, smem, st>>>(a, (T*)tot, L, c);
+  fold<F><<<B, kThreads, smem, st>>>(a, (const T*)tot, (T*)total, c);
+  return (int)cudaGetLastError();
+}
+
+// the carry mode: over S totals (B, S, parts) in scan order, the
+// exclusive prefixes (B, S - 1, moment) of shards 1 .. S - 1
+template <class F>
+int run_carry(const typename F::Args& a, const void* totals, void* pre,
+              int B, int S, void* stream) {
+  using T = typename F::Scalar;
+  size_t smem;
+  cudaError_t e = prepare<F>(a, &smem);
+  if (e != cudaSuccess) return (int)e;
+  if (B == 0 || S < 2) return 0;
+  carry<F><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      a, (const T*)totals, S, nullptr, (T*)pre, S);
+  return (int)cudaGetLastError();
+}
+
+// the prefix mode: the carry over the chunk totals tot (B, chunks, parts)
+// of this shard's total launch from in_pre (B, moment; null at the
+// origin) into pre (B, chunks - 1, moment), then the down-sweep
+template <class F>
+int run_prefix(const typename F::Args& a, const void* tot, void* pre,
+               const void* in_pre, int B, int L, void* stream) {
+  using T = typename F::Scalar;
+  size_t smem;
+  cudaError_t e = prepare<F>(a, &smem);
+  if (e != cudaSuccess) return (int)e;
+  if (B == 0 || a.t_steps == 0) return 0;
+  const int c = n_chunks(a.t_steps, L);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (c > 1)
+    carry<F><<<B, kThreads, smem, st>>>(a, (const T*)tot, c,
+                                         (const T*)in_pre, (T*)pre, c);
+  down_sweep<F><<<B * c, kThreads, smem, st>>>(a, (const T*)pre,
+                                               (const T*)in_pre, L, c);
   return (int)cudaGetLastError();
 }
 
@@ -509,7 +643,7 @@ int run_filter(const void* phi, const void* q, const void* z, const void* r,
   const FilterArgs<T> a{(const T*)phi, (const T*)q, (const T*)z,
                         (const T*)r, (const T*)y, (const uint8_t*)mask,
                         (T*)mean_p, (T*)cov_p, (T*)mean_f, (T*)cov_f,
-                        (T*)sigma, (T*)detf, t_steps, N, n, store};
+                        (T*)sigma, (T*)detf, t_steps, N, n, store, 1};
   return run<F>(a, scratch, B, L, stream);
 }
 
@@ -523,7 +657,7 @@ int run_smoother(const void* phi, const void* q, const void* mean_f,
   const SmootherArgs<T> a{(const T*)phi, (const T*)q, (const T*)mean_f,
                           (const T*)cov_f, (const T*)mean_p,
                           (const T*)cov_p, (T*)mean_s, (T*)cov_s, t_steps,
-                          n};
+                          n, 1, nullptr, nullptr};
   return run<F>(a, scratch, B, L, stream);
 }
 

@@ -30,6 +30,22 @@ card holds each kernel against its plain version on the same chunks.
   elements ``(E, g, D)`` with ``L = D D'`` (``_sqrt_smoother_element``,
   ``_sqrt_smoother_combine``).
 
+K19 and K20 also run the time axis sharded over a device mesh (the JAX
+``_sharded_associative_scan`` behind ``sequence_sharded_filter``), one
+shard of the series per launch, in three modes: ``*_total`` folds every
+chunk of the shard, the last included, into the shard's full element and
+leaves the chunk totals for the shard's ``*_prefix`` launch; ``*_carry``
+runs the chunk carry once over the S gathered shard totals (the latest
+shard's first, in the smoother) into each shard's incoming moment;
+``*_prefix`` carries the shard's chunk totals from its incoming moment and
+runs the down-sweep.  A shard without the series' first step (the
+smoother: its last) has no origin: step 0 is an ordinary step, the
+filter's tails predict it from the incoming moment and the smoother's last
+step reads the next shard's first predicted moment (``halo``).  Totals
+and moments travel packed, (B, ..., parts): the filter's ``(A, b, C, J,
+eta)`` and ``(b, C)``, the smoother's ``(E, g, L)`` and ``(g, L)``,
+matrices row-major.
+
 Each dispatches on the device: CUDA tensors launch the kernel (raising
 if it cannot build or launch), CPU tensors run the plain version, the
 JAX algorithm in batched PyTorch ops (``torch.linalg.solve_ex``,
@@ -43,7 +59,9 @@ filter, its diagonal (B, n) for the square-root kernels; ``z`` (B, N, n),
 
 Replaces ``metran_tpu/ops/pkalman.py`` (B8): ``parallel_filter`` :317,
 ``parallel_smoother`` :401, ``sqrt_parallel_filter`` :613 and
-``sqrt_parallel_smoother`` :704, with ``blocked_associative_scan`` :80.
+``sqrt_parallel_smoother`` :704, with ``blocked_associative_scan`` :80;
+the sharded modes ``_sharded_associative_scan`` :737 (``sequence_sharded_
+filter`` :842).
 """
 
 from __future__ import annotations
@@ -155,9 +173,9 @@ def _cuda_only(t, what: str) -> None:
                          f"{t.device}")
 
 
-def _launch(stem: str, name: str, dtype, args, ints, device):
+def _launch(stem: str, name: str, dtype, args, ints, device, entry=None):
     lib = build.load_library(stem)
-    fn = getattr(lib, f"metran_{stem}_"
+    fn = getattr(lib, f"metran_{entry or stem}_"
                       f"{'f64' if dtype == torch.float64 else 'f32'}")
     with torch.cuda.device(device):
         err = fn(*[_ptr(a) for a in args], *ints,
@@ -172,6 +190,93 @@ def _take(el, idx):
     return tuple(x[idx] for x in el)
 
 
+def _fold_chunks(el, full: Callable, chunk: int, count: int):
+    """The totals (B, ``count``, ...) of the first ``count`` chunks of
+    ``chunk`` steps, each folded left to right by ``full`` (a short last
+    chunk over its own steps)."""
+    batch, t_steps = el[0].shape[:2]
+    L = int(chunk)
+    whole = min(count, t_steps // L)
+    parts = []
+    if whole:
+        body = tuple(x[:, :whole * L].reshape(batch, whole, L, *x.shape[2:])
+                     for x in el)
+        tot = _take(body, (slice(None), slice(None), 0))
+        for l in range(1, L):
+            tot = full(tot, _take(body, (slice(None), slice(None), l)))
+        parts.append(tot)
+    if count > whole:
+        rest = tuple(x[:, whole * L:] for x in el)
+        tot = _take(rest, (slice(None), slice(0, 1)))
+        for l in range(1, rest[0].shape[1]):
+            tot = full(tot, _take(rest, (slice(None), slice(l, l + 1))))
+        parts.append(tot)
+    return tuple(torch.cat([p[i] for p in parts], dim=1)
+                 for i in range(len(el)))
+
+
+def _carry(tot, reduced: Callable, c: int, incoming=None):
+    """The reduced parts of chunks 1 .. c - 1's exclusive prefixes, (B,
+    c - 1, ...) each, from the chunk totals ``tot``: chunk k's is
+    ``incoming (x) tot[0] (x) ... (x) tot[k - 1]``, or without
+    ``incoming`` (a scan from the first step) starts at ``tot[0]``'s own
+    reduced parts; ``None`` for one chunk."""
+    if c <= 1:
+        return None
+    if incoming is None:
+        prefixes = [(tot[1][:, 0], tot[2][:, 0])]
+    else:
+        prefixes = [reduced(incoming, _take(tot, (slice(None), 0)))]
+    for k in range(1, c - 1):
+        prefixes.append(reduced(prefixes[-1], _take(tot, (slice(None), k))))
+    return tuple(torch.stack([p[i] for p in prefixes], dim=1)
+                 for i in range(2))
+
+
+def _down_sweep(el, reduced: Callable, chunk: int, pre, incoming=None):
+    """Every step's reduced parts, folded in chunks from each chunk's
+    prefix: ``pre`` for chunks 1 .. c - 1, ``incoming`` for chunk 0 (its
+    first step takes its element's own parts without one)."""
+    batch, t_steps = el[0].shape[:2]
+    c = n_chunks(t_steps, chunk)
+    L = int(chunk)
+    pad = c * L - t_steps
+    if pad:
+        el = tuple(torch.cat([x, x[:, -1:].expand(-1, pad, *x.shape[2:])],
+                             dim=1) for x in el)
+    body = tuple(x.reshape(batch, c, L, *x.shape[2:]) for x in el)
+    first = _take(body, (slice(None), slice(None), 0))
+    # without incoming, chunk 0's prefix is a placeholder its first step
+    # never reads
+    heads = (tuple(torch.zeros_like(first[i][:, :1]) for i in (1, 2))
+             if incoming is None else tuple(x[:, None] for x in incoming))
+    if pre is not None:
+        run = tuple(torch.cat([h, p], dim=1) for h, p in zip(heads, pre))
+    elif incoming is not None:
+        run = heads
+    else:
+        run = tuple(torch.zeros_like(first[i]) for i in (1, 2))
+    outs = []
+    for l in range(L):
+        e = _take(body, (slice(None), slice(None), l))
+        new = reduced(run, e)
+        if l == 0 and incoming is None:
+            new = tuple(torch.cat([e[i][:, :1], new[i - 1][:, 1:]], dim=1)
+                        for i in (1, 2))
+        run = new
+        outs.append(new)
+    return tuple(torch.stack([o[i] for o in outs], dim=2).reshape(
+        batch, c * L, *outs[0][i].shape[2:])[:, :t_steps] for i in range(2))
+
+
+def _fold_all(tot, full: Callable):
+    """One full element: the chunk totals (B, c, ...) folded in order."""
+    acc = _take(tot, (slice(None), 0))
+    for k in range(1, tot[0].shape[1]):
+        acc = full(acc, _take(tot, (slice(None), k)))
+    return acc
+
+
 def chunked_scan(el, full: Callable, reduced: Callable, chunk: int):
     """Every step's ``reduced`` part of the inclusive prefix combine of the
     elements ``el`` (a tuple of (B, T, ...) tensors) over the time axis,
@@ -183,42 +288,40 @@ def chunked_scan(el, full: Callable, reduced: Callable, chunk: int):
     ``reduced(p, e)`` the reduced part of a prefix (parts 1 and 2 of a
     tuple) with a full element.  Returns the two reduced parts,
     (B, T, ...) each."""
-    batch, t_steps = el[0].shape[:2]
-    c = n_chunks(t_steps, chunk)
-    L = int(chunk)
+    c = n_chunks(el[0].shape[1], chunk)
     pre = None
     if c > 1:
-        body = tuple(x[:, :(c - 1) * L].reshape(batch, c - 1, L, *x.shape[2:])
-                     for x in el)
-        tot = _take(body, (slice(None), slice(None), 0))
-        for l in range(1, L):
-            tot = full(tot, _take(body, (slice(None), slice(None), l)))
-        prefixes = [(tot[1][:, 0], tot[2][:, 0])]
-        for k in range(1, c - 1):
-            prefixes.append(reduced(prefixes[-1], _take(tot, (slice(None), k))))
-        pre = tuple(torch.stack([p[i] for p in prefixes], dim=1)
-                    for i in range(2))
-    pad = c * L - t_steps
-    if pad:
-        el = tuple(torch.cat([x, x[:, -1:].expand(-1, pad, *x.shape[2:])],
-                             dim=1) for x in el)
-    body = tuple(x.reshape(batch, c, L, *x.shape[2:]) for x in el)
-    first = _take(body, (slice(None), slice(None), 0))
-    # chunk 0's prefix is a placeholder its first step never reads
-    run = tuple(torch.cat([torch.zeros_like(first[i][:, :1]), pre[i - 1]],
-                          dim=1) if pre is not None
-                else torch.zeros_like(first[i]) for i in (1, 2))
-    outs = []
-    for l in range(L):
-        e = _take(body, (slice(None), slice(None), l))
-        new = reduced(run, e)
-        if l == 0:
-            new = tuple(torch.cat([e[i][:, :1], new[i - 1][:, 1:]], dim=1)
-                        for i in (1, 2))
-        run = new
-        outs.append(new)
-    return tuple(torch.stack([o[i] for o in outs], dim=2).reshape(
-        batch, c * L, *outs[0][i].shape[2:])[:, :t_steps] for i in range(2))
+        pre = _carry(_fold_chunks(el, full, chunk, c - 1), reduced, c)
+    return _down_sweep(el, reduced, chunk, pre)
+
+
+# packed totals and moments of the sharded modes: the parts' shapes, in
+# the order the kernels pack them (row-major)
+def filter_parts(n: int):
+    """``(A, b, C, J, eta)``."""
+    return ((n, n), (n,), (n, n), (n, n), (n,))
+
+
+def smoother_parts(n: int):
+    """``(E, g, L)``."""
+    return ((n, n), (n,), (n, n))
+
+
+def _numel(shapes) -> int:
+    return sum(math.prod(sh) for sh in shapes)
+
+
+def pack_parts(parts, shapes) -> torch.Tensor:
+    """``parts`` (each (..., *shape)) packed along a last axis."""
+    return torch.cat([p.reshape(*p.shape[:p.dim() - len(sh)], -1)
+                      for p, sh in zip(parts, shapes)], dim=-1)
+
+
+def unpack_parts(flat: torch.Tensor, shapes):
+    """The inverse of :func:`pack_parts`."""
+    sizes = [math.prod(sh) for sh in shapes]
+    return tuple(x.reshape(*flat.shape[:-1], *sh) for x, sh in
+                 zip(torch.split(flat, sizes, dim=-1), shapes))
 
 
 def _flip(el):
@@ -250,19 +353,20 @@ def _chol(s):
     return chol, ok
 
 
-def _first_flags(t_steps, like):
-    return (torch.arange(t_steps, device=like.device) == 0)[None, :]
+def _first_flags(t_steps, like, origin: bool = True):
+    """Step 0 is the series' first only in the shard that holds it."""
+    return (torch.arange(t_steps, device=like.device) == 0)[None, :] & origin
 
 
 # ----------------------------------------------------------------------
 # K19: the covariance filter
 # ----------------------------------------------------------------------
-def _filter_elements(phi, q, z_t, r_t, y):
+def _filter_elements(phi, q, z_t, r_t, y, origin: bool = True):
     """The JAX ``_filter_element`` of every step, (B, T, ...) each."""
     t_steps = y.shape[1]
     n = phi.shape[-1]
     eye = _eye(n, phi)
-    first = _first_flags(t_steps, phi)
+    first = _first_flags(t_steps, phi, origin)
     p1p = torch.diag_embed(phi * phi) + q
     cov_pred = torch.where(first[..., None, None], p1p[:, None], q[:, None])
     phi_eff = torch.where(first[..., None], torch.zeros_like(phi[:, None]),
@@ -318,14 +422,19 @@ def _filter_reduced(p, e2):
             a2 @ m[..., 1:] @ a2.transpose(-1, -2) + c2)
 
 
-def _filter_tails(phi, q, z_t, r_t, y, mask, mean_f, cov_f):
+def _filter_tails(phi, q, z_t, r_t, y, mask, mean_f, cov_f, incoming=None):
     """Predicted moments and likelihood terms (the JAX
-    ``_filter_from_scan`` after its scan)."""
-    batch, t_steps, n = mean_f.shape
-    p1p = torch.diag_embed(phi * phi) + q
-    mean_p = torch.cat([torch.zeros_like(mean_f[:, :1]),
-                        mean_f[:, :-1] * phi[:, None]], dim=1)
-    cov_p = torch.cat([p1p[:, None],
+    ``_filter_from_scan`` after its scan); step 0 predicts from the prior,
+    or in a shard after the first from ``incoming`` (b, C), the previous
+    shard's last filtered moment."""
+    if incoming is None:
+        mp0 = torch.zeros_like(mean_f[:, :1])
+        cp0 = (torch.diag_embed(phi * phi) + q)[:, None]
+    else:
+        mp0 = (incoming[0] * phi)[:, None]
+        cp0 = (phi[:, :, None] * incoming[1] * phi[:, None, :] + q)[:, None]
+    mean_p = torch.cat([mp0, mean_f[:, :-1] * phi[:, None]], dim=1)
+    cov_p = torch.cat([cp0,
                        phi[:, None, :, None] * cov_f[:, :-1]
                        * phi[:, None, None, :] + q[:, None]], dim=1)
     v = torch.where(mask, y - _mv(z_t, mean_p), torch.zeros_like(y))
@@ -404,6 +513,182 @@ def parallel_filter_kernel(phi, q, z, r, y, mask, chunk: int,
 
 
 # ----------------------------------------------------------------------
+# K19's sharded modes: one shard of the time axis per launch
+# ----------------------------------------------------------------------
+def _check_totals(tot, batch, count, size, what):
+    if tuple(tot.shape) != (batch, count, size):
+        raise ValueError(f"{what} must be {(batch, count, size)}, got "
+                         f"{tuple(tot.shape)}")
+
+
+def _check_moment(x, batch, n, what):
+    if x is not None and tuple(x.shape) != (batch, n * n + n):
+        raise ValueError(f"{what} must be {(batch, n * n + n)}, got "
+                         f"{tuple(x.shape)}")
+
+
+def _filter_shard(phi, q, z, r, y, mask, origin):
+    """``(elements, (z_t, r_t, y))`` of a shard's steps."""
+    y = torch.where(mask, y, torch.zeros_like(y))
+    z_t, r_t = _masked_obs(z, r, mask)
+    return _filter_elements(phi, q, z_t, r_t, y, origin), (z_t, r_t, y)
+
+
+def parallel_filter_total(phi, q, z, r, y, mask, chunk: int,
+                          origin: bool = True):
+    """K19 ``total``: one shard's steps folded into its full element.
+    ``origin``: the shard holds the series' first step.  Returns
+    ``(total (B, F), chunk_totals (B, chunks, F))`` packed as
+    :func:`filter_parts`; ``chunk_totals`` is the shard's
+    :func:`parallel_filter_prefix` input."""
+    _check_filter(phi, q, z, r, y, mask, chunk, sqrt=False)
+    fn = parallel_filter_total_plain if phi.device.type == "cpu" else \
+        parallel_filter_total_kernel
+    return fn(phi, q, z, r, y, mask, chunk, origin)
+
+
+def parallel_filter_total_plain(phi, q, z, r, y, mask, chunk: int,
+                                origin: bool = True):
+    """The same fold in PyTorch ops, chunked as the kernel runs it."""
+    _check_filter(phi, q, z, r, y, mask, chunk, sqrt=False)
+    n = phi.shape[-1]
+    el, _ = _filter_shard(phi, q, z, r, y, mask, origin)
+    tot = _fold_chunks(el, _filter_combine, chunk,
+                       n_chunks(y.shape[1], chunk))
+    shapes = filter_parts(n)
+    return (pack_parts(_fold_all(tot, _filter_combine), shapes),
+            pack_parts(tot, shapes))
+
+
+def parallel_filter_total_kernel(phi, q, z, r, y, mask, chunk: int,
+                                 origin: bool = True):
+    """Launch K19 ``total`` (CUDA tensors only; raises otherwise)."""
+    batch, t_steps, big_n, n = _check_filter(phi, q, z, r, y, mask, chunk,
+                                             sqrt=False)
+    _cuda_only(phi, "parallel filter")
+    new = dict(dtype=phi.dtype, device=phi.device)
+    size = _numel(filter_parts(n))
+    tot = torch.empty((batch, n_chunks(t_steps, chunk), size), **new)
+    total = torch.empty((batch, size), **new)
+    args = [t.contiguous() for t in (phi, q, z, r, y)] + [
+        mask.contiguous().view(torch.uint8)]
+    _launch("pkalman_filter", "parallel_filter_total", phi.dtype,
+            [*args, tot, total],
+            [batch, t_steps, big_n, n, int(chunk), int(bool(origin))],
+            phi.device, entry="pkalman_filter_total")
+    if batch and t_steps:
+        build.count_launch("parallel_filter_total")
+    return total, tot
+
+
+def parallel_filter_carry(totals, n: int):
+    """K19 ``carry``: over the S shard totals ``totals`` (B, S, F) in time
+    order, the incoming (b, C) of shards 1 .. S - 1, packed (B, S - 1,
+    n^2 + n) — the chunk carry run once at length S."""
+    fn = parallel_filter_carry_plain if totals.device.type == "cpu" else \
+        parallel_filter_carry_kernel
+    return fn(totals, n)
+
+
+def parallel_filter_carry_plain(totals, n: int):
+    """The same carry in PyTorch ops."""
+    _check_totals(totals, totals.shape[0], totals.shape[1],
+                  _numel(filter_parts(n)), "totals")
+    shapes = filter_parts(n)
+    pre = _carry(unpack_parts(totals, shapes), _filter_reduced,
+                 totals.shape[1])
+    if pre is None:
+        return totals.new_empty((totals.shape[0], 0, n * n + n))
+    return pack_parts(pre, shapes[1:3])
+
+
+def parallel_filter_carry_kernel(totals, n: int):
+    """Launch K19 ``carry`` (CUDA tensors only; raises otherwise)."""
+    batch, shards = totals.shape[:2]
+    _check_totals(totals, batch, shards, _numel(filter_parts(n)), "totals")
+    if totals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"totals must be float32/float64, got "
+                        f"{totals.dtype}")
+    _cuda_only(totals, "parallel filter")
+    pre = torch.empty((batch, max(shards - 1, 0), n * n + n),
+                      dtype=totals.dtype, device=totals.device)
+    _launch("pkalman_filter", "parallel_filter_carry", totals.dtype,
+            [totals.contiguous(), pre], [batch, shards, n], totals.device,
+            entry="pkalman_filter_carry")
+    if batch and shards > 1:
+        build.count_launch("parallel_filter_carry")
+    return pre
+
+
+def parallel_filter_prefix(phi, q, z, r, y, mask, chunk: int, chunk_totals,
+                           incoming=None, store: bool = True):
+    """K19 ``prefix``: one shard's outputs (those of
+    :func:`parallel_filter`) from its incoming (b, C) ``incoming`` (B,
+    n^2 + n; ``None`` for the shard that holds the series' first step),
+    carried over the ``chunk_totals`` of its :func:`parallel_filter_total`
+    launch."""
+    _check_filter(phi, q, z, r, y, mask, chunk, sqrt=False)
+    fn = parallel_filter_prefix_plain if phi.device.type == "cpu" else \
+        parallel_filter_prefix_kernel
+    return fn(phi, q, z, r, y, mask, chunk, chunk_totals, incoming, store)
+
+
+def parallel_filter_prefix_plain(phi, q, z, r, y, mask, chunk: int,
+                                 chunk_totals, incoming=None,
+                                 store: bool = True):
+    """The same carry and down-sweep in PyTorch ops."""
+    batch, t_steps, _, n = _check_filter(phi, q, z, r, y, mask, chunk,
+                                         sqrt=False)
+    shapes = filter_parts(n)
+    c = n_chunks(t_steps, chunk)
+    _check_totals(chunk_totals, batch, c, _numel(shapes), "chunk_totals")
+    _check_moment(incoming, batch, n, "incoming")
+    inc = None if incoming is None else unpack_parts(incoming, shapes[1:3])
+    el, (z_t, r_t, y0) = _filter_shard(phi, q, z, r, y, mask, inc is None)
+    pre = _carry(unpack_parts(chunk_totals, shapes), _filter_reduced, c,
+                 inc)
+    mean_f, cov_f = _down_sweep(el, _filter_reduced, chunk, pre, inc)
+    mean_p, cov_p, sigma, detf = _filter_tails(phi, q, z_t, r_t, y0, mask,
+                                               mean_f, cov_f, inc)
+    if store:
+        return mean_p, cov_p, mean_f, cov_f, sigma, detf
+    return mean_f[:, -1], cov_f[:, -1], sigma, detf
+
+
+def parallel_filter_prefix_kernel(phi, q, z, r, y, mask, chunk: int,
+                                  chunk_totals, incoming=None,
+                                  store: bool = True):
+    """Launch K19 ``prefix`` (CUDA tensors only; raises otherwise)."""
+    batch, t_steps, big_n, n = _check_filter(phi, q, z, r, y, mask, chunk,
+                                             sqrt=False)
+    _cuda_only(phi, "parallel filter")
+    c = n_chunks(t_steps, chunk)
+    _check_totals(chunk_totals, batch, c, _numel(filter_parts(n)),
+                  "chunk_totals")
+    _check_moment(incoming, batch, n, "incoming")
+    _same(phi.dtype, phi.device, chunk_totals=chunk_totals,
+          **({} if incoming is None else {"incoming": incoming}))
+    new = dict(dtype=phi.dtype, device=phi.device)
+    pre = torch.empty(batch * max(c - 1, 0) * (n * n + n) or 1, **new)
+    outs = _filter_outputs(batch, t_steps, n, store, new)
+    sigma = torch.empty((batch, t_steps), **new)
+    detf = torch.empty((batch, t_steps), **new)
+    args = [t.contiguous() for t in (phi, q, z, r, y)] + [
+        mask.contiguous().view(torch.uint8)]
+    _launch("pkalman_filter", "parallel_filter_prefix", phi.dtype,
+            [*args, *outs, sigma, detf, chunk_totals.contiguous(), pre,
+             None if incoming is None else incoming.contiguous()],
+            [batch, t_steps, big_n, n, int(chunk), int(bool(store)),
+             int(incoming is None)], phi.device,
+            entry="pkalman_filter_prefix")
+    if batch and t_steps:
+        build.count_launch("parallel_filter_prefix")
+    if store:
+        return (*outs, sigma, detf)
+    return outs[2], outs[3], sigma, detf
+
+
+# ----------------------------------------------------------------------
 # K20: the covariance smoother
 # ----------------------------------------------------------------------
 def _next_step(x):
@@ -416,16 +701,25 @@ def _last_flags(t_steps, like):
     return (torch.arange(t_steps, device=like.device) == t_steps - 1)[None, :]
 
 
-def _smoother_elements(phi, mean_f, cov_f, mean_p, cov_p):
-    """The JAX ``_smoother_element`` of every step."""
+def _smoother_elements(phi, mean_f, cov_f, mean_p, cov_p, halo=None):
+    """The JAX ``_smoother_element`` of every step; in a shard before the
+    last, the last step's successor is ``halo`` (the next shard's first
+    predicted (mean, covariance)) and only the series' last step is
+    cut."""
     t_steps, n = mean_f.shape[1], mean_f.shape[2]
-    mp_next, pp_next = _next_step(mean_p), _next_step(cov_p)
+    if halo is None:
+        mp_next, pp_next = _next_step(mean_p), _next_step(cov_p)
+        cut = _last_flags(t_steps, phi)
+    else:
+        mp_next = torch.cat([mean_p[:, 1:], halo[0][:, None]], dim=1)
+        pp_next = torch.cat([cov_p[:, 1:], halo[1][:, None]], dim=1)
+        cut = torch.zeros((1, t_steps), dtype=torch.bool, device=phi.device)
     chol, ok = _chol(pp_next)
     chol = torch.where(ok[..., None, None], chol, _eye(n, chol))
     e = torch.cholesky_solve(phi[:, None, :, None]
                              * cov_f.transpose(-1, -2), chol
                              ).transpose(-1, -2)
-    cut = _last_flags(t_steps, phi) | ~ok
+    cut = cut | ~ok
     cut4, cut3 = cut[..., None, None], cut[..., None]
     e = torch.where(cut4, torch.zeros_like(e), e)
     g = torch.where(cut3, mean_f, mean_f - _mv(e, mp_next))
@@ -489,6 +783,175 @@ def parallel_smooth_kernel(phi, mean_f, cov_f, mean_p, cov_p, chunk: int):
             phi.device)
     if batch and t_steps:
         build.count_launch("parallel_smooth")
+    return mean_s, cov_s
+
+
+# ----------------------------------------------------------------------
+# K20's sharded modes: one shard of the time axis per launch
+# ----------------------------------------------------------------------
+def _check_halo(halo, batch, n):
+    if halo is None:
+        return
+    if (tuple(halo[0].shape) != (batch, n)
+            or tuple(halo[1].shape) != (batch, n, n)):
+        raise ValueError(f"halo must be ((B, n), (B, n, n)) = "
+                         f"(({batch}, {n}), ({batch}, {n}, {n})), got "
+                         f"{tuple(halo[0].shape)}, {tuple(halo[1].shape)}")
+
+
+def parallel_smooth_total(phi, mean_f, cov_f, mean_p, cov_p, chunk: int,
+                          halo=None):
+    """K20 ``total``: one shard's reverse-scan elements folded (from its
+    last step back) into its full element.  ``halo``: the next shard's
+    first predicted ``(mean (B, n), cov (B, n, n))``, ``None`` for the
+    shard that holds the series' last step.  Returns ``(total (B, F),
+    chunk_totals (B, chunks, F))`` packed as :func:`smoother_parts`."""
+    _check_smooth(phi, None, mean_f, cov_f, mean_p, cov_p, chunk)
+    fn = parallel_smooth_total_plain if phi.device.type == "cpu" else \
+        parallel_smooth_total_kernel
+    return fn(phi, mean_f, cov_f, mean_p, cov_p, chunk, halo)
+
+
+def parallel_smooth_total_plain(phi, mean_f, cov_f, mean_p, cov_p,
+                                chunk: int, halo=None):
+    """The same fold in PyTorch ops, chunked as the kernel runs it."""
+    batch, t_steps, n = _check_smooth(phi, None, mean_f, cov_f, mean_p,
+                                      cov_p, chunk)
+    _check_halo(halo, batch, n)
+    el = _flip(_smoother_elements(phi, mean_f, cov_f, mean_p, cov_p, halo))
+    tot = _fold_chunks(el, _smoother_combine, chunk,
+                       n_chunks(t_steps, chunk))
+    shapes = smoother_parts(n)
+    return (pack_parts(_fold_all(tot, _smoother_combine), shapes),
+            pack_parts(tot, shapes))
+
+
+def parallel_smooth_total_kernel(phi, mean_f, cov_f, mean_p, cov_p,
+                                 chunk: int, halo=None):
+    """Launch K20 ``total`` (CUDA tensors only; raises otherwise)."""
+    batch, t_steps, n = _check_smooth(phi, None, mean_f, cov_f, mean_p,
+                                      cov_p, chunk)
+    _check_halo(halo, batch, n)
+    _cuda_only(phi, "parallel smoother")
+    new = dict(dtype=phi.dtype, device=phi.device)
+    size = _numel(smoother_parts(n))
+    tot = torch.empty((batch, n_chunks(t_steps, chunk), size), **new)
+    total = torch.empty((batch, size), **new)
+    hal = [None, None] if halo is None else [h.contiguous() for h in halo]
+    args = [t.contiguous() for t in (phi, mean_f, cov_f, mean_p, cov_p)]
+    _launch("pkalman_smoother", "parallel_smooth_total", phi.dtype,
+            [*args, *hal, tot, total],
+            [batch, t_steps, n, int(chunk), int(halo is None)], phi.device,
+            entry="pkalman_smoother_total")
+    if batch and t_steps:
+        build.count_launch("parallel_smooth_total")
+    return total, tot
+
+
+def parallel_smooth_carry(totals, n: int):
+    """K20 ``carry``: over the S shard totals ``totals`` (B, S, F) in scan
+    order — the latest shard first — the incoming (g, L) of the next S - 1
+    shards in that order, packed (B, S - 1, n^2 + n)."""
+    fn = parallel_smooth_carry_plain if totals.device.type == "cpu" else \
+        parallel_smooth_carry_kernel
+    return fn(totals, n)
+
+
+def parallel_smooth_carry_plain(totals, n: int):
+    """The same carry in PyTorch ops."""
+    _check_totals(totals, totals.shape[0], totals.shape[1],
+                  _numel(smoother_parts(n)), "totals")
+    shapes = smoother_parts(n)
+    pre = _carry(unpack_parts(totals, shapes), _smoother_reduced,
+                 totals.shape[1])
+    if pre is None:
+        return totals.new_empty((totals.shape[0], 0, n * n + n))
+    return pack_parts(pre, shapes[1:3])
+
+
+def parallel_smooth_carry_kernel(totals, n: int):
+    """Launch K20 ``carry`` (CUDA tensors only; raises otherwise)."""
+    batch, shards = totals.shape[:2]
+    _check_totals(totals, batch, shards, _numel(smoother_parts(n)),
+                  "totals")
+    if totals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"totals must be float32/float64, got "
+                        f"{totals.dtype}")
+    _cuda_only(totals, "parallel smoother")
+    pre = torch.empty((batch, max(shards - 1, 0), n * n + n),
+                      dtype=totals.dtype, device=totals.device)
+    _launch("pkalman_smoother", "parallel_smooth_carry", totals.dtype,
+            [totals.contiguous(), pre], [batch, shards, n], totals.device,
+            entry="pkalman_smoother_carry")
+    if batch and shards > 1:
+        build.count_launch("parallel_smooth_carry")
+    return pre
+
+
+def parallel_smooth_prefix(phi, mean_f, cov_f, mean_p, cov_p, chunk: int,
+                           chunk_totals, incoming=None, halo=None):
+    """K20 ``prefix``: one shard's smoothed ``(mean_s, cov_s)`` from its
+    incoming (g, L) ``incoming`` (B, n^2 + n; ``None`` for the shard that
+    holds the series' last step, which takes no ``halo`` either), carried
+    over the ``chunk_totals`` of its :func:`parallel_smooth_total`
+    launch."""
+    _check_smooth(phi, None, mean_f, cov_f, mean_p, cov_p, chunk)
+    if (incoming is None) != (halo is None):
+        raise ValueError("a shard without the series' last step takes both "
+                         "an incoming suffix and a halo; the last one "
+                         "neither")
+    fn = parallel_smooth_prefix_plain if phi.device.type == "cpu" else \
+        parallel_smooth_prefix_kernel
+    return fn(phi, mean_f, cov_f, mean_p, cov_p, chunk, chunk_totals,
+              incoming, halo)
+
+
+def parallel_smooth_prefix_plain(phi, mean_f, cov_f, mean_p, cov_p,
+                                 chunk: int, chunk_totals, incoming=None,
+                                 halo=None):
+    """The same carry and down-sweep in PyTorch ops."""
+    batch, t_steps, n = _check_smooth(phi, None, mean_f, cov_f, mean_p,
+                                      cov_p, chunk)
+    _check_halo(halo, batch, n)
+    shapes = smoother_parts(n)
+    c = n_chunks(t_steps, chunk)
+    _check_totals(chunk_totals, batch, c, _numel(shapes), "chunk_totals")
+    _check_moment(incoming, batch, n, "incoming")
+    inc = None if incoming is None else unpack_parts(incoming, shapes[1:3])
+    el = _flip(_smoother_elements(phi, mean_f, cov_f, mean_p, cov_p, halo))
+    pre = _carry(unpack_parts(chunk_totals, shapes), _smoother_reduced, c,
+                 inc)
+    g, l = _down_sweep(el, _smoother_reduced, chunk, pre, inc)  # noqa: E741
+    return torch.flip(g, dims=[1]), torch.flip(l, dims=[1])
+
+
+def parallel_smooth_prefix_kernel(phi, mean_f, cov_f, mean_p, cov_p,
+                                  chunk: int, chunk_totals, incoming=None,
+                                  halo=None):
+    """Launch K20 ``prefix`` (CUDA tensors only; raises otherwise)."""
+    batch, t_steps, n = _check_smooth(phi, None, mean_f, cov_f, mean_p,
+                                      cov_p, chunk)
+    _check_halo(halo, batch, n)
+    _cuda_only(phi, "parallel smoother")
+    c = n_chunks(t_steps, chunk)
+    _check_totals(chunk_totals, batch, c, _numel(smoother_parts(n)),
+                  "chunk_totals")
+    _check_moment(incoming, batch, n, "incoming")
+    _same(phi.dtype, phi.device, chunk_totals=chunk_totals,
+          **({} if incoming is None else {"incoming": incoming}))
+    new = dict(dtype=phi.dtype, device=phi.device)
+    pre = torch.empty(batch * max(c - 1, 0) * (n * n + n) or 1, **new)
+    mean_s = torch.empty((batch, t_steps, n), **new)
+    cov_s = torch.empty((batch, t_steps, n, n), **new)
+    hal = [None, None] if halo is None else [h.contiguous() for h in halo]
+    args = [t.contiguous() for t in (phi, mean_f, cov_f, mean_p, cov_p)]
+    _launch("pkalman_smoother", "parallel_smooth_prefix", phi.dtype,
+            [*args, *hal, mean_s, cov_s, chunk_totals.contiguous(), pre,
+             None if incoming is None else incoming.contiguous()],
+            [batch, t_steps, n, int(chunk), int(incoming is None)],
+            phi.device, entry="pkalman_smoother_prefix")
+    if batch and t_steps:
+        build.count_launch("parallel_smooth_prefix")
     return mean_s, cov_s
 
 
@@ -741,16 +1204,38 @@ def sqrt_parallel_smooth_kernel(phi, q, mean_f, chol_f, mean_p, chol_p,
 
 __all__ = [
     "auto_chunk",
+    "filter_parts",
+    "pack_parts",
     "parallel_filter",
+    "parallel_filter_carry",
+    "parallel_filter_carry_kernel",
+    "parallel_filter_carry_plain",
     "parallel_filter_kernel",
     "parallel_filter_plain",
+    "parallel_filter_prefix",
+    "parallel_filter_prefix_kernel",
+    "parallel_filter_prefix_plain",
+    "parallel_filter_total",
+    "parallel_filter_total_kernel",
+    "parallel_filter_total_plain",
     "parallel_smooth",
+    "parallel_smooth_carry",
+    "parallel_smooth_carry_kernel",
+    "parallel_smooth_carry_plain",
     "parallel_smooth_kernel",
     "parallel_smooth_plain",
+    "parallel_smooth_prefix",
+    "parallel_smooth_prefix_kernel",
+    "parallel_smooth_prefix_plain",
+    "parallel_smooth_total",
+    "parallel_smooth_total_kernel",
+    "parallel_smooth_total_plain",
+    "smoother_parts",
     "sqrt_parallel_filter",
     "sqrt_parallel_filter_kernel",
     "sqrt_parallel_filter_plain",
     "sqrt_parallel_smooth",
     "sqrt_parallel_smooth_kernel",
     "sqrt_parallel_smooth_plain",
+    "unpack_parts",
 ]

@@ -31,11 +31,16 @@ Memory: the stored moments are O(T n^2) per model (the JAX functions
 materialize them too); the deviances keep only the per-step terms and
 the final moment, and the kernels' scratch is O(chunks n^2) per model.
 
+:func:`sequence_sharded_filter` shards the time axis over a device mesh
+(the JAX ``_sharded_associative_scan``): each shard's steps fold into one
+element on its device (K19/K20 ``total``), the S totals are gathered on
+the mesh's first device and carried into each shard's incoming moment
+(``carry``), and each shard scans its steps from it (``prefix``).
+
 Gradients: as in the JAX package the associative-scan engines
 differentiate by autodiff (``ops.adjoint.resolve_grad_engine``): torch
 autograd through the plain version, on CPU tensors only.  The card
-backward of K19/K21 is not ported (ROADMAP A6), nor is the time axis
-sharded over devices (:func:`sequence_sharded_filter`, ROADMAP A6).
+backward of K19/K21 is not ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -214,12 +219,78 @@ def sqrt_parallel_smoother(ss: StateSpace, filtered: SqrtFilterResult,
 
 def sequence_sharded_filter(ss: StateSpace, y, mask, mesh, axis: str = "seq",
                             block="auto"):
-    """The filter and smoother with the time axis sharded over a device
-    mesh: not ported yet (ROADMAP A6, the mesh half)."""
-    raise NotPortedError(
-        "sequence_sharded_filter is not ported yet (ROADMAP A6: the "
-        "associative scan with the time axis sharded over a device mesh); "
-        "on one card use parallel_filter/parallel_smoother")
+    """Filter + smoother with the time axis sharded over mesh axis
+    ``axis`` (the JAX function's signature and defaults).
+
+    Shard k of the S devices along ``axis`` (index 0 on a 2-D mesh's other
+    axes: each shard is computed once) holds steps ``[k T/S, (k+1) T/S)``
+    and runs its kernels there: the filter's K19 ``total`` on every shard,
+    K19 ``carry`` over the gathered totals on the first device, K19
+    ``prefix`` on every shard from its incoming moment; then the smoother
+    the same way in reverse (K20), each shard's last step reading the next
+    shard's first predicted moment.  Every shard's launches of a stage are
+    queued before anything crosses devices, and the only cross-device
+    traffic is one element per shard (and the one-step halo), so shards on
+    distinct cards run side by side; on a virtual mesh the copies are
+    no-ops.  Values equal :func:`parallel_filter`/
+    :func:`parallel_smoother`'s up to reassociation rounding.
+
+    Returns ``(FilterResult, SmootherResult)``, each leaf gathered in time
+    order on the mesh's first device; one model ((T, ...)) or a batch.
+    Requires T divisible by the mesh axis size — pad with all-masked
+    timesteps (the filter treats them as ordinary missing rows).
+    ``block`` as in :func:`parallel_filter`; ``"auto"`` resolves against
+    the per-shard length.
+    """
+    devices = mesh.axis_devices(axis)
+    shards = len(devices)
+    first = devices[0]
+    ss_b, y, mask, single = _inputs(ss, y, mask, first)
+    _refuse_card_grad(ss_b, y, "parallel")
+    batch, t_steps = y.shape[:2]
+    if t_steps % shards:
+        raise ValueError(
+            f"time axis ({t_steps}) must be divisible by mesh axis "
+            f"{axis!r} ({shards}); pad with all-masked timesteps")
+    from ..parallel.mesh import batch_sharding
+
+    chunk = _resolve_block(block, t_steps // shards, batch)
+    n = ss_b.phi.shape[-1]
+    model = [tuple(leaf.to(d) for leaf in (ss_b.phi, ss_b.q, ss_b.z,
+                                           ss_b.r)) for d in devices]
+    time_axis = batch_sharding(mesh, 3, axis, dim=1)
+    data = list(zip(time_axis.split(y), time_axis.split(mask)))
+
+    # the filter: totals on every shard, the carry, each shard's scan
+    tot = [kpk.parallel_filter_total(*model[k], *data[k], chunk,
+                                     origin=k == 0) for k in range(shards)]
+    pre = kpk.parallel_filter_carry(
+        torch.stack([t[0].to(first) for t in tot], dim=1), n)
+    filt = [kpk.parallel_filter_prefix(
+        *model[k], *data[k], chunk, tot[k][1],
+        None if k == 0 else pre[:, k - 1].to(devices[k]))
+        for k in range(shards)]
+    del tot
+    # the smoother: the reverse scan, the latest shard first
+    fout = [(f[2], f[3], f[0], f[1]) for f in filt]
+    halo = [None if k == shards - 1 else
+            (filt[k + 1][0][:, 0].to(devices[k]),
+             filt[k + 1][1][:, 0].to(devices[k])) for k in range(shards)]
+    stot = [kpk.parallel_smooth_total(model[k][0], *fout[k], chunk, halo[k])
+            for k in range(shards)]
+    spre = kpk.parallel_smooth_carry(torch.stack(
+        [stot[k][0].to(first) for k in reversed(range(shards))], dim=1), n)
+    smooth = [kpk.parallel_smooth_prefix(
+        model[k][0], *fout[k], chunk, stot[k][1],
+        None if k == shards - 1 else spre[:, shards - 2 - k].to(devices[k]),
+        halo[k]) for k in range(shards)]
+
+    def gather(parts):
+        return tuple(time_axis.gather([p[i] for p in parts])
+                     for i in range(len(parts[0])))
+
+    return (_unbatch(FilterResult(*gather(filt)), single),
+            _unbatch(SmootherResult(*gather(smooth)), single))
 
 
 __all__ = [

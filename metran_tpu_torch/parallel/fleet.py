@@ -37,15 +37,21 @@ Padding semantics (as the JAX package's): padded timesteps and series
 slots are masked everywhere, padded factors have zero loadings, so none
 of them touches the likelihood.
 
-Not ported yet: ``mesh``/``use_shard_map`` (ROADMAP A6),
-``checkpoint`` (ROADMAP A3, ``io.save_fleet_state``),
-``lane_min_batch`` (a TPU tile pad, A6 with the mesh) and
+With a device ``mesh`` (:mod:`.mesh`) the fleet axis splits into
+``mesh.size`` even shards, each fitted by the same fit loop on its own
+device (on the card one host thread and one stream per shard, so shards
+run side by side) and gathered into one :class:`FleetFit`; lanes never
+interact and batch-layout models only share their line-search rounds, so
+each model's fit is its unsharded one up to the rounds' reduction order.
+
+Not ported yet: ``checkpoint`` (ROADMAP A3, ``io.save_fleet_state``) and
 ``fleet_stderr(method="exact")`` (A3, the exact Hessian); each raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from logging import getLogger
 from typing import NamedTuple, Optional, Sequence
 
@@ -604,21 +610,25 @@ def fit_fleet(
         fleets only (a float32 ``engine="sqrt"`` fit on the card needs
         ``grad_engine="adjoint"``).
 
-    ``mesh``/``use_shard_map`` (ROADMAP A6), ``checkpoint`` (A3) and
-    ``lane_min_batch`` (a TPU lane-tile pad, A6) raise
-    ``NotImplementedError``.
+    mesh : a :class:`~metran_tpu_torch.parallel.mesh.Mesh`; the fleet axis
+        splits into ``mesh.size`` shards (``fleet.batch`` must be a
+        multiple), each fitted by the layout's fit loop on its device, the
+        results gathered on the mesh's first device.
+    use_shard_map : accepted for the JAX signature; every mesh fit here is
+        per-shard (the ``shard_map`` form), and the lanes layout ignores it
+        with a warning.
+    lane_min_batch : accepted for the JAX signature and ignored.  The JAX
+        package pads a tiny lanes fleet to a TPU lane tile by replicating
+        models (duplicate lanes converge identically, so no result
+        changes); the port's lanes run at any width and need no pad.
+
+    ``checkpoint`` (ROADMAP A3) raises ``NotImplementedError``.
     """
     _check_layout(layout)
     fleet = _on_device(fleet)
-    if mesh is not None or use_shard_map:
-        raise _not_ported("mesh/use_shard_map",
-                          "ROADMAP A6, parallel/mesh.py")
     if checkpoint is not None:
         raise _not_ported("checkpoint",
                           "ROADMAP A3, io.save_fleet_state/load_fleet_state")
-    if lane_min_batch is not None:
-        raise _not_ported("lane_min_batch",
-                          "a TPU lane-tile pad; ROADMAP A6 with the mesh")
     if layout == "lanes" and engine not in ("sequential", "joint"):
         raise ValueError(f"unknown engine {engine!r}")
     if p0 is None:
@@ -643,17 +653,73 @@ def fit_fleet(
         chunk = maxiter
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if mesh is not None and fleet.batch % mesh.size:
+        raise ValueError(
+            f"mesh size {mesh.size} must divide the fleet batch "
+            f"{fleet.batch}; pad with pack_fleet(..., pad_batch_to="
+            f"pad_to_multiple({fleet.batch}, {mesh.size}))")
     if layout == "batch":
         grad = resolve_grad_engine(grad_engine, engine, dtype=dtype)
-        return _fit_fleet_batch(
-            fleet, p0, warmup, engine, maxiter, tol, chunk,
-            max_linesearch_steps, alpha_max, stall_tol, stall_rtol,
-            remat_seg, max_chunks, grad)
+
+        def fit(part, p):
+            return _fit_fleet_batch(
+                part, p, warmup, engine, maxiter, tol, chunk,
+                max_linesearch_steps, alpha_max, stall_tol, stall_rtol,
+                remat_seg, max_chunks, grad)
+
+        return fit(fleet, p0) if mesh is None else _fit_sharded(
+            mesh, fleet, p0, fit)
+    if use_shard_map:
+        logger.warning("layout='lanes' shards the lanes over the mesh "
+                       "itself; use_shard_map is ignored")
     grad = resolve_grad_engine(grad_engine, "sequential", dtype=dtype)
-    return _fit_fleet_lanes(
-        fleet, p0, warmup, maxiter, tol, chunk, max_linesearch_steps,
-        alpha_max, stall_tol, remat_seg, max_chunks=max_chunks,
-        compact_min=compact_min, stall_rtol=stall_rtol, score=grad)
+
+    def fit(part, p):
+        return _fit_fleet_lanes(
+            part, p, warmup, maxiter, tol, chunk, max_linesearch_steps,
+            alpha_max, stall_tol, remat_seg, max_chunks=max_chunks,
+            compact_min=compact_min, stall_rtol=stall_rtol, score=grad)
+
+    return fit(fleet, p0) if mesh is None else _fit_sharded(mesh, fleet, p0,
+                                                            fit)
+
+
+def _fit_sharded(mesh, fleet: Fleet, p0, fit) -> FleetFit:
+    """``fit(shard, p0_shard)`` on each of the mesh's devices over its
+    even slice of the fleet axis, gathered in order on the mesh's first
+    device.  On the card every shard runs in a host thread of its own on
+    a stream of its own (distinct cards side by side; the shards of a
+    virtual mesh overlap on one card), so a shard's host syncs wait on its
+    own kernels only; on the CPU the shards run in turn."""
+    devices = mesh.flat_devices()
+    per = fleet.batch // len(devices)
+    p0 = as_tensor(p0, fleet.y.device, fleet.y.dtype)
+    parts = []
+    for k, dev in enumerate(devices):
+        rows = slice(k * per, (k + 1) * per)
+        parts.append((Fleet(*(None if a is None else a[rows].to(dev)
+                              for a in fleet)), p0[rows].to(dev)))
+    if devices[0].type != "cuda":
+        results = [fit(*part) for part in parts]
+    else:
+        streams = [torch.cuda.Stream(device=dev) for dev in devices]
+        for st, dev in zip(streams, devices):
+            st.wait_stream(torch.cuda.current_stream(dev))
+
+        def run(k):
+            with torch.cuda.device(devices[k]), torch.cuda.stream(
+                    streams[k]):
+                return fit(*parts[k])
+
+        with ThreadPoolExecutor(max_workers=len(devices)) as pool:
+            results = list(pool.map(run, range(len(devices))))
+        for st, dev in zip(streams, devices):
+            torch.cuda.current_stream(dev).wait_stream(st)
+    first = devices[0]
+    return FleetFit(*(
+        None if results[0][i] is None
+        else torch.cat([r[i].to(first) for r in results], dim=0)
+        for i in range(len(FleetFit._fields))))
 
 
 # ----------------------------------------------------------------------

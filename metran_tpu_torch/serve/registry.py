@@ -37,10 +37,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import resolve_device, serve_defaults
+from ..config import mesh_devices, resolve_device, serve_defaults
 from ..ops.detect import detect_stats
-from ..ops.kalman import NotPortedError
-from ..parallel.mesh import pad_to_multiple
+from ..parallel.mesh import make_mesh, pad_to_multiple
 from ..reliability.policy import StateIntegrityError
 from .engine import (
     SERVE_ENGINES,
@@ -94,9 +93,11 @@ class ModelRegistry:
         spill, not per request.
     arena_rows : per-bucket arena capacity (rows preallocated; one
         scratch row is added internally, as in the JAX arena).
-    arena_mesh : devices to shard each arena across: 0 is one arena on
-        ``device``, and -1 or 1 resolving to one device is the same;
-        more than one device raises ``NotPortedError`` (ROADMAP A6).
+    arena_mesh : devices to shard each arena's rows across: 0 is one
+        arena on ``device``; n > 0 the first n (at most all) of
+        :func:`~metran_tpu_torch.config.mesh_devices` for ``device``, -1
+        every one of them (``METRAN_TPU_VIRTUAL_DEVICES`` repeats a device
+        into a virtual mesh).
     device : where arenas live (default: the CUDA card; without one an
         arena registry raises — pass ``device="cpu"``).
     """
@@ -140,16 +141,14 @@ class ModelRegistry:
         self.arena_rows = int(arena_rows)
         self.arena_mesh = int(arena_mesh)
         self.device = None
+        self._mesh = None
         if self.arena_enabled:
             self.device = resolve_device(device)
-            n_dev = (torch_device_count(self.device)
-                     if self.arena_mesh < 0 else self.arena_mesh)
-            if n_dev > 1:
-                raise NotPortedError(
-                    f"arena_mesh={self.arena_mesh} shards each arena across "
-                    f"{n_dev} devices, which is not ported yet: ROADMAP A6 "
-                    "(parallel/mesh.py); the port serves one arena per "
-                    "bucket on one device (arena_mesh=0)")
+            if self.arena_mesh != 0:
+                devices = mesh_devices(self.device)
+                n = len(devices) if self.arena_mesh < 0 else min(
+                    self.arena_mesh, len(devices))
+                self._mesh = make_mesh(n, devices=devices)
         self._arenas: Dict[ShapeBucket, StateArena] = {}
         self._arena_meta: Dict[str, ModelMeta] = {}
         self._row_map: Dict[str, Tuple[ShapeBucket, int]] = {}
@@ -384,7 +383,8 @@ class ModelRegistry:
             if arena is None:
                 arena = self._arenas[bucket] = StateArena(
                     bucket, self.arena_rows, dtype=dtype,
-                    sqrt=self._sqrt_engine, device=self.device)
+                    sqrt=self._sqrt_engine, mesh=self._mesh,
+                    device=self.device)
             return arena
 
     def _drop_lost_arena(self, bucket: ShapeBucket) -> None:
@@ -840,13 +840,6 @@ class ModelRegistry:
         """Lifetime integrity-event counters (quarantines, load
         failures, last-good fallbacks, stale disk reads)."""
         return dict(self._integrity)
-
-
-def torch_device_count(device) -> int:
-    """Devices of ``device``'s type visible to this process."""
-    if device.type == "cuda":
-        return max(1, torch.cuda.device_count())
-    return 1
 
 
 __all__ = ["ModelRegistry", "QUARANTINE_DIR", "ShapeBucket"]

@@ -1845,11 +1845,15 @@ class MetranService:
         snapshotted under the arena lock with the moments."""
         arena = self.registry.arena_of(bucket)
         fn = self.registry.arena_forecast_fn(bucket, steps)
-        rows_arr = np.asarray(rows, np.int32)
+        # concurrent readers of one model share a flush: K18 takes each
+        # row once (its launchers refuse a repeat), the answers fan out
+        rows_arr, fan = np.unique(np.asarray(rows, np.int32),
+                                  return_inverse=True)
         with arena.lock:
             out = arena.query(fn, rows_arr)
             versions = arena.version_host[rows_arr].copy()
-        return out[0].cpu().numpy(), out[1].cpu().numpy(), versions
+        return (out[0].cpu().numpy()[fan], out[1].cpu().numpy()[fan],
+                versions[fan])
 
     def _run_forecast_arena(self, bucket, steps: int, requests):
         """One batched arena forecast: a row gather and the closed-form

@@ -26,7 +26,7 @@ import torch
 from ..config import default_dtype, resolve_device
 from ..io import atomic_savez
 from ..ops import DETECT_STATE_ROWS, dfm_statespace
-from ..ops.kalman import NotPortedError
+from ..parallel.mesh import pad_to_multiple
 from ..reliability.policy import StateIntegrityError
 
 # v1 files (no checksum) still load; v2 embeds a CRC-32 content checksum
@@ -331,6 +331,29 @@ def _identity_row_ss(bucket: Tuple[int, int], dtype_str: str):
     return tuple(leaf.numpy() for leaf in ss)
 
 
+def _take_rows(a, pos, g: int, device):
+    """The requests ``pos`` of a (G, ...) argument on ``device`` (numpy
+    stays on the host); anything else (a scalar) as it is."""
+    if isinstance(a, torch.Tensor):
+        if a.dim() and a.shape[0] == g:
+            return a[torch.as_tensor(pos, device=a.device)].to(device)
+        return a
+    if isinstance(a, np.ndarray) and a.ndim and a.shape[0] == g:
+        return a[pos]
+    return a
+
+
+def _merge_rows(parts, g: int, device):
+    """(G, ...) on ``device`` from ``[(positions, (G_k, ...) part)]``."""
+    first = parts[0][1]
+    if first is None:
+        return None
+    out = first.new_empty((g, *first.shape[1:]), device=device)
+    for pos, part in parts:
+        out[torch.as_tensor(pos, device=device)] = part.to(device)
+    return out
+
+
 class ArenaLostError(StateIntegrityError):
     """The arena's device leaves can no longer be trusted (an in-place
     kernel failed part-way, so some of its rows may have been written).
@@ -383,21 +406,27 @@ class StateArena:
     :class:`ArenaLostError`; the registry then rebuilds the arena from
     last-good states.  Leaves live on ``device`` (default: the CUDA
     card; without one construction raises — pass ``device="cpu"``).
-    Knobs: ``METRAN_TPU_SERVE_ARENA{,_ROWS,_MESH}``
+
+    ``mesh`` (a :class:`~metran_tpu_torch.parallel.mesh.Mesh`) shards
+    every leaf along the row axis over the mesh's devices, as the JAX
+    arena's ``NamedSharding``: ``capacity`` is rounded up so shards stay
+    even, row ``i`` lives in shard ``i // shard_rows`` at local row ``i %
+    shard_rows``, and a dispatch groups its rows by shard and launches its
+    kernel once per shard it touches (outputs merged back in request
+    order on the first device).  The host mirrors stay whole.  Knobs:
+    ``METRAN_TPU_SERVE_ARENA{,_ROWS,_MESH}``
     (:func:`metran_tpu_torch.config.serve_defaults`).
     """
 
     def __init__(self, bucket: Tuple[int, int], capacity: int, dtype=None,
                  sqrt: bool = False, mesh=None, device=None):
-        if mesh is not None:
-            raise NotPortedError(
-                "a sharded arena (mesh) is not ported yet: ROADMAP A6 "
-                "(parallel/mesh.py)")
         n_pad, s_pad = int(bucket[0]), int(bucket[1])
         self.bucket = (n_pad, s_pad)
         self.sqrt = bool(sqrt)
-        self.mesh = None
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.devices = ([resolve_device(device)] if mesh is None
+                        else mesh.flat_devices())
+        self.device = self.devices[0]
         if dtype is None:
             dtype = default_dtype(self.device)
         if isinstance(dtype, torch.dtype):
@@ -405,7 +434,11 @@ class StateArena:
         self.dtype = np.dtype(dtype)
         self._tdtype = _torch_dtype(self.dtype)
         capacity = int(capacity) + 1  # the scratch row
+        if mesh is not None:
+            capacity = pad_to_multiple(capacity, len(self.devices))
         self.capacity = capacity
+        #: rows per shard (the whole arena without a mesh)
+        self.shard_rows = capacity // len(self.devices)
         self.scratch_row = capacity - 1
         self.lock = threading.RLock()
         self._lost = False
@@ -418,30 +451,76 @@ class StateArena:
         #: each row's true series count (0 = free row)
         self.n_series_host = np.zeros(capacity, np.int64)
         self._free: List[int] = list(range(capacity - 2, -1, -1))
-        new = dict(dtype=self._tdtype, device=self.device)
-        phi0, q0, z0, r0 = (torch.from_numpy(a).to(**new) for a in
-                            _identity_row_ss(self.bucket, self.dtype.str))
-        self._mean = torch.zeros((capacity, s_pad), **new)
-        self._fac = torch.eye(s_pad, **new).repeat(capacity, 1, 1)
-        self._t_seen = torch.zeros(capacity, dtype=torch.int32,
-                                   device=self.device)
-        self._version = torch.zeros(capacity, dtype=torch.int32,
-                                    device=self.device)
-        self._phi = phi0.repeat(capacity, 1)
-        self._q = q0.repeat(capacity, 1, 1)
-        self._z = z0.repeat(capacity, 1, 1)
-        self._r = r0.repeat(capacity, 1)
-        self._steady = torch.zeros(capacity, dtype=torch.bool,
-                                   device=self.device)
-        self._kgain = torch.zeros((capacity, s_pad, n_pad), **new)
-        self._fdiag = torch.ones((capacity, n_pad), **new)
+        #: each shard's leaves: mean, fac, t_seen, version, phi, q, z, r,
+        #: steady, kgain, fdiag, det
+        self._shards = [self._new_leaves(dev, self.shard_rows)
+                        for dev in self.devices]
         #: host mirror of the device steady flags (the dispatch-time row
         #: partition reads this, never the device)
         self.steady_host = np.zeros(capacity, bool)
-        self._det = torch.zeros((capacity, DETECT_STATE_ROWS, n_pad), **new)
         #: each row's detection display statistics ([C+, C-, LB-Q] per
         #: slot) at its last alarm; live values: registry.arena_detect_stats
         self.det_stats_host = np.zeros((capacity, 3, n_pad))
+
+    def _new_leaves(self, device, rows: int) -> list:
+        """``rows`` free rows of every leaf on ``device``."""
+        n_pad, s_pad = self.bucket
+        new = dict(dtype=self._tdtype, device=device)
+        phi0, q0, z0, r0 = (torch.from_numpy(a).to(**new) for a in
+                            _identity_row_ss(self.bucket, self.dtype.str))
+        return [
+            torch.zeros((rows, s_pad), **new),
+            torch.eye(s_pad, **new).repeat(rows, 1, 1),
+            torch.zeros(rows, dtype=torch.int32, device=device),
+            torch.zeros(rows, dtype=torch.int32, device=device),
+            phi0.repeat(rows, 1), q0.repeat(rows, 1, 1),
+            z0.repeat(rows, 1, 1), r0.repeat(rows, 1),
+            torch.zeros(rows, dtype=torch.bool, device=device),
+            torch.zeros((rows, s_pad, n_pad), **new),
+            torch.ones((rows, n_pad), **new),
+            torch.zeros((rows, DETECT_STATE_ROWS, n_pad), **new),
+        ]
+
+    # -- shards ---------------------------------------------------------
+    def _groups(self, rows):
+        """``[(shard, positions, local rows)]`` of the shards ``rows``
+        touch, in shard order: ``positions`` index ``rows``, the local rows
+        index the shard's leaves (the dtype of ``rows``)."""
+        rows = np.asarray(rows)
+        flat = rows.astype(np.int64).reshape(-1)
+        if len(self._shards) == 1:
+            return [(0, np.arange(flat.size), rows)]
+        shard = flat // self.shard_rows
+        out = []
+        for k in np.unique(shard):
+            pos = np.flatnonzero(shard == k)
+            local = (flat[pos] - k * self.shard_rows).astype(rows.dtype)
+            out.append((int(k), pos, local))
+        return out
+
+    def _sharded(self, fn, lead, rows, args, skip: int):
+        """``fn(*lead(k), local_rows, *args_k)[skip:]`` for each shard ``k``
+        the (G,) ``rows`` touch, every G-leading argument cut to the
+        shard's requests and moved to its device (scalars pass through);
+        each (G_k, ...) output merged back into (G, ...) in request order
+        on the first device.  Every shard's launch is queued before any
+        output crosses devices."""
+        groups = self._groups(rows)
+        if len(self._shards) == 1:
+            return fn(*lead(0), rows, *args)[skip:]
+        g = int(np.asarray(rows).size)
+        parts = []
+        for k, pos, local in groups:
+            dev = self.devices[k]
+            sub = [_take_rows(a, pos, g, dev) for a in args]
+            parts.append((pos, fn(*lead(k), local, *sub)[skip:]))
+        return tuple(_merge_rows([(pos, out[i]) for pos, out in parts], g,
+                                 self.device)
+                     for i in range(len(parts[0][1])))
+
+    def _where(self, row: int) -> Tuple[int, int]:
+        """``(shard, local row)`` of arena row ``row``."""
+        return divmod(int(row), self.shard_rows)
 
     # -- row bookkeeping ------------------------------------------------
     @property
@@ -485,14 +564,17 @@ class StateArena:
             )
 
     # -- device access (the in-place discipline lives HERE) -------------
-    def _dynamic(self):
-        return (self._mean, self._fac, self._t_seen, self._version)
+    def _dynamic(self, k: int = 0):
+        return tuple(self._shards[k][:4])
 
-    def _static(self):
-        return (self._phi, self._q, self._z, self._r)
+    def _static(self, k: int = 0):
+        return tuple(self._shards[k][4:8])
 
-    def _steady_leaves(self):
-        return (self._steady, self._kgain, self._fdiag)
+    def _steady_leaves(self, k: int = 0):
+        return tuple(self._shards[k][8:11])
+
+    def _det_leaf(self, k: int = 0):
+        return self._shards[k][11]
 
     def _run(self, fn, *args):
         """Call ``fn`` under the lock; any failure marks the arena lost
@@ -506,67 +588,91 @@ class StateArena:
                 raise
 
     def apply(self, fn, *args):
-        """Run an in-place update ``fn(dynamic, static, *args)`` (from
-        :func:`~metran_tpu_torch.serve.engine.make_arena_update_fn`),
+        """Run an in-place update ``fn(dynamic, static, rows, *args)``
+        (from :func:`~metran_tpu_torch.serve.engine.make_arena_update_fn`),
         whose first output is the (updated) dynamic leaves; returns the
-        rest."""
-        return self._run(fn, self._dynamic(), self._static(), *args)[1:]
+        rest (one launch per shard the rows touch)."""
+        return self._run(self._sharded, fn, lambda k: (
+            self._dynamic(k), self._static(k)), args[0], args[1:], 1)
 
     def apply_steady(self, fn, *args):
         """Run the in-place **steady** update ``fn(dynamic, static,
-        steady_leaves, *args)`` under the same contract as
+        steady_leaves, rows, *args)`` under the same contract as
         :meth:`apply`."""
-        return self._run(fn, self._dynamic(), self._static(),
-                         self._steady_leaves(), *args)[1:]
+        return self._run(self._sharded, fn, lambda k: (
+            self._dynamic(k), self._static(k), self._steady_leaves(k)),
+            args[0], args[1:], 1)
 
     def apply_det(self, fn, *args):
         """Run an in-place **detect** update ``fn(dynamic, static, det,
-        *args)``, whose first two outputs are the updated dynamic and
+        rows, *args)``, whose first two outputs are the updated dynamic and
         detector leaves; returns the rest."""
-        return self._run(fn, self._dynamic(), self._static(), self._det,
-                         *args)[2:]
+        return self._run(self._sharded, fn, lambda k: (
+            self._dynamic(k), self._static(k), self._det_leaf(k)),
+            args[0], args[1:], 2)
 
     def apply_steady_det(self, fn, *args):
         """Run the in-place **steady detect** update ``fn(dynamic,
-        static, steady_leaves, det, *args)`` (:meth:`apply_steady` with
-        the detector leaf)."""
-        return self._run(fn, self._dynamic(), self._static(),
-                         self._steady_leaves(), self._det, *args)[2:]
+        static, steady_leaves, det, rows, *args)`` (:meth:`apply_steady`
+        with the detector leaf)."""
+        return self._run(self._sharded, fn, lambda k: (
+            self._dynamic(k), self._static(k), self._steady_leaves(k),
+            self._det_leaf(k)), args[0], args[1:], 2)
+
+    def _gather(self, i: int, rows) -> torch.Tensor:
+        """Leaf ``i``'s ``rows`` on the first device."""
+        def read(k, local):
+            return self._shards[k][i][torch.as_tensor(
+                np.asarray(local, np.int64), device=self.devices[k])]
+
+        groups = self._groups(rows)
+        if len(self._shards) == 1:
+            return read(0, groups[0][2])
+        return _merge_rows([(pos, read(k, local)) for k, pos, local in groups],
+                           int(np.asarray(rows).size), self.device)
+
+    def _scatter(self, i: int, rows, vals) -> None:
+        """Leaf ``i``'s ``rows`` := ``vals`` ((G, ...) or a scalar)."""
+        for k, pos, local in self._groups(rows):
+            leaf = self._shards[k][i]
+            idx = torch.as_tensor(np.asarray(local, np.int64),
+                                  device=leaf.device)
+            if isinstance(vals, torch.Tensor) and vals.dim():
+                leaf[idx] = vals[torch.as_tensor(pos, device=vals.device)
+                                 ].to(leaf.device)
+            else:
+                leaf[idx] = vals
 
     def read_det_row(self, row: int) -> np.ndarray:
         """One row's detector accumulators back on the host ((6, N))."""
+        k, local = self._where(row)
         with self.lock:
             self._check()
-            return self._det[int(row)].cpu().numpy()
+            return self._shards[k][11][local].cpu().numpy()
 
     def read_det_rows(self, rows) -> np.ndarray:
         """Several rows' detector accumulators ((R, 6, N), one
         transfer) — the ``service.anomalies()`` query path."""
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
         with self.lock:
             self._check()
-            return self._det[idx].cpu().numpy()
+            return self._gather(11, rows).cpu().numpy()
 
     def write_det_rows(self, rows, states) -> None:
         """Scatter detector accumulators back into the leaf ((R, 6, N)):
         the recovery path's inverse of :meth:`read_det_rows` (a re-packed
         row resets its detector state by design, so a restore runs AFTER
         its rows are resident)."""
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
-        vals = torch.as_tensor(np.asarray(states), dtype=self._tdtype,
-                               device=self.device)
-
-        def write():
-            self._det[idx] = vals
-
-        self._run(write)
+        vals = torch.as_tensor(np.asarray(states), dtype=self._tdtype)
+        self._run(self._scatter, 11, rows, vals)
 
     def query(self, fn, *args):
-        """Run a read-only kernel ``fn(mean, fac, static, *args)`` under
-        the arena lock (so it never races an in-place update)."""
+        """Run a read-only kernel ``fn(mean, fac, static, rows, *args)``
+        under the arena lock (so it never races an in-place update)."""
         with self.lock:
             self._check()
-            return fn(self._mean, self._fac, self._static(), *args)
+            return self._sharded(fn, lambda k: (
+                self._shards[k][0], self._shards[k][1], self._static(k)),
+                args[0], args[1:], 0)
 
     def commit_rows(self, rows, ok, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Advance the host mirrors for the rows a dispatch committed
@@ -591,16 +697,13 @@ class StateArena:
         leaves; the steady update (K17) serves them mean-only from the
         next dispatch on."""
         rows = np.asarray(rows, np.int64)
-        idx = torch.as_tensor(rows, device=self.device)
-        kg = torch.as_tensor(np.asarray(kgains), dtype=self._tdtype,
-                             device=self.device)
-        fd = torch.as_tensor(np.asarray(fdiags), dtype=self._tdtype,
-                             device=self.device)
+        kg = torch.as_tensor(np.asarray(kgains), dtype=self._tdtype)
+        fd = torch.as_tensor(np.asarray(fdiags), dtype=self._tdtype)
 
         def write():
-            self._steady[idx] = True
-            self._kgain[idx] = kg
-            self._fdiag[idx] = fd
+            self._scatter(8, rows, True)
+            self._scatter(9, rows, kg)
+            self._scatter(10, rows, fd)
             self.steady_host[rows] = True
 
         self._run(write)
@@ -609,12 +712,11 @@ class StateArena:
         """Clear ``rows``' steady flags (their gains reset); the exact
         update serves them again from the next dispatch on."""
         rows = np.asarray(rows, np.int64)
-        idx = torch.as_tensor(rows, device=self.device)
 
         def write():
-            self._steady[idx] = False
-            self._kgain[idx] = 0.0
-            self._fdiag[idx] = 1.0
+            self._scatter(8, rows, False)
+            self._scatter(9, rows, 0.0)
+            self._scatter(10, rows, 1.0)
             self.steady_host[rows] = False
 
         self._run(write)
@@ -627,13 +729,11 @@ class StateArena:
 
     # -- pack / unpack ---------------------------------------------------
     def _write_leaves(self, row: int, vals) -> None:
-        leaves = (self._mean, self._fac, self._t_seen, self._version,
-                  self._phi, self._q, self._z, self._r, self._steady,
-                  self._kgain, self._fdiag, self._det)
+        k, local = self._where(row)
 
         def write():
-            for leaf, val in zip(leaves, vals):
-                leaf[row] = torch.as_tensor(val, dtype=leaf.dtype).to(
+            for leaf, val in zip(self._shards[k], vals):
+                leaf[local] = torch.as_tensor(val, dtype=leaf.dtype).to(
                     leaf.device)
 
         self._run(write)
@@ -686,20 +786,22 @@ class StateArena:
         (S, S), t_seen, version)`` — the cold path (eviction, spill,
         ``registry.get``)."""
         row = int(row)
+        k, local = self._where(row)
         with self.lock:
             self._check()
             return (
-                self._mean[row].cpu().numpy(), self._fac[row].cpu().numpy(),
+                self._shards[k][0][local].cpu().numpy(),
+                self._shards[k][1][local].cpu().numpy(),
                 int(self.t_seen_host[row]), int(self.version_host[row]),
             )
 
     def read_rows(self, rows) -> Tuple[np.ndarray, np.ndarray]:
         """Several rows' ``(mean, fac)`` back on the host in one transfer
         per leaf — the spill path at fleet size."""
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
         with self.lock:
             self._check()
-            return self._mean[idx].cpu().numpy(), self._fac[idx].cpu().numpy()
+            return (self._gather(0, rows).cpu().numpy(),
+                    self._gather(1, rows).cpu().numpy())
 
     def materialize_values(self, mean: np.ndarray, fac: np.ndarray, row: int,
                            meta: ModelMeta) -> PosteriorState:

@@ -178,15 +178,15 @@ def test_fit_fleet_lanes_compaction_invariant():
 
 
 @pytest.mark.parametrize("option", [
-    dict(layout="batch", mesh=object()), dict(mesh=object()),
-    dict(use_shard_map=True), dict(checkpoint="fit.npz"),
-    dict(lane_min_batch=8)])
+    dict(layout="batch", checkpoint="fit.npz"), dict(checkpoint="fit.npz")])
 def test_unported_fit_options_raise(option):
-    # layout="batch" is ported (tests/test_torch_fleet_batch.py); the
-    # mesh, the checkpoint and the lane-tile pad raise in either layout
+    # layout="batch" is ported (tests/test_torch_fleet_batch.py), and so
+    # are the mesh, use_shard_map and the lane-tile pad
+    # (tests/test_torch_fleet_mesh.py); the checkpoint raises in either
+    # layout
     rng = np.random.default_rng(5)
     _, pfleet = _structured(rng, batch=2, t=20)
     kw = dict(layout="lanes", maxiter=2)
     kw.update(option)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[36]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         pf.fit_fleet(pfleet, **kw)

@@ -715,6 +715,27 @@ DET_PARAMS = dict(cusum_k=0.5, cusum_h=3.0, lb_window=8, lb_thresh=2.0,
                   nsigma=2.0)
 
 
+ARENA_LEAVES = ("mean", "fac", "t_seen", "version", "phi", "q", "z", "r",
+                "steady", "kgain", "fdiag", "det")
+
+
+def leaves_of(arena):
+    """An unsharded ``StateArena``'s leaves by name, in the order of its
+    ``_dynamic``, ``_static``, ``_steady_leaves`` and ``_det_leaf``."""
+    import types
+
+    return types.SimpleNamespace(**dict(zip(ARENA_LEAVES, (
+        *arena._dynamic(), *arena._static(), *arena._steady_leaves(),
+        arena._det_leaf()))))
+
+
+def k17_leaves(arena):
+    """The leaves K17 takes ahead of the steady ones: mean, t_seen,
+    version, phi and z."""
+    a = leaves_of(arena)
+    return a.mean, a.t_seen, a.version, a.phi, a.z
+
+
 def _arena(card, dtype, sqrt, b=12, n=5, kf=2, n_pad=8, s_pad=16):
     """Arena leaves of ``b`` rows packed from random fitted-looking
     models (padded to the bucket), a NaN row 2 and, on a covariance
@@ -727,10 +748,11 @@ def _arena(card, dtype, sqrt, b=12, n=5, kf=2, n_pad=8, s_pad=16):
     a = rng.normal(size=(b + 1, s_pad, s_pad))
     cov = a @ a.transpose(0, 2, 1) / s_pad + 0.1 * np.eye(s_pad)
     fac = np.linalg.cholesky(cov) if sqrt else cov
-    arena._fac.copy_(torch.as_tensor(fac, dtype=dtype))
-    arena._mean.copy_(torch.as_tensor(rng.normal(size=(b + 1, s_pad)),
+    leaves = leaves_of(arena)
+    leaves.fac.copy_(torch.as_tensor(fac, dtype=dtype))
+    leaves.mean.copy_(torch.as_tensor(rng.normal(size=(b + 1, s_pad)),
                                       dtype=dtype))
-    arena._t_seen.copy_(torch.as_tensor(rng.integers(0, 60, b + 1),
+    leaves.t_seen.copy_(torch.as_tensor(rng.integers(0, 60, b + 1),
                                         dtype=torch.int32))
     ss = dfm_statespace(rng.uniform(5, 40, (b + 1, n_pad)),
                         rng.uniform(10, 60, (b + 1, s_pad - n_pad)),
@@ -738,10 +760,10 @@ def _arena(card, dtype, sqrt, b=12, n=5, kf=2, n_pad=8, s_pad=16):
                         1.0, device=card, dtype=dtype)
     for leaf, val in zip(arena._static(), ss):
         leaf.copy_(val)
-    arena._mean[2, 1] = float("nan")
+    leaves.mean[2, 1] = float("nan")
     if not sqrt:
-        arena._fac[4] -= 50 * torch.eye(s_pad, dtype=dtype, device=card)
-    arena._det.copy_(torch.as_tensor(
+        leaves.fac[4] -= 50 * torch.eye(s_pad, dtype=dtype, device=card)
+    arena._det_leaf().copy_(torch.as_tensor(
         np.abs(rng.normal(size=(b + 1, 6, n_pad))), dtype=dtype))
     return arena
 
@@ -798,7 +820,7 @@ def test_arena_update_kernel_matches_plain(card, dtype, bar, body, mode,
     for fn in (karena.arena_update_kernel, karena.arena_update_plain):
         arena = _arena(card, dtype, sqrt)
         outs.append(fn(*arena._dynamic(), *arena._static(), rows, y, mask,
-                       det=arena._det if det else None, **kw))
+                       det=arena._det_leaf() if det else None, **kw))
         arenas.append(arena)
     torch.cuda.synchronize()
     got, want = outs
@@ -812,17 +834,18 @@ def test_arena_update_kernel_matches_plain(card, dtype, bar, body, mode,
         if getattr(want, field) is not None:
             assert torch.equal(getattr(got, field), getattr(want, field))
     ka, pa = arenas
-    fk, fp = ka._fac, pa._fac
+    fk, fp = leaves_of(ka).fac, leaves_of(pa).fac
     if sqrt:
         fk, fp = fk @ fk.mT, fp @ fp.mT
-    assert _rel(ka._mean, pa._mean) <= bar and _rel(fk, fp) <= bar
-    assert torch.equal(ka._t_seen, pa._t_seen)
-    assert torch.equal(ka._version, pa._version)
+    assert _rel(leaves_of(ka).mean, leaves_of(pa).mean) <= bar
+    assert _rel(fk, fp) <= bar
+    assert torch.equal(leaves_of(ka).t_seen, leaves_of(pa).t_seen)
+    assert torch.equal(leaves_of(ka).version, leaves_of(pa).version)
     fresh = _arena(card, dtype, sqrt)
     untouched = [0, 6, 9, 11, 12] + [rows[i] for i in
                                      torch.nonzero(~got.ok).flatten()]
-    for leaf, ref in zip(ka._dynamic() + (ka._det,),
-                         fresh._dynamic() + (fresh._det,)):
+    for leaf, ref in zip(ka._dynamic() + (ka._det_leaf(),),
+                         fresh._dynamic() + (fresh._det_leaf(),)):
         assert _same_rows(leaf, ref, untouched)
 
 
@@ -849,11 +872,10 @@ def test_arena_steady_kernel_matches_plain(card, dtype, bar, mode, seq):
     for fn in (karena.arena_steady_update_kernel,
                karena.arena_steady_update_plain):
         arena = _arena(card, dtype, False)
-        arena._mean[2, 1] = 0.5
-        outs.append(fn(arena._mean, arena._t_seen, arena._version,
-                       arena._phi, arena._z, steady, kgain, fdiag, rows,
+        leaves_of(arena).mean[2, 1] = 0.5
+        outs.append(fn(*k17_leaves(arena), steady, kgain, fdiag, rows,
                        real, y, mask, mode=mode, sequential=seq,
-                       min_seen=20, det=arena._det, det_min_seen=10,
+                       min_seen=20, det=arena._det_leaf(), det_min_seen=10,
                        det_params=DET_PARAMS))
         arenas.append(arena)
     torch.cuda.synchronize()
@@ -865,9 +887,9 @@ def test_arena_steady_kernel_matches_plain(card, dtype, bar, mode, seq):
     assert torch.equal(got.verdict, want.verdict)
     assert torch.equal(got.det_counts, want.det_counts)
     ka, pa = arenas
-    assert _rel(ka._mean, pa._mean) <= bar
-    assert torch.equal(ka._t_seen, pa._t_seen)
-    assert torch.equal(ka._fac, pa._fac)  # never touched
+    assert _rel(leaves_of(ka).mean, leaves_of(pa).mean) <= bar
+    assert torch.equal(leaves_of(ka).t_seen, leaves_of(pa).t_seen)
+    assert torch.equal(leaves_of(ka).fac, leaves_of(pa).fac)  # never touched
 
 
 @pytest.mark.parametrize("sqrt", [False, True])
@@ -878,13 +900,13 @@ def test_arena_forecast_kernel_matches_plain(card, dtype, bar, sqrt):
     from metran_tpu_torch.kernels import arena as karena
 
     arena = _arena(card, dtype, sqrt)
-    arena._mean[2, 1] = 0.5
-    arena._fac[4] += 60 * torch.eye(16, dtype=dtype, device=card)
+    leaves_of(arena).mean[2, 1] = 0.5
+    leaves_of(arena).fac[4] += 60 * torch.eye(16, dtype=dtype, device=card)
     rows = [3, 2, 4, 1, 5]
     hz = torch.arange(1, 13, device=card).to(dtype)
-    got = karena.arena_forecast_kernel(arena._mean, arena._fac,
+    got = karena.arena_forecast_kernel(*arena._dynamic()[:2],
                                        *arena._static(), rows, hz, sqrt)
-    want = karena.arena_forecast_plain(arena._mean, arena._fac,
+    want = karena.arena_forecast_plain(*arena._dynamic()[:2],
                                        *arena._static(), rows, hz, sqrt)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -927,7 +949,7 @@ def test_arena_update_horizons_kernel_matches_plain(card, dtype, bar, body,
     for field in ("fmeans", "fvars"):
         assert _rel_nan(getattr(got, field), getattr(want, field)) <= bar
     ka = arenas[0]
-    fm, fv = karena.arena_forecast_kernel(ka._mean, ka._fac, *ka._static(),
+    fm, fv = karena.arena_forecast_kernel(*ka._dynamic()[:2], *ka._static(),
                                           rows, hz, sqrt)
     torch.cuda.synchronize()
     if dtype == torch.float64:
@@ -967,16 +989,15 @@ def test_steady_horizons_kernels_match_plain(card, dtype, bar, horizons):
     for fn in (karena.arena_steady_update_kernel,
                karena.arena_steady_update_plain):
         arena = _arena(card, dtype, False)
-        arena._mean[2, 1] = 0.5
-        outs.append(fn(arena._mean, arena._t_seen, arena._version,
-                       arena._phi, arena._z, steady, kgain, fdiag, rows, rd,
+        leaves_of(arena).mean[2, 1] = 0.5
+        outs.append(fn(*k17_leaves(arena), steady, kgain, fdiag, rows, rd,
                        yd, md, horizons=hz))
         arenas.append(arena)
     torch.cuda.synchronize()
     assert torch.equal(outs[0].applied, outs[1].applied)
     assert _rel(outs[0].fmeans, outs[1].fmeans) <= bar
     ka = arenas[0]
-    fm, _ = karena.arena_forecast_kernel(ka._mean, ka._fac, *ka._static(),
+    fm, _ = karena.arena_forecast_kernel(*ka._dynamic()[:2], *ka._static(),
                                          rows, hz, False)
     torch.cuda.synchronize()
     if dtype == torch.float64:
@@ -1041,3 +1062,93 @@ def test_parallel_scan_kernels_match_plain(card, dtype, bar, chunk):
         torch.cuda.synchronize()
         assert _scan_rel(got[0], want[0], False) <= bar
         assert _scan_rel(got[1], want[1], sqrt) <= bar
+
+
+@pytest.mark.parametrize("chunk", [4, 3, 1])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_sharded_scan_modes_match_plain(card, dtype, bar, chunk):
+    """K19/K20's ``total``, ``carry`` and ``prefix`` modes against their
+    plain versions on three shards of 15 steps (uneven chunks), the
+    origin shard and the others, with and without the stored moments."""
+    from metran_tpu_torch.kernels import pkalman as kpk
+
+    phi, q, z, r, y, mask = _scan_inputs(card, dtype)
+    n, shards = phi.shape[-1], 3
+    tl = y.shape[1] // shards
+    cut = [slice(k * tl, (k + 1) * tl) for k in range(shards)]
+    tots = []
+    for k, sl in enumerate(cut):
+        args = (phi, q, z, r, y[:, sl], mask[:, sl], chunk)
+        got = kpk.parallel_filter_total_kernel(*args, origin=k == 0)
+        want = kpk.parallel_filter_total_plain(*args, origin=k == 0)
+        torch.cuda.synchronize()
+        assert _rel(got[0], want[0]) <= bar and _rel(got[1], want[1]) <= bar
+        tots.append(want)
+    totals = torch.stack([t[0] for t in tots], dim=1)
+    pre = kpk.parallel_filter_carry_plain(totals, n)
+    assert _rel(kpk.parallel_filter_carry_kernel(totals, n), pre) <= bar
+    filt = []
+    for k, sl in enumerate(cut):
+        inc = None if k == 0 else pre[:, k - 1].contiguous()
+        for store in (False, True):
+            args = (phi, q, z, r, y[:, sl], mask[:, sl], chunk, tots[k][1],
+                    inc, store)
+            got = kpk.parallel_filter_prefix_kernel(*args)
+            want = kpk.parallel_filter_prefix_plain(*args)
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert _scan_rel(g, w, False) <= bar, (k, store, i)
+        filt.append(want)  # the stored moments
+    stots = []
+    for k in range(shards):
+        halo = None if k == shards - 1 else (filt[k + 1][0][:, 0],
+                                             filt[k + 1][1][:, 0])
+        args = (phi, filt[k][2], filt[k][3], filt[k][0], filt[k][1], chunk,
+                halo)
+        got = kpk.parallel_smooth_total_kernel(*args)
+        want = kpk.parallel_smooth_total_plain(*args)
+        torch.cuda.synchronize()
+        assert _rel(got[0], want[0]) <= bar and _rel(got[1], want[1]) <= bar
+        stots.append((want, halo))
+    totals = torch.stack([stots[k][0][0] for k in reversed(range(shards))],
+                         dim=1)
+    spre = kpk.parallel_smooth_carry_plain(totals, n)
+    assert _rel(kpk.parallel_smooth_carry_kernel(totals, n), spre) <= bar
+    for k in range(shards):
+        (_, tot), halo = stots[k]
+        inc = None if k == shards - 1 else spre[:, shards - 2 - k]
+        args = (phi, filt[k][2], filt[k][3], filt[k][0], filt[k][1], chunk,
+                tot, None if inc is None else inc.contiguous(), halo)
+        got = kpk.parallel_smooth_prefix_kernel(*args)
+        want = kpk.parallel_smooth_prefix_plain(*args)
+        torch.cuda.synchronize()
+        assert _rel(got[0], want[0]) <= bar and _rel(got[1], want[1]) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-5)])
+def test_sequence_sharded_filter_on_a_virtual_mesh(card, dtype, bar):
+    """``sequence_sharded_filter`` on a virtual mesh of 3 devices, all the
+    card, equals the unsharded K19/K20 on the same card (reassociation
+    rounding), every sharded mode launched."""
+    from metran_tpu_torch.ops import pkalman as pops
+    from metran_tpu_torch.ops.statespace import StateSpace
+    from metran_tpu_torch.parallel.mesh import make_mesh
+
+    phi, q, z, r, y, mask = _scan_inputs(card, dtype)
+    r = r.abs()
+    ss = StateSpace(phi, q, z, r)
+    mesh = make_mesh(3, ("seq",), devices=[card] * 3)
+    kernels.reset_launches()
+    filt, smooth = pops.sequence_sharded_filter(ss, y, mask, mesh)
+    counts = kernels.launches()
+    f0 = pops.parallel_filter(ss, y, mask)
+    s0 = pops.parallel_smoother(ss, f0)
+    torch.cuda.synchronize()
+    for name in ("parallel_filter_total", "parallel_filter_carry",
+                 "parallel_filter_prefix", "parallel_smooth_total",
+                 "parallel_smooth_carry", "parallel_smooth_prefix"):
+        assert counts[name] >= 1, name
+    for got, want in zip((*filt, *smooth), (*f0, *s0)):
+        assert _rel(got, want) <= bar

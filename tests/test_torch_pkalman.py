@@ -285,21 +285,26 @@ def test_associative_scan_draws_are_the_joint_engines(ssm):
 
 
 def test_mesh_and_card_gradient_raise_naming_a6(ssm, monkeypatch):
-    ss, y, mask = ssm
-    pss = _port(ss)
-    with pytest.raises(NotPortedError, match="ROADMAP A6"):
-        pops.sequence_sharded_filter(pss, y, mask, mesh=None)
-    # a CUDA tensor that needs a gradient has no backward on the card
+    """The sharded scan is ported (tests/test_torch_pkalman_sharded.py);
+    a CUDA tensor that needs a gradient has no backward on the card, on
+    one card or sharded over a mesh."""
+    from metran_tpu_torch.parallel.mesh import make_mesh
+
+    _, y, mask = ssm
     alpha = torch.full((7,), 10.0, dtype=torch.float64, requires_grad=True)
     ss_g = dfm_statespace(alpha[:5], alpha[5:], torch.full(
         (5, 2), 0.4, dtype=torch.float64), 1.0, device="cpu",
         dtype=torch.float64)
     yt = torch.as_tensor(y)
+    mesh = make_mesh(2, ("seq",), devices=["cpu"] * 2)
     monkeypatch.setattr(torch.Tensor, "device",
                         property(lambda self: torch.device("cuda")))
     for engine in ("parallel", "sqrt_parallel"):
         with pytest.raises(NotPortedError, match="ROADMAP A6"):
             _refuse_card_grad(ss_g, yt, engine)
+    with pytest.raises(NotPortedError, match="ROADMAP A6"):
+        pops.sequence_sharded_filter(ss_g, yt[:200], torch.as_tensor(
+            mask)[:200], mesh)
 
 
 def test_kernel_launchers_refuse_cpu_and_plain_counts_nothing(ssm):

@@ -453,6 +453,29 @@ def test_wrappers_check_their_inputs(bad):
         kernels.joint_filter_append(*args)
 
 
+def _sharded_scan_plain_calls():
+    """Every sharded mode of K19/K20 once through its wrapper on CPU
+    tensors (two shards of 6 steps; counts no launch)."""
+    from metran_tpu_torch.kernels import pkalman as kpk
+    from metran_tpu_torch.ops import dfm_statespace
+
+    rng = np.random.default_rng(4)
+    ss = dfm_statespace(rng.uniform(5, 40, (2, 3)), rng.uniform(5, 40, (2, 1)),
+                        rng.uniform(0.3, 0.8, (2, 3, 1)), 1.0, device="cpu",
+                        dtype=torch.float64)
+    y = torch.as_tensor(rng.normal(size=(2, 12, 3)))
+    mask = torch.ones((2, 12, 3), dtype=torch.bool)
+    halves = (slice(0, 6), slice(6, 12))
+    tots = [kpk.parallel_filter_total(*ss, y[:, h], mask[:, h], 4, k == 0)
+            for k, h in enumerate(halves)]
+    pre = kpk.parallel_filter_carry(torch.stack([t[0] for t in tots], 1), 4)
+    f = kpk.parallel_filter_prefix(*ss, y[:, 6:], mask[:, 6:], 4, tots[1][1],
+                                   pre[:, 0])
+    total, tot = kpk.parallel_smooth_total(ss.phi, f[2], f[3], f[0], f[1], 4)
+    kpk.parallel_smooth_carry(torch.stack([total, total], 1), 4)
+    kpk.parallel_smooth_prefix(ss.phi, f[2], f[3], f[0], f[1], 4, tot)
+
+
 def test_plain_path_counts_no_launch_and_counters_reset():
     kernels.reset_launches()
     args = _k1_args()
@@ -503,6 +526,7 @@ def test_plain_path_counts_no_launch_and_counters_reset():
         kernels.steady_filter(*_k14_args(), policy, 16.0, seq)
     kernels.dare_gains(*args[:4])
     _arena_plain_calls()
+    _sharded_scan_plain_calls()
     assert kernels.launches() == {"joint_filter_append": 0,
                                   "joint_filter_store": 0,
                                   "forecast_moments": 0,
@@ -522,7 +546,13 @@ def test_plain_path_counts_no_launch_and_counters_reset():
                                   "parallel_filter": 0,
                                   "parallel_smooth": 0,
                                   "sqrt_parallel_filter": 0,
-                                  "sqrt_parallel_smooth": 0}
+                                  "sqrt_parallel_smooth": 0,
+                                  "parallel_filter_total": 0,
+                                  "parallel_filter_carry": 0,
+                                  "parallel_filter_prefix": 0,
+                                  "parallel_smooth_total": 0,
+                                  "parallel_smooth_carry": 0,
+                                  "parallel_smooth_prefix": 0}
     build.count_launch("forecast_moments")
     assert kernels.launches()["forecast_moments"] == 1
     kernels.reset_launches()
@@ -672,24 +702,24 @@ def _arena_plain_calls():
         mask = torch.ones((2, 1, 8), dtype=torch.bool)
         for body in (("sqrt",) if sqrt else ("joint", "gated")):
             karena.arena_update(*leaves, [0, 1], y, mask, body=body)
-        karena.arena_forecast(arena._mean, arena._fac, *arena._static(),
+        karena.arena_forecast(*arena._dynamic()[:2], *arena._static(),
                               [0, 1], torch.ones(2, dtype=torch.float64),
                               sqrt=sqrt)
+    mean, _, t_seen, version = arena._dynamic()
+    phi, _, z, _ = arena._static()
     karena.arena_steady_update(
-        arena._mean, arena._t_seen, arena._version, arena._phi, arena._z,
-        *arena._steady_leaves(), [0, 2], torch.ones((2, 8), dtype=torch.bool),
-        y, mask)
+        mean, t_seen, version, phi, z, *arena._steady_leaves(), [0, 2],
+        torch.ones((2, 8), dtype=torch.bool), y, mask)
 
 
 def test_arena_is_ported_and_named_by_no_message(monkeypatch):
     """The state arena (A4.8, kernels K16-K18) is ported: no not-ported
     message names it; ``ModelRegistry(arena=True)`` defaults to the card
     and raises without one unless asked for the CPU; the launchers refuse
-    CPU leaves; a sharded arena (more than one device) names A6; the
-    fused horizon pass (A4.5) runs in the arena factories and the service
-    arms the read path."""
+    CPU leaves; a sharded arena (A6's mesh half) shards its rows over
+    the mesh; the fused horizon pass (A4.5) runs in the arena factories
+    and the service arms the read path."""
     from metran_tpu_torch.kernels import arena as karena
-    from metran_tpu_torch.ops.kalman import NotPortedError
     from metran_tpu_torch.serve import engine as peng
 
     for path in sorted((REPO / "metran_tpu_torch").rglob("*.py")):
@@ -699,8 +729,11 @@ def test_arena_is_ported_and_named_by_no_message(monkeypatch):
             "arena_forecast"} <= set(kernels.launches())
     reg = ModelRegistry(arena=True, arena_mesh=-1, device="cpu")
     assert reg.arena_enabled and reg.arena_stats["arenas"] == 0
-    with pytest.raises(NotPortedError, match="A6"):
-        ModelRegistry(arena=True, arena_mesh=4, device="cpu")
+    monkeypatch.setenv("METRAN_TPU_VIRTUAL_DEVICES", "4")
+    sharded = ModelRegistry(arena=True, arena_mesh=4, device="cpu")
+    arena = sharded.arena_for((8, 16), dtype=np.float64)
+    assert len(arena.devices) == 4 and arena.capacity % 4 == 0
+    monkeypatch.delenv("METRAN_TPU_VIRTUAL_DEVICES")
     for make in (peng.make_arena_update_fn,
                  peng.make_arena_steady_update_fn):
         assert callable(make(horizons=(1, 2)))
@@ -716,12 +749,13 @@ def test_arena_is_ported_and_named_by_no_message(monkeypatch):
     with pytest.raises(ValueError, match="CUDA leaves"):
         karena.arena_update_kernel(*leaves, [0], y, mask)
     with pytest.raises(ValueError, match="CUDA leaves"):
+        mean, _, t_seen, version = arena._dynamic()
+        phi, _, z, _ = arena._static()
         karena.arena_steady_update_kernel(
-            arena._mean, arena._t_seen, arena._version, arena._phi,
-            arena._z, *arena._steady_leaves(), [0],
+            mean, t_seen, version, phi, z, *arena._steady_leaves(), [0],
             torch.ones((1, 8), dtype=torch.bool), y, mask)
     with pytest.raises(ValueError, match="CUDA leaves"):
-        karena.arena_forecast_kernel(arena._mean, arena._fac,
+        karena.arena_forecast_kernel(*arena._dynamic()[:2],
                                      *arena._static(), [0],
                                      torch.ones(1, dtype=torch.float64))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -54,15 +54,15 @@ CASES = {
 }
 
 
-def _services(case):
+def _services(case, mesh=0, rows=16):
     cfg = CASES[case]
     states = make_states(n_models=5)
     bad = states[3]
     states[3] = bad._replace(mean=np.full_like(bad.mean, np.nan))
     jreg = JaxRegistry(root=None, engine=cfg["engine"], arena=True,
-                       arena_rows=16, arena_mesh=0)
+                       arena_rows=rows, arena_mesh=mesh)
     preg = ModelRegistry(root=None, engine=cfg["engine"], arena=True,
-                         arena_rows=16, arena_mesh=0, device="cpu")
+                         arena_rows=rows, arena_mesh=mesh, device="cpu")
     for st in states:
         jreg.put(st, persist=False)
         preg.put(PosteriorState.from_jax_state(st), persist=False)
@@ -132,7 +132,12 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_arena_service_matches_jax(case):
-    states, jsvc, psvc = _services(case)
+    check_service(*_services(case), case)
+
+
+def check_service(states, jsvc, psvc, case):
+    """Both services through the same stream: acks, posteriors,
+    forecasts and the booked outcomes."""
     ids = [st.model_id for st in states]
     rows = _stream(states)
     jout = _drive(jsvc, ids, rows)

@@ -2066,6 +2066,83 @@ def _boundaries(engine, ss, y, mask, seg):
             res.bounds_cov.permute(3, 0, 1, 2).contiguous(), False)
 
 
+ADJ_RING_SEG = 16  # the segment of K11's ring cases (short, many segments)
+# K11's ring cases: (models, steps, widths (N, factors), options); the
+# flagship widths unless stated.  ADJ_RING_T wraps a ring of RING_MAX
+# slots (ring_depth's at these widths) with five steps to spare.
+ADJ_RING_T = 4 * ADJ_RING_SEG + 5
+ADJ_RING_CASES = (
+    ("B=1 T=1", 1, 1, (N_SERIES, N_FACTORS), {}),
+    ("B=3 T=seg-1", 3, ADJ_RING_SEG - 1, (N_SERIES, N_FACTORS), {}),
+    ("B=3 T=seg", 3, ADJ_RING_SEG, (N_SERIES, N_FACTORS), {}),
+    ("B=133 T=4 seg+5 (the ring wraps, compact block)", 133, ADJ_RING_T,
+     (N_SERIES, N_FACTORS), {}),
+    ("B=3 T=4 seg+5 (the ring wraps, wide block)", 3, ADJ_RING_T,
+     (N_SERIES, N_FACTORS), {}),
+    ("B=3 T=4 seg+5 (the ring wraps, wide block), factor boundaries", 3,
+     ADJ_RING_T, (N_SERIES, N_FACTORS), {"factored": True}),
+    ("B=3, a fully masked segment", 3, 3 * ADJ_RING_SEG + 2,
+     (N_SERIES, N_FACTORS), {"masked_seg": True}),
+    ("B=3, degraded steps mid-segment", 3, 2 * ADJ_RING_SEG + 7,
+     (N_SERIES, N_FACTORS), {"degraded": True}),
+    ("B=3, degraded steps mid-segment, factor boundaries", 3,
+     2 * ADJ_RING_SEG + 7, (N_SERIES, N_FACTORS),
+     {"degraded": True, "factored": True}),
+    ("B=3 N=40 n=41 (rows of F per lane > 1)", 3, 2 * ADJ_RING_SEG + 5,
+     (40, 1), {}),
+    ("B=2 N=45 n=46 (f64: the device-memory layout)", 2,
+     2 * ADJ_RING_SEG + 5, (45, 1), {}),
+    # more models than the card keeps resident in the wide block
+    ("B=133 N=40 n=41 (the compact block)", 133, 2 * ADJ_RING_SEG + 5,
+     (40, 1), {}),
+    ("B=133 N=45 n=46 (the compact block; f64 spills)", 133,
+     ADJ_RING_SEG + 3, (45, 1), {}),
+)
+
+
+def _adjoint_ring_case(rng, b, t, widths, dtype, dev, masked_seg=False,
+                       degraded=False, factored=False):
+    """K11's arguments for a ring case: ``b`` models of ``widths`` =
+    (series, factors) over ``t`` steps with boundaries every
+    ADJ_RING_SEG steps from K1 (or, ``factored``, K9), an all-masked
+    step, optionally a fully masked second segment and model 0's slot 2
+    at r < 0 observed only at a few steps in the middle of the first
+    segment (those steps degrade)."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import dfm_statespace
+
+    seg = ADJ_RING_SEG
+    big_n, kf = widths
+    ss = dfm_statespace(rng.uniform(5, 40, (b, big_n)),
+                        rng.uniform(10, 60, (b, kf)),
+                        rng.uniform(0.3, 0.8, (b, big_n, kf)) / kf, 1.0,
+                        device=dev, dtype=dtype)
+    mask = rng.uniform(size=(b, t, big_n)) > 0.3
+    if t > 3:
+        mask[:, 3] = False
+    if masked_seg:
+        mask[:, seg:2 * seg] = False
+    r = torch.full_like(ss.r, 0.2)
+    if degraded:
+        r[0, 2] = -5.0
+        mask[0, :, 2] = False
+        mask[0, np.arange(seg // 3, min(t, 2 * seg // 3), 3), 2] = True
+    ss = ss._replace(r=r)
+    y = torch.as_tensor(np.where(mask, rng.normal(size=mask.shape), 0.0),
+                        dtype=dtype, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    bm, bc, _ = _boundaries("sqrt" if factored else "joint", ss, y, mask,
+                            seg)
+    sb = torch.as_tensor(rng.uniform(0.5, 1.5, (b, t)), dtype=dtype,
+                         device=dev)
+    db = torch.as_tensor(rng.uniform(0.5, 1.5, (b, t)), dtype=dtype,
+                         device=dev)
+    return (ss.phi, torch.diagonal(ss.q, 0, -2, -1).contiguous(), ss.z,
+            ss.r, y, mask, bm, bc, sb, db, seg, factored)
+
+
 def phase_adjoint_kernels():
     """K11 (the batch-layout adjoint) against its plain version on the
     card, f64 and f32, NaN-strict: at flagship widths (n = 21, N = 20)
@@ -2086,6 +2163,9 @@ def phase_adjoint_kernels():
     import numpy as np
     import torch
 
+    import importlib
+
+    from metran_tpu_torch.kernels import launches
     from metran_tpu_torch.kernels.joint_adjoint import (
         joint_adjoint,
         joint_adjoint_plain,
@@ -2105,6 +2185,7 @@ def phase_adjoint_kernels():
         sqrt_filter_append,
     )
 
+    k11 = importlib.import_module("metran_tpu_torch.kernels.joint_adjoint")
     dev = torch.device(DEVICE)
     checks = []
 
@@ -2134,6 +2215,32 @@ def phase_adjoint_kernels():
                     f"{ADJ_SEG}, {engine} boundaries"
                     + ("" if engine == "sequential" else
                        ", model 0 degraded (r < 0)"), dtype, got, want, bar)
+    # the ring's cases: short and exact-multiple horizons, a ring that
+    # wraps, a masked segment, degraded steps mid-segment, factor
+    # boundaries, F of more rows than a warp's lanes, the spilled layout;
+    # one launch per call
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        for label, b, t, widths, kw in ADJ_RING_CASES:
+            rng = np.random.default_rng(SEED + 96)
+            args = _adjoint_ring_case(rng, b, t, widths, dtype, dev, **kw)
+            if "wraps" in label:  # the ring wraps in the block named
+                n_st = args[0].shape[1]
+                ring, spill = k11.ring_depth(widths[0], n_st, dtype,
+                                             -(-t // ADJ_RING_SEG))
+                shape = k11.block_shape(b, widths[0], n_st, dtype, ring,
+                                        spill, dev)
+                require(ring == k11.RING_MAX and ring < -(-t // ADJ_RING_SEG)
+                        and shape == (k11.WIDE if "wide" in label
+                                      else k11.COMPACT),
+                        f"K11 {label}: ring {ring}, block {shape}")
+            before = launches()["joint_adjoint"]
+            got = joint_adjoint(*args)
+            one = launches()["joint_adjoint"] - before
+            want = joint_adjoint_plain(*args)
+            torch.cuda.synchronize()
+            require(one == 1, f"K11 {label}: {one} launches, not 1")
+            compare("joint_adjoint", f"{label}, seg={ADJ_RING_SEG}", dtype,
+                    got, want, bar)
     dtype = torch.float32
     rng = np.random.default_rng(SEED + 91)
     ss, y, mask = _adjoint_case(rng, FLEET, ADJ_T_CMP, dtype, dev)
@@ -2282,12 +2389,54 @@ def phase_adjoint_kernels():
                 ADJ_SEG, False)
     ms11, _ = cuda_ms(lambda: joint_adjoint(*k11_args), reps=3, warm=1)
     bms, bby = bound_ms(*k11_cost(ss.z, mask, ADJ_SEG, 4), "float32")
+    by_batch = {}
+    for bb in (64, 8, 1):  # the first bb models of the same fleet
+        part = [a[:bb].contiguous() for a in k11_args[:10]]
+        ms_b, got_b = cuda_ms(lambda: joint_adjoint(*part, ADJ_SEG, False),
+                              reps=3, warm=1)
+        if bb == 64:  # a timed launch in the wide block, its ring wrapping
+            compare("joint_adjoint", f"{bb} models n=21 T={T_STEPS} "
+                    f"seg={ADJ_SEG}, joint boundaries (a timed launch)",
+                    dtype, got_b, joint_adjoint_plain(*part, ADJ_SEG, False),
+                    1e-3)
+        bms_b, bby_b = bound_ms(*k11_cost(part[2], part[5], ADJ_SEG, 4),
+                                "float32")
+        by_batch[str(bb)] = {"ms": ms_b, "bound_ms": bms_b,
+                             "bound_by": bby_b}
+    n_seg = -(-T_STEPS // ADJ_SEG)
+    geometry = {}
+    for dt in (torch.float32, torch.float64):
+        ring, spill = k11.ring_depth(N_SERIES, n, dt, n_seg)
+        geometry[str(dt).replace("torch.", "")] = {
+            "ring_depth": ring, "spill": spill,
+            "smem_bytes": 0 if spill else k11.smem_bytes(N_SERIES, n, dt,
+                                                         ring),
+            "ring_bytes": int(np.prod(k11.scratch_shape(
+                FLEET, T_STEPS, ADJ_SEG, N_SERIES, n, ring)))
+            * (4 if dt == torch.float32 else 8),
+            **{f"{name}_block": {
+                "replay_warps_per_group": g, "sweep_warps": sw,
+                "threads": 32 * (ring * g + sw),
+                "blocks_per_sm": k11.occupancy(N_SERIES, n, dt, ring, spill,
+                                               g, sw)}
+               for name, (g, sw) in (("compact", k11.COMPACT),
+                                     ("wide", k11.WIDE))
+               if not (spill and name == "wide")},
+            "block_at": {str(bb): "wide" if k11.block_shape(
+                bb, N_SERIES, n, dt, ring, spill, dev) == k11.WIDE
+                else "compact" for bb in (FLEET, 64, 8, 1)}}
+    emit({"phase": "k11_geometry", "shape": f"B={FLEET} T={T_STEPS} "
+          f"({N_SERIES},{n}) seg={ADJ_SEG}", **geometry})
     times["joint_adjoint"] = {
         "shape": f"B={FLEET} T={T_STEPS} (20,21) f32 seg={ADJ_SEG}, joint "
                  "boundaries", "ms": ms11,
         "plain_ms": times.pop("joint_adjoint_plain_ms"),
         "plain_shape": f"{FLEET} models, T={ADJ_T_CMP}, once",
-        "bound_ms": bms, "bound_by": bby}
+        "bound_ms": bms, "bound_by": bby, "by_batch": by_batch,
+        "ring_depth": geometry["float32"]["ring_depth"],
+        "blocks_per_sm": {
+            name: geometry["float32"][f"{name}_block"]["blocks_per_sm"]
+            for name in ("compact", "wide")}}
     lanes = (ss.phi.T.contiguous(), qd.T.contiguous(),
              ss.z.permute(1, 2, 0).contiguous(), ss.r.T.contiguous(), y, mask)
     ms9, _ = cuda_ms(lambda: sqrt_filter(*lanes, bounds_seg=ADJ_SEG), reps=3,
@@ -8174,6 +8323,9 @@ def main() -> int:
             entry["bounds"] = times["joint_filter_append_bounds"]
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
+        if name == "joint_adjoint":
+            for key in ("by_batch", "ring_depth", "blocks_per_sm"):
+                entry[key] = t[key]
         # another kernel's name that extends this one's owns its keys
         longer = [o for o in KERNELS if o.startswith(name + "_")]
         others = {k: v for k, v in times.items()

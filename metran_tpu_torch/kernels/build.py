@@ -171,10 +171,13 @@ _SIGNATURES = {
     # lam, warm, lb_thresh, nsigma^2, tiny, stream
     "detect": ("metran_detect", [_PTR] * 6 + [_INT] * 3 + [_DBL] * 7
                + [_PTR]),
-    # phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov, sb, db, scratch,
-    # phibar, qbar, B, T, N, n, seg, factored, stream
-    "joint_adjoint": ("metran_joint_adjoint",
-                      [_PTR] * 13 + [_INT] * 6 + [_PTR]),
+    # phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov, sb, db, ring,
+    # spill, phibar, qbar, B, T, N, n, seg, factored, R, G, S, stream; and
+    # the occupancy query: N, n, R, G, S, spill, blocks
+    "joint_adjoint": (
+        ("metran_joint_adjoint", [_PTR] * 14 + [_INT] * 9 + [_PTR]),
+        ("metran_joint_adjoint_occupancy", [_INT] * 6 + [_PTR]),
+    ),
     # phi, q, z, r, mean, cov, horizons, means, variances, B, H, N, S,
     # stream
     "forecast": ("metran_forecast_moments", [_PTR] * 9 + [_INT] * 4 + [_PTR]),

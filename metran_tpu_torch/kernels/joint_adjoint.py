@@ -34,7 +34,10 @@ Shapes: ``phi``, ``qdiag`` (B, n); ``z`` (B, N, n); ``r`` (B, N);
 package pads it with all-masked steps whose adjoint is exactly zero.
 
 On CUDA tensors it launches the hand-written kernel
-(``csrc/joint_adjoint.cu``) and raises if that cannot build or launch;
+(``csrc/joint_adjoint.cu``: a block per model, whose replay groups fill a
+ring of :func:`ring_depth` segment records while its sweep warps run back
+over them; :func:`block_shape` picks the block) and raises if that cannot
+build or launch;
 on CPU tensors it runs :func:`joint_adjoint_plain`, the JAX function
 step by step in batched PyTorch ops — the oracle the kernel is held
 against on the card.
@@ -54,6 +57,19 @@ from . import build
 from .joint_filter import MAX_SMEM
 
 
+#: replay groups (and ring slots) at most; the ring then holds four times
+#: the one-segment scratch of a kernel that replays and sweeps in turn
+RING_MAX = 4
+#: (warps a replay group, sweep warps): the compact block, for fleets that
+#: fill the card, and the wide one, which spends more warps on each model
+#: when the card has SMs to spare
+COMPACT = (1, 4)
+WIDE = (2, 8)
+#: static shared memory of a block: the full and empty mbarriers of
+#: RING_MAX slots, 8 bytes each, beside the dynamic layout
+STATIC_SMEM = 2 * RING_MAX * 8
+
+
 def scratch_stride(n_obs: int, n_state: int) -> int:
     """Values K11 keeps per replayed step and model: ``m`` (n), ``P``
     (n*n), ``K'`` (N*n), ``L^-1 Z_m`` (N*n), ``e`` (N) and ``ok`` (1)."""
@@ -61,18 +77,62 @@ def scratch_stride(n_obs: int, n_state: int) -> int:
     return n + n * n + 2 * big_n * n + big_n + 1
 
 
-def smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory one block of K11 needs (mirrors ``carve`` in
-    the source)."""
-    item = torch.finfo(dtype).bits // 8
+def _layout(n_obs: int, n_state: int, ring: int) -> int:
+    """Values of one block's work matrices (mirrors ``carve`` and
+    ``replay_values`` in the source, buffer by buffer)."""
     n, big_n = n_state, n_obs
-    elems = (big_n * n + big_n + 2 * n  # z, r, phi, q
-             + 5 * n * n  # P, S, S A, a step's stored P, S_p
-             + 5 * big_n * n  # P_p Z_m', K', L^-1 Z_m, S K, K' S A
-             + big_n * big_n  # F, factored in place
-             + 8 * n  # m, m0, u, w, A'u, u_p, phibar, qbar
-             + 5 * big_n)  # v, e, K'u, mask, reciprocal pivots
-    return elems * item
+    nn, nbig = n * n, n * big_n
+    common = nbig + big_n + 2 * n  # Z, r, phi, q
+    sweep = (5 * nn  # S, S A, S_p o P, A of two steps
+             + 5 * n  # u, A'u, w, phibar, qbar
+             + nbig  # K' of the next step's A
+             + 2 * (nbig + nn + n + 2 * big_n + 1 + 2))  # per staged step:
+    # L^-1 Z_m, P, m, e, mask, ok, (sb, db)
+    replay = (nn + big_n * (big_n + 1) + 2 * nbig  # P, L, K', L^-1 Z_m
+              + n + 3 * big_n)  # m, e, mask, reciprocal pivots
+    return common + sweep + ring * replay
+
+
+def smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype,
+               ring: int = 1) -> int:
+    """Dynamic shared memory one block of K11 needs with ``ring``
+    replay groups (mirrors ``carve`` in the source)."""
+    return _layout(n_obs, n_state, ring) * (torch.finfo(dtype).bits // 8)
+
+
+def ring_depth(n_obs: int, n_state: int, dtype: torch.dtype,
+               n_seg: int) -> Tuple[int, bool]:
+    """``(R, spill)``: the ring depth K11 launches with — the most replay
+    groups, up to :data:`RING_MAX` and the number of segments, whose
+    layout fits :data:`MAX_SMEM` beside the block's
+    :data:`STATIC_SMEM` — and whether the layout spills to a
+    device-memory workspace instead (no depth fits; every shape runs)."""
+    most = max(1, min(RING_MAX, n_seg))
+    for ring in range(most, 0, -1):
+        if smem_bytes(n_obs, n_state, dtype, ring) <= MAX_SMEM - STATIC_SMEM:
+            return ring, False
+    return most, True
+
+
+def block_shape(b: int, n_obs: int, n_state: int, dtype: torch.dtype,
+                ring: int, spill: bool, device) -> Tuple[int, int]:
+    """``(G, S)`` K11 launches ``b`` models with: :data:`WIDE` when every
+    block of it is resident at once on the card, else (and for a spilled
+    layout) :data:`COMPACT` (builds the kernels, for the occupancy
+    query)."""
+    if spill:
+        return COMPACT
+    props = torch.cuda.get_device_properties(device)
+    with torch.cuda.device(device):
+        resident = props.multi_processor_count * occupancy(
+            n_obs, n_state, dtype, ring, spill, *WIDE)
+    return WIDE if b <= resident else COMPACT
+
+
+def scratch_shape(b: int, t_steps: int, seg: int, n_obs: int,
+                  n_state: int, ring: int) -> Tuple[int, int, int, int]:
+    """The ring of replayed records: ``(B, R, min(seg, T), stride)``."""
+    return (b, ring, min(seg, t_steps), scratch_stride(n_obs, n_state))
 
 
 def _check(phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov, sb, db,
@@ -131,23 +191,24 @@ def joint_adjoint(phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov, sb,
 def joint_adjoint_kernel(phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov,
                          sb, db, seg: int, factored: bool = False):
     """Launch K11 (CUDA tensors only; raises otherwise, and when the
-    kernel cannot build, take the shape or launch)."""
+    kernel cannot build or launch)."""
     b, t_steps, big_n, n, seg, _ = _check(
         phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov, sb, db, seg)
     if phi.device.type != "cuda":
         raise ValueError(
             f"the joint-adjoint kernel runs on CUDA tensors, got {phi.device}")
-    smem = smem_bytes(big_n, n, phi.dtype)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"(N={big_n}, n={n}) at {phi.dtype} needs {smem} bytes of shared "
-            f"memory per block; the kernel takes at most {MAX_SMEM}")
     args = [t.contiguous() for t in (phi, qdiag, z, r, y, mask, bounds_mean,
                                      bounds_cov, sb, db)]
     new = dict(dtype=phi.dtype, device=phi.device)
-    # one segment's replay per model, reused by every segment
-    scratch = torch.empty((b, min(seg, t_steps), scratch_stride(big_n, n)),
+    ring, spill = ring_depth(big_n, n, phi.dtype, -(-t_steps // seg))
+    # R segments of replayed records per model; a layout that does not fit
+    # shared memory lives in a device-memory workspace per block
+    scratch = torch.empty(scratch_shape(b, t_steps, seg, big_n, n, ring),
                           **new)
+    work = (torch.empty((b, _layout(big_n, n, ring)), **new) if spill
+            else None)
+    group, sweep = (block_shape(b, big_n, n, phi.dtype, ring, spill,
+                                phi.device) if b else COMPACT)
     phibar = torch.empty((b, n), **new)
     qbar = torch.empty((b, n), **new)
     lib = build.load_library("joint_adjoint")
@@ -156,12 +217,39 @@ def joint_adjoint_kernel(phi, qdiag, z, r, y, mask, bounds_mean, bounds_cov,
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
         err = fn(*[t.data_ptr() for t in args], scratch.data_ptr(),
+                 None if work is None else work.data_ptr(),
                  phibar.data_ptr(), qbar.data_ptr(), b, t_steps, big_n, n,
-                 seg, int(bool(factored)), stream)
+                 seg, int(bool(factored)), ring, group, sweep, stream)
     build.check(lib, err, "joint_adjoint")
     if b:
         build.count_launch("joint_adjoint")
     return phibar, qbar
+
+
+_OCCUPANCY: dict = {}
+
+
+def occupancy(n_obs: int, n_state: int, dtype: torch.dtype, ring: int,
+              spill: bool = False, group: int = COMPACT[0],
+              sweep: int = COMPACT[1]) -> int:
+    """Blocks of K11 the current card keeps resident per SM at this
+    shape, ring depth and block (CUDA's occupancy calculator; builds the
+    kernels)."""
+    import ctypes
+
+    key = (torch.cuda.current_device(), n_obs, n_state, dtype, ring,
+           bool(spill), group, sweep)
+    if key not in _OCCUPANCY:
+        lib = build.load_library("joint_adjoint")
+        fn = (lib.metran_joint_adjoint_occupancy_f64
+              if dtype == torch.float64
+              else lib.metran_joint_adjoint_occupancy_f32)
+        blocks = ctypes.c_int(0)
+        err = fn(n_obs, n_state, ring, group, sweep, int(bool(spill)),
+                 ctypes.byref(blocks))
+        build.check(lib, err, "joint_adjoint occupancy")
+        _OCCUPANCY[key] = blocks.value
+    return _OCCUPANCY[key]
 
 
 def _replay_step(phi, qd, z, r, m, p, y_t, mask_t, eye_m):
@@ -246,6 +334,14 @@ __all__ = [
     "joint_adjoint",
     "joint_adjoint_kernel",
     "joint_adjoint_plain",
+    "COMPACT",
+    "RING_MAX",
+    "STATIC_SMEM",
+    "WIDE",
+    "block_shape",
+    "occupancy",
+    "ring_depth",
+    "scratch_shape",
     "scratch_stride",
     "smem_bytes",
 ]

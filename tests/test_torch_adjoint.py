@@ -279,3 +279,160 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     assert build.launches()["joint_adjoint"] == 0
     with pytest.raises(ValueError, match="bounds_mean"):
         joint_adjoint(*args, 7)  # 3 segments need 3 boundaries
+
+
+# ----------------------------------------------------------------------
+# K11's launch geometry: the ring depth, the ring's shape and the layout
+# (pure Python; the kernel itself runs on the card)
+# ----------------------------------------------------------------------
+def _k11_source():
+    from pathlib import Path
+
+    import metran_tpu_torch.kernels as kpkg
+
+    return (Path(kpkg.__file__).parent / "csrc" / "joint_adjoint.cu"
+            ).read_text()
+
+
+def _k11_module():
+    import importlib  # the package re-exports the function of that name
+
+    return importlib.import_module("metran_tpu_torch.kernels.joint_adjoint")
+
+
+def _takes(text, big_n, n):
+    """Values a run of ``b.take(base, <expr>)`` calls allocates."""
+    import re
+
+    env = {"N": big_n, "n": n, "nn": n * n, "nN": n * big_n}
+    return sum(eval(e.replace("(size_t)", ""), {}, dict(env))
+               for e in re.findall(r"b\.take\(base, ([^;]+)\);", text))
+
+
+@pytest.mark.parametrize("big_n,n,ring", [(20, 21, 4), (5, 7, 1),
+                                          (40, 41, 2), (3, 30, 3)])
+def test_k11_layout_mirrors_the_sources_carve(big_n, n, ring):
+    ja = _k11_module()
+    src = _k11_source()
+    carve = src[src.index("size_t carve(T* base"):]
+    carve = carve[:carve.index("return b.used;")]
+    sweep = _takes(carve, big_n, n)
+    replay = src[src.index("Replay<T> replay_ws("):]
+    replay = replay[:replay.index("*count = b.used;")]
+    per_warp = _takes(replay, big_n, n)
+    want = sweep + ring * per_warp
+    assert ja._layout(big_n, n, ring) == want
+    for dtype, item in ((torch.float32, 4), (torch.float64, 8)):
+        assert ja.smem_bytes(big_n, n, dtype, ring) == want * item
+
+
+def test_k11_ring_depth_at_the_flagship_and_at_the_edges():
+    ja = _k11_module()
+    # the flagship (N=20, n=21): four replay warps in shared memory
+    assert ja.ring_depth(20, 21, torch.float32, 40) == (4, False)
+    assert ja.ring_depth(20, 21, torch.float64, 40) == (4, False)
+    # never more warps than segments, never fewer than one
+    assert ja.ring_depth(20, 21, torch.float32, 2) == (2, False)
+    assert ja.ring_depth(20, 21, torch.float32, 1) == (1, False)
+    assert ja.ring_depth(20, 21, torch.float32, 0) == (1, False)
+    # wide: as many as fit (f64 at N=40, n=41 fits one)
+    ring, spill = ja.ring_depth(40, 41, torch.float64, 40)
+    assert (ring, spill) == (1, False)
+    room = ja.MAX_SMEM - ja.STATIC_SMEM
+    assert ja.smem_bytes(40, 41, torch.float64, 1) <= room
+    assert ja.smem_bytes(40, 41, torch.float64, 2) > room
+    # too wide for shared memory at any depth: the workspace spills
+    assert ja.ring_depth(45, 46, torch.float64, 40) == (4, True)
+
+
+def _old_k11_smem(big_n, n, item):
+    """The shared memory the one-block-per-model K11 took before the
+    ring (5n^2 + 6nN + N^2 + 10n + 6N values)."""
+    return (5 * n * n + 6 * n * big_n + big_n * big_n + 10 * n
+            + 6 * big_n) * item
+
+
+@pytest.mark.parametrize("dtype,item", [(torch.float32, 4),
+                                        (torch.float64, 8)])
+def test_k11_takes_every_shape_the_earlier_kernel_took(dtype, item):
+    ja = _k11_module()
+    for big_n in (1, 2, 5, 20, 31, 32, 33, 40, 64, 100):
+        for n in range(big_n, big_n + 80, 7):
+            ring, spill = ja.ring_depth(big_n, n, dtype, 40)
+            assert 1 <= ring <= ja.RING_MAX
+            room = ja.MAX_SMEM - ja.STATIC_SMEM
+            if not spill:
+                assert ja.smem_bytes(big_n, n, dtype, ring) <= room
+            if _old_k11_smem(big_n, n, item) <= ja.MAX_SMEM:
+                # what ran before still runs, in shared memory when the
+                # one-warp ring fits there beside the barriers
+                if ja.smem_bytes(big_n, n, dtype, 1) <= room:
+                    assert not spill
+
+
+def test_k11_static_barriers_mirror_the_source_and_leave_room(monkeypatch):
+    """The block's static shared memory (a full and an empty mbarrier of
+    8 bytes per slot) is left out of the dynamic layout's room: a layout
+    that would fit only without it takes one ring slot fewer, or
+    spills."""
+    import re
+
+    ja = _k11_module()
+    src = _k11_source()
+    assert int(re.search(r"constexpr int kMaxRing = (\d+);", src)[1]) \
+        == ja.RING_MAX
+    assert re.search(r"__shared__ __align__\(8\) uint64_t "
+                     r"full\[kMaxRing\], empty\[kMaxRing\];", src)
+    assert ja.STATIC_SMEM == 2 * ja.RING_MAX * 8
+    real = ja._layout
+    # exactly MAX_SMEM bytes at depth 2 leaves no room for the barriers:
+    # depth 1; the same at every depth: the workspace spills; MAX_SMEM
+    # less the barriers fits
+    monkeypatch.setattr(ja, "_layout", lambda big_n, n, ring: (
+        ja.MAX_SMEM // 4 if ring >= 2 else real(big_n, n, ring)))
+    assert ja.ring_depth(20, 21, torch.float32, 2) == (1, False)
+    monkeypatch.setattr(ja, "_layout", lambda *a: ja.MAX_SMEM // 4)
+    assert ja.ring_depth(20, 21, torch.float32, 2) == (2, True)
+    monkeypatch.setattr(ja, "_layout",
+                        lambda *a: (ja.MAX_SMEM - ja.STATIC_SMEM) // 4)
+    assert ja.ring_depth(20, 21, torch.float32, 2) == (2, False)
+
+
+@pytest.mark.parametrize("t_steps,seg", [(5000, 128), (1, 128), (127, 128),
+                                         (128, 128), (517, 128), (0, 16)])
+def test_k11_ring_scratch_shape_and_bound(t_steps, seg):
+    ja = _k11_module()
+    n_seg = -(-t_steps // seg)
+    ring, _ = ja.ring_depth(20, 21, torch.float32, n_seg)
+    shape = ja.scratch_shape(512, t_steps, seg, 20, 21, ring)
+    assert shape == (512, ring, min(seg, t_steps), ja.scratch_stride(20, 21))
+    assert ja.scratch_stride(20, 21) == 21 + 21 * 21 + 2 * 20 * 21 + 20 + 1
+    # at most RING_MAX times the one-segment scratch of a kernel that
+    # replays and sweeps in turn
+    one = 512 * min(seg, t_steps) * ja.scratch_stride(20, 21)
+    assert np.prod(shape) <= ja.RING_MAX * one
+    assert ring <= max(1, n_seg)
+
+
+@pytest.mark.parametrize("b,want", [(1, "WIDE"), (132, "WIDE"),
+                                    (133, "COMPACT"), (512, "COMPACT")])
+def test_k11_block_shape_spends_idle_sms_on_small_fleets(monkeypatch, b,
+                                                         want):
+    """The wide block while every block of it is resident at once (one
+    a SM, 132 SMs), the compact one past that."""
+    import contextlib
+    import types
+
+    ja = _k11_module()
+    monkeypatch.setattr(ja, "occupancy", lambda *a, **k: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    got = ja.block_shape(b, 20, 21, torch.float32, 4, False, "cuda")
+    assert got == getattr(ja, want)
+    assert ja.COMPACT == (1, 4) and ja.WIDE == (2, 8)
+    # a spilled layout always runs in the compact block
+    assert ja.block_shape(b, 45, 46, torch.float64, 4, True,
+                          "cuda") == ja.COMPACT

@@ -322,6 +322,110 @@ def test_joint_adjoint_kernel_matches_plain(card, dtype, bar, factored):
         assert _rel(gt, wt) <= bar
 
 
+def _k11_ring_case(card, dtype, b, t, seg, n_obs=5, kf=2, factored=False,
+                   degraded=False, masked_seg=False):
+    """K11's inputs over K1 (or, ``factored``, K9) boundaries: ``b``
+    models of ``n_obs`` series and ``kf`` factors over ``t`` steps, an
+    all-masked step, optionally a fully masked segment (the second) and
+    degraded steps mid-segment (model 0's slot 2 has r < 0 and is
+    observed at a few steps in the middle of the first segment only)."""
+    rng = np.random.default_rng(7)
+    ss = dfm_statespace(rng.uniform(5, 40, (b, n_obs)),
+                        rng.uniform(10, 60, (b, kf)),
+                        rng.uniform(0.3, 0.8, (b, n_obs, kf)) / kf, 1.0,
+                        device=card, dtype=dtype)
+    phi, q, z, r = ss
+    r = torch.full_like(r, 0.2)
+    mask = rng.uniform(size=(b, t, n_obs)) > 0.3
+    if t > 3:
+        mask[:, 3] = False
+    if masked_seg:
+        mask[:, seg:2 * seg] = False
+    if degraded:
+        r[0, 2] = -5.0
+        mask[0, :, 2] = False
+        mid = np.arange(seg // 3, min(t, 2 * seg // 3), 3)
+        mask[0, mid, 2] = True
+    y = torch.as_tensor(np.where(mask, rng.normal(size=mask.shape), 0.0),
+                        dtype=dtype, device=card)
+    mask = torch.as_tensor(mask, device=card)
+    qd = torch.diagonal(q, 0, -2, -1).contiguous()
+    s = phi.shape[1]
+    if factored:
+        out = kernels.sqrt_filter(phi.T.contiguous(), qd.T.contiguous(),
+                                  z.permute(1, 2, 0).contiguous(),
+                                  r.T.contiguous(), y, mask, bounds_seg=seg)
+    else:
+        mean = torch.zeros(b, s, dtype=dtype, device=card)
+        cov = torch.eye(s, dtype=dtype, device=card).expand(b, s, s)
+        out = kernels.joint_filter_append(phi, q, z, r, mean, cov.contiguous(),
+                                          y, mask, bounds_seg=seg)
+    g = torch.Generator(device=card).manual_seed(3)
+    sb = torch.rand(y.shape[:2], generator=g, device=card, dtype=dtype)
+    db = torch.rand(y.shape[:2], generator=g, device=card, dtype=dtype)
+    return (phi, qd, z, r, y, mask, out[4], out[5], sb, db, seg, factored)
+
+
+SEG = 16
+_RING = 4  # the ring depth of the (5, 7) models below (ring_depth's)
+K11_CASES = {
+    "B1-T1": dict(b=1, t=1),
+    "B3-T=seg-1": dict(b=3, t=SEG - 1),
+    "B3-T=seg": dict(b=3, t=SEG),
+    "B133-ring-wraps": dict(b=133, t=_RING * SEG + 5),
+    # the ring wrapping in the wide block (few models): its groups refill
+    "B3-ring-wraps": dict(b=3, t=_RING * SEG + 5),
+    "B3-ring-wraps-factored": dict(b=3, t=_RING * SEG + 5, factored=True),
+    "masked-segment": dict(b=3, t=3 * SEG + 2, masked_seg=True),
+    "degraded-mid-segment": dict(b=3, t=2 * SEG + 7, degraded=True),
+    "factored-degraded": dict(b=3, t=2 * SEG + 7, degraded=True,
+                              factored=True),
+    "N40-n41": dict(b=3, t=2 * SEG + 5, n_obs=40, kf=1),
+    "N45-n46-spill": dict(b=2, t=2 * SEG + 5, n_obs=45, kf=1),
+    # more models than the card keeps resident in the wide block: the
+    # compact one, on the same wide and spilled shapes
+    "B133-N40-n41": dict(b=133, t=2 * SEG + 5, n_obs=40, kf=1),
+    "B133-N45-n46-spill": dict(b=133, t=SEG + 3, n_obs=45, kf=1),
+    # seg >= T on a long series: one replay of 6,000 steps that the sweep
+    # waits for in full
+    "seg=T-long-replay": dict(b=1, t=6000, seg=6000),
+    "seg>T-long-replay": dict(b=1, t=6000, seg=8192),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K11_CASES))
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_joint_adjoint_ring_cases(card, dtype, bar, case):
+    """The warp-specialised K11 (ring of replayed segments, replay groups
+    beside the sweep warps) against its plain version, NaN-strict, one
+    launch per call: short and exact-multiple horizons, a ring that wraps,
+    a fully masked segment, degraded steps mid-segment, factor boundaries,
+    several rows of F per lane (N = 40) and the device-memory layout, in
+    the wide block (few models) and the compact one (B = 133); one long
+    segment (seg >= T)."""
+    import importlib
+
+    ja = importlib.import_module("metran_tpu_torch.kernels.joint_adjoint")
+    args = _k11_ring_case(card, dtype, **{"seg": SEG, **K11_CASES[case]})
+    if "ring-wraps" in case:
+        b = K11_CASES[case]["b"]
+        assert ja.ring_depth(5, 7, dtype, -(-args[4].shape[1] // SEG)) \
+            == (_RING, False)
+        assert ja.block_shape(b, 5, 7, dtype, _RING, False, card) == (
+            ja.COMPACT if b > 132 else ja.WIDE)
+    if case == "N45-n46-spill" and dtype == torch.float64:
+        assert ja.ring_depth(45, 46, dtype, 3)[1]
+    kernels.reset_launches()
+    got = kernels.joint_adjoint(*args)
+    want = kernels.joint_adjoint_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches()["joint_adjoint"] == 1
+    for gt, wt in zip(got, want):
+        assert torch.equal(torch.isnan(gt), torch.isnan(wt))
+        assert _rel(gt, wt) <= bar
+
+
 def _gate_inputs(card, dtype, k=6):
     """K12's inputs with spikes on known cells and an armed mix (the
     loadings keep every communality below 1, so Q is PSD)."""

@@ -14,7 +14,19 @@ non-zero):
 3. kernels — each kernel against its plain PyTorch version on the card,
    f64 and f32 (bars: normwise relative error 1e-9 and 1e-3,
    NaN-strict), then at the main paths' shapes in f32, where the kernels
-   are also timed (CUDA events) beside their bounds: K1/K2 (serving),
+   are also timed (CUDA events) beside their bounds; K1's warp kernel
+   (``k1_kernels``: a group of warps per model) held ``torch.equal`` to the block
+   kernel it replaced (one block per model, kept as its oracle) in every
+   mode — carry over k steps and over one, ``bounds``, ``store`` — f64
+   and f32 on ``K1_CASES`` (B = 1, 3, 133; T = 1, seg - 1, seg, 4 seg +
+   5; an all-masked step, degraded steps, the serving bucket's padding,
+   N = 40 and 45; each launch shape on B = 133; the widest buckets of
+   eights the block kernel takes, (88, 96) f32 and (64, 72) f64), at the
+   flagship fleet
+   (512 models, T = 5,000, seg 128) and the serving bucket (512 models,
+   k = 1), the block kernel held to the plain version; both timed
+   alternately at B = 512, 64, 8, 1 (``bounds``), the serving update
+   and ``store`` at B = 512, beside ``k1_cost``'s bound; K1/K2 (serving),
    K3/K4 (fit), K5/K6/K7 (products), K6's ``store`` mode and K8 (the
    single model's stored filter and RTS smoother: one lane, 16 lanes of
    path draws, and a step whose predicted covariance is made indefinite,
@@ -248,8 +260,9 @@ non-zero):
    ``store``, K8) and ``filter_append`` (K12 ``off``), each held to the
    sequential engine's within 1e-9.
 
-Every phase also prints its wall time (``{"phase_wall": ..., "wall_s":
-...}``).  The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
+No path may launch K1's block kernel (its own launch counters, read
+around the path phases).  Every phase also prints its wall time
+(``{"phase_wall": ..., "wall_s": ...}``).  The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -1079,6 +1092,282 @@ def phase_kernels():
     bad = [c for c in checks if not c["ok"]]
     require(not bad, f"kernel disagrees with its plain version: {bad}")
     return checks, times
+
+
+K1_SEG = 16  # the segment of K1's warp-vs-block cases (short, many segments)
+# K1's warp-vs-block cases: (label, models, steps, widths, options); the
+# flagship widths unless stated.  ``padded``: the serving bucket (24, 32)
+# as the registry pads a flagship model; ``degraded``: model 0 observes a
+# slot with r < 0 at a few steps (those steps degrade).  Every case has
+# an all-masked step once T > 3.
+K1_CASES = (
+    ("B=1 T=1", 1, 1, (N_SERIES, N_FACTORS), {}),
+    ("B=3 T=seg-1", 3, K1_SEG - 1, (N_SERIES, N_FACTORS), {}),
+    ("B=3 T=seg", 3, K1_SEG, (N_SERIES, N_FACTORS), {}),
+    ("B=133 T=4 seg+5", 133, 4 * K1_SEG + 5, (N_SERIES, N_FACTORS), {}),
+    ("B=3, degraded steps (r < 0)", 3, 2 * K1_SEG + 7,
+     (N_SERIES, N_FACTORS), {"degraded": True}),
+    ("B=3 N=24 S=32 (the serving bucket)", 3, 2 * K1_SEG + 7,
+     (N_SERIES, N_FACTORS), {"padded": True}),
+    ("B=3 N=40 S=41", 3, 2 * K1_SEG + 5, (40, 1), {}),
+    ("B=2 N=45 S=46", 2, 2 * K1_SEG + 5, (45, 1), {}),
+)
+# the widest buckets of eights the block kernel (and the joint arena
+# update) takes, which the warp kernel must take too: (dtype, label,
+# models, steps, (series, factors))
+K1_WIDE = (
+    ("float32", "B=2 N=88 S=96 (f32's widest bucket)", 2, K1_SEG + 3,
+     (88, 8)),
+    ("float64", "B=2 N=64 S=72 (f64's widest bucket)", 2, K1_SEG + 3,
+     (64, 8)),
+)
+# K1's warp-kernel shapes (W models a block, G warps a model) forced on
+# the B=133 case (partial last blocks)
+K1_SHAPES = ((1, 1), (3, 1), (8, 1), (1, 4), (2, 4))
+
+
+def _k1_case(rng, b, t, widths, dtype, dev, degraded=False, padded=False):
+    """K1's arguments for a warp-vs-block case, from a warm non-diagonal
+    posterior (``(phi, q, z, r, mean, cov, y, mask)``)."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import dfm_statespace
+
+    if padded:
+        phi, q, z, r, y, mask = padded_inputs(rng, b, t, dtype, dev)
+        mask = mask.cpu().numpy()
+    else:
+        big_n, kf = widths
+        phi, q, z, r = dfm_statespace(
+            rng.uniform(5, 40, (b, big_n)), rng.uniform(10, 60, (b, kf)),
+            rng.uniform(0.3, 0.8, (b, big_n, kf)) / kf, 1.0, device=dev,
+            dtype=dtype)
+        mask = rng.uniform(size=(b, t, big_n)) > 0.3
+        if t > 3:
+            mask[:, 3] = False
+    r = torch.full_like(r, 0.2)
+    if degraded:
+        r[0, 2] = -5.0
+        mask[0, :, 2] = False
+        mask[0, 1:t:3, 2] = True
+    y = torch.as_tensor(np.where(mask, rng.normal(size=mask.shape), 0.0),
+                        dtype=dtype, device=dev)
+    s = phi.shape[1]
+    a = rng.normal(size=(b, s, s)) * 0.1
+    cov = torch.as_tensor(np.eye(s) + a @ a.transpose(0, 2, 1), dtype=dtype,
+                          device=dev)
+    mean = torch.as_tensor(rng.normal(size=(b, s)) * 0.1, dtype=dtype,
+                           device=dev)
+    return (phi, q, z, r, mean, cov, y, torch.as_tensor(mask, device=dev))
+
+
+def _k1_modes(jf, args, warp):
+    """K1's modes on ``args`` through the warp (or the block) kernel:
+    carry over all steps and over the first, bounds every K1_SEG steps,
+    store."""
+    append = (jf.joint_filter_append_kernel if warp
+              else jf.joint_filter_append_block)
+    store = jf.joint_filter_store_kernel if warp else jf.joint_filter_store_block
+    first = (*args[:6], args[6][:, :1].contiguous(),
+             args[7][:, :1].contiguous())
+    return {"carry": append(*args), "carry k=1": append(*first),
+            "bounds": append(*args, bounds_seg=K1_SEG), "store": store(*args)}
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_k1_kernels():
+    """K1's warp kernel bit for bit its block kernel, and both timed.
+
+    The warp kernel (a group of warps per model) computes every entry by the
+    block kernel's sequence of operations, so the two must agree by
+    ``torch.equal`` in every mode — carry (all steps, and one),
+    ``bounds`` and ``store`` — f64 and f32, on K1_CASES (short and
+    exact-multiple horizons, more models than one block of any width,
+    an all-masked step, degraded steps, the serving bucket's padding,
+    N = 40 and 45), on the B=133 case at each launch shape in K1_SHAPES
+    forced through the wrapper's chooser, at the flagship fleet (512 models,
+    T = 5,000, seg 128) and at the serving bucket (512 models, k = 1 from
+    a warm posterior); the block kernel is held to the plain version on
+    the cases (f64 1e-9, f32 1e-3, NaN-strict).  Then both kernels timed
+    alternately (block, warp, warp, block) at B = 512, 64, 8, 1
+    (``bounds``, flagship inputs), the serving update and ``store`` at
+    B = 512, each beside ``k1_cost``'s bound."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches
+
+    from metran_tpu_torch.kernels.build import oracle_launches
+
+    jf = importlib.import_module("metran_tpu_torch.kernels.joint_filter")
+    dev = torch.device(DEVICE)
+    checks, bitwise = [], []
+
+    def equal(label, dtype, a, b):
+        same = {mode: _same(a[mode], b[mode]) for mode in a}
+        bitwise.append({"case": label, "dtype": str(dtype).replace(
+            "torch.", ""), "bitwise": same})
+
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        for label, b, t, widths, kw in K1_CASES:
+            rng = np.random.default_rng(SEED + 160)
+            args = _k1_case(rng, b, t, widths, dtype, dev, **kw)
+            before = (launches(), oracle_launches())
+            warp = _k1_modes(jf, args, True)
+            after = (launches(), oracle_launches())
+            block = _k1_modes(jf, args, False)
+            torch.cuda.synchronize()
+            require(after[0]["joint_filter_append"]
+                    - before[0]["joint_filter_append"] == 3
+                    and after[0]["joint_filter_store"]
+                    - before[0]["joint_filter_store"] == 1
+                    and after[1] == before[1],
+                    f"K1 {label}: the warp modes' launches")
+            equal(label, dtype, warp, block)
+            want = joint_filter_plain_modes(jf, args)
+            for mode in ("bounds", "store"):
+                checks.append(check_entry(
+                    "joint_filter_append_block" if mode == "bounds"
+                    else "joint_filter_store_block", f"{label}, {mode}",
+                    dtype, block[mode], want[mode], bar))
+            if b == 133:  # each launch shape, partial last blocks
+                chooser = jf.block_shape
+                try:
+                    for shape in K1_SHAPES:
+                        jf.block_shape = lambda *a, shape=shape: shape
+                        equal(f"{label}, (W, G)={shape}", dtype,
+                              _k1_modes(jf, args, True), block)
+                finally:
+                    jf.block_shape = chooser
+        for name, label, b, t, widths in K1_WIDE:
+            if name != str(dtype).replace("torch.", ""):
+                continue
+            rng = np.random.default_rng(SEED + 161)
+            args = _k1_case(rng, b, t, widths, dtype, dev)
+            equal(label, dtype, _k1_modes(jf, args, True),
+                  _k1_modes(jf, args, False))
+
+    # the flagship fleet (f32) in every mode, and the serving bucket
+    rng = np.random.default_rng(SEED + 95)
+    ss, y, mask = _adjoint_case(rng, FLEET, T_STEPS, torch.float32, dev)
+    n = ss.phi.shape[1]
+    m0 = ss.phi.new_zeros((FLEET, n))
+    c0 = torch.eye(n, dtype=torch.float32, device=dev).expand(
+        FLEET, n, n).contiguous()
+    full = (*ss, m0, c0, y, mask)
+    flag = {}
+    for warp in (True, False):
+        append = (jf.joint_filter_append_kernel if warp
+                  else jf.joint_filter_append_block)
+        flag[warp] = {"bounds": append(*full, bounds_seg=ADJ_SEG),
+                      "carry": append(*full)}
+    equal(f"B={FLEET} T={T_STEPS} (20,21) seg={ADJ_SEG}", torch.float32,
+          flag[True], flag[False])
+    del flag
+    st = {warp: (jf.joint_filter_store_kernel if warp
+                 else jf.joint_filter_store_block)(*full)
+          for warp in (True, False)}
+    equal(f"B={FLEET} T={T_STEPS} (20,21), store", torch.float32,
+          {"store": st[True]}, {"store": st[False]})
+    del st
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 3)
+    phi, q, z, r, yb, mb = padded_inputs(rng, FLEET, 65, torch.float32, dev)
+    s = phi.shape[1]
+    warm = jf.joint_filter_append_kernel(
+        phi, q, z, r, phi.new_zeros((FLEET, s)),
+        torch.eye(s, dtype=phi.dtype, device=dev).expand(
+            FLEET, s, s).contiguous(), yb[:, :64], mb[:, :64])
+    serve = (phi, q, z, r, warm[0], warm[1], yb[:, 64:].contiguous(),
+             mb[:, 64:].contiguous())
+    equal(f"B={FLEET} k=1 (24,32), the serving update", torch.float32,
+          {"carry": jf.joint_filter_append_kernel(*serve)},
+          {"carry": jf.joint_filter_append_block(*serve)})
+    # the block kernel against plain at the serving bucket (its time and
+    # the plain version's go into the summary)
+    block_ms, got = cuda_ms(lambda: jf.joint_filter_append_block(*serve))
+    plain_ms, want = cuda_ms(lambda: jf.joint_filter_append_plain(*serve))
+    checks.append(check_entry("joint_filter_append_block",
+                              f"main path: B={FLEET} k=1 (24,32)",
+                              torch.float32, got, want, 1e-3))
+    emit({"phase": "k1_bitwise", "checks": bitwise})
+    bad = [c for c in bitwise if not all(c["bitwise"].values())]
+    require(not bad, f"K1's warp kernel differs from its block kernel: {bad}")
+
+    # both kernels timed, alternating
+    def alternate(block_fn, warp_fn, cost, reps=3):
+        got = {"block": [], "warp": []}
+        for who in ("block", "warp", "warp", "block"):
+            ms, _ = cuda_ms(block_fn if who == "block" else warp_fn,
+                            reps=reps, warm=1)
+            got[who].append(ms)
+        bms, bby = bound_ms(*cost, "float32")
+        return {"block_ms": got["block"], "warp_ms": got["warp"],
+                "speedup": min(got["block"]) / min(got["warp"]),
+                "bound_ms": bms, "bound_by": bby}
+
+    timing = {}
+    for b in (FLEET, 64, 8, 1):
+        part = [a[:b].contiguous() for a in full]
+        timing[f"bounds B={b}"] = alternate(
+            lambda: jf.joint_filter_append_block(*part, bounds_seg=ADJ_SEG),
+            lambda: jf.joint_filter_append_kernel(*part, bounds_seg=ADJ_SEG),
+            bounds_cost(k1_cost(part[2], part[1], part[7], 4), b, n, T_STEPS,
+                        ADJ_SEG, 4))
+        timing[f"bounds B={b}"]["block_shape"] = jf.block_shape(
+            b, N_SERIES, n, torch.float32, dev, "bounds")
+    timing[f"serving update B={FLEET} k=1 (24,32)"] = alternate(
+        lambda: jf.joint_filter_append_block(*serve),
+        lambda: jf.joint_filter_append_kernel(*serve),
+        k1_cost(z, q, serve[7], 4), reps=20)
+    timing[f"store B={FLEET}"] = alternate(
+        lambda: jf.joint_filter_store_block(*full),
+        lambda: jf.joint_filter_store_kernel(*full),
+        store_cost(k1_cost(full[2], full[1], full[7], 4), FLEET, n, T_STEPS,
+                   4), reps=2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geometry = {str(dt).replace("torch.", ""): {
+        f"{wn}x{ws}": {"model_bytes": jf.model_bytes(wn, ws, dt),
+                       "block_kernel_bytes": jf.block_smem_bytes(wn, ws, dt),
+                       "four_warp_blocks_per_sm": jf.occupancy(
+                           wn, ws, dt, "bounds", 1, jf.MAX_GROUP),
+                       "sms": sms}
+        for wn, ws in ((N_SERIES, n), BUCKET)}
+        for dt in (torch.float32, torch.float64)}
+    emit({"phase": "k1_times", "shape": f"(20,21) f32 T={T_STEPS} "
+          f"seg={ADJ_SEG}; serving (24,32) k=1", "times": timing,
+          "geometry": geometry})
+    times = {
+        "joint_filter_append_block": {
+            "shape": f"B={FLEET} k=1 N=24 S=32 f32 (update dispatch)",
+            "ms": block_ms, "plain_ms": plain_ms,
+            **{key: timing[f"serving update B={FLEET} k=1 (24,32)"][key]
+               for key in ("bound_ms", "bound_by")},
+            "bounds_by_batch": {key: {"ms": min(v["block_ms"]),
+                                      "bound_ms": v["bound_ms"]}
+                                for key, v in timing.items()
+                                if key.startswith("bounds")}},
+        "k1_warp_vs_block": timing}
+    emit({"phase": "k1_kernels", "checks": [
+        {k: c[k] for k in ("kernel", "case", "dtype", "rel_err", "bar", "ok")}
+        for c in checks]})
+    bad = [c for c in checks if not c["ok"]]
+    require(not bad, f"kernel disagrees with its plain version: {bad}")
+    return checks, times
+
+
+def joint_filter_plain_modes(jf, args):
+    """The plain versions of K1's ``bounds`` and ``store`` modes."""
+    return {"bounds": jf.joint_filter_append_plain(*args, bounds_seg=K1_SEG),
+            "store": jf.joint_filter_store_plain(*args)}
 
 
 def phase_main_path(engine="joint"):
@@ -8156,6 +8445,12 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
         "replaces": "metran_tpu/ops/kalman.py:188",
     },
+    # the block kernel the warp kernel replaced: its bit-for-bit oracle,
+    # launched by no path
+    "joint_filter_append_block": {
+        "source": "metran_tpu_torch/kernels/csrc/joint_filter.cu",
+        "replaces": "metran_tpu/ops/kalman.py:329",
+    },
     "gated_filter": {
         "source": "metran_tpu_torch/kernels/csrc/gated_filter.cu",
         "replaces": "metran_tpu/ops/kalman.py:734",
@@ -8249,7 +8544,7 @@ def main() -> int:
     smi = timed(phase_device)
     timed(phase_build)
     checks, times = timed(phase_kernels)
-    for phase in (phase_lanes_kernels, phase_products_kernels,
+    for phase in (phase_k1_kernels, phase_lanes_kernels, phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
                   phase_robust_kernels, phase_steady_kernels,
@@ -8259,6 +8554,9 @@ def main() -> int:
         checks += more_checks
         times.update(more_times)
     timed(phase_sqrt_precision)
+    from metran_tpu_torch.kernels.build import oracle_launches
+
+    oracle0 = oracle_launches()  # the paths' phases start here
     paths, medians = {}, {}
     for engine, path in (("joint", "serve"), ("sqrt", "serve_sqrt")):
         paths[path], medians[engine] = timed(phase_main_path, engine)
@@ -8302,12 +8600,17 @@ def main() -> int:
         timed(check_stderr, fit)
     paths["c2_defaults"] = timed(phase_c2_defaults, mt64)
 
+    # nothing on a path chooses K1's block kernel
+    oracle = {k: v - oracle0[k] for k, v in oracle_launches().items()}
+    require(not any(oracle.values()),
+            f"the paths launched K1's block kernel: {oracle}")
     summary = []
     for name, meta in KERNELS.items():
         t = times[name]
         f32 = [c["max_abs_err"] for c in checks
                if c["kernel"] == name and c["dtype"] == "float32"]
-        by_path = {path: c[name] for path, c in paths.items() if c[name]}
+        by_path = {path: c[name] for path, c in paths.items()
+                   if c.get(name)}  # the oracle: in no path's counts
         entry = {
             "name": name, "route": "cuda", **meta,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -8321,6 +8624,9 @@ def main() -> int:
         if name == "joint_filter_append":
             entry["history_pass"] = times["joint_filter_append_history"]
             entry["bounds"] = times["joint_filter_append_bounds"]
+            entry["warp_vs_block"] = times["k1_warp_vs_block"]
+        if name == "joint_filter_append_block":
+            entry["bounds_by_batch"] = t["bounds_by_batch"]
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
         if name == "joint_adjoint":

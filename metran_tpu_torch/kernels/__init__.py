@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
 - :mod:`.joint_filter` — K1, the joint-update filter append, with or
-  without segment boundaries, or with every step's moments stored;
+  without segment boundaries, or with every step's moments stored (a
+  group of warps per model; the earlier one-block-per-model kernel stays
+  beside it as its bit-for-bit oracle, ``joint_filter_*_block``);
 - :mod:`.forecast` — K2, the closed-form forecast moments;
 - :mod:`.lanes` — K3, the lane-layout sequential filter, and K4, its
   closed-form adjoint;
@@ -85,9 +87,11 @@ from .joint_adjoint import (
 )
 from .joint_filter import (
     joint_filter_append,
+    joint_filter_append_block,
     joint_filter_append_kernel,
     joint_filter_append_plain,
     joint_filter_store,
+    joint_filter_store_block,
     joint_filter_store_kernel,
     joint_filter_store_plain,
 )
@@ -167,9 +171,11 @@ __all__ = [
     "joint_adjoint_kernel",
     "joint_adjoint_plain",
     "joint_filter_append",
+    "joint_filter_append_block",
     "joint_filter_append_kernel",
     "joint_filter_append_plain",
     "joint_filter_store",
+    "joint_filter_store_block",
     "joint_filter_store_kernel",
     "joint_filter_store_plain",
     "lanes_adjoint",

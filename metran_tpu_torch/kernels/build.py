@@ -57,9 +57,21 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
             "parallel_smooth_carry": 0, "parallel_smooth_prefix": 0}
 
 
+#: launches of the kernels kept beside the port's only as their
+#: bit-for-bit oracles (K1's block kernel), which no path calls; apart
+#: from :data:`LAUNCHES` and not reset with it
+ORACLE_LAUNCHES = {"joint_filter_append_block": 0,
+                   "joint_filter_store_block": 0}
+
+
 def count_launch(name: str) -> None:
     with _count_lock:
-        LAUNCHES[name] += 1
+        (ORACLE_LAUNCHES if name in ORACLE_LAUNCHES else LAUNCHES)[name] += 1
+
+
+def oracle_launches() -> dict:
+    with _count_lock:
+        return dict(ORACLE_LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -148,13 +160,21 @@ _DBL = ctypes.c_double
 #: per source, its entry points (each in an ``_f32`` and an ``_f64``
 #: instantiation): base name and argument types
 _SIGNATURES = {
-    # phi, q, z, r, mean0, cov0, y, mask, mean, cov, sigma, detf,
-    # bounds_mean, bounds_cov, B, k, N, S, seg, stream; and the store
-    # mode: phi, q, z, r, mean0, cov0, y, mask, mean_p, cov_p, mean_f,
-    # cov_f, sigma, detf, B, k, N, S, stream
+    # the warp kernel: phi, q, z, r, mean0, cov0, y, mask, mean, cov,
+    # sigma, detf, bounds_mean, bounds_cov, B, k, N, S, seg, W, G, stream;
+    # its store mode: phi, q, z, r, mean0, cov0, y, mask, mean_p, cov_p,
+    # mean_f, cov_f, sigma, detf, B, k, N, S, W, G, stream; the block
+    # kernel (the oracle) the same without W and G; one model's bytes:
+    # N, S; the warp kernel's blocks resident a SM: N, S, mode, W, G,
+    # blocks
     "joint_filter": (
-        ("metran_joint_filter", [_PTR] * 14 + [_INT] * 5 + [_PTR]),
-        ("metran_joint_filter_store", [_PTR] * 14 + [_INT] * 4 + [_PTR]),
+        ("metran_joint_filter", [_PTR] * 14 + [_INT] * 7 + [_PTR]),
+        ("metran_joint_filter_store", [_PTR] * 14 + [_INT] * 6 + [_PTR]),
+        ("metran_joint_filter_block", [_PTR] * 14 + [_INT] * 5 + [_PTR]),
+        ("metran_joint_filter_store_block",
+         [_PTR] * 14 + [_INT] * 4 + [_PTR]),
+        ("metran_joint_filter_model_bytes", [_INT] * 2),
+        ("metran_joint_filter_occupancy", [_INT] * 5 + [_PTR]),
     ),
     # phi, q, z, r, mean0, cov0, y, mask, armed, thresh, mean, cov, sigma,
     # detf, zscore, verdict, B, k, N, S, policy, stream; and the robust

@@ -1256,3 +1256,215 @@ def test_sequence_sharded_filter_on_a_virtual_mesh(card, dtype, bar):
         assert counts[name] >= 1, name
     for got, want in zip((*filt, *smooth), (*f0, *s0)):
         assert _rel(got, want) <= bar
+
+
+# ----------------------------------------------------------------------
+# K1: the warp kernel (a group of warps per model) bit for bit the block kernel
+# (one block per model) it replaced, in every mode
+# ----------------------------------------------------------------------
+K1_SEG = 16
+# (models, steps, (series, factors), options): short and exact-multiple
+# horizons, more models than one block of any width, degraded steps
+# (r < 0), the serving bucket's padding (N=24, S=32), N = 40 and 45;
+# every case past T = 3 has an all-masked step
+K1_CASES = [
+    (1, 1, (20, 1), {}),
+    (3, K1_SEG - 1, (20, 1), {}),
+    (3, K1_SEG, (20, 1), {}),
+    (133, 4 * K1_SEG + 5, (20, 1), {}),
+    (3, 2 * K1_SEG + 7, (20, 1), {"degraded": True}),
+    (3, 2 * K1_SEG + 7, (20, 1), {"padded": True}),
+    (3, 2 * K1_SEG + 5, (40, 1), {}),
+    (2, 2 * K1_SEG + 5, (45, 1), {}),
+]
+
+
+def _k1_case(card, dtype, b, t, widths, degraded=False, padded=False):
+    """K1's arguments from a warm non-diagonal posterior: ``(phi, q, z,
+    r, mean, cov, y, mask)``."""
+    rng = np.random.default_rng(11)
+    big_n, kf = widths
+    phi, q, z, r = dfm_statespace(
+        rng.uniform(5, 40, (b, big_n)), rng.uniform(10, 60, (b, kf)),
+        rng.uniform(0.3, 0.8, (b, big_n, kf)) / kf, 1.0, device=card,
+        dtype=dtype)
+    r = torch.full_like(r, 0.2)
+    mask = rng.uniform(size=(b, t, big_n)) > 0.3
+    if t > 3:
+        mask[:, 3] = False
+    if degraded:
+        r[0, 2] = -5.0
+        mask[0, :, 2] = False
+        mask[0, 1:t:3, 2] = True
+    if padded:  # into (24, 32) as the registry pads: unit padding states
+        s = phi.shape[1]
+        n_pad, s_pad = 24, 32
+        phi = torch.cat([phi, phi.new_full((b, s_pad - s), 0.5)], 1)
+        q2 = torch.eye(s_pad, dtype=dtype, device=card).repeat(b, 1, 1)
+        q2[:, :s, :s] = q
+        z = torch.nn.functional.pad(z, (0, s_pad - s, 0, n_pad - big_n))
+        r = torch.nn.functional.pad(r, (0, n_pad - big_n), value=1.0)
+        q = q2
+        mask = np.concatenate([mask, np.zeros((b, t, n_pad - big_n), bool)],
+                              2)
+    s = phi.shape[1]
+    y = torch.as_tensor(np.where(mask, rng.normal(size=mask.shape), 0.0),
+                        dtype=dtype, device=card)
+    a = rng.normal(size=(b, s, s)) * 0.1
+    cov = torch.as_tensor(np.eye(s) + a @ a.transpose(0, 2, 1), dtype=dtype,
+                          device=card)
+    mean = torch.as_tensor(rng.normal(size=(b, s)) * 0.1, dtype=dtype,
+                           device=card)
+    return (phi, q, z, r, mean, cov, y, torch.as_tensor(mask, device=card))
+
+
+def _k1_modes(args, warp):
+    """Every mode: carry over all steps and over the first, bounds every
+    K1_SEG steps, store."""
+    from metran_tpu_torch.kernels import joint_filter as jf
+
+    append = (jf.joint_filter_append_kernel if warp
+              else jf.joint_filter_append_block)
+    store = jf.joint_filter_store_kernel if warp else jf.joint_filter_store_block
+    first = (*args[:6], args[6][:, :1].contiguous(),
+             args[7][:, :1].contiguous())
+    return [append(*args), append(*first),
+            append(*args, bounds_seg=K1_SEG), store(*args)]
+
+
+def _all_equal(got, want):
+    return all(torch.equal(g, w) for mode_g, mode_w in zip(got, want)
+               for g, w in zip(mode_g, mode_w))
+
+
+@pytest.mark.parametrize("case", K1_CASES,
+                         ids=lambda c: f"B{c[0]}-T{c[1]}-N{c[2][0]}"
+                         + "".join(f"-{k}" for k in c[3]))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_warp_kernel_is_the_block_kernel_bit_for_bit(card, dtype, case):
+    """Carry (k steps and one), bounds and store: the warp kernel's every
+    output equals the block kernel's; each counts its own launches; the
+    warp kernel stays within the plain version's bars."""
+    b, t, widths, kw = case
+    args = _k1_case(card, dtype, b, t, widths, **kw)
+    from metran_tpu_torch.kernels import build
+
+    counts = lambda: (kernels.launches(), build.oracle_launches())  # noqa
+    before = counts()
+    warp = _k1_modes(args, True)
+    mid = counts()
+    block = _k1_modes(args, False)
+    after = counts()
+    torch.cuda.synchronize()
+    assert _all_equal(warp, block)
+
+    def diff(a, b, key):
+        return b[0][key] - a[0][key] if key in b[0] else b[1][key] - a[1][key]
+
+    keys = ("joint_filter_append", "joint_filter_store",
+            "joint_filter_append_block", "joint_filter_store_block")
+    assert [diff(before, mid, k) for k in keys] == [3, 1, 0, 0]
+    assert [diff(mid, after, k) for k in keys] == [0, 0, 3, 1]
+    bar = 1e-9 if dtype == torch.float64 else 1e-3
+    plain = kernels.joint_filter_append_plain(*args, bounds_seg=K1_SEG)
+    for g, w in zip(warp[2], plain):
+        assert _rel(g, w) <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_warp_kernel_is_the_same_at_every_block_shape(card, dtype,
+                                                         monkeypatch):
+    """Each launch shape (W models a block, G warps a model; forced
+    through the wrapper's chooser) gives the block kernel's bits, with a
+    partial last block."""
+    from metran_tpu_torch.kernels import joint_filter as jf
+
+    args = _k1_case(card, dtype, 133, 2 * K1_SEG + 3, (20, 1),
+                    degraded=True)
+    block = _k1_modes(args, False)
+    w, g = jf.block_shape(133, 20, 21, dtype, card)
+    assert 1 <= w and w * g <= jf.MAX_MODELS and g in (1, jf.MAX_GROUP)
+    shapes = [(w, 1) for w in range(1, jf.MAX_MODELS + 1)]
+    shapes += [(w, jf.MAX_GROUP)
+               for w in range(1, jf.MAX_MODELS // jf.MAX_GROUP + 1)]
+    for shape in shapes:
+        monkeypatch.setattr(jf, "block_shape", lambda *a, s=shape: s)
+        assert _all_equal(_k1_modes(args, True), block), shape
+
+
+@pytest.mark.parametrize("dtype,widths", [(torch.float32, (88, 8)),
+                                          (torch.float64, (64, 8))])
+def test_k1_warp_kernel_takes_the_widest_buckets_of_the_block_kernel(
+        card, dtype, widths):
+    """(88, 96) in f32 and (64, 72) in f64, the widest buckets of eights
+    the block kernel (and the joint arena update) takes: the warp kernel
+    takes them too, bit for bit, at both group widths."""
+    from metran_tpu_torch.kernels import joint_filter as jf
+
+    args = _k1_case(card, dtype, 2, K1_SEG + 3, widths)
+    block = _k1_modes(args, False)
+    assert _all_equal(_k1_modes(args, True), block)
+    for shape in ((1, 1), (1, jf.MAX_GROUP)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jf, "block_shape", lambda *a, s=shape: s)
+            assert _all_equal(_k1_modes(args, True), block), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_block_shape_switches_at_the_resident_four_warp_blocks(card,
+                                                                  dtype):
+    """The occupancy calculator's count for the four-warp launch is where
+    block_shape leaves four warps a model, in every mode."""
+    from metran_tpu_torch.kernels import joint_filter as jf
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for mode in jf.MODES:
+        blocks = jf.occupancy(20, 21, dtype, mode, 1, jf.MAX_GROUP)
+        assert 1 <= blocks <= 16
+        edge = blocks * sms
+        assert jf.block_shape(edge, 20, 21, dtype, card, mode) == (
+            1, jf.MAX_GROUP)
+        assert jf.block_shape(edge + 1, 20, 21, dtype, card, mode)[1] == 1
+
+
+def test_k1_warp_layout_is_the_compiled_one(card):
+    """The wrapper's mirror of the warp kernel's shared-memory layout
+    equals the compiled ``jointw::model_bytes``."""
+    from metran_tpu_torch.kernels import build
+    from metran_tpu_torch.kernels import joint_filter as jf
+
+    lib = build.load_library("joint_filter")
+    for n, s in ((20, 21), (24, 32), (40, 41), (45, 46), (1, 1), (7, 30),
+                 (88, 96), (64, 72), (16, 216)):
+        assert lib.metran_joint_filter_model_bytes_f32(n, s) == \
+            jf.model_bytes(n, s, torch.float32)
+        assert lib.metran_joint_filter_model_bytes_f64(n, s) == \
+            jf.model_bytes(n, s, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_arena_joint_update_is_the_warp_k1(card, dtype):
+    """K16's joint body (``joint_step.cuh``, the block kernel's) and the
+    warp K1 at k = 1 on the same rows: the written posterior and the
+    terms agree bit for bit."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    arena = _arena(card, dtype, False)
+    rows = [3, 1, 5, 7, 8, 10, 0]  # the NaN row 2 and non-PSD row 4 out
+    y, mask, real = _dispatch(card, dtype, len(rows), 1, 8)
+    a = leaves_of(arena)
+    idx = torch.as_tensor(rows, device=card)
+    k1_args = (a.phi[idx], a.q[idx], a.z[idx], a.r[idx], a.mean[idx],
+               a.fac[idx], y, mask)
+    k1_args = tuple(t.contiguous() for t in k1_args)
+    want = kernels.joint_filter_append_kernel(*k1_args)
+    out = karena.arena_update_kernel(
+        *arena._dynamic(), *arena._static(), rows, y, mask, body="joint",
+        mode="off", min_seen=20, robust=None, steady_tol=0.0, real=real,
+        det_min_seen=10, det_params=DET_PARAMS)
+    torch.cuda.synchronize()
+    assert bool(out.ok.all())
+    assert torch.equal(a.mean[idx], want[0])
+    assert torch.equal(a.fac[idx], want[1])
+    assert torch.equal(out.sigma, want[2])
+    assert torch.equal(out.detf, want[3])

@@ -2128,6 +2128,308 @@ def sqrt_bucket_case(rng, batch, dtype, dev):
             mean0, chol0)
 
 
+K9_SEG = 4  # the segment of K9's group-vs-block cases (short, many segments)
+# K9's group-vs-block cases: (label, lanes, steps, widths (N, factors)).
+# Lane 0 reads a NaN at step 2, the last lane observes a slot with r < 0,
+# step 1 is all masked and step 2 fully observed (o = N); the given carry
+# is not triangular
+K9_CASES = (
+    ("B=1 T=9", 1, 9, (N_SERIES, N_FACTORS)),
+    ("B=8 T=2seg+3", 8, 2 * K9_SEG + 3, (N_SERIES, N_FACTORS)),
+    ("B=64 T=seg+1", 64, K9_SEG + 1, (N_SERIES, N_FACTORS)),
+    (f"B={FLEET} T=3", FLEET, 3, (N_SERIES, N_FACTORS)),
+)
+# the widest buckets of eights the block kernel takes, and buckets whose
+# group layout drops its odd leading dimensions and Z's bits
+K9_WIDE = (
+    ("float32", "B=2 N=72 n=80 (f32's widest bucket of eights)", (72, 8)),
+    ("float32", "B=2 N=73 n=82 (no odd strides, no bits)", (73, 9)),
+    ("float64", "B=2 N=48 n=56 (f64's widest bucket of eights)", (48, 8)),
+    ("float64", "B=2 N=40 n=62 (no odd strides, no bits)", (40, 22)),
+)
+K9_SHAPE_LANES = 13  # lanes of the case run at every launch shape
+
+
+def _k9_case(rng, b, t, widths, dtype, dev):
+    """K9's lanes-layout arguments ``(phi, q, z, r, y, mask, lane_map)``
+    and a given carry ``(mean0, chol0)`` that is not triangular, with the
+    NaN reading, the r < 0 slot and the masked and full steps of
+    K9_CASES."""
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.ops import dfm_statespace
+
+    big_n, kf = widths
+    ss = dfm_statespace(rng.uniform(5, 40, (b, big_n)),
+                        rng.uniform(10, 60, (b, kf)),
+                        rng.uniform(0.3, 0.8, (b, big_n, kf)) / kf, 1.0,
+                        device=dev, dtype=dtype)
+    n = big_n + kf
+    r = torch.full((big_n, b), 0.2, dtype=dtype, device=dev)
+    r[1, b - 1] = -1.0
+    mask = rng.uniform(size=(b, t, big_n)) > 0.3
+    if t > 1:
+        mask[:, 1] = False
+    if t > 2:
+        mask[:, 2] = True
+    y = np.where(mask, rng.normal(size=mask.shape), 0.0)
+    if t > 2:
+        y[0, 2, 3] = np.nan
+    a = rng.normal(size=(b, n, n)) / np.sqrt(n)
+    new = dict(dtype=dtype, device=dev)
+    return ((ss.phi.T.contiguous(),
+             torch.diagonal(ss.q, 0, -2, -1).T.contiguous(),
+             ss.z.permute(1, 2, 0).contiguous(), r,
+             torch.as_tensor(y, **new), torch.as_tensor(mask, device=dev),
+             torch.arange(b, dtype=torch.int32, device=dev)),
+            torch.as_tensor(rng.normal(size=(b, n)), **new),
+            torch.as_tensor(a, **new))
+
+
+def _k9_modes(sf, args, m0, c0, group):
+    """K9's every instantiation through the group (or the block) kernel:
+    store, carry from (0, I) over all steps and the first, bounds every
+    K9_SEG steps, carry from the given carry, the gate's three policies
+    and the three robust likelihoods from it."""
+    import torch
+
+    kind = "kernel" if group else "block"
+    run = getattr(sf, f"sqrt_filter_{kind}")
+    gated = getattr(sf, f"sqrt_filter_gated_{kind}")
+    robust = getattr(sf, f"sqrt_filter_robust_{kind}")
+    b, big_n = args[0].shape[1], args[2].shape[0]
+    armed = torch.arange(b, device=m0.device) % 3 != 1
+    first = (*args[:4], args[4][:, :1].contiguous(),
+             args[5][:, :1].contiguous(), args[6])
+    out = {"store": run(*args, store=True), "carry": run(*args),
+           "carry k=1": run(*first),
+           "bounds": run(*args, bounds_seg=K9_SEG),
+           "given carry": run(*args, mean0=m0, chol0=c0)}
+    for policy in ("reject", "huber", "inflate"):
+        out[policy] = gated(*args[:6], m0, c0, armed, policy, 1.0, args[6])
+    par = [torch.full((b, big_n), v, dtype=m0.dtype, device=m0.device)
+           for v in (-0.5, 0.5, 0.1, 0.5)]
+    for lik in ROBUST_LIKELIHOODS:
+        out[lik] = robust(*args[:6], m0, c0, armed, *par, lik, 4.0, args[6])
+    return out
+
+
+def _same_nan(a, b) -> bool:
+    """``torch.equal`` of every output, NaN in the same places."""
+    import torch
+
+    def eq(x, y):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if not x.is_floating_point():
+            return bool(torch.equal(x, y))
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        return bool(torch.equal(nx, ny)) and bool(torch.equal(x[~nx],
+                                                              y[~ny]))
+    return len(a) == len(b) and all(eq(x, y) for x, y in zip(a, b))
+
+
+def k9_group_vs_block(dev):
+    """K9's group kernel bit for bit its block kernel, and both timed.
+
+    The group kernel computes every output by the block kernel's sequence
+    of operations, so the two must agree by ``torch.equal`` (NaN in the
+    same places) in every instantiation (:func:`_k9_modes`), f64 and
+    f32, on K9_CASES, past the resident four-warp blocks, at every launch
+    shape (K9_SHAPE_LANES lanes), on K9_WIDE, from a huge finite carry
+    (a predict reflector's multiplier overflows), at the serving bucket
+    (512 slots, (24, 32), k = 1, given non-triangular carries) and at the
+    timed flagship launches (T = 5,000).  Each case counts the group
+    kernel's launches under K9's names and the block kernel's apart.
+    Then both timed alternately (block, group, group, block): ``bounds``
+    at B = 512, 64, 8, 1, ``store`` at B = 1 and 16, the serving update
+    and its ``reject`` gate at B = 512, each beside its bound; the block
+    kernel against its plain version at the serving update."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches
+    from metran_tpu_torch.kernels.build import oracle_launches
+
+    sf = importlib.import_module("metran_tpu_torch.kernels.sqrt_filter")
+    bitwise, checks = [], []
+    names = ("sqrt_filter", "sqrt_filter_gated", "sqrt_filter_robust")
+
+    def equal(label, dtype, a, b):
+        bitwise.append({"case": label, "dtype": str(dtype).replace(
+            "torch.", ""), "bitwise": {m: _same_nan(a[m], b[m]) for m in a}})
+
+    def counted(args, m0, c0, group):
+        before = (launches(), oracle_launches())
+        out = _k9_modes(sf, args, m0, c0, group)
+        after = (launches(), oracle_launches())
+        own, other = (0, 1) if group else (1, 0)
+        keys = names if group else tuple(k + "_block" for k in names)
+        require([after[own][k] - before[own][k] for k in keys] == [5, 3, 3]
+                 and after[other] == before[other],
+                 f"K9 {'group' if group else 'block'} kernel: its launches")
+        return out
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(SEED + 170)
+        for label, b, t, widths in K9_CASES:
+            args, m0, c0 = _k9_case(rng, b, t, widths, dtype, dev)
+            equal(label, dtype, counted(args, m0, c0, True),
+                  counted(args, m0, c0, False))
+        edge = sms * sf.occupancy(N_SERIES, N_SERIES + N_FACTORS, dtype,
+                                  "carry", 1, sf.MAX_GROUP)
+        args, m0, c0 = _k9_case(rng, edge + 5, 3, (N_SERIES, N_FACTORS),
+                                dtype, dev)
+        equal(f"B={edge + 5} T=3 (past {edge} resident four-warp blocks)",
+              dtype, _k9_modes(sf, args, m0, c0, True),
+              _k9_modes(sf, args, m0, c0, False))
+        args, m0, c0 = _k9_case(rng, K9_SHAPE_LANES, 2 * K9_SEG + 1,
+                                (N_SERIES, N_FACTORS), dtype, dev)
+        block = _k9_modes(sf, args, m0, c0, False)
+        fit = sf.MAX_SMEM // sf.model_bytes(N_SERIES, N_SERIES + N_FACTORS,
+                                            dtype)
+        shapes = [(w, g) for g in (sf.MIN_GROUP, sf.MAX_GROUP)
+                  for w in range(1, min(sf.MAX_WARPS // g, fit) + 1)]
+        chooser = sf.launch_shape
+        try:
+            for shape in shapes:
+                sf.launch_shape = lambda *a, shape=shape: shape
+                equal(f"B={K9_SHAPE_LANES}, (W, G)={shape}", dtype,
+                      _k9_modes(sf, args, m0, c0, True), block)
+        finally:
+            sf.launch_shape = chooser
+        for name, label, widths in K9_WIDE:
+            if name != str(dtype).replace("torch.", ""):
+                continue
+            args, m0, c0 = _k9_case(rng, 2, K9_SEG + 3, widths, dtype, dev)
+            equal(label, dtype, _k9_modes(sf, args, m0, c0, True),
+                  _k9_modes(sf, args, m0, c0, False))
+        args, m0, c0 = _k9_case(rng, 3, 4, (N_SERIES, N_FACTORS), dtype, dev)
+        big = 1e25 if dtype == torch.float32 else 1e200
+        c0, m0 = torch.tril(c0) * big, m0 * big
+        equal("B=3 T=4, a huge finite carry", dtype,
+              _k9_modes(sf, args, m0, c0, True),
+              _k9_modes(sf, args, m0, c0, False))
+        case = sqrt_bucket_case(np.random.default_rng(SEED + 81), FLEET,
+                                dtype, dev)
+        serve = {True: {}, False: {}}
+        for group in (True, False):
+            kind = "kernel" if group else "block"
+            serve[group]["carry"] = getattr(sf, f"sqrt_filter_{kind}")(
+                *case[:7], mean0=case[7], chol0=case[8])
+            armed = torch.ones(FLEET, dtype=torch.bool, device=dev)
+            serve[group]["reject"] = getattr(
+                sf, f"sqrt_filter_gated_{kind}")(
+                *case[:6], case[7], case[8], armed, "reject",
+                GATE_NSIGMA ** 2, case[6])
+        equal(f"serving bucket {BUCKET}, {FLEET} slots, k=1, given "
+              "non-triangular carries", dtype, serve[True], serve[False])
+        del serve
+    emit({"phase": "k9_bitwise", "checks": bitwise})
+    bad = [c for c in bitwise if not all(c["bitwise"].values())]
+    require(not bad, f"K9's group kernel differs from its block kernel: "
+            f"{bad}")
+
+    # both kernels timed, alternating; each timed pair held bit for bit
+    def alternate(block_fn, group_fn, cost, reps=1, dtype="float32"):
+        got = {"block": [], "group": []}
+        outs = {}
+        for who in ("block", "group", "group", "block"):
+            ms, outs[who] = cuda_ms(block_fn if who == "block" else group_fn,
+                                    reps=reps, warm=1)
+            got[who].append(ms)
+        bms, bby = bound_ms(*cost, dtype)
+        return {"block_ms": got["block"], "group_ms": got["group"],
+                "speedup": min(got["block"]) / min(got["group"]),
+                "bound_ms": bms, "bound_by": bby,
+                "bitwise": _same_nan(outs["group"], outs["block"])}
+
+    rng = np.random.default_rng(SEED + 95)
+    ss, y, mask = _adjoint_case(rng, FLEET, T_STEPS, torch.float32, dev)
+    n = ss.phi.shape[1]
+    qd = torch.diagonal(ss.q, 0, -2, -1)
+    full = (ss.phi.T, qd.T, ss.z.permute(1, 2, 0), ss.r.T, y, mask)
+    timing = {}
+    for b in dict.fromkeys(min(b, FLEET) for b in (FLEET, 64, 8, 1)):
+        part = [a[..., :b].contiguous() if i < 4 else a[:b].contiguous()
+                for i, a in enumerate(full)]
+        lane_map = torch.arange(b, dtype=torch.int32, device=dev)
+        timing[f"bounds B={b}"] = alternate(
+            lambda: sf.sqrt_filter_block(*part, bounds_seg=ADJ_SEG),
+            lambda: sf.sqrt_filter_kernel(*part, bounds_seg=ADJ_SEG),
+            bounds_cost(k9_cost(part[2], part[5], lane_map, False, False, 4),
+                        b, n, T_STEPS, ADJ_SEG, 4))
+        timing[f"bounds B={b}"]["launch_shape"] = sf.launch_shape(
+            b, N_SERIES, n, torch.float32, dev, "bounds")
+    rng = np.random.default_rng(SEED + 82)
+    for b in (1, 16):
+        *args, _ = lanes_case(rng, b, T_STEPS, torch.float32, dev)
+        timing[f"store B={b}"] = alternate(
+            lambda: sf.sqrt_filter_block(*args, store=True),
+            lambda: sf.sqrt_filter_kernel(*args, store=True),
+            k9_cost(args[2], args[5], args[6], True, False, 4))
+    case = sqrt_bucket_case(np.random.default_rng(SEED + 81), FLEET,
+                            torch.float32, dev)
+    lane_map = torch.arange(FLEET, dtype=torch.int32, device=dev)
+    label = f"serving update B={FLEET} k=1 {BUCKET}"
+    timing[label] = alternate(
+        lambda: sf.sqrt_filter_block(*case[:7], mean0=case[7],
+                                     chol0=case[8]),
+        lambda: sf.sqrt_filter_kernel(*case[:7], mean0=case[7],
+                                      chol0=case[8]),
+        k9_cost(case[2], case[5], lane_map, False, True, 4), reps=20)
+    armed = torch.ones(FLEET, dtype=torch.bool, device=dev)
+    timing[f"reject gate B={FLEET} k=1 {BUCKET}"] = alternate(
+        lambda: sf.sqrt_filter_gated_block(*case[:6], case[7], case[8],
+                                           armed, "reject", GATE_NSIGMA ** 2,
+                                           case[6]),
+        lambda: sf.sqrt_filter_gated_kernel(*case[:6], case[7], case[8],
+                                            armed, "reject",
+                                            GATE_NSIGMA ** 2, case[6]),
+        k9_gated_cost(case[2], case[5], lane_map, 4), reps=20)
+    bad = [k for k, v in timing.items() if not v["bitwise"]]
+    require(not bad, f"K9's timed group launches differ from the block "
+            f"kernel's: {bad}")
+    # the block kernel against plain at the serving update
+    block_ms, got = cuda_ms(lambda: sf.sqrt_filter_block(
+        *case[:7], mean0=case[7], chol0=case[8]))
+    cpu = [None if a is None else a.cpu() for a in case]
+    plain_ms, want = cuda_ms(lambda: sf.sqrt_filter_plain(
+        *cpu[:7], mean0=cpu[7], chol0=cpu[8]), reps=1, warm=0)
+    checks.append(check_entry(
+        "sqrt_filter_block", f"serving bucket {BUCKET}, {FLEET} slots, k=1, "
+        "given carry (plain on the CPU)", torch.float32,
+        [a.cpu() for a in _sqrt_cmp(got, False)], _sqrt_cmp(want, False),
+        1e-3))
+    geometry = {str(dt).replace("torch.", ""): {
+        f"{wn}x{ws}": {"model_bytes": sf.model_bytes(wn, ws, dt),
+                       "block_kernel_bytes": sf.block_smem_bytes(wn, ws, dt),
+                       "four_warp_blocks_per_sm": sf.occupancy(
+                           wn, ws, dt, "bounds", 1, sf.MAX_GROUP),
+                       "sms": sms}
+        for wn, ws in ((N_SERIES, n), BUCKET)}
+        for dt in (torch.float32, torch.float64)}
+    emit({"phase": "k9_times", "shape": f"(20,21) f32 T={T_STEPS} "
+          f"seg={ADJ_SEG}; serving {BUCKET} k=1", "times": timing,
+          "geometry": geometry})
+    times = {
+        "sqrt_filter_block": {
+            "shape": f"{label} f32, given carry", "ms": block_ms,
+            "plain_ms": plain_ms,
+            "plain_shape": f"{FLEET} slots, k=1, on the CPU, once",
+            **{key: timing[label][key] for key in ("bound_ms", "bound_by")},
+            "bounds_by_batch": {key: {"ms": min(v["block_ms"]),
+                                      "bound_ms": v["bound_ms"]}
+                                for key, v in timing.items()
+                                if key.startswith("bounds")}},
+        "k9_group_vs_block": timing}
+    return checks, times
+
+
 def phase_sqrt_kernels():
     """K9 (the square-root filter) and K10 (the factored smoother) against
     their plain versions on the card, f64 and f32, NaN-strict: at the
@@ -2298,7 +2600,12 @@ def phase_sqrt_kernels():
     bad_checks = [c for c in checks if not c["ok"]]
     require(not bad_checks,
             f"kernel disagrees with its plain version: {bad_checks}")
-    return checks, times
+    more_checks, more_times = k9_group_vs_block(dev)
+    bad_checks = [c for c in more_checks if not c["ok"]]
+    require(not bad_checks,
+            f"kernel disagrees with its plain version: {bad_checks}")
+    times.update(more_times)
+    return checks + more_checks, times
 
 
 ADJ_SEG = 128  # the batch-layout adjoint's segment (DEFAULT_SEG)
@@ -7382,8 +7689,8 @@ PK_MODELS = 16  # flagship models of the kernel-vs-plain comparison
 PK_T_CMP = 400  # its steps
 PK_CHUNK = 64  # its chunk length: 6 chunks and a ragged 16-step tail
 PK_LONG = (8, 1, 32_768)  # examples/long_context_example.py:55 (n, k, T)
-PK_FLEET_HOLD = 1_000  # steps of the fleet launches' plain hold (one chunk
-#                        a model: the plain scan is 5,000 serial steps)
+PK_FLEET_HOLD = 250  # steps of the fleet launches' plain hold (one chunk a
+#                      model: the plain scan is 5,000 serial steps)
 PK_NAMES = ("parallel_filter", "parallel_smooth", "sqrt_parallel_filter",
             "sqrt_parallel_smooth")
 
@@ -8459,6 +8766,12 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/sqrt_filter.cu",
         "replaces": "metran_tpu/ops/kalman.py:838",
     },
+    # the block kernel K9's group kernel replaced: its bit-for-bit oracle,
+    # launched by no path
+    "sqrt_filter_block": {
+        "source": "metran_tpu_torch/kernels/csrc/sqrt_filter_block.cu",
+        "replaces": "metran_tpu/ops/kalman.py:578",
+    },
     "detect": {
         "source": "metran_tpu_torch/kernels/csrc/detect.cu",
         "replaces": "metran_tpu/ops/detect.py:104",
@@ -8600,10 +8913,10 @@ def main() -> int:
         timed(check_stderr, fit)
     paths["c2_defaults"] = timed(phase_c2_defaults, mt64)
 
-    # nothing on a path chooses K1's block kernel
+    # nothing on a path chooses K1's or K9's block kernel
     oracle = {k: v - oracle0[k] for k, v in oracle_launches().items()}
     require(not any(oracle.values()),
-            f"the paths launched K1's block kernel: {oracle}")
+            f"the paths launched a block kernel (an oracle): {oracle}")
     summary = []
     for name, meta in KERNELS.items():
         t = times[name]
@@ -8625,8 +8938,10 @@ def main() -> int:
             entry["history_pass"] = times["joint_filter_append_history"]
             entry["bounds"] = times["joint_filter_append_bounds"]
             entry["warp_vs_block"] = times["k1_warp_vs_block"]
-        if name == "joint_filter_append_block":
+        if name in ("joint_filter_append_block", "sqrt_filter_block"):
             entry["bounds_by_batch"] = t["bounds_by_batch"]
+        if name == "sqrt_filter":
+            entry["group_vs_block"] = times["k9_group_vs_block"]
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
         if name == "joint_adjoint":

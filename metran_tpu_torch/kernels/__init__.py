@@ -15,7 +15,9 @@
 - :mod:`.sqrt_filter` — K9, the square-root (QR array) filter, with its
   per-step store, with segment boundaries or with neither, from
   ``(0, I)`` or a given carry, or gated (the observation gate) or robust
-  (the implicit-MAP update) from a given carry;
+  (the implicit-MAP update) from a given carry (a group of warps per
+  lane; the earlier one-block-per-lane kernel stays beside it as its
+  bit-for-bit oracle, ``sqrt_filter*_block``);
 - :mod:`.sqrt_smoother` — K10, the factored RTS smoother over K9's
   stored factors;
 - :mod:`.joint_adjoint` — K11, the closed-form reverse sweep of the
@@ -132,12 +134,15 @@ from .pkalman import (
 from .smoother import rts_smooth, rts_smooth_kernel, rts_smooth_plain
 from .sqrt_filter import (
     sqrt_filter,
+    sqrt_filter_block,
     sqrt_filter_gated,
+    sqrt_filter_gated_block,
     sqrt_filter_gated_kernel,
     sqrt_filter_gated_plain,
     sqrt_filter_kernel,
     sqrt_filter_plain,
     sqrt_filter_robust,
+    sqrt_filter_robust_block,
     sqrt_filter_robust_kernel,
     sqrt_filter_robust_plain,
 )
@@ -208,12 +213,15 @@ __all__ = [
     "rts_smooth_kernel",
     "rts_smooth_plain",
     "sqrt_filter",
+    "sqrt_filter_block",
     "sqrt_filter_gated",
+    "sqrt_filter_gated_block",
     "sqrt_filter_gated_kernel",
     "sqrt_filter_gated_plain",
     "sqrt_filter_kernel",
     "sqrt_filter_plain",
     "sqrt_filter_robust",
+    "sqrt_filter_robust_block",
     "sqrt_filter_robust_kernel",
     "sqrt_filter_robust_plain",
     "sqrt_parallel_filter",

@@ -82,7 +82,7 @@ from .gated_filter import smem_bytes as gated_smem_bytes
 from .joint_filter import MAX_SMEM, joint_filter_append_plain
 from .joint_filter import block_smem_bytes as joint_smem_bytes
 from .lanes import _stream
-from .sqrt_filter import smem_bytes as sqrt_smem_bytes
+from .sqrt_filter import block_smem_bytes as sqrt_smem_bytes
 from .sqrt_filter import (
     sqrt_filter_gated_plain,
     sqrt_filter_plain,

@@ -58,10 +58,12 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
 
 
 #: launches of the kernels kept beside the port's only as their
-#: bit-for-bit oracles (K1's block kernel), which no path calls; apart
-#: from :data:`LAUNCHES` and not reset with it
+#: bit-for-bit oracles (K1's and K9's block kernels), which no path calls;
+#: apart from :data:`LAUNCHES` and not reset with it
 ORACLE_LAUNCHES = {"joint_filter_append_block": 0,
-                   "joint_filter_store_block": 0}
+                   "joint_filter_store_block": 0, "sqrt_filter_block": 0,
+                   "sqrt_filter_gated_block": 0,
+                   "sqrt_filter_robust_block": 0}
 
 
 def count_launch(name: str) -> None:
@@ -227,12 +229,24 @@ _SIGNATURES = {
     # policy, stream; and the robust modes: phi, q, z, r, y, mask,
     # lane_map, mean0, chol0, armed, rail_lo, rail_hi, quantum, scale, nu,
     # tol, nonconv_tol, c_floor, eps, mean, chol, sigma, detf, zscore,
-    # verdict, iters, L, T, N, n, likelihood, stream
+    # verdict, iters, L, T, N, n, likelihood, stream.  The group kernel's
+    # entries take W and G before the stream, the block kernel's (the
+    # oracle, its own source) do not; one lane's bytes: N, n; the group
+    # kernel's blocks resident a SM: N, n, variant, W, G, blocks
     "sqrt_filter": (
-        ("metran_sqrt_filter", [_PTR] * 17 + [_INT] * 6 + [_PTR]),
+        ("metran_sqrt_filter", [_PTR] * 17 + [_INT] * 8 + [_PTR]),
         ("metran_sqrt_filter_gated",
-         [_PTR] * 10 + [_DBL] + [_PTR] * 6 + [_INT] * 5 + [_PTR]),
+         [_PTR] * 10 + [_DBL] + [_PTR] * 6 + [_INT] * 7 + [_PTR]),
         ("metran_sqrt_filter_robust",
+         [_PTR] * 14 + [_DBL] * 5 + [_PTR] * 7 + [_INT] * 7 + [_PTR]),
+        ("metran_sqrt_filter_model_bytes", [_INT] * 2),
+        ("metran_sqrt_filter_occupancy", [_INT] * 5 + [_PTR]),
+    ),
+    "sqrt_filter_block": (
+        ("metran_sqrt_filter_block", [_PTR] * 17 + [_INT] * 6 + [_PTR]),
+        ("metran_sqrt_filter_gated_block",
+         [_PTR] * 10 + [_DBL] + [_PTR] * 6 + [_INT] * 5 + [_PTR]),
+        ("metran_sqrt_filter_robust_block",
          [_PTR] * 14 + [_DBL] * 5 + [_PTR] * 7 + [_INT] * 5 + [_PTR]),
     ),
     # phi, q, mean_f, chol_f, mean_p, chol_p, mean_s, chol_s, L, T, n,

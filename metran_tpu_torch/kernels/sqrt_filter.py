@@ -53,10 +53,20 @@ given-carry call's bit for bit; its launches count as
 ``sqrt_filter_robust``.
 
 On CUDA tensors it launches the hand-written kernel
-(``csrc/sqrt_filter.cu``) and raises if that cannot build or launch; on
+(``csrc/sqrt_filter.cu``: two or four warps per lane,
+``csrc/sqrt_warp_step.cuh``; :func:`launch_shape` picks the warps a lane
+and the lanes a block) and raises if that cannot build or launch; on
 CPU tensors it runs :func:`sqrt_filter_plain`, the JAX algorithm step by
 step in PyTorch ops (``torch.linalg.qr`` of the full pre-array, sign
 normalisation, ``solve_triangular``), differentiable by autograd.
+
+:func:`sqrt_filter_block`, :func:`sqrt_filter_gated_block` and
+:func:`sqrt_filter_robust_block` launch the earlier kernel, one
+64-thread block per lane (``csrc/sqrt_filter_block.cu`` over
+``csrc/sqrt_step.cuh``, the body the square-root arena update shares).  The group kernel computes its
+bits exactly: they are its oracle on the card and the baseline it is
+timed against, and nothing in the port calls them.  They take CUDA
+tensors only and count their launches apart.
 
 Layouts as :func:`metran_tpu_torch.kernels.lanes_products.lanes_forward`:
 ``phi``, ``q`` (n, L) (``q`` the diagonal of Q), ``z`` (N, n, L), ``r``
@@ -89,22 +99,157 @@ from .implicit_map import RobustParams
 from .joint_filter import MAX_SMEM
 from .lanes import _check, _ptr, _stream
 
+#: warps one block of the group kernel holds at most (lanes times warps a
+#: lane), and warps a lane at least and at most (``sqrtw::kMaxWarps``,
+#: ``sqrtw::kMinGroup``, ``sqrtw::kMaxGroup``)
+MAX_WARPS = 8
+MIN_GROUP = 2
+MAX_GROUP = 4
+#: the group kernel's instantiations, as its occupancy entry numbers them
+VARIANTS = {"carry": 0, "bounds": 1, "store": 2, "reject": 3, "huber": 4,
+            "inflate": 5, "censored": 6, "quantized": 7, "huber_t": 8}
+#: words of a lane's flags (``sqrtw::kFlags``)
+_FLAGS = 6
+#: the block kernel's static shared memory (``sqrtk::run_steps``'s four
+#: shared scalars), beside its dynamic ``block_smem_bytes``
+BLOCK_STATIC_SMEM = 32
+
 
 def _odd(rows: int) -> int:
     return rows | 1
 
 
-def smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory one block of K9 needs (mirrors ``carve`` in
-    the source): Z, the carry, the predicted factor, both work arrays
-    and a few vectors, plus the observed-slot list and the gate's
-    per-slot flags."""
+def block_smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory one block of the block kernel (and of the
+    square-root arena update's body) needs (mirrors ``sqrtk::carve``):
+    Z, the carry, the predicted factor, both work arrays and a few
+    vectors, plus the observed-slot list and the gate's per-slot
+    flags."""
     item = torch.finfo(dtype).bits // 8
     big_n, n = n_obs, n_state
     elems = (big_n * n + big_n + 3 * n + n * n + n + n * n
              + _odd(2 * n) * n + _odd(big_n + n) * (big_n + n)
              + (big_n + n) + 4 * big_n)
     return elems * item + 8 * big_n
+
+
+def _carve_bytes(big_n: int, n: int, item: int, odd: bool,
+                 bits: bool) -> int:
+    r = big_n + n
+    ldp = _odd(2 * n) if odd else 2 * n
+    ldu = _odd(r) if odd else r
+    values = (big_n * n + big_n + 3 * n + n * n + n + n * n
+              + max(ldp * n, big_n * n + 2 * r) + ldu * r + r + 4 * big_n)
+    words = 2 * big_n + _FLAGS + (big_n * -(-n // 32) if bits else 0)
+    return -(-(item * values + 4 * words) // 16) * 16
+
+
+def model_bytes(n_obs: int, n_state: int, dtype: torch.dtype) -> int:
+    """Shared memory of one lane in the group kernel (mirrors
+    ``sqrtw::carve`` buffer by buffer, rounded up to 16 bytes): the block
+    kernel's pieces, the predict array grown to hold the gated rows of
+    ``Z S_p`` and the update's reflectors where it is smaller, as 32-bit
+    words the observed slots, the mask row (then the gate's hits), a
+    lane's flags and Z's nonzeros (a bit a column).  Odd leading
+    dimensions and the bits while that fits :data:`MAX_SMEM`, else
+    neither (``sqrtw::layout``)."""
+    item = torch.finfo(dtype).bits // 8
+    full = _carve_bytes(n_obs, n_state, item, True, True)
+    return full if full <= MAX_SMEM else _carve_bytes(n_obs, n_state, item,
+                                                      False, False)
+
+
+def smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype,
+               models: int = 1) -> int:
+    """Dynamic shared memory of one block of the group kernel holding
+    ``models`` lanes."""
+    return models * model_bytes(n_obs, n_state, dtype)
+
+
+_OCCUPANCY: dict = {}
+
+
+def occupancy(n_obs: int, n_state: int, dtype: torch.dtype, variant: str,
+              models: int, group: int) -> int:
+    """Blocks of the group kernel the current card keeps resident per SM
+    at this shape and instantiation (:data:`VARIANTS`), with ``models``
+    lanes a block and ``group`` warps a lane (CUDA's occupancy
+    calculator, which counts registers and shared memory as well as
+    warps; builds the kernels)."""
+    import ctypes
+
+    key = (torch.cuda.current_device(), n_obs, n_state, dtype, variant,
+           models, group)
+    if key not in _OCCUPANCY:
+        lib = build.load_library("sqrt_filter")
+        fn = (lib.metran_sqrt_filter_occupancy_f64
+              if dtype == torch.float64
+              else lib.metran_sqrt_filter_occupancy_f32)
+        blocks = ctypes.c_int(0)
+        err = fn(n_obs, n_state, VARIANTS[variant], models, group,
+                 ctypes.byref(blocks))
+        build.check(lib, err, "sqrt_filter occupancy")
+        _OCCUPANCY[key] = blocks.value
+    return _OCCUPANCY[key]
+
+
+def launch_shape(b: int, n_obs: int, n_state: int, dtype: torch.dtype,
+                 device, variant: str = "carry") -> Tuple[int, int]:
+    """``(W, G)``: the group kernel's launch for ``b`` lanes, ``W`` lanes
+    a block and ``G`` warps a lane.  Four warps a lane, a lane a block,
+    while every such block is resident at once (SMs times
+    :func:`occupancy`): a stage's columns and the riders spread over
+    them.  Past that two warps a lane (the owner's warp and one of
+    workers), and the ``W`` (up to :data:`MAX_WARPS` / 2 lanes, within
+    :data:`MAX_SMEM`) that runs the ``b`` lanes in the fewest waves, then
+    with the fewest lanes on the busiest SM, then the widest.  Every shape
+    computes the same bits."""
+    props = torch.cuda.get_device_properties(device)
+    sms = props.multi_processor_count
+    with torch.cuda.device(device):
+        if b <= sms * occupancy(n_obs, n_state, dtype, variant, 1,
+                                MAX_GROUP):
+            return 1, MAX_GROUP
+        fit = max(1, min(MAX_WARPS // MIN_GROUP,
+                         MAX_SMEM // model_bytes(n_obs, n_state, dtype)))
+        cost = {}
+        for w in range(1, fit + 1):
+            per_sm = -(-(-(-b // w)) // sms)  # blocks on the busiest SM
+            held = occupancy(n_obs, n_state, dtype, variant, w, MIN_GROUP)
+            cost[w] = (-(-per_sm // max(1, held)), w * per_sm, -w)
+    return min(cost, key=cost.get), MIN_GROUP
+
+
+def _geometry(lanes: int, big_n: int, n: int, phi, block: bool,
+              variant: str) -> tuple:
+    """The launch geometry the C entry takes before the stream: ``(W,
+    G)`` for the group kernel, nothing for the block kernel.  Raises when
+    a block of one lane does not fit :data:`MAX_SMEM` (the block kernel's
+    with its :data:`BLOCK_STATIC_SMEM`), or on tensors that are not on a
+    CUDA device."""
+    what = ("the block kernel" if block
+            else "the square-root filter kernel")
+    smem = (block_smem_bytes(big_n, n, phi.dtype) + BLOCK_STATIC_SMEM
+            if block else smem_bytes(big_n, n, phi.dtype))
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"(N={big_n}, n={n}) at {phi.dtype} needs {smem} bytes of "
+            f"shared memory per block in {what}; a block takes at most "
+            f"{MAX_SMEM}")
+    if phi.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {phi.device}")
+    return () if block else tuple(launch_shape(lanes, big_n, n, phi.dtype,
+                                               phi.device, variant))
+
+
+def _entry(base: str, block: bool, dtype: torch.dtype):
+    """The loaded C entry ``base`` (``_block`` for the block kernel, in
+    ``csrc/sqrt_filter_block.cu``) of ``dtype``, and its library."""
+    lib = build.load_library("sqrt_filter_block" if block
+                             else "sqrt_filter")
+    name = (f"{base}{'_block' if block else ''}_"
+            f"{'f64' if dtype == torch.float64 else 'f32'}")
+    return lib, getattr(lib, name)
 
 
 # ----------------------------------------------------------------------
@@ -306,20 +451,30 @@ def sqrt_filter(phi, q, z, r, y, mask, lane_map=None, store: bool = False,
 def sqrt_filter_kernel(phi, q, z, r, y, mask, lane_map=None,
                        store: bool = False, mean0=None, chol0=None,
                        bounds_seg: Optional[int] = None):
-    """Launch K9 (CUDA tensors only; raises otherwise, and when the
-    kernel cannot build, take the shape or launch)."""
+    """Launch K9, the group kernel (CUDA tensors only; raises otherwise,
+    and when the kernel cannot build, take the shape or launch)."""
+    return _filter_launch(phi, q, z, r, y, mask, lane_map, store, mean0,
+                          chol0, bounds_seg, block=False)
+
+
+def sqrt_filter_block(phi, q, z, r, y, mask, lane_map=None,
+                      store: bool = False, mean0=None, chol0=None,
+                      bounds_seg: Optional[int] = None):
+    """Launch the block kernel, the group kernel's bit-for-bit oracle
+    (CUDA tensors only; raises otherwise).  Counted as
+    ``sqrt_filter_block``."""
+    return _filter_launch(phi, q, z, r, y, mask, lane_map, store, mean0,
+                          chol0, bounds_seg, block=True)
+
+
+def _filter_launch(phi, q, z, r, y, mask, lane_map, store, mean0, chol0,
+                   bounds_seg, block: bool):
     lanes, _, t_steps, big_n, n, _, _, lane_map = _check_sqrt(
         phi, q, z, r, y, mask, lane_map, mean0, chol0)
     n_seg = _n_seg(store, bounds_seg, t_steps)
-    if phi.device.type != "cuda":
-        raise ValueError(
-            f"the square-root filter kernel runs on CUDA tensors, got "
-            f"{phi.device}")
-    smem = smem_bytes(big_n, n, phi.dtype)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"(N={big_n}, n={n}) at {phi.dtype} needs {smem} bytes of "
-            f"shared memory per block; the kernel takes at most {MAX_SMEM}")
+    variant = ("store" if store else "carry" if n_seg is None
+               else "bounds")
+    shape = _geometry(lanes, big_n, n, phi, block, variant)
     args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map)]
     init = [None if t is None else t.contiguous() for t in (mean0, chol0)]
     new = dict(dtype=phi.dtype, device=phi.device)
@@ -327,8 +482,8 @@ def sqrt_filter_kernel(phi, q, z, r, y, mask, lane_map=None,
              torch.empty((lanes, t_steps), **new))
     if store:
         moments = ((lanes, t_steps, n), (lanes, t_steps, n, n))
-        outs = tuple(torch.empty(shape, **new) for shape in (*moments,
-                                                             *moments))
+        outs = tuple(torch.empty(shape_, **new) for shape_ in (*moments,
+                                                               *moments))
         ptrs = [o.data_ptr() for o in outs]
     else:
         outs = (torch.empty((lanes, n), **new),
@@ -338,17 +493,16 @@ def sqrt_filter_kernel(phi, q, z, r, y, mask, lane_map=None,
         torch.empty((lanes, n_seg, n), **new),
         torch.empty((lanes, n_seg, n, n), **new))
     bounds_ptr = [t.data_ptr() for t in bounds] or [None, None]
-    lib = build.load_library("sqrt_filter")
-    fn = (lib.metran_sqrt_filter_f64 if phi.dtype == torch.float64
-          else lib.metran_sqrt_filter_f32)
+    lib, fn = _entry("metran_sqrt_filter", block, phi.dtype)
+    name = "sqrt_filter" + ("_block" if block else "")
     with torch.cuda.device(phi.device):
         err = fn(*[t.data_ptr() for t in args], _ptr(init[0]), _ptr(init[1]),
                  *ptrs, *[t.data_ptr() for t in terms], *bounds_ptr, lanes,
                  t_steps, big_n, n, int(bool(store)), int(bounds_seg or 1),
-                 _stream(phi))
-    build.check(lib, err, "sqrt_filter")
+                 *shape, _stream(phi))
+    build.check(lib, err, name)
     if lanes:
-        build.count_launch("sqrt_filter")
+        build.count_launch(name)
     return (*outs, *terms, *bounds)
 
 
@@ -444,20 +598,28 @@ def sqrt_filter_gated(phi, q, z, r, y, mask, mean0, chol0, armed,
 def sqrt_filter_gated_kernel(phi, q, z, r, y, mask, mean0, chol0, armed,
                              policy: str = "reject", thresh: float = 16.0,
                              lane_map=None):
-    """Launch K9's gated instantiation (CUDA tensors only; raises
-    otherwise, and when the kernel cannot build, take the shape or
-    launch)."""
+    """Launch K9's gated instantiation, the group kernel (CUDA tensors
+    only; raises otherwise, and when the kernel cannot build, take the
+    shape or launch)."""
+    return _gated_launch(phi, q, z, r, y, mask, mean0, chol0, armed, policy,
+                         thresh, lane_map, block=False)
+
+
+def sqrt_filter_gated_block(phi, q, z, r, y, mask, mean0, chol0, armed,
+                            policy: str = "reject", thresh: float = 16.0,
+                            lane_map=None):
+    """Launch the block kernel's gated instantiation, the group kernel's
+    bit-for-bit oracle (CUDA tensors only; raises otherwise).  Counted as
+    ``sqrt_filter_gated_block``."""
+    return _gated_launch(phi, q, z, r, y, mask, mean0, chol0, armed, policy,
+                         thresh, lane_map, block=True)
+
+
+def _gated_launch(phi, q, z, r, y, mask, mean0, chol0, armed, policy,
+                  thresh, lane_map, block: bool):
     lanes, _, t_steps, big_n, n, _, _, lane_map = _check_gated(
         phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, policy)
-    if phi.device.type != "cuda":
-        raise ValueError(
-            f"the square-root filter kernel runs on CUDA tensors, got "
-            f"{phi.device}")
-    smem = smem_bytes(big_n, n, phi.dtype)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"(N={big_n}, n={n}) at {phi.dtype} needs {smem} bytes of "
-            f"shared memory per block; the kernel takes at most {MAX_SMEM}")
+    shape = _geometry(lanes, big_n, n, phi, block, policy)
     args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map,
                                      mean0, chol0, armed)]
     new = dict(dtype=phi.dtype, device=phi.device)
@@ -467,16 +629,15 @@ def sqrt_filter_gated_kernel(phi, q, z, r, y, mask, mean0, chol0, armed,
             torch.empty((lanes, t_steps, big_n), **new),
             torch.empty((lanes, t_steps, big_n), dtype=torch.int8,
                         device=phi.device))
-    lib = build.load_library("sqrt_filter")
-    fn = (lib.metran_sqrt_filter_gated_f64 if phi.dtype == torch.float64
-          else lib.metran_sqrt_filter_gated_f32)
+    lib, fn = _entry("metran_sqrt_filter_gated", block, phi.dtype)
+    name = "sqrt_filter_gated" + ("_block" if block else "")
     with torch.cuda.device(phi.device):
         err = fn(*[t.data_ptr() for t in args], float(thresh),
                  *[o.data_ptr() for o in outs], lanes, t_steps, big_n, n,
-                 policy_code(policy), _stream(phi))
-    build.check(lib, err, "sqrt_filter_gated")
+                 policy_code(policy), *shape, _stream(phi))
+    build.check(lib, err, name)
     if lanes:
-        build.count_launch("sqrt_filter_gated")
+        build.count_launch(name)
     return outs
 
 
@@ -542,23 +703,35 @@ def sqrt_filter_robust_kernel(phi, q, z, r, y, mask, mean0, chol0, armed,
                               rail_lo, rail_hi, quantum, scale,
                               likelihood: str = "censored", nu: float = 4.0,
                               lane_map=None):
-    """Launch K9's robust instantiation (CUDA tensors only; raises
-    otherwise, and when the kernel cannot build, take the shape or
-    launch)."""
+    """Launch K9's robust instantiation, the group kernel (CUDA tensors
+    only; raises otherwise, and when the kernel cannot build, take the
+    shape or launch)."""
+    return _robust_launch(phi, q, z, r, y, mask, mean0, chol0, armed,
+                          rail_lo, rail_hi, quantum, scale, likelihood, nu,
+                          lane_map, block=False)
+
+
+def sqrt_filter_robust_block(phi, q, z, r, y, mask, mean0, chol0, armed,
+                             rail_lo, rail_hi, quantum, scale,
+                             likelihood: str = "censored", nu: float = 4.0,
+                             lane_map=None):
+    """Launch the block kernel's robust instantiation, the group kernel's
+    bit-for-bit oracle (CUDA tensors only; raises otherwise).  Counted as
+    ``sqrt_filter_robust_block``."""
+    return _robust_launch(phi, q, z, r, y, mask, mean0, chol0, armed,
+                          rail_lo, rail_hi, quantum, scale, likelihood, nu,
+                          lane_map, block=True)
+
+
+def _robust_launch(phi, q, z, r, y, mask, mean0, chol0, armed, rail_lo,
+                   rail_hi, quantum, scale, likelihood, nu, lane_map,
+                   block: bool):
     lanes, _, t_steps, big_n, n, _, _, lane_map = _check_gated(
         phi, q, z, r, y, mask, lane_map, mean0, chol0, armed, _ROBUST, True)
     code = im.likelihood_code(likelihood)
     check_robust_params((rail_lo, rail_hi, quantum, scale), lanes, big_n,
                         phi)
-    if phi.device.type != "cuda":
-        raise ValueError(
-            f"the square-root filter kernel runs on CUDA tensors, got "
-            f"{phi.device}")
-    smem = smem_bytes(big_n, n, phi.dtype)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"(N={big_n}, n={n}) at {phi.dtype} needs {smem} bytes of "
-            f"shared memory per block; the kernel takes at most {MAX_SMEM}")
+    shape = _geometry(lanes, big_n, n, phi, block, likelihood)
     args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map,
                                      mean0, chol0, armed, rail_lo, rail_hi,
                                      quantum, scale)]
@@ -572,17 +745,16 @@ def sqrt_filter_robust_kernel(phi, q, z, r, y, mask, mean0, chol0, armed,
             torch.empty((lanes, t_steps, big_n), dtype=torch.int32,
                         device=phi.device))
     tol, nonconv_tol = im.solver_tols(phi.dtype)
-    lib = build.load_library("sqrt_filter")
-    fn = (lib.metran_sqrt_filter_robust_f64 if phi.dtype == torch.float64
-          else lib.metran_sqrt_filter_robust_f32)
+    lib, fn = _entry("metran_sqrt_filter_robust", block, phi.dtype)
+    name = "sqrt_filter_robust" + ("_block" if block else "")
     with torch.cuda.device(phi.device):
         err = fn(*[t.data_ptr() for t in args], float(nu), tol, nonconv_tol,
                  im.c_floor(phi.dtype), float(torch.finfo(phi.dtype).eps),
                  *[o.data_ptr() for o in outs], lanes, t_steps, big_n, n,
-                 code, _stream(phi))
-    build.check(lib, err, "sqrt_filter_robust")
+                 code, *shape, _stream(phi))
+    build.check(lib, err, name)
     if lanes:
-        build.count_launch("sqrt_filter_robust")
+        build.count_launch(name)
     return outs
 
 
@@ -605,16 +777,22 @@ def sqrt_filter_robust_plain(phi, q, z, r, y, mask, mean0, chol0, armed,
 
 __all__ = [
     "GATED_POLICIES",
+    "block_smem_bytes",
     "gated_sqrt_step_plain",
+    "launch_shape",
+    "model_bytes",
     "sign_normalize_rows",
     "smem_bytes",
     "sqrt_filter",
+    "sqrt_filter_block",
     "sqrt_filter_gated",
+    "sqrt_filter_gated_block",
     "sqrt_filter_gated_kernel",
     "sqrt_filter_gated_plain",
     "sqrt_filter_kernel",
     "sqrt_filter_plain",
     "sqrt_filter_robust",
+    "sqrt_filter_robust_block",
     "sqrt_filter_robust_kernel",
     "sqrt_filter_robust_plain",
     "sqrt_qr_update_plain",

@@ -363,7 +363,10 @@ def test_the_oracle_counts_its_launches_apart(monkeypatch):
     assert {"joint_filter_append", "joint_filter_store"} <= set(
         build.LAUNCHES)
     assert set(build.ORACLE_LAUNCHES) == {"joint_filter_append_block",
-                                          "joint_filter_store_block"}
+                                          "joint_filter_store_block",
+                                          "sqrt_filter_block",
+                                          "sqrt_filter_gated_block",
+                                          "sqrt_filter_robust_block"}
     assert not set(build.ORACLE_LAUNCHES) & set(build.LAUNCHES)
     monkeypatch.setattr(build, "ORACLE_LAUNCHES",
                         dict.fromkeys(build.ORACLE_LAUNCHES, 0))

@@ -1468,3 +1468,246 @@ def test_arena_joint_update_is_the_warp_k1(card, dtype):
     assert torch.equal(a.fac[idx], want[1])
     assert torch.equal(out.sigma, want[2])
     assert torch.equal(out.detf, want[3])
+
+
+# ----------------------------------------------------------------------
+# K9: the group kernel (a group of warps per lane) bit for bit the block
+# kernel (one block per lane) it replaced, in every instantiation
+# ----------------------------------------------------------------------
+K9_SEG = 4
+# (lanes, steps, (series, factors)): one lane, a few, more lanes than a
+# block of any width, 512; the widest buckets of eights the block kernel
+# takes ((72, 80) f32, (48, 56) f64) and buckets whose layout drops the
+# odd leading dimensions and Z's bits ((73, 82) f32, (40, 62) f64)
+K9_CASES = [(1, 9, (20, 1)), (8, 2 * K9_SEG + 3, (20, 1)),
+            (64, K9_SEG + 1, (20, 1)), (512, 3, (20, 1))]
+K9_WIDE = [(torch.float32, (72, 8)), (torch.float32, (73, 9)),
+           (torch.float64, (48, 8)), (torch.float64, (40, 22))]
+
+
+def _k9_case(card, dtype, b, t, widths):
+    """K9's lanes-layout arguments ``(phi, q, z, r, y, mask, lane_map)``
+    and a given carry ``(mean0, chol0)`` that is not triangular: lane 0
+    observes a NaN reading at step 2, lane b - 1 a slot with r < 0, step 1
+    is all masked, step 2 (past T = 2) fully observed."""
+    rng = np.random.default_rng(17)
+    big_n, kf = widths
+    ss = dfm_statespace(rng.uniform(5, 40, (b, big_n)),
+                        rng.uniform(10, 60, (b, kf)),
+                        rng.uniform(0.3, 0.8, (b, big_n, kf)) / kf, 1.0,
+                        device=card, dtype=dtype)
+    n = big_n + kf
+    r = torch.full((big_n, b), 0.2, dtype=dtype, device=card)
+    r[1, b - 1] = -1.0
+    mask = rng.uniform(size=(b, t, big_n)) > 0.3
+    if t > 1:
+        mask[:, 1] = False
+    if t > 2:
+        mask[:, 2] = True
+    y = np.where(mask, rng.normal(size=mask.shape), 0.0)
+    if t > 2:
+        y[0, 2, 3] = np.nan
+    a = rng.normal(size=(b, n, n)) / np.sqrt(n)
+    new = dict(dtype=dtype, device=card)
+    return ((ss.phi.T.contiguous(),
+             torch.diagonal(ss.q, 0, -2, -1).T.contiguous(),
+             ss.z.permute(1, 2, 0).contiguous(), r,
+             torch.as_tensor(y, **new), torch.as_tensor(mask, device=card),
+             torch.arange(b, dtype=torch.int32, device=card)),
+            torch.as_tensor(rng.normal(size=(b, n)), **new),
+            torch.as_tensor(a, **new))
+
+
+def _k9_modes(args, m0, c0, group):
+    """Every instantiation: store, carry from (0, I) over all steps and
+    the first, bounds every K9_SEG steps, carry from a given carry, the
+    three gate policies and the three robust likelihoods from it."""
+    sf = _sf()
+    kind = "kernel" if group else "block"
+    run = getattr(sf, f"sqrt_filter_{kind}")
+    gated = getattr(sf, f"sqrt_filter_gated_{kind}")
+    robust = getattr(sf, f"sqrt_filter_robust_{kind}")
+    b, big_n = args[0].shape[1], args[2].shape[0]
+    armed = torch.arange(b, device=m0.device) % 3 != 1
+    first = (*args[:4], args[4][:, :1].contiguous(),
+             args[5][:, :1].contiguous(), args[6])
+    out = [run(*args, store=True), run(*args), run(*first),
+           run(*args, bounds_seg=K9_SEG), run(*args, mean0=m0, chol0=c0)]
+    out += [gated(*args[:6], m0, c0, armed, policy, 1.0, args[6])
+            for policy in ("reject", "huber", "inflate")]
+    par = [torch.full((b, big_n), v, dtype=m0.dtype, device=m0.device)
+           for v in (-0.5, 0.5, 0.1, 0.5)]
+    out += [robust(*args[:6], m0, c0, armed, *par, lik, 4.0, args[6])
+            for lik in ("censored", "quantized", "huber_t")]
+    return out
+
+
+def _sf():
+    import importlib
+
+    return importlib.import_module("metran_tpu_torch.kernels.sqrt_filter")
+
+
+def _nan_equal(a, b):
+    """``torch.equal`` with NaN in the same places."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def _k9_equal(got, want):
+    return all(_nan_equal(g, w) for mode_g, mode_w in zip(got, want)
+               for g, w in zip(mode_g, mode_w))
+
+
+K9_NAMES = ("sqrt_filter", "sqrt_filter_gated", "sqrt_filter_robust")
+
+
+@pytest.mark.parametrize("case", K9_CASES,
+                         ids=[f"B={c[0]} T={c[1]}" for c in K9_CASES])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k9_group_kernel_is_the_block_kernel_bit_for_bit(card, dtype, case):
+    """Every instantiation: the group kernel's every output equals the
+    block kernel's (NaN in the same places); each counts its own
+    launches; the group kernel's store stays within the plain version's
+    bars."""
+    from metran_tpu_torch.kernels import build
+
+    b, t, widths = case
+    args, m0, c0 = _k9_case(card, dtype, b, t, widths)
+    counts = lambda: (kernels.launches(), build.oracle_launches())  # noqa
+    before = counts()
+    group = _k9_modes(args, m0, c0, True)
+    mid = counts()
+    block = _k9_modes(args, m0, c0, False)
+    after = counts()
+    torch.cuda.synchronize()
+    assert _k9_equal(group, block)
+    assert [mid[0][k] - before[0][k] for k in K9_NAMES] == [5, 3, 3]
+    assert mid[1] == before[1] and after[0] == mid[0]
+    assert [after[1][k + "_block"] - mid[1][k + "_block"]
+            for k in K9_NAMES] == [5, 3, 3]
+    bar = 1e-9 if dtype == torch.float64 else 1e-3
+    plain = kernels.sqrt_filter_plain(*args, store=True)
+    for i in (0, 2, 4, 5):
+        assert _rel(group[0][i].nan_to_num(0.0),
+                    plain[i].nan_to_num(0.0)) <= bar
+    if t > 2:  # the r < 0 slot observed at step 2 fails ok: detf = +inf
+        assert torch.isinf(group[0][5][b - 1, 2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k9_group_kernel_is_the_same_at_every_launch_shape(card, dtype,
+                                                           monkeypatch):
+    """Each launch shape (W lanes a block, G warps a lane; forced through
+    the wrapper's chooser) gives the block kernel's bits, with a partial
+    last block."""
+    sf = _sf()
+    args, m0, c0 = _k9_case(card, dtype, 13, 2 * K9_SEG + 1, (20, 1))
+    block = _k9_modes(args, m0, c0, False)
+    w, g = sf.launch_shape(13, 20, 21, dtype, card)
+    assert 1 <= w and w * g <= sf.MAX_WARPS
+    assert g in (sf.MIN_GROUP, sf.MAX_GROUP)
+    fit = sf.MAX_SMEM // sf.model_bytes(20, 21, dtype)
+    shapes = [(w, g) for g in (sf.MIN_GROUP, sf.MAX_GROUP)
+              for w in range(1, min(sf.MAX_WARPS // g, fit) + 1)]
+    for shape in shapes:
+        monkeypatch.setattr(sf, "launch_shape", lambda *a, s=shape: s)
+        assert _k9_equal(_k9_modes(args, m0, c0, True), block), shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k9_group_kernel_past_the_resident_four_warp_blocks(card, dtype):
+    """Past residency ``launch_shape`` leaves four warps a lane; the
+    two-warp launch it takes is the block kernel's bits too."""
+    sf = _sf()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for variant in sf.VARIANTS:
+        blocks = sf.occupancy(20, 21, dtype, variant, 1, sf.MAX_GROUP)
+        assert 1 <= blocks <= 16
+        edge = blocks * sms
+        assert sf.launch_shape(edge, 20, 21, dtype, card, variant) == (
+            1, sf.MAX_GROUP)
+        assert sf.launch_shape(edge + 1, 20, 21, dtype, card,
+                               variant)[1] == sf.MIN_GROUP
+    edge = sms * sf.occupancy(20, 21, dtype, "carry", 1, sf.MAX_GROUP)
+    args, m0, c0 = _k9_case(card, dtype, edge + 5, 3, (20, 1))
+    assert _k9_equal(_k9_modes(args, m0, c0, True),
+                     _k9_modes(args, m0, c0, False))
+
+
+@pytest.mark.parametrize("dtype,widths", K9_WIDE)
+def test_k9_group_kernel_takes_the_widest_buckets_of_the_block_kernel(
+        card, dtype, widths):
+    """The widest buckets of eights, and buckets whose group layout drops
+    its odd leading dimensions and Z's bits: bit for bit, at both group
+    widths."""
+    sf = _sf()
+    args, m0, c0 = _k9_case(card, dtype, 2, K9_SEG + 3, widths)
+    block = _k9_modes(args, m0, c0, False)
+    assert _k9_equal(_k9_modes(args, m0, c0, True), block)
+    for shape in ((1, sf.MIN_GROUP), (1, sf.MAX_GROUP)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(sf, "launch_shape", lambda *a, s=shape: s)
+            assert _k9_equal(_k9_modes(args, m0, c0, True), block), shape
+
+
+def test_k9_group_layout_is_the_compiled_one(card):
+    """The wrapper's mirror of the group kernel's shared-memory layout
+    equals the compiled ``sqrtw::model_bytes``."""
+    from metran_tpu_torch.kernels import build
+
+    sf = _sf()
+    lib = build.load_library("sqrt_filter")
+    for n_obs, n in ((20, 21), (24, 32), (40, 41), (45, 46), (1, 2), (7, 30),
+                     (72, 80), (73, 82), (48, 56), (35, 64), (16, 216)):
+        assert lib.metran_sqrt_filter_model_bytes_f32(n_obs, n) == \
+            sf.model_bytes(n_obs, n, torch.float32)
+        assert lib.metran_sqrt_filter_model_bytes_f64(n_obs, n) == \
+            sf.model_bytes(n_obs, n, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k9_group_kernel_from_a_huge_finite_carry(card, dtype):
+    """A carry whose squares overflow: a predict reflector's multiplier is
+    not finite, and the rest of the QR takes the block kernel's rows, NaN
+    in the same places."""
+    args, m0, c0 = _k9_case(card, dtype, 3, 4, (20, 1))
+    big = 1e25 if dtype == torch.float32 else 1e200
+    args = list(args)
+    c0 = torch.tril(c0) * big
+    m0 = m0 * big
+    assert _k9_equal(_k9_modes(args, m0, c0, True),
+                     _k9_modes(args, m0, c0, False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_arena_sqrt_update_is_the_group_k9(card, dtype):
+    """K16's square-root body (``sqrt_step.cuh``, the block kernel's) and
+    the group K9 at k = 1 on the same rows: the written posterior and the
+    terms agree bit for bit."""
+    from metran_tpu_torch.kernels import arena as karena
+
+    arena = _arena(card, dtype, True)
+    rows = [3, 1, 5, 7, 8, 10, 0, 4]  # the NaN row 2 out
+    y, mask, real = _dispatch(card, dtype, len(rows), 1, 8)
+    a = leaves_of(arena)
+    idx = torch.as_tensor(rows, device=card)
+    args = (a.phi[idx].T, torch.diagonal(a.q[idx], 0, -2, -1).T,
+            a.z[idx].permute(1, 2, 0), a.r[idx].T, y, mask)
+    args = tuple(t.contiguous() for t in args)
+    want = kernels.sqrt_filter_kernel(*args, mean0=a.mean[idx].contiguous(),
+                                      chol0=a.fac[idx].contiguous())
+    out = karena.arena_update_kernel(
+        *arena._dynamic(), *arena._static(), rows, y, mask, body="sqrt",
+        mode="off", min_seen=20, robust=None, steady_tol=0.0, real=real,
+        det_min_seen=10, det_params=DET_PARAMS)
+    torch.cuda.synchronize()
+    assert bool(out.ok.all())
+    assert torch.equal(a.mean[idx], want[0])
+    assert torch.equal(a.fac[idx], want[1])
+    assert torch.equal(out.sigma, want[2])
+    assert torch.equal(out.detf, want[3])

@@ -575,7 +575,8 @@ def test_library_name_follows_the_sources():
         "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
         "lanes_adjoint.cu", "lanes_smooth.cu", "lanes_forward.cu",
         "lanes_sample.cu", "rts_smoother.cu", "sqrt_filter.cu",
-        "sqrt_smoother.cu", "joint_adjoint.cu", "gated_filter.cu",
+        "sqrt_filter_block.cu", "sqrt_smoother.cu", "joint_adjoint.cu",
+        "gated_filter.cu",
         "detect.cu", "steady_filter.cu", "dare.cu", "arena_joint.cu",
         "arena_gated.cu", "arena_sqrt.cu", "arena_steady.cu",
         "arena_forecast.cu", "pkalman_filter.cu", "pkalman_smoother.cu",

@@ -27,7 +27,16 @@ non-zero):
    k = 1), the block kernel held to the plain version; both timed
    alternately at B = 512, 64, 8, 1 (``bounds``), the serving update
    and ``store`` at B = 512, beside ``k1_cost``'s bound; K1/K2 (serving),
-   K3/K4 (fit), K5/K6/K7 (products), K6's ``store`` mode and K8 (the
+   K3/K4 (fit); K4's ring kernel (``k4_bitwise``: replay warps filling
+   a ring of segment records for its sweep warps) held ``torch.equal`` to
+   the warp kernel it replaced (one warp per lane, kept as its oracle),
+   f64 and f32, on ``K4_CASES`` (the lanes cases, a NaN reading, seg
+   past T, B = 1, 8, 64, 512), past the resident ring blocks, at forced
+   ring shapes and at the widest buckets that stage two records and
+   one, both timed alternately at B = 512, 64, 8, 1 (T = 5,000, seg =
+   100) beside ``k4_cost``'s bound (``k4_times``), and both held to the
+   plain version on a known gap (``K4_UNIT_ROOT_GAP``); K5/K6/K7
+   (products), K6's ``store`` mode and K8 (the
    single model's stored filter and RTS smoother: one lane, 16 lanes of
    path draws, and a step whose predicted covariance is made indefinite,
    which K8 must degrade to its filtered moments), K9 and K10 (the
@@ -37,7 +46,7 @@ non-zero):
    fully masked series and an observed slot with r < 0, which must book
    detf = +inf and pass the state through); the lanes and square-root
    kernels are held against their plain versions (a Python loop over
-   steps) at full width over the first ``T_CMP`` = 400 steps and timed
+   steps) at full width over the first ``T_CMP`` = 150 steps and timed
    at the full T; then the square-root engine's f32 contract
    (``tests/test_precision.py``'s recipe, copied): K9's f32 deviance
    within 2e-6 of the CPU f64 one in all four alpha regimes,
@@ -47,7 +56,7 @@ non-zero):
    plain version over each engine's segment boundaries (K1 ``bounds``,
    K9 ``bounds``, K3 ``keep_bounds``; a model observing an r < 0 slot
    and a fully masked step) in f64 and f32 and at the flagship shape
-   over ADJ_T_CMP = 1,000 steps; K1 and K9 ``bounds`` bit for bit their carry
+   over ADJ_T_CMP = 400 steps; K1 and K9 ``bounds`` bit for bit their carry
    instantiations, each boundary the carry-only run to that point; the
    anchored adjoint from a non-triangular anchor (its value the score of
    ``sqrt_filter_append``, its gradient the CPU f64 one's); K11's f64
@@ -296,12 +305,15 @@ FIT = dict(layout="lanes", remat_seg=100, tol=0.05, stall_tol=1e-3,
 PRODUCTS = dict(seg=100, warmup=50, n_draws=4, steps=FORECAST_STEPS)
 CPU_MODELS = 4  # fitted models the products phase recomputes on the CPU
 LS_TRIALS = 4  # the grid line search's trial points per iteration
-T_CMP = 400  # steps of the full-width kernel-vs-plain comparisons of
+T_CMP = 150  # steps of the full-width kernel-vs-plain comparisons of
 #              the lanes and square-root kernels (their plain versions
 #              loop over steps; cut from 1,000 when the batch-layout fit
-#              joined the run, to keep it near 600 s); K1's history pass,
-#              on the batch fit's path, is compared at the full T
-ADJ_T_CMP = 1_000  # the same for K11 and the batch fit's CPU recompute
+#              joined the run, from 400 when K4's oracle phase did and
+#              from 250 when it grew, to keep the phases near 850 s); K1's
+#              history pass, on the batch fit's path, is compared at the
+#              full T
+ADJ_T_CMP = 400  # the same for K11 and the batch fit's CPU recompute
+#                  (cut from 1,000 and 600 with T_CMP)
 DEVICE = "cuda"  # the card the lanes and fit phases run on
 
 # H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
@@ -1803,6 +1815,248 @@ def phase_lanes_kernels():
         for c in checks], "times": times})
     bad = [c for c in checks if not c["ok"]]
     require(not bad, f"kernel disagrees with its plain version: {bad}")
+    return checks, times
+
+
+# K4's ring kernel against its warp kernel: (label, data lanes, steps,
+# seg, keywords of lanes_case; "nan": a NaN reading at lane 0, step 2,
+# slot 3): the lanes cases of phase_lanes_kernels, a NaN reading (a
+# non-finite dvec takes the full row), a seg past T, B = 1, 8, 64, 512
+K4_SEG = 100  # the fit's remat_seg (FIT)
+K4_CASES = (
+    ("padded series (24 slots, 20 real), a masked series and step", 16,
+     250, K4_SEG, dict(n_pad=4)),
+    ("near-unit-root lane (alpha=3e4)", 16, 250, K4_SEG,
+     dict(unit_root="factor")),
+    ("lane map, K=4 trials over 16 data lanes", 16, 250, K4_SEG,
+     dict(trials=4)),
+    ("a NaN reading", 8, 60, 16, dict(nan=True)),
+    ("seg past T", 4, 30, 64, {}),
+    ("B=1", 1, 333, K4_SEG, {}),
+    ("B=8", 8, 205, 50, {}),
+    ("B=64", 64, 130, 40, {}),
+    ("B=512", FLEET, 120, 50, {}),
+)
+#: K4's known gap to its plain version in f64 at random cotangents on a
+#: lane with every state near a unit root (alpha = 3e4): the warp kernel's
+#: and the ring kernel's alike (bit for bit), past the 1e-9 bar of the
+#: other cases; the fit's own cotangents stay within 1e-9
+K4_UNIT_ROOT_GAP = 1e-8
+# forced (R, sweep warps, staged records); two sweep warps stage two
+K4_SHAPES = ((1, 1, 0), (2, 2, 2), (3, 1, 2), (4, 1, 0), (1, 2, 2),
+             (4, 1, 2), (2, 1, 1), (4, 1, 1))
+
+
+def _k4_case(rng, d, t, seg, dtype, dev, nan=False, deviance=False, **kw):
+    """K4's arguments ``(phi, q, z, r, y, mask, lane_map, seg, bounds_mean,
+    bounds_cov, sb, db)`` from :func:`lanes_case`, with K3's boundaries
+    and random cotangents (or, with ``deviance``, the deviance's), and
+    the data's observed-slot counts."""
+    import torch
+
+    from metran_tpu_torch.kernels import lanes_filter
+
+    *args, count = lanes_case(rng, d, t, dtype, dev, **kw)
+    if nan:
+        args[4][0, 2, 3] = float("nan")
+        args[5][0, 2, 3] = True
+    fwd = lanes_filter(*args, seg=seg, keep_bounds=True)
+    if deviance:
+        cot = [c.to(dtype) for c in deviance_cotangents(count, args[6])]
+    else:
+        cot = torch.as_tensor(rng.normal(size=(2, *fwd.sigma.shape)),
+                              dtype=dtype, device=dev)
+    return (*args, seg, fwd.bounds_mean, fwd.bounds_cov, cot[0],
+            cot[1]), count
+
+
+def k4_times(kl, dev, batches=(FLEET, 64, 8, 1), reps=1):
+    """K4's ring kernel and its warp kernel timed alternately (warp, ring,
+    ring, warp) at each of ``batches`` lanes, T = 5,000, seg = 100,
+    (20, 21) f32, each pair held bit for bit, beside ``k4_cost``'s bound
+    and the shape ``ring_geometry`` chose: ``{"B=b": {...}}``."""
+    import numpy as np
+    import torch
+
+    timing = {}
+    rng = np.random.default_rng(SEED + 21)
+    adj, count = _k4_case(rng, max(batches), T_STEPS, K4_SEG, torch.float32,
+                          dev)
+    data_shape = tuple(adj[4].shape)
+    for b in batches:
+        part = ([a[..., :b].contiguous() for a in adj[:4]]
+                + [adj[4][:b].contiguous(), adj[5][:b].contiguous(),
+                   adj[6][:b].contiguous(), K4_SEG]
+                + [a[..., :b].contiguous() for a in adj[8:]])
+        got, outs = {"warp": [], "ring": []}, {}
+        for who in ("warp", "ring", "ring", "warp"):
+            fn = (kl.lanes_adjoint_warp_kernel if who == "warp"
+                  else kl.lanes_adjoint_kernel)
+            ms, outs[who] = cuda_ms(lambda: fn(*part), reps=reps, warm=1)
+            got[who].append(ms)
+        bms, bby = bound_ms(*k4_cost(part[2], part[6], count[:, :b],
+                                     (b,) + data_shape[1:], K4_SEG, 4),
+                            "float32")
+        timing[f"B={b}"] = {
+            "warp_ms": got["warp"], "ring_ms": got["ring"],
+            "speedup": min(got["warp"]) / min(got["ring"]),
+            "bound_ms": bms, "bound_by": bby,
+            "geometry": list(kl.ring_geometry(
+                b, T_STEPS, K4_SEG, N_SERIES, N_SERIES + N_FACTORS,
+                torch.float32, dev)),
+            "bitwise": _same_nan(outs["ring"], outs["warp"])}
+    return timing
+
+
+def phase_k4_kernels():
+    """K4's ring kernel bit for bit its warp kernel, and both timed.
+
+    The ring kernel computes every entry by the warp kernel's operations
+    in its order, so the two agree by ``torch.equal`` (NaN in the same
+    places), f64 and f32, on K4_CASES, past the card's resident ring
+    blocks, at forced ring shapes (K4_SHAPES: R replay warps over R + 1
+    slots and over R; two records staged with one or two sweep warps,
+    one, or none) and at the widest one-factor buckets that stage two records,
+    one and none; each case counts the ring kernel's launch under K4's
+    name and the warp kernel's apart (``k4_bitwise``).  Then both timed
+    alternately (:func:`k4_times`, ``k4_times``); the warp kernel against
+    its plain version on the trials case."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches, lanes_adjoint_plain
+    from metran_tpu_torch.kernels.build import oracle_launches
+
+    kl = importlib.import_module("metran_tpu_torch.kernels.lanes")
+    dev = torch.device(DEVICE)
+    bitwise, checks = [], []
+
+    def both(adj):
+        before = (launches(), oracle_launches())
+        ring = kl.lanes_adjoint(*adj)
+        mid = (launches(), oracle_launches())
+        warp = kl.lanes_adjoint_warp_kernel(*adj)
+        after = (launches(), oracle_launches())
+        torch.cuda.synchronize()
+        require(mid[0]["lanes_adjoint"] - before[0]["lanes_adjoint"] == 1
+                and mid[1] == before[1] and after[0] == mid[0]
+                and after[1]["lanes_adjoint_warp"]
+                - mid[1]["lanes_adjoint_warp"] == 1,
+                "K4's launches: the ring kernel under its name, the warp "
+                "kernel apart")
+        return ring, warp
+
+    def equal(label, dtype, ring, warp, **extra):
+        bitwise.append({"case": label, "dtype": str(dtype).replace(
+            "torch.", ""), "bitwise": _same_nan(ring, warp), **extra})
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(SEED + 180)
+        for label, d, t, seg, kw in K4_CASES:
+            adj, _ = _k4_case(rng, d, t, seg, dtype, dev, **kw)
+            equal(label, dtype, *both(adj),
+                  geometry=list(kl.ring_geometry(
+                      adj[0].shape[1], t, seg, adj[2].shape[0],
+                      adj[2].shape[1], dtype, dev)))
+        edge = sms * kl.adjoint_occupancy(N_SERIES, N_SERIES + N_FACTORS,
+                                          dtype, kl.RING_MAX, 2)
+        adj, _ = _k4_case(rng, edge + 5, 40, 4, dtype, dev)
+        equal(f"B={edge + 5} T=40 seg=4 (past {edge} resident blocks)",
+              dtype, *both(adj))
+        adj, _ = _k4_case(rng, 6, 197, 16, dtype, dev)
+        _, warp = both(adj)
+        chooser = kl.ring_geometry
+        try:
+            for ring, sweep, stages in K4_SHAPES:
+                for depth in (ring + 1, ring):
+                    shape = kl.RingShape(ring, depth, sweep, stages)
+                    kl.ring_geometry = lambda *a, sh=shape: sh
+                    equal(f"B=6 T=197 seg=16, {shape}", dtype,
+                          kl.lanes_adjoint(*adj), warp)
+        finally:
+            kl.ring_geometry = chooser
+        # the widest one-factor buckets that stage two records, then one,
+        # and the warp kernel's widest (it takes no wider)
+        two = max(m for m in range(1, 200)
+                  if kl.adjoint_smem_bytes(m, m + 1, dtype, 1, 2)
+                  + kl.ADJOINT_STATIC_SMEM <= kl.MAX_SMEM)
+        warp_n = max(m for m in range(1, 200)
+                     if kl.smem_bytes("adjoint_warp", m, m + 1, dtype)
+                     <= kl.MAX_SMEM)
+        for big_n in (two, two + 1, warp_n):
+            adj, _ = _k4_case(rng, 2, 20, 8, dtype, dev,
+                              n_pad=big_n - N_SERIES)
+            equal(f"({big_n}, {big_n + 1}) B=2 T=20 seg=8", dtype,
+                  *both(adj), stages=kl.ring_geometry(
+                      2, 20, 8, big_n, big_n + 1, dtype, dev).stages)
+    emit({"phase": "k4_bitwise", "checks": bitwise})
+    bad = [c for c in bitwise if not c["bitwise"]]
+    require(not bad, f"K4's ring kernel differs from its warp kernel: {bad}")
+
+    # the warp kernel against its plain version (the trials case, f32, at
+    # the deviance's cotangents, as phase_lanes_kernels holds K4)
+    rng = np.random.default_rng(SEED + 181)
+    label, d, t, seg, kw = K4_CASES[2]
+    adj, _ = _k4_case(rng, d, t, seg, torch.float32, dev, deviance=True,
+                      **kw)
+    got = kl.lanes_adjoint_warp_kernel(*adj)
+    plain_ms, want = cuda_ms(lambda: lanes_adjoint_plain(*adj), reps=1,
+                             warm=0)
+    torch.cuda.synchronize()
+    checks.append(check_entry("lanes_adjoint_warp", label, torch.float32,
+                              got, want, 1e-3))
+    require(checks[-1]["ok"], f"K4's warp kernel vs plain: {checks[-1]}")
+
+    # the known gap, emitted for both kernels: random cotangents on the
+    # near-unit-root lane with every state there, f64
+    rng = np.random.default_rng(SEED + 182)
+    label, d, t, seg, kw = K4_CASES[1]
+    adj, _ = _k4_case(rng, d, t, seg, torch.float64, dev,
+                      **{**kw, "unit_root": "all"})
+    ring, warp = both(adj)
+    want = lanes_adjoint_plain(*adj)
+    torch.cuda.synchronize()
+    for name, got in (("lanes_adjoint", ring), ("lanes_adjoint_warp", warp)):
+        checks.append(check_entry(
+            name, f"{label}, every state, random cotangents (known gap)",
+            torch.float64, got, want, K4_UNIT_ROOT_GAP))
+    require(checks[-1]["ok"] and checks[-2]["ok"]
+            and checks[-1]["rel_err"] == checks[-2]["rel_err"],
+            f"K4's known near-unit-root gap: {checks[-2:]}")
+
+    timing = k4_times(kl, dev)
+    bad = [k for k, v in timing.items() if not v["bitwise"]]
+    require(not bad, f"K4's timed ring launches differ from the warp "
+            f"kernel's: {bad}")
+    geometry = {str(dt).replace("torch.", ""): {
+        f"{wn}x{ws}": {
+            "ring_block_bytes": kl.adjoint_smem_bytes(wn, ws, dt,
+                                                      kl.RING_MAX, 2),
+            "record_values": kl.record_stride(wn, ws),
+            "ring_bytes_512_lanes": kl.ring_bytes(
+                FLEET, K4_SEG, wn, ws, dt, kl.RING_MAX),
+            "ring_blocks_per_sm": kl.adjoint_occupancy(wn, ws, dt,
+                                                       kl.RING_MAX, 2),
+            "warp_kernel_bytes": kl.smem_bytes("adjoint_warp", wn, ws, dt),
+            "sms": sms}
+        for wn, ws in ((N_SERIES, N_SERIES + N_FACTORS), BUCKET)}
+        for dt in (torch.float32, torch.float64)}
+    emit({"phase": "k4_times", "shape": f"(20,21) f32 T={T_STEPS} "
+          f"seg={K4_SEG}", "times": timing, "geometry": geometry})
+    main = timing[f"B={FLEET}"]
+    times = {
+        "lanes_adjoint_warp": {
+            "shape": f"B={FLEET} T={T_STEPS} N={N_SERIES} seg={K4_SEG} f32",
+            "ms": min(main["warp_ms"]), "plain_ms": plain_ms,
+            "plain_shape": f"{label}, T={t}, seg={seg}, once",
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bounds_by_batch": {key: {"ms": min(v["warp_ms"]),
+                                      "bound_ms": v["bound_ms"]}
+                                for key, v in timing.items()}},
+        "k4_ring_vs_warp": timing}
     return checks, times
 
 
@@ -8720,6 +8974,12 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/lanes_adjoint.cu",
         "replaces": "metran_tpu/ops/lanes.py:232",
     },
+    # the warp kernel K4's ring kernel replaced: its bit-for-bit oracle,
+    # launched by no path
+    "lanes_adjoint_warp": {
+        "source": "metran_tpu_torch/kernels/csrc/lanes_adjoint_warp.cu",
+        "replaces": "metran_tpu/ops/lanes.py:232",
+    },
     "lanes_smooth_bwd": {
         "source": "metran_tpu_torch/kernels/csrc/lanes_smooth.cu",
         "replaces": "metran_tpu/ops/lanes_products.py:126",
@@ -8857,7 +9117,8 @@ def main() -> int:
     smi = timed(phase_device)
     timed(phase_build)
     checks, times = timed(phase_kernels)
-    for phase in (phase_k1_kernels, phase_lanes_kernels, phase_products_kernels,
+    for phase in (phase_k1_kernels, phase_lanes_kernels, phase_k4_kernels,
+                  phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
                   phase_robust_kernels, phase_steady_kernels,
@@ -8913,7 +9174,8 @@ def main() -> int:
         timed(check_stderr, fit)
     paths["c2_defaults"] = timed(phase_c2_defaults, mt64)
 
-    # nothing on a path chooses K1's or K9's block kernel
+    # nothing on a path chooses K1's or K9's block kernel or K4's warp
+    # kernel
     oracle = {k: v - oracle0[k] for k, v in oracle_launches().items()}
     require(not any(oracle.values()),
             f"the paths launched a block kernel (an oracle): {oracle}")
@@ -8938,8 +9200,11 @@ def main() -> int:
             entry["history_pass"] = times["joint_filter_append_history"]
             entry["bounds"] = times["joint_filter_append_bounds"]
             entry["warp_vs_block"] = times["k1_warp_vs_block"]
-        if name in ("joint_filter_append_block", "sqrt_filter_block"):
+        if name in ("joint_filter_append_block", "sqrt_filter_block",
+                    "lanes_adjoint_warp"):
             entry["bounds_by_batch"] = t["bounds_by_batch"]
+        if name == "lanes_adjoint":
+            entry["ring_vs_warp"] = times["k4_ring_vs_warp"]
         if name == "sqrt_filter":
             entry["group_vs_block"] = times["k9_group_vs_block"]
         if name == "lanes_filter":

@@ -6,7 +6,9 @@
   beside it as its bit-for-bit oracle, ``joint_filter_*_block``);
 - :mod:`.forecast` — K2, the closed-form forecast moments;
 - :mod:`.lanes` — K3, the lane-layout sequential filter, and K4, its
-  closed-form adjoint;
+  closed-form adjoint (replay warps filling a ring of segment records
+  for its sweep warps; the earlier one-warp-per-lane kernel stays beside it
+  as its bit-for-bit oracle, ``lanes_adjoint_warp_kernel``);
 - :mod:`.lanes_products` — K5, the lane-layout smoother's backward
   pass, K6, the forward filter with per-step outputs (or, in its
   ``store`` mode, the stored moments), and K7, the simulation
@@ -102,6 +104,7 @@ from .lanes import (
     lanes_adjoint,
     lanes_adjoint_kernel,
     lanes_adjoint_plain,
+    lanes_adjoint_warp_kernel,
     lanes_filter,
     lanes_filter_kernel,
     lanes_filter_plain,
@@ -186,6 +189,7 @@ __all__ = [
     "lanes_adjoint",
     "lanes_adjoint_kernel",
     "lanes_adjoint_plain",
+    "lanes_adjoint_warp_kernel",
     "lanes_filter",
     "lanes_filter_kernel",
     "lanes_filter_plain",

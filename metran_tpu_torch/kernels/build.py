@@ -58,12 +58,12 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
 
 
 #: launches of the kernels kept beside the port's only as their
-#: bit-for-bit oracles (K1's and K9's block kernels), which no path calls;
-#: apart from :data:`LAUNCHES` and not reset with it
+#: bit-for-bit oracles (K1's and K9's block kernels, K4's warp kernel),
+#: which no path calls; apart from :data:`LAUNCHES` and not reset with it
 ORACLE_LAUNCHES = {"joint_filter_append_block": 0,
                    "joint_filter_store_block": 0, "sqrt_filter_block": 0,
                    "sqrt_filter_gated_block": 0,
-                   "sqrt_filter_robust_block": 0}
+                   "sqrt_filter_robust_block": 0, "lanes_adjoint_warp": 0}
 
 
 def count_launch(name: str) -> None:
@@ -206,10 +206,18 @@ _SIGNATURES = {
     # phi, q, z, r, y, mask, lane_map, sigma, detf, mean, cov,
     # bounds_mean, bounds_cov, L, T, N, n, seg, stream
     "lanes_filter": ("metran_lanes_filter", [_PTR] * 13 + [_INT] * 5 + [_PTR]),
-    # phi, q, z, r, y, mask, lane_map, bounds_mean, bounds_cov, sb, db,
-    # scratch, phibar, qbar, L, T, N, n, seg, stream
-    "lanes_adjoint": ("metran_lanes_adjoint",
-                      [_PTR] * 14 + [_INT] * 5 + [_PTR]),
+    # the ring kernel: phi, q, z, r, y, mask, lane_map, bounds_mean,
+    # bounds_cov, sb, db, ring, phibar, qbar, L, T, N, n, seg, R, D, S,
+    # stages, stream; its blocks resident a SM: N, n, R, S, stages, blocks
+    "lanes_adjoint": (
+        ("metran_lanes_adjoint", [_PTR] * 14 + [_INT] * 9 + [_PTR]),
+        ("metran_lanes_adjoint_occupancy", [_INT] * 5 + [_PTR]),
+    ),
+    # the warp kernel (the oracle): phi, q, z, r, y, mask, lane_map,
+    # bounds_mean, bounds_cov, sb, db, scratch, phibar, qbar, L, T, N, n,
+    # seg, stream
+    "lanes_adjoint_warp": ("metran_lanes_adjoint_warp",
+                           [_PTR] * 14 + [_INT] * 5 + [_PTR]),
     # phi, q, z, r, y, mask, lane_map, bounds_mean, bounds_cov, scratch,
     # mean_s, proj_mean, proj_var, L, T, N, n, seg, want_cov, stream
     "lanes_smooth": ("metran_lanes_smooth",

@@ -1,9 +1,10 @@
-// One step of the lane-layout sequential filter, for one warp per lane.
+// One step of the lane-layout sequential filter, run by one warp.
 //
-// Shared by K3 (lanes_filter.cu), the segment replays of K4
-// (lanes_adjoint.cu) and K5 (lanes_smooth.cu), and K6 (lanes_forward.cu),
-// so a replayed forward is the forward that was run, instruction for
-// instruction.
+// Shared by K3 (lanes_filter.cu, a warp per lane), the segment replays of
+// K4 (the replay warps of lanes_adjoint.cu, a block per lane, and of its
+// oracle lanes_adjoint_warp.cu) and K5 (lanes_smooth.cu), and K6
+// (lanes_forward.cu), so a replayed forward is the forward that was run,
+// instruction for instruction: a change to this step moves all of them.
 //
 // A lane's state lives in its warp's slice of shared memory: P (n x n,
 // row-major), Z (N x n, row i = series i), the mean m and the gain k.
@@ -20,7 +21,8 @@
 namespace lanes {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 2;  // lanes (warps) per block; lanes.py mirrors it
+constexpr int kWarps = 2;  // lanes (warps) per block of the warp-a-lane
+                          // kernels; lanes.py mirrors it
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T x) {

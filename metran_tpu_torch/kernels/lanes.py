@@ -17,7 +17,12 @@ On CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/lanes_filter.cu``, ``csrc/lanes_adjoint.cu``) and raises if that
 cannot build or launch; on CPU tensors it runs the plain PyTorch
 version beside it (``*_plain``), the oracle the kernel is held against
-on the card.
+on the card.  K4's kernel is a block per lane whose replay warps fill a
+ring of segment records while its sweep warps run back over them
+(:func:`ring_geometry` picks its shape); the earlier kernel, one warp
+per lane replaying and sweeping in turn (``csrc/lanes_adjoint_warp.cu``,
+:func:`lanes_adjoint_warp_kernel`), stays beside it as its bit-for-bit
+oracle, launched by no path.
 
 Layouts (lane axis LAST, as in the JAX package, except the data):
 
@@ -49,8 +54,25 @@ import torch
 from . import build
 from .joint_filter import MAX_SMEM
 
-#: lanes (warps) per thread block of both kernels
+#: lanes (warps) per thread block of K3, K5, K6, K7 and K4's warp kernel
 WARPS_PER_BLOCK = 2
+#: K4's ring kernel: replay warps at most and the ring's slots at most; a
+#: block is R replay warps and one or two sweep warps (two only with two
+#: staged records)
+RING_MAX = 4
+SLOTS_MAX = RING_MAX + 1
+SWEEP_WARPS = 2
+#: the shapes (replay warps, sweep warps, staged records) a fleet past the
+#: card's resident blocks may take: one sweep warp, few replay warps, one
+#: staged record or none where that keeps more blocks an SM
+WIDE = ((2, 1, 2), (1, 1, 2), (2, 1, 1), (1, 1, 1), (1, 1, 0))
+#: static shared memory of a ring block: the full and empty mbarriers of
+#: SLOTS_MAX slots, 8 bytes each, beside the dynamic layout
+ADJOINT_STATIC_SMEM = 2 * SLOTS_MAX * 8
+#: device memory the ring may take over every lane, and at most this share
+#: of what the card has free: its depth is cut to both
+RING_BUDGET = 8 << 30
+RING_FREE_SHARE = 0.5
 
 
 class LanesFilterResult(NamedTuple):
@@ -68,10 +90,11 @@ class LanesFilterResult(NamedTuple):
 # ----------------------------------------------------------------------
 # shapes and shared memory
 # ----------------------------------------------------------------------
-#: per kernel: (n x n matrices, n-vectors) in one lane's warp slice,
-#: beside Z (N x n), two N-vectors and the step's mask bytes (mirrors
-#: ``lanes::warp_elems`` calls in the sources)
-_WARP_SLICE = {"filter": (1, 4), "adjoint": (2, 9), "smooth": (2, 7),
+#: per kernel of a warp a lane: (n x n matrices, n-vectors) in one lane's
+#: warp slice, beside Z (N x n), two N-vectors and the step's mask bytes
+#: (mirrors ``lanes::warp_elems`` calls in the sources); ``adjoint_warp``
+#: is K4's oracle
+_WARP_SLICE = {"filter": (1, 4), "adjoint_warp": (2, 9), "smooth": (2, 7),
                "forward": (1, 4), "sample": (0, 3)}
 
 
@@ -87,18 +110,151 @@ def _warp_elems(kind: str, n_obs: int, n_state: int, itemsize: int) -> int:
 
 def smem_bytes(kind: str, n_obs: int, n_state: int,
                dtype: torch.dtype) -> int:
-    """Dynamic shared memory one block of a lanes kernel needs: K3
-    (``kind="filter"``), K4 (``"adjoint"``), K5 (``"smooth"``), K6
-    (``"forward"``) or K7 (``"sample"``)."""
+    """Shared memory one block of a lanes kernel needs: K3
+    (``kind="filter"``), K5 (``"smooth"``), K6 (``"forward"``), K7
+    (``"sample"``) or K4's warp kernel (``"adjoint_warp"``), dynamic; K4
+    (``"adjoint"``), its least shape (one replay warp, records read in
+    the ring) with its static barriers."""
     item = torch.finfo(dtype).bits // 8
+    if kind == "adjoint":
+        return (_ring_layout(n_obs, n_state, 1, 0, item)
+                + ADJOINT_STATIC_SMEM)
     return WARPS_PER_BLOCK * _warp_elems(kind, n_obs, n_state, item) * item
 
 
 def scratch_stride(n_obs: int, n_state: int) -> int:
-    """Values K4 keeps per replayed step and lane: ``mean0`` (n),
-    ``cov0`` (n*n), ``d`` (N*n), ``f`` (N) and ``v`` (N)."""
+    """Values K4's warp kernel keeps per replayed step and lane:
+    ``mean0`` (n), ``cov0`` (n*n), ``d`` (N*n), ``f`` (N) and ``v`` (N);
+    its scratch is one segment of them.  The ring kernel's step record
+    (:func:`record_stride`) adds the step's mask, ``sb`` and ``db``, and
+    a slot of its ring holds a segment of records."""
     n = n_state
     return n + n * n + n_obs * n + 2 * n_obs
+
+
+def record_stride(n_obs: int, n_state: int) -> int:
+    """Values of one step's record in K4's ring (``Record`` in
+    ``csrc/lanes_adjoint.cu``): :func:`scratch_stride`'s, each observed
+    slot's ``2 sb v/f``, ``-sb v^2/f^2 + db/f`` and ``v/f`` (N each), and
+    the mask (N), padded to a multiple of 4 (16 bytes)."""
+    return -(-(scratch_stride(n_obs, n_state) + 4 * n_obs) // 4) * 4
+
+
+def _ring_layout(n_obs: int, n_state: int, ring: int, stages: int,
+                 item: int) -> int:
+    """Dynamic shared-memory bytes of one K4 block with ``ring`` replay
+    warps (mirrors ``carve`` in ``csrc/lanes_adjoint.cu``, array by
+    array): ``stages`` staged records (0, 1 or 2); Z, r, phi, q; the
+    sweep's S, five n-vectors and two scalars; each replay warp's P, m,
+    gain, data and mask bytes; Z's nonzeros as 32-bit words."""
+    n, big_n = n_state, n_obs
+    stage = stages * record_stride(big_n, n)
+    common = big_n * n + big_n + 2 * n
+    sweep = n * n + 5 * n + 2
+    per = n * n + 2 * n + big_n + -(-big_n // item)
+    values = stage + common + sweep + ring * per
+    words = big_n * (-(-n // 32))
+    return -(-(values * item + 4 * words) // 16) * 16
+
+
+def adjoint_smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype,
+                       ring: int, stages: int) -> int:
+    """Dynamic shared memory of one K4 block with ``ring`` replay warps and
+    ``stages`` records staged in shared memory (0: read in the ring)."""
+    return _ring_layout(n_obs, n_state, ring, stages,
+                        torch.finfo(dtype).bits // 8)
+
+
+_OCCUPANCY: dict = {}
+
+
+def adjoint_occupancy(n_obs: int, n_state: int, dtype: torch.dtype,
+                      ring: int, stages: int,
+                      sweep: int = SWEEP_WARPS) -> int:
+    """Blocks of K4 the current card keeps resident per SM at this shape,
+    ring, stages and sweep (CUDA's occupancy calculator; builds the
+    kernels)."""
+    import ctypes
+
+    key = (torch.cuda.current_device(), n_obs, n_state, dtype, ring, stages,
+           sweep)
+    if key not in _OCCUPANCY:
+        lib = build.load_library("lanes_adjoint")
+        fn = (lib.metran_lanes_adjoint_occupancy_f64
+              if dtype == torch.float64
+              else lib.metran_lanes_adjoint_occupancy_f32)
+        blocks = ctypes.c_int(0)
+        err = fn(n_obs, n_state, ring, sweep, stages, ctypes.byref(blocks))
+        build.check(lib, err, "lanes_adjoint occupancy")
+        _OCCUPANCY[key] = blocks.value
+    return _OCCUPANCY[key]
+
+
+class RingShape(NamedTuple):
+    """A launch of K4's ring kernel: R replay warps, D ring slots (R or
+    R + 1), the sweep warps, and the records staged in shared memory (2:
+    a step ahead, 1: after the step before, 0: read in the ring)."""
+
+    ring: int
+    depth: int
+    sweep: int
+    stages: int
+
+
+def ring_geometry(lanes: int, t_steps: int, seg: int, n_obs: int,
+                  n_state: int, dtype: torch.dtype, device) -> RingShape:
+    """The shape K4 launches ``lanes`` lanes with.  The most staged
+    records (two, one, none) that fit shared memory beside one replay
+    warp; R the most replay warps (up to :data:`RING_MAX` and the
+    segments) whose layout fits, with :data:`SWEEP_WARPS` sweep warps
+    where two records are staged (else one), while every such block is
+    resident on the card (SMs times the occupancy calculator's blocks).  Past that, the :data:`WIDE` shape
+    that takes the fewest waves of resident blocks, then the most staged
+    records, then the most replay warps.  D is R + 1 slots below
+    :data:`RING_MAX` replay warps (with one, the replay would otherwise
+    wait for the sweep to free the only slot) and R at it (the spare bought
+    nothing there), at most the segments and what :data:`RING_BUDGET` and
+    :data:`RING_FREE_SHARE` of the card's free memory hold (at least
+    one), and R at most D."""
+    item = torch.finfo(dtype).bits // 8
+    n_seg = max(1, -(-t_steps // seg))
+    room = MAX_SMEM - ADJOINT_STATIC_SMEM
+    stages = max(k for k in (0, 1, 2)
+                 if k == 0 or _ring_layout(n_obs, n_state, 1, k, item) <= room)
+    ring = max(r for r in range(1, RING_MAX + 1)
+               if _ring_layout(n_obs, n_state, r, stages, item) <= room)
+    ring = min(ring, n_seg)
+    props = torch.cuda.get_device_properties(device)
+    sms = props.multi_processor_count
+    sweep = SWEEP_WARPS if stages == 2 else 1
+    with torch.cuda.device(device):
+        resident = sms * adjoint_occupancy(n_obs, n_state, dtype, ring,
+                                           stages, sweep)
+        if lanes > resident:
+            best = None
+            for r, sw, st in WIDE:
+                r, st = min(r, ring), min(st, stages)
+                waves = -(-lanes // max(1, sms * adjoint_occupancy(
+                    n_obs, n_state, dtype, r, st, sw)))
+                if best is None or (waves, -st, -r) < best[0]:
+                    best = ((waves, -st, -r), r, sw, st)
+            _, ring, sweep, stages = best
+        free, _ = torch.cuda.mem_get_info(device)
+        free += (torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
+    budget = min(RING_BUDGET, int(free * RING_FREE_SHARE))
+    slot = lanes * seg * record_stride(n_obs, n_state) * item
+    spare = 1 if ring < RING_MAX else 0
+    depth = min(ring + spare, n_seg, max(1, budget // slot))
+    return RingShape(min(ring, depth), depth, sweep, stages)
+
+
+def ring_bytes(lanes: int, seg: int, n_obs: int, n_state: int,
+               dtype: torch.dtype, depth: int) -> int:
+    """Device memory of K4's ring: ``depth`` slots of ``seg`` records a
+    lane."""
+    return (lanes * depth * seg * record_stride(n_obs, n_state)
+            * (torch.finfo(dtype).bits // 8))
 
 
 def _check(phi, q, z, r, y, mask, lane_map, seg):
@@ -380,8 +536,9 @@ def lanes_adjoint(phi, q, z, r, y, mask, lane_map, seg, bounds_mean,
 
 def lanes_adjoint_kernel(phi, q, z, r, y, mask, lane_map, seg, bounds_mean,
                          bounds_cov, sb, db):
-    """Launch K4 (CUDA tensors only).  Its replay scratch,
-    ``seg * scratch_stride(N, n)`` values per lane, is allocated here."""
+    """Launch K4's ring kernel (CUDA tensors only).  Its ring, D slots of
+    ``seg`` records (:func:`record_stride`) per lane, is allocated here
+    (:func:`ring_geometry`)."""
     lanes, _, t_steps, big_n, n, seg, n_seg, lane_map = _check_adjoint(
         phi, q, z, r, y, mask, lane_map, seg, bounds_mean, bounds_cov, sb,
         db)
@@ -389,19 +546,54 @@ def lanes_adjoint_kernel(phi, q, z, r, y, mask, lane_map, seg, bounds_mean,
     args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map,
                                      bounds_mean, bounds_cov, sb, db)]
     new = dict(dtype=phi.dtype, device=phi.device)
-    scratch = torch.empty((lanes, seg, scratch_stride(big_n, n)), **new)
+    shape = (ring_geometry(lanes, t_steps, seg, big_n, n, phi.dtype,
+                           phi.device)
+             if lanes else RingShape(1, 1, 1, 0))
+    records = torch.empty((lanes, shape.depth, seg,
+                           record_stride(big_n, n)), **new)
     phibar = torch.empty((n, lanes), **new)
     qbar = torch.empty((n, lanes), **new)
     lib = build.load_library("lanes_adjoint")
     fn = (lib.metran_lanes_adjoint_f64 if phi.dtype == torch.float64
           else lib.metran_lanes_adjoint_f32)
     with torch.cuda.device(phi.device):
-        err = fn(*[t.data_ptr() for t in args], scratch.data_ptr(),
+        err = fn(*[t.data_ptr() for t in args], records.data_ptr(),
                  phibar.data_ptr(), qbar.data_ptr(), lanes, t_steps, big_n,
-                 n, seg, _stream(phi))
+                 n, seg, shape.ring, shape.depth, shape.sweep, shape.stages,
+                 _stream(phi))
     build.check(lib, err, "lanes_adjoint")
     if lanes:
         build.count_launch("lanes_adjoint")
+    return phibar, qbar
+
+
+def lanes_adjoint_warp_kernel(phi, q, z, r, y, mask, lane_map, seg,
+                              bounds_mean, bounds_cov, sb, db):
+    """Launch K4's warp kernel (``csrc/lanes_adjoint_warp.cu``), the ring
+    kernel's bit-for-bit oracle (CUDA tensors only; raises otherwise).
+    Counted as ``lanes_adjoint_warp``, apart from the paths' launches.
+    Its replay scratch, ``seg * scratch_stride(N, n)`` values per lane,
+    is allocated here."""
+    lanes, _, t_steps, big_n, n, seg, n_seg, lane_map = _check_adjoint(
+        phi, q, z, r, y, mask, lane_map, seg, bounds_mean, bounds_cov, sb,
+        db)
+    _check_cuda("adjoint_warp", phi, big_n, n)
+    args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map,
+                                     bounds_mean, bounds_cov, sb, db)]
+    new = dict(dtype=phi.dtype, device=phi.device)
+    scratch = torch.empty((lanes, seg, scratch_stride(big_n, n)), **new)
+    phibar = torch.empty((n, lanes), **new)
+    qbar = torch.empty((n, lanes), **new)
+    lib = build.load_library("lanes_adjoint_warp")
+    fn = (lib.metran_lanes_adjoint_warp_f64 if phi.dtype == torch.float64
+          else lib.metran_lanes_adjoint_warp_f32)
+    with torch.cuda.device(phi.device):
+        err = fn(*[t.data_ptr() for t in args], scratch.data_ptr(),
+                 phibar.data_ptr(), qbar.data_ptr(), lanes, t_steps, big_n,
+                 n, seg, _stream(phi))
+    build.check(lib, err, "lanes_adjoint_warp")
+    if lanes:
+        build.count_launch("lanes_adjoint_warp")
     return phibar, qbar
 
 

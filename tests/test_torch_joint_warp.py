@@ -366,7 +366,8 @@ def test_the_oracle_counts_its_launches_apart(monkeypatch):
                                           "joint_filter_store_block",
                                           "sqrt_filter_block",
                                           "sqrt_filter_gated_block",
-                                          "sqrt_filter_robust_block"}
+                                          "sqrt_filter_robust_block",
+                                          "lanes_adjoint_warp"}
     assert not set(build.ORACLE_LAUNCHES) & set(build.LAUNCHES)
     monkeypatch.setattr(build, "ORACLE_LAUNCHES",
                         dict.fromkeys(build.ORACLE_LAUNCHES, 0))

@@ -1711,3 +1711,159 @@ def test_arena_sqrt_update_is_the_group_k9(card, dtype):
     assert torch.equal(a.fac[idx], want[1])
     assert torch.equal(out.sigma, want[2])
     assert torch.equal(out.detf, want[3])
+
+
+# ----------------------------------------------------------------------
+# K4: the ring kernel (replay warps filling a ring of segment records for
+# its sweep warps) bit for bit the warp kernel (one warp per lane) it
+# replaced.  The cases and their inputs are chip_smoke.py's (K4_CASES,
+# _k4_case): the lanes cases of the plain comparisons (padded series, a
+# masked series and step, a near-unit-root lane, K = 4 trials over a lane
+# map), a NaN reading (a non-finite dvec takes the full row), a seg past
+# T, then B = 1, 8, 64 and 512
+# ----------------------------------------------------------------------
+def _chip_smoke():
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    if "chip_smoke" not in sys.modules:
+        path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = module
+        spec.loader.exec_module(module)
+    return sys.modules["chip_smoke"]
+
+
+K4_CASES = _chip_smoke().K4_CASES
+
+
+def _k4_case(card, dtype, case, deviance=False, **extra):
+    """``chip_smoke._k4_case`` of ``case`` (a K4_CASES row, its keywords
+    updated by ``extra``): K3's boundaries, random cotangents or, with
+    ``deviance``, the deviance's."""
+    _, d, t, seg, kw = case
+    adj, _ = _chip_smoke()._k4_case(np.random.default_rng(23), d, t, seg,
+                                    dtype, card, deviance=deviance,
+                                    **{**kw, **extra})
+    return adj
+
+
+def _k4_both(args):
+    """The ring and the warp kernel on ``args``; each counts its own
+    launch."""
+    from metran_tpu_torch.kernels import build
+
+    before = (kernels.launches(), build.oracle_launches())
+    ring = kernels.lanes_adjoint(*args)
+    mid = (kernels.launches(), build.oracle_launches())
+    warp = kernels.lanes_adjoint_warp_kernel(*args)
+    after = (kernels.launches(), build.oracle_launches())
+    torch.cuda.synchronize()
+    assert mid[0]["lanes_adjoint"] - before[0]["lanes_adjoint"] == 1
+    assert mid[1] == before[1] and after[0] == mid[0]
+    assert after[1]["lanes_adjoint_warp"] - mid[1]["lanes_adjoint_warp"] \
+        == 1
+    return ring, warp
+
+
+@pytest.mark.parametrize("case", K4_CASES, ids=[c[0] for c in K4_CASES])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_ring_kernel_is_the_warp_kernel_bit_for_bit(card, dtype, case):
+    args = _k4_case(card, dtype, case)
+    ring, warp = _k4_both(args)
+    assert all(_nan_equal(g, w) for g, w in zip(ring, warp))
+    if case[4].get("nan"):  # lane 0's adjoints are NaN, the others finite
+        assert bool(torch.isnan(ring[0][:, 0]).any())
+        assert bool(torch.isfinite(ring[0][:, 1:]).all())
+
+
+@pytest.mark.parametrize("stages,sweep", [(2, 2), (2, 1), (1, 1), (0, 1)])
+@pytest.mark.parametrize("ring", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_every_ring_shape_is_the_warp_kernel(card, monkeypatch, dtype,
+                                                ring, stages, sweep):
+    """Forced shapes: R replay warps over R + 1 slots and over R (fewer
+    than the segments, so slots refill); records staged a step ahead
+    (one or two sweep warps), after the step before, or read in the
+    ring (one)."""
+    from metran_tpu_torch.kernels import lanes as kl
+
+    args = _k4_case(card, dtype, ("B=6 T=197 seg=16", 6, 197, 16, {}))
+    _, warp = _k4_both(args)
+    for depth in (ring + 1, ring):
+        monkeypatch.setattr(kl, "ring_geometry",
+                            lambda *a, r=ring, d=depth: kl.RingShape(
+                                r, d, sweep, stages))
+        got = kernels.lanes_adjoint(*args)
+        torch.cuda.synchronize()
+        assert all(_nan_equal(g, w) for g, w in zip(got, warp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_past_the_resident_blocks_and_at_the_widest_staged_buckets(
+        card, dtype):
+    from metran_tpu_torch.kernels import lanes as kl
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    edge = sms * kl.adjoint_occupancy(20, 21, dtype, kl.RING_MAX, 2)
+    args = _k4_case(card, dtype, ("past", edge + 5, 40, 4, {}))
+    shape = kl.ring_geometry(edge + 5, 40, 4, 20, 21, dtype, card)
+    assert (shape.ring, shape.sweep, shape.stages) in kl.WIDE
+    ring, warp = _k4_both(args)
+    assert all(_nan_equal(g, w) for g, w in zip(ring, warp))
+    # the widest one-factor buckets that stage two records, then one, the
+    # warp kernel's widest (one), bit for bit; past that the ring kernel's
+    # own (one, then none, read in the ring) against plain
+    two, warp_n, one = ((61, 66, 73) if dtype == torch.float64
+                        else (88, 95, 104))
+    bar = 1e-9 if dtype == torch.float64 else 1e-3
+    for big_n, stages in ((two, 2), (two + 1, 1), (warp_n, 1), (one, 1),
+                          (one + 1, 0)):
+        args = _k4_case(card, dtype, ("wide", 2, 20, 8, {}),
+                        n_pad=big_n - 20)
+        got = kl.ring_geometry(2, 20, 8, big_n, big_n + 1, dtype, card)
+        assert got.stages == stages
+        if big_n <= warp_n:
+            ring, warp = _k4_both(args)
+            assert all(_nan_equal(g, w) for g, w in zip(ring, warp))
+        else:
+            assert kl.smem_bytes("adjoint_warp", big_n, big_n + 1,
+                                 dtype) > kl.MAX_SMEM
+            ring = kernels.lanes_adjoint(*args)
+            want = kernels.lanes_adjoint_plain(*args)
+            assert all(_rel(g, w) <= bar for g, w in zip(ring, want))
+
+
+@pytest.mark.parametrize("case", K4_CASES[:5], ids=[c[0] for c in
+                                                     K4_CASES[:5]])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_k4_ring_kernel_matches_plain(card, dtype, bar, case):
+    """At the deviance's cotangents, as the lanes fit sends them (the
+    bit-for-bit cases above take random ones)."""
+    args = _k4_case(card, dtype, case, deviance=True)
+    got = kernels.lanes_adjoint(*args)
+    want = kernels.lanes_adjoint_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if case[4].get("nan"):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            g, w = g.nan_to_num(0.0), w.nan_to_num(0.0)
+        assert _rel(g, w) <= bar
+
+
+def test_k4_near_unit_root_gap_at_random_cotangents_is_the_warp_kernels(
+        card):
+    """Random cotangents on the near-unit-root lane (every state), f64:
+    the ring kernel is the warp kernel bit for bit, and both sit as far
+    from the plain version, within chip_smoke.K4_UNIT_ROOT_GAP."""
+    case = K4_CASES[1]
+    args = _k4_case(card, torch.float64, case, unit_root="all")
+    ring, warp = _k4_both(args)
+    want = kernels.lanes_adjoint_plain(*args)
+    assert all(_nan_equal(g, w) for g, w in zip(ring, warp))
+    errs = [_rel(g, w) for g, w in zip(ring, want)]
+    assert errs == [_rel(g, w) for g, w in zip(warp, want)]
+    assert max(errs) <= _chip_smoke().K4_UNIT_ROOT_GAP, errs

@@ -27,7 +27,15 @@ non-zero):
    k = 1), the block kernel held to the plain version; both timed
    alternately at B = 512, 64, 8, 1 (``bounds``), the serving update
    and ``store`` at B = 512, beside ``k1_cost``'s bound; K1/K2 (serving),
-   K3/K4 (fit); K4's ring kernel (``k4_bitwise``: replay warps filling
+   K3/K4 (fit); K3's chain kernel (``k3_bitwise``: a chain warp and
+   update warps a lane) held ``torch.equal`` to the warp kernel it
+   replaced (one warp per lane, kept as its oracle), f64 and f32, on
+   ``K3_CASES`` (the lanes cases, a NaN reading, seg past T, two and
+   three factors, a dense Z, B = 1, 8, 64, 512), past the resident
+   four-warp blocks, with three update warps and with none, and at the widest
+   bucket, both timed alternately at the line search's trial pass and at
+   B = 512, 64, 8, 1 with boundaries (T = 5,000, seg = 100) beside
+   ``k3_cost``'s bound (``k3_times``); K4's ring kernel (``k4_bitwise``: replay warps filling
    a ring of segment records for its sweep warps) held ``torch.equal`` to
    the warp kernel it replaced (one warp per lane, kept as its oracle),
    f64 and f32, on ``K4_CASES`` (the lanes cases, a NaN reading, seg
@@ -46,7 +54,7 @@ non-zero):
    fully masked series and an observed slot with r < 0, which must book
    detf = +inf and pass the state through); the lanes and square-root
    kernels are held against their plain versions (a Python loop over
-   steps) at full width over the first ``T_CMP`` = 150 steps and timed
+   steps) at full width over the first ``T_CMP`` = 120 steps and timed
    at the full T; then the square-root engine's f32 contract
    (``tests/test_precision.py``'s recipe, copied): K9's f32 deviance
    within 2e-6 of the CPU f64 one in all four alpha regimes,
@@ -56,7 +64,7 @@ non-zero):
    plain version over each engine's segment boundaries (K1 ``bounds``,
    K9 ``bounds``, K3 ``keep_bounds``; a model observing an r < 0 slot
    and a fully masked step) in f64 and f32 and at the flagship shape
-   over ADJ_T_CMP = 400 steps; K1 and K9 ``bounds`` bit for bit their carry
+   over ADJ_T_CMP = 300 steps; K1 and K9 ``bounds`` bit for bit their carry
    instantiations, each boundary the carry-only run to that point; the
    anchored adjoint from a non-triangular anchor (its value the score of
    ``sqrt_filter_append``, its gradient the CPU f64 one's); K11's f64
@@ -269,8 +277,9 @@ non-zero):
    ``store``, K8) and ``filter_append`` (K12 ``off``), each held to the
    sequential engine's within 1e-9.
 
-No path may launch K1's block kernel (its own launch counters, read
-around the path phases).  Every phase also prints its wall time
+No path may launch an oracle (K1's and K9's block kernels, K3's and
+K4's warp kernels: their own launch counters, read around the path
+phases).  Every phase also prints its wall time
 (``{"phase_wall": ..., "wall_s": ...}``).  The line before the last is ``nvidia-smi``'s ``name, power.limit``; the
 line before that the ``{"kernels": [...]}`` summary; the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -305,15 +314,16 @@ FIT = dict(layout="lanes", remat_seg=100, tol=0.05, stall_tol=1e-3,
 PRODUCTS = dict(seg=100, warmup=50, n_draws=4, steps=FORECAST_STEPS)
 CPU_MODELS = 4  # fitted models the products phase recomputes on the CPU
 LS_TRIALS = 4  # the grid line search's trial points per iteration
-T_CMP = 150  # steps of the full-width kernel-vs-plain comparisons of
+T_CMP = 120  # steps of the full-width kernel-vs-plain comparisons of
 #              the lanes and square-root kernels (their plain versions
 #              loop over steps; cut from 1,000 when the batch-layout fit
-#              joined the run, from 400 when K4's oracle phase did and
-#              from 250 when it grew, to keep the phases near 850 s); K1's
-#              history pass, on the batch fit's path, is compared at the
-#              full T
-ADJ_T_CMP = 400  # the same for K11 and the batch fit's CPU recompute
-#                  (cut from 1,000 and 600 with T_CMP)
+#              joined the run, from 400 when K4's oracle phase did, from
+#              250 when it grew and from 150 when K3's did, to keep the
+#              phases near 850 s; 120 keeps a second, ragged segment at
+#              seg = 100); K1's history pass, on the batch fit's path, is
+#              compared at the full T
+ADJ_T_CMP = 300  # the same for K11 and the batch fit's CPU recompute
+#                  (cut from 1,000, 600 and 400 with T_CMP)
 DEVICE = "cuda"  # the card the lanes and fit phases run on
 
 # H100 SXM peaks (NVIDIA data sheet; dense, no sparsity)
@@ -1615,20 +1625,21 @@ def phase_main_path(engine="joint"):
 
 
 def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None,
-               gaps=False):
+               gaps=False, factors=N_FACTORS):
     """A lanes launch's inputs from the flagship recipe: ``(phi, q, z, r,
     y, mask, lane_map, count)`` for ``trials`` lanes per data lane (the
     line search's layout), ``n_pad`` padded series slots (masked, zero
     loadings), a fully masked real series and a fully masked step;
     ``unit_root`` = "all" puts every state of lane 0 at alpha = 3e4,
-    "factor" its common factor; ``gaps`` also masks the first step and a
-    stretch of 20 steps in every other data lane."""
+    "factor" its common factors; ``gaps`` also masks the first step and a
+    stretch of 20 steps in every other data lane; ``factors`` common
+    factors."""
     import numpy as np
     import torch
 
     from metran_tpu_torch.ops.lanes import lanes_statespace, prepare_data
 
-    y, mask, lds, a_s, a_c = make_workload(rng, b, t=t)
+    y, mask, lds, a_s, a_c = make_workload(rng, b, t=t, k=factors)
     n_obs = N_SERIES + n_pad
     yp = np.zeros((b, t, n_obs))
     mp = np.zeros((b, t, n_obs), bool)
@@ -1640,9 +1651,9 @@ def lanes_case(rng, b, t, dtype, dev, n_pad=0, trials=1, unit_root=None,
     if gaps:
         mp[:, 0] = False
         mp[1::2, 40:60] = False
-    ld = np.zeros((n_obs, N_FACTORS, b))
+    ld = np.zeros((n_obs, factors, b))
     ld[:N_SERIES] = np.transpose(lds, (1, 2, 0))
-    alpha = np.ones((n_obs + N_FACTORS, b)) * 10.0
+    alpha = np.ones((n_obs + factors, b)) * 10.0
     alpha[:N_SERIES] = a_s.T
     alpha[n_obs:] = a_c.T
     lanes = trials * b
@@ -2057,6 +2068,218 @@ def phase_k4_kernels():
                                       "bound_ms": v["bound_ms"]}
                                 for key, v in timing.items()}},
         "k4_ring_vs_warp": timing}
+    return checks, times
+
+
+# K3's chain kernel against its warp kernel: (label, data lanes, steps,
+# seg, keywords of _k3_case): the lanes cases (padded series, a masked
+# series and step, a near-unit-root lane, K = 4 trials over a lane map), a
+# NaN reading (the guard hands the lane to the oracle's step), seg past
+# T, two and three factors (three and four terms in the short sums), a
+# dense Z (every column on the chain), B = 1, 8, 64, 512
+K3_CASES = (
+    ("padded series (24 slots, 20 real), a masked series and step", 16,
+     250, K4_SEG, dict(n_pad=4)),
+    ("near-unit-root lane (alpha=3e4)", 16, 250, K4_SEG,
+     dict(unit_root="factor")),
+    ("lane map, K=4 trials over 16 data lanes", 16, 250, K4_SEG,
+     dict(trials=4)),
+    ("a NaN reading", 8, 60, 16, dict(nan=True)),
+    ("seg past T", 4, 30, 64, {}),
+    ("two factors", 8, 120, 32, dict(factors=2)),
+    ("three factors", 8, 120, 32, dict(factors=3)),
+    ("a dense Z", 4, 60, 16, dict(dense=True)),
+    ("B=1", 1, 333, K4_SEG, {}),
+    ("B=8", 8, 205, 50, {}),
+    ("B=64", 64, 130, 40, {}),
+    ("B=512", FLEET, 120, 50, {}),
+)
+
+
+def _k3_case(rng, d, t, dtype, dev, nan=False, dense=False, **kw):
+    """K3's arguments ``(phi, q, z, r, y, mask, lane_map)`` from
+    :func:`lanes_case` and its observed-slot counts; ``nan``: a NaN
+    reading at lane 0, step 2, slot 3; ``dense``: every entry of Z
+    nonzero (loadings on every state)."""
+    import torch
+
+    *args, count = lanes_case(rng, d, t, dtype, dev, **kw)
+    if nan:
+        args[4][0, 2, 3] = float("nan")
+        args[5][0, 2, 3] = True
+    if dense:
+        args[2] = args[2] + torch.as_tensor(
+            rng.uniform(0.05, 0.3, tuple(args[2].shape)), dtype=dtype,
+            device=dev)
+    return args, count
+
+
+def k3_times(kl, dev, batches=(FLEET, 64, 8, 1), reps=1):
+    """K3's chain kernel and its warp kernel timed alternately (warp,
+    chain, chain, warp) at the line search's trial pass (K = 4 trial
+    lanes over each of FLEET data lanes, no boundaries) and at each of
+    ``batches`` lanes with boundaries, T = 5,000, seg = 100, (20, 21) f32,
+    each pair held bit for bit, beside ``k3_cost``'s bound and the shape
+    ``chain_shape`` chose: ``{"trials K*B=...": {...}, "B=b": {...}}``."""
+    import numpy as np
+    import torch
+
+    timing = {}
+    rng = np.random.default_rng(SEED + 21)
+    *trial, count = lanes_case(rng, FLEET, T_STEPS, torch.float32, dev,
+                               trials=LS_TRIALS)
+    data_shape = tuple(trial[4].shape)
+    runs = [(f"trials K*B={LS_TRIALS * FLEET}", trial, False)]
+    for b in batches:
+        runs.append((f"B={b}", [a[..., :b].contiguous() for a in trial[:4]]
+                     + [trial[4][:b].contiguous(), trial[5][:b].contiguous(),
+                        trial[6][:b].contiguous()], True))
+    for key, part, bounds in runs:
+        got, outs = {"warp": [], "chain": []}, {}
+        for who in ("warp", "chain", "chain", "warp"):
+            fn = (kl.lanes_filter_warp_kernel if who == "warp"
+                  else kl.lanes_filter_kernel)
+            ms, outs[who] = cuda_ms(
+                lambda: fn(*part, seg=K4_SEG, keep_bounds=bounds), reps=reps,
+                warm=1)
+            got[who].append(ms)
+        lanes = part[0].shape[1]
+        bms, bby = bound_ms(*k3_cost(
+            part[2], part[6], count[:, :part[4].shape[0]],
+            (part[4].shape[0],) + data_shape[1:], K4_SEG, bounds, 4),
+            "float32")
+        timing[key] = {
+            "warp_ms": got["warp"], "chain_ms": got["chain"],
+            "speedup": min(got["warp"]) / min(got["chain"]),
+            "bound_ms": bms, "bound_by": bby,
+            "update_warps": kl.chain_shape(
+                lanes, N_SERIES, N_SERIES + N_FACTORS, torch.float32,
+                dev).update_warps,
+            "bitwise": _same_nan([o for o in outs["chain"] if o is not None],
+                                 [o for o in outs["warp"] if o is not None])}
+    return timing
+
+
+def phase_k3_kernels():
+    """K3's chain kernel bit for bit its warp kernel, and both timed.
+
+    The chain kernel computes every entry by the warp kernel's operations
+    in its order, so the two agree by ``torch.equal`` (NaN in the same
+    places), f64 and f32, on K3_CASES, past the card's resident four-warp
+    blocks, with three update warps and with none, and at the widest
+    bucket;
+    each case counts the chain kernel's launch under K3's name and the
+    warp kernel's apart (``k3_bitwise``).  Then both timed alternately
+    (:func:`k3_times`, ``k3_times``); the warp kernel against its plain
+    version on the trials case."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from metran_tpu_torch.kernels import launches, lanes_filter_plain
+    from metran_tpu_torch.kernels.build import oracle_launches
+
+    kl = importlib.import_module("metran_tpu_torch.kernels.lanes")
+    dev = torch.device(DEVICE)
+    bitwise, checks = [], []
+
+    def both(args, seg):
+        before = (launches(), oracle_launches())
+        chain = kl.lanes_filter(*args, seg=seg, keep_bounds=True)
+        mid = (launches(), oracle_launches())
+        warp = kl.lanes_filter_warp_kernel(*args, seg=seg, keep_bounds=True)
+        after = (launches(), oracle_launches())
+        torch.cuda.synchronize()
+        require(mid[0]["lanes_filter"] - before[0]["lanes_filter"] == 1
+                and mid[1] == before[1] and after[0] == mid[0]
+                and after[1]["lanes_filter_warp"]
+                - mid[1]["lanes_filter_warp"] == 1,
+                "K3's launches: the chain kernel under its name, the warp "
+                "kernel apart")
+        return chain, warp
+
+    def equal(label, dtype, chain, warp, **extra):
+        bitwise.append({"case": label, "dtype": str(dtype).replace(
+            "torch.", ""), "bitwise": _same_nan(chain, warp), **extra})
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_state = N_SERIES + N_FACTORS
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(SEED + 190)
+        for label, d, t, seg, kw in K3_CASES:
+            args, _ = _k3_case(rng, d, t, dtype, dev, **kw)
+            equal(label, dtype, *both(args, seg),
+                  update_warps=kl.chain_shape(
+                      args[0].shape[1], args[2].shape[0], args[2].shape[1],
+                      dtype, dev).update_warps)
+        edge = sms * kl.chain_occupancy(N_SERIES, n_state, dtype, 3)
+        args, _ = _k3_case(rng, edge + 5, 40, dtype, dev)
+        equal(f"B={edge + 5} T=40 seg=4 (past {edge} resident four-warp "
+              "blocks)", dtype, *both(args, 4),
+              update_warps=kl.chain_shape(edge + 5, N_SERIES, n_state, dtype,
+                                          dev).update_warps)
+        args, _ = _k3_case(rng, 6, 197, dtype, dev, factors=2)
+        _, warp = both(args, 16)
+        chooser = kl.chain_shape
+        try:
+            for u in kl.UPDATE_WARPS:
+                kl.chain_shape = lambda *a, u=u: kl.ChainShape(u)
+                equal(f"B=6 T=197 seg=16 two factors, U={u}", dtype,
+                      kl.lanes_filter(*args, seg=16, keep_bounds=True), warp)
+        finally:
+            kl.chain_shape = chooser
+        # the warp kernel's widest one-factor bucket (the chain kernel
+        # takes at least as wide)
+        warp_n = max(m for m in range(1, 200)
+                     if kl.smem_bytes("filter_warp", m, m + 1, dtype)
+                     <= kl.MAX_SMEM)
+        args, _ = _k3_case(rng, 2, 20, dtype, dev, n_pad=warp_n - N_SERIES)
+        equal(f"({warp_n}, {warp_n + 1}) B=2 T=20 seg=8", dtype,
+              *both(args, 8))
+    emit({"phase": "k3_bitwise", "checks": bitwise})
+    bad = [c for c in bitwise if not c["bitwise"]]
+    require(not bad, f"K3's chain kernel differs from its warp kernel: {bad}")
+
+    # the warp kernel against its plain version (the trials case, f32)
+    rng = np.random.default_rng(SEED + 191)
+    label, d, t, seg, kw = K3_CASES[2]
+    args, _ = _k3_case(rng, d, t, torch.float32, dev, **kw)
+    got = kl.lanes_filter_warp_kernel(*args, seg=seg, keep_bounds=True)
+    plain_ms, want = cuda_ms(
+        lambda: lanes_filter_plain(*args, seg=seg, keep_bounds=True), reps=1,
+        warm=0)
+    torch.cuda.synchronize()
+    checks.append(check_entry("lanes_filter_warp", label, torch.float32, got,
+                              want, 1e-3))
+    require(checks[-1]["ok"], f"K3's warp kernel vs plain: {checks[-1]}")
+
+    timing = k3_times(kl, dev)
+    bad = [k for k, v in timing.items() if not v["bitwise"]]
+    require(not bad, f"K3's timed chain launches differ from the warp "
+            f"kernel's: {bad}")
+    geometry = {str(dt).replace("torch.", ""): {
+        f"{wn}x{ws}": {
+            "chain_block_bytes": kl.smem_bytes("filter", wn, ws, dt),
+            "warp_kernel_bytes": kl.smem_bytes("filter_warp", wn, ws, dt),
+            "resident_lanes": {f"U={u}": sms * kl.chain_occupancy(
+                wn, ws, dt, u) for u in kl.UPDATE_WARPS}}
+        for wn, ws in ((N_SERIES, n_state), BUCKET)}
+        for dt in (torch.float32, torch.float64)}
+    emit({"phase": "k3_times", "shape": f"(20,21) f32 T={T_STEPS} "
+          f"seg={K4_SEG}", "times": timing, "geometry": geometry})
+    main = timing[f"B={FLEET}"]
+    times = {
+        "lanes_filter_warp": {
+            "shape": f"B={FLEET} T={T_STEPS} N={N_SERIES} seg={K4_SEG} f32 "
+                     "with boundaries",
+            "ms": min(main["warp_ms"]), "plain_ms": plain_ms,
+            "plain_shape": f"{label}, T={t}, seg={seg}, once",
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bounds_by_batch": {key: {"ms": min(v["warp_ms"]),
+                                      "bound_ms": v["bound_ms"]}
+                                for key, v in timing.items()}},
+        "k3_chain_vs_warp": timing}
     return checks, times
 
 
@@ -8970,6 +9193,12 @@ KERNELS = {
         "source": "metran_tpu_torch/kernels/csrc/lanes_filter.cu",
         "replaces": "metran_tpu/ops/lanes.py:104",
     },
+    # the warp kernel K3's chain kernel replaced: its bit-for-bit oracle,
+    # launched by no path
+    "lanes_filter_warp": {
+        "source": "metran_tpu_torch/kernels/csrc/lanes_filter_warp.cu",
+        "replaces": "metran_tpu/ops/lanes.py:104",
+    },
     "lanes_adjoint": {
         "source": "metran_tpu_torch/kernels/csrc/lanes_adjoint.cu",
         "replaces": "metran_tpu/ops/lanes.py:232",
@@ -9117,7 +9346,8 @@ def main() -> int:
     smi = timed(phase_device)
     timed(phase_build)
     checks, times = timed(phase_kernels)
-    for phase in (phase_k1_kernels, phase_lanes_kernels, phase_k4_kernels,
+    for phase in (phase_k1_kernels, phase_lanes_kernels, phase_k3_kernels,
+                  phase_k4_kernels,
                   phase_products_kernels,
                   phase_single_kernels, phase_sqrt_kernels,
                   phase_adjoint_kernels, phase_gate_kernels,
@@ -9174,8 +9404,8 @@ def main() -> int:
         timed(check_stderr, fit)
     paths["c2_defaults"] = timed(phase_c2_defaults, mt64)
 
-    # nothing on a path chooses K1's or K9's block kernel or K4's warp
-    # kernel
+    # nothing on a path chooses K1's or K9's block kernel or K3's or K4's
+    # warp kernel
     oracle = {k: v - oracle0[k] for k, v in oracle_launches().items()}
     require(not any(oracle.values()),
             f"the paths launched a block kernel (an oracle): {oracle}")
@@ -9201,7 +9431,7 @@ def main() -> int:
             entry["bounds"] = times["joint_filter_append_bounds"]
             entry["warp_vs_block"] = times["k1_warp_vs_block"]
         if name in ("joint_filter_append_block", "sqrt_filter_block",
-                    "lanes_adjoint_warp"):
+                    "lanes_adjoint_warp", "lanes_filter_warp"):
             entry["bounds_by_batch"] = t["bounds_by_batch"]
         if name == "lanes_adjoint":
             entry["ring_vs_warp"] = times["k4_ring_vs_warp"]
@@ -9209,6 +9439,7 @@ def main() -> int:
             entry["group_vs_block"] = times["k9_group_vs_block"]
         if name == "lanes_filter":
             entry["vg_launch"] = t["vg_launch"]
+            entry["chain_vs_warp"] = times["k3_chain_vs_warp"]
         if name == "joint_adjoint":
             for key in ("by_batch", "ring_depth", "blocks_per_sm"):
                 entry[key] = t[key]

@@ -5,10 +5,11 @@
   group of warps per model; the earlier one-block-per-model kernel stays
   beside it as its bit-for-bit oracle, ``joint_filter_*_block``);
 - :mod:`.forecast` — K2, the closed-form forecast moments;
-- :mod:`.lanes` — K3, the lane-layout sequential filter, and K4, its
-  closed-form adjoint (replay warps filling a ring of segment records
-  for its sweep warps; the earlier one-warp-per-lane kernel stays beside it
-  as its bit-for-bit oracle, ``lanes_adjoint_warp_kernel``);
+- :mod:`.lanes` — K3, the lane-layout sequential filter (a chain warp
+  and update warps a lane), and K4, its closed-form adjoint (replay warps
+  filling a ring of segment records for its sweep warps); the earlier
+  one-warp-per-lane kernels stay beside them as their bit-for-bit
+  oracles, ``lanes_filter_warp_kernel`` and ``lanes_adjoint_warp_kernel``;
 - :mod:`.lanes_products` — K5, the lane-layout smoother's backward
   pass, K6, the forward filter with per-step outputs (or, in its
   ``store`` mode, the stored moments), and K7, the simulation
@@ -108,6 +109,7 @@ from .lanes import (
     lanes_filter,
     lanes_filter_kernel,
     lanes_filter_plain,
+    lanes_filter_warp_kernel,
 )
 from .lanes_products import (
     lanes_forward,
@@ -193,6 +195,7 @@ __all__ = [
     "lanes_filter",
     "lanes_filter_kernel",
     "lanes_filter_plain",
+    "lanes_filter_warp_kernel",
     "lanes_forward",
     "lanes_forward_kernel",
     "lanes_forward_plain",

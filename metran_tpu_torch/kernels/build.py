@@ -58,12 +58,14 @@ LAUNCHES = {"joint_filter_append": 0, "joint_filter_store": 0,
 
 
 #: launches of the kernels kept beside the port's only as their
-#: bit-for-bit oracles (K1's and K9's block kernels, K4's warp kernel),
+#: bit-for-bit oracles (K1's and K9's block kernels, K3's and K4's warp
+#: kernels),
 #: which no path calls; apart from :data:`LAUNCHES` and not reset with it
 ORACLE_LAUNCHES = {"joint_filter_append_block": 0,
                    "joint_filter_store_block": 0, "sqrt_filter_block": 0,
                    "sqrt_filter_gated_block": 0,
-                   "sqrt_filter_robust_block": 0, "lanes_adjoint_warp": 0}
+                   "sqrt_filter_robust_block": 0, "lanes_adjoint_warp": 0,
+                   "lanes_filter_warp": 0}
 
 
 def count_launch(name: str) -> None:
@@ -203,9 +205,16 @@ _SIGNATURES = {
     # phi, q, z, r, mean, cov, horizons, means, variances, B, H, N, S,
     # stream
     "forecast": ("metran_forecast_moments", [_PTR] * 9 + [_INT] * 4 + [_PTR]),
-    # phi, q, z, r, y, mask, lane_map, sigma, detf, mean, cov,
-    # bounds_mean, bounds_cov, L, T, N, n, seg, stream
-    "lanes_filter": ("metran_lanes_filter", [_PTR] * 13 + [_INT] * 5 + [_PTR]),
+    # the chain kernel: phi, q, z, r, y, mask, lane_map, sigma, detf, mean,
+    # cov, bounds_mean, bounds_cov, L, T, N, n, seg, U, stream; its blocks
+    # resident a SM: N, n, U, blocks
+    "lanes_filter": (
+        ("metran_lanes_filter", [_PTR] * 13 + [_INT] * 6 + [_PTR]),
+        ("metran_lanes_filter_occupancy", [_INT] * 3 + [_PTR]),
+    ),
+    # the warp kernel (the oracle): the same arguments without U
+    "lanes_filter_warp": ("metran_lanes_filter_warp",
+                          [_PTR] * 13 + [_INT] * 5 + [_PTR]),
     # the ring kernel: phi, q, z, r, y, mask, lane_map, bounds_mean,
     # bounds_cov, sb, db, ring, phibar, qbar, L, T, N, n, seg, R, D, S,
     # stages, stream; its blocks resident a SM: N, n, R, S, stages, blocks

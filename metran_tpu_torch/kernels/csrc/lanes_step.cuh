@@ -1,10 +1,12 @@
 // One step of the lane-layout sequential filter, run by one warp.
 //
-// Shared by K3 (lanes_filter.cu, a warp per lane), the segment replays of
-// K4 (the replay warps of lanes_adjoint.cu, a block per lane, and of its
-// oracle lanes_adjoint_warp.cu) and K5 (lanes_smooth.cu), and K6
-// (lanes_forward.cu), so a replayed forward is the forward that was run,
-// instruction for instruction: a change to this step moves all of them.
+// Shared by K3's oracle (lanes_filter_warp.cu, a warp per lane) and the
+// chain kernel's guard path (lanes_filter.cu, whose chain warp computes
+// each entry by these same operations in the same order), the segment
+// replays of K4 (the replay warps of lanes_adjoint.cu, a block per lane,
+// and of its oracle lanes_adjoint_warp.cu) and K5 (lanes_smooth.cu), and
+// K6 (lanes_forward.cu), so a replayed forward is the forward that was
+// run, bit for bit: a change to this step moves all of them.
 //
 // A lane's state lives in its warp's slice of shared memory: P (n x n,
 // row-major), Z (N x n, row i = series i), the mean m and the gain k.

@@ -17,12 +17,17 @@ On CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/lanes_filter.cu``, ``csrc/lanes_adjoint.cu``) and raises if that
 cannot build or launch; on CPU tensors it runs the plain PyTorch
 version beside it (``*_plain``), the oracle the kernel is held against
-on the card.  K4's kernel is a block per lane whose replay warps fill a
-ring of segment records while its sweep warps run back over them
-(:func:`ring_geometry` picks its shape); the earlier kernel, one warp
-per lane replaying and sweeping in turn (``csrc/lanes_adjoint_warp.cu``,
-:func:`lanes_adjoint_warp_kernel`), stays beside it as its bit-for-bit
-oracle, launched by no path.
+on the card.  K3's kernel is a block per lane whose chain warp runs each
+observed slot on z_i's nonzero columns while its update warps apply the
+rest of each rank-1 update and the predicts a few events behind
+(:func:`chain_shape` picks how many); the earlier kernel, one warp per
+lane (``csrc/lanes_filter_warp.cu``, :func:`lanes_filter_warp_kernel`),
+stays beside it as its bit-for-bit oracle, launched by no path.  K4's
+kernel is a block per lane whose replay warps fill a ring of segment
+records while its sweep warps run back over them (:func:`ring_geometry`
+picks its shape); its earlier kernel, one warp per lane replaying and
+sweeping in turn (``csrc/lanes_adjoint_warp.cu``,
+:func:`lanes_adjoint_warp_kernel`), stays beside it as its oracle.
 
 Layouts (lane axis LAST, as in the JAX package, except the data):
 
@@ -54,8 +59,19 @@ import torch
 from . import build
 from .joint_filter import MAX_SMEM
 
-#: lanes (warps) per thread block of K3, K5, K6, K7 and K4's warp kernel
+#: lanes (warps) per thread block of K5, K6, K7 and the warp kernels of K3
+#: and K4 (their oracles)
 WARPS_PER_BLOCK = 2
+#: K3's chain kernel: a block a lane of a chain warp and U update warps, U
+#: in UPDATE_WARPS (three while every such block is resident, else none);
+#: the ring's event records; the series a lane it takes (a step's data is
+#: held a step ahead, four a thread)
+UPDATE_WARPS = (3, 0)
+CHAIN_SLOTS = 4
+CHAIN_MAX_SERIES = 128
+#: static shared memory of a chain block: the full and empty mbarriers of
+#: the ring's records, 8 bytes each, beside the dynamic layout
+CHAIN_STATIC_SMEM = 2 * CHAIN_SLOTS * 8
 #: K4's ring kernel: replay warps at most and the ring's slots at most; a
 #: block is R replay warps and one or two sweep warps (two only with two
 #: staged records)
@@ -92,10 +108,10 @@ class LanesFilterResult(NamedTuple):
 # ----------------------------------------------------------------------
 #: per kernel of a warp a lane: (n x n matrices, n-vectors) in one lane's
 #: warp slice, beside Z (N x n), two N-vectors and the step's mask bytes
-#: (mirrors ``lanes::warp_elems`` calls in the sources); ``adjoint_warp``
-#: is K4's oracle
-_WARP_SLICE = {"filter": (1, 4), "adjoint_warp": (2, 9), "smooth": (2, 7),
-               "forward": (1, 4), "sample": (0, 3)}
+#: (mirrors ``lanes::warp_elems`` calls in the sources); ``filter_warp``
+#: and ``adjoint_warp`` are K3's and K4's oracles
+_WARP_SLICE = {"filter_warp": (1, 4), "adjoint_warp": (2, 9),
+               "smooth": (2, 7), "forward": (1, 4), "sample": (0, 3)}
 
 
 def _warp_elems(kind: str, n_obs: int, n_state: int, itemsize: int) -> int:
@@ -110,16 +126,35 @@ def _warp_elems(kind: str, n_obs: int, n_state: int, itemsize: int) -> int:
 
 def smem_bytes(kind: str, n_obs: int, n_state: int,
                dtype: torch.dtype) -> int:
-    """Shared memory one block of a lanes kernel needs: K3
-    (``kind="filter"``), K5 (``"smooth"``), K6 (``"forward"``), K7
-    (``"sample"``) or K4's warp kernel (``"adjoint_warp"``), dynamic; K4
-    (``"adjoint"``), its least shape (one replay warp, records read in
-    the ring) with its static barriers."""
+    """Shared memory one block of a lanes kernel needs: K5
+    (``kind="smooth"``), K6 (``"forward"``), K7 (``"sample"``) or the
+    warp kernels of K3 and K4 (``"filter_warp"``, ``"adjoint_warp"``),
+    dynamic; K3 (``"filter"``, every shape alike) and K4 (``"adjoint"``,
+    its least shape: one replay warp, records read in the ring) with
+    their static barriers."""
     item = torch.finfo(dtype).bits // 8
     if kind == "adjoint":
         return (_ring_layout(n_obs, n_state, 1, 0, item)
                 + ADJOINT_STATIC_SMEM)
+    if kind == "filter":
+        return chain_smem_bytes(n_obs, n_state, dtype) + CHAIN_STATIC_SMEM
     return WARPS_PER_BLOCK * _warp_elems(kind, n_obs, n_state, item) * item
+
+
+def chain_smem_bytes(n_obs: int, n_state: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K3 block (mirrors ``carve`` in
+    ``csrc/lanes_chain_step.cuh``, array by array): the ring's records
+    (16 bytes each); P on rows of ``n | 1`` values; Z; m, phi, q; r, the
+    step's y, the chain's v and f; the oracle's gain; the ring's gains,
+    v and f; update warp 0's v and f; Z's nonzeros as 32-bit words; a
+    plan a series; the step's mask and the marks, a byte a series."""
+    n, big_n = n_state, n_obs
+    item = torch.finfo(dtype).bits // 8
+    values = (n * (n | 1) + big_n * n + 3 * n + 4 * big_n + n
+              + CHAIN_SLOTS * n + 2 * CHAIN_SLOTS + 2 * big_n)
+    used = (16 * CHAIN_SLOTS + values * item + 4 * big_n * (-(-n // 32))
+            + 4 * big_n + 2 * big_n)
+    return -(-used // 16) * 16
 
 
 def scratch_stride(n_obs: int, n_state: int) -> int:
@@ -188,6 +223,49 @@ def adjoint_occupancy(n_obs: int, n_state: int, dtype: torch.dtype,
         build.check(lib, err, "lanes_adjoint occupancy")
         _OCCUPANCY[key] = blocks.value
     return _OCCUPANCY[key]
+
+
+def chain_occupancy(n_obs: int, n_state: int, dtype: torch.dtype,
+                    update_warps: int) -> int:
+    """Blocks of K3 the current card keeps resident per SM at this shape
+    and count of update warps (CUDA's occupancy calculator; builds the
+    kernels)."""
+    import ctypes
+
+    key = ("filter", torch.cuda.current_device(), n_obs, n_state, dtype,
+           update_warps)
+    if key not in _OCCUPANCY:
+        lib = build.load_library("lanes_filter")
+        fn = (lib.metran_lanes_filter_occupancy_f64
+              if dtype == torch.float64
+              else lib.metran_lanes_filter_occupancy_f32)
+        blocks = ctypes.c_int(0)
+        err = fn(n_obs, n_state, update_warps, ctypes.byref(blocks))
+        build.check(lib, err, "lanes_filter occupancy")
+        _OCCUPANCY[key] = blocks.value
+    return _OCCUPANCY[key]
+
+
+class ChainShape(NamedTuple):
+    """A launch of K3's chain kernel: U update warps beside the chain
+    warp (0: the chain warp alone, one warp a lane)."""
+
+    update_warps: int
+
+
+def chain_shape(lanes: int, n_obs: int, n_state: int, dtype: torch.dtype,
+                device) -> ChainShape:
+    """The shape K3 launches ``lanes`` lanes with: three update warps while
+    every such block is resident on the card (SMs times the occupancy
+    calculator's blocks: four warps a lane, a few lanes an SM, where the
+    chain's latency is the time); past that the chain warp alone (many lanes
+    an SM, where instruction issue is: the update warps' handoffs cost more
+    than they hide)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    most = max(UPDATE_WARPS)
+    with torch.cuda.device(device):
+        resident = sms * chain_occupancy(n_obs, n_state, dtype, most)
+    return ChainShape(most if lanes <= resident else 0)
 
 
 class RingShape(NamedTuple):
@@ -340,11 +418,15 @@ def lanes_filter(phi, q, z, r, y, mask, lane_map=None, seg=None,
 
 def lanes_filter_kernel(phi, q, z, r, y, mask, lane_map=None, seg=None,
                         keep_bounds: bool = False) -> LanesFilterResult:
-    """Launch K3 (CUDA tensors only; raises otherwise, and when the
-    kernel cannot build, take the shape or launch)."""
+    """Launch K3's chain kernel (CUDA tensors only; raises otherwise, and
+    when the kernel cannot build, take the shape or launch), with
+    :func:`chain_shape`'s update warps."""
     lanes, _, t_steps, big_n, n, seg, n_seg, lane_map = _check(
         phi, q, z, r, y, mask, lane_map, seg)
     _check_cuda("filter", phi, big_n, n)
+    if big_n > CHAIN_MAX_SERIES:
+        raise ValueError(f"the lanes filter takes at most "
+                         f"{CHAIN_MAX_SERIES} series a lane, got {big_n}")
     args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map)]
     new = dict(dtype=phi.dtype, device=phi.device)
     sigma = torch.empty((t_steps, lanes), **new)
@@ -355,16 +437,50 @@ def lanes_filter_kernel(phi, q, z, r, y, mask, lane_map=None, seg=None,
     if keep_bounds:
         bm = torch.empty((n_seg, n, lanes), **new)
         bc = torch.empty((n_seg, n, n, lanes), **new)
+    shape = (chain_shape(lanes, big_n, n, phi.dtype, phi.device)
+             if lanes else ChainShape(0))
     lib = build.load_library("lanes_filter")
     fn = (lib.metran_lanes_filter_f64 if phi.dtype == torch.float64
           else lib.metran_lanes_filter_f32)
     with torch.cuda.device(phi.device):
         err = fn(*[t.data_ptr() for t in args], sigma.data_ptr(),
                  detf.data_ptr(), mean.data_ptr(), cov.data_ptr(), _ptr(bm),
-                 _ptr(bc), lanes, t_steps, big_n, n, seg, _stream(phi))
+                 _ptr(bc), lanes, t_steps, big_n, n, seg,
+                 shape.update_warps, _stream(phi))
     build.check(lib, err, "lanes_filter")
     if lanes:
         build.count_launch("lanes_filter")
+    return LanesFilterResult(sigma, detf, mean, cov, bm, bc)
+
+
+def lanes_filter_warp_kernel(phi, q, z, r, y, mask, lane_map=None, seg=None,
+                             keep_bounds: bool = False) -> LanesFilterResult:
+    """Launch K3's warp kernel (``csrc/lanes_filter_warp.cu``), the chain
+    kernel's bit-for-bit oracle (CUDA tensors only; raises otherwise).
+    Counted as ``lanes_filter_warp``, apart from the paths' launches."""
+    lanes, _, t_steps, big_n, n, seg, n_seg, lane_map = _check(
+        phi, q, z, r, y, mask, lane_map, seg)
+    _check_cuda("filter_warp", phi, big_n, n)
+    args = [t.contiguous() for t in (phi, q, z, r, y, mask, lane_map)]
+    new = dict(dtype=phi.dtype, device=phi.device)
+    sigma = torch.empty((t_steps, lanes), **new)
+    detf = torch.empty((t_steps, lanes), **new)
+    mean = torch.empty((n, lanes), **new)
+    cov = torch.empty((n, n, lanes), **new)
+    bm = bc = None
+    if keep_bounds:
+        bm = torch.empty((n_seg, n, lanes), **new)
+        bc = torch.empty((n_seg, n, n, lanes), **new)
+    lib = build.load_library("lanes_filter_warp")
+    fn = (lib.metran_lanes_filter_warp_f64 if phi.dtype == torch.float64
+          else lib.metran_lanes_filter_warp_f32)
+    with torch.cuda.device(phi.device):
+        err = fn(*[t.data_ptr() for t in args], sigma.data_ptr(),
+                 detf.data_ptr(), mean.data_ptr(), cov.data_ptr(), _ptr(bm),
+                 _ptr(bc), lanes, t_steps, big_n, n, seg, _stream(phi))
+    build.check(lib, err, "lanes_filter_warp")
+    if lanes:
+        build.count_launch("lanes_filter_warp")
     return LanesFilterResult(sigma, detf, mean, cov, bm, bc)
 
 

@@ -367,7 +367,8 @@ def test_the_oracle_counts_its_launches_apart(monkeypatch):
                                           "sqrt_filter_block",
                                           "sqrt_filter_gated_block",
                                           "sqrt_filter_robust_block",
-                                          "lanes_adjoint_warp"}
+                                          "lanes_adjoint_warp",
+                                          "lanes_filter_warp"}
     assert not set(build.ORACLE_LAUNCHES) & set(build.LAUNCHES)
     monkeypatch.setattr(build, "ORACLE_LAUNCHES",
                         dict.fromkeys(build.ORACLE_LAUNCHES, 0))

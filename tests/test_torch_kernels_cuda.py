@@ -1867,3 +1867,105 @@ def test_k4_near_unit_root_gap_at_random_cotangents_is_the_warp_kernels(
     errs = [_rel(g, w) for g, w in zip(ring, want)]
     assert errs == [_rel(g, w) for g, w in zip(warp, want)]
     assert max(errs) <= _chip_smoke().K4_UNIT_ROOT_GAP, errs
+
+
+# ----------------------------------------------------------------------
+# K3: the chain kernel (a chain warp and update warps a lane) bit for bit
+# the warp kernel (one warp per lane) it replaced.  The cases and their
+# inputs are chip_smoke.py's (K3_CASES, _k3_case): the lanes cases of the
+# plain comparisons, a NaN reading (the lane finishes on the oracle's
+# step), seg past T, two and three factors, a dense Z, then B = 1, 8, 64
+# and 512
+# ----------------------------------------------------------------------
+K3_CASES = _chip_smoke().K3_CASES
+
+
+def _k3_case(card, dtype, case, **extra):
+    """``chip_smoke._k3_case`` of ``case`` (a K3_CASES row, its keywords
+    updated by ``extra``)."""
+    _, d, t, _, kw = case
+    args, _ = _chip_smoke()._k3_case(np.random.default_rng(31), d, t, dtype,
+                                     card, **{**kw, **extra})
+    return args
+
+
+def _k3_both(args, seg):
+    """The chain and the warp kernel on ``args`` with boundaries; each
+    counts its own launch."""
+    from metran_tpu_torch.kernels import build
+
+    before = (kernels.launches(), build.oracle_launches())
+    chain = kernels.lanes_filter(*args, seg=seg, keep_bounds=True)
+    mid = (kernels.launches(), build.oracle_launches())
+    warp = kernels.lanes_filter_warp_kernel(*args, seg=seg, keep_bounds=True)
+    after = (kernels.launches(), build.oracle_launches())
+    torch.cuda.synchronize()
+    assert mid[0]["lanes_filter"] - before[0]["lanes_filter"] == 1
+    assert mid[1] == before[1] and after[0] == mid[0]
+    assert after[1]["lanes_filter_warp"] - mid[1]["lanes_filter_warp"] == 1
+    return chain, warp
+
+
+@pytest.mark.parametrize("case", K3_CASES, ids=[c[0] for c in K3_CASES])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k3_chain_kernel_is_the_warp_kernel_bit_for_bit(card, dtype, case):
+    args = _k3_case(card, dtype, case)
+    chain, warp = _k3_both(args, case[3])
+    assert all(_nan_equal(g, w) for g, w in zip(chain, warp))
+    if case[4].get("nan"):  # lane 0's terms turn NaN, the others finite
+        assert bool(torch.isnan(chain.sigma[:, 0]).any())
+        assert bool(torch.isfinite(chain.sigma[:, 1:]).all())
+
+
+@pytest.mark.parametrize("update_warps", [0, 3])
+@pytest.mark.parametrize("factors", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k3_every_chain_shape_is_the_warp_kernel(card, monkeypatch, dtype,
+                                                 factors, update_warps):
+    """Forced counts of update warps, one to three factors (two, three
+    and four nonzero columns a slot)."""
+    from metran_tpu_torch.kernels import lanes as kl
+
+    args = _k3_case(card, dtype, ("B=6", 6, 197, 16, {}), factors=factors)
+    _, warp = _k3_both(args, 16)
+    monkeypatch.setattr(kl, "chain_shape",
+                        lambda *a: kl.ChainShape(update_warps))
+    got = kernels.lanes_filter(*args, seg=16, keep_bounds=True)
+    torch.cuda.synchronize()
+    assert all(_nan_equal(g, w) for g, w in zip(got, warp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k3_past_the_resident_blocks_and_at_the_widest_bucket(card, dtype):
+    from metran_tpu_torch.kernels import lanes as kl
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    edge = sms * kl.chain_occupancy(20, 21, dtype, 3)
+    args = _k3_case(card, dtype, ("past", edge + 5, 40, 4, {}))
+    assert kl.chain_shape(edge + 5, 20, 21, dtype, card).update_warps == 0
+    chain, warp = _k3_both(args, 4)
+    assert all(_nan_equal(g, w) for g, w in zip(chain, warp))
+    # the warp kernel's widest one-factor bucket, bit for bit
+    warp_n = max(m for m in range(1, 200)
+                 if kl.smem_bytes("filter_warp", m, m + 1, dtype)
+                 <= kl.MAX_SMEM)
+    args = _k3_case(card, dtype, ("wide", 2, 20, 8, {}),
+                    n_pad=warp_n - 20)
+    chain, warp = _k3_both(args, 8)
+    assert all(_nan_equal(g, w) for g, w in zip(chain, warp))
+
+
+@pytest.mark.parametrize("case", K3_CASES[:5], ids=[c[0] for c in
+                                                     K3_CASES[:5]])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-9),
+                                       (torch.float32, 1e-3)])
+def test_k3_chain_kernel_matches_plain(card, dtype, bar, case):
+    args = _k3_case(card, dtype, case)
+    got = kernels.lanes_filter(*args, seg=case[3], keep_bounds=True)
+    want = kernels.lanes_filter_plain(*args, seg=case[3], keep_bounds=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if case[4].get("nan"):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            g, w = g.nan_to_num(0.0), w.nan_to_num(0.0)
+        assert _rel(g, w) <= bar

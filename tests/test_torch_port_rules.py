@@ -573,7 +573,8 @@ def test_library_name_follows_the_sources():
         assert path.name.startswith(f"lib{src.stem}-")
     assert {p.name for p in build.sources()} == {
         "joint_filter.cu", "forecast.cu", "lanes_filter.cu",
-        "lanes_adjoint.cu", "lanes_adjoint_warp.cu", "lanes_smooth.cu",
+        "lanes_filter_warp.cu", "lanes_adjoint.cu", "lanes_adjoint_warp.cu",
+        "lanes_smooth.cu",
         "lanes_forward.cu",
         "lanes_sample.cu", "rts_smoother.cu", "sqrt_filter.cu",
         "sqrt_filter_block.cu", "sqrt_smoother.cu", "joint_adjoint.cu",
